@@ -10,7 +10,8 @@ mirror it, and the tests hold each piece to its JAX counterpart on the same
 numpy inputs. This package imports torch and numpy, never jax.
 
 Layout:
-  ops/         prox functions, smooth oracles, the accumulation policy, K1
+  ops/         prox functions, smooth oracles, the accumulation policy, K1,
+               the whole-solve kernel K2
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the proximal-gradient engine
   models/      objectives and problem generators
@@ -33,6 +34,12 @@ torch.set_float32_matmul_precision("highest")
 from .ops.prox import Zero, L1Norm  # noqa: E402
 from .ops.oracles import SmoothOracle  # noqa: E402
 from .ops.kernels import fused_ls_value_grad, ls_value_grad_plain  # noqa: E402
+from .ops.resident import (  # noqa: E402
+    resident_adapgm,
+    resident_adapgm_l1,
+    resident_records,
+    resident_supported,
+)
 from .models.objectives import LeastSquares  # noqa: E402
 from .models.synthetic import LassoProblem, random_lasso  # noqa: E402
 from .solvers.rules import (  # noqa: E402
@@ -55,6 +62,7 @@ __version__ = "0.1.0"
 __all__ = [
     # ops
     "Zero", "L1Norm", "SmoothOracle", "fused_ls_value_grad", "ls_value_grad_plain",
+    "resident_adapgm", "resident_adapgm_l1", "resident_records", "resident_supported",
     # models
     "LeastSquares", "LassoProblem", "random_lasso",
     # rules

@@ -8,15 +8,22 @@ F(x_k) - F* vs (grad_f_evals + f_evals).
 The menu holds the engine rows ported so far: fixed PG, AdaPGM (MM) and
 AdaPGM (Ours). ``--fused`` routes every oracle call through K1
 (``ops.kernels.fused_ls_value_grad``) on an A zero-padded as the JAX driver
-pads it, so the two drivers' JSONL compare row for row.
+pads it, so the two drivers' JSONL compare row for row. ``--resident`` runs
+each row as one record-mode launch of the whole-solve kernel K2
+(``ops.resident.resident_adapgm``) on the same padded A. On the card every
+shape goes to K2. On the CPU the JAX driver's routing rule
+(``resident_supported``) applies, with its printed fallback to the engine,
+so the two drivers' JSONL compare row for row there too.
 
     python -m adaprox_tpu_torch.experiments.lasso --fused --sizes 4000x1000x10
+    python -m adaprox_tpu_torch.experiments.lasso --resident --sizes 4000x1000x10
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -24,9 +31,10 @@ import torch
 from ..models.objectives import LeastSquares
 from ..models.synthetic import random_lasso
 from ..ops.prox import L1Norm
+from ..ops.resident import resident_adapgm, resident_records, resident_supported
 from ..solvers.primal_dual import adaptive_proxgrad, fixed_proxgrad
 from ..solvers.rules import AdaPGMRule, MalitskyMishchenkoRule
-from .common import Sink, group_rows, pad_tiles, plot_lines, run_menu
+from .common import Sink, group_rows, pad_tiles, plot_lines, run_menu, run_timed
 
 # rows of the JAX driver's menu whose solvers are not ported yet
 NOT_PORTED = ("PGM (backtracking)-(xi=1.0)", "PGM (backtracking)-(xi=1.5)",
@@ -34,8 +42,12 @@ NOT_PORTED = ("PGM (backtracking)-(xi=1.0)", "PGM (backtracking)-(xi=1.5)",
               "Nesterov (fixed)", "aGRAAL")
 
 
+# the menu's rows as (name, rule_kind) of the whole-solve kernel
+RESIDENT_ROWS = (("PGM (fixed)", "fixed"), ("AdaPGM (MM)", "mm"), ("AdaPGM (Ours)", "adapgm"))
+
+
 def run_random_lasso(m, n, pfactor, sink, *, device, tol=1e-7, maxit=2000, dtype=None,
-                     fused=False):
+                     fused=False, resident=False):
     """Run the menu on ``random_lasso(m, n, pfactor)`` on ``device``.
     ``dtype`` defaults to float64 on the CPU (the reference's regime) and
     float32 on CUDA. Returns the analytic optimum."""
@@ -45,8 +57,13 @@ def run_random_lasso(m, n, pfactor, sink, *, device, tol=1e-7, maxit=2000, dtype
         dtype = torch.float64 if device.type == "cpu" else torch.float32
     a = torch.as_tensor(prob.a, device=device).to(dtype)
     b = torch.as_tensor(prob.b, device=device).to(dtype)
-    if fused:
+    if fused or resident:
         a, b = pad_tiles(a, b)  # exact; keeps the JSONL comparable with JAX's
+    # K2 takes every shape on the card; the CPU follows the JAX driver's routing
+    use_resident = resident and (device.type == "cuda" or resident_supported(a))
+    if resident and not use_resident:
+        print(f"  [resident] unsupported shape/size {tuple(a.shape)} "
+              f"({a.dtype}); falling back to the engine")
     f = LeastSquares(a, b, fused=fused)
     g = L1Norm(torch.as_tensor(prob.lam, dtype=dtype, device=device))
 
@@ -57,19 +74,30 @@ def run_random_lasso(m, n, pfactor, sink, *, device, tol=1e-7, maxit=2000, dtype
     x0 = torch.zeros(a.shape[1], dtype=dtype, device=device)
     times = {}
     print(f"  [lasso] skipping rows not ported yet: {', '.join(NOT_PORTED)}")
-    base = dict(f=f, g=g, tol=tol)
-    menu = [
-        ("PGM (fixed)", maxit, lambda **o: fixed_proxgrad(
-            x0, gamma=gam, name="PGM (fixed)", **base, **o)),
-        ("AdaPGM (MM)", maxit, lambda **o: adaptive_proxgrad(
-            x0, rule=MalitskyMishchenkoRule(gamma=gam), name="AdaPGM (MM)",
-            **base, **o)),
-        ("AdaPGM (Ours)", maxit, lambda **o: adaptive_proxgrad(
-            x0, rule=AdaPGMRule(gamma=gam), name="AdaPGM (Ours)", **base, **o)),
-    ]
-    menu_path = run_menu(sink, times, menu)
-    sink.emit_meta(wall_s=times, fast_path="fused" if fused else menu_path,
-                   fast_methods=sorted(times) if fused else [])
+    if use_resident:
+        # one record-mode K2 launch a row, emitted in the engine menu's order
+        for name, rule_kind in RESIDENT_ROWS:
+            _, numit, _, _, *hists = run_timed(times, name, lambda rule_kind=rule_kind: (
+                resident_adapgm(a, b, x0, gam, tol, maxit, prox_kind="l1", p1=prob.lam,
+                                rule_kind=rule_kind, record=True)))
+            sink.add(SimpleNamespace(records=resident_records(numit, *hists, maxit=maxit),
+                                     name=name))
+        fast_path = "resident"
+    else:
+        base = dict(f=f, g=g, tol=tol)
+        menu = [
+            ("PGM (fixed)", maxit, lambda **o: fixed_proxgrad(
+                x0, gamma=gam, name="PGM (fixed)", **base, **o)),
+            ("AdaPGM (MM)", maxit, lambda **o: adaptive_proxgrad(
+                x0, rule=MalitskyMishchenkoRule(gamma=gam), name="AdaPGM (MM)",
+                **base, **o)),
+            ("AdaPGM (Ours)", maxit, lambda **o: adaptive_proxgrad(
+                x0, rule=AdaPGMRule(gamma=gam), name="AdaPGM (Ours)", **base, **o)),
+        ]
+        menu_path = run_menu(sink, times, menu)
+        fast_path = "fused" if fused else menu_path
+    sink.emit_meta(wall_s=times, fast_path=fast_path,
+                   fast_methods=sorted(times) if fast_path != "default" else [])
     return prob.optimum
 
 
@@ -95,6 +123,8 @@ def main(argv=None):
     p.add_argument("--sizes", default="100x300x10,500x1000x10,4000x1000x10")
     p.add_argument("--fused", action="store_true",
                    help="fused LS oracle (kernel K1) for every solver")
+    p.add_argument("--resident", action="store_true",
+                   help="whole-solve kernel K2 for each row (one launch a row)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")
@@ -108,7 +138,7 @@ def main(argv=None):
         path = os.path.join(args.outdir, f"lasso_{m}_{n}_{pf}.jsonl")
         sink = Sink(path)
         opt = run_random_lasso(m, n, pf, sink, device=args.device, tol=args.tol,
-                               maxit=args.maxit, fused=args.fused)
+                               maxit=args.maxit, fused=args.fused, resident=args.resident)
         print(f"{path}: optimum={opt:.8f}")
         if not args.no_plot:
             plot_convergence(path)

@@ -52,26 +52,28 @@ def _nvcc():
 
     path = Path(CUDA_HOME or "", "bin", "nvcc")
     if not CUDA_HOME or not path.exists():
-        raise RuntimeError("nvcc not found: K1 is built from csrc/fused_ls.cu "
+        raise RuntimeError("nvcc not found: the kernels are built from csrc/*.cu "
                            "with the CUDA toolkit (set CUDA_HOME)")
     return str(path)
 
 
-def build_library():
-    """Compile ``csrc/fused_ls.cu`` into a shared library unless the build
-    for this exact source and flag set exists already. Returns the path;
-    nvcc's register/shared-memory report is kept beside it as ``.log``."""
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"fused_ls_{key}.so"
+def build_library(source=SOURCE, flags=NVCC_FLAGS):
+    """Compile the CUDA source ``source`` (K1's by default) into a shared
+    library with nvcc ``flags`` unless the build for this exact source and
+    flag set exists already. Returns the path; nvcc's register/shared-memory
+    report is kept beside it as ``.log``."""
+    source = Path(source)
+    src = source.read_bytes()
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{source.stem}_{key}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
+    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(source)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stderr}")
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent build never sees half a file
     return out

@@ -4,13 +4,20 @@
 
 Phases, one line each, any failure exits non-zero:
   1. device:   a CUDA device is required; prints nvidia-smi's name and power limit
-  2. build:    K1 (csrc/fused_ls.cu) with nvcc from this checkout's sources
+  2. build:    K1 (csrc/fused_ls.cu) and K2 (csrc/resident_pg.cu), one nvcc
+               each, started together, from this checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
-               driver's padded shape (4000x1024) and an unaligned 1000x300
-  4. driver:   the lasso driver at the reference size 4000x1000x10 with
-               --fused (the main path), counting K1 launches
+               driver's padded shape (4000x1024) and an unaligned 1000x300;
+               K2 against its plain version at the padded reference size
+               4096x1024 (cases a-d, f), at 1000x300 and at 64x128 (case e)
+  4. driver:   the lasso driver at the reference size 4000x1000x10, with
+               --fused (the main path through K1) and with --resident (one
+               K2 launch a row), counting each kernel's launches
   5. headline: AdaPGM, 200 iterations on 16384^2 f32, fused and two-matmul
+  6. resident: the resident reference size (4096x1024 f32, lam 1, tol 1e-4,
+               maxit 4000): one K2 solve beside the engine's AdaPGM --fused;
+               K2's cost an iteration there, at 8x2176 and past the L2
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -21,7 +28,9 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 # K1 vs plain: both accumulate in f32 in different orders; rounding grows like
@@ -36,6 +45,28 @@ KERNEL_RTOL = 1e-5
 GAP_BOUND = {"PGM (fixed)": 3.2e-5, "AdaPGM (MM)": 1e-5, "AdaPGM (Ours)": 1e-5}
 HEADLINE = 16384
 HEADLINE_ITERS = 200
+
+# K2 vs its plain version, f32 on an H100 (both accumulate in f32; the kernel's
+# warp dot products sum in another order than cuBLAS's gemv). Measured at the
+# padded reference size, AdaPGM: the step sizes agree to the bit while the
+# growth branch of the rule is active (6 iterations) and to 1.5e-4 through
+# iteration 12; the curvature branch then amplifies f32 cancellation, so the
+# history rows are held over 12 iterations (6.1e-5; within 1e-3 through 13).
+# MM amplifies far less: its rows agreed to 3.4e-5 over all 30 iterations, so
+# they are held over 30 at 3e-4. Solved to tol 1e-4 the two stop
+# 18% apart (404 vs 493 iterations; bf16 storage 1313 vs 1453) at x within
+# 1.0e-7 of max|x| (bf16 5.3e-7). The fixed rule does not amplify: 300
+# iterations agreed to 2.1e-7.
+K2_HORIZON = {"adapgm": 12, "mm": 30}
+K2_CASE_A_RTOL = {"adapgm": 1e-3, "mm": 3e-4}
+K2_ROW_RTOL = 1e-3
+K2_NUMIT_BAND = 0.25
+K2_X_RTOL = 1e-4
+K2_FIXED_RTOL = 1e-5
+# peak rates of one H100 SXM (data sheet): HBM bytes/s and f32 FLOP/s outside
+# the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
 
 
 def fail(msg):
@@ -61,6 +92,104 @@ def event_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def bound(bytes_moved, flops):
+    """The least time the card could take, in ms, and what sets it."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / F32_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def rows_err(got, want, horizon):
+    """Largest error of the three history rows over ``horizon`` iterations,
+    relative to the plain row's largest magnitude there."""
+    return max(float((u[:horizon] - w[:horizon]).abs().max() / w[:horizon].abs().max())
+               for u, w in zip(got[4:7], want[4:7]))
+
+
+def x_err(got, want):
+    return float((got[0] - want[0]).abs().max() / want[0].abs().max())
+
+
+def k2_checks(resident, dev, smi):
+    """Phase 3, K2: cases (a)-(f) against the plain version on the card.
+    Returns (problem, measurements) for the kernels line."""
+    from adaprox_tpu_torch.models.synthetic import random_lasso
+
+    prob = random_lasso(m=4000, n=1000, pfactor=10, seed=0)
+    a = torch.zeros(4096, 1024, device=dev)
+    a[:4000, :1000] = torch.as_tensor(prob.a, dtype=torch.float32, device=dev)
+    b = torch.zeros(4096, device=dev)
+    b[:4000] = torch.as_tensor(prob.b, dtype=torch.float32, device=dev)
+    gam = 1.0 / float(np.linalg.norm(prob.a, 2) ** 2)
+    x0 = torch.zeros(1024, device=dev)
+    ref = dict(a=a, b=b, x0=x0, gam=gam)
+
+    def pair(a_, b_, x0_, gam_, tol, maxit, **kw):
+        got = resident.resident_adapgm(a_, b_, x0_, gam_, tol, maxit, **kw)
+        want = resident.resident_adapgm_plain(a_, b_, x0_, gam_, tol, maxit, **kw)
+        torch.cuda.synchronize()
+        return got, want
+
+    # (a) AdaPGM and MM, record, tol 0, maxit 30: the history rows over each
+    # rule's horizon; the longest horizon within the tolerance is printed too
+    for rule in ("adapgm", "mm"):
+        rtol = K2_CASE_A_RTOL[rule]
+        got, want = pair(a, b, x0, gam, 0.0, 30, p1=1.0, rule_kind=rule, record=True)
+        err = rows_err(got, want, K2_HORIZON[rule])
+        held = max((h for h in range(1, 31) if rows_err(got, want, h) <= rtol), default=0)
+        print(f"[kernels] K2 (a) 4096x1024 f32 {rule} l1 tol 0 maxit 30: rows over "
+              f"{K2_HORIZON[rule]} it, rel err {err:.2e} (tol {rtol:g}); within tol "
+              f"through iteration {held}; over 30 {rows_err(got, want, 30):.2e} ({smi})",
+              flush=True)
+        check(int(got[1]) == int(want[1]) == 30 and err <= rtol, f"K2 (a) {rule} disagrees")
+
+    # (b) the same solved to tol 1e-4; (c) with bf16 storage of A
+    meas = {}
+    for case, a_ in (("b", a), ("c", a.to(torch.bfloat16))):
+        got, want = pair(a_, b, x0, gam, 1e-4, 4000, p1=1.0)
+        nk, npl, err = int(got[1]), int(want[1]), x_err(got, want)
+        print(f"[kernels] K2 ({case}) 4096x1024 {'f32' if case == 'b' else 'bf16'} AdaPGM "
+              f"tol 1e-4: numit {nk} (plain {npl}, band {K2_NUMIT_BAND:g}), converged "
+              f"{bool(got[3])}/{bool(want[3])}, x rel err {err:.2e} (tol {K2_X_RTOL:g})",
+              flush=True)
+        check(bool(got[3]) and bool(want[3]) and abs(nk - npl) <= K2_NUMIT_BAND * npl
+              and err <= K2_X_RTOL, f"K2 ({case}) disagrees")
+        if case == "b":
+            meas = dict(max_abs_err=float((got[0] - want[0]).abs().max()), numit=nk)
+
+    # (d) the fixed rule, tol 0, maxit 300: no amplification, a tight tolerance
+    got, want = pair(a, b, x0, gam, 0.0, 300, p1=1.0, rule_kind="fixed", record=True)
+    err = max(rows_err(got, want, 300), x_err(got, want))
+    print(f"[kernels] K2 (d) 4096x1024 f32 fixed tol 0 maxit 300: rel err {err:.2e} "
+          f"(tol {K2_FIXED_RTOL:g})", flush=True)
+    check(int(got[1]) == 300 and err <= K2_FIXED_RTOL, "K2 (d) disagrees")
+
+    # (e) unaligned 1000x300, and the other prox kinds at 64x128: three
+    # iterations of the adaptive rule (both buffer parities), 30 of the fixed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    for (m, n), prox, p1, p2 in (((1000, 300), "l1", 0.1, 0.0), ((64, 128), "box", -0.1, 0.1),
+                                 ((64, 128), "elastic", 0.1, 0.5), ((64, 128), "zero", 0.0, 0.0)):
+        a_ = torch.randn(m, n, generator=gen, device=dev) / math.sqrt(m)
+        b_ = torch.randn(m, generator=gen, device=dev)
+        gam_ = 1.0 / float(torch.linalg.matrix_norm(a_.double(), 2) ** 2)
+        for rule, maxit, tol in (("adapgm", 3, K2_ROW_RTOL), ("fixed", 30, K2_FIXED_RTOL)):
+            got, want = pair(a_, b_, torch.zeros(n, device=dev), gam_, 0.0, maxit,
+                             prox_kind=prox, p1=p1, p2=p2, rule_kind=rule, record=True)
+            err = max(rows_err(got, want, maxit), x_err(got, want))
+            print(f"[kernels] K2 (e) {m}x{n} {prox} {rule} maxit {maxit}: rel err {err:.2e} "
+                  f"(tol {tol:g})", flush=True)
+            check(int(got[1]) == maxit and err <= tol, f"K2 (e) {m}x{n} {prox} {rule} disagrees")
+
+    # (f) two launches, the same bits
+    runs = [resident.resident_adapgm(a, b, x0, gam, 1e-4, 4000, p1=1.0, record=True)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, w) for u, w in zip(*runs))
+    print(f"[kernels] K2 (f) two launches give the same bits: {same}", flush=True)
+    check(same, "K2 (f) is not repeatable")
+    return ref, meas
+
+
 def main():
     # 1. device --------------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: needs a CUDA device")
@@ -73,17 +202,22 @@ def main():
 
     import adaprox_tpu_torch as apt
     from adaprox_tpu_torch.experiments import lasso
-    from adaprox_tpu_torch.ops import kernels
+    from adaprox_tpu_torch.ops import kernels, resident
     from adaprox_tpu_torch.utils.logging import read_jsonl
     from adaprox_tpu_torch.utils.profiling import timed
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    lib_path = kernels.build_library()
-    build_s = time.perf_counter() - t0
-    regs = [ln.split(":", 1)[1].strip() for ln in lib_path.with_suffix(".log").read_text().splitlines()
-            if "registers" in ln]
-    print(f"[build] K1 {lib_path.name} in {build_s:.2f} s (ptxas: {'; '.join(regs)})", flush=True)
+    with ThreadPoolExecutor(2) as pool:
+        builds = [(name, pool.submit(build)) for name, build in
+                  (("K1", kernels.build_library), ("K2", resident.build_library))]
+        for name, fut in builds:
+            lib_path = fut.result()
+            regs = [ln.split(":", 1)[1].strip()
+                    for ln in lib_path.with_suffix(".log").read_text().splitlines()
+                    if "registers" in ln]
+            print(f"[build] {name} {lib_path.name} (ptxas: {'; '.join(regs)})", flush=True)
+    print(f"[build] both in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -116,27 +250,34 @@ def main():
               f"plain {ms_p:.4f} ms ({smi})", flush=True)
         check(err_f <= KERNEL_RTOL and err_g <= KERNEL_RTOL, f"K1 {name} disagrees with plain")
         del a_plain
+    ref, k2_meas = k2_checks(resident, dev, smi)
 
     # 4. the driver (main path) ----------------------------------------------
-    outdir = os.path.join("results", "chip_smoke")
-    kernels.fused_ls_value_grad.launches = 0
-    lasso.main(["--fused", "--sizes", "4000x1000x10", "--maxit", "2000", "--tol", "1e-7",
-                "--device", "cuda", "--outdir", outdir, "--no-plot"])
-    torch.cuda.synchronize()
-    launches = kernels.fused_ls_value_grad.launches
-    rows = read_jsonl(os.path.join(outdir, "lasso_4000_1000_10.jsonl"))
-    optimum = rows[0]["objective"]
-    last = {r["method"]: r for r in rows if r.get("method")}
-    check(sorted(last) == sorted(GAP_BOUND), f"driver rows {sorted(last)}")
-    oracle_calls = sum(r["f_evals"] for r in last.values())
-    parts = []
-    for name, r in last.items():
-        gap = r["objective"] - optimum
-        parts.append(f"{name}: numit {r['it']}, F-F* {gap:.3e} (bound {GAP_BOUND[name]:g})")
-        check(math.isfinite(gap) and abs(gap) <= GAP_BOUND[name], f"{name}: F-F* {gap}")
-    print(f"[driver] lasso 4000x1000x10 --fused f32: {'; '.join(parts)} | K1 launches "
-          f"{launches}, oracle calls {oracle_calls}", flush=True)
-    check(launches > 0 and launches == oracle_calls, "K1 launches != oracle calls")
+    counts = {}
+    for path in ("fused", "resident"):
+        outdir = os.path.join("results", "chip_smoke", path)
+        kernels.fused_ls_value_grad.launches = resident.resident_adapgm.launches = 0
+        lasso.main([f"--{path}", "--sizes", "4000x1000x10", "--maxit", "2000", "--tol", "1e-7",
+                    "--device", "cuda", "--outdir", outdir, "--no-plot"])
+        torch.cuda.synchronize()
+        k1, k2 = kernels.fused_ls_value_grad.launches, resident.resident_adapgm.launches
+        rows = read_jsonl(os.path.join(outdir, "lasso_4000_1000_10.jsonl"))
+        optimum = rows[0]["objective"]
+        last = {r["method"]: r for r in rows if r.get("method")}
+        check(sorted(last) == sorted(GAP_BOUND), f"driver rows {sorted(last)}")
+        check(rows[-1]["fast_path"] == path, f"driver took {rows[-1]['fast_path']}, not {path}")
+        counts[path] = (k1, k2, sum(r["f_evals"] for r in last.values()))
+        parts = []
+        for name, r in last.items():
+            gap = r["objective"] - optimum
+            parts.append(f"{name}: numit {r['it']}, F-F* {gap:.3e} (bound {GAP_BOUND[name]:g})")
+            check(math.isfinite(gap) and abs(gap) <= GAP_BOUND[name], f"{name}: F-F* {gap}")
+        print(f"[driver] lasso 4000x1000x10 --{path} f32: {'; '.join(parts)} | K1 launches "
+              f"{k1}, K2 launches {k2}, oracle calls {counts[path][2]} "
+              f"| wall_s {rows[-1]['wall_s']} ({smi})", flush=True)
+    k1, k2, oracle_calls = counts["fused"]
+    check(k1 > 0 and k1 == oracle_calls and k2 == 0, "--fused: K1 launches != oracle calls")
+    check(counts["resident"][:2] == (0, 3), "--resident: not exactly 3 K2 launches")
 
     # 5. the headline ----------------------------------------------------------
     a, b, _ = big
@@ -158,13 +299,71 @@ def main():
               f"{ips:.1f} iters/s, {bytes_per_iter * ips / 1e9:.1f} GB/s of A "
               f"(norm_res {float(res.norm_res):.3e}; {smi})", flush=True)
 
+    # 6. the resident reference size -------------------------------------------
+    # bench.py's resident_reference_size: random_lasso(4000, 1000, 10) padded
+    # to 4096x1024, f32, lam 1, tol 1e-4, maxit 4000, gamma0 = 1/||A||^2
+    a, b, x0, gam = ref["a"], ref["b"], ref["x0"], ref["gam"]
+    secs, out = timed(lambda: resident.resident_adapgm_l1(a, b, x0, gam, 1.0, 1e-4, 4000),
+                      reps=5)
+    numit = int(out[1])
+    check(bool(out[3]) and numit == k2_meas["numit"], "resident reference size: K2 run differs")
+    k2_ms = 1e3 * secs
+    print(f"[resident] K2 4096x1024 f32 lam 1 tol 1e-4: solve {k2_ms:.4f} ms (CUDA events, "
+          f"best of 5 after a warm-up), numit {numit}, {numit / secs:.1f} iters/s, converged "
+          f"{bool(out[3])} ({smi})", flush=True)
+    plain_s, _ = timed(lambda: resident.resident_adapgm_plain(a, b, x0, gam, 1e-4, 4000,
+                                                              p1=1.0), reps=1)
+    f = apt.LeastSquares(a, b, fused=True)
+    e_secs, e_res = timed(lambda: apt.adaptive_proxgrad(
+        x0, f=f, g=apt.L1Norm(1.0), rule=apt.AdaPGMRule(gamma=gam), tol=1e-4, maxit=4000),
+        reps=3)
+    e_conv = float(e_res.norm_res) <= 1e-4
+    print(f"[resident] engine AdaPGM --fused (K1), same problem and tol: wall {1e3 * e_secs:.2f} "
+          f"ms, numit {e_res.numit}, {e_res.numit / e_secs:.1f} iters/s, converged {e_conv} | "
+          f"K2's plain version {1e3 * plain_s:.2f} ms ({smi})", flush=True)
+    check(e_conv, "resident reference size: the engine did not converge")
+    # per-iteration cost, 1000 iterations of the fixed rule with the zero prox
+    # (the rule's and the prox's work is a few flops either way; with l1 the
+    # iterate can sit at 0, where the residual is exactly 0 and the run stops):
+    # the reference size, and a full grid with almost no work (8x2176: one CTA
+    # per SM, each warp a dot product of 8), which leaves the three grid syncs
+    # and the latency; and 8192x2048, whose A and A^T (134 MB) are past the
+    # 50 MB L2, so every iteration streams them from HBM
+    for m_, n_ in ((4096, 1024), (8, 2176), (8192, 2048)):
+        if (m_, n_) == (4096, 1024):
+            a_, b_, gam_ = a, b, gam
+        else:
+            a_ = torch.randn(m_, n_, generator=gen, device=dev) / n_
+            b_ = torch.randn(m_, generator=gen, device=dev)
+            gam_ = 1.0 / float((a_ * a_).sum())  # 1/||A||_F^2 <= 1/||A||^2: a stable step
+        x0_ = torch.zeros(n_, device=dev)
+        it_secs, it_out = timed(lambda: resident.resident_adapgm(
+            a_, b_, x0_, gam_, 0.0, 1000, prox_kind="zero", rule_kind="fixed"), reps=3)
+        check(int(it_out[1]) == 1000, f"K2 {m_}x{n_}: {int(it_out[1])} of 1000 iterations")
+        print(f"[resident] K2 {m_}x{n_} f32, fixed rule, zero prox, 1000 iterations: "
+              f"{1e3 * it_secs:.3f} us an iteration ({smi})", flush=True)
+
     head = measured["16384x16384 f32"]
+    hm = hn = HEADLINE
+    k1_bound = bound(4 * hm * hn + 4 * (hm + hn) + 4 * (hn + 1), 4 * hm * hn)
+    m, n = a.shape
+    # K2: A read once, b and x0 in, x and the stats out; 4 m n flops for each
+    # iteration and the warm-up
+    k2_bound = bound(a.element_size() * m * n + 4 * (m + n) + 4 * n + 16,
+                     4 * m * n * (numit + 1))
     print(json.dumps({"kernels": [{
         "name": "fused_ls_value_grad", "route": "cuda",
         "source": "adaprox_tpu_torch/csrc/fused_ls.cu",
         "replaces": "adaprox_tpu/ops/kernels.py:99",
-        "launches": launches, "max_abs_err": head["max_abs_err"],
-        "ms": head["ms"], "plain_ms": head["plain_ms"]}]}))
+        "launches": counts["fused"][0], "max_abs_err": head["max_abs_err"],
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": k1_bound[0],
+        "bound_by": k1_bound[1], "library_ms": None}, {
+        "name": "resident_adapgm", "route": "cuda",
+        "source": "adaprox_tpu_torch/csrc/resident_pg.cu",
+        "replaces": "adaprox_tpu/ops/resident.py:442",
+        "launches": counts["resident"][1], "max_abs_err": k2_meas["max_abs_err"],
+        "ms": k2_ms, "plain_ms": 1e3 * plain_s, "bound_ms": k2_bound[0],
+        "bound_by": k2_bound[1], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
