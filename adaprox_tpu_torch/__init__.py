@@ -11,9 +11,10 @@ numpy inputs. This package imports torch and numpy, never jax.
 
 Layout:
   ops/         prox functions, smooth oracles, the accumulation policy, K1,
-               the whole-solve kernel K2
+               the whole-solve kernels K2 (one solve) and K2c (the rule sweep)
   csrc/        CUDA C++ sources of the kernels
-  solvers/     stepsize rules, counters/records, the proximal-gradient engine
+  solvers/     stepsize rules, counters/records, the proximal-gradient engine,
+               fixed-step Nesterov
   models/      objectives and problem generators
   utils/       JSONL telemetry and timing on the card
   experiments/ the lasso driver
@@ -38,7 +39,9 @@ from .ops.resident import (  # noqa: E402
     resident_adapgm,
     resident_adapgm_l1,
     resident_records,
+    resident_rule_sweep,
     resident_supported,
+    rule_rows,
 )
 from .models.objectives import LeastSquares  # noqa: E402
 from .models.synthetic import LassoProblem, random_lasso  # noqa: E402
@@ -55,6 +58,7 @@ from .solvers.primal_dual import (  # noqa: E402
     adaptive_proxgrad,
     fixed_proxgrad,
 )
+from .solvers.nesterov import fixed_nesterov  # noqa: E402
 from .convert import lasso_from_numpy, rule_from_numpy  # noqa: E402
 
 __version__ = "0.1.0"
@@ -62,14 +66,15 @@ __version__ = "0.1.0"
 __all__ = [
     # ops
     "Zero", "L1Norm", "SmoothOracle", "fused_ls_value_grad", "ls_value_grad_plain",
-    "resident_adapgm", "resident_adapgm_l1", "resident_records", "resident_supported",
+    "resident_adapgm", "resident_adapgm_l1", "resident_records", "resident_rule_sweep",
+    "resident_supported", "rule_rows",
     # models
     "LeastSquares", "LassoProblem", "random_lasso",
     # rules
     "Curvature", "FixedStepsize", "MalitskyMishchenkoRule", "AdaPGMRule", "OurRule",
     # solvers
     "Counters", "Records", "SolveResult",
-    "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad",
+    "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "fixed_nesterov",
     # carried over from the JAX side
     "lasso_from_numpy", "rule_from_numpy",
 ]

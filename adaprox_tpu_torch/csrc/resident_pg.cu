@@ -1,18 +1,23 @@
-// K2 for Hopper: a whole proximal-gradient solve of 0.5 ||A x - b||^2 + g(x) in
-// one cooperative kernel launch.
+// K2 and K2c for Hopper: whole proximal-gradient solves of 0.5 ||A x - b||^2 + g(x)
+// in one cooperative kernel launch.
 //
-// Replaces the Pallas TPU kernel adaprox_tpu/ops/resident.py::resident_adapgm
-// (bodies _kernel / _kernel_rec, core _solve_core) for obj_kind "ls" without
-// momentum: step-size rules fixed / Malitsky-Mishchenko / AdaPGM, prox l1 / box /
-// elastic / zero, optional per-iteration records. A is stored as f32 or bf16;
-// every iterate, reduction and scalar is f32.
+// Replaces the Pallas TPU kernels of adaprox_tpu/ops/resident.py for obj_kind "ls":
+//   K2   resident_adapgm (bodies _kernel / _kernel_rec, core _solve_core): one solve;
+//   K2c  resident_rule_sweep (body _rule_sweep_kernel_rec): R method rows of one
+//        problem, each with its own gamma0, tol, rule, momentum flag and iteration
+//        cap, always in record mode.
+// Step-size rules fixed / Malitsky-Mishchenko / AdaPGM, or the Nesterov momentum
+// body (fixed_nesterov with mu = 0); prox l1 / box / elastic / zero; optional
+// per-iteration records. A is stored as f32 or bf16; every iterate, reduction and
+// scalar is f32.
 //
 // What bounds it on the card. The data-sheet bound is the arithmetic: A is read
 // from device memory once (16.8 MB at 4096x1024 f32, 5 us at 3.35 TB/s), while
-// each iteration does 4 m n flops (0.25 us at 4096x1024 on 67 TFLOP/s of f32
-// outside the tensor cores). In practice two things hold it back: each
-// iteration streams A and its transpose from L2 (2 m n itemsize bytes, 33.5 MB
-// at 4096x1024 f32), and it waits at three grid-wide barriers.
+// each iteration does 4 m n flops (6 m n for a momentum iteration in record mode;
+// 0.25 us at 4096x1024 on 67 TFLOP/s of f32 outside the tensor cores). In practice
+// two things hold it back: each iteration streams A and its transpose from L2
+// (2 m n itemsize bytes, 33.5 MB at 4096x1024 f32), and it waits at three or four
+// grid-wide barriers.
 //
 // Design (first, simple version):
 //   * On the TPU, A sat in one core's VMEM. Here A and A^T (both layouts, as in
@@ -21,8 +26,8 @@
 //     after the first iteration every pass reads L2. The vectors live in global
 //     memory too, so any shape runs, including ones whose x or residual would
 //     not fit a CTA's shared memory.
-//   * One persistent cooperative launch, at most one CTA per SM. An iteration is
-//     three phases with a grid sync after each:
+//   * One persistent cooperative launch, at most one CTA per SM. A rule
+//     iteration is three phases with a grid sync after each:
 //       P1  res = A x - b, rows over the warps of the grid; each CTA writes its
 //           partial of ||res||^2;
 //       P2  grad = A^T res, rows of A^T (columns j) over the warps; for its j the
@@ -31,11 +36,25 @@
 //       P3  every CTA sums all partials in the same fixed order and computes the
 //           rule's step, the stop test and (CTA 0) the record row; then each CTA
 //           writes v and x_new = prox(v) for its share of j.
-//     The warm-up of _solve_core is one P1/P2 before the loop.
+//     The warm-up of _solve_core is one P1/P2 before the loop. A momentum
+//     iteration (_solve_core's body_mom) is
+//       P0  theta and beta, computed by every thread from the same bits, and
+//           z = x + beta (x - x_prev) for the thread's columns;
+//       P1  res = A z - b;
+//       P2  grad = A^T res, x_new = prox(z - gamma grad) and the partials of
+//           ||x_new - z||^2, sum |x_new| and sum x_new^2;
+//       P1' (record mode only) the partial of ||A x_new - b||^2, for the
+//           objective at x_new;
+//       P3  the sums, norm_res = ||x_new - z|| / gamma, the record row and the
+//           stop test.
 //   * Every CTA computes the scalars itself from the same partials in the same
 //     order, so all CTAs reach bit-identical stop decisions: no CTA leaves the
 //     loop while another waits at a barrier. No atomics anywhere: two launches on
 //     the same inputs give the same bits.
+//   * K2 and K2c run the same device routine (solve below). K2c walks its rows
+//     one after another, every CTA in the same order, with a grid sync between
+//     rows. The same shape gives the same grid, so row j of a sweep is
+//     bit-identical to one K2 launch with row j's arguments.
 //   * IEEE semantics are part of the algorithm: AdaPGM divides by sqrt(0) on
 //     purpose and min() drops the inf; 0/0 is guarded to 0; MM guards
 //     isfinite(g0). So no fast math, no flush to zero, IEEE division and
@@ -59,25 +78,44 @@ constexpr unsigned kFull = 0xffffffffu;
 
 enum Prox { kL1 = 0, kBox = 1, kElastic = 2, kZero = 3 };
 enum Rule { kFixed = 0, kMM = 1, kAdaPGM = 2 };
-// Per-CTA partial sums: part[k * grid + cta].
+// Per-CTA partial sums: part[k * grid + cta]. kPrimal2 holds ||primal||^2 in a
+// rule iteration and ||x_new - z||^2 in a momentum iteration.
 enum Part { kRes2 = 0, kPrimal2, kDg2, kDgDx, kDx2, kAbsX, kX2, kParts };
 
-struct Params {
-  const void* a;   // (m, n) row-major, f32 or bf16
-  const void* at;  // (n, m) row-major: the same values transposed
-  const float* b;  // (m,)
-  float* xs;       // (2, n): x and x_prev by parity; row 1 holds x0 on entry
-  float* gs;       // (2, n): grad and grad_prev by parity
-  float* v;        // (n,)
-  float* res;      // (m,)
-  float* part;     // (kParts, grid)
-  float* x_out;    // (n,)
-  float* stats;    // (4,): numit, norm_res, gamma, converged
-  float* hist;     // (3, maxit): gamma, norm_res, objective rows; null unless record
+// The problem and the scratch, shared by every solve of a launch.
+struct Problem {
+  const void* a;    // (m, n) row-major, f32 or bf16
+  const void* at;   // (n, m) row-major: the same values transposed
+  const float* b;   // (m,)
+  const float* x0;  // (n,)
+  float* xs;        // (2, n): x and x_prev by parity
+  float* gs;        // (2, n): grad and grad_prev by parity
+  float* v;         // (n,): v of a rule iteration, z of a momentum iteration
+  float* res;       // (m,)
+  float* part;      // (kParts, grid)
   long long m, n;
-  int maxit;
-  float gamma0, tol, p1, p2;
-  int prox, rule, record;
+  int hist_len;     // the length of a history row: the launch's maxit
+  float p1, p2;
+  int prox, record;
+};
+
+// One solve: K2's arguments, or one row of K2c's table.
+struct Solve {
+  float gamma0, tol;
+  int rule, momentum, cap;
+  float* x_out;  // (n,)
+  float* stats;  // (4,): numit, norm_res, gamma, converged
+  float* hist;   // (3, hist_len): gamma, norm_res, objective rows; null unless record
+};
+
+// K2c's rows table, on the device: (gamma0, tol) and (rule, momentum, cap) per row.
+struct Rows {
+  const float* f;  // (count, 2)
+  const int* i;    // (count, 3)
+  int count;
+  float* x_out;    // (count, n)
+  float* stats;    // (count, 4)
+  float* hist;     // (count, 3, hist_len)
 };
 
 __device__ __forceinline__ float f32_nan() { return __int_as_float(0x7fc00000); }
@@ -216,8 +254,11 @@ __device__ __forceinline__ void write_partials(float (*warp_part)[kWarps], float
   }
 }
 
+// One whole solve (_solve_core for obj_kind "ls", rule or momentum body), run by
+// every thread of the grid. Returns with every CTA past its last grid sync of the
+// solve; the caller syncs before the scratch is used again.
 template <typename T, int VA, int VT>
-__global__ void __launch_bounds__(kThreads, 1) resident_pg_kernel(const Params p) {
+__device__ void solve(const Problem& p, const Solve& s) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float warp_part[kParts][kWarps];
   __shared__ float s_gamma;
@@ -230,6 +271,7 @@ __global__ void __launch_bounds__(kThreads, 1) resident_pg_kernel(const Params p
   const long long gtid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long nthreads = static_cast<long long>(gridDim.x) * kThreads;
   const long long m = p.m, n = p.n;
+  const long long hl = p.hist_len;
   const T* __restrict__ a = static_cast<const T*>(p.a);
   const T* __restrict__ at = static_cast<const T*>(p.at);
 
@@ -237,9 +279,9 @@ __global__ void __launch_bounds__(kThreads, 1) resident_pg_kernel(const Params p
   auto phase_res = [&](const float* x) {
     float f = 0.f;
     for (long long r = gwarp; r < m; r += nwarps) {
-      const float s = warp_dot<T, VA>(a + r * n, x, n, lane);
+      const float d = warp_dot<T, VA>(a + r * n, x, n, lane);
       if (lane == 0) {
-        const float rr = s - p.b[r];
+        const float rr = d - p.b[r];
         p.res[r] = rr;
         f += rr * rr;
       }
@@ -248,161 +290,295 @@ __global__ void __launch_bounds__(kThreads, 1) resident_pg_kernel(const Params p
     write_partials(warp_part, p.part, kRes2, kRes2 + 1);
   };
 
+  // P3's sums, in warp 0: every CTA sums every partial in the same order (lanes
+  // over CTAs, then a shuffle tree); the totals land in lane 0.
+  auto sum_partials = [&](float* sum) {
+#pragma unroll
+    for (int k = 0; k < kParts; ++k) {
+      float t = 0.f;
+      for (int c = lane; c < static_cast<int>(gridDim.x); c += 32) t += p.part[k * gridDim.x + c];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(kFull, t, off);
+      sum[k] = t;
+    }
+  };
+
+  // the record row: gamma, norm_res and f + g at the iterate the partials cover
+  auto record_row = [&](int it, float gamma, float norm_res, const float* sum) {
+    float gval = 0.f;
+    if (p.prox == kL1) {
+      gval = p.p1 * sum[kAbsX];
+    } else if (p.prox == kElastic) {
+      gval = p.p1 * sum[kAbsX] + 0.5f * p.p2 * sum[kX2];
+    }
+    s.hist[it] = gamma;
+    s.hist[hl + it] = norm_res;
+    s.hist[2 * hl + it] = 0.5f * sum[kRes2] + gval;
+  };
+
   // The carry of _solve_core. Thread 0 of every CTA holds (it, g1, g0, norm_res)
-  // and computes the same values; every thread holds gamma.
-  float gamma = p.gamma0, g1 = p.gamma0;
-  float g0 = p.rule == kMM ? f32_inf() : p.gamma0;
+  // and computes the same values; every thread holds gamma and theta.
+  float gamma = s.gamma0, g1 = s.gamma0;
+  float g0 = s.rule == kMM ? f32_inf() : s.gamma0;
+  float theta = 0.f;
   float norm_res = f32_inf();
   int it = 0;
   int par = 0;  // x = xs[par], x_prev = xs[1 - par], grad_prev = gs[1 - par]
 
-  // warm-up (_solve_core :224-226): grad0 at x0, v = x0 - gamma0 grad0,
-  // x = prox(v); x_prev = x0 stays in xs[1], grad_prev = grad0 goes to gs[1]
-  phase_res(p.xs + n);
-  grid.sync();
-  for (long long j = gwarp; j < n; j += nwarps) {
-    const float g = warp_dot<T, VT>(at + j * m, p.res, m, lane);
-    if (lane == 0) {
-      p.gs[n + j] = g;
-      const float vj = p.xs[n + j] - p.gamma0 * g;
-      p.v[j] = vj;
-      p.xs[j] = prox(p.prox, vj, p.gamma0, p.p1, p.p2);
+  if (s.momentum) {
+    // x = x_prev = x0 (_solve_core :341-345). The first reads of these copies
+    // (P0 below, or the exit) are by the same thread for each j: no sync.
+    for (long long j = gtid; j < n; j += nthreads) {
+      p.xs[j] = p.x0[j];
+      p.xs[n + j] = p.x0[j];
     }
-  }
-  grid.sync();
-
-  bool go = 0 < p.maxit && norm_res > p.tol;
-  bool conv = norm_res <= p.tol;
-  if (!go) {
-    for (long long j = gtid; j < n; j += nthreads) p.x_out[j] = p.xs[j];
-  }
-  while (go) {
-    const float* x = p.xs + par * n;
-    const float* x_prev = p.xs + (1 - par) * n;
-    float* grad = p.gs + par * n;
-    const float* grad_prev = p.gs + (1 - par) * n;
-
-    // P1
-    phase_res(x);
+  } else {
+    // warm-up (_solve_core :224-226): grad0 at x0, v = x0 - gamma0 grad0,
+    // x = prox(v); x_prev = x0 goes to xs[1], grad_prev = grad0 to gs[1]. The
+    // momentum body does not use it, so momentum solves skip it.
+    phase_res(p.x0);
     grid.sync();
-
-    // P2: grad = A^T res, and the partials over this CTA's columns
-    float acc[kParts] = {};
     for (long long j = gwarp; j < n; j += nwarps) {
       const float g = warp_dot<T, VT>(at + j * m, p.res, m, lane);
       if (lane == 0) {
-        grad[j] = g;
-        const float xj = x[j];
-        const float primal = (p.v[j] - xj) / gamma + g;
-        const float dg = g - grad_prev[j];
-        const float dx = xj - x_prev[j];
-        acc[kPrimal2] += primal * primal;
-        acc[kDg2] += dg * dg;
-        acc[kDgDx] += dg * dx;
-        acc[kDx2] += dx * dx;
-        acc[kAbsX] += fabsf(xj);
-        acc[kX2] += xj * xj;
+        const float x0j = p.x0[j];
+        p.gs[n + j] = g;
+        p.xs[n + j] = x0j;
+        const float vj = x0j - s.gamma0 * g;
+        p.v[j] = vj;
+        p.xs[j] = prox(p.prox, vj, s.gamma0, p.p1, p.p2);
       }
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = kPrimal2; k < kParts; ++k) warp_part[k][warp] = acc[k];
-    }
-    write_partials(warp_part, p.part, kPrimal2, kParts);
     grid.sync();
+  }
 
-    // P3: every CTA sums every partial in the same order (lanes over CTAs, then
-    // a shuffle tree), and thread 0 steps the carry
-    if (warp == 0) {
-      float sum[kParts];
-#pragma unroll
-      for (int k = 0; k < kParts; ++k) {
-        float s = 0.f;
-        for (int c = lane; c < static_cast<int>(gridDim.x); c += 32) s += p.part[k * gridDim.x + c];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(kFull, s, off);
-        sum[k] = s;
+  bool go = 0 < s.cap && norm_res > s.tol;
+  bool conv = norm_res <= s.tol;
+  if (!go) {
+    for (long long j = gtid; j < n; j += nthreads) s.x_out[j] = p.xs[j];
+  }
+
+  if (s.momentum) {
+    while (go) {
+      const float* x = p.xs + par * n;
+      float* x_new = p.xs + (1 - par) * n;  // holds x_prev until P2 overwrites it
+      float* z = p.v;
+
+      // P0 (_solve_core :270-272)
+      const float theta_next = (1.f + sqrtf(1.f + 4.f * theta * theta)) / 2.f;
+      const float beta = (theta - 1.f) / theta_next;
+      theta = theta_next;
+      for (long long j = gtid; j < n; j += nthreads) {
+        const float xj = x[j];
+        z[j] = xj + beta * (xj - x_new[j]);
+      }
+      grid.sync();
+
+      // P1
+      phase_res(z);
+      grid.sync();
+
+      // P2: grad = A^T res at z, x_new = prox(z - gamma grad), the partials
+      float acc[kParts] = {};
+      for (long long j = gwarp; j < n; j += nwarps) {
+        const float g = warp_dot<T, VT>(at + j * m, p.res, m, lane);
+        if (lane == 0) {
+          const float zj = z[j];
+          const float xn = prox(p.prox, zj - gamma * g, gamma, p.p1, p.p2);
+          x_new[j] = xn;
+          const float d = xn - zj;
+          acc[kPrimal2] += d * d;
+          acc[kAbsX] += fabsf(xn);
+          acc[kX2] += xn * xn;
+        }
       }
       if (lane == 0) {
-        norm_res = sqrtf(sum[kPrimal2]);
-        rule_update(p.rule, sum[kDg2], sum[kDgDx], sum[kDx2], gamma, g1, g0);
-        if (p.record && blockIdx.x == 0) {
-          // objective at the current x, gamma the step just updated (:297-306)
-          float gval = 0.f;
-          if (p.prox == kL1) {
-            gval = p.p1 * sum[kAbsX];
-          } else if (p.prox == kElastic) {
-            gval = p.p1 * sum[kAbsX] + 0.5f * p.p2 * sum[kX2];
-          }
-          p.hist[it] = gamma;
-          p.hist[p.maxit + it] = norm_res;
-          p.hist[2LL * p.maxit + it] = 0.5f * sum[kRes2] + gval;
-        }
-        ++it;
-        s_gamma = gamma;
-        s_go = it < p.maxit && norm_res > p.tol;  // a NaN residual stops
-        s_conv = norm_res <= p.tol;
+#pragma unroll
+        for (int k = kPrimal2; k < kParts; ++k) warp_part[k][warp] = acc[k];
       }
+      write_partials(warp_part, p.part, kPrimal2, kParts);
+      grid.sync();
+
+      // P1': the objective at x_new costs one more forward matvec (:276-280)
+      if (p.record) {
+        phase_res(x_new);
+        grid.sync();
+      }
+
+      // P3
+      if (warp == 0) {
+        float sum[kParts];
+        sum_partials(sum);
+        if (lane == 0) {
+          norm_res = sqrtf(sum[kPrimal2]) / gamma;
+          if (p.record && blockIdx.x == 0) record_row(it, gamma, norm_res, sum);
+          ++it;
+          s_go = it < s.cap && norm_res > s.tol;  // a NaN residual stops
+          s_conv = norm_res <= s.tol;
+        }
+      }
+      __syncthreads();
+      go = s_go != 0;
+      conv = s_conv != 0;
+      // the residual is checked at x_new, which is returned either way
+      if (!go) {
+        for (long long j = gtid; j < n; j += nthreads) s.x_out[j] = x_new[j];
+      }
+      par ^= 1;
+      // no sync here: the next P0 writes only z, which the last reader (P2) is
+      // past, and P0's sync comes before the next write of the partials
     }
-    __syncthreads();
-    gamma = s_gamma;
-    go = s_go != 0;
-    conv = s_conv != 0;
-    float* x_new = p.xs + (1 - par) * n;
-    for (long long j = gtid; j < n; j += nthreads) {
-      const float xj = x[j];
-      const float vj = xj - gamma * grad[j];
-      p.v[j] = vj;
-      const float xn = prox(p.prox, vj, gamma, p.p1, p.p2);
-      x_new[j] = xn;
-      // converged: the iterate at the check, not the extra prox step (:360-363)
-      if (!go) p.x_out[j] = conv ? xj : xn;
+  } else {
+    while (go) {
+      const float* x = p.xs + par * n;
+      const float* x_prev = p.xs + (1 - par) * n;
+      float* grad = p.gs + par * n;
+      const float* grad_prev = p.gs + (1 - par) * n;
+
+      // P1
+      phase_res(x);
+      grid.sync();
+
+      // P2: grad = A^T res, and the partials over this CTA's columns
+      float acc[kParts] = {};
+      for (long long j = gwarp; j < n; j += nwarps) {
+        const float g = warp_dot<T, VT>(at + j * m, p.res, m, lane);
+        if (lane == 0) {
+          grad[j] = g;
+          const float xj = x[j];
+          const float primal = (p.v[j] - xj) / gamma + g;
+          const float dg = g - grad_prev[j];
+          const float dx = xj - x_prev[j];
+          acc[kPrimal2] += primal * primal;
+          acc[kDg2] += dg * dg;
+          acc[kDgDx] += dg * dx;
+          acc[kDx2] += dx * dx;
+          acc[kAbsX] += fabsf(xj);
+          acc[kX2] += xj * xj;
+        }
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int k = kPrimal2; k < kParts; ++k) warp_part[k][warp] = acc[k];
+      }
+      write_partials(warp_part, p.part, kPrimal2, kParts);
+      grid.sync();
+
+      // P3: thread 0 steps the carry
+      if (warp == 0) {
+        float sum[kParts];
+        sum_partials(sum);
+        if (lane == 0) {
+          norm_res = sqrtf(sum[kPrimal2]);
+          rule_update(s.rule, sum[kDg2], sum[kDgDx], sum[kDx2], gamma, g1, g0);
+          // objective at the current x, gamma the step just updated (:297-306)
+          if (p.record && blockIdx.x == 0) record_row(it, gamma, norm_res, sum);
+          ++it;
+          s_gamma = gamma;
+          s_go = it < s.cap && norm_res > s.tol;  // a NaN residual stops
+          s_conv = norm_res <= s.tol;
+        }
+      }
+      __syncthreads();
+      gamma = s_gamma;
+      go = s_go != 0;
+      conv = s_conv != 0;
+      float* x_new = p.xs + (1 - par) * n;
+      for (long long j = gtid; j < n; j += nthreads) {
+        const float xj = x[j];
+        const float vj = xj - gamma * grad[j];
+        p.v[j] = vj;
+        const float xn = prox(p.prox, vj, gamma, p.p1, p.p2);
+        x_new[j] = xn;
+        // converged: the iterate at the check, not the extra prox step (:360-363)
+        if (!go) s.x_out[j] = conv ? xj : xn;
+      }
+      if (go) grid.sync();
+      par ^= 1;
     }
-    if (go) grid.sync();
-    par ^= 1;
   }
 
   if (blockIdx.x == 0) {
     if (threadIdx.x == 0) {
-      p.stats[0] = static_cast<float>(it);
-      p.stats[1] = norm_res;
-      p.stats[2] = gamma;
-      p.stats[3] = conv ? 1.f : 0.f;
+      s.stats[0] = static_cast<float>(it);
+      s.stats[1] = norm_res;
+      s.stats[2] = gamma;
+      s.stats[3] = conv ? 1.f : 0.f;
     }
     if (p.record) {
       // records are zero past numit; thread 0's it is the numit of every CTA
       if (threadIdx.x == 0) s_numit = it;
       __syncthreads();
-      for (int i = s_numit + threadIdx.x; i < p.maxit; i += kThreads) {
-        p.hist[i] = 0.f;
-        p.hist[p.maxit + i] = 0.f;
-        p.hist[2LL * p.maxit + i] = 0.f;
+      for (long long i = s_numit + threadIdx.x; i < hl; i += kThreads) {
+        s.hist[i] = 0.f;
+        s.hist[hl + i] = 0.f;
+        s.hist[2 * hl + i] = 0.f;
       }
     }
   }
 }
 
-// The instantiation for (storage, A-row vector width, A^T-row vector width),
-// or null for a combination that does not exist.
-const void* select_kernel(int a_is_bf16, int va, int vt) {
-  if (a_is_bf16) {
-    if (va == 1 && vt == 1) return reinterpret_cast<const void*>(&resident_pg_kernel<__nv_bfloat16, 1, 1>);
-    if (va == 1 && vt == 8) return reinterpret_cast<const void*>(&resident_pg_kernel<__nv_bfloat16, 1, 8>);
-    if (va == 8 && vt == 1) return reinterpret_cast<const void*>(&resident_pg_kernel<__nv_bfloat16, 8, 1>);
-    if (va == 8 && vt == 8) return reinterpret_cast<const void*>(&resident_pg_kernel<__nv_bfloat16, 8, 8>);
-  } else {
-    if (va == 1 && vt == 1) return reinterpret_cast<const void*>(&resident_pg_kernel<float, 1, 1>);
-    if (va == 1 && vt == 4) return reinterpret_cast<const void*>(&resident_pg_kernel<float, 1, 4>);
-    if (va == 4 && vt == 1) return reinterpret_cast<const void*>(&resident_pg_kernel<float, 4, 1>);
-    if (va == 4 && vt == 4) return reinterpret_cast<const void*>(&resident_pg_kernel<float, 4, 4>);
-  }
-  return nullptr;
+// K2: one solve.
+template <typename T, int VA, int VT>
+__global__ void __launch_bounds__(kThreads, 1) resident_pg_kernel(const Problem p,
+                                                                 const Solve s) {
+  solve<T, VA, VT>(p, s);
 }
 
-// The most CTAs the current device runs at once for this instantiation, at most
-// one per SM; 0 with an error code when it cannot launch cooperatively.
-cudaError_t max_grid(const void* kernel, int* out) {
-  *out = 0;
+// K2c: the rows one after another, with a grid sync between two rows (the next
+// solve reuses the scratch that other CTAs may still read). The row's arguments
+// sit in shared memory, as K2's sit in the parameter space: held in registers
+// for the whole solve, they pushed every instantiation past the 128 registers a
+// thread has here, into local memory (ptxas -v).
+template <typename T, int VA, int VT>
+__global__ void __launch_bounds__(kThreads, 1) resident_pg_sweep_kernel(const Problem p,
+                                                                       const Rows r) {
+  __shared__ Solve s;
+  for (int row = 0; row < r.count; ++row) {
+    // also a block barrier: every thread is done with the previous row's s
+    if (row > 0) cg::this_grid().sync();
+    if (threadIdx.x == 0) {
+      s = Solve{r.f[2 * row],
+                r.f[2 * row + 1],
+                r.i[3 * row],
+                r.i[3 * row + 1],
+                r.i[3 * row + 2],
+                r.x_out + row * p.n,
+                r.stats + 4LL * row,
+                r.hist + 3LL * row * p.hist_len};
+    }
+    __syncthreads();
+    solve<T, VA, VT>(p, s);
+  }
+}
+
+// pick_<kernel>: the instantiation for (storage, A-row vector width, A^T-row
+// vector width), or null for a combination that does not exist.
+#define ADAPROX_PICK(KERNEL)                                                                   \
+  const void* pick_##KERNEL(int a_is_bf16, int va, int vt) {                                 \
+    if (a_is_bf16) {                                                                          \
+      if (va == 1 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 1, 1>); \
+      if (va == 1 && vt == 8) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 1, 8>); \
+      if (va == 8 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 8, 1>); \
+      if (va == 8 && vt == 8) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 8, 8>); \
+    } else {                                                                                  \
+      if (va == 1 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<float, 1, 1>);     \
+      if (va == 1 && vt == 4) return reinterpret_cast<const void*>(&KERNEL<float, 1, 4>);     \
+      if (va == 4 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<float, 4, 1>);     \
+      if (va == 4 && vt == 4) return reinterpret_cast<const void*>(&KERNEL<float, 4, 4>);     \
+    }                                                                                         \
+    return nullptr;                                                                           \
+  }
+
+ADAPROX_PICK(resident_pg_kernel)
+ADAPROX_PICK(resident_pg_sweep_kernel)
+#undef ADAPROX_PICK
+
+// Launch kernel cooperatively over the grid K2 and K2c share for this shape: one
+// CTA per SM, fewer when there are fewer rows than warps to spread them over.
+// Returns the cudaError_t (cudaErrorNotSupported: no cooperative launch here).
+cudaError_t launch(const void* kernel, Problem& prob, void* second, long long part_len,
+                   void* stream_ptr) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -414,8 +590,19 @@ cudaError_t max_grid(const void* kernel, int* out) {
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *out = sms;
-  return cudaSuccess;
+  const long long rows = prob.m > prob.n ? prob.m : prob.n;
+  const long long want = (rows + kWarps - 1) / kWarps;
+  const int grid = static_cast<int>(want < sms ? want : sms);
+  if (static_cast<long long>(kParts) * grid > part_len) return cudaErrorInvalidValue;
+  void* args[] = {&prob, second};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0,
+                                    static_cast<cudaStream_t>(stream_ptr));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+bool problem_ok(long long m, long long n, int maxit, int prox_kind) {
+  return m >= 1 && n >= 1 && maxit >= 0 && prox_kind >= kL1 && prox_kind <= kZero;
 }
 
 }  // namespace
@@ -425,41 +612,48 @@ extern "C" {
 // Partials per CTA: part needs kParts floats for each CTA of the grid.
 int adaprox_resident_pg_parts() { return kParts; }
 
-// One whole solve. a (m, n) and at (n, m) in f32 (a_is_bf16 = 0) or bf16;
+// K2, one whole solve. a (m, n) and at (n, m) in f32 (a_is_bf16 = 0) or bf16;
 // va / vt: 1, or 4 (f32) / 8 (bf16) when n / m is a multiple of it and the rows
-// are 16-byte aligned. xs (2, n) with x0 in row 1, gs (2, n), v (n), res (m),
-// part (part_len >= kParts * SMs), x_out (n), stats (4) and, when record, hist
+// are 16-byte aligned. b (m), x0 (n), xs (2, n), gs (2, n), v (n), res (m), part
+// (part_len >= kParts * SMs), x_out (n), stats (4) and, when record, hist
 // (3, maxit; null when maxit is 0): f32 device buffers the caller owns. prox:
-// 0 l1, 1 box, 2 elastic, 3 zero; rule: 0 fixed, 1 mm, 2 adapgm. The grid is one
-// CTA per SM, fewer when there are fewer rows than warps to spread them over.
-// Returns the cudaError_t of the launch (0 on success; cudaErrorNotSupported:
-// no cooperative launch on this device).
+// 0 l1, 1 box, 2 elastic, 3 zero; rule: 0 fixed, 1 mm, 2 adapgm, ignored when
+// momentum is 1. Returns the cudaError_t of the launch (0 on success).
 int adaprox_resident_pg(const void* a, const void* at, int a_is_bf16, int va, int vt,
-                        const float* b, float* xs, float* gs, float* v, float* res,
-                        float* part, long long part_len, float* x_out, float* stats,
-                        float* hist, long long m, long long n, int maxit, float gamma0,
-                        float tol, float p1, float p2, int prox_kind, int rule_kind,
-                        int record, void* stream_ptr) {
-  const void* kernel = select_kernel(a_is_bf16, va, vt);
-  if (kernel == nullptr || m < 1 || n < 1 || maxit < 0 || prox_kind < kL1 ||
-      prox_kind > kZero || rule_kind < kFixed || rule_kind > kAdaPGM ||
-      (record && maxit > 0 && !hist)) {
+                        const float* b, const float* x0, float* xs, float* gs, float* v,
+                        float* res, float* part, long long part_len, float* x_out,
+                        float* stats, float* hist, long long m, long long n, int maxit,
+                        float gamma0, float tol, float p1, float p2, int prox_kind,
+                        int rule_kind, int momentum, int record, void* stream_ptr) {
+  const void* kernel = pick_resident_pg_kernel(a_is_bf16, va, vt);
+  if (kernel == nullptr || !problem_ok(m, n, maxit, prox_kind) || rule_kind < kFixed ||
+      rule_kind > kAdaPGM || (record && maxit > 0 && !hist)) {
     return cudaErrorInvalidValue;
   }
-  int most = 0;
-  const cudaError_t err = max_grid(kernel, &most);
-  if (err != cudaSuccess) return err;
-  const long long rows = m > n ? m : n;
-  const long long want = (rows + kWarps - 1) / kWarps;
-  const int grid = static_cast<int>(want < most ? want : most);
-  if (static_cast<long long>(kParts) * grid > part_len) return cudaErrorInvalidValue;
-  Params params{a,  at,   b,      xs, gs,     v,   res, part, x_out, stats, hist,
-                m,  n,    maxit,  gamma0, tol, p1,  p2,  prox_kind, rule_kind, record};
-  void* args[] = {&params};
-  const cudaError_t launch = cudaLaunchCooperativeKernel(
-      kernel, dim3(grid), dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream_ptr));
-  if (launch != cudaSuccess) return launch;
-  return cudaGetLastError();
+  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1, p2, prox_kind, record};
+  Solve s{gamma0, tol, rule_kind, momentum != 0, maxit, x_out, stats, hist};
+  return static_cast<int>(launch(kernel, prob, &s, part_len, stream_ptr));
+}
+
+// K2c, the rule sweep: `rows` solves of one problem in one launch, in record
+// mode. rows_f (rows, 2): gamma0, tol; rows_i (rows, 3): rule, momentum, cap, on
+// the device; the caller has checked every rule in [0, 2] and every cap in
+// [0, maxit]. x_out (rows, n), stats (rows, 4), hist (rows, 3, maxit; null when
+// maxit is 0); the other arguments as for adaprox_resident_pg.
+int adaprox_resident_pg_sweep(const void* a, const void* at, int a_is_bf16, int va, int vt,
+                              const float* b, const float* x0, float* xs, float* gs, float* v,
+                              float* res, float* part, long long part_len, const float* rows_f,
+                              const int* rows_i, int rows, float* x_out, float* stats,
+                              float* hist, long long m, long long n, int maxit, float p1,
+                              float p2, int prox_kind, void* stream_ptr) {
+  const void* kernel = pick_resident_pg_sweep_kernel(a_is_bf16, va, vt);
+  if (kernel == nullptr || !problem_ok(m, n, maxit, prox_kind) || rows < 1 || !rows_f ||
+      !rows_i || (maxit > 0 && !hist)) {
+    return cudaErrorInvalidValue;
+  }
+  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1, p2, prox_kind, 1};
+  Rows r{rows_f, rows_i, rows, x_out, stats, hist};
+  return static_cast<int>(launch(kernel, prob, &r, part_len, stream_ptr));
 }
 
 const char* adaprox_resident_pg_error_string(int err) {

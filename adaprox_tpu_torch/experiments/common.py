@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from ..utils import logging as tlog
 
-__all__ = ["Sink", "group_rows", "plot_lines", "pad_tiles", "run_timed", "run_menu"]
+__all__ = ["Sink", "group_rows", "plot_lines", "pad_tiles", "sync_wall", "run_timed",
+           "run_menu"]
 
 
 def pad_tiles(a, b, m_mult=8, n_mult=128):
@@ -35,15 +36,23 @@ def pad_tiles(a, b, m_mult=8, n_mult=128):
     return a, b
 
 
-def run_timed(times, name, fn):
-    """Run ``fn`` and record its wall time under ``name``, synchronising the
-    card (when one was used) before the clock stops. Includes the first
-    call's kernel build, if any: the wall column is what a user waits for."""
+def sync_wall(fn):
+    """Run ``fn`` and return ``(out, wall_seconds)``, synchronising the card
+    (when one was used) before the clock stops: the shared timing primitive
+    of the drivers' wall columns."""
     t0 = time.perf_counter()
-    res = fn()
+    out = fn()
     if torch.cuda.is_initialized():
         torch.cuda.synchronize()
-    times[name] = round(time.perf_counter() - t0, 4)
+    return out, time.perf_counter() - t0
+
+
+def run_timed(times, name, fn):
+    """Run ``fn`` and record its wall time (``sync_wall``) under ``name``.
+    Includes the first call's kernel build, if any: the wall column is what
+    a user waits for."""
+    res, secs = sync_wall(fn)
+    times[name] = round(secs, 4)
     return res
 
 

@@ -5,15 +5,17 @@ Synthetic problem with a known optimum by construction (runme.jl:45-77);
 sizes (m, n, pfactor), maxit 2000, tol 1e-7 (runme.jl:191-211). Plot:
 F(x_k) - F* vs (grad_f_evals + f_evals).
 
-The menu holds the engine rows ported so far: fixed PG, AdaPGM (MM) and
-AdaPGM (Ours). ``--fused`` routes every oracle call through K1
-(``ops.kernels.fused_ls_value_grad``) on an A zero-padded as the JAX driver
-pads it, so the two drivers' JSONL compare row for row. ``--resident`` runs
-each row as one record-mode launch of the whole-solve kernel K2
-(``ops.resident.resident_adapgm``) on the same padded A. On the card every
-shape goes to K2. On the CPU the JAX driver's routing rule
-(``resident_supported``) applies, with its printed fallback to the engine,
-so the two drivers' JSONL compare row for row there too.
+The menu holds the rows ported so far, in the reference order: PGM
+(fixed), Nesterov (fixed), AdaPGM (MM) and AdaPGM (Ours). ``--fused`` routes
+every oracle call through K1 (``ops.kernels.fused_ls_value_grad``) on an A
+zero-padded as the JAX driver pads it, so the two drivers' JSONL compare row
+for row. ``--resident`` runs the four rows as ONE record-mode launch of the
+rule-sweep kernel K2c (``ops.resident.resident_rule_sweep``) on the same
+padded A, as the JAX driver does, and emits the sweep's wall in a
+``grid_total_s`` meta row. On the card every shape goes to K2c. On the CPU
+the JAX driver's routing rule (``resident_supported``) applies, with its
+printed fallback to the engine, so the two drivers' JSONL compare row for
+row there too.
 
     python -m adaprox_tpu_torch.experiments.lasso --fused --sizes 4000x1000x10
     python -m adaprox_tpu_torch.experiments.lasso --resident --sizes 4000x1000x10
@@ -31,19 +33,20 @@ import torch
 from ..models.objectives import LeastSquares
 from ..models.synthetic import random_lasso
 from ..ops.prox import L1Norm
-from ..ops.resident import resident_adapgm, resident_records, resident_supported
+from ..ops.resident import resident_records, resident_rule_sweep, resident_supported, rule_rows
+from ..solvers.nesterov import fixed_nesterov
 from ..solvers.primal_dual import adaptive_proxgrad, fixed_proxgrad
 from ..solvers.rules import AdaPGMRule, MalitskyMishchenkoRule
-from .common import Sink, group_rows, pad_tiles, plot_lines, run_menu, run_timed
+from .common import Sink, group_rows, pad_tiles, plot_lines, run_menu, sync_wall
 
 # rows of the JAX driver's menu whose solvers are not ported yet
 NOT_PORTED = ("PGM (backtracking)-(xi=1.0)", "PGM (backtracking)-(xi=1.5)",
-              "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)",
-              "Nesterov (fixed)", "aGRAAL")
+              "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)", "aGRAAL")
 
 
-# the menu's rows as (name, rule_kind) of the whole-solve kernel
-RESIDENT_ROWS = (("PGM (fixed)", "fixed"), ("AdaPGM (MM)", "mm"), ("AdaPGM (Ours)", "adapgm"))
+# the rule sweep's rows as (name, rule_kind, momentum), in the reference order
+RESIDENT_ROWS = (("PGM (fixed)", "fixed", False), ("Nesterov (fixed)", "fixed", True),
+                 ("AdaPGM (MM)", "mm", False), ("AdaPGM (Ours)", "adapgm", False))
 
 
 def run_random_lasso(m, n, pfactor, sink, *, device, tol=1e-7, maxit=2000, dtype=None,
@@ -59,7 +62,7 @@ def run_random_lasso(m, n, pfactor, sink, *, device, tol=1e-7, maxit=2000, dtype
     b = torch.as_tensor(prob.b, device=device).to(dtype)
     if fused or resident:
         a, b = pad_tiles(a, b)  # exact; keeps the JSONL comparable with JAX's
-    # K2 takes every shape on the card; the CPU follows the JAX driver's routing
+    # K2c takes every shape on the card; the CPU follows the JAX driver's routing
     use_resident = resident and (device.type == "cuda" or resident_supported(a))
     if resident and not use_resident:
         print(f"  [resident] unsupported shape/size {tuple(a.shape)} "
@@ -75,19 +78,25 @@ def run_random_lasso(m, n, pfactor, sink, *, device, tol=1e-7, maxit=2000, dtype
     times = {}
     print(f"  [lasso] skipping rows not ported yet: {', '.join(NOT_PORTED)}")
     if use_resident:
-        # one record-mode K2 launch a row, emitted in the engine menu's order
-        for name, rule_kind in RESIDENT_ROWS:
-            _, numit, _, _, *hists = run_timed(times, name, lambda rule_kind=rule_kind: (
-                resident_adapgm(a, b, x0, gam, tol, maxit, prox_kind="l1", p1=prob.lam,
-                                rule_kind=rule_kind, record=True)))
-            sink.add(SimpleNamespace(records=resident_records(numit, *hists, maxit=maxit),
-                                     name=name))
+        # ONE record-mode K2c launch for the four rows; wall_s carries each
+        # row's share, grid_total_s the sweep's wall
+        specs = [(gam, rule_kind, mom) for _, rule_kind, mom in RESIDENT_ROWS]
+        (_, numit, _, _, hists), wall = sync_wall(lambda: resident_rule_sweep(
+            a, b, x0, rule_rows(specs, tol=tol, maxit=maxit), tol, maxit, prox_kind="l1",
+            p1=prob.lam))
+        for j, (name, _, mom) in enumerate(RESIDENT_ROWS):
+            sink.add(SimpleNamespace(records=resident_records(
+                numit[j], *(h[j] for h in hists), maxit=maxit, momentum=mom), name=name))
+            times[name] = round(wall / len(RESIDENT_ROWS), 4)
+        sink.emit_meta(grid_total_s={"rule sweep": round(wall, 4)})
         fast_path = "resident"
     else:
         base = dict(f=f, g=g, tol=tol)
         menu = [
             ("PGM (fixed)", maxit, lambda **o: fixed_proxgrad(
                 x0, gamma=gam, name="PGM (fixed)", **base, **o)),
+            ("Nesterov (fixed)", maxit, lambda **o: fixed_nesterov(
+                x0, gamma=gam, name="Nesterov (fixed)", **base, **o)),
             ("AdaPGM (MM)", maxit, lambda **o: adaptive_proxgrad(
                 x0, rule=MalitskyMishchenkoRule(gamma=gam), name="AdaPGM (MM)",
                 **base, **o)),
@@ -124,7 +133,7 @@ def main(argv=None):
     p.add_argument("--fused", action="store_true",
                    help="fused LS oracle (kernel K1) for every solver")
     p.add_argument("--resident", action="store_true",
-                   help="whole-solve kernel K2 for each row (one launch a row)")
+                   help="the rule-sweep kernel K2c: every row in one launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")

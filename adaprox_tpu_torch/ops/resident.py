@@ -1,18 +1,23 @@
-"""K2, the whole-solve kernel: a complete proximal-gradient solve of
+"""K2 and K2c, the whole-solve kernels: complete proximal-gradient solves of
 0.5 ||A x - b||^2 + g(x) in one launch.
 
-Counterpart of ``adaprox_tpu/ops/resident.py::resident_adapgm`` (the Pallas
-TPU kernel over ``_solve_core``) for ``obj_kind="ls"`` without momentum:
-step-size rules fixed / Malitsky-Mishchenko / AdaPGM, prox kinds l1 / box /
-elastic / zero, and the record mode that returns per-iteration histories.
-Here the kernel is hand-written CUDA C++ for Hopper
+Counterpart of ``adaprox_tpu/ops/resident.py`` for ``obj_kind="ls"``:
+``resident_adapgm`` (K2, one solve; the Pallas TPU kernel over
+``_solve_core``) and ``resident_rule_sweep`` (K2c, the rule rows of a method
+menu in one launch, each row with its own gamma0, rule, momentum flag, tol
+and iteration cap). Step-size rules fixed / Malitsky-Mishchenko / AdaPGM or
+the Nesterov momentum body (``fixed_nesterov`` with mu = 0), prox kinds l1 /
+box / elastic / zero, and the record mode that returns per-iteration
+histories. Here both kernels are hand-written CUDA C++ for Hopper
 (``csrc/resident_pg.cu``): one cooperative launch with grid-wide barriers
 between the phases of an iteration, built with nvcc for ``sm_90a`` at first
-use and loaded with ctypes, like K1 (``ops/kernels.py``).
+use and loaded with ctypes, like K1 (``ops/kernels.py``). K2 and K2c run the
+same device routine, so a sweep row equals the single solve with its
+arguments bit for bit.
 
-``resident_adapgm`` dispatches on where its tensors lie: CPU tensors take the
-plain version ``resident_adapgm_plain`` (a Python loop over the same
-iteration); CUDA tensors launch the kernel or raise.
+Both entries dispatch on where their tensors lie: CPU tensors take the plain
+versions ``resident_adapgm_plain`` / ``resident_rule_sweep_plain`` (Python
+loops over the same iteration); CUDA tensors launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -21,13 +26,16 @@ import ctypes
 import math
 import threading
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..solvers.common import Records
 from . import kernels
 
 __all__ = ["resident_supported", "resident_adapgm", "resident_adapgm_plain",
-           "resident_adapgm_l1", "resident_records", "build_library"]
+           "resident_adapgm_l1", "resident_rule_sweep", "resident_rule_sweep_plain",
+           "rule_rows", "resident_records", "build_library"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_pg.cu"
 # -fmad=false: every elementwise expression rounds after each operation, as the
@@ -91,12 +99,14 @@ def _rule_fixed(g1, g0, ndg2, dgdx, ndx2):
 _RULES = {"fixed": _rule_fixed, "mm": _rule_mm, "adapgm": _rule_adapgm}
 _PROX_IDX = {"l1": 0, "box": 1, "elastic": 2, "zero": 3}
 _RULE_IDX = {"fixed": 0, "mm": 1, "adapgm": 2}
+_RULE_OF_IDX = {v: k for k, v in _RULE_IDX.items()}
 
 
 def resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0,
-                          rule_kind="adapgm", record=False):
+                          rule_kind="adapgm", momentum=False, record=False):
     """The plain PyTorch version of the kernel: ``_solve_core``'s loop for
-    ``obj_kind="ls"`` without momentum, one host-checked iteration at a time.
+    ``obj_kind="ls"``, one host-checked iteration at a time. ``momentum``
+    runs its momentum body instead of the rule's (the rule is then unused).
     Scalars are 0-d tensors in the iterate dtype; bf16 storage of ``a`` is
     upcast to it. Returns what ``resident_adapgm`` returns."""
     dt, dev = x0.dtype, x0.device
@@ -109,36 +119,59 @@ def resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, 
     a = a.to(dt)
     b = b.to(dt)
     prox_fn, gval_fn, rule_fn = _PROX[prox_kind], _GVAL[prox_kind], _RULES[rule_kind]
-
-    # warm-up (the engine's init)
-    grad0 = torch.mv(a.t(), torch.mv(a, x0) - b)
-    v = x0 - gamma0 * grad0
-    x = prox_fn(v, gamma0, p1, p2)
-    x_prev, grad_prev, ck_x = x0, grad0, x
-    gamma = g1 = gamma0
-    g0 = inf if rule_kind == "mm" else gamma0
-    norm_res = inf
     hists = torch.zeros((3, maxit), dtype=dt, device=dev)
+    gamma = gamma0
+    norm_res = inf
     it = 0
-    while it < maxit and bool(norm_res > tol):  # a NaN residual stops
-        res = torch.mv(a, x) - b
-        grad = torch.mv(a.t(), res)
-        primal = (v - x) / gamma + grad
-        norm_res = torch.sqrt(torch.sum(primal * primal))
-        dg = grad - grad_prev
-        dx = x - x_prev
-        gamma, g1, g0 = rule_fn(g1, g0, torch.sum(dg * dg), torch.sum(dg * dx),
-                                torch.sum(dx * dx))
-        if record:
-            # objective at the CURRENT x, gamma the step just updated
-            objective = 0.5 * torch.sum(res * res) + gval_fn(x, p1, p2)
-            hists[:, it] = torch.stack([gamma, norm_res, objective])
-        v = x - gamma * grad
-        # the residual is checked AT x: on convergence that iterate is
-        # returned, not the extra prox step (ck_x)
-        x_prev, grad_prev, ck_x = x, grad, x
-        x = prox_fn(v, gamma, p1, p2)
-        it += 1
+
+    if momentum:
+        # body_mom (_solve_core :269-286) from x = x_prev = x0, theta = 0; the
+        # warm-up gradient is not used there, so it is not computed
+        x = x_prev = ck_x = x0
+        theta = scalar(0.0)
+        while it < maxit and bool(norm_res > tol):
+            theta_next = (1 + torch.sqrt(1 + 4 * theta * theta)) / 2
+            beta = (theta - 1) / theta_next
+            z = x + beta * (x - x_prev)
+            grad = torch.mv(a.t(), torch.mv(a, z) - b)
+            x_new = prox_fn(z - gamma * grad, gamma, p1, p2)
+            d = x_new - z
+            norm_res = torch.sqrt(torch.sum(d * d)) / gamma
+            if record:
+                # objective at the NEW iterate: one more forward matvec
+                res = torch.mv(a, x_new) - b
+                objective = 0.5 * torch.sum(res * res) + gval_fn(x_new, p1, p2)
+                hists[:, it] = torch.stack([gamma, norm_res, objective])
+            # the residual is checked AT x_new, which is returned either way
+            x_prev, x, ck_x, theta = x, x_new, x_new, theta_next
+            it += 1
+    else:
+        # warm-up (the engine's init)
+        grad0 = torch.mv(a.t(), torch.mv(a, x0) - b)
+        v = x0 - gamma0 * grad0
+        x = prox_fn(v, gamma0, p1, p2)
+        x_prev, grad_prev, ck_x = x0, grad0, x
+        g1 = gamma0
+        g0 = inf if rule_kind == "mm" else gamma0
+        while it < maxit and bool(norm_res > tol):  # a NaN residual stops
+            res = torch.mv(a, x) - b
+            grad = torch.mv(a.t(), res)
+            primal = (v - x) / gamma + grad
+            norm_res = torch.sqrt(torch.sum(primal * primal))
+            dg = grad - grad_prev
+            dx = x - x_prev
+            gamma, g1, g0 = rule_fn(g1, g0, torch.sum(dg * dg), torch.sum(dg * dx),
+                                    torch.sum(dx * dx))
+            if record:
+                # objective at the CURRENT x, gamma the step just updated
+                objective = 0.5 * torch.sum(res * res) + gval_fn(x, p1, p2)
+                hists[:, it] = torch.stack([gamma, norm_res, objective])
+            v = x - gamma * grad
+            # the residual is checked AT x: on convergence that iterate is
+            # returned, not the extra prox step (ck_x)
+            x_prev, grad_prev, ck_x = x, grad, x
+            x = prox_fn(v, gamma, p1, p2)
+            it += 1
     conv = norm_res <= tol
     # the TPU kernel's stats travel as f32: numit and norm_res round through it
     stats = torch.stack([scalar(it), norm_res, gamma, conv.to(dt)]).to(torch.float32)
@@ -162,11 +195,16 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build_library()))
             p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+            # a .. part_len, the leading arguments of both entries
+            problem = [p, p, i, i, i, p, p, p, p, p, p, p, ll]
             lib.adaprox_resident_pg_parts.argtypes = []
             lib.adaprox_resident_pg_parts.restype = i
-            lib.adaprox_resident_pg.argtypes = [p, p, i, i, i, p, p, p, p, p, p, ll, p, p, p,
-                                                ll, ll, i, f, f, f, f, i, i, i, p]
+            lib.adaprox_resident_pg.argtypes = problem + [p, p, p, ll, ll, i, f, f, f, f, i, i,
+                                                          i, i, p]
             lib.adaprox_resident_pg.restype = i
+            lib.adaprox_resident_pg_sweep.argtypes = problem + [p, p, i, p, p, p, ll, ll, i, f,
+                                                                f, i, p]
+            lib.adaprox_resident_pg_sweep.restype = i
             lib.adaprox_resident_pg_error_string.argtypes = [i]
             lib.adaprox_resident_pg_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -176,7 +214,7 @@ def _library():
 def _raise_on(lib, err, what):
     if err:
         msg = lib.adaprox_resident_pg_error_string(err).decode()
-        raise RuntimeError(f"K2 {what} failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
 def _vec(rows_len, dtype, ptr):
@@ -185,45 +223,62 @@ def _vec(rows_len, dtype, ptr):
     return vec if rows_len % vec == 0 and ptr % 16 == 0 else 1
 
 
-def _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, record):
+def _problem(lib, a, b, x0, what):
+    """Check what the kernels take, and make the second layout of A and the
+    scratch of one launch (on the current device). Returns the leading
+    arguments of both C entries (a .. part_len) and the tensors behind them."""
     if a.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"K2 stores A as float32 or bfloat16 on CUDA, got {a.dtype}")
+        raise TypeError(f"{what} stores A as float32 or bfloat16 on CUDA, got {a.dtype}")
     if b.dtype != torch.float32 or x0.dtype != torch.float32:
-        raise TypeError(f"K2 takes float32 b and x0 on CUDA, got {b.dtype}, {x0.dtype}")
+        raise TypeError(f"{what} takes float32 b and x0 on CUDA, got {b.dtype}, {x0.dtype}")
     if not (a.is_contiguous() and b.is_contiguous() and x0.is_contiguous()):
-        raise ValueError("K2 needs contiguous a, b and x0")
+        raise ValueError(f"{what} needs contiguous a, b and x0")
     m, n = a.shape
     if m < 1 or n < 1:
-        raise ValueError(f"K2 needs m, n >= 1, got {tuple(a.shape)}")
+        raise ValueError(f"{what} needs m, n >= 1, got {tuple(a.shape)}")
+    dev = a.device
+    # the second layout, made once per launch (it counts in the launch's time)
+    at = a.t().contiguous()
+    va, vt = _vec(n, a.dtype, a.data_ptr()), _vec(m, a.dtype, at.data_ptr())
+    f32 = dict(dtype=torch.float32, device=dev)
+    xs, gs = torch.empty((2, n), **f32), torch.empty((2, n), **f32)
+    v, res = torch.empty(n, **f32), torch.empty(m, **f32)
+    # the launcher sizes the grid, at most one CTA per SM
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    part = torch.empty(lib.adaprox_resident_pg_parts() * sms, **f32)
+    tensors = (a, at, b, x0, xs, gs, v, res, part)
+    args = [a.data_ptr(), at.data_ptr(), int(a.dtype == torch.bfloat16), va, vt,
+            *(t.data_ptr() for t in tensors[2:]), part.numel()]
+    return args, tensors
+
+
+def _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum, record):
     lib = _library()
     dev = a.device
-    bf16 = int(a.dtype == torch.bfloat16)
+    n = a.shape[1]
     with torch.cuda.device(dev):
-        # the second layout, made once per solve (it counts in the solve's time)
-        at = a.t().contiguous()
-        va, vt = _vec(n, a.dtype, a.data_ptr()), _vec(m, a.dtype, at.data_ptr())
+        args, keep = _problem(lib, a, b, x0, "K2")  # keep: the tensors behind args
         f32 = dict(dtype=torch.float32, device=dev)
-        xs = torch.empty((2, n), **f32)
-        xs[1].copy_(x0)
-        gs = torch.empty((2, n), **f32)
-        v, x_out = torch.empty(n, **f32), torch.empty(n, **f32)
-        res = torch.empty(m, **f32)
-        # the launcher sizes the grid, at most one CTA per SM
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        part = torch.empty(lib.adaprox_resident_pg_parts() * sms, **f32)
-        stats = torch.empty(4, **f32)
+        x_out, stats = torch.empty(n, **f32), torch.empty(4, **f32)
         hist = torch.empty((3, maxit), **f32) if record else None
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.adaprox_resident_pg(
-            a.data_ptr(), at.data_ptr(), bf16, va, vt, b.data_ptr(), xs.data_ptr(),
-            gs.data_ptr(), v.data_ptr(), res.data_ptr(), part.data_ptr(), part.numel(),
-            x_out.data_ptr(), stats.data_ptr(), hist.data_ptr() if record else None, m, n,
-            maxit, float(gamma0), float(tol), float(p1), float(p2), _PROX_IDX[prox_kind],
-            _RULE_IDX[rule_kind], int(record), stream)
-    _raise_on(lib, err, "launch")
+            *args, x_out.data_ptr(), stats.data_ptr(),
+            hist.data_ptr() if record and maxit else None, *a.shape, maxit, float(gamma0),
+            float(tol), float(p1), float(p2), _PROX_IDX[prox_kind], _RULE_IDX[rule_kind],
+            int(momentum), int(record), stream)
+    _raise_on(lib, err, "K2 launch")
     resident_adapgm.launches += 1
     base = (x_out, stats[0].to(torch.int32), stats[1], stats[3] > 0)
     return base + tuple(hist) if record else base
+
+
+def _check_menu(what, prox_kind, obj_kind):
+    if obj_kind != "ls":
+        raise NotImplementedError(f"{what}: obj_kind={obj_kind!r} is not ported yet (only "
+                                  "'ls'); see ROADMAP.md §1")
+    if prox_kind not in _PROX:
+        raise ValueError(f"prox_kind must be one of {sorted(_PROX)}, got {prox_kind!r}")
 
 
 def resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0,
@@ -232,7 +287,9 @@ def resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0
     """Full proximal-gradient solve of 0.5||Ax-b||^2 + g(x) in one kernel
     launch, with g from the static prox menu ("l1", "box", "elastic",
     "zero") parameterized by (p1, p2) and the step-size rule from
-    {"adapgm", "mm", "fixed"}.
+    {"adapgm", "mm", "fixed"}. ``momentum=True`` runs the accelerated
+    (fixed_nesterov) iteration with the fixed step gamma0 instead, and the
+    rule is ignored, as in the JAX package.
 
     a: (m, n); b: (m,); x0: (n,). Returns (x, numit, norm_res, converged) as
     tensors on the input's device, plus (gamma_hist, norm_res_hist,
@@ -245,26 +302,22 @@ def resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0
     to the objectives not ported yet and are ignored for "ls", as in the JAX
     package."""
     del m_true, cube_c
-    if momentum:
-        raise NotImplementedError("resident_adapgm: momentum=True (the Nesterov body) is "
-                                  "not ported yet; see ROADMAP.md §1")
-    if obj_kind != "ls":
-        raise NotImplementedError(f"resident_adapgm: obj_kind={obj_kind!r} is not ported "
-                                  "yet (only 'ls'); see ROADMAP.md §1")
+    _check_menu("resident_adapgm", prox_kind, obj_kind)
     if rule_kind == "dynamic":
-        raise NotImplementedError("resident_adapgm: rule_kind='dynamic' belongs to the rule "
-                                  "sweep (K2c), not ported yet; see ROADMAP.md §1")
+        raise ValueError("resident_adapgm: rule_kind='dynamic' takes each row's rule from a "
+                         "rows table, which only resident_rule_sweep has (as in the JAX "
+                         "package); pass 'fixed', 'mm' or 'adapgm'")
     if rule_kind not in _RULES:
         raise ValueError(f"rule_kind must be one of {sorted(_RULES)}, got {rule_kind!r}")
-    if prox_kind not in _PROX:
-        raise ValueError(f"prox_kind must be one of {sorted(_PROX)}, got {prox_kind!r}")
     kernels._check_shapes(a, b, x0)
     if a.device.type == "cpu":
         return resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind=prox_kind,
-                                     p1=p1, p2=p2, rule_kind=rule_kind, record=record)
+                                     p1=p1, p2=p2, rule_kind=rule_kind, momentum=momentum,
+                                     record=record)
     if a.device.type != "cuda":
         raise ValueError(f"K2 runs on CPU (plain version) or CUDA tensors, not {a.device}")
-    return _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, record)
+    return _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum,
+                   record)
 
 
 resident_adapgm.launches = 0
@@ -275,16 +328,134 @@ def resident_adapgm_l1(a, b, x0, gamma0, lam, tol, maxit):
     return resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=lam)
 
 
-def resident_records(numit, gamma_hist, res_hist, obj_hist, *, maxit):
+# -- K2c, the rule sweep --------------------------------------------------------------
+
+
+def rule_rows(specs, tol=None, maxit=None):
+    """Build the (R, 5) rows array for ``resident_rule_sweep`` from
+    [(gamma0, rule_kind, momentum), ...] or
+    [(gamma0, rule_kind, momentum, tol, cap), ...] specs; 3-tuples take
+    the given tol/maxit, which are then required (a maxit-0 row would
+    solve nothing)."""
+    out = []
+    for spec in specs:
+        if len(spec) == 3:
+            if tol is None or maxit is None:
+                raise ValueError(
+                    "3-tuple specs need explicit tol= and maxit= (pass the "
+                    "launch values; a maxit-0 row would solve nothing)")
+            g, r, mom = spec
+            t, cap = tol, maxit
+        else:
+            g, r, mom, t, cap = spec
+        out.append([g, _RULE_IDX[r], 1.0 if mom else 0.0, t, cap])
+    return np.asarray(out)
+
+
+def _sweep_rows(rows, maxit, dtype):
+    """The rows table in the iterate dtype on the host, as the JAX sweep
+    casts it, after checking every row. A cap past ``maxit`` is refused: the
+    JAX kernel drops those history writes silently, the CUDA kernel would
+    write past its buffers."""
+    if not isinstance(rows, torch.Tensor):
+        rows = torch.as_tensor(np.asarray(rows))
+    rows = rows.to(device="cpu", dtype=dtype)
+    if rows.ndim != 2 or rows.shape[0] < 1 or rows.shape[1] != 5:
+        raise ValueError(f"rows must be (R >= 1, 5) [gamma0, rule_idx, momentum, tol, cap], "
+                         f"got {tuple(rows.shape)}")
+    rule, cap = rows[:, 1], rows[:, 4]
+    if not bool(((rule == 0) | (rule == 1) | (rule == 2)).all()):
+        raise ValueError(f"rule_idx must be 0 (fixed), 1 (mm) or 2 (adapgm), got "
+                         f"{rule.tolist()}")
+    if not bool(((cap >= 0) & (cap <= maxit) & (cap == torch.round(cap))).all()):
+        raise ValueError(f"every row's cap must be an integer in [0, maxit={maxit}], got "
+                         f"{cap.tolist()}")
+    return rows
+
+
+def resident_rule_sweep_plain(a, b, x0, rows, maxit, prox_kind="l1", p1=0.0, p2=0.0):
+    """The plain version of the sweep: one plain solve a row, with that row's
+    gamma0, rule, momentum flag, tol and cap, in record mode; histories are
+    zero-padded to ``maxit``. Returns what ``resident_rule_sweep`` returns."""
+    rows = _sweep_rows(rows, maxit, x0.dtype)
+    outs = [resident_adapgm_plain(a, b, x0, g0, t, int(cap), prox_kind, p1, p2,
+                                  rule_kind=_RULE_OF_IDX[int(r)], momentum=mom > 0,
+                                  record=True)
+            for g0, r, mom, t, cap in rows.tolist()]
+    hists = tuple(torch.stack([F.pad(o[k], (0, maxit - o[k].shape[0])) for o in outs])
+                  for k in (4, 5, 6))
+    return tuple(torch.stack([o[k] for o in outs]) for k in range(4)) + (hists,)
+
+
+def _launch_sweep(a, b, x0, rows, maxit, prox_kind, p1, p2):
+    lib = _library()
+    dev = a.device
+    n = a.shape[1]
+    count = rows.shape[0]
+    with torch.cuda.device(dev):
+        args, keep = _problem(lib, a, b, x0, "K2c")  # keep: the tensors behind args
+        rows_f = rows[:, [0, 3]].to(device=dev, dtype=torch.float32).contiguous()
+        rows_i = torch.stack([rows[:, 1], (rows[:, 2] > 0).to(rows.dtype), rows[:, 4]], 1)
+        rows_i = rows_i.to(device=dev, dtype=torch.int32).contiguous()
+        f32 = dict(dtype=torch.float32, device=dev)
+        x_out, stats = torch.empty((count, n), **f32), torch.empty((count, 4), **f32)
+        hist = torch.empty((count, 3, maxit), **f32)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.adaprox_resident_pg_sweep(
+            *args, rows_f.data_ptr(), rows_i.data_ptr(), count, x_out.data_ptr(),
+            stats.data_ptr(), hist.data_ptr() if maxit else None, *a.shape, maxit, float(p1),
+            float(p2), _PROX_IDX[prox_kind], stream)
+    _raise_on(lib, err, "K2c launch")
+    resident_rule_sweep.launches += 1
+    return (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 3] > 0,
+            (hist[:, 0], hist[:, 1], hist[:, 2]))
+
+
+def resident_rule_sweep(a, b, x0, rows, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0,
+                        cube_c=0.0, obj_kind="ls", m_true=None):
+    """The whole rule menu of an experiment as ONE record-mode launch:
+    ``rows`` is an (R, 5) array of [gamma0, rule_idx, momentum, tol, cap]
+    (build it with ``rule_rows``; ``tol`` here is the launch's, which
+    ``rule_rows`` puts into 3-tuple rows). ``maxit`` sizes the history
+    buffers and must be >= every row's cap. Returns (x (R, n), numit (R,),
+    norm_res (R,), converged (R,), (hg, hr, ho) each (R, maxit)); feed each
+    row to ``resident_records`` with its own momentum flag.
+
+    CPU tensors take the plain version; the iterates must have at least 32
+    bits (the rows table rides their dtype). CUDA tensors launch K2c, with
+    what K2 takes; each launch adds one to ``resident_rule_sweep.launches``.
+    Row j equals ``resident_adapgm`` with row j's arguments."""
+    del tol, m_true, cube_c  # each row carries its own tol
+    if torch.finfo(x0.dtype).bits < 32:
+        raise ValueError(f"resident_rule_sweep needs >= 32-bit iterates (got {x0.dtype}): the "
+                         "rows table's cap and tol columns would be quantized")
+    _check_menu("resident_rule_sweep", prox_kind, obj_kind)
+    kernels._check_shapes(a, b, x0)
+    if a.device.type == "cpu":
+        return resident_rule_sweep_plain(a, b, x0, rows, maxit, prox_kind, p1, p2)
+    if a.device.type != "cuda":
+        raise ValueError(f"K2c runs on CPU (plain version) or CUDA tensors, not {a.device}")
+    return _launch_sweep(a, b, x0, _sweep_rows(rows, maxit, x0.dtype), maxit, prox_kind, p1,
+                         p2)
+
+
+resident_rule_sweep.launches = 0
+
+
+def resident_records(numit, gamma_hist, res_hist, obj_hist, *, maxit, momentum=False):
     """``Records`` from the record-mode histories. The oracle counters are
-    deterministic per iteration, so they are rebuilt here as the engine's
-    record-time snapshots: at the record of iteration ``it``, f_evals =
-    grad_f_evals = it + 1 (the warm-up adds one) and prox_g_evals = it.
+    deterministic per iteration, so they are rebuilt here as the engines'
+    record-time snapshots: at the record of iteration ``it``
+      * PG loop: f_evals = grad_f_evals = it + 1 (the warm-up adds one) and
+        prox_g_evals = it;
+      * momentum (``fixed_nesterov``): all three equal ``it`` (no warm-up,
+        the record is taken after the prox).
     Rows past ``numit`` are masked out by ``valid``."""
     dev = gamma_hist.device
     it = torch.arange(1, maxit + 1, dtype=torch.int64, device=dev)
     z = torch.zeros(maxit, dtype=torch.int64, device=dev)
+    f_evals = it if momentum else it + 1
     return Records(it=it, gamma=gamma_hist, sigma=torch.zeros_like(gamma_hist),
-                   norm_res=res_hist, objective=obj_hist, f_evals=it + 1,
-                   grad_f_evals=it + 1, prox_g_evals=it, prox_h_evals=z, A_evals=z,
+                   norm_res=res_hist, objective=obj_hist, f_evals=f_evals,
+                   grad_f_evals=f_evals, prox_g_evals=it, prox_h_evals=z, A_evals=z,
                    At_evals=z, valid=it <= torch.as_tensor(numit, device=dev))

@@ -27,7 +27,7 @@ from adaprox_tpu_torch.experiments import common as tcommon
 from adaprox_tpu_torch.experiments import lasso as tlasso
 
 REPO = Path(__file__).resolve().parent.parent
-MENU = ("PGM (fixed)", "AdaPGM (MM)", "AdaPGM (Ours)")
+MENU = ("PGM (fixed)", "Nesterov (fixed)", "AdaPGM (MM)", "AdaPGM (Ours)")
 
 
 # -- (e) the numpy-only copies ----------------------------------------------
@@ -84,7 +84,7 @@ def test_pad_tiles_matches_jax(m, n):
 
 
 def test_lasso_driver_jsonl_matches_jax(tmp_path, capsys):
-    """Three rows, --device cpu (f64), against the JAX driver's JSONL filtered
+    """Four rows, --device cpu (f64), against the JAX driver's JSONL filtered
     to those rows. 20 iterations: inside the horizon where the adaptive
     rules' step sizes agree to 1e-9 (see test_torch_engine.py); measured
     9e-14."""
@@ -97,7 +97,7 @@ def test_lasso_driver_jsonl_matches_jax(tmp_path, capsys):
     assert trows[0] == jrows[0]  # the analytic-optimum pseudo record
     jm = [r for r in jrows if r.get("method") in MENU]
     tm = [r for r in trows if r.get("method") is not None]
-    assert len(tm) == len(jm) == 3 * 20
+    assert len(tm) == len(jm) == 4 * 20
     for rj, rt in zip(jm, tm):
         assert list(rt) == list(rj)  # identical keys in identical order
         for k, v in rj.items():

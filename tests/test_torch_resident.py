@@ -162,8 +162,7 @@ def test_resident_records_match_jax(tmp_path):
     assert tlog.read_jsonl(tmp_path / "t.jsonl") == jlog.read_jsonl(tmp_path / "j.jsonl")
 
 
-@pytest.mark.parametrize("kw", [dict(momentum=True), dict(obj_kind="logreg"),
-                                dict(obj_kind="cubic"), dict(rule_kind="dynamic")])
+@pytest.mark.parametrize("kw", [dict(obj_kind="logreg"), dict(obj_kind="cubic")])
 def test_resident_refuses_what_is_not_ported(kw):
     a, b, gamma0 = _case()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -182,9 +181,11 @@ def test_resident_rejects_unknown_menu_entries(kw, exc):
 
 # -- the driver's rows --------------------------------------------------------------
 
-MENU = ("PGM (fixed)", "AdaPGM (MM)", "AdaPGM (Ours)")
-# the engine horizons of tests/test_torch_engine.py
-DRIVER_HORIZON = {"PGM (fixed)": 300, "AdaPGM (MM)": 60, "AdaPGM (Ours)": 20}
+MENU = ("PGM (fixed)", "Nesterov (fixed)", "AdaPGM (MM)", "AdaPGM (Ours)")
+# the engine horizons of tests/test_torch_engine.py; the momentum row does not
+# amplify (tests/test_torch_sweep.py), so it is held over all 300 iterations
+DRIVER_HORIZON = {"PGM (fixed)": 300, "Nesterov (fixed)": 300, "AdaPGM (MM)": 60,
+                  "AdaPGM (Ours)": 20}
 
 
 def _rows_by_method(path):
@@ -196,8 +197,9 @@ def _rows_by_method(path):
 
 
 def test_lasso_driver_resident_matches_engine(tmp_path, capsys):
-    """``--resident`` against the port's engine (``--fused``: the same padded
-    A) on the same menu, row for row over the engine horizons."""
+    """``--resident`` (one rule sweep) against the port's engine (``--fused``:
+    the same padded A) on the same menu, row for row over the engine
+    horizons."""
     args = ["--sizes", "100x300x10", "--maxit", "300", "--no-plot", "--device", "cpu"]
     tlasso.main(["--outdir", str(tmp_path / "res"), "--resident", *args])
     assert "falling back" not in capsys.readouterr().out
@@ -216,6 +218,7 @@ def test_lasso_driver_resident_matches_engine(tmp_path, capsys):
                     assert rr[k] == v, (name, k)
     rows = tlog.read_jsonl(tmp_path / "res" / "lasso_100_300_10.jsonl")
     meta = rows[-1]
+    assert list(rows[-2]) == ["grid_total_s"]
     assert list(meta) == ["wall_s", "fast_path", "fast_methods"]
     assert meta["fast_path"] == "resident" and meta["fast_methods"] == sorted(MENU)
     assert sorted(meta["wall_s"]) == sorted(MENU)
@@ -231,27 +234,30 @@ def test_lasso_driver_resident_falls_back_like_jax(tmp_path, capsys):
 
 
 def test_driver_rows_match_jax_rule_sweep():
-    """The rows the JAX driver emits under ``--resident`` come from its rule
-    sweep (one launch for the menu); the port runs one K2 launch a row. Same
-    specs at 64x128 f64."""
+    """The rows both drivers emit under ``--resident`` come from their rule
+    sweeps (one launch for the menu). The driver's specs at 64x128 f64, the
+    port's sweep against JAX's."""
     a, b, lam, _, gamma0 = lasso_case(64, 128, 8, 3)
     tol, maxit = 1e-7, 200
-    names = [name for name, _ in tlasso.RESIDENT_ROWS]
-    specs = [(gamma0, rule, False) for _, rule in tlasso.RESIDENT_ROWS]
+    rows = jr.rule_rows([(gamma0, rule, mom) for _, rule, mom in tlasso.RESIDENT_ROWS],
+                        tol=tol, maxit=maxit)
+    np.testing.assert_array_equal(tr.rule_rows(
+        [(gamma0, rule, mom) for _, rule, mom in tlasso.RESIDENT_ROWS], tol=tol, maxit=maxit), rows)
     _, itj, _, _, hj = jr.resident_rule_sweep(
-        jnp.asarray(a), jnp.asarray(b), jnp.zeros(128), jr.rule_rows(specs, tol=tol, maxit=maxit),
-        tol, maxit, prox_kind="l1", p1=lam, interpret=True)
-    horizon = {"PGM (fixed)": maxit, "AdaPGM (MM)": 30, "AdaPGM (Ours)": 30}
-    for j, (name, rule) in enumerate(tlasso.RESIDENT_ROWS):
-        ot = tr.resident_adapgm(torch.from_numpy(a), torch.from_numpy(b),
-                                torch.zeros(128, dtype=F64), gamma0, tol, maxit,
-                                prox_kind="l1", p1=lam, rule_kind=rule, record=True)
-        recs = tr.resident_records(ot[1], *ot[4:], maxit=maxit)
-        h = horizon[names[j]]
+        jnp.asarray(a), jnp.asarray(b), jnp.zeros(128), rows, tol, maxit, prox_kind="l1", p1=lam,
+        interpret=True)
+    _, itt, _, _, ht = tr.resident_rule_sweep(
+        torch.from_numpy(a), torch.from_numpy(b), torch.zeros(128, dtype=F64), rows, tol, maxit,
+        prox_kind="l1", p1=lam)
+    horizon = {"PGM (fixed)": maxit, "Nesterov (fixed)": maxit, "AdaPGM (MM)": 30,
+               "AdaPGM (Ours)": 30}
+    for j, (name, _, mom) in enumerate(tlasso.RESIDENT_ROWS):
+        recs = tr.resident_records(itt[j], *(h[j] for h in ht), maxit=maxit, momentum=mom)
+        h = horizon[name]
         for k, hist in enumerate(hj):
-            np.testing.assert_allclose(np_of(ot[4 + k])[:h], np_of(hist[j])[:h], rtol=1e-9,
+            np.testing.assert_allclose(np_of(ht[k][j])[:h], np_of(hist[j])[:h], rtol=1e-9,
                                        err_msg=f"{name} {HIST[k]}")
         numit = int(itj[j])
         # the adaptive rows stop where tol lands: within JAX's own band
-        assert abs(int(ot[1]) - numit) <= max(25, numit // 10), name
-        assert int(recs.valid.sum()) == int(ot[1])
+        assert abs(int(itt[j]) - numit) <= max(25, numit // 10), name
+        assert int(recs.valid.sum()) == int(itt[j])
