@@ -10,14 +10,16 @@ mirror it, and the tests hold each piece to its JAX counterpart on the same
 numpy inputs. This package imports torch and numpy, never jax.
 
 Layout:
-  ops/         prox functions, smooth oracles, the accumulation policy, K1,
-               the whole-solve kernels K2 (one solve) and K2c (the rule sweep)
+  ops/         prox functions, smooth oracles, the accumulation policy, the
+               fused oracles K1 (least squares) and K3 (logistic), the
+               whole-solve kernels K2 (one solve) and K2c (the rule sweep)
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the proximal-gradient engine,
                fixed-step Nesterov
   models/      objectives and problem generators
-  utils/       JSONL telemetry and timing on the card
-  experiments/ the lasso driver
+  utils/       JSONL telemetry, timing on the card, the LIBSVM loader and the
+               datasets (with their synthetic fallback)
+  experiments/ the lasso and sparse logistic regression drivers
   convert.py   the JAX side's problem and rule fields, carried over
 
 Importing the package sets full-f32 matrix products on the card: TF32 off
@@ -34,16 +36,22 @@ torch.set_float32_matmul_precision("highest")
 
 from .ops.prox import Zero, L1Norm  # noqa: E402
 from .ops.oracles import SmoothOracle  # noqa: E402
-from .ops.kernels import fused_ls_value_grad, ls_value_grad_plain  # noqa: E402
+from .ops.kernels import (  # noqa: E402
+    fused_logistic_value_grad,
+    fused_ls_value_grad,
+    logistic_value_grad_plain,
+    ls_value_grad_plain,
+)
 from .ops.resident import (  # noqa: E402
     resident_adapgm,
     resident_adapgm_l1,
+    resident_logreg_l1,
     resident_records,
     resident_rule_sweep,
     resident_supported,
     rule_rows,
 )
-from .models.objectives import LeastSquares  # noqa: E402
+from .models.objectives import LeastSquares, LogisticLoss  # noqa: E402
 from .models.synthetic import LassoProblem, random_lasso  # noqa: E402
 from .solvers.rules import (  # noqa: E402
     Curvature,
@@ -59,22 +67,23 @@ from .solvers.primal_dual import (  # noqa: E402
     fixed_proxgrad,
 )
 from .solvers.nesterov import fixed_nesterov  # noqa: E402
-from .convert import lasso_from_numpy, rule_from_numpy  # noqa: E402
+from .convert import lasso_from_numpy, logreg_from_numpy, rule_from_numpy  # noqa: E402
 
 __version__ = "0.1.0"
 
 __all__ = [
     # ops
     "Zero", "L1Norm", "SmoothOracle", "fused_ls_value_grad", "ls_value_grad_plain",
-    "resident_adapgm", "resident_adapgm_l1", "resident_records", "resident_rule_sweep",
-    "resident_supported", "rule_rows",
+    "fused_logistic_value_grad", "logistic_value_grad_plain",
+    "resident_adapgm", "resident_adapgm_l1", "resident_logreg_l1", "resident_records",
+    "resident_rule_sweep", "resident_supported", "rule_rows",
     # models
-    "LeastSquares", "LassoProblem", "random_lasso",
+    "LeastSquares", "LogisticLoss", "LassoProblem", "random_lasso",
     # rules
     "Curvature", "FixedStepsize", "MalitskyMishchenkoRule", "AdaPGMRule", "OurRule",
     # solvers
     "Counters", "Records", "SolveResult",
     "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "fixed_nesterov",
     # carried over from the JAX side
-    "lasso_from_numpy", "rule_from_numpy",
+    "lasso_from_numpy", "logreg_from_numpy", "rule_from_numpy",
 ]

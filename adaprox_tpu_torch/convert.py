@@ -9,11 +9,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.objectives import LeastSquares
+from .models.objectives import LeastSquares, LogisticLoss
 from .ops.prox import L1Norm
 from .solvers import rules
 
-__all__ = ["lasso_from_numpy", "rule_from_numpy"]
+__all__ = ["lasso_from_numpy", "logreg_from_numpy", "rule_from_numpy"]
 
 _RULES = {cls.__name__: cls for cls in
           (rules.FixedStepsize, rules.MalitskyMishchenkoRule, rules.AdaPGMRule)}
@@ -28,6 +28,19 @@ def lasso_from_numpy(a, b, lam, *, device, dtype, fused):
     b_t = torch.as_tensor(np.asarray(b), device=device).to(vec_dtype)
     lam_t = torch.as_tensor(float(np.asarray(lam)), dtype=vec_dtype, device=device)
     return LeastSquares(a_t, b_t, fused=fused), L1Norm(lam_t)
+
+
+def logreg_from_numpy(x, y, lam, *, device, dtype, fused):
+    """``(LogisticLoss, L1Norm)`` of the mean logistic loss of features ``x``
+    (m, n) and labels ``y`` in {0, 1}, plus lam ||w||_1, on ``device``; the
+    bias is folded into w[-1] (w has n + 1 entries). ``dtype`` is the storage
+    dtype of x (bf16 allowed); y and lam take ``dtype`` too unless it is bf16,
+    where they take float32."""
+    vec_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+    x_t = torch.as_tensor(np.asarray(x), device=device).to(dtype)
+    y_t = torch.as_tensor(np.asarray(y), device=device).to(vec_dtype)
+    lam_t = torch.as_tensor(float(np.asarray(lam)), dtype=vec_dtype, device=device)
+    return LogisticLoss(x_t, y_t, fused=fused), L1Norm(lam_t)
 
 
 def rule_from_numpy(kind, **fields):

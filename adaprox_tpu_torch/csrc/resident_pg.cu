@@ -1,7 +1,10 @@
-// K2 and K2c for Hopper: whole proximal-gradient solves of 0.5 ||A x - b||^2 + g(x)
-// in one cooperative kernel launch.
+// K2 and K2c for Hopper: whole proximal-gradient solves of f(x) + g(x) in one
+// cooperative kernel launch, with f the least-squares loss 0.5 ||A x - b||^2
+// (obj_kind "ls") or the mean logistic loss of the rows of A with labels b in
+// {0, 1} (obj_kind "logreg", the bias folded into A as a ones column).
 //
-// Replaces the Pallas TPU kernels of adaprox_tpu/ops/resident.py for obj_kind "ls":
+// Replaces the Pallas TPU kernels of adaprox_tpu/ops/resident.py for obj_kind
+// "ls" and "logreg":
 //   K2   resident_adapgm (bodies _kernel / _kernel_rec, core _solve_core): one solve;
 //   K2c  resident_rule_sweep (body _rule_sweep_kernel_rec): R method rows of one
 //        problem, each with its own gamma0, tol, rule, momentum flag and iteration
@@ -10,6 +13,15 @@
 // body (fixed_nesterov with mu = 0); prox l1 / box / elastic / zero; optional
 // per-iteration records. A is stored as f32 or bf16; every iterate, reduction and
 // scalar is f32.
+//
+// The objective is a runtime switch, the same for every thread of the launch (a
+// uniform branch: no divergence). For "logreg" (_obj_split's logreg branch) the
+// wrapper passes A^T already divided by m_true (in A's storage type, as the TPU
+// kernel's caller does); P1 forms z_r = A_r x and writes d_r = sigmoid(z_r) - b_r
+// where "ls" writes the residual, so P2 (grad = (A^T / m_true) d) is the same
+// code for both; the objective partial is sum_r (b_r - 1) z_r - softplus(-z_r),
+// and f = -(partial + pad_rows log 2) / m_true, each zero-padded row of A adding
+// exactly -log 2 to the raw sum.
 //
 // What bounds it on the card. The data-sheet bound is the arithmetic: A is read
 // from device memory once (16.8 MB at 4096x1024 f32, 5 us at 3.35 TB/s), while
@@ -76,27 +88,30 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
+enum Obj { kLs = 0, kLogreg = 1 };
 enum Prox { kL1 = 0, kBox = 1, kElastic = 2, kZero = 3 };
 enum Rule { kFixed = 0, kMM = 1, kAdaPGM = 2 };
-// Per-CTA partial sums: part[k * grid + cta]. kPrimal2 holds ||primal||^2 in a
-// rule iteration and ||x_new - z||^2 in a momentum iteration.
+// Per-CTA partial sums: part[k * grid + cta]. kRes2 holds ||res||^2 ("ls") or the
+// raw logistic sum ("logreg"); kPrimal2 holds ||primal||^2 in a rule iteration
+// and ||x_new - z||^2 in a momentum iteration.
 enum Part { kRes2 = 0, kPrimal2, kDg2, kDgDx, kDx2, kAbsX, kX2, kParts };
 
 // The problem and the scratch, shared by every solve of a launch.
 struct Problem {
   const void* a;    // (m, n) row-major, f32 or bf16
-  const void* at;   // (n, m) row-major: the same values transposed
-  const float* b;   // (m,)
+  const void* at;   // (n, m) row-major: the same values transposed ("logreg": / m_true)
+  const float* b;   // (m,): the right-hand side, or the labels ("logreg")
   const float* x0;  // (n,)
   float* xs;        // (2, n): x and x_prev by parity
   float* gs;        // (2, n): grad and grad_prev by parity
   float* v;         // (n,): v of a rule iteration, z of a momentum iteration
-  float* res;       // (m,)
+  float* res;       // (m,): A x - b, or sigmoid(A x) - b ("logreg")
   float* part;      // (kParts, grid)
   long long m, n;
   int hist_len;     // the length of a history row: the launch's maxit
   float p1, p2;
-  int prox, record;
+  float obj_pad, obj_div;  // "logreg": pad_rows * log 2 and m_true
+  int obj, prox, record;
 };
 
 // One solve: K2's arguments, or one row of K2c's table.
@@ -254,9 +269,9 @@ __device__ __forceinline__ void write_partials(float (*warp_part)[kWarps], float
   }
 }
 
-// One whole solve (_solve_core for obj_kind "ls", rule or momentum body), run by
-// every thread of the grid. Returns with every CTA past its last grid sync of the
-// solve; the caller syncs before the scratch is used again.
+// One whole solve (_solve_core, rule or momentum body), run by every thread of
+// the grid. Returns with every CTA past its last grid sync of the solve; the
+// caller syncs before the scratch is used again.
 template <typename T, int VA, int VT>
 __device__ void solve(const Problem& p, const Solve& s) {
   cg::grid_group grid = cg::this_grid();
@@ -275,15 +290,24 @@ __device__ void solve(const Problem& p, const Solve& s) {
   const T* __restrict__ a = static_cast<const T*>(p.a);
   const T* __restrict__ at = static_cast<const T*>(p.at);
 
-  // P1: res = A x - b; this CTA's partial of ||res||^2.
+  // P1: res = A x - b and this CTA's partial of ||res||^2; for "logreg"
+  // res = sigmoid(A x) - b and the partial of (b - 1) A x - softplus(-A x).
   auto phase_res = [&](const float* x) {
     float f = 0.f;
     for (long long r = gwarp; r < m; r += nwarps) {
       const float d = warp_dot<T, VA>(a + r * n, x, n, lane);
       if (lane == 0) {
-        const float rr = d - p.b[r];
-        p.res[r] = rr;
-        f += rr * rr;
+        if (p.obj == kLogreg) {
+          const float br = p.b[r];
+          p.res[r] = 1.f / (1.f + expf(-d)) - br;
+          // softplus(-z) = logaddexp(0, -z), written stably
+          const float softplus_neg = nan_max(-d, 0.f) + log1pf(expf(-fabsf(d)));
+          f += (br - 1.f) * d - softplus_neg;
+        } else {
+          const float rr = d - p.b[r];
+          p.res[r] = rr;
+          f += rr * rr;
+        }
       }
     }
     if (lane == 0) warp_part[kRes2][warp] = f;
@@ -311,9 +335,15 @@ __device__ void solve(const Problem& p, const Solve& s) {
     } else if (p.prox == kElastic) {
       gval = p.p1 * sum[kAbsX] + 0.5f * p.p2 * sum[kX2];
     }
+    float fval;
+    if (p.obj == kLogreg) {
+      fval = -(sum[kRes2] + p.obj_pad) / p.obj_div;
+    } else {
+      fval = 0.5f * sum[kRes2];
+    }
     s.hist[it] = gamma;
     s.hist[hl + it] = norm_res;
-    s.hist[2 * hl + it] = 0.5f * sum[kRes2] + gval;
+    s.hist[2 * hl + it] = fval + gval;
   };
 
   // The carry of _solve_core. Thread 0 of every CTA holds (it, g1, g0, norm_res)
@@ -554,20 +584,20 @@ __global__ void __launch_bounds__(kThreads, 1) resident_pg_sweep_kernel(const Pr
 
 // pick_<kernel>: the instantiation for (storage, A-row vector width, A^T-row
 // vector width), or null for a combination that does not exist.
-#define ADAPROX_PICK(KERNEL)                                                                   \
-  const void* pick_##KERNEL(int a_is_bf16, int va, int vt) {                                 \
-    if (a_is_bf16) {                                                                          \
+#define ADAPROX_PICK(KERNEL)                                                               \
+  const void* pick_##KERNEL(int a_is_bf16, int va, int vt) {                             \
+    if (a_is_bf16) {                                                                       \
       if (va == 1 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 1, 1>); \
       if (va == 1 && vt == 8) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 1, 8>); \
       if (va == 8 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 8, 1>); \
       if (va == 8 && vt == 8) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 8, 8>); \
-    } else {                                                                                  \
-      if (va == 1 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<float, 1, 1>);     \
-      if (va == 1 && vt == 4) return reinterpret_cast<const void*>(&KERNEL<float, 1, 4>);     \
-      if (va == 4 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<float, 4, 1>);     \
-      if (va == 4 && vt == 4) return reinterpret_cast<const void*>(&KERNEL<float, 4, 4>);     \
-    }                                                                                         \
-    return nullptr;                                                                           \
+    } else {                                                                               \
+      if (va == 1 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<float, 1, 1>);  \
+      if (va == 1 && vt == 4) return reinterpret_cast<const void*>(&KERNEL<float, 1, 4>);  \
+      if (va == 4 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<float, 4, 1>);  \
+      if (va == 4 && vt == 4) return reinterpret_cast<const void*>(&KERNEL<float, 4, 4>);  \
+    }                                                                                      \
+    return nullptr;                                                                        \
   }
 
 ADAPROX_PICK(resident_pg_kernel)
@@ -601,8 +631,9 @@ cudaError_t launch(const void* kernel, Problem& prob, void* second, long long pa
   return cudaGetLastError();
 }
 
-bool problem_ok(long long m, long long n, int maxit, int prox_kind) {
-  return m >= 1 && n >= 1 && maxit >= 0 && prox_kind >= kL1 && prox_kind <= kZero;
+bool problem_ok(int obj_kind, long long m, long long n, int maxit, int prox_kind) {
+  return (obj_kind == kLs || obj_kind == kLogreg) && m >= 1 && n >= 1 && maxit >= 0 &&
+         prox_kind >= kL1 && prox_kind <= kZero;
 }
 
 }  // namespace
@@ -612,25 +643,29 @@ extern "C" {
 // Partials per CTA: part needs kParts floats for each CTA of the grid.
 int adaprox_resident_pg_parts() { return kParts; }
 
-// K2, one whole solve. a (m, n) and at (n, m) in f32 (a_is_bf16 = 0) or bf16;
+// K2, one whole solve. obj_kind: 0 "ls", 1 "logreg" (at holds A^T / m_true;
+// obj_pad = (m - m_true) log 2, obj_div = m_true; both ignored for "ls").
+// a (m, n) and at (n, m) in f32 (a_is_bf16 = 0) or bf16;
 // va / vt: 1, or 4 (f32) / 8 (bf16) when n / m is a multiple of it and the rows
 // are 16-byte aligned. b (m), x0 (n), xs (2, n), gs (2, n), v (n), res (m), part
 // (part_len >= kParts * SMs), x_out (n), stats (4) and, when record, hist
 // (3, maxit; null when maxit is 0): f32 device buffers the caller owns. prox:
 // 0 l1, 1 box, 2 elastic, 3 zero; rule: 0 fixed, 1 mm, 2 adapgm, ignored when
 // momentum is 1. Returns the cudaError_t of the launch (0 on success).
-int adaprox_resident_pg(const void* a, const void* at, int a_is_bf16, int va, int vt,
-                        const float* b, const float* x0, float* xs, float* gs, float* v,
+int adaprox_resident_pg(int obj_kind, float obj_pad, float obj_div, const void* a,
+                        const void* at, int a_is_bf16, int va, int vt, const float* b,
+                        const float* x0, float* xs, float* gs, float* v,
                         float* res, float* part, long long part_len, float* x_out,
                         float* stats, float* hist, long long m, long long n, int maxit,
                         float gamma0, float tol, float p1, float p2, int prox_kind,
                         int rule_kind, int momentum, int record, void* stream_ptr) {
   const void* kernel = pick_resident_pg_kernel(a_is_bf16, va, vt);
-  if (kernel == nullptr || !problem_ok(m, n, maxit, prox_kind) || rule_kind < kFixed ||
-      rule_kind > kAdaPGM || (record && maxit > 0 && !hist)) {
+  if (kernel == nullptr || !problem_ok(obj_kind, m, n, maxit, prox_kind) ||
+      rule_kind < kFixed || rule_kind > kAdaPGM || (record && maxit > 0 && !hist)) {
     return cudaErrorInvalidValue;
   }
-  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1, p2, prox_kind, record};
+  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1, p2, obj_pad, obj_div,
+               obj_kind, prox_kind, record};
   Solve s{gamma0, tol, rule_kind, momentum != 0, maxit, x_out, stats, hist};
   return static_cast<int>(launch(kernel, prob, &s, part_len, stream_ptr));
 }
@@ -640,18 +675,20 @@ int adaprox_resident_pg(const void* a, const void* at, int a_is_bf16, int va, in
 // the device; the caller has checked every rule in [0, 2] and every cap in
 // [0, maxit]. x_out (rows, n), stats (rows, 4), hist (rows, 3, maxit; null when
 // maxit is 0); the other arguments as for adaprox_resident_pg.
-int adaprox_resident_pg_sweep(const void* a, const void* at, int a_is_bf16, int va, int vt,
-                              const float* b, const float* x0, float* xs, float* gs, float* v,
+int adaprox_resident_pg_sweep(int obj_kind, float obj_pad, float obj_div, const void* a,
+                              const void* at, int a_is_bf16, int va, int vt, const float* b,
+                              const float* x0, float* xs, float* gs, float* v,
                               float* res, float* part, long long part_len, const float* rows_f,
                               const int* rows_i, int rows, float* x_out, float* stats,
                               float* hist, long long m, long long n, int maxit, float p1,
                               float p2, int prox_kind, void* stream_ptr) {
   const void* kernel = pick_resident_pg_sweep_kernel(a_is_bf16, va, vt);
-  if (kernel == nullptr || !problem_ok(m, n, maxit, prox_kind) || rows < 1 || !rows_f ||
-      !rows_i || (maxit > 0 && !hist)) {
+  if (kernel == nullptr || !problem_ok(obj_kind, m, n, maxit, prox_kind) || rows < 1 ||
+      !rows_f || !rows_i || (maxit > 0 && !hist)) {
     return cudaErrorInvalidValue;
   }
-  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1, p2, prox_kind, 1};
+  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1, p2, obj_pad, obj_div,
+               obj_kind, prox_kind, 1};
   Rows r{rows_f, rows_i, rows, x_out, stats, hist};
   return static_cast<int>(launch(kernel, prob, &r, part_len, stream_ptr));
 }

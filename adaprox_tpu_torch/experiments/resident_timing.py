@@ -1,0 +1,113 @@
+"""Times the whole-solve kernels K2 and K2c (``csrc/resident_pg.cu``) on one
+card, at the shapes that set their cost, and prints the card's name and
+power limit, then one line of JSON.
+
+    python -m adaprox_tpu_torch.experiments.resident_timing [--reps 5]
+
+CUDA events, best of ``--reps`` after a warm-up (``utils.profiling.timed``);
+A in f32 unless a case says bf16. Cases:
+  build_s          seconds to build (or find built) csrc/resident_pg.cu
+  solve_ms         the resident reference size: random_lasso(4000, 1000, 10)
+                   padded to 4096x1024, AdaPGM, l1 (lam 1), tol 1e-4, one K2 launch
+  *_it_us          K2 or a one-row K2c sweep, fixed rule, zero prox, tol 0,
+                   1000 iterations, per iteration:
+    ls_it_us         the reference size's A and b (K2's f32 4,4 instantiation)
+    ls_bf16_it_us    the same, bf16 storage (bf16 8,8)
+    ls_bf16_8_1_it_us  4092x1024, bf16 storage (bf16 8,1: rows of A^T
+                     take scalar loads)
+    logreg_it_us     the logistic objective at 8128x128 (mushrooms' padded
+                     [X 1] shape; random A and labels)
+    sweep_1_4_it_us  a one-row sweep at 4096x1022 (the sweep's f32 1,4)
+  menu_ms          K2c, the lasso menu's four rows at 4000x1000x10 padded to
+                   4000x1024 (maxit 2000, tol 1e-7; the sweep's f32 4,4)
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from ..experiments.common import pad_tiles
+from ..models.synthetic import random_lasso
+from ..ops import resident
+from ..utils.profiling import timed
+
+MENU = (("fixed", False), ("fixed", True), ("mm", False), ("adapgm", False))
+ITERS = 1000
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--reps", type=int, default=5)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("resident_timing: needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    out = {}
+    t0 = time.perf_counter()
+    resident.build_library()
+    out["build_s"] = time.perf_counter() - t0
+
+    def it_us(fn):
+        """Per-iteration microseconds of ``fn``, a run of ITERS iterations."""
+        secs, res = timed(fn, reps=args.reps)
+        if int(res[1].reshape(-1)[0]) != ITERS:
+            raise RuntimeError(f"ran {int(res[1].reshape(-1)[0])} of {ITERS} iterations")
+        return 1e6 * secs / ITERS
+
+    def k2_it_us(a_, b_, gam_, **kw):
+        z = torch.zeros(a_.shape[1], device=dev)
+        return it_us(lambda: resident.resident_adapgm(a_, b_, z, gam_, 0.0, ITERS,
+                                                      prox_kind="zero", rule_kind="fixed", **kw))
+
+    def random_problem(m, n, dtype=torch.float32):
+        a_ = torch.randn(m, n, generator=gen, device=dev) / n
+        # 1/||A||_F^2 <= 1/||A||^2: a stable fixed step
+        b_ = torch.randn(m, generator=gen, device=dev)
+        return a_.to(dtype), b_, 1.0 / float((a_ * a_).sum())
+
+    prob = random_lasso(m=4000, n=1000, pfactor=10, seed=0)
+    a_np, b_np = prob.a.astype(np.float32), prob.b.astype(np.float32)
+    a = torch.zeros(4096, 1024, device=dev)
+    a[:4000, :1000] = torch.as_tensor(a_np, device=dev)
+    b = torch.zeros(4096, device=dev)
+    b[:4000] = torch.as_tensor(b_np, device=dev)
+    gam = 1.0 / float(np.linalg.norm(prob.a, 2) ** 2)
+    x0 = torch.zeros(1024, device=dev)
+    secs, res = timed(lambda: resident.resident_adapgm_l1(a, b, x0, gam, 1.0, 1e-4, 4000),
+                      reps=args.reps)
+    out["solve_ms"], out["solve_numit"] = 1e3 * secs, int(res[1])
+    out["ls_it_us"] = k2_it_us(a, b, gam)
+    out["ls_bf16_it_us"] = k2_it_us(a.to(torch.bfloat16), b, gam)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    out["ls_bf16_8_1_it_us"] = k2_it_us(*random_problem(4092, 1024, torch.bfloat16))
+    a_l, _, gam_l = random_problem(8128, 128)
+    y_l = (torch.rand(8128, generator=gen, device=dev) < 0.5).float()
+    # the logistic loss's gradient is (1/4m)-Lipschitz in ||A||^2
+    out["logreg_it_us"] = k2_it_us(a_l, y_l, 4 * 8128 * gam_l, obj_kind="logreg")
+    a_s, b_s, gam_s = random_problem(4096, 1022)
+    rows = resident.rule_rows([(gam_s, "fixed", False)], tol=0.0, maxit=ITERS)
+    out["sweep_1_4_it_us"] = it_us(lambda: resident.resident_rule_sweep(
+        a_s, b_s, torch.zeros(1022, device=dev), rows, 0.0, ITERS, prox_kind="zero"))
+
+    a_d, b_d = pad_tiles(torch.as_tensor(a_np, device=dev), torch.as_tensor(b_np, device=dev))
+    rows_d = resident.rule_rows([(gam, rule, mom) for rule, mom in MENU], tol=1e-7, maxit=2000)
+    secs, res = timed(lambda: resident.resident_rule_sweep(
+        a_d, b_d, torch.zeros(a_d.shape[1], device=dev), rows_d, 1e-7, 2000, p1=prob.lam),
+        reps=args.reps)
+    out["menu_ms"], out["menu_numit"] = 1e3 * secs, res[1].tolist()
+    print(smi)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

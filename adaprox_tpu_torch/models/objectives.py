@@ -1,6 +1,10 @@
-"""Smooth objectives on the main path (counterpart of
-``adaprox_tpu/models/objectives.py``): ``LeastSquares``, the reference's
-hand-written pullback struct of experiments/lasso/runme.jl:16-27."""
+"""Smooth objectives ported so far (counterpart of
+``adaprox_tpu/models/objectives.py``), the reference's hand-written pullback
+structs:
+
+  * LeastSquares  experiments/lasso/runme.jl:16-27
+  * LogisticLoss  experiments/sparse_logreg/runme.jl:18-39
+"""
 
 from __future__ import annotations
 
@@ -11,7 +15,7 @@ from ..ops import kernels
 from ..ops.linops import acc_dtype
 from ..ops.oracles import SmoothOracle
 
-__all__ = ["LeastSquares"]
+__all__ = ["LeastSquares", "LogisticLoss"]
 
 
 class LeastSquares(nn.Module, SmoothOracle):
@@ -57,3 +61,47 @@ class LeastSquares(nn.Module, SmoothOracle):
             return torch.clamp_min(0.5 * torch.dot(dx, aux - aux_prev), 0.0)
         dres = aux - aux_prev
         return 0.5 * torch.sum(dres * dres)
+
+
+class LogisticLoss(nn.Module, SmoothOracle):
+    """Mean logistic loss with the bias folded into the last coordinate of w
+    (reference experiments/sparse_logreg/runme.jl:23-39), with ``x`` (m, n)
+    and labels ``y`` in {0, 1} as buffers:
+
+        logits = X @ w[:-1] + w[-1]
+        f(w) = -mean((y - 1) * logits - log(1 + exp(-logits)))
+
+    ``fused=False``: aux = sigmoid(logits), grad = [X'(probs - y)/m,
+    mean(probs - y)]; ``x`` may be stored bf16, results accumulate in the
+    iterate dtype.
+
+    ``fused=True``: value and gradient from one call of K3
+    (``ops.kernels.fused_logistic_value_grad``); aux = gradient. On CUDA
+    tensors that launches the hand-written kernel or raises; on CPU tensors
+    it is the plain version. Any (m, n) is taken: the JAX package takes its
+    fused branch only on TPU-tile-aligned X, a tiling limit K3 does not have.
+    """
+
+    def __init__(self, x, y, fused=False):
+        super().__init__()
+        self.register_buffer("x", x)
+        self.register_buffer("y", y)
+        self.fused = fused
+
+    def forward(self, w):
+        return self.value(w)
+
+    def value_and_aux(self, w):
+        if self.fused:
+            f_x, gw, gb = kernels.fused_logistic_value_grad(self.x, self.y, w[:-1], w[-1])
+            return f_x, torch.cat([gw, gb[None]]).to(w.dtype)
+        logits = torch.mv(self.x.to(acc_dtype(self.x, w)), w[:-1]) + w[-1]
+        terms, probs = kernels.logistic_terms(logits, self.y)
+        return -torch.mean(terms), probs
+
+    def grad_from_aux(self, w, aux):
+        if self.fused:
+            return aux  # K3 already produced the gradient
+        diff = aux - self.y
+        gw = torch.mv(self.x.to(acc_dtype(self.x, diff)).t(), diff) / self.y.shape[0]
+        return torch.cat([gw, torch.mean(diff)[None]]).to(w.dtype)

@@ -1,15 +1,19 @@
-"""K1, the fused least-squares oracle: f = 0.5 ||A x - b||^2 and
-grad = A'(A x - b) in one call.
+"""The fused oracles: K1, least squares (f = 0.5 ||A x - b||^2 and
+grad = A'(A x - b)), and K3, the mean logistic loss (f and its gradient in
+the weights and the bias), each in one call.
 
-Counterpart of ``adaprox_tpu/ops/kernels.py::fused_ls_value_grad`` (the
-Pallas TPU kernel). Here the kernel is hand-written CUDA C++ for Hopper
-(``csrc/fused_ls.cu``), built with nvcc for ``sm_90a`` at first use into
+Counterparts of ``adaprox_tpu/ops/kernels.py::fused_ls_value_grad`` and
+``fused_logistic_value_grad`` (Pallas TPU kernels). Here each kernel is
+hand-written CUDA C++ for Hopper (``csrc/fused_ls.cu``,
+``csrc/fused_logistic.cu``), built with nvcc for ``sm_90a`` at first use into
 ``adaprox_tpu_torch/_build/`` (keyed on the source's content hash), loaded
-with ctypes and launched on the current stream.
+with ctypes (one library handle a source) and launched on the current
+stream.
 
-``fused_ls_value_grad`` dispatches on where its tensors lie: CPU tensors take
-the plain two-matmul version ``ls_value_grad_plain``; CUDA tensors launch the
-kernel or raise. There is no fall-back from CUDA to the plain version.
+Both wrappers dispatch on where their tensors lie: CPU tensors take the plain
+versions ``ls_value_grad_plain`` / ``logistic_value_grad_plain``; CUDA
+tensors launch the kernel or raise. There is no fall-back from CUDA to the
+plain version.
 """
 
 from __future__ import annotations
@@ -25,15 +29,17 @@ import torch
 
 from .linops import acc_dtype
 
-__all__ = ["fused_ls_value_grad", "ls_value_grad_plain", "build_library"]
+__all__ = ["fused_ls_value_grad", "ls_value_grad_plain", "fused_logistic_value_grad",
+           "logistic_value_grad_plain", "logistic_terms", "build_library", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_ls.cu"
+LOGISTIC_SOURCE = _PKG / "csrc" / "fused_logistic.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib = None
+_libs = {}  # (source, flags) -> the loaded library
 _lib_lock = threading.Lock()
 
 
@@ -58,10 +64,11 @@ def _nvcc():
 
 
 def build_library(source=SOURCE, flags=NVCC_FLAGS):
-    """Compile the CUDA source ``source`` (K1's by default) into a shared
-    library with nvcc ``flags`` unless the build for this exact source and
-    flag set exists already. Returns the path; nvcc's register/shared-memory
-    report is kept beside it as ``.log``."""
+    """Compile the CUDA source ``source`` (K1's by default; K3's is
+    ``LOGISTIC_SOURCE``) into a shared library with nvcc ``flags`` unless the
+    build for this exact source and flag set exists already. Returns the
+    path; nvcc's register/shared-memory report is kept beside it as
+    ``.log``."""
     source = Path(source)
     src = source.read_bytes()
     key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
@@ -79,20 +86,29 @@ def build_library(source=SOURCE, flags=NVCC_FLAGS):
     return out
 
 
-def _library():
-    global _lib
+def load_library(source, flags, signatures):
+    """The ctypes handle of ``source`` built with ``flags`` (``build_library``),
+    loaded once a process. ``signatures`` maps each C entry's name to its
+    (argtypes, restype)."""
+    key = (str(source), tuple(flags))
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.adaprox_fused_ls.argtypes = [p, i, i, p, p, ll, ll, i, p, p, p, p, p]
-            lib.adaprox_fused_ls.restype = i
-            lib.adaprox_fused_ls_rows_per_step.argtypes = [i]
-            lib.adaprox_fused_ls_rows_per_step.restype = i
-            lib.adaprox_cuda_error_string.argtypes = [i]
-            lib.adaprox_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+        if key not in _libs:
+            lib = ctypes.CDLL(str(build_library(source, flags)))
+            for name, (argtypes, restype) in signatures.items():
+                entry = getattr(lib, name)
+                entry.argtypes, entry.restype = argtypes, restype
+            _libs[key] = lib
+        return _libs[key]
+
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _library():
+    return load_library(SOURCE, NVCC_FLAGS, {
+        "adaprox_fused_ls": ([_P, _I, _I, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P], _I),
+        "adaprox_fused_ls_rows_per_step": ([_I], _I),
+        "adaprox_cuda_error_string": ([_I], ctypes.c_char_p)})
 
 
 def _check_shapes(a, b, x):
@@ -157,3 +173,94 @@ def fused_ls_value_grad(a, b, x):
 
 
 fused_ls_value_grad.launches = 0
+
+
+# -- K3, the fused logistic oracle ----------------------------------------------------
+
+
+def logistic_terms(logits, y):
+    """The rows of the logistic loss at ``logits``: the terms
+    (y - 1) z - softplus(-z) whose mean is -f (softplus(-z) computed stably,
+    as logaddexp(0, -z)), and the probabilities sigmoid(z)."""
+    softplus_neg = torch.logaddexp(torch.zeros_like(logits), -logits)
+    return (y - 1.0) * logits - softplus_neg, 1.0 / (1.0 + torch.exp(-logits))
+
+
+def logistic_value_grad_plain(x_mat, y, w, w_bias):
+    """The plain version (counterpart of ``logistic_value_grad_xla``):
+    z = X w + w_b, f = -mean((y - 1) z - softplus(-z)), grad_w =
+    X'(sigmoid(z) - y)/m, grad_b = mean(sigmoid(z) - y), accumulated in the
+    dtype of ``w`` (bf16 storage of X is upcast to it). Two passes over X."""
+    acc = w.dtype
+    x_mat = x_mat.to(acc)
+    y = y.to(acc)
+    terms, probs = logistic_terms(torch.mv(x_mat, w) + w_bias, y)
+    diff = probs - y
+    return -torch.mean(terms), torch.mv(x_mat.t(), diff) / y.shape[0], torch.mean(diff)
+
+
+def _logistic_library():
+    return load_library(LOGISTIC_SOURCE, NVCC_FLAGS, {
+        "adaprox_fused_logistic": ([_P, _I, _I, _P, _P, _P, _LL, _LL, _I] + [_P] * 7, _I),
+        "adaprox_fused_logistic_rows_per_step": ([_I], _I),
+        "adaprox_fused_logistic_error_string": ([_I], ctypes.c_char_p)})
+
+
+def fused_logistic_value_grad(x_mat, y, w, w_bias):
+    """(f, grad_w, grad_bias) of the mean logistic loss with logits
+    X w + w_bias. ``x_mat`` (m, n), ``y`` (m,) labels in {0, 1}, ``w`` (n,),
+    ``w_bias`` a 0-d tensor.
+
+    CPU tensors: the plain version, any float dtype. CUDA tensors: the K3
+    kernel; ``x_mat`` f32 or bf16, ``y``, ``w`` and ``w_bias`` f32, all
+    contiguous, any m, n >= 1; returns a 0-d f32 ``f``, an (n,) f32 ``grad_w``
+    and a 0-d f32 ``grad_bias``. Anything else raises. Each kernel launch adds
+    one to ``fused_logistic_value_grad.launches``."""
+    if x_mat.ndim != 2 or y.ndim != 1 or w.ndim != 1 or w_bias.ndim != 0:
+        raise ValueError(f"need x_mat (m, n), y (m,), w (n,), w_bias (); got "
+                         f"{tuple(x_mat.shape)}, {tuple(y.shape)}, {tuple(w.shape)}, "
+                         f"{tuple(w_bias.shape)}")
+    m, n = x_mat.shape
+    if y.shape[0] != m or w.shape[0] != n:
+        raise ValueError(f"shape mismatch: x_mat {tuple(x_mat.shape)}, y {tuple(y.shape)}, "
+                         f"w {tuple(w.shape)}")
+    if not (x_mat.device == y.device == w.device == w_bias.device):
+        raise ValueError(f"x_mat, y, w, w_bias on different devices: {x_mat.device}, "
+                         f"{y.device}, {w.device}, {w_bias.device}")
+    if x_mat.device.type == "cpu":
+        return logistic_value_grad_plain(x_mat, y, w, w_bias)
+    if x_mat.device.type != "cuda":
+        raise ValueError(f"K3 runs on CPU (plain version) or CUDA tensors, not {x_mat.device}")
+    if x_mat.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"K3 stores X as float32 or bfloat16 on CUDA, got {x_mat.dtype}")
+    if any(t.dtype != torch.float32 for t in (y, w, w_bias)):
+        raise TypeError(f"K3 takes float32 y, w and w_bias on CUDA, got {y.dtype}, {w.dtype}, "
+                        f"{w_bias.dtype}")
+    if not (x_mat.is_contiguous() and y.is_contiguous() and w.is_contiguous()):
+        raise ValueError("K3 needs contiguous x_mat, y and w")
+    if m < 1 or n < 1:
+        raise ValueError(f"K3 needs m, n >= 1, got {tuple(x_mat.shape)}")
+    lib = _logistic_library()
+    bf16 = x_mat.dtype == torch.bfloat16
+    vec = 8 if bf16 else 4
+    if n % vec or x_mat.data_ptr() % 16 or w.data_ptr() % 16:
+        vec = 1
+    grid = _grid(m, lib.adaprox_fused_logistic_rows_per_step(int(bf16)), x_mat.device)
+    f32 = dict(dtype=torch.float32, device=x_mat.device)
+    loss_part, d_part = torch.empty(grid, **f32), torch.empty(grid, **f32)
+    g_part = torch.empty((grid, n), **f32)
+    f, gw, gb = torch.empty((), **f32), torch.empty(n, **f32), torch.empty((), **f32)
+    with torch.cuda.device(x_mat.device):
+        stream = torch.cuda.current_stream(x_mat.device).cuda_stream
+        err = lib.adaprox_fused_logistic(
+            x_mat.data_ptr(), int(bf16), vec, y.data_ptr(), w.data_ptr(), w_bias.data_ptr(), m,
+            n, grid, loss_part.data_ptr(), d_part.data_ptr(), g_part.data_ptr(), f.data_ptr(),
+            gw.data_ptr(), gb.data_ptr(), stream)
+    if err:
+        msg = lib.adaprox_fused_logistic_error_string(err).decode()
+        raise RuntimeError(f"K3 launch failed: CUDA error {err} ({msg})")
+    fused_logistic_value_grad.launches += 1
+    return f, gw, gb
+
+
+fused_logistic_value_grad.launches = 0

@@ -1,14 +1,18 @@
 """K2 and K2c, the whole-solve kernels: complete proximal-gradient solves of
-0.5 ||A x - b||^2 + g(x) in one launch.
+f(x) + g(x) in one launch, f the least-squares loss 0.5 ||A x - b||^2
+(``obj_kind="ls"``) or the mean logistic loss with the bias folded into A as
+a ones column (``obj_kind="logreg"``, labels b in {0, 1}).
 
-Counterpart of ``adaprox_tpu/ops/resident.py`` for ``obj_kind="ls"``:
-``resident_adapgm`` (K2, one solve; the Pallas TPU kernel over
-``_solve_core``) and ``resident_rule_sweep`` (K2c, the rule rows of a method
-menu in one launch, each row with its own gamma0, rule, momentum flag, tol
-and iteration cap). Step-size rules fixed / Malitsky-Mishchenko / AdaPGM or
-the Nesterov momentum body (``fixed_nesterov`` with mu = 0), prox kinds l1 /
-box / elastic / zero, and the record mode that returns per-iteration
-histories. Here both kernels are hand-written CUDA C++ for Hopper
+Counterpart of ``adaprox_tpu/ops/resident.py`` for ``obj_kind`` "ls" and
+"logreg" (the "cubic" objective is not ported yet): ``resident_adapgm`` (K2,
+one solve; the Pallas TPU kernel over ``_solve_core``), its aliases
+``resident_adapgm_l1`` and ``resident_logreg_l1``, and
+``resident_rule_sweep`` (K2c, the rule rows of a method menu in one launch,
+each row with its own gamma0, rule, momentum flag, tol and iteration cap).
+Step-size rules fixed / Malitsky-Mishchenko / AdaPGM or the Nesterov
+momentum body (``fixed_nesterov`` with mu = 0), prox kinds l1 / box /
+elastic / zero, and the record mode that returns per-iteration histories.
+Here both kernels are hand-written CUDA C++ for Hopper
 (``csrc/resident_pg.cu``): one cooperative launch with grid-wide barriers
 between the phases of an iteration, built with nvcc for ``sm_90a`` at first
 use and loaded with ctypes, like K1 (``ops/kernels.py``). K2 and K2c run the
@@ -24,7 +28,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 
 import numpy as np
 import torch
@@ -34,8 +37,8 @@ from ..solvers.common import Records
 from . import kernels
 
 __all__ = ["resident_supported", "resident_adapgm", "resident_adapgm_plain",
-           "resident_adapgm_l1", "resident_rule_sweep", "resident_rule_sweep_plain",
-           "rule_rows", "resident_records", "build_library"]
+           "resident_adapgm_l1", "resident_logreg_l1", "resident_rule_sweep",
+           "resident_rule_sweep_plain", "rule_rows", "resident_records", "build_library"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_pg.cu"
 # -fmad=false: every elementwise expression rounds after each operation, as the
@@ -97,18 +100,69 @@ def _rule_fixed(g1, g0, ndg2, dgdx, ndx2):
 
 
 _RULES = {"fixed": _rule_fixed, "mm": _rule_mm, "adapgm": _rule_adapgm}
+_OBJ_IDX = {"ls": 0, "logreg": 1}
 _PROX_IDX = {"l1": 0, "box": 1, "elastic": 2, "zero": 3}
 _RULE_IDX = {"fixed": 0, "mm": 1, "adapgm": 2}
 _RULE_OF_IDX = {v: k for k, v in _RULE_IDX.items()}
 
 
+def _m_div(a, m_true):
+    """The logistic mean's divisor and the padded rows: ``m_true`` (the
+    unpadded row count) or all rows of ``a``."""
+    m = a.shape[0]
+    m_div = float(m if m_true is None else m_true)
+    if not 0 < m_div <= m:
+        raise ValueError(f"m_true must be in (0, m={m}], got {m_true}")
+    return m_div, m - m_div
+
+
+def _transposed(a, obj_kind, m_true):
+    """The second layout of A that the gradient reads: A^T, divided by the
+    mean's divisor for "logreg" (in A's storage dtype, as the JAX package's
+    caller builds it), so that the kernel and the plain version read the
+    same bits."""
+    if obj_kind == "logreg":
+        return a.t() / _m_div(a, m_true)[0]
+    return a.t()
+
+
+def _obj_split(a, at, b, obj_kind, m_true):
+    """The smooth oracle of ``_solve_core`` (``_obj_split`` in the JAX
+    package) as (val_aux_of, grad_from_aux):
+      * "ls": f = 0.5 ||A x - b||^2, aux = the residual, grad = A' res;
+      * "logreg": aux = sigmoid(z) at the logits z = A x, f = -(sum((b - 1) z
+        - softplus(-z)) + pad_rows log 2) / m_true (each zero-padded row adds
+        exactly -log 2 to the raw sum), grad = (A' / m_true)(sigmoid(z) - b)
+        with ``at`` already divided."""
+    if obj_kind == "logreg":
+        m_div, pad_rows = _m_div(a, m_true)
+
+        def val_aux_of(x):
+            terms, probs = kernels.logistic_terms(torch.mv(a, x), b)
+            return -(torch.sum(terms) + pad_rows * math.log(2.0)) / m_div, probs
+
+        def grad_from_aux(probs):
+            return torch.mv(at, probs - b)
+    else:
+        def val_aux_of(x):
+            res = torch.mv(a, x) - b
+            return 0.5 * torch.sum(res * res), res
+
+        def grad_from_aux(res):
+            return torch.mv(at, res)
+    return val_aux_of, grad_from_aux
+
+
 def resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0,
-                          rule_kind="adapgm", momentum=False, record=False):
+                          rule_kind="adapgm", momentum=False, record=False, obj_kind="ls",
+                          m_true=None):
     """The plain PyTorch version of the kernel: ``_solve_core``'s loop for
-    ``obj_kind="ls"``, one host-checked iteration at a time. ``momentum``
-    runs its momentum body instead of the rule's (the rule is then unused).
-    Scalars are 0-d tensors in the iterate dtype; bf16 storage of ``a`` is
-    upcast to it. Returns what ``resident_adapgm`` returns."""
+    ``obj_kind`` "ls" or "logreg", one host-checked iteration at a time.
+    ``momentum`` runs its momentum body instead of the rule's (the rule is
+    then unused). Scalars are 0-d tensors in the iterate dtype; bf16 storage
+    of ``a`` is upcast to it (for "logreg" after A^T is divided by the mean's
+    divisor in storage dtype, as the kernel's wrapper does). Returns what
+    ``resident_adapgm`` returns."""
     dt, dev = x0.dtype, x0.device
 
     def scalar(v):
@@ -116,8 +170,10 @@ def resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, 
 
     gamma0, tol, p1, p2 = (scalar(v) for v in (gamma0, tol, p1, p2))
     inf = scalar(math.inf)
+    at = _transposed(a, obj_kind, m_true).to(dt)
     a = a.to(dt)
     b = b.to(dt)
+    val_aux_of, grad_from_aux = _obj_split(a, at, b, obj_kind, m_true)
     prox_fn, gval_fn, rule_fn = _PROX[prox_kind], _GVAL[prox_kind], _RULES[rule_kind]
     hists = torch.zeros((3, maxit), dtype=dt, device=dev)
     gamma = gamma0
@@ -133,29 +189,28 @@ def resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, 
             theta_next = (1 + torch.sqrt(1 + 4 * theta * theta)) / 2
             beta = (theta - 1) / theta_next
             z = x + beta * (x - x_prev)
-            grad = torch.mv(a.t(), torch.mv(a, z) - b)
+            grad = grad_from_aux(val_aux_of(z)[1])
             x_new = prox_fn(z - gamma * grad, gamma, p1, p2)
             d = x_new - z
             norm_res = torch.sqrt(torch.sum(d * d)) / gamma
             if record:
                 # objective at the NEW iterate: one more forward matvec
-                res = torch.mv(a, x_new) - b
-                objective = 0.5 * torch.sum(res * res) + gval_fn(x_new, p1, p2)
+                objective = val_aux_of(x_new)[0] + gval_fn(x_new, p1, p2)
                 hists[:, it] = torch.stack([gamma, norm_res, objective])
             # the residual is checked AT x_new, which is returned either way
             x_prev, x, ck_x, theta = x, x_new, x_new, theta_next
             it += 1
     else:
         # warm-up (the engine's init)
-        grad0 = torch.mv(a.t(), torch.mv(a, x0) - b)
+        grad0 = grad_from_aux(val_aux_of(x0)[1])
         v = x0 - gamma0 * grad0
         x = prox_fn(v, gamma0, p1, p2)
         x_prev, grad_prev, ck_x = x0, grad0, x
         g1 = gamma0
         g0 = inf if rule_kind == "mm" else gamma0
         while it < maxit and bool(norm_res > tol):  # a NaN residual stops
-            res = torch.mv(a, x) - b
-            grad = torch.mv(a.t(), res)
+            f_x, aux = val_aux_of(x)
+            grad = grad_from_aux(aux)
             primal = (v - x) / gamma + grad
             norm_res = torch.sqrt(torch.sum(primal * primal))
             dg = grad - grad_prev
@@ -164,7 +219,7 @@ def resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, 
                                     torch.sum(dx * dx))
             if record:
                 # objective at the CURRENT x, gamma the step just updated
-                objective = 0.5 * torch.sum(res * res) + gval_fn(x, p1, p2)
+                objective = f_x + gval_fn(x, p1, p2)
                 hists[:, it] = torch.stack([gamma, norm_res, objective])
             v = x - gamma * grad
             # the residual is checked AT x: on convergence that iterate is
@@ -180,35 +235,20 @@ def resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, 
     return base + tuple(hists) if record else base
 
 
-_lib = None
-_lib_lock = threading.Lock()
-
-
 def build_library():
     """Compile ``csrc/resident_pg.cu`` (see ``ops.kernels.build_library``)."""
     return kernels.build_library(SOURCE, NVCC_FLAGS)
 
 
 def _library():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-            # a .. part_len, the leading arguments of both entries
-            problem = [p, p, i, i, i, p, p, p, p, p, p, p, ll]
-            lib.adaprox_resident_pg_parts.argtypes = []
-            lib.adaprox_resident_pg_parts.restype = i
-            lib.adaprox_resident_pg.argtypes = problem + [p, p, p, ll, ll, i, f, f, f, f, i, i,
-                                                          i, i, p]
-            lib.adaprox_resident_pg.restype = i
-            lib.adaprox_resident_pg_sweep.argtypes = problem + [p, p, i, p, p, p, ll, ll, i, f,
-                                                                f, i, p]
-            lib.adaprox_resident_pg_sweep.restype = i
-            lib.adaprox_resident_pg_error_string.argtypes = [i]
-            lib.adaprox_resident_pg_error_string.restype = ctypes.c_char_p
-            _lib = lib
-        return _lib
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    # obj_kind .. part_len, the leading arguments of both entries
+    problem = [i, f, f, p, p, i, i, i, p, p, p, p, p, p, p, ll]
+    return kernels.load_library(SOURCE, NVCC_FLAGS, {
+        "adaprox_resident_pg_parts": ([], i),
+        "adaprox_resident_pg": (problem + [p, p, p, ll, ll, i, f, f, f, f, i, i, i, i, p], i),
+        "adaprox_resident_pg_sweep": (problem + [p, p, i, p, p, p, ll, ll, i, f, f, i, p], i),
+        "adaprox_resident_pg_error_string": ([i], ctypes.c_char_p)})
 
 
 def _raise_on(lib, err, what):
@@ -223,10 +263,11 @@ def _vec(rows_len, dtype, ptr):
     return vec if rows_len % vec == 0 and ptr % 16 == 0 else 1
 
 
-def _problem(lib, a, b, x0, what):
+def _problem(lib, a, b, x0, obj_kind, m_true, what):
     """Check what the kernels take, and make the second layout of A and the
     scratch of one launch (on the current device). Returns the leading
-    arguments of both C entries (a .. part_len) and the tensors behind them."""
+    arguments of both C entries (obj_kind .. part_len) and the tensors
+    behind them."""
     if a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} stores A as float32 or bfloat16 on CUDA, got {a.dtype}")
     if b.dtype != torch.float32 or x0.dtype != torch.float32:
@@ -237,8 +278,9 @@ def _problem(lib, a, b, x0, what):
     if m < 1 or n < 1:
         raise ValueError(f"{what} needs m, n >= 1, got {tuple(a.shape)}")
     dev = a.device
+    m_div, pad_rows = _m_div(a, m_true) if obj_kind == "logreg" else (1.0, 0.0)
     # the second layout, made once per launch (it counts in the launch's time)
-    at = a.t().contiguous()
+    at = _transposed(a, obj_kind, m_true).contiguous()
     va, vt = _vec(n, a.dtype, a.data_ptr()), _vec(m, a.dtype, at.data_ptr())
     f32 = dict(dtype=torch.float32, device=dev)
     xs, gs = torch.empty((2, n), **f32), torch.empty((2, n), **f32)
@@ -247,17 +289,20 @@ def _problem(lib, a, b, x0, what):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     part = torch.empty(lib.adaprox_resident_pg_parts() * sms, **f32)
     tensors = (a, at, b, x0, xs, gs, v, res, part)
-    args = [a.data_ptr(), at.data_ptr(), int(a.dtype == torch.bfloat16), va, vt,
-            *(t.data_ptr() for t in tensors[2:]), part.numel()]
+    args = [_OBJ_IDX[obj_kind], pad_rows * math.log(2.0), m_div, a.data_ptr(), at.data_ptr(),
+            int(a.dtype == torch.bfloat16), va, vt, *(t.data_ptr() for t in tensors[2:]),
+            part.numel()]
     return args, tensors
 
 
-def _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum, record):
+def _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum, record,
+            obj_kind, m_true):
     lib = _library()
     dev = a.device
     n = a.shape[1]
     with torch.cuda.device(dev):
-        args, keep = _problem(lib, a, b, x0, "K2")  # keep: the tensors behind args
+        # keep: the tensors behind args
+        args, keep = _problem(lib, a, b, x0, obj_kind, m_true, "K2")
         f32 = dict(dtype=torch.float32, device=dev)
         x_out, stats = torch.empty(n, **f32), torch.empty(4, **f32)
         hist = torch.empty((3, maxit), **f32) if record else None
@@ -274,9 +319,12 @@ def _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum
 
 
 def _check_menu(what, prox_kind, obj_kind):
-    if obj_kind != "ls":
-        raise NotImplementedError(f"{what}: obj_kind={obj_kind!r} is not ported yet (only "
-                                  "'ls'); see ROADMAP.md §1")
+    if obj_kind == "cubic":
+        raise NotImplementedError(f"{what}: obj_kind='cubic' is not ported yet (ported: 'ls', "
+                                  "'logreg'); see ROADMAP.md §1")
+    if obj_kind not in _OBJ_IDX:
+        raise ValueError(f"obj_kind must be one of {sorted(_OBJ_IDX)} or 'cubic', got "
+                         f"{obj_kind!r}")
     if prox_kind not in _PROX:
         raise ValueError(f"prox_kind must be one of {sorted(_PROX)}, got {prox_kind!r}")
 
@@ -284,12 +332,15 @@ def _check_menu(what, prox_kind, obj_kind):
 def resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0,
                     rule_kind="adapgm", momentum=False, obj_kind="ls", m_true=None,
                     record=False, cube_c=0.0):
-    """Full proximal-gradient solve of 0.5||Ax-b||^2 + g(x) in one kernel
-    launch, with g from the static prox menu ("l1", "box", "elastic",
-    "zero") parameterized by (p1, p2) and the step-size rule from
-    {"adapgm", "mm", "fixed"}. ``momentum=True`` runs the accelerated
-    (fixed_nesterov) iteration with the fixed step gamma0 instead, and the
-    rule is ignored, as in the JAX package.
+    """Full proximal-gradient solve of f(x) + g(x) in one kernel launch, with
+    f = 0.5||Ax-b||^2 (``obj_kind="ls"``) or the mean logistic loss of the
+    rows of A with labels b in {0, 1} (``obj_kind="logreg"``; the bias is a
+    ones column of A, ``m_true`` the unpadded row count that divides the
+    mean), g from the static prox menu ("l1", "box", "elastic", "zero")
+    parameterized by (p1, p2) and the step-size rule from {"adapgm", "mm",
+    "fixed"}. ``momentum=True`` runs the accelerated (fixed_nesterov)
+    iteration with the fixed step gamma0 instead, and the rule is ignored,
+    as in the JAX package.
 
     a: (m, n); b: (m,); x0: (n,). Returns (x, numit, norm_res, converged) as
     tensors on the input's device, plus (gamma_hist, norm_res_hist,
@@ -298,10 +349,10 @@ def resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0
 
     CPU tensors take the plain version, any float dtype. CUDA tensors launch
     K2: ``a`` f32 or bf16, ``b`` and ``x0`` f32, all contiguous; each launch
-    adds one to ``resident_adapgm.launches``. ``m_true`` and ``cube_c`` belong
-    to the objectives not ported yet and are ignored for "ls", as in the JAX
-    package."""
-    del m_true, cube_c
+    adds one to ``resident_adapgm.launches``. ``m_true`` is ignored for
+    "ls", as in the JAX package; ``cube_c`` belongs to the "cubic" objective,
+    which is not ported yet."""
+    del cube_c
     _check_menu("resident_adapgm", prox_kind, obj_kind)
     if rule_kind == "dynamic":
         raise ValueError("resident_adapgm: rule_kind='dynamic' takes each row's rule from a "
@@ -313,11 +364,11 @@ def resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0
     if a.device.type == "cpu":
         return resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind=prox_kind,
                                      p1=p1, p2=p2, rule_kind=rule_kind, momentum=momentum,
-                                     record=record)
+                                     record=record, obj_kind=obj_kind, m_true=m_true)
     if a.device.type != "cuda":
         raise ValueError(f"K2 runs on CPU (plain version) or CUDA tensors, not {a.device}")
     return _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum,
-                   record)
+                   record, obj_kind, m_true)
 
 
 resident_adapgm.launches = 0
@@ -326,6 +377,19 @@ resident_adapgm.launches = 0
 def resident_adapgm_l1(a, b, x0, gamma0, lam, tol, maxit):
     """Lasso specialization (g = lam * ||.||_1)."""
     return resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=lam)
+
+
+def resident_logreg_l1(x_mat, y, x0, gamma0, lam, tol, maxit, m_true=None,
+                       rule_kind="adapgm", momentum=False, record=False):
+    """Whole-solve sparse logistic regression (mean logistic + lam*||.||_1,
+    bias folded as a trailing ones column; sparse_logreg/runme.jl:18-39).
+    ``x_mat``: [X 1] with the ones column appended, zero-padded in rows
+    and columns as the caller likes; ``m_true``: the unpadded row count (the
+    mean's divisor: zero-padded rows add nothing to the gradient but must not
+    count in the mean)."""
+    return resident_adapgm(x_mat, y, x0, gamma0, tol, maxit, prox_kind="l1", p1=lam,
+                           rule_kind=rule_kind, momentum=momentum, obj_kind="logreg",
+                           m_true=m_true, record=record)
 
 
 # -- K2c, the rule sweep --------------------------------------------------------------
@@ -373,27 +437,29 @@ def _sweep_rows(rows, maxit, dtype):
     return rows
 
 
-def resident_rule_sweep_plain(a, b, x0, rows, maxit, prox_kind="l1", p1=0.0, p2=0.0):
+def resident_rule_sweep_plain(a, b, x0, rows, maxit, prox_kind="l1", p1=0.0, p2=0.0,
+                              obj_kind="ls", m_true=None):
     """The plain version of the sweep: one plain solve a row, with that row's
     gamma0, rule, momentum flag, tol and cap, in record mode; histories are
     zero-padded to ``maxit``. Returns what ``resident_rule_sweep`` returns."""
     rows = _sweep_rows(rows, maxit, x0.dtype)
     outs = [resident_adapgm_plain(a, b, x0, g0, t, int(cap), prox_kind, p1, p2,
                                   rule_kind=_RULE_OF_IDX[int(r)], momentum=mom > 0,
-                                  record=True)
+                                  record=True, obj_kind=obj_kind, m_true=m_true)
             for g0, r, mom, t, cap in rows.tolist()]
     hists = tuple(torch.stack([F.pad(o[k], (0, maxit - o[k].shape[0])) for o in outs])
                   for k in (4, 5, 6))
     return tuple(torch.stack([o[k] for o in outs]) for k in range(4)) + (hists,)
 
 
-def _launch_sweep(a, b, x0, rows, maxit, prox_kind, p1, p2):
+def _launch_sweep(a, b, x0, rows, maxit, prox_kind, p1, p2, obj_kind, m_true):
     lib = _library()
     dev = a.device
     n = a.shape[1]
     count = rows.shape[0]
     with torch.cuda.device(dev):
-        args, keep = _problem(lib, a, b, x0, "K2c")  # keep: the tensors behind args
+        # keep: the tensors behind args
+        args, keep = _problem(lib, a, b, x0, obj_kind, m_true, "K2c")
         rows_f = rows[:, [0, 3]].to(device=dev, dtype=torch.float32).contiguous()
         rows_i = torch.stack([rows[:, 1], (rows[:, 2] > 0).to(rows.dtype), rows[:, 4]], 1)
         rows_i = rows_i.to(device=dev, dtype=torch.int32).contiguous()
@@ -413,7 +479,8 @@ def _launch_sweep(a, b, x0, rows, maxit, prox_kind, p1, p2):
 
 def resident_rule_sweep(a, b, x0, rows, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0,
                         cube_c=0.0, obj_kind="ls", m_true=None):
-    """The whole rule menu of an experiment as ONE record-mode launch:
+    """The whole rule menu of an experiment as ONE record-mode launch, for
+    ``obj_kind`` "ls" or "logreg" (with ``m_true``, as ``resident_adapgm``):
     ``rows`` is an (R, 5) array of [gamma0, rule_idx, momentum, tol, cap]
     (build it with ``rule_rows``; ``tol`` here is the launch's, which
     ``rule_rows`` puts into 3-tuple rows). ``maxit`` sizes the history
@@ -425,18 +492,19 @@ def resident_rule_sweep(a, b, x0, rows, tol, maxit, prox_kind="l1", p1=0.0, p2=0
     bits (the rows table rides their dtype). CUDA tensors launch K2c, with
     what K2 takes; each launch adds one to ``resident_rule_sweep.launches``.
     Row j equals ``resident_adapgm`` with row j's arguments."""
-    del tol, m_true, cube_c  # each row carries its own tol
+    del tol, cube_c  # each row carries its own tol
     if torch.finfo(x0.dtype).bits < 32:
         raise ValueError(f"resident_rule_sweep needs >= 32-bit iterates (got {x0.dtype}): the "
                          "rows table's cap and tol columns would be quantized")
     _check_menu("resident_rule_sweep", prox_kind, obj_kind)
     kernels._check_shapes(a, b, x0)
     if a.device.type == "cpu":
-        return resident_rule_sweep_plain(a, b, x0, rows, maxit, prox_kind, p1, p2)
+        return resident_rule_sweep_plain(a, b, x0, rows, maxit, prox_kind, p1, p2, obj_kind,
+                                         m_true)
     if a.device.type != "cuda":
         raise ValueError(f"K2c runs on CPU (plain version) or CUDA tensors, not {a.device}")
     return _launch_sweep(a, b, x0, _sweep_rows(rows, maxit, x0.dtype), maxit, prox_kind, p1,
-                         p2)
+                         p2, obj_kind, m_true)
 
 
 resident_rule_sweep.launches = 0

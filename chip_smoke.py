@@ -4,15 +4,22 @@
 
 Phases, one line each, any failure exits non-zero:
   1. device:   a CUDA device is required; prints nvidia-smi's name and power limit
-  2. build:    K1 (csrc/fused_ls.cu) and K2/K2c (csrc/resident_pg.cu), one
-               nvcc each, started together, from this checkout's sources
+  2. build:    K1 (csrc/fused_ls.cu), K3 (csrc/fused_logistic.cu) and K2/K2c
+               (csrc/resident_pg.cu), one nvcc each, started together, from
+               this checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
                K2 against its plain version at the padded reference size
                4096x1024 (cases a-d, f), at 1000x300 and at 64x128 (case e);
                K2c at 4096x1024 against its plain version (cases g, h) and,
-               bit for bit, against single K2 launches (cases i, j)
+               bit for bit, against single K2 launches (cases i, j);
+               K3 against its plain version at the sparse_logreg datasets'
+               [X] shapes (tile-padded) and at 16384^2 f32 and bf16, twice for
+               the same bits; K2 with the logistic objective against its plain
+               version on mushrooms' padded [X 1] (cases k-m: the rule and
+               momentum bodies, f32 and bf16, padded rows) and K2c's logistic
+               rows bit for bit against single K2 launches (case n)
   4. driver:   the lasso driver at the reference size 4000x1000x10, with
                --fused (the main path through K1) and with --resident (the
                four rows in one K2c launch), counting each kernel's launches
@@ -24,6 +31,15 @@ Phases, one line each, any failure exits non-zero:
                L2; the momentum iteration with and without records; the
                driver's four-row sweep beside four single K2 launches, and
                held against its plain version on the same inputs
+  7. logreg:   LogisticLoss(fused=True) in the engine (AdaPGM, 200 iterations
+               at mushrooms' X padded to 8128x128 and as loaded, 8124x112)
+               beside fused=False, one K3 launch an oracle call; the sparse_logreg driver --resident on
+               a5a, mushrooms and phishing at its defaults (exactly one K2c
+               launch a dataset, every row's F against the ground truth, and
+               the sweep held against its plain version on the driver's own
+               inputs); the driver's engine path on mushrooms at --maxit 200
+               (depth cut from 2000 to keep the run short); K2's logistic
+               iteration
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -31,6 +47,7 @@ Imports no JAX: the GPU machine has none.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -87,6 +104,34 @@ K2C_MOMENTUM_HORIZON = 120
 K2C_MOMENTUM_LONG_RTOL = 1e-3
 MENU = (("PGM (fixed)", "fixed", False), ("Nesterov (fixed)", "fixed", True),
         ("AdaPGM (MM)", "mm", False), ("AdaPGM (Ours)", "adapgm", False))
+# The logistic problems (the synthetic stand-ins of a5a, mushrooms and phishing)
+# converge fast: run with experiments.sparse_logreg.run_logreg_l1_data(ds, ...,
+# device="cpu", dtype=torch.float32, resident=True) at the defaults on the CPU,
+# the ground truth stopped at 22-24 iterations and every row at 16-434, each
+# row's F within 1.2e-7 of the ground truth's (the f32 spacing of F ~ 0.5 is
+# 6e-8). Bound: 1e-6 for every row. The engine path at --maxit 200 on
+# mushrooms (same call with resident=False): PGM (1/Lf) 2.4e-7 and Nesterov
+# (fixed, 100 iterations, not converged) 1.2e-6, the others 6e-8; bounds 1e-6,
+# and 2.5e-6 (2x) for Nesterov.
+LOGREG_GAP_BOUND = 1e-6
+LOGREG_ENGINE_GAP_BOUND = {"PGM (1/Lf)": 1e-6, "Nesterov (fixed)": 2.5e-6, "AdaPGM (MM)": 1e-6,
+                           "AdaPGM (Ours)": 1e-6}
+LOGREG_DATASETS = ("a5a", "mushrooms", "phishing")
+# K2 with the logistic objective against its plain version: the adaptive rules
+# amplify the f32 summation-order difference as with least squares (case a),
+# and these problems converge within ~25 iterations, after which the curvature
+# ratios are rounding noise; held over 12 iterations at 1e-3, like case (a).
+# Solved to tol, the kernel and the plain version stop a few iterations apart
+# on runs of 16-434 iterations: numit within 10.
+LOGREG_HORIZON = {"adapgm": 12, "mm": 12}
+LOGREG_CASE_K_RTOL = 1e-3
+LOGREG_NUMIT_SLACK = 10
+LIBRARY_ITERS = 200
+# LogisticLoss(fused=True) against fused=False in the engine, f32 on the card:
+# the step sizes of the first iterations within case (a)'s 1e-3, and F at the
+# end (converged, ~25 iterations in) within 1e-5 relative
+LIBRARY_ROWS = 3
+LIBRARY_F_RTOL = 1e-5
 # peak rates of one H100 SXM (data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -120,6 +165,42 @@ def bound(bytes_moved, flops):
     """The least time the card could take, in ms, and what sets it."""
     t_bytes, t_ops = bytes_moved / HBM_BYTES_S, flops / F32_FLOP_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+_TEMPLATE_ARG = re.compile(r"Li(-?\d+)E|f|13__nv_bfloat16")
+
+
+def entry_name(mangled):
+    """``kernel<args>`` from the mangled name of a kernel in an anonymous
+    namespace with int, float and bf16 template arguments."""
+    m = re.match(r"_ZN(\d+)", mangled)
+    if not m:
+        return mangled
+    rest = mangled[m.end() + int(m.group(1)):]  # past the namespace
+    m = re.match(r"\d+", rest)
+    if not m:
+        return mangled
+    end = m.end() + int(m.group(0))
+    name, rest, args, pos = rest[m.end():end], rest[end:], [], 1
+    while rest.startswith("I") and (t := _TEMPLATE_ARG.match(rest, pos)):
+        args.append(t.group(1) or ("f32" if t.group(0) == "f" else "bf16"))
+        pos = t.end()
+    return f"{name}<{','.join(args)}>" if args else name
+
+
+def ptxas_report(log):
+    """``kernel<args> registers/stack bytes/spill-store bytes`` for each entry
+    function in nvcc's ``-Xptxas -v`` output."""
+    out, name, stack = [], None, ("?", "?")
+    for ln in log.splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", ln):
+            name = entry_name(m.group(1))
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", ln):
+            stack = m.groups()
+        elif (m := re.search(r"Used (\d+) registers", ln)) and name:
+            out.append(f"{name} {m.group(1)}/{stack[0]}/{stack[1]}")
+            name = None
+    return out
 
 
 def rows_err(got, want, horizon):
@@ -317,6 +398,325 @@ def menu_checks(got, want, smi):
     return max_abs_err
 
 
+def group_by_method(rows):
+    """A driver's JSONL rows by method (None: the ground truth), in order."""
+    by = {}
+    for r in rows:
+        if "it" in r:
+            by.setdefault(r.get("method"), []).append(r)
+    return by
+
+
+def once_ms(fn):
+    """ms of one call of fn() on the card (CUDA events, no warm-up)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
+
+
+def logreg_inputs(name, dev):
+    """The sparse_logreg driver's inputs for dataset ``name`` (its synthetic
+    stand-in when the file is absent), f32 on the card: X and y as loaded
+    (``x_raw``, ``y_raw``) and zero-padded to tiles, [X 1] and y padded as the
+    driver pads them for K2c, the unpadded row count and gamma0 = 1/Lf."""
+    from adaprox_tpu_torch.experiments.common import pad_tiles
+    from adaprox_tpu_torch.experiments.sparse_logreg import lipschitz_estimate
+    from adaprox_tpu_torch.utils.datasets import load_or_synthesize
+
+    x_np, y_np, _ = load_or_synthesize(name, labels=(0.0, 1.0))
+    m = x_np.shape[0]
+    x = torch.as_tensor(x_np, device=dev).to(torch.float32)
+    y = torch.as_tensor(y_np, device=dev).to(torch.float32)
+    xp, yp = pad_tiles(x, y)
+    a, b = pad_tiles(torch.cat([x, torch.ones((m, 1), device=dev)], 1), y)
+    return dict(name=name, x=xp, y=yp, a=a, b=b, m_true=float(m), n_feat=x_np.shape[1],
+                gam=1.0 / lipschitz_estimate(x_np), x_raw=x, y_raw=y)
+
+
+def k3_checks(kernels, big, dev, smi):
+    """Phase 3, K3 against its plain version: each dataset's X (tile-padded,
+    f32) and 16384^2 in f32 and bf16 storage; two calls give the same bits.
+    Returns the measurements by case, for the kernels line."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    cases = []
+    for name in LOGREG_DATASETS:
+        d = logreg_inputs(name, dev)
+        m, n = d["x"].shape
+        # logits of order 1: the features are ~30% nonzero N(0, 1)
+        w = torch.randn(n, generator=gen, device=dev) / math.sqrt(0.3 * n)
+        cases.append((f"{name} {m}x{n} f32", d["x"], d["y"], w))
+    x_big, b_big, w_big = big
+    y_big = (b_big > 0).float()
+    cases += [("16384x16384 f32", x_big, y_big, w_big),
+              ("16384x16384 bf16", x_big.to(torch.bfloat16), y_big, w_big)]
+    bias = torch.tensor(0.1, device=dev)
+    meas = {}
+    for name, x, y, w in cases:
+        out = kernels.fused_logistic_value_grad(x, y, w, bias)
+        again = kernels.fused_logistic_value_grad(x, y, w, bias)
+        want = kernels.logistic_value_grad_plain(x, y, w, bias)  # bf16: the same values upcast
+        torch.cuda.synchronize()
+        same = all(torch.equal(u, v) for u, v in zip(out, again))
+        err_f = abs(float(out[0] - want[0])) / abs(float(want[0]))
+        g, g_p = torch.cat([out[1], out[2][None]]), torch.cat([want[1], want[2][None]])
+        abs_g = float((g - g_p).abs().max())
+        err_g = abs_g / float(g_p.abs().max())
+        check(math.isfinite(err_f) and math.isfinite(err_g), f"K3 {name}: non-finite result")
+        x_plain = x.float()  # the plain version on f32 storage, as LogisticLoss runs it
+        ms_k = event_ms(lambda: kernels.fused_logistic_value_grad(x, y, w, bias))
+        ms_p = event_ms(lambda: kernels.logistic_value_grad_plain(x_plain, y, w, bias))
+        del x_plain
+        m, n = x.shape
+        # X, y, w and the bias read once, f, grad_w and grad_b written once;
+        # 4 m n flops (the two transcendentals a row are not counted)
+        bnd = bound(x.element_size() * m * n + 4 * (m + 2 * n + 3), 4 * m * n)
+        meas[name] = dict(max_abs_err=abs_g, ms=ms_k, plain_ms=ms_p, bound=bnd)
+        print(f"[kernels] K3 {name}: rel err f {err_f:.2e}, grad {err_g:.2e} (max abs "
+              f"{abs_g:.2e}; tol {KERNEL_RTOL:g}); two calls the same bits: {same} | K3 "
+              f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) ({smi})",
+              flush=True)
+        check(err_f <= KERNEL_RTOL and err_g <= KERNEL_RTOL and same,
+              f"K3 {name} disagrees with plain or is not repeatable")
+    return meas
+
+
+def k2_logreg_checks(resident, d, smi):
+    """Phase 3, K2 and K2c with the logistic objective on mushrooms' [X 1]
+    padded to 8128x128 (m_true 8124: 4 padded rows), lam 0.01, against the
+    plain version on the same inputs."""
+    from adaprox_tpu_torch.experiments.sparse_logreg import rule_specs
+
+    a, b, gam = d["a"], d["b"], d["gam"]
+    x0 = torch.zeros(a.shape[1], device=a.device)
+    kw = dict(prox_kind="l1", p1=0.01, obj_kind="logreg", m_true=d["m_true"])
+
+    def pair(a_, tol, maxit, **k):
+        got = resident.resident_adapgm(a_, b, x0, gam, tol, maxit, **kw, **k)
+        want = resident.resident_adapgm_plain(a_, b, x0, gam, tol, maxit, **kw, **k)
+        torch.cuda.synchronize()
+        return got, want
+
+    # (k) AdaPGM and MM, record, tol 0, maxit 30: the rows over each rule's horizon
+    for rule in ("adapgm", "mm"):
+        rtol = LOGREG_CASE_K_RTOL
+        got, want = pair(a, 0.0, 30, rule_kind=rule, record=True)
+        err = rows_err(got, want, LOGREG_HORIZON[rule])
+        held = max((h for h in range(1, 31) if rows_err(got, want, h) <= rtol), default=0)
+        print(f"[kernels] K2 logreg (k) mushrooms 8128x128 f32 {rule} tol 0 maxit 30: rows over "
+              f"{LOGREG_HORIZON[rule]} it, rel err {err:.2e} (tol {rtol:g}); within tol through "
+              f"iteration {held}; over 30 {rows_err(got, want, 30):.2e} ({smi})", flush=True)
+        check(int(got[1]) == int(want[1]) == 30 and err <= rtol, f"K2 logreg (k) {rule} disagrees")
+
+    # (l) the fixed rule (300 iterations) and the momentum body (120), tol 0,
+    # f32 and bf16 storage: no amplification, the fixed rule's tolerance
+    for a_ in (a, a.to(torch.bfloat16)):
+        for label, maxit, k in (("fixed", 300, dict(rule_kind="fixed")),
+                                ("momentum", 120, dict(momentum=True))):
+            got, want = pair(a_, 0.0, maxit, record=True, **k)
+            err = max(rows_err(got, want, maxit), x_err(got, want))
+            pad_zero = not bool(got[0][d["n_feat"] + 1:].any())
+            print(f"[kernels] K2 logreg (l) mushrooms 8128x128 {str(a_.dtype)[6:]} {label} tol 0 "
+                  f"maxit {maxit}: rel err {err:.2e} (tol {K2_FIXED_RTOL:g}); padded columns "
+                  f"stay 0: {pad_zero}", flush=True)
+            check(int(got[1]) == maxit and err <= K2_FIXED_RTOL and pad_zero,
+                  f"K2 logreg (l) {label} disagrees")
+
+    # (m) AdaPGM solved to the driver's tol 1e-7, f32 and bf16 storage
+    for a_ in (a, a.to(torch.bfloat16)):
+        got, want = pair(a_, 1e-7, 2000)
+        nk, npl, err = int(got[1]), int(want[1]), x_err(got, want)
+        print(f"[kernels] K2 logreg (m) mushrooms 8128x128 {str(a_.dtype)[6:]} AdaPGM tol 1e-7: "
+              f"numit {nk} (plain {npl}, slack {LOGREG_NUMIT_SLACK}), converged "
+              f"{bool(got[3])}/{bool(want[3])}, x rel err {err:.2e} (tol {K2_X_RTOL:g})",
+              flush=True)
+        check(bool(got[3]) and bool(want[3]) and abs(nk - npl) <= LOGREG_NUMIT_SLACK
+              and err <= K2_X_RTOL, "K2 logreg (m) disagrees")
+
+    # (n) the driver's five rows in one sweep, each the same bits as its single
+    # K2 launch, f32 and bf16 storage
+    specs = rule_specs(gam, 1e-7, 200)
+    for a_ in (a, a.to(torch.bfloat16)):
+        out = resident.resident_rule_sweep(a_, b, x0, resident.rule_rows(specs), 1e-7, 2000, **kw)
+        same = True
+        for j, (g0, rule, mom, tol, cap) in enumerate(specs):
+            one = resident.resident_adapgm(a_, b, x0, g0, tol, cap, rule_kind=rule, momentum=mom,
+                                           record=True, **kw)
+            row = sweep_row(out, j)
+            same &= all(torch.equal(u, w) for u, w in zip(row[:4], one[:4]))
+            same &= all(torch.equal(u[:cap], w) for u, w in zip(row[4:], one[4:]))
+        torch.cuda.synchronize()
+        print(f"[kernels] K2c logreg (n) mushrooms 8128x128 {str(a_.dtype)[6:]}: numit "
+              f"{out[1].tolist()}, every row the same bits as its single K2 launch: {same}",
+              flush=True)
+        check(same, "K2c logreg (n): a sweep row differs from its single K2 launch")
+
+
+def logreg_menu_checks(name, got, want, smi):
+    """Phase 7, K2c on the inputs the sparse_logreg driver gives it against
+    its plain version: each row's history over its horizon, numit within the
+    slack, x at the end. Returns the largest |x| error."""
+    from adaprox_tpu_torch.experiments.sparse_logreg import RESIDENT_ROWS
+
+    max_abs_err, ok = 0.0, True
+    for j, (row_name, rule, _) in enumerate(RESIDENT_ROWS):
+        g, w = sweep_row(got, j), sweep_row(want, j)
+        nk, npl = int(g[1]), int(w[1])
+        horizon = min(30 if rule == "fixed" else LOGREG_HORIZON[rule], nk, npl)
+        rtol = K2_FIXED_RTOL if rule == "fixed" else LOGREG_CASE_K_RTOL
+        err, xe = rows_err(g, w, horizon), x_err(g, w)
+        max_abs_err = max(max_abs_err, float((g[0] - w[0]).abs().max()))
+        print(f"[logreg] K2c vs plain, {name} {row_name or '(ground truth)'}: rows over {horizon} "
+              f"it, rel err {err:.2e} (tol {rtol:g}); numit {nk} (plain {npl}, slack "
+              f"{LOGREG_NUMIT_SLACK}); x rel err {xe:.2e} (tol {K2_X_RTOL:g}) ({smi})", flush=True)
+        ok &= err <= rtol and abs(nk - npl) <= LOGREG_NUMIT_SLACK and xe <= K2_X_RTOL
+    check(ok, f"K2c disagrees with its plain version on the sparse_logreg driver's {name} inputs")
+    return max_abs_err
+
+
+def logreg_phase(apt, resident, logreg, counting, dev, smi):
+    """Phase 7: LogisticLoss(fused=True) in the engine, the sparse_logreg
+    driver on the card (--resident on each dataset, the engine path on
+    mushrooms) and K2's logistic iteration. ``counting`` is (zero_counts,
+    read_counts). Returns (K3 launches of the library run, the sweeps'
+    measurements by dataset)."""
+    from adaprox_tpu_torch.experiments import sparse_logreg
+    from adaprox_tpu_torch.experiments.sparse_logreg import RESIDENT_ROWS, rule_specs
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+    from adaprox_tpu_torch.utils.profiling import timed
+
+    zero_counts, read_counts = counting
+    counts = {}
+
+    # LogisticLoss(fused=True) in the engine: AdaPGM on mushrooms' X, padded
+    # to 8128x128 and as loaded (8124x112: fused=True takes K3 at any shape),
+    # the bias folded into w, one K3 launch an oracle call, beside fused=False
+    # on the same inputs
+    k3_calls = None
+    for x, y in ((logreg["x"], logreg["y"]), (logreg["x_raw"], logreg["y_raw"])):
+        shape = "x".join(map(str, x.shape))
+        w0 = torch.zeros(x.shape[1] + 1, device=dev)
+        lib = {}
+        for fused in (True, False):
+            f, g = apt.LogisticLoss(x, y, fused=fused), apt.L1Norm(0.01)
+
+            def solve(history):
+                return apt.adaptive_proxgrad(w0, f=f, g=g, rule=apt.AdaPGMRule(gamma=logreg["gam"]),
+                                             tol=0.0, maxit=LIBRARY_ITERS, history=history)
+
+            zero_counts()
+            res = solve(True)
+            torch.cuda.synchronize()
+            counts[fused] = read_counts()
+            secs, _ = timed(lambda: solve(False), reps=3)
+            lib[fused] = (res, float(f.value(res.x) + g(res.x)), secs)
+        (res_k3, obj_k3, secs_k3), (res_mv, obj_mv, secs_mv) = lib[True], lib[False]
+        if k3_calls is None:
+            k3_calls = counts[True][3]  # the padded run's, for the kernels line
+        rows_rel = max(float((getattr(res_k3.records, k)[:LIBRARY_ROWS]
+                              - getattr(res_mv.records, k)[:LIBRARY_ROWS]).abs().max()
+                             / getattr(res_mv.records, k)[:LIBRARY_ROWS].abs().max())
+                       for k in ("gamma", "norm_res", "objective"))
+        obj_rel = abs(obj_k3 - obj_mv) / abs(obj_mv)
+        print(f"[logreg] LogisticLoss(fused=True) AdaPGM mushrooms {shape} f32, {LIBRARY_ITERS} "
+              f"iterations: K3 launches {counts[True][3]} (oracle calls {res_k3.counters.f_evals}; "
+              f"fused=False {counts[False][3]}); rows over {LIBRARY_ROWS} it rel err "
+              f"{rows_rel:.2e} (tol {LOGREG_CASE_K_RTOL:g}); F {obj_k3:.8f} vs {obj_mv:.8f}, rel "
+              f"{obj_rel:.2e} (tol {LIBRARY_F_RTOL:g}) | {1e3 * secs_k3 / LIBRARY_ITERS:.4f} ms an "
+              f"iteration fused (K3), {1e3 * secs_mv / LIBRARY_ITERS:.4f} two-matvec ({smi})",
+              flush=True)
+        check(counts[True][3] == res_k3.counters.f_evals == LIBRARY_ITERS + 1
+              and counts[True][:3] == (0, 0, 0) and counts[False] == (0, 0, 0, 0),
+              f"LogisticLoss {shape}: K3 launches != oracle calls (or a launch without fused)")
+        check(rows_rel <= LOGREG_CASE_K_RTOL and obj_rel <= LIBRARY_F_RTOL
+              and bool(torch.isfinite(res_k3.x).all()), f"LogisticLoss {shape}: fused and unfused "
+              "disagree")
+
+    # the driver, --resident, at its defaults (maxit 2000, tol 1e-7, lam 0.01):
+    # one K2c launch a dataset; then the same sweep on the driver's own inputs
+    # held against its plain version, and timed
+    logreg_sweeps = {}
+    for ds in LOGREG_DATASETS:
+        outdir = os.path.join("results", "chip_smoke", "sparse_logreg")
+        zero_counts()
+        sparse_logreg.main(["--resident", "--datasets", ds, "--device", "cuda", "--outdir", outdir,
+                            "--no-plot"])
+        torch.cuda.synchronize()
+        c = read_counts()
+        rows = read_jsonl(os.path.join(outdir, f"{ds}.jsonl"))
+        by = group_by_method(rows)
+        fstar = min(r["objective"] for r in by[None])
+        gaps = {name: by[name][-1]["objective"] - fstar for name, _, _ in RESIDENT_ROWS[1:]}
+        meta = [r for r in rows if "it" not in r]
+        print(f"[logreg] sparse_logreg --resident {ds} f32: numit "
+              f"{[by[name][-1]['it'] for name, _, _ in RESIDENT_ROWS]}, F-F* "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} (bound "
+              f"{LOGREG_GAP_BOUND:g}) | K1, K2, K2c, K3 launches {c} | {meta} ({smi})", flush=True)
+        check(c == (0, 0, 1, 0), f"sparse_logreg --resident {ds}: launches {c}, not one K2c")
+        check(list(by) == [name for name, _, _ in RESIDENT_ROWS]
+              and all(math.isfinite(v) and abs(v) <= LOGREG_GAP_BOUND for v in gaps.values()),
+              f"sparse_logreg --resident {ds}: rows {list(by)}, F-F* {gaps}")
+        d = logreg_inputs(ds, dev)
+        a_, b_ = d["a"], d["b"]
+        m_, n_ = a_.shape
+        x0p = torch.zeros(n_, device=dev)
+        rows_t = resident.rule_rows(rule_specs(d["gam"], 1e-7, 2000))
+        kw = dict(prox_kind="l1", p1=0.01, obj_kind="logreg", m_true=d["m_true"])
+        sweep_s, got = timed(lambda: resident.resident_rule_sweep(a_, b_, x0p, rows_t, 1e-7, 20000,
+                                                                  **kw), reps=3)
+        plain_ms, want = once_ms(lambda: resident.resident_rule_sweep_plain(
+            a_, b_, x0p, rows_t, 20000, **kw))
+        err = logreg_menu_checks(ds, got, want, smi)
+        numits = got[1].tolist()
+        # A read once, b, x0 and the rows in, x, the stats and the histories out;
+        # 4 m n flops a rule iteration and warm-up, 6 m n a momentum iteration
+        r = len(RESIDENT_ROWS)
+        bnd = bound(4 * m_ * n_ + 4 * (m_ + n_) + 20 * r + 4 * r * n_ + 16 * r + 12 * r * 20000,
+                    sum(6 * m_ * n_ * k if mom else 4 * m_ * n_ * (k + 1)
+                        for (_, _, mom), k in zip(RESIDENT_ROWS, numits)))
+        logreg_sweeps[ds] = dict(ms=1e3 * sweep_s, plain_ms=plain_ms, bound=bnd, err=err)
+        print(f"[logreg] K2c sweep {ds} {m_}x{n_} f32 (numit {numits}): {1e3 * sweep_s:.4f} ms, "
+              f"plain {plain_ms:.2f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) ({smi})", flush=True)
+
+    # the driver's engine path (LogisticLoss without the fused branch, as the
+    # JAX driver runs it) on mushrooms, depth cut to --maxit 200
+    zero_counts()
+    outdir = os.path.join("results", "chip_smoke", "sparse_logreg_engine")
+    sparse_logreg.main(["--datasets", "mushrooms", "--maxit", "200", "--device", "cuda",
+                        "--outdir", outdir, "--no-plot"])
+    torch.cuda.synchronize()
+    c = read_counts()
+    rows = read_jsonl(os.path.join(outdir, "mushrooms.jsonl"))
+    by = group_by_method(rows)
+    fstar = min(r["objective"] for r in by[None])
+    gaps = {name: by[name][-1]["objective"] - fstar for name in LOGREG_ENGINE_GAP_BOUND}
+    print(f"[logreg] sparse_logreg mushrooms --maxit 200 (engine path, depth cut from 2000) f32: "
+          f"numit {[by[name][-1]['it'] for name, _, _ in RESIDENT_ROWS]}, F-F* "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} | launches {c} | "
+          f"wall_s {rows[-2]['wall_s']} ({smi})", flush=True)
+    check(rows[-2]["fast_path"] == "default" and c == (0, 0, 0, 0)
+          and all(math.isfinite(v) and abs(v) <= LOGREG_ENGINE_GAP_BOUND[k]
+                  for k, v in gaps.items()), "sparse_logreg engine path: bad rows")
+
+    # K2's logistic iteration beside its least-squares iteration at the same
+    # shape (mushrooms' [X 1], 8128x128): fixed rule, zero prox, 1000 iterations
+    a_, b_ = logreg["a"], logreg["b"]
+    x0_ = torch.zeros(a_.shape[1], device=dev)
+    # (least squares with 1/||A||_F^2 <= 1/||A||^2, a stable step)
+    for obj, gam_ in (("logreg", logreg["gam"]), ("ls", 1.0 / float((a_ * a_).sum()))):
+        it_secs, it_out = timed(lambda: resident.resident_adapgm(
+            a_, b_, x0_, gam_, 0.0, 1000, prox_kind="zero", rule_kind="fixed", obj_kind=obj,
+            m_true=logreg["m_true"]), reps=3)
+        check(int(it_out[1]) == 1000, f"K2 {obj} 8128x128: not 1000 iterations")
+        print(f"[logreg] K2 {obj} 8128x128 f32, fixed rule, zero prox, 1000 iterations: "
+              f"{1e3 * it_secs:.3f} us an iteration ({smi})", flush=True)
+
+    return k3_calls, logreg_sweeps
+
+
 def main():
     # 1. device --------------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: needs a CUDA device")
@@ -337,16 +737,17 @@ def main():
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = [(name, pool.submit(build)) for name, build in
-                  (("K1", kernels.build_library), ("K2/K2c", resident.build_library))]
+                  (("K1", kernels.build_library),
+                   ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
+                   ("K2/K2c", resident.build_library))]
         for name, fut in builds:
             lib_path = fut.result()
-            regs = [ln.split(":", 1)[1].strip()
-                    for ln in lib_path.with_suffix(".log").read_text().splitlines()
-                    if "registers" in ln]
-            print(f"[build] {name} {lib_path.name} (ptxas: {'; '.join(regs)})", flush=True)
-    print(f"[build] both in {time.perf_counter() - t0:.2f} s", flush=True)
+            regs = ptxas_report(lib_path.with_suffix(".log").read_text())
+            print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
+                  f"bytes: {'; '.join(regs)})", flush=True)
+    print(f"[build] all three in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -381,15 +782,19 @@ def main():
         del a_plain
     ref, k2_meas = k2_checks(resident, dev, smi)
     k2c_checks(resident, ref, smi)
+    k3_meas = k3_checks(kernels, big, dev, smi)
+    logreg = logreg_inputs("mushrooms", dev)
+    k2_logreg_checks(resident, logreg, smi)
 
     # 4. the driver (main path) ----------------------------------------------
     def zero_counts():
         kernels.fused_ls_value_grad.launches = resident.resident_adapgm.launches = 0
-        resident.resident_rule_sweep.launches = 0
+        resident.resident_rule_sweep.launches = kernels.fused_logistic_value_grad.launches = 0
 
     def read_counts():
+        """Launches of (K1, K2, K2c, K3) since zero_counts()."""
         return (kernels.fused_ls_value_grad.launches, resident.resident_adapgm.launches,
-                resident.resident_rule_sweep.launches)
+                resident.resident_rule_sweep.launches, kernels.fused_logistic_value_grad.launches)
 
     counts, walls = {}, {}
     for path in ("fused", "resident"):
@@ -421,11 +826,11 @@ def main():
               f"{logging_calls} | wall_s {walls[path]}, grid_total_s {grid} ({smi})", flush=True)
         if path == "fused":
             check(counts[path][0] == oracle_calls + logging_calls > 0
-                  and counts[path][1:] == (0, 0),
+                  and counts[path][1:] == (0, 0, 0),
                   "--fused: K1 launches != oracle calls + logging-only f calls")
         else:
-            check(counts[path] == (0, 0, 1) and grid is not None,
-                  "--resident: not exactly one K2c launch (and no K1 or K2 launch)")
+            check(counts[path] == (0, 0, 1, 0) and grid is not None,
+                  "--resident: not exactly one K2c launch (and no K1, K2 or K3 launch)")
 
     # 5. the headline ----------------------------------------------------------
     a, b, _ = big
@@ -456,7 +861,7 @@ def main():
     resident.resident_adapgm_l1(a, b, x0, gam, 1.0, 1e-4, 4000)
     torch.cuda.synchronize()
     counts["single"] = read_counts()
-    check(counts["single"] == (0, 1, 0), f"single solve: launches {counts['single']}")
+    check(counts["single"] == (0, 1, 0, 0), f"single solve: launches {counts['single']}")
     secs, out = timed(lambda: resident.resident_adapgm_l1(a, b, x0, gam, 1.0, 1e-4, 4000),
                       reps=5)
     numit = int(out[1])
@@ -543,7 +948,12 @@ def main():
           f"{1e3 * sweep_plain_s:.2f} ms; the four engine rows under --fused (phase 4 wall_s) "
           f"{1e3 * engine_s:.2f} ms ({smi})", flush=True)
 
+    # 7. sparse logistic regression ---------------------------------------------
+    k3_calls, logreg_sweeps = logreg_phase(apt, resident, logreg, (zero_counts, read_counts), dev,
+                                           smi)
+
     head = measured["16384x16384 f32"]
+    k3_head = k3_meas["16384x16384 f32"]
     hm = hn = HEADLINE
     k1_bound = bound(4 * hm * hn + 4 * (hm + hn) + 4 * (hn + 1), 4 * hm * hn)
     m, n = a.shape
@@ -577,7 +987,13 @@ def main():
         "replaces": "adaprox_tpu/ops/resident.py:616",
         "launches": counts["resident"][2], "max_abs_err": k2c_err,
         "ms": 1e3 * sweep_s, "plain_ms": 1e3 * sweep_plain_s, "bound_ms": k2c_bound[0],
-        "bound_by": k2c_bound[1], "library_ms": None}]}))
+        "bound_by": k2c_bound[1], "library_ms": None}, {
+        "name": "fused_logistic_value_grad", "route": "cuda",
+        "source": "adaprox_tpu_torch/csrc/fused_logistic.cu",
+        "replaces": "adaprox_tpu/ops/kernels.py:381",
+        "launches": k3_calls, "max_abs_err": k3_head["max_abs_err"],
+        "ms": k3_head["ms"], "plain_ms": k3_head["plain_ms"], "bound_ms": k3_head["bound"][0],
+        "bound_by": k3_head["bound"][1], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1, K2 and K2c on the card against their plain PyTorch versions.
+"""The CUDA kernels K1, K2, K2c and K3 on the card against their plain PyTorch versions.
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. This file imports no
 JAX, so it runs on a machine without it:
@@ -18,7 +18,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K1, K2 and K2c are CUDA kernels; no interpret mode)")
+        pytest.skip("needs a CUDA device (K1, K2, K2c and K3 are CUDA kernels; no interpret mode)")
     return torch.device("cuda")
 
 
@@ -345,3 +345,181 @@ def test_k2c_rejects_what_it_does_not_take(dev):
         tr.resident_rule_sweep(a.t().contiguous().t(), b, x0, rows, 0.0, 400)
     with pytest.raises(ValueError, match="different devices"):
         tr.resident_rule_sweep(a, b.cpu(), x0, rows, 0.0, 400)
+
+
+# -- K3, the fused logistic oracle ------------------------------------------------------
+
+
+def _logistic_inputs(dev, m, n, dtype, seed=0):
+    """Sparse N(0, 1) features (30% nonzero, like the datasets' synthetic
+    stand-ins), labels in {0, 1} from a noisy linear model, and a point
+    (w, w_bias) with logits of order 1. The features keep unit entries: with
+    unit rows x = 0 would solve the lam 0.01 problems below, and there the
+    kernel and its plain version stop at different iterations on rounding
+    noise."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    x = torch.randn(m, n, generator=gen, device=dev)
+    x = x * (torch.rand(m, n, generator=gen, device=dev) < 0.3)
+    scale = 1.0 / (0.3 * n) ** 0.5
+    w_true = scale * torch.randn(n, generator=gen, device=dev)
+    y = ((x @ w_true + 0.5 * torch.randn(m, generator=gen, device=dev)) > 0).float()
+    w = scale * torch.randn(n, generator=gen, device=dev)
+    return x.to(dtype), y, w, torch.tensor(0.3, device=dev)
+
+
+# the datasets' [X] shapes as the drivers meet them, raw and tile-padded (a5a,
+# mushrooms, phishing), and ragged ones
+K3_SHAPES = [(1, 1), (7, 5), (999, 301), (6414, 123), (6416, 128), (8124, 112), (8128, 128),
+             (11056, 128), (4000, 1024)]
+
+
+@pytest.mark.parametrize("m,n", K3_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain_on_card(dev, m, n, dtype):
+    x, y, w, wb = _logistic_inputs(dev, m, n, dtype)
+    before = tk.fused_logistic_value_grad.launches
+    f, gw, gb = tk.fused_logistic_value_grad(x, y, w, wb)
+    torch.cuda.synchronize()
+    assert tk.fused_logistic_value_grad.launches == before + 1
+    assert f.dtype == gw.dtype == gb.dtype == torch.float32 and gw.shape == (n,)
+    f_p, gw_p, gb_p = tk.logistic_value_grad_plain(x, y, w, wb)  # bf16: the same values upcast
+    # f32 FMAs in another summation order than cuBLAS, and expf/log1pf against
+    # PyTorch's: ~sqrt(n) * 6e-8 in the sums
+    assert abs(float(f - f_p)) <= 1e-5 * abs(float(f_p))
+    g, g_p = torch.cat([gw, gb[None]]), torch.cat([gw_p, gb_p[None]])
+    assert float((g - g_p).abs().max()) <= 1e-5 * float(g_p.abs().max())
+
+
+def test_k3_is_repeatable_bit_for_bit(dev):
+    x, y, w, wb = _logistic_inputs(dev, 3000, 777, torch.float32, seed=1)
+    runs = [tk.fused_logistic_value_grad(x, y, w, wb) for _ in range(2)]
+    assert all(torch.equal(u, v) for u, v in zip(*runs))
+
+
+def test_k3_unaligned_view_takes_scalar_loads(dev):
+    x, y, w, wb = _logistic_inputs(dev, 64, 128, torch.float32, seed=2)
+    w_buf = torch.cat([torch.zeros(1, device=dev), w])
+    f, gw, gb = tk.fused_logistic_value_grad(x, y, w_buf[1:], wb)
+    f_p, gw_p, gb_p = tk.logistic_value_grad_plain(x, y, w, wb)
+    assert abs(float(f - f_p)) <= 1e-5 * abs(float(f_p))
+    assert float((gw - gw_p).abs().max()) <= 1e-5 * float(gw_p.abs().max())
+
+
+def test_k3_rejects_what_it_does_not_take(dev):
+    x, y, w, wb = _logistic_inputs(dev, 16, 8, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tk.fused_logistic_value_grad(x.double(), y, w, wb)  # f64 stays on the CPU
+    with pytest.raises(TypeError, match="float32 y, w and w_bias"):
+        tk.fused_logistic_value_grad(x, y.double(), w, wb)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.fused_logistic_value_grad(x.t().contiguous().t(), y, w, wb)
+    with pytest.raises(ValueError, match="different devices"):
+        tk.fused_logistic_value_grad(x, y.cpu(), w, wb)
+
+
+@pytest.mark.parametrize("m,n", [(8128, 128), (8124, 112)])  # mushrooms padded, and as loaded
+def test_logistic_loss_fused_launches_k3_per_oracle_call(dev, m, n):
+    """LogisticLoss(fused=True), tile-aligned X or not: one K3 launch for
+    each oracle call of the engine (the warm-up and one an iteration)."""
+    from adaprox_tpu_torch import AdaPGMRule, L1Norm, LogisticLoss, adaptive_proxgrad
+
+    x, y, _, _ = _logistic_inputs(dev, m, n, torch.float32, seed=3)
+    before = tk.fused_logistic_value_grad.launches
+    res = adaptive_proxgrad(torch.zeros(n + 1, device=dev), f=LogisticLoss(x, y, fused=True),
+                            g=L1Norm(0.01), rule=AdaPGMRule(gamma=1.0), tol=0.0, maxit=20)
+    torch.cuda.synchronize()
+    assert tk.fused_logistic_value_grad.launches - before == res.counters.f_evals == 21
+
+
+# -- K2 and K2c with the logistic objective -------------------------------------------------
+
+
+def logreg_problem(dev, m_true, n_feat, m_pad, n_pad, seed=0):
+    """[X 1] zero-padded to (m_pad, n_pad), labels padded with 0, gamma0 =
+    1/Lf with the reference's Frobenius Lf, lam 0.01."""
+    x, y, _, _ = _logistic_inputs(dev, m_true, n_feat, torch.float32, seed)
+    a = torch.zeros(m_pad, n_pad, device=dev)
+    a[:m_true, :n_feat] = x
+    a[:m_true, n_feat] = 1.0
+    b = torch.zeros(m_pad, device=dev)
+    b[:m_true] = y
+    x1 = a[:m_true, :n_feat + 1].double()
+    gam = 4 * m_true / float(torch.linalg.matrix_norm(x1.t() @ x1))
+    return a, b, gam
+
+
+# a5a's and mushrooms' [X 1] padded as the drivers pad it (m_true < m), and a
+# ragged shape that takes the scalar loads
+LOGREG_SHAPES = [(6414, 123, 6416, 128), (8124, 112, 8128, 128), (997, 300, 1000, 301)]
+
+
+@pytest.mark.parametrize("body", ["adapgm", "mm", "fixed", "momentum"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", LOGREG_SHAPES)
+def test_k2_logreg_matches_plain_on_card(dev, shape, dtype, body):
+    """Held like K2's least-squares rows: the fixed step and the momentum
+    body over 30 iterations at 1e-5, the adaptive rules over 3 at 1e-3."""
+    m_true, n_feat, m, n = shape
+    a, b, gam = logreg_problem(dev, m_true, n_feat, m, n)
+    a = a.to(dtype)
+    x0 = torch.zeros(n, device=dev)
+    kw = dict(rule_kind="fixed" if body == "momentum" else body, momentum=body == "momentum",
+              record=True, m_true=float(m_true))
+    maxit, rtol = (30, MOMENTUM_RTOL) if body in ("fixed", "momentum") else (3, 1e-3)
+    before = tr.resident_adapgm.launches
+    got = tr.resident_logreg_l1(a, b, x0, gam, 0.01, 0.0, maxit, **kw)
+    torch.cuda.synchronize()
+    assert tr.resident_adapgm.launches == before + 1
+    want = tr.resident_adapgm_plain(a, b, x0, gam, 0.0, maxit, prox_kind="l1", p1=0.01,
+                                    obj_kind="logreg", **kw)
+    assert int(got[1]) == int(want[1]) == maxit
+    _rows_close(got, want, maxit, rtol)
+    assert float((got[0] - want[0]).abs().max()) <= rtol * float(want[0].abs().max())
+    assert not bool(got[0][n_feat + 1:].any())  # the padded columns stay exactly 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2c_logreg_rows_equal_single_k2_launches(dev, dtype):
+    """The sparse_logreg driver's five rows (the ground truth at tol/10 with
+    cap 10 x maxit, Nesterov at maxit/2) in one sweep: each row is its
+    single K2 launch, bit for bit."""
+    from adaprox_tpu_torch.experiments.sparse_logreg import rule_specs
+
+    a, b, gam = logreg_problem(dev, 8124, 112, 8128, 128, seed=4)
+    a = a.to(dtype)
+    x0 = torch.zeros(128, device=dev)
+    specs = rule_specs(gam, 1e-5, 40)
+    kw = dict(prox_kind="l1", p1=0.01, obj_kind="logreg", m_true=8124.0)
+    xs, its, res, conv, hists = tr.resident_rule_sweep(a, b, x0, tr.rule_rows(specs), 1e-5, 400,
+                                                       **kw)
+    torch.cuda.synchronize()
+    for j, (g0, rule, mom, tol, cap) in enumerate(specs):
+        one = tr.resident_adapgm(a, b, x0, g0, tol, cap, rule_kind=rule, momentum=mom,
+                                 record=True, **kw)
+        for k, got in enumerate((xs[j], its[j], res[j], conv[j])):
+            assert torch.equal(got, one[k]), (j, k)
+        for k in range(3):
+            assert torch.equal(hists[k][j][:cap], one[4 + k]), (j, k)
+
+
+def test_sparse_logreg_resident_is_one_k2c_launch_per_dataset(dev, tmp_path, capsys):
+    """Two datasets (their synthetic stand-ins), each one K2c launch; no K1,
+    K2 or K3 launch."""
+    from adaprox_tpu_torch.experiments import sparse_logreg
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+
+    counters = (tk.fused_ls_value_grad, tk.fused_logistic_value_grad, tr.resident_adapgm,
+                tr.resident_rule_sweep)
+    before = [c.launches for c in counters]
+    sparse_logreg.main(["--resident", "--datasets", "heart_scale,a5a", "--maxit", "50",
+                        "--device", "cuda", "--outdir", str(tmp_path), "--no-plot"])
+    torch.cuda.synchronize()
+    assert "falling back" not in capsys.readouterr().out
+    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 0, 2]
+    for name in ("heart_scale", "a5a"):
+        rows = read_jsonl(tmp_path / f"{name}.jsonl")
+        assert rows[-2]["fast_path"] == "resident" and rows[-1] == {"data_source": "synthetic"}
+        methods = {r.get("method") for r in rows if "it" in r}
+        assert methods == {None, "PGM (1/Lf)", "Nesterov (fixed)", "AdaPGM (MM)",
+                           "AdaPGM (Ours)"}

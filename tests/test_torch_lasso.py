@@ -3,6 +3,7 @@ package's originals, its driver's JSONL against the JAX driver's, the port
 running without JAX, and chip_smoke.py refusing to run without a card."""
 
 import ast
+import importlib.util
 import json
 import os
 import shutil
@@ -123,6 +124,9 @@ def test_lasso_driver_refuses_missing_cuda(tmp_path):
 
 _SLICE = r"""
 import json, sys
+# jax and the JAX package cannot be imported here: the port must not need them
+for name in ("jax", "jaxlib", "adaprox_tpu"):
+    sys.modules[name] = None
 import torch
 torch.set_num_threads(1)
 import adaprox_tpu_torch as apt
@@ -140,17 +144,36 @@ for fused in (False, True):
             r = apt.adaptive_proxgrad(torch.zeros(a.shape[1], dtype=torch.float64), f=f,
                                       g=g, rule=rule, tol=1e-8, maxit=3000, history=history)
             out.append([r.numit, list(r.counters), float(f.value(r.x) + g(r.x))])
-leaked = sorted(k for k in sys.modules
-                if k.split(".")[0] in ("jax", "jaxlib", "adaprox_tpu"))
-print(json.dumps({"leaked": leaked, "runs": out}))
+# the sparse-logreg slice: LogisticLoss both ways, K2's logistic objective, the driver
+from adaprox_tpu_torch.experiments import sparse_logreg
+from adaprox_tpu_torch.utils.datasets import load_or_synthesize
+x, y, src = load_or_synthesize("heart_scale", labels=(0.0, 1.0))
+gam = 1.0 / sparse_logreg.lipschitz_estimate(x)
+logreg = []
+for fused in (False, True):
+    f, g = apt.logreg_from_numpy(x, y, 0.01, device="cpu", dtype=torch.float64, fused=fused)
+    r = apt.adaptive_proxgrad(torch.zeros(14, dtype=torch.float64), f=f, g=g,
+                              rule=apt.AdaPGMRule(gamma=gam), tol=1e-8, maxit=2000)
+    logreg.append([r.numit, float(f.value(r.x) + g(r.x))])
+x1, y1 = torch.zeros(272, 128, dtype=torch.float64), torch.zeros(272, dtype=torch.float64)
+x1[:270, :13], x1[:270, 13], y1[:270] = torch.from_numpy(x), 1.0, torch.from_numpy(y)
+k2 = apt.resident_logreg_l1(x1, y1, torch.zeros(128, dtype=torch.float64), gam, 0.01, 1e-8,
+                            2000, m_true=270.0)
+logreg.append([int(k2[1]), float(f.value(k2[0][:14]) + g(k2[0][:14]))])
+sparse_logreg.main(["--device", "cpu", "--datasets", "heart_scale", "--maxit", "40",
+                    "--no-plot", "--resident", "--outdir", sys.argv[1]])
+import adaprox_tpu_torch.experiments.resident_timing  # the card's timing script
+leaked = sorted(k for k, v in sys.modules.items()
+                if v is not None and k.split(".")[0] in ("jax", "jaxlib", "adaprox_tpu"))
+print(json.dumps({"leaked": leaked, "runs": out, "logreg": logreg, "source": src}))
 """
 
 
-def test_port_runs_the_slice_without_jax():
+def test_port_runs_the_slice_without_jax(tmp_path):
     """tests/conftest.py imports jax into this process, so the check runs in
-    a fresh interpreter."""
-    proc = subprocess.run([sys.executable, "-c", _SLICE], cwd=REPO, capture_output=True,
-                          text=True, timeout=300)
+    a fresh interpreter, where jax and the JAX package cannot be imported."""
+    proc = subprocess.run([sys.executable, "-c", _SLICE, str(tmp_path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["leaked"] == []
@@ -168,6 +191,12 @@ def test_port_runs_the_slice_without_jax():
     optimum = tsyn.random_lasso(m=100, n=300, pfactor=10).optimum
     for numit, _, fx in adaptive:
         assert numit < 3000 and abs(fx - optimum) < 1e-9 * optimum
+    # sparse logreg: both LogisticLoss branches and K2's logistic objective reach
+    # the same minimum; the driver wrote its JSONL
+    assert got["source"] == "synthetic"
+    (n0, f0), (n1, f1), (n2, f2) = got["logreg"]
+    assert max(n0, n1, n2) < 2000 and abs(f1 - f0) < 1e-12 and abs(f2 - f0) < 1e-9
+    assert (tmp_path / "heart_scale.jsonl").stat().st_size > 0
 
 
 # -- (h) chip_smoke.py ---------------------------------------------------------
@@ -180,6 +209,40 @@ def test_chip_smoke_imports_no_jax():
     tops = {m.split(".")[0] for m in mods}
     assert "jax" not in tops and "adaprox_tpu" not in tops
     assert "adaprox_tpu_torch" in tops
+
+
+def test_chip_smoke_reads_the_ptxas_report():
+    """The [build] line names each kernel instantiation with its registers,
+    stack bytes and spill-store bytes, from nvcc's -Xptxas -v output."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    ns = "_ZN47_GLOBAL__N__1323a1fc_14_resident_pg_cu_550c6022"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{ns}24resident_pg_sweep_kernelI13__nv_bfloat16"
+        "Li8ELi1EEEvNS_7ProblemENS_4RowsE' for 'sm_90a'",
+        "ptxas info    : Function properties for x",
+        "    8 bytes stack frame, 10 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size",
+        f"ptxas info    : Compiling entry function '{ns}18resident_pg_kernelILi0EfLi4ELi4EEEvNS_7"
+        "ProblemENS_5SolveE' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, used 1 barriers, 512 bytes smem",
+        "ptxas info    : Compiling entry function '_Z14plain_reduce_kernelPf' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 32 registers, used 0 barriers"])
+    assert smoke.ptxas_report(log) == ["resident_pg_sweep_kernel<bf16,8,1> 128/8/10",
+                                       "resident_pg_kernel<0,f32,4,4> 96/0/0",
+                                       "_Z14plain_reduce_kernelPf 32/0/0"]
+
+
+def test_resident_timing_needs_a_card():
+    from adaprox_tpu_torch.experiments import resident_timing
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="needs a CUDA device"):
+        resident_timing.main([])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -162,7 +162,8 @@ def test_resident_records_match_jax(tmp_path):
     assert tlog.read_jsonl(tmp_path / "t.jsonl") == jlog.read_jsonl(tmp_path / "j.jsonl")
 
 
-@pytest.mark.parametrize("kw", [dict(obj_kind="logreg"), dict(obj_kind="cubic")])
+# logreg is ported (tests/test_torch_logreg.py); cubic, with or without its c, is not
+@pytest.mark.parametrize("kw", [dict(obj_kind="cubic"), dict(obj_kind="cubic", cube_c=2.0)])
 def test_resident_refuses_what_is_not_ported(kw):
     a, b, gamma0 = _case()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

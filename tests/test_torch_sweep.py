@@ -224,8 +224,9 @@ def test_sweep_refuses_bad_rows(rows, match):
         tr.resident_rule_sweep(*_t(a, b), np.asarray(rows), 0.0, 200)
 
 
+# logreg is ported (tests/test_torch_logreg.py)
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(obj_kind="logreg"), NotImplementedError, "ROADMAP"),
+    (dict(obj_kind="cubic", cube_c=2.0), NotImplementedError, "ROADMAP"),
     (dict(obj_kind="cubic"), NotImplementedError, "ROADMAP"),
     (dict(prox_kind="nope"), ValueError, "must be one of"),
 ])
