@@ -16,10 +16,12 @@ Layout:
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the proximal-gradient engine,
                fixed-step Nesterov
-  models/      objectives and problem generators
+  models/      objectives (least squares, logistic, the cubic model, the
+               worst-case quadratic) and problem generators
   utils/       JSONL telemetry, timing on the card, the LIBSVM loader and the
                datasets (with their synthetic fallback)
-  experiments/ the lasso and sparse logistic regression drivers
+  experiments/ the lasso, sparse logistic regression, cubic-regularized
+               logistic and Nesterov worst-case drivers
   convert.py   the JAX side's problem and rule fields, carried over
 
 Importing the package sets full-f32 matrix products on the card: TF32 off
@@ -51,7 +53,7 @@ from .ops.resident import (  # noqa: E402
     resident_supported,
     rule_rows,
 )
-from .models.objectives import LeastSquares, LogisticLoss  # noqa: E402
+from .models.objectives import Cubic, LeastSquares, LogisticLoss, WorstQuadratic  # noqa: E402
 from .models.synthetic import LassoProblem, random_lasso  # noqa: E402
 from .solvers.rules import (  # noqa: E402
     Curvature,
@@ -67,7 +69,13 @@ from .solvers.primal_dual import (  # noqa: E402
     fixed_proxgrad,
 )
 from .solvers.nesterov import fixed_nesterov  # noqa: E402
-from .convert import lasso_from_numpy, logreg_from_numpy, rule_from_numpy  # noqa: E402
+from .convert import (  # noqa: E402
+    cubic_from_numpy,
+    lasso_from_numpy,
+    logreg_from_numpy,
+    rule_from_numpy,
+    worst_from_numpy,
+)
 
 __version__ = "0.1.0"
 
@@ -78,12 +86,13 @@ __all__ = [
     "resident_adapgm", "resident_adapgm_l1", "resident_logreg_l1", "resident_records",
     "resident_rule_sweep", "resident_supported", "rule_rows",
     # models
-    "LeastSquares", "LogisticLoss", "LassoProblem", "random_lasso",
+    "LeastSquares", "LogisticLoss", "Cubic", "WorstQuadratic", "LassoProblem", "random_lasso",
     # rules
     "Curvature", "FixedStepsize", "MalitskyMishchenkoRule", "AdaPGMRule", "OurRule",
     # solvers
     "Counters", "Records", "SolveResult",
     "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "fixed_nesterov",
     # carried over from the JAX side
-    "lasso_from_numpy", "logreg_from_numpy", "rule_from_numpy",
+    "lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
+    "rule_from_numpy",
 ]

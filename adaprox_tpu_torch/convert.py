@@ -9,11 +9,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.objectives import LeastSquares, LogisticLoss
+from .models.objectives import Cubic, LeastSquares, LogisticLoss, WorstQuadratic
 from .ops.prox import L1Norm
 from .solvers import rules
 
-__all__ = ["lasso_from_numpy", "logreg_from_numpy", "rule_from_numpy"]
+__all__ = ["lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
+           "rule_from_numpy"]
 
 _RULES = {cls.__name__: cls for cls in
           (rules.FixedStepsize, rules.MalitskyMishchenkoRule, rules.AdaPGMRule)}
@@ -41,6 +42,26 @@ def logreg_from_numpy(x, y, lam, *, device, dtype, fused):
     y_t = torch.as_tensor(np.asarray(y), device=device).to(vec_dtype)
     lam_t = torch.as_tensor(float(np.asarray(lam)), dtype=vec_dtype, device=device)
     return LogisticLoss(x_t, y_t, fused=fused), L1Norm(lam_t)
+
+
+def cubic_from_numpy(q_mat, q_vec, c, *, device, dtype):
+    """``Cubic`` of 0.5 x'Qx + q'x + (c/6)||x||^3 on ``device``. ``dtype`` is
+    the storage dtype of Q (bf16 allowed); q and c take ``dtype`` too unless
+    it is bf16, where they take float32."""
+    vec_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+    q_t = torch.as_tensor(np.asarray(q_mat), device=device).to(dtype)
+    v_t = torch.as_tensor(np.asarray(q_vec), device=device).to(vec_dtype)
+    c_t = torch.as_tensor(float(np.asarray(c)), dtype=vec_dtype, device=device)
+    return Cubic(q_t, v_t, c_t)
+
+
+def worst_from_numpy(k, lip, n, *, device, dtype):
+    """``WorstQuadratic`` on the first ``k`` of ``n`` coordinates with
+    Lipschitz constant ``lip``, its ``lip`` in ``dtype`` on ``device``."""
+    if not 1 <= int(k) <= int(n):
+        raise ValueError(f"need 1 <= k <= n, got k={k}, n={n}")
+    return WorstQuadratic(int(k), torch.as_tensor(float(np.asarray(lip)), dtype=dtype,
+                                                  device=device))
 
 
 def rule_from_numpy(kind, **fields):

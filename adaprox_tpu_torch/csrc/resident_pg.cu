@@ -1,10 +1,12 @@
 // K2 and K2c for Hopper: whole proximal-gradient solves of f(x) + g(x) in one
 // cooperative kernel launch, with f the least-squares loss 0.5 ||A x - b||^2
-// (obj_kind "ls") or the mean logistic loss of the rows of A with labels b in
-// {0, 1} (obj_kind "logreg", the bias folded into A as a ones column).
+// (obj_kind "ls"), the mean logistic loss of the rows of A with labels b in
+// {0, 1} (obj_kind "logreg", the bias folded into A as a ones column), or the
+// cubic model 0.5 x'Hx + q'x + (c/6)||x||^3 with A = H (n x n, symmetric) and
+// b = q (obj_kind "cubic").
 //
-// Replaces the Pallas TPU kernels of adaprox_tpu/ops/resident.py for obj_kind
-// "ls" and "logreg":
+// Replaces the Pallas TPU kernels of adaprox_tpu/ops/resident.py for every
+// obj_kind they take ("ls", "logreg", "cubic"):
 //   K2   resident_adapgm (bodies _kernel / _kernel_rec, core _solve_core): one solve;
 //   K2c  resident_rule_sweep (body _rule_sweep_kernel_rec): R method rows of one
 //        problem, each with its own gamma0, tol, rule, momentum flag and iteration
@@ -22,6 +24,17 @@
 // code for both; the objective partial is sum_r (b_r - 1) z_r - softplus(-z_r),
 // and f = -(partial + pad_rows log 2) / m_true, each zero-padded row of A adding
 // exactly -log 2 to the raw sum.
+//
+// For "cubic" (_obj_split's cubic branch) the gradient H x + q + (c ||x|| / 2) x
+// comes from one matvec, and ||x|| must be known before it. P1 writes res = H x
+// (no - q) and, from lane 0 of row r (m = n, so row r is coordinate r), the
+// partials of ||x||^2 and of x_r (H x)_r + 2 q_r x_r; P2 starts with every warp
+// summing the ||x||^2 partials in the fixed order of P3's sums (the same bits
+// in every CTA) and forms grad_j = (res_j + q_j) + (||x|| c / 2) x_j
+// elementwise, with no dot product over A^T. f = S / 2 + ||x||^3 c / 6 from
+// P1's sums, algebraically the JAX kernel's (<x, grad> + <q, x>) / 2 -
+// ||x||^3 c / 12; the momentum body's P1' gives the same partials at x_new.
+// The wrapper passes A itself as the second layout, which "cubic" never reads.
 //
 // What bounds it on the card. The data-sheet bound is the arithmetic: A is read
 // from device memory once (16.8 MB at 4096x1024 f32, 5 us at 3.35 TB/s), while
@@ -88,29 +101,33 @@ constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
-enum Obj { kLs = 0, kLogreg = 1 };
+enum Obj { kLs = 0, kLogreg = 1, kCubic = 2 };
 enum Prox { kL1 = 0, kBox = 1, kElastic = 2, kZero = 3 };
 enum Rule { kFixed = 0, kMM = 1, kAdaPGM = 2 };
-// Per-CTA partial sums: part[k * grid + cta]. kRes2 holds ||res||^2 ("ls") or the
-// raw logistic sum ("logreg"); kPrimal2 holds ||primal||^2 in a rule iteration
-// and ||x_new - z||^2 in a momentum iteration.
-enum Part { kRes2 = 0, kPrimal2, kDg2, kDgDx, kDx2, kAbsX, kX2, kParts };
+// Per-CTA partial sums: part[k * grid + cta]. P1 writes kRes2, which holds
+// ||res||^2 ("ls"), the raw logistic sum ("logreg") or ||x||^2 of P1's point
+// ("cubic"; every CTA reads it in P2, so P2 writes none of P1's slots), and for
+// "cubic" kObj, the sum of x_r (H x)_r + 2 q_r x_r (the other objectives leave
+// it as the caller zeroed it). P2 writes the rest: kPrimal2 holds ||primal||^2 in a rule iteration and
+// ||x_new - z||^2 in a momentum iteration; kX2 is the elastic g's sum x^2.
+enum Part { kRes2 = 0, kObj, kPrimal2, kDg2, kDgDx, kDx2, kAbsX, kX2, kParts };
 
 // The problem and the scratch, shared by every solve of a launch.
 struct Problem {
   const void* a;    // (m, n) row-major, f32 or bf16
   const void* at;   // (n, m) row-major: the same values transposed ("logreg": / m_true)
-  const float* b;   // (m,): the right-hand side, or the labels ("logreg")
+  const float* b;   // (m,): the right-hand side, the labels ("logreg") or q ("cubic")
   const float* x0;  // (n,)
   float* xs;        // (2, n): x and x_prev by parity
   float* gs;        // (2, n): grad and grad_prev by parity
   float* v;         // (n,): v of a rule iteration, z of a momentum iteration
-  float* res;       // (m,): A x - b, or sigmoid(A x) - b ("logreg")
+  float* res;       // (m,): A x - b, sigmoid(A x) - b ("logreg") or H x ("cubic")
   float* part;      // (kParts, grid)
   long long m, n;
   int hist_len;     // the length of a history row: the launch's maxit
   float p1, p2;
   float obj_pad, obj_div;  // "logreg": pad_rows * log 2 and m_true
+  float cube_c;            // "cubic": c
   int obj, prox, record;
 };
 
@@ -291,8 +308,28 @@ __device__ void solve(const Problem& p, const Solve& s) {
   const T* __restrict__ at = static_cast<const T*>(p.at);
 
   // P1: res = A x - b and this CTA's partial of ||res||^2; for "logreg"
-  // res = sigmoid(A x) - b and the partial of (b - 1) A x - softplus(-A x).
+  // res = sigmoid(A x) - b and the partial of (b - 1) A x - softplus(-A x); for
+  // "cubic" res = H x and the partials of ||x||^2 and x (H x) + 2 q x. The
+  // objectives branch outside the row loops (uniform over the grid).
   auto phase_res = [&](const float* x) {
+    if (p.obj == kCubic) {
+      float nx2 = 0.f, obj = 0.f;
+      for (long long r = gwarp; r < m; r += nwarps) {
+        const float d = warp_dot<T, VA>(a + r * n, x, n, lane);
+        if (lane == 0) {
+          const float xr = x[r];
+          p.res[r] = d;
+          nx2 += xr * xr;
+          obj += xr * d + 2.f * (p.b[r] * xr);
+        }
+      }
+      if (lane == 0) {
+        warp_part[kRes2][warp] = nx2;
+        warp_part[kObj][warp] = obj;
+      }
+      write_partials(warp_part, p.part, kRes2, kObj + 1);
+      return;
+    }
     float f = 0.f;
     for (long long r = gwarp; r < m; r += nwarps) {
       const float d = warp_dot<T, VA>(a + r * n, x, n, lane);
@@ -314,16 +351,38 @@ __device__ void solve(const Problem& p, const Solve& s) {
     write_partials(warp_part, p.part, kRes2, kRes2 + 1);
   };
 
-  // P3's sums, in warp 0: every CTA sums every partial in the same order (lanes
-  // over CTAs, then a shuffle tree); the totals land in lane 0.
+  // The sum over CTAs of partial k, by one warp: lanes over CTAs, then a
+  // shuffle tree, one fixed order, so every warp of every CTA gets the same
+  // bits; the total lands in lane 0.
+  auto sum_part = [&](int k) {
+    float t = 0.f;
+    for (int c = lane; c < static_cast<int>(gridDim.x); c += 32) t += p.part[k * gridDim.x + c];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(kFull, t, off);
+    return t;
+  };
+
+  // P3's sums, in warp 0.
   auto sum_partials = [&](float* sum) {
 #pragma unroll
-    for (int k = 0; k < kParts; ++k) {
-      float t = 0.f;
-      for (int c = lane; c < static_cast<int>(gridDim.x); c += 32) t += p.part[k * gridDim.x + c];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(kFull, t, off);
-      sum[k] = t;
+    for (int k = 0; k < kParts; ++k) sum[k] = sum_part(k);
+  };
+
+  // P2's loop over this CTA's coordinates j: body(j, grad_j) in lane 0, grad at
+  // the point x of the last P1: (A^T res)_j, one warp a row of A^T; for "cubic"
+  // (H x)_j + q_j + (||x|| c / 2) x_j from res = H x, elementwise, with ||x|| from
+  // P1's partials (every warp sums them in one order: the same bits everywhere).
+  auto for_each_grad = [&](const float* x, auto&& body) {
+    if (p.obj == kCubic) {
+      const float coef = sqrtf(sum_part(kRes2)) * p.cube_c / 2.f;
+      for (long long j = gwarp; j < n; j += nwarps) {
+        if (lane == 0) body(j, (p.res[j] + p.b[j]) + coef * x[j]);
+      }
+    } else {
+      for (long long j = gwarp; j < n; j += nwarps) {
+        const float g = warp_dot<T, VT>(at + j * m, p.res, m, lane);
+        if (lane == 0) body(j, g);
+      }
     }
   };
 
@@ -338,6 +397,9 @@ __device__ void solve(const Problem& p, const Solve& s) {
     float fval;
     if (p.obj == kLogreg) {
       fval = -(sum[kRes2] + p.obj_pad) / p.obj_div;
+    } else if (p.obj == kCubic) {
+      const float nx = sqrtf(sum[kRes2]);
+      fval = 0.5f * sum[kObj] + nx * nx * nx * p.cube_c / 6.f;
     } else {
       fval = 0.5f * sum[kRes2];
     }
@@ -368,17 +430,14 @@ __device__ void solve(const Problem& p, const Solve& s) {
     // momentum body does not use it, so momentum solves skip it.
     phase_res(p.x0);
     grid.sync();
-    for (long long j = gwarp; j < n; j += nwarps) {
-      const float g = warp_dot<T, VT>(at + j * m, p.res, m, lane);
-      if (lane == 0) {
-        const float x0j = p.x0[j];
-        p.gs[n + j] = g;
-        p.xs[n + j] = x0j;
-        const float vj = x0j - s.gamma0 * g;
-        p.v[j] = vj;
-        p.xs[j] = prox(p.prox, vj, s.gamma0, p.p1, p.p2);
-      }
-    }
+    for_each_grad(p.x0, [&](long long j, float g) {
+      const float x0j = p.x0[j];
+      p.gs[n + j] = g;
+      p.xs[n + j] = x0j;
+      const float vj = x0j - s.gamma0 * g;
+      p.v[j] = vj;
+      p.xs[j] = prox(p.prox, vj, s.gamma0, p.p1, p.p2);
+    });
     grid.sync();
   }
 
@@ -410,18 +469,15 @@ __device__ void solve(const Problem& p, const Solve& s) {
 
       // P2: grad = A^T res at z, x_new = prox(z - gamma grad), the partials
       float acc[kParts] = {};
-      for (long long j = gwarp; j < n; j += nwarps) {
-        const float g = warp_dot<T, VT>(at + j * m, p.res, m, lane);
-        if (lane == 0) {
-          const float zj = z[j];
-          const float xn = prox(p.prox, zj - gamma * g, gamma, p.p1, p.p2);
-          x_new[j] = xn;
-          const float d = xn - zj;
-          acc[kPrimal2] += d * d;
-          acc[kAbsX] += fabsf(xn);
-          acc[kX2] += xn * xn;
-        }
-      }
+      for_each_grad(z, [&](long long j, float g) {
+        const float zj = z[j];
+        const float xn = prox(p.prox, zj - gamma * g, gamma, p.p1, p.p2);
+        x_new[j] = xn;
+        const float d = xn - zj;
+        acc[kPrimal2] += d * d;
+        acc[kAbsX] += fabsf(xn);
+        acc[kX2] += xn * xn;
+      });
       if (lane == 0) {
 #pragma unroll
         for (int k = kPrimal2; k < kParts; ++k) warp_part[k][warp] = acc[k];
@@ -429,7 +485,8 @@ __device__ void solve(const Problem& p, const Solve& s) {
       write_partials(warp_part, p.part, kPrimal2, kParts);
       grid.sync();
 
-      // P1': the objective at x_new costs one more forward matvec (:276-280)
+      // P1': the objective at x_new costs one more forward matvec (:276-280);
+      // "cubic" rewrites P1's partials, which P2 has finished reading
       if (p.record) {
         phase_res(x_new);
         grid.sync();
@@ -471,22 +528,19 @@ __device__ void solve(const Problem& p, const Solve& s) {
 
       // P2: grad = A^T res, and the partials over this CTA's columns
       float acc[kParts] = {};
-      for (long long j = gwarp; j < n; j += nwarps) {
-        const float g = warp_dot<T, VT>(at + j * m, p.res, m, lane);
-        if (lane == 0) {
-          grad[j] = g;
-          const float xj = x[j];
-          const float primal = (p.v[j] - xj) / gamma + g;
-          const float dg = g - grad_prev[j];
-          const float dx = xj - x_prev[j];
-          acc[kPrimal2] += primal * primal;
-          acc[kDg2] += dg * dg;
-          acc[kDgDx] += dg * dx;
-          acc[kDx2] += dx * dx;
-          acc[kAbsX] += fabsf(xj);
-          acc[kX2] += xj * xj;
-        }
-      }
+      for_each_grad(x, [&](long long j, float g) {
+        grad[j] = g;
+        const float xj = x[j];
+        const float primal = (p.v[j] - xj) / gamma + g;
+        const float dg = g - grad_prev[j];
+        const float dx = xj - x_prev[j];
+        acc[kPrimal2] += primal * primal;
+        acc[kDg2] += dg * dg;
+        acc[kDgDx] += dg * dx;
+        acc[kDx2] += dx * dx;
+        acc[kAbsX] += fabsf(xj);
+        acc[kX2] += xj * xj;
+      });
       if (lane == 0) {
 #pragma unroll
         for (int k = kPrimal2; k < kParts; ++k) warp_part[k][warp] = acc[k];
@@ -632,8 +686,8 @@ cudaError_t launch(const void* kernel, Problem& prob, void* second, long long pa
 }
 
 bool problem_ok(int obj_kind, long long m, long long n, int maxit, int prox_kind) {
-  return (obj_kind == kLs || obj_kind == kLogreg) && m >= 1 && n >= 1 && maxit >= 0 &&
-         prox_kind >= kL1 && prox_kind <= kZero;
+  return (obj_kind == kLs || obj_kind == kLogreg || (obj_kind == kCubic && m == n)) &&
+         m >= 1 && n >= 1 && maxit >= 0 && prox_kind >= kL1 && prox_kind <= kZero;
 }
 
 }  // namespace
@@ -644,16 +698,17 @@ extern "C" {
 int adaprox_resident_pg_parts() { return kParts; }
 
 // K2, one whole solve. obj_kind: 0 "ls", 1 "logreg" (at holds A^T / m_true;
-// obj_pad = (m - m_true) log 2, obj_div = m_true; both ignored for "ls").
-// a (m, n) and at (n, m) in f32 (a_is_bf16 = 0) or bf16;
+// obj_pad = (m - m_true) log 2, obj_div = m_true; both ignored otherwise), 2
+// "cubic" (m == n, b = q, cube_c = c; at is not read: pass a). a (m, n) and
+// at (n, m) in f32 (a_is_bf16 = 0) or bf16;
 // va / vt: 1, or 4 (f32) / 8 (bf16) when n / m is a multiple of it and the rows
 // are 16-byte aligned. b (m), x0 (n), xs (2, n), gs (2, n), v (n), res (m), part
-// (part_len >= kParts * SMs), x_out (n), stats (4) and, when record, hist
+// (part_len >= kParts * SMs, zeroed), x_out (n), stats (4) and, when record, hist
 // (3, maxit; null when maxit is 0): f32 device buffers the caller owns. prox:
 // 0 l1, 1 box, 2 elastic, 3 zero; rule: 0 fixed, 1 mm, 2 adapgm, ignored when
 // momentum is 1. Returns the cudaError_t of the launch (0 on success).
-int adaprox_resident_pg(int obj_kind, float obj_pad, float obj_div, const void* a,
-                        const void* at, int a_is_bf16, int va, int vt, const float* b,
+int adaprox_resident_pg(int obj_kind, float obj_pad, float obj_div, float cube_c,
+                        const void* a, const void* at, int a_is_bf16, int va, int vt, const float* b,
                         const float* x0, float* xs, float* gs, float* v,
                         float* res, float* part, long long part_len, float* x_out,
                         float* stats, float* hist, long long m, long long n, int maxit,
@@ -664,8 +719,8 @@ int adaprox_resident_pg(int obj_kind, float obj_pad, float obj_div, const void* 
       rule_kind < kFixed || rule_kind > kAdaPGM || (record && maxit > 0 && !hist)) {
     return cudaErrorInvalidValue;
   }
-  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1, p2, obj_pad, obj_div,
-               obj_kind, prox_kind, record};
+  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1,
+               p2, obj_pad, obj_div, cube_c, obj_kind, prox_kind, record};
   Solve s{gamma0, tol, rule_kind, momentum != 0, maxit, x_out, stats, hist};
   return static_cast<int>(launch(kernel, prob, &s, part_len, stream_ptr));
 }
@@ -675,7 +730,8 @@ int adaprox_resident_pg(int obj_kind, float obj_pad, float obj_div, const void* 
 // the device; the caller has checked every rule in [0, 2] and every cap in
 // [0, maxit]. x_out (rows, n), stats (rows, 4), hist (rows, 3, maxit; null when
 // maxit is 0); the other arguments as for adaprox_resident_pg.
-int adaprox_resident_pg_sweep(int obj_kind, float obj_pad, float obj_div, const void* a,
+int adaprox_resident_pg_sweep(int obj_kind, float obj_pad, float obj_div, float cube_c,
+                              const void* a,
                               const void* at, int a_is_bf16, int va, int vt, const float* b,
                               const float* x0, float* xs, float* gs, float* v,
                               float* res, float* part, long long part_len, const float* rows_f,
@@ -687,8 +743,8 @@ int adaprox_resident_pg_sweep(int obj_kind, float obj_pad, float obj_div, const 
       !rows_f || !rows_i || (maxit > 0 && !hist)) {
     return cudaErrorInvalidValue;
   }
-  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1, p2, obj_pad, obj_div,
-               obj_kind, prox_kind, 1};
+  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1,
+               p2, obj_pad, obj_div, cube_c, obj_kind, prox_kind, 1};
   Rows r{rows_f, rows_i, rows, x_out, stats, hist};
   return static_cast<int>(launch(kernel, prob, &r, part_len, stream_ptr));
 }

@@ -18,6 +18,8 @@ A in f32 unless a case says bf16. Cases:
     logreg_it_us     the logistic objective at 8128x128 (mushrooms' padded
                      [X 1] shape; random A and labels)
     sweep_1_4_it_us  a one-row sweep at 4096x1022 (the sweep's f32 1,4)
+    cubic_128_it_us, cubic_2048_it_us  the cubic objective (c = 1) on a random
+                     PSD H, 128^2 and 2048^2, tol -1 (no early stop)
   menu_ms          K2c, the lasso menu's four rows at 4000x1000x10 padded to
                    4000x1024 (maxit 2000, tol 1e-7; the sweep's f32 4,4)
 """
@@ -94,6 +96,14 @@ def main(argv=None):
     y_l = (torch.rand(8128, generator=gen, device=dev) < 0.5).float()
     # the logistic loss's gradient is (1/4m)-Lipschitz in ||A||^2
     out["logreg_it_us"] = k2_it_us(a_l, y_l, 4 * 8128 * gam_l, obj_kind="logreg")
+    for n in (128, 2048):
+        g_c = torch.randn(n, n, generator=gen, device=dev) / n
+        h_c = g_c.t() @ g_c
+        q_c = torch.randn(n, generator=gen, device=dev) / n
+        gam_c = 1.0 / (float(torch.linalg.matrix_norm(h_c.double(), 2)) + 1.0)
+        out[f"cubic_{n}_it_us"] = it_us(lambda: resident.resident_adapgm(
+            h_c, q_c, torch.zeros(n, device=dev), gam_c, -1.0, ITERS, prox_kind="zero",
+            rule_kind="fixed", obj_kind="cubic", cube_c=1.0))
     a_s, b_s, gam_s = random_problem(4096, 1022)
     rows = resident.rule_rows([(gam_s, "fixed", False)], tol=0.0, maxit=ITERS)
     out["sweep_1_4_it_us"] = it_us(lambda: resident.resident_rule_sweep(

@@ -2,8 +2,10 @@
 ``adaprox_tpu/models/objectives.py``), the reference's hand-written pullback
 structs:
 
-  * LeastSquares  experiments/lasso/runme.jl:16-27
-  * LogisticLoss  experiments/sparse_logreg/runme.jl:18-39
+  * LeastSquares    experiments/lasso/runme.jl:16-27
+  * LogisticLoss    experiments/sparse_logreg/runme.jl:18-39
+  * Cubic           experiments/cubic_sparse_logreg/runme.jl:26-32
+  * WorstQuadratic  experiments/nesterov_worst_case/runme.jl:14-40
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ from ..ops import kernels
 from ..ops.linops import acc_dtype
 from ..ops.oracles import SmoothOracle
 
-__all__ = ["LeastSquares", "LogisticLoss"]
+__all__ = ["LeastSquares", "LogisticLoss", "Cubic", "WorstQuadratic"]
 
 
 class LeastSquares(nn.Module, SmoothOracle):
@@ -105,3 +107,76 @@ class LogisticLoss(nn.Module, SmoothOracle):
         diff = aux - self.y
         gw = torch.mv(self.x.to(acc_dtype(self.x, diff)).t(), diff) / self.y.shape[0]
         return torch.cat([gw, torch.mean(diff)[None]]).to(w.dtype)
+
+
+class Cubic(nn.Module, SmoothOracle):
+    """Cubic-regularized quadratic model (cubic_sparse_logreg/runme.jl:26-32),
+    with ``q_mat`` (n, n), ``q_vec`` (n,) and ``c`` (0-d) as buffers:
+
+        grad = Q x + q + (c ||x|| / 2) x
+        f(x) = (<x, grad> + <q, x>) / 2 - c ||x||^3 / 12
+
+    aux = grad (the reference's pullback returns the precomputed gradient),
+    so value and gradient share one matvec. The formula order is the JAX
+    engine's (``nx**3``); K2's cubic objective (``ops.resident``) writes
+    ``nx * nx * nx`` as the JAX kernel does, so the two are kept apart.
+    ``q_mat`` may be stored bf16; results accumulate in the iterate dtype.
+    """
+
+    def __init__(self, q_mat, q_vec, c):
+        super().__init__()
+        self.register_buffer("q_mat", q_mat)
+        self.register_buffer("q_vec", q_vec)
+        self.register_buffer("c", torch.as_tensor(c, dtype=q_vec.dtype, device=q_vec.device))
+
+    def forward(self, x):
+        return self.value(x)
+
+    def value_and_aux(self, x):
+        nx = torch.sqrt(torch.sum(x * x))
+        hx = torch.mv(self.q_mat.to(acc_dtype(self.q_mat, x)), x)
+        grad = hx + self.q_vec + (nx * self.c / 2) * x
+        val = (torch.dot(x, grad) + torch.dot(self.q_vec, x)) / 2 - nx**3 * self.c / 12
+        return val, grad
+
+    def grad_from_aux(self, x, aux):
+        del x
+        return aux
+
+
+class WorstQuadratic(nn.Module, SmoothOracle):
+    """Nesterov's worst-case tridiagonal quadratic on the first ``k``
+    coordinates (nesterov_worst_case/runme.jl:14-40), with ``lip`` (0-d) as a
+    buffer:
+
+        f(x) = (L/4) ((x_1^2 + x_k^2 + sum_{i<k} (x_i - x_{i+1})^2) / 2 - x_1)
+
+    The gradient is the stencil (L/4)(T x - e_1), T = tridiag(-1, 2, -1) on
+    x[:k] and zero beyond: no dense T. aux is None; the gradient is formed
+    from x.
+    """
+
+    def __init__(self, k, lip):
+        super().__init__()
+        self.k = int(k)
+        self.register_buffer("lip", torch.as_tensor(lip))
+
+    def forward(self, x):
+        return self.value(x)
+
+    def value_and_aux(self, x):
+        xk = x[: self.k]
+        s = xk[0] ** 2 + xk[-1] ** 2 + torch.sum(torch.diff(xk) ** 2)
+        return (self.lip / 4) * (s / 2 - xk[0]), None
+
+    def grad_from_aux(self, x, aux):
+        del aux
+        xk = x[: self.k]
+        zero = torch.zeros(1, dtype=xk.dtype, device=xk.device)
+        left = torch.cat([zero, xk[:-1]])
+        right = torch.cat([xk[1:], zero])
+        tx = 2 * xk - left - right
+        e1 = torch.zeros_like(xk)
+        e1[0] = 1.0
+        gk = (self.lip / 4) * (tx - e1)
+        return torch.cat([gk, torch.zeros(x.shape[0] - self.k, dtype=x.dtype, device=x.device)])

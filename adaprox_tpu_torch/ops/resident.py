@@ -1,10 +1,12 @@
 """K2 and K2c, the whole-solve kernels: complete proximal-gradient solves of
 f(x) + g(x) in one launch, f the least-squares loss 0.5 ||A x - b||^2
-(``obj_kind="ls"``) or the mean logistic loss with the bias folded into A as
-a ones column (``obj_kind="logreg"``, labels b in {0, 1}).
+(``obj_kind="ls"``), the mean logistic loss with the bias folded into A as
+a ones column (``obj_kind="logreg"``, labels b in {0, 1}), or the cubic
+model 0.5 x'Hx + q'x + (c/6)||x||^3 with A = H square and b = q
+(``obj_kind="cubic"``, c = ``cube_c``).
 
-Counterpart of ``adaprox_tpu/ops/resident.py`` for ``obj_kind`` "ls" and
-"logreg" (the "cubic" objective is not ported yet): ``resident_adapgm`` (K2,
+Counterpart of ``adaprox_tpu/ops/resident.py`` for every ``obj_kind`` of
+K2/K2c ("ls", "logreg", "cubic"): ``resident_adapgm`` (K2,
 one solve; the Pallas TPU kernel over ``_solve_core``), its aliases
 ``resident_adapgm_l1`` and ``resident_logreg_l1``, and
 ``resident_rule_sweep`` (K2c, the rule rows of a method menu in one launch,
@@ -100,7 +102,7 @@ def _rule_fixed(g1, g0, ndg2, dgdx, ndx2):
 
 
 _RULES = {"fixed": _rule_fixed, "mm": _rule_mm, "adapgm": _rule_adapgm}
-_OBJ_IDX = {"ls": 0, "logreg": 1}
+_OBJ_IDX = {"ls": 0, "logreg": 1, "cubic": 2}
 _PROX_IDX = {"l1": 0, "box": 1, "elastic": 2, "zero": 3}
 _RULE_IDX = {"fixed": 0, "mm": 1, "adapgm": 2}
 _RULE_OF_IDX = {v: k for k, v in _RULE_IDX.items()}
@@ -120,21 +122,38 @@ def _transposed(a, obj_kind, m_true):
     """The second layout of A that the gradient reads: A^T, divided by the
     mean's divisor for "logreg" (in A's storage dtype, as the JAX package's
     caller builds it), so that the kernel and the plain version read the
-    same bits."""
+    same bits. "cubic" reads no second layout (H x is its only matvec): A
+    itself, no copy."""
     if obj_kind == "logreg":
         return a.t() / _m_div(a, m_true)[0]
+    if obj_kind == "cubic":
+        return a
     return a.t()
 
 
-def _obj_split(a, at, b, obj_kind, m_true):
+def _obj_split(a, at, b, obj_kind, m_true, cube_c=0.0):
     """The smooth oracle of ``_solve_core`` (``_obj_split`` in the JAX
     package) as (val_aux_of, grad_from_aux):
       * "ls": f = 0.5 ||A x - b||^2, aux = the residual, grad = A' res;
       * "logreg": aux = sigmoid(z) at the logits z = A x, f = -(sum((b - 1) z
         - softplus(-z)) + pad_rows log 2) / m_true (each zero-padded row adds
         exactly -log 2 to the raw sum), grad = (A' / m_true)(sigmoid(z) - b)
-        with ``at`` already divided."""
-    if obj_kind == "logreg":
+        with ``at`` already divided;
+      * "cubic": A = H, b = q, c = ``cube_c``; aux = grad = H x + q +
+        (||x|| c / 2) x from one matvec, f = (<x, grad> + <q, x>) / 2 -
+        ||x||^3 c / 12, in the JAX kernel's order (``nx * nx * nx``, where
+        ``models.objectives.Cubic`` writes ``nx**3``)."""
+    if obj_kind == "cubic":
+        def val_aux_of(x):
+            hx = torch.mv(a, x)
+            nx = torch.sqrt(torch.sum(x * x))
+            grad = hx + b + (nx * cube_c / 2) * x
+            val = (torch.sum(x * grad) + torch.sum(b * x)) / 2 - nx * nx * nx * cube_c / 12
+            return val, grad
+
+        def grad_from_aux(grad):
+            return grad
+    elif obj_kind == "logreg":
         m_div, pad_rows = _m_div(a, m_true)
 
         def val_aux_of(x):
@@ -155,9 +174,9 @@ def _obj_split(a, at, b, obj_kind, m_true):
 
 def resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0,
                           rule_kind="adapgm", momentum=False, record=False, obj_kind="ls",
-                          m_true=None):
+                          m_true=None, cube_c=0.0):
     """The plain PyTorch version of the kernel: ``_solve_core``'s loop for
-    ``obj_kind`` "ls" or "logreg", one host-checked iteration at a time.
+    ``obj_kind`` "ls", "logreg" or "cubic", one host-checked iteration at a time.
     ``momentum`` runs its momentum body instead of the rule's (the rule is
     then unused). Scalars are 0-d tensors in the iterate dtype; bf16 storage
     of ``a`` is upcast to it (for "logreg" after A^T is divided by the mean's
@@ -168,12 +187,12 @@ def resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, 
     def scalar(v):
         return torch.as_tensor(v, dtype=dt, device=dev)
 
-    gamma0, tol, p1, p2 = (scalar(v) for v in (gamma0, tol, p1, p2))
+    gamma0, tol, p1, p2, cube_c = (scalar(v) for v in (gamma0, tol, p1, p2, cube_c))
     inf = scalar(math.inf)
     at = _transposed(a, obj_kind, m_true).to(dt)
     a = a.to(dt)
     b = b.to(dt)
-    val_aux_of, grad_from_aux = _obj_split(a, at, b, obj_kind, m_true)
+    val_aux_of, grad_from_aux = _obj_split(a, at, b, obj_kind, m_true, cube_c)
     prox_fn, gval_fn, rule_fn = _PROX[prox_kind], _GVAL[prox_kind], _RULES[rule_kind]
     hists = torch.zeros((3, maxit), dtype=dt, device=dev)
     gamma = gamma0
@@ -243,7 +262,7 @@ def build_library():
 def _library():
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     # obj_kind .. part_len, the leading arguments of both entries
-    problem = [i, f, f, p, p, i, i, i, p, p, p, p, p, p, p, ll]
+    problem = [i, f, f, f, p, p, i, i, i, p, p, p, p, p, p, p, ll]
     return kernels.load_library(SOURCE, NVCC_FLAGS, {
         "adaprox_resident_pg_parts": ([], i),
         "adaprox_resident_pg": (problem + [p, p, p, ll, ll, i, f, f, f, f, i, i, i, i, p], i),
@@ -263,7 +282,7 @@ def _vec(rows_len, dtype, ptr):
     return vec if rows_len % vec == 0 and ptr % 16 == 0 else 1
 
 
-def _problem(lib, a, b, x0, obj_kind, m_true, what):
+def _problem(lib, a, b, x0, obj_kind, m_true, cube_c, what):
     """Check what the kernels take, and make the second layout of A and the
     scratch of one launch (on the current device). Returns the leading
     arguments of both C entries (obj_kind .. part_len) and the tensors
@@ -279,7 +298,8 @@ def _problem(lib, a, b, x0, obj_kind, m_true, what):
         raise ValueError(f"{what} needs m, n >= 1, got {tuple(a.shape)}")
     dev = a.device
     m_div, pad_rows = _m_div(a, m_true) if obj_kind == "logreg" else (1.0, 0.0)
-    # the second layout, made once per launch (it counts in the launch's time)
+    # the second layout, made once per launch (it counts in the launch's time);
+    # "cubic" passes A itself, which its kernel does not read as A^T
     at = _transposed(a, obj_kind, m_true).contiguous()
     va, vt = _vec(n, a.dtype, a.data_ptr()), _vec(m, a.dtype, at.data_ptr())
     f32 = dict(dtype=torch.float32, device=dev)
@@ -287,22 +307,24 @@ def _problem(lib, a, b, x0, obj_kind, m_true, what):
     v, res = torch.empty(n, **f32), torch.empty(m, **f32)
     # the launcher sizes the grid, at most one CTA per SM
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    part = torch.empty(lib.adaprox_resident_pg_parts() * sms, **f32)
+    # zeroed: "ls" and "logreg" never write the cubic objective's slot, which P3 sums
+    part = torch.zeros(lib.adaprox_resident_pg_parts() * sms, **f32)
     tensors = (a, at, b, x0, xs, gs, v, res, part)
-    args = [_OBJ_IDX[obj_kind], pad_rows * math.log(2.0), m_div, a.data_ptr(), at.data_ptr(),
+    args = [_OBJ_IDX[obj_kind], pad_rows * math.log(2.0), m_div, float(cube_c), a.data_ptr(),
+            at.data_ptr(),
             int(a.dtype == torch.bfloat16), va, vt, *(t.data_ptr() for t in tensors[2:]),
             part.numel()]
     return args, tensors
 
 
 def _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum, record,
-            obj_kind, m_true):
+            obj_kind, m_true, cube_c):
     lib = _library()
     dev = a.device
     n = a.shape[1]
     with torch.cuda.device(dev):
         # keep: the tensors behind args
-        args, keep = _problem(lib, a, b, x0, obj_kind, m_true, "K2")
+        args, keep = _problem(lib, a, b, x0, obj_kind, m_true, cube_c, "K2")
         f32 = dict(dtype=torch.float32, device=dev)
         x_out, stats = torch.empty(n, **f32), torch.empty(4, **f32)
         hist = torch.empty((3, maxit), **f32) if record else None
@@ -318,25 +340,27 @@ def _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum
     return base + tuple(hist) if record else base
 
 
-def _check_menu(what, prox_kind, obj_kind):
-    if obj_kind == "cubic":
-        raise NotImplementedError(f"{what}: obj_kind='cubic' is not ported yet (ported: 'ls', "
-                                  "'logreg'); see ROADMAP.md §1")
+def _check_menu(what, a, prox_kind, obj_kind):
     if obj_kind not in _OBJ_IDX:
-        raise ValueError(f"obj_kind must be one of {sorted(_OBJ_IDX)} or 'cubic', got "
-                         f"{obj_kind!r}")
+        raise ValueError(f"obj_kind must be one of {sorted(_OBJ_IDX)}, got {obj_kind!r}")
     if prox_kind not in _PROX:
         raise ValueError(f"prox_kind must be one of {sorted(_PROX)}, got {prox_kind!r}")
+    if obj_kind == "cubic" and (a.ndim != 2 or a.shape[0] != a.shape[1]):
+        # b = q has the length of x: the JAX kernel fails on the broadcast H x + q
+        raise ValueError(f"{what}: obj_kind='cubic' needs a square H (n, n) with q and x0 "
+                         f"of length n, got a {tuple(a.shape)}")
 
 
 def resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0,
                     rule_kind="adapgm", momentum=False, obj_kind="ls", m_true=None,
                     record=False, cube_c=0.0):
     """Full proximal-gradient solve of f(x) + g(x) in one kernel launch, with
-    f = 0.5||Ax-b||^2 (``obj_kind="ls"``) or the mean logistic loss of the
+    f = 0.5||Ax-b||^2 (``obj_kind="ls"``), the mean logistic loss of the
     rows of A with labels b in {0, 1} (``obj_kind="logreg"``; the bias is a
     ones column of A, ``m_true`` the unpadded row count that divides the
-    mean), g from the static prox menu ("l1", "box", "elastic", "zero")
+    mean) or the cubic model 0.5 x'Ax + b'x + (cube_c/6)||x||^3 with A
+    square and symmetric (``obj_kind="cubic"``), g from the static prox
+    menu ("l1", "box", "elastic", "zero")
     parameterized by (p1, p2) and the step-size rule from {"adapgm", "mm",
     "fixed"}. ``momentum=True`` runs the accelerated (fixed_nesterov)
     iteration with the fixed step gamma0 instead, and the rule is ignored,
@@ -349,11 +373,9 @@ def resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0
 
     CPU tensors take the plain version, any float dtype. CUDA tensors launch
     K2: ``a`` f32 or bf16, ``b`` and ``x0`` f32, all contiguous; each launch
-    adds one to ``resident_adapgm.launches``. ``m_true`` is ignored for
-    "ls", as in the JAX package; ``cube_c`` belongs to the "cubic" objective,
-    which is not ported yet."""
-    del cube_c
-    _check_menu("resident_adapgm", prox_kind, obj_kind)
+    adds one to ``resident_adapgm.launches``. ``m_true`` is ignored unless
+    "logreg" and ``cube_c`` unless "cubic", as in the JAX package."""
+    _check_menu("resident_adapgm", a, prox_kind, obj_kind)
     if rule_kind == "dynamic":
         raise ValueError("resident_adapgm: rule_kind='dynamic' takes each row's rule from a "
                          "rows table, which only resident_rule_sweep has (as in the JAX "
@@ -364,11 +386,12 @@ def resident_adapgm(a, b, x0, gamma0, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0
     if a.device.type == "cpu":
         return resident_adapgm_plain(a, b, x0, gamma0, tol, maxit, prox_kind=prox_kind,
                                      p1=p1, p2=p2, rule_kind=rule_kind, momentum=momentum,
-                                     record=record, obj_kind=obj_kind, m_true=m_true)
+                                     record=record, obj_kind=obj_kind, m_true=m_true,
+                                     cube_c=cube_c)
     if a.device.type != "cuda":
         raise ValueError(f"K2 runs on CPU (plain version) or CUDA tensors, not {a.device}")
     return _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum,
-                   record, obj_kind, m_true)
+                   record, obj_kind, m_true, cube_c)
 
 
 resident_adapgm.launches = 0
@@ -438,28 +461,29 @@ def _sweep_rows(rows, maxit, dtype):
 
 
 def resident_rule_sweep_plain(a, b, x0, rows, maxit, prox_kind="l1", p1=0.0, p2=0.0,
-                              obj_kind="ls", m_true=None):
+                              obj_kind="ls", m_true=None, cube_c=0.0):
     """The plain version of the sweep: one plain solve a row, with that row's
     gamma0, rule, momentum flag, tol and cap, in record mode; histories are
     zero-padded to ``maxit``. Returns what ``resident_rule_sweep`` returns."""
     rows = _sweep_rows(rows, maxit, x0.dtype)
     outs = [resident_adapgm_plain(a, b, x0, g0, t, int(cap), prox_kind, p1, p2,
                                   rule_kind=_RULE_OF_IDX[int(r)], momentum=mom > 0,
-                                  record=True, obj_kind=obj_kind, m_true=m_true)
+                                  record=True, obj_kind=obj_kind, m_true=m_true,
+                                  cube_c=cube_c)
             for g0, r, mom, t, cap in rows.tolist()]
     hists = tuple(torch.stack([F.pad(o[k], (0, maxit - o[k].shape[0])) for o in outs])
                   for k in (4, 5, 6))
     return tuple(torch.stack([o[k] for o in outs]) for k in range(4)) + (hists,)
 
 
-def _launch_sweep(a, b, x0, rows, maxit, prox_kind, p1, p2, obj_kind, m_true):
+def _launch_sweep(a, b, x0, rows, maxit, prox_kind, p1, p2, obj_kind, m_true, cube_c):
     lib = _library()
     dev = a.device
     n = a.shape[1]
     count = rows.shape[0]
     with torch.cuda.device(dev):
         # keep: the tensors behind args
-        args, keep = _problem(lib, a, b, x0, obj_kind, m_true, "K2c")
+        args, keep = _problem(lib, a, b, x0, obj_kind, m_true, cube_c, "K2c")
         rows_f = rows[:, [0, 3]].to(device=dev, dtype=torch.float32).contiguous()
         rows_i = torch.stack([rows[:, 1], (rows[:, 2] > 0).to(rows.dtype), rows[:, 4]], 1)
         rows_i = rows_i.to(device=dev, dtype=torch.int32).contiguous()
@@ -480,7 +504,8 @@ def _launch_sweep(a, b, x0, rows, maxit, prox_kind, p1, p2, obj_kind, m_true):
 def resident_rule_sweep(a, b, x0, rows, tol, maxit, prox_kind="l1", p1=0.0, p2=0.0,
                         cube_c=0.0, obj_kind="ls", m_true=None):
     """The whole rule menu of an experiment as ONE record-mode launch, for
-    ``obj_kind`` "ls" or "logreg" (with ``m_true``, as ``resident_adapgm``):
+    ``obj_kind`` "ls", "logreg" (with ``m_true``) or "cubic" (with ``cube_c``),
+    as ``resident_adapgm``:
     ``rows`` is an (R, 5) array of [gamma0, rule_idx, momentum, tol, cap]
     (build it with ``rule_rows``; ``tol`` here is the launch's, which
     ``rule_rows`` puts into 3-tuple rows). ``maxit`` sizes the history
@@ -492,19 +517,19 @@ def resident_rule_sweep(a, b, x0, rows, tol, maxit, prox_kind="l1", p1=0.0, p2=0
     bits (the rows table rides their dtype). CUDA tensors launch K2c, with
     what K2 takes; each launch adds one to ``resident_rule_sweep.launches``.
     Row j equals ``resident_adapgm`` with row j's arguments."""
-    del tol, cube_c  # each row carries its own tol
+    del tol  # each row carries its own tol
     if torch.finfo(x0.dtype).bits < 32:
         raise ValueError(f"resident_rule_sweep needs >= 32-bit iterates (got {x0.dtype}): the "
                          "rows table's cap and tol columns would be quantized")
-    _check_menu("resident_rule_sweep", prox_kind, obj_kind)
+    _check_menu("resident_rule_sweep", a, prox_kind, obj_kind)
     kernels._check_shapes(a, b, x0)
     if a.device.type == "cpu":
         return resident_rule_sweep_plain(a, b, x0, rows, maxit, prox_kind, p1, p2, obj_kind,
-                                         m_true)
+                                         m_true, cube_c)
     if a.device.type != "cuda":
         raise ValueError(f"K2c runs on CPU (plain version) or CUDA tensors, not {a.device}")
     return _launch_sweep(a, b, x0, _sweep_rows(rows, maxit, x0.dtype), maxit, prox_kind, p1,
-                         p2, obj_kind, m_true)
+                         p2, obj_kind, m_true, cube_c)
 
 
 resident_rule_sweep.launches = 0

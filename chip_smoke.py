@@ -40,6 +40,18 @@ Phases, one line each, any failure exits non-zero:
                inputs); the driver's engine path on mushrooms at --maxit 200
                (depth cut from 2000 to keep the run short); K2's logistic
                iteration
+  8. cubic:    K2 with the cubic objective against its plain version (cases
+               o-q: mushrooms' cubic model 113 -> 128 with c 1, the worst case
+               100 -> 128 with c 0, a 2048^2 logistic Hessian; every body, the
+               padded coordinates exactly 0) and K2c's cubic rows bit for bit
+               against single K2 launches (case r); cubic_sparse_logreg
+               --resident on a5a, mushrooms and phishing (one K2c launch a
+               dataset, MM's and AdaPGM's F against the ground truth, the sweep
+               held against its plain version) and nesterov_worst_case
+               --resident at its defaults (one K2c launch, AdaPGM's F against
+               the known optimum); both drivers' engine paths (the worst case
+               at --maxit 1000, cut from 10000); the cubic iteration at 128^2
+               and 2048^2
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -132,6 +144,37 @@ LIBRARY_ITERS = 200
 # end (converged, ~25 iterations in) within 1e-5 relative
 LIBRARY_ROWS = 3
 LIBRARY_F_RTOL = 1e-5
+# The cubic objective (phase 8), K2 against its plain version in f32, record
+# mode, tol -1 (every run takes exactly maxit iterations). Horizons calibrated
+# on the CPU: resident_adapgm_plain in f32 against f64 on cubic_inputs(name,
+# "cpu") held within 1e-3 (adaptive rules) or 1e-5 (fixed step, momentum):
+# mushrooms' model MM through 22, AdaPGM 10, fixed 300, momentum 253 (then the
+# f32 run's residual hits 0); the worst case MM 36, AdaPGM 60, fixed and
+# momentum 300; 2048^2 MM 21, AdaPGM 18, fixed and momentum 300. Held over
+# about two thirds of those.
+CUBIC_HORIZON = {"mushrooms": {"fixed": 300, "mm": 15, "adapgm": 7, "momentum": 120},
+                 "worst": {"fixed": 300, "mm": 24, "adapgm": 40, "momentum": 300},
+                 "2048": {"fixed": 300, "mm": 14, "adapgm": 12, "momentum": 300}}
+# cubic_sparse_logreg at its defaults (maxit 100, tol 1e-7, lam 1), run with
+# run_cubic_logreg_data(ds, ..., device="cpu", dtype=torch.float32) on both
+# paths: the ground truth stopped at 15-17 iterations (phishing's ran to its
+# cap of 1000: tol 1e-8 is past f32), MM at 25 and AdaPGM at 13-14, each F
+# within 7.5e-9 of the ground truth's (one f32 spacing of F* ~ 0.08). Bound:
+# 2e-7, about 25 spacings.
+CUBIC_GAP_BOUND = 2e-7
+CUBIC_DATASETS = ("a5a", "mushrooms", "phishing")
+# nesterov_worst_case at its defaults (k = n = 100, L = 100, tol 1e-6, maxit
+# 10000), run_nesterov_worst_case(..., device="cpu", dtype=torch.float32):
+# no row reaches tol in f32; at 10000 AdaPGM's F is 7.1e-7 above the known
+# optimum under --resident (-2.5e-7 on the engine path; its f32 spacing is
+# 9.5e-7). Bound: 1e-5. The engine path at --maxit 1000 (cut from 10000):
+# PGM 0.1915, Nesterov 8.56e-5, MM 0.0484 (0.0459 through the sweep: MM
+# amplifies rounding), AdaPGM 0.0567 above; bounds 1.05x the fixed step's and
+# Nesterov's (they contract rounding), 1.5x the adaptive rows'.
+WORST_GAP_BOUND = 1e-5
+WORST_ENGINE_MAXIT = 1000
+WORST_ENGINE_GAP_BOUND = {"Fixed stepsize PGM": 0.2011, "Fixed Nesterov": 9e-5,
+                          "AdaPGM (MM)": 0.0726, "AdaPGM": 0.0851}
 # peak rates of one H100 SXM (data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -717,6 +760,245 @@ def logreg_phase(apt, resident, logreg, counting, dev, smi):
     return k3_calls, logreg_sweeps
 
 
+def cubic_inputs(name, dev, dtype=torch.float32):
+    """The cubic model (H, q, c, gamma0, n_true) of ``name``: a dataset of the
+    cubic_sparse_logreg driver (its synthetic stand-in when the file is
+    absent; H and q padded to 128 and gamma0 the secant estimate, as the
+    driver makes them), "worst" (the worst case k = n = 100, L = 100 as the
+    c = 0 model, padded to 128, gamma0 = 1/L) or "2048" (the logistic Hessian
+    at 0 of 4096 sparse rows of 2047 features, c = 1)."""
+    from adaprox_tpu_torch.experiments import cubic_sparse_logreg as cubic
+    from adaprox_tpu_torch.experiments.nesterov_worst_case import worst_case_model
+    from adaprox_tpu_torch.utils.datasets import load_or_synthesize
+
+    if name == "worst":
+        h, q = worst_case_model(100, 100, 100.0, dev, dtype)
+        return h, q, 0.0, 0.01, 100
+    if name == "2048":
+        rng = np.random.default_rng(5)
+        x = rng.standard_normal((4096, 2047)) * (rng.random((4096, 2047)) < 0.3)
+        y = (x @ rng.standard_normal(2047) / np.sqrt(0.3 * 2048)
+             + 0.5 * rng.standard_normal(4096) > 0).astype(float)
+    else:
+        x, y, _ = load_or_synthesize(name, labels=(0.0, 1.0))
+    n = x.shape[1] + 1
+    h_np, q_np = cubic.logistic_loss_grad_hessian(x, y, np.zeros(n))
+    f = cubic.cubic_from_numpy(h_np, q_np, 1.0, device=dev, dtype=dtype)
+    gam = cubic.secant_gamma(f, np.zeros(n), 0, dev, dtype)
+    h, q = cubic.padded_model(h_np, q_np, dev, dtype)
+    return h, q, 1.0, gam, n
+
+
+def cubic_checks(resident, dev, smi):
+    """Phase 8, K2 and K2c with the cubic objective against the plain version
+    on the card (cases o-r). Returns the inputs by name."""
+    models = {name: cubic_inputs(name, dev) for name in ("mushrooms", "worst", "2048")}
+    for case, name in zip("opq", models):
+        h, q, c, gam, n_true = models[name]
+        n = h.shape[0]
+        x0 = torch.zeros(n, device=dev)
+        for body, horizon in CUBIC_HORIZON[name].items():
+            adaptive = body in ("mm", "adapgm")
+            rtol = K2_CASE_A_RTOL[body] if adaptive else K2_FIXED_RTOL
+            maxit = max(30, horizon) if adaptive else horizon
+            kw = dict(prox_kind="zero", obj_kind="cubic", cube_c=c, record=True,
+                      rule_kind="fixed" if body == "momentum" else body,
+                      momentum=body == "momentum")
+            got = resident.resident_adapgm(h, q, x0, gam, -1.0, maxit, **kw)
+            want = resident.resident_adapgm_plain(h, q, x0, gam, -1.0, maxit, **kw)
+            torch.cuda.synchronize()
+            err = rows_err(got, want, horizon)
+            held = max((k for k in range(1, maxit + 1) if rows_err(got, want, k) <= rtol),
+                       default=0)
+            xe = x_err(got, want)
+            pad_zero = not bool(got[0][n_true:].any())
+            print(f"[cubic] K2 ({case}) {name} {n}x{n} f32 c {c:g} {body} tol -1 maxit {maxit}: "
+                  f"rows over {horizon} it, rel err {err:.2e} (tol {rtol:g}; CPU-calibrated "
+                  f"horizon); within tol through iteration {held}; x rel err {xe:.2e}; "
+                  f"padded coordinates stay 0: {pad_zero} ({smi})", flush=True)
+            check(int(got[1]) == int(want[1]) == maxit and err <= rtol and pad_zero
+                  and (adaptive or xe <= rtol), f"K2 cubic ({case}) {name} {body} disagrees")
+
+    # (r) the drivers' rows in one sweep, each the same bits as its single K2
+    # launch; two launches, the same bits
+    from adaprox_tpu_torch.experiments import cubic_sparse_logreg, nesterov_worst_case
+
+    for name, maxit in (("mushrooms", 1000), ("worst", 2000)):
+        h, q, c, gam, _ = models[name]
+        x0 = torch.zeros(h.shape[0], device=dev)
+        if name == "worst":
+            specs = [(gam, rule, mom, 1e-6, maxit)
+                     for _, rule, mom in nesterov_worst_case.RESIDENT_ROWS]
+        else:
+            specs = cubic_sparse_logreg.rule_specs(gam, 1e-7, maxit // 10)
+        kw = dict(prox_kind="zero", obj_kind="cubic", cube_c=c)
+        runs = [resident.resident_rule_sweep(h, q, x0, resident.rule_rows(specs), 0.0, maxit,
+                                             **kw) for _ in range(2)]
+        same = all(torch.equal(u, w) for u, w in zip(sweep_row(runs[0], slice(None)),
+                                                      sweep_row(runs[1], slice(None))))
+        for j, (g0, rule, mom, tol, cap) in enumerate(specs):
+            one = resident.resident_adapgm(h, q, x0, g0, tol, cap, rule_kind=rule, momentum=mom,
+                                           record=True, **kw)
+            row = sweep_row(runs[0], j)
+            same &= all(torch.equal(u, w) for u, w in zip(row[:4], one[:4]))
+            same &= all(torch.equal(u[:cap], w) for u, w in zip(row[4:], one[4:]))
+        torch.cuda.synchronize()
+        print(f"[cubic] K2c (r) {name} f32: numit {runs[0][1].tolist()}, every row the same bits "
+              f"as its single K2 launch, and two launches the same bits: {same}", flush=True)
+        check(same, f"K2c cubic (r) {name}: a sweep row differs from its single K2 launch")
+    return models
+
+
+def cubic_phase(resident, models, counting, dev, smi):
+    """Phase 8: both cubic drivers on the card (--resident and the engine)
+    and the cubic iteration. ``counting`` is (zero_counts, read_counts)."""
+    from adaprox_tpu_torch.experiments import cubic_sparse_logreg, nesterov_worst_case
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+    from adaprox_tpu_torch.utils.profiling import timed
+
+    zero_counts, read_counts = counting
+
+    def sweep_bound(n, numits, moms):
+        # H read once, q, x0 and the rows in, x, the stats and the histories
+        # out; 2 n^2 flops a rule iteration and the warm-up, 4 n^2 a momentum
+        # iteration in record mode (H z and H x_new)
+        r = len(numits)
+        return bound(4 * n * n + 8 * n + 20 * r + 4 * r * n + 16 * r + 12 * r * max(numits),
+                     sum(4 * n * n * k if mom else 2 * n * n * (k + 1)
+                         for k, mom in zip(numits, moms)))
+
+    # cubic_sparse_logreg --resident at its defaults: one K2c launch a dataset;
+    # then the same sweep on the driver's inputs against its plain version, timed
+    names = [name for name, _ in cubic_sparse_logreg.RESIDENT_ROWS]
+    for ds in CUBIC_DATASETS:
+        outdir = os.path.join("results", "chip_smoke", "cubic_sparse_logreg")
+        zero_counts()
+        cubic_sparse_logreg.main(["--resident", "--datasets", ds, "--device", "cuda",
+                                  "--outdir", outdir, "--no-plot"])
+        torch.cuda.synchronize()
+        c = read_counts()
+        by = group_by_method(read_jsonl(os.path.join(outdir, f"{ds}.jsonl")))
+        fstar = by[None][-1]["objective"]
+        gaps = {name: by[name][-1]["objective"] - fstar for name in names[1:]}
+        print(f"[cubic] cubic_sparse_logreg --resident {ds} f32: numit "
+              f"{[by[name][-1]['it'] for name in names]}, F-F_gt "
+              f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} (bound {CUBIC_GAP_BOUND:g}) "
+              f"| K1, K2, K2c, K3 launches {c} ({smi})", flush=True)
+        check(c == (0, 0, 1, 0), f"cubic_sparse_logreg --resident {ds}: launches {c}")
+        check(list(by) == names and all(math.isfinite(v) and abs(v) <= CUBIC_GAP_BOUND
+                                        for v in gaps.values()),
+              f"cubic_sparse_logreg --resident {ds}: rows {list(by)}, F-F_gt {gaps}")
+        h, q, cc, gam, n_true = cubic_inputs(ds, dev)
+        n = h.shape[0]
+        x0 = torch.zeros(n, device=dev)
+        rows = resident.rule_rows(cubic_sparse_logreg.rule_specs(gam, 1e-7, 100))
+        kw = dict(prox_kind="zero", obj_kind="cubic", cube_c=cc)
+        secs, got = timed(lambda: resident.resident_rule_sweep(h, q, x0, rows, 1e-7, 1000, **kw),
+                          reps=3)
+        plain_ms, want = once_ms(lambda: resident.resident_rule_sweep_plain(h, q, x0, rows, 1000,
+                                                                            **kw))
+        ok, max_abs = True, 0.0
+        for j, (name, rule) in enumerate(cubic_sparse_logreg.RESIDENT_ROWS):
+            g, w = sweep_row(got, j), sweep_row(want, j)
+            nk, npl = int(g[1]), int(w[1])
+            horizon = min(CUBIC_HORIZON["mushrooms"][rule], nk, npl)
+            err, xe = rows_err(g, w, horizon), x_err(g, w)
+            max_abs = max(max_abs, float((g[0] - w[0]).abs().max()))
+            print(f"[cubic] K2c vs plain, {ds} {name or '(ground truth)'}: rows over {horizon} it, "
+                  f"rel err {err:.2e} (tol {K2_CASE_A_RTOL[rule]:g}); numit {nk} (plain {npl}, "
+                  f"slack {LOGREG_NUMIT_SLACK}); x rel err {xe:.2e} (tol {K2_X_RTOL:g}); padded "
+                  f"coordinates stay 0: {not bool(g[0][n_true:].any())}", flush=True)
+            ok &= (err <= K2_CASE_A_RTOL[rule] and abs(nk - npl) <= LOGREG_NUMIT_SLACK
+                   and xe <= K2_X_RTOL and not bool(g[0][n_true:].any()))
+        check(ok, f"K2c disagrees with its plain version on cubic_sparse_logreg's {ds} inputs")
+        numits = got[1].tolist()
+        bnd = sweep_bound(n, numits, [False] * len(numits))
+        print(f"[cubic] K2c sweep {ds} {n}x{n} f32 (numit {numits}, 1 launch): {1e3 * secs:.4f} "
+              f"ms, plain {plain_ms:.2f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}); largest |x| error "
+              f"{max_abs:.2e} ({smi})", flush=True)
+
+    # nesterov_worst_case --resident at its defaults: one K2c launch
+    outdir = os.path.join("results", "chip_smoke", "nesterov_worst_case")
+    zero_counts()
+    nesterov_worst_case.main(["--resident", "--device", "cuda", "--outdir", outdir, "--no-plot"])
+    torch.cuda.synchronize()
+    c = read_counts()
+    rows = read_jsonl(os.path.join(outdir, "nesterov_worst_case.jsonl"))
+    optimum = rows[0]["objective"]
+    by = group_by_method(rows[1:])
+    wnames = [name for name, _, _ in nesterov_worst_case.RESIDENT_ROWS]
+    gaps = {name: by[name][-1]["objective"] - optimum for name in wnames}
+    print(f"[cubic] nesterov_worst_case --resident (k = n = 100, L 100, tol 1e-6, maxit 10000) "
+          f"f32: numit {[by[name][-1]['it'] for name in wnames]}, F-F* "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} (AdaPGM bound "
+          f"{WORST_GAP_BOUND:g}) | K1, K2, K2c, K3 launches {c} | grid_total_s "
+          f"{rows[-2]['grid_total_s']} ({smi})", flush=True)
+    check(c == (0, 0, 1, 0), f"nesterov_worst_case --resident: launches {c}")
+    check(list(by) == wnames and math.isfinite(gaps["AdaPGM"])
+          and abs(gaps["AdaPGM"]) <= WORST_GAP_BOUND, f"nesterov_worst_case --resident: {gaps}")
+    h, q, cc, gam, _ = models["worst"]
+    x0 = torch.zeros(h.shape[0], device=dev)
+    rows_t = resident.rule_rows([(gam, rule, mom) for _, rule, mom in
+                                 nesterov_worst_case.RESIDENT_ROWS], tol=1e-6, maxit=10000)
+    secs, got = timed(lambda: resident.resident_rule_sweep(
+        h, q, x0, rows_t, 1e-6, 10000, prox_kind="zero", obj_kind="cubic", cube_c=0.0), reps=3)
+    numits = got[1].tolist()
+    bnd = sweep_bound(h.shape[0], numits, [mom for _, _, mom in nesterov_worst_case.RESIDENT_ROWS])
+    print(f"[cubic] K2c sweep worst case 128x128 f32 (numit {numits}, 1 launch): {1e3 * secs:.4f} "
+          f"ms, bound {bnd[0]:.6f} ms ({bnd[1]}) ({smi})", flush=True)
+
+    # the engine paths: cubic_sparse_logreg on mushrooms at its defaults, and
+    # the worst case at --maxit 1000 (depth cut from 10000)
+    for label, run, rows_of in (
+            ("cubic_sparse_logreg mushrooms (engine path, defaults)",
+             lambda out: cubic_sparse_logreg.main(["--datasets", "mushrooms", "--device", "cuda",
+                                                   "--outdir", out, "--no-plot"]),
+             "mushrooms.jsonl"),
+            (f"nesterov_worst_case --maxit {WORST_ENGINE_MAXIT} (engine path, depth cut from "
+             "10000)", lambda out: nesterov_worst_case.main([
+                 "--maxit", str(WORST_ENGINE_MAXIT), "--device", "cuda", "--outdir", out,
+                 "--no-plot"]), "nesterov_worst_case.jsonl")):
+        outdir = os.path.join("results", "chip_smoke", "cubic_engine")
+        zero_counts()
+        run(outdir)
+        torch.cuda.synchronize()
+        c = read_counts()
+        rows = read_jsonl(os.path.join(outdir, rows_of))
+        meta = [r for r in rows if "wall_s" in r][0]
+        if rows_of == "mushrooms.jsonl":
+            by = group_by_method(rows)
+            ref = by[None][-1]["objective"]
+            bounds = {name: CUBIC_GAP_BOUND for name in names[1:]}
+        else:
+            ref = rows[0]["objective"]
+            by = group_by_method(rows[1:])
+            bounds = WORST_ENGINE_GAP_BOUND
+        gaps = {name: by[name][-1]["objective"] - ref for name in bounds}
+        print(f"[cubic] {label} f32: numit {[rs[-1]['it'] for rs in by.values()]}, F-F* "
+              f"{', '.join(f'{k} {v:.3e} (bound {bounds[k]:g})' for k, v in gaps.items())} | "
+              f"launches {c} | wall_s {meta['wall_s']} ({smi})", flush=True)
+        check(meta["fast_path"] == "default" and c == (0, 0, 0, 0)
+              and all(math.isfinite(v) and -WORST_GAP_BOUND <= v <= bounds[k]
+                      for k, v in gaps.items()), f"{label}: bad rows")
+
+    # the cubic iteration: fixed rule, zero prox, c 1, tol -1, 1000 iterations,
+    # at mushrooms' model (128^2, 8 CTAs) and at 2048^2 (128 CTAs)
+    for name in ("mushrooms", "2048"):
+        h, q, cc, gam, _ = models[name]
+        n = h.shape[0]
+        x0 = torch.zeros(n, device=dev)
+        it_secs, it_out = timed(lambda: resident.resident_adapgm(
+            h, q, x0, gam, -1.0, 1000, prox_kind="zero", rule_kind="fixed", obj_kind="cubic",
+            cube_c=cc), reps=3)
+        check(int(it_out[1]) == 1000, f"K2 cubic {n}x{n}: not 1000 iterations")
+        # a solve of 1000 iterations: H read once, 2 n^2 flops an iteration and the
+        # warm-up; its bound in ms is the bound of one iteration in us
+        bnd = bound(4 * n * n + 16 * n + 16, 2 * n * n * 1001)
+        print(f"[cubic] K2 cubic {n}x{n} f32, fixed rule, zero prox, 1000 iterations: "
+              f"{1e3 * it_secs:.3f} us an iteration, bound {bnd[0]:.6f} us an iteration "
+              f"({bnd[1]}) ({smi})", flush=True)
+
+
 def main():
     # 1. device --------------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: needs a CUDA device")
@@ -952,6 +1234,10 @@ def main():
     k3_calls, logreg_sweeps = logreg_phase(apt, resident, logreg, (zero_counts, read_counts), dev,
                                            smi)
 
+    # 8. the cubic model -------------------------------------------------------
+    cubic_models = cubic_checks(resident, dev, smi)
+    cubic_phase(resident, cubic_models, (zero_counts, read_counts), dev, smi)
+
     head = measured["16384x16384 f32"]
     k3_head = k3_meas["16384x16384 f32"]
     hm = hn = HEADLINE
@@ -981,13 +1267,13 @@ def main():
         "replaces": "adaprox_tpu/ops/resident.py:442",
         "launches": counts["single"][1], "max_abs_err": k2_meas["max_abs_err"],
         "ms": k2_ms, "plain_ms": 1e3 * plain_s, "bound_ms": k2_bound[0],
-        "bound_by": k2_bound[1], "library_ms": None}, {
+        "bound_by": k2_bound[1], "library_ms": None, "objectives": ["ls", "logreg", "cubic"]}, {
         "name": "resident_rule_sweep", "route": "cuda",
         "source": "adaprox_tpu_torch/csrc/resident_pg.cu",
         "replaces": "adaprox_tpu/ops/resident.py:616",
         "launches": counts["resident"][2], "max_abs_err": k2c_err,
         "ms": 1e3 * sweep_s, "plain_ms": 1e3 * sweep_plain_s, "bound_ms": k2c_bound[0],
-        "bound_by": k2c_bound[1], "library_ms": None}, {
+        "bound_by": k2c_bound[1], "library_ms": None, "objectives": ["ls", "logreg", "cubic"]}, {
         "name": "fused_logistic_value_grad", "route": "cuda",
         "source": "adaprox_tpu_torch/csrc/fused_logistic.cu",
         "replaces": "adaprox_tpu/ops/kernels.py:381",

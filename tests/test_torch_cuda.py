@@ -1,4 +1,5 @@
-"""The CUDA kernels K1, K2, K2c and K3 on the card against their plain PyTorch versions.
+"""The CUDA kernels K1, K2, K2c and K3 on the card against their plain PyTorch versions
+(K2 and K2c with the least-squares, logistic and cubic objectives).
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. This file imports no
 JAX, so it runs on a machine without it:
@@ -523,3 +524,161 @@ def test_sparse_logreg_resident_is_one_k2c_launch_per_dataset(dev, tmp_path, cap
         methods = {r.get("method") for r in rows if "it" in r}
         assert methods == {None, "PGM (1/Lf)", "Nesterov (fixed)", "AdaPGM (MM)",
                            "AdaPGM (Ours)"}
+
+
+# -- K2 and K2c with the cubic objective ---------------------------------------------------
+
+
+def cubic_problem(dev, n_true, n, c, seed=0):
+    """The cubic model of a logistic Hessian at 0 (the cubic driver's H and
+    q: sparse N(0, 1) features, 30% nonzero, labels from a noisy linear
+    model), zero-padded from n_true to n, with c; gamma0 = 1/(||H||_2 + c),
+    a stable step near the solution."""
+    x, y, _, _ = _logistic_inputs(dev, 2 * n_true, n_true - 1, torch.float32, seed)
+    m = x.shape[0]
+    x1 = torch.cat([x, torch.ones(m, 1, device=dev)], 1)
+    # the Hessian and gradient of the mean logistic loss at w = 0 (probs = 1/2)
+    h = torch.zeros(n, n, device=dev)
+    h[:n_true, :n_true] = 0.25 / m * (x1.t() @ x1)
+    q = torch.zeros(n, device=dev)
+    q[:n_true] = x1.t() @ (0.5 - y) / m
+    gam = 1.0 / (float(torch.linalg.matrix_norm(h.double(), 2)) + c)
+    return h, q, gam
+
+
+def worst_problem(dev, k=100, lip=100.0):
+    """The worst case on k = n coordinates as the c = 0 cubic model, padded to 128."""
+    from adaprox_tpu_torch.experiments.nesterov_worst_case import worst_case_model
+
+    h, q = worst_case_model(k, k, lip, dev, torch.float32)
+    return h, q, 1.0 / lip
+
+
+# mushrooms' model (113 padded to 128), a ragged 301 (scalar loads) and 2048
+CUBIC_SHAPES = [(113, 128), (301, 301), (2048, 2048)]
+
+
+@pytest.mark.parametrize("body", ["adapgm", "mm", "fixed", "momentum"])
+@pytest.mark.parametrize("c", [0.0, 1.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", CUBIC_SHAPES)
+def test_k2_cubic_matches_plain_on_card(dev, shape, dtype, c, body):
+    """Held like K2's least-squares rows: the fixed step and the momentum
+    body over 30 iterations at 1e-5, the adaptive rules over 3 at 1e-3; the
+    padded coordinates stay exactly 0."""
+    n_true, n = shape
+    h, q, gam = cubic_problem(dev, n_true, n, c)
+    h = h.to(dtype)
+    x0 = torch.zeros(n, device=dev)
+    kw = dict(prox_kind="zero", obj_kind="cubic", cube_c=c, record=True,
+              rule_kind="fixed" if body == "momentum" else body, momentum=body == "momentum")
+    maxit, rtol = (30, MOMENTUM_RTOL) if body in ("fixed", "momentum") else (3, 1e-3)
+    before = tr.resident_adapgm.launches
+    got = tr.resident_adapgm(h, q, x0, gam, 0.0, maxit, **kw)
+    torch.cuda.synchronize()
+    assert tr.resident_adapgm.launches == before + 1
+    want = tr.resident_adapgm_plain(h, q, x0, gam, 0.0, maxit, **kw)
+    assert int(got[1]) == int(want[1]) == maxit
+    _rows_close(got, want, maxit, rtol)
+    assert float((got[0] - want[0]).abs().max()) <= rtol * float(want[0].abs().max())
+    assert not bool(got[0][n_true:].any())
+    # without record mode: the same solve, the same bits
+    plain = tr.resident_adapgm(h, q, x0, gam, 0.0, maxit, **dict(kw, record=False))
+    assert all(torch.equal(u, w) for u, w in zip(plain, got[:4]))
+
+
+def test_k2_cubic_worst_case_momentum_record_row(dev):
+    """The worst case (c = 0) through the momentum body in record mode: the
+    objective at x_new from P1's partials, over 120 iterations."""
+    h, q, gam = worst_problem(dev)
+    x0 = torch.zeros(128, device=dev)
+    kw = dict(prox_kind="zero", obj_kind="cubic", cube_c=0.0, momentum=True, record=True)
+    got = tr.resident_adapgm(h, q, x0, gam, 0.0, 120, **kw)
+    want = tr.resident_adapgm_plain(h, q, x0, gam, 0.0, 120, **kw)
+    assert int(got[1]) == int(want[1]) == 120 and torch.equal(got[4], want[4])
+    _rows_close(got, want, 120, MOMENTUM_RTOL)
+    assert not bool(got[0][100:].any())
+    # the recorded objective is the worst case's f at the returned iterate
+    from adaprox_tpu_torch.convert import worst_from_numpy
+
+    f = worst_from_numpy(100, 100.0, 128, device=dev, dtype=torch.float32)
+    assert abs(float(got[6][-1] - f.value(got[0]))) <= 1e-5 * abs(float(got[6][-1]))
+
+
+@pytest.mark.parametrize("case", ["cubic driver", "worst case"])
+def test_k2c_cubic_rows_equal_single_k2_launches(dev, case):
+    """The drivers' rows in one sweep: each row is its single K2 launch, bit
+    for bit; two launches give the same bits."""
+    if case == "cubic driver":
+        from adaprox_tpu_torch.experiments.cubic_sparse_logreg import rule_specs
+
+        h, q, gam = cubic_problem(dev, 113, 128, 1.0, seed=4)
+        specs, c, maxit = rule_specs(gam, 1e-7, 60), 1.0, 600
+    else:
+        h, q, gam = worst_problem(dev)
+        specs = [(gam, rule, mom, 1e-6, 400) for rule, mom in
+                 (("fixed", False), ("fixed", True), ("mm", False), ("adapgm", False))]
+        c, maxit = 0.0, 400
+    x0 = torch.zeros(128, device=dev)
+    kw = dict(prox_kind="zero", obj_kind="cubic", cube_c=c)
+    before = tr.resident_rule_sweep.launches
+    runs = [tr.resident_rule_sweep(h, q, x0, tr.rule_rows(specs), 0.0, maxit, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tr.resident_rule_sweep.launches == before + 2
+    assert all(torch.equal(u, w) for u, w in zip(runs[0][:4], runs[1][:4]))
+    assert all(torch.equal(u, w) for u, w in zip(runs[0][4], runs[1][4]))
+    xs, its, res, conv, hists = runs[0]
+    for j, (g0, rule, mom, tol, cap) in enumerate(specs):
+        one = tr.resident_adapgm(h, q, x0, g0, tol, cap, rule_kind=rule, momentum=mom,
+                                 record=True, **kw)
+        for k, got in enumerate((xs[j], its[j], res[j], conv[j])):
+            assert torch.equal(got, one[k]), (j, k)
+        for k in range(3):
+            assert torch.equal(hists[k][j][:cap], one[4 + k]), (j, k)
+
+
+def test_k2c_cubic_matches_plain_on_card(dev):
+    h, q, gam = cubic_problem(dev, 301, 301, 1.0, seed=5)
+    x0 = torch.zeros(301, device=dev)
+    specs = [(gam, "fixed", False), (gam, "fixed", True), (gam, "mm", False),
+             (gam, "adapgm", False)]
+    rows = tr.rule_rows(specs, tol=0.0, maxit=30)
+    kw = dict(prox_kind="zero", obj_kind="cubic", cube_c=1.0)
+    got = tr.resident_rule_sweep(h, q, x0, rows, 0.0, 30, **kw)
+    want = tr.resident_rule_sweep_plain(h, q, x0, rows, 30, **kw)
+    for j, (_, rule, mom) in enumerate(specs):
+        horizon, rtol = (30, MOMENTUM_RTOL) if rule == "fixed" else (3, 1e-3)
+        row = lambda out: (out[0][j], out[1][j], out[2][j], out[3][j], *(h_[j] for h_ in out[4]))
+        _rows_close(row(got), row(want), horizon, rtol)
+
+
+def test_cubic_refuses_a_non_square_h_on_card(dev):
+    a, b, x = _inputs(dev, 64, 128, torch.float32)
+    with pytest.raises(ValueError, match="square H"):
+        tr.resident_adapgm(a, b, x, 0.1, 0.0, 3, obj_kind="cubic", cube_c=1.0)
+    with pytest.raises(ValueError, match="square H"):
+        tr.resident_rule_sweep(a, b, x, tr.rule_rows([(0.1, "fixed", False)], 0.0, 3), 0.0, 3,
+                               obj_kind="cubic", cube_c=1.0)
+
+
+def test_cubic_drivers_resident_are_one_k2c_launch(dev, tmp_path):
+    """Each driver's --resident run is one K2c launch and nothing else."""
+    from adaprox_tpu_torch.experiments import cubic_sparse_logreg, nesterov_worst_case
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+
+    counters = (tk.fused_ls_value_grad, tk.fused_logistic_value_grad, tr.resident_adapgm,
+                tr.resident_rule_sweep)
+    before = [c.launches for c in counters]
+    cubic_sparse_logreg.main(["--resident", "--datasets", "heart_scale", "--device", "cuda",
+                              "--outdir", str(tmp_path), "--no-plot"])
+    nesterov_worst_case.main(["--resident", "--maxit", "500", "--device", "cuda", "--outdir",
+                              str(tmp_path), "--no-plot"])
+    torch.cuda.synchronize()
+    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 0, 2]
+    rows = read_jsonl(tmp_path / "heart_scale.jsonl")
+    assert rows[-2]["fast_path"] == "resident"
+    assert {r.get("method") for r in rows if "it" in r} == {None, "AdaPGM (MM)", "AdaPGM (Ours)"}
+    rows = read_jsonl(tmp_path / "nesterov_worst_case.jsonl")
+    assert rows[-1]["fast_path"] == "resident"
+    assert [r.get("method") for r in rows if "it" in r][0] is None

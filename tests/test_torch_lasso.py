@@ -162,10 +162,32 @@ k2 = apt.resident_logreg_l1(x1, y1, torch.zeros(128, dtype=torch.float64), gam, 
 logreg.append([int(k2[1]), float(f.value(k2[0][:14]) + g(k2[0][:14]))])
 sparse_logreg.main(["--device", "cpu", "--datasets", "heart_scale", "--maxit", "40",
                     "--no-plot", "--resident", "--outdir", sys.argv[1]])
+# the cubic slice: Cubic in the engine and through K2's cubic objective, WorstQuadratic,
+# and both drivers
+import numpy as np
+from adaprox_tpu_torch.experiments import cubic_sparse_logreg, nesterov_worst_case
+h, q = cubic_sparse_logreg.logistic_loss_grad_hessian(x, y, np.zeros(14))
+fc = apt.cubic_from_numpy(h, q, 1.0, device="cpu", dtype=torch.float64)
+gam = cubic_sparse_logreg.secant_gamma(fc, np.zeros(14), 0, "cpu", torch.float64)
+rc = apt.adaptive_proxgrad(torch.zeros(14, dtype=torch.float64), f=fc, g=apt.Zero(),
+                           rule=apt.AdaPGMRule(gamma=gam), tol=1e-9, maxit=2000)
+hp, qp = cubic_sparse_logreg.padded_model(h, q, "cpu", torch.float64)
+kc = apt.resident_adapgm(hp, qp, torch.zeros(128, dtype=torch.float64), gam, 1e-9, 2000,
+                         prox_kind="zero", obj_kind="cubic", cube_c=1.0)
+fw = apt.worst_from_numpy(10, 100.0, 12, device="cpu", dtype=torch.float64)
+rw = apt.adaptive_proxgrad(torch.zeros(12, dtype=torch.float64), f=fw, g=apt.Zero(),
+                           rule=apt.AdaPGMRule(gamma=0.01), tol=1e-9, maxit=5000)
+cubic = [[rc.numit, float(fc.value(rc.x))], [int(kc[1]), float(fc.value(kc[0][:14]))],
+         [rw.numit, float(fw.value(rw.x))]]
+cubic_sparse_logreg.main(["--device", "cpu", "--datasets", "heart_scale", "--maxit", "40",
+                          "--no-plot", "--resident", "--outdir", sys.argv[1]])
+nesterov_worst_case.main(["--device", "cpu", "--maxit", "50", "--no-plot", "--outdir",
+                          sys.argv[1]])
 import adaprox_tpu_torch.experiments.resident_timing  # the card's timing script
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("jax", "jaxlib", "adaprox_tpu"))
-print(json.dumps({"leaked": leaked, "runs": out, "logreg": logreg, "source": src}))
+print(json.dumps({"leaked": leaked, "runs": out, "logreg": logreg, "source": src,
+                  "cubic": cubic}))
 """
 
 
@@ -196,7 +218,14 @@ def test_port_runs_the_slice_without_jax(tmp_path):
     assert got["source"] == "synthetic"
     (n0, f0), (n1, f1), (n2, f2) = got["logreg"]
     assert max(n0, n1, n2) < 2000 and abs(f1 - f0) < 1e-12 and abs(f2 - f0) < 1e-9
+    # the cubic model: the engine and K2's cubic objective reach the same minimum;
+    # the worst case on 10 of 12 coordinates its known optimum (L/8)(1/(k+1) - 1);
+    # both drivers wrote their JSONL
+    (n3, f3), (n4, f4), (n5, f5) = got["cubic"]
+    assert max(n3, n4) < 2000 and n5 < 5000 and abs(f4 - f3) < 1e-9 * abs(f3)
+    assert abs(f5 - 12.5 * (1 / 11 - 1)) < 1e-9
     assert (tmp_path / "heart_scale.jsonl").stat().st_size > 0
+    assert (tmp_path / "nesterov_worst_case.jsonl").stat().st_size > 0
 
 
 # -- (h) chip_smoke.py ---------------------------------------------------------

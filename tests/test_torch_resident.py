@@ -162,11 +162,12 @@ def test_resident_records_match_jax(tmp_path):
     assert tlog.read_jsonl(tmp_path / "t.jsonl") == jlog.read_jsonl(tmp_path / "j.jsonl")
 
 
-# logreg is ported (tests/test_torch_logreg.py); cubic, with or without its c, is not
+# logreg and cubic are ported (tests/test_torch_logreg.py, tests/test_torch_cubic.py);
+# cubic, with or without its c, refuses an H that is not square
 @pytest.mark.parametrize("kw", [dict(obj_kind="cubic"), dict(obj_kind="cubic", cube_c=2.0)])
 def test_resident_refuses_what_is_not_ported(kw):
     a, b, gamma0 = _case()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="square H"):
         tr.resident_adapgm(torch.from_numpy(a), torch.from_numpy(b),
                            torch.zeros(128, dtype=F64), gamma0, 0.0, 5, **kw)
 

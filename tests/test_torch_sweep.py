@@ -224,10 +224,11 @@ def test_sweep_refuses_bad_rows(rows, match):
         tr.resident_rule_sweep(*_t(a, b), np.asarray(rows), 0.0, 200)
 
 
-# logreg is ported (tests/test_torch_logreg.py)
+# logreg and cubic are ported (tests/test_torch_logreg.py, tests/test_torch_cubic.py);
+# cubic refuses an H that is not square
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(obj_kind="cubic", cube_c=2.0), NotImplementedError, "ROADMAP"),
-    (dict(obj_kind="cubic"), NotImplementedError, "ROADMAP"),
+    (dict(obj_kind="cubic", cube_c=2.0), ValueError, "square H"),
+    (dict(obj_kind="cubic"), ValueError, "square H"),
     (dict(prox_kind="nope"), ValueError, "must be one of"),
 ])
 def test_sweep_refuses_what_is_not_ported(kw, exc, match):
