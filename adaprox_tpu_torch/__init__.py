@@ -12,10 +12,11 @@ numpy inputs. This package imports torch and numpy, never jax.
 Layout:
   ops/         prox functions, smooth oracles, the accumulation policy, the
                fused oracles K1 (least squares) and K3 (logistic), the
-               whole-solve kernels K2 (one solve) and K2c (the rule sweep)
+               whole-solve kernels K2 (one solve) and K2c (the rule sweep),
+               and the backtracking whole-solve kernels K4 and K4b (its sweep)
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the proximal-gradient engine,
-               fixed-step Nesterov
+               fixed-step Nesterov, backtracking PG and Nesterov
   models/      objectives (least squares, logistic, the cubic model, the
                worst-case quadratic) and problem generators
   utils/       JSONL telemetry, timing on the card, the LIBSVM loader and the
@@ -44,6 +45,11 @@ from .ops.kernels import (  # noqa: E402
     logistic_value_grad_plain,
     ls_value_grad_plain,
 )
+from .ops.resident_bt import (  # noqa: E402
+    resident_backtracking,
+    resident_bt_records,
+    resident_bt_sweep,
+)
 from .ops.resident import (  # noqa: E402
     resident_adapgm,
     resident_adapgm_l1,
@@ -69,6 +75,7 @@ from .solvers.primal_dual import (  # noqa: E402
     fixed_proxgrad,
 )
 from .solvers.nesterov import fixed_nesterov  # noqa: E402
+from .solvers.backtracking import backtracking_nesterov, backtracking_proxgrad  # noqa: E402
 from .convert import (  # noqa: E402
     cubic_from_numpy,
     lasso_from_numpy,
@@ -84,7 +91,8 @@ __all__ = [
     "Zero", "L1Norm", "SmoothOracle", "fused_ls_value_grad", "ls_value_grad_plain",
     "fused_logistic_value_grad", "logistic_value_grad_plain",
     "resident_adapgm", "resident_adapgm_l1", "resident_logreg_l1", "resident_records",
-    "resident_rule_sweep", "resident_supported", "rule_rows",
+    "resident_rule_sweep", "resident_supported", "rule_rows", "resident_backtracking",
+    "resident_bt_sweep", "resident_bt_records",
     # models
     "LeastSquares", "LogisticLoss", "Cubic", "WorstQuadratic", "LassoProblem", "random_lasso",
     # rules
@@ -92,6 +100,7 @@ __all__ = [
     # solvers
     "Counters", "Records", "SolveResult",
     "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "fixed_nesterov",
+    "backtracking_proxgrad", "backtracking_nesterov",
     # carried over from the JAX side
     "lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
     "rule_from_numpy",

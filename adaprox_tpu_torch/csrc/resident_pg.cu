@@ -88,48 +88,23 @@
 //     operation as the plain PyTorch version does; the dot products use explicit
 //     fmaf.
 
-#include <cooperative_groups.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace cg = cooperative_groups;
+#include "resident_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
-
-enum Obj { kLs = 0, kLogreg = 1, kCubic = 2 };
-enum Prox { kL1 = 0, kBox = 1, kElastic = 2, kZero = 3 };
 enum Rule { kFixed = 0, kMM = 1, kAdaPGM = 2 };
-// Per-CTA partial sums: part[k * grid + cta]. P1 writes kRes2, which holds
-// ||res||^2 ("ls"), the raw logistic sum ("logreg") or ||x||^2 of P1's point
+// Per-CTA partial sums: part[k * grid + cta]. P1 (phase_res) writes kRes2, which
+// holds ||res||^2 ("ls"), the raw logistic sum ("logreg") or ||x||^2 of P1's point
 // ("cubic"; every CTA reads it in P2, so P2 writes none of P1's slots), and for
 // "cubic" kObj, the sum of x_r (H x)_r + 2 q_r x_r (the other objectives leave
 // it as the caller zeroed it). P2 writes the rest: kPrimal2 holds ||primal||^2 in a rule iteration and
 // ||x_new - z||^2 in a momentum iteration; kX2 is the elastic g's sum x^2.
-enum Part { kRes2 = 0, kObj, kPrimal2, kDg2, kDgDx, kDx2, kAbsX, kX2, kParts };
+enum Part { kRes2 = kP1F, kObj = kP1Obj, kPrimal2, kDg2, kDgDx, kDx2, kAbsX, kX2, kParts };
+static_assert(kPrimal2 == kP1Breg, "K2 passes no res_prev: P1 writes kRes2 and kObj only");
 
-// The problem and the scratch, shared by every solve of a launch.
-struct Problem {
-  const void* a;    // (m, n) row-major, f32 or bf16
-  const void* at;   // (n, m) row-major: the same values transposed ("logreg": / m_true)
-  const float* b;   // (m,): the right-hand side, the labels ("logreg") or q ("cubic")
-  const float* x0;  // (n,)
-  float* xs;        // (2, n): x and x_prev by parity
-  float* gs;        // (2, n): grad and grad_prev by parity
-  float* v;         // (n,): v of a rule iteration, z of a momentum iteration
-  float* res;       // (m,): A x - b, sigmoid(A x) - b ("logreg") or H x ("cubic")
-  float* part;      // (kParts, grid)
-  long long m, n;
-  int hist_len;     // the length of a history row: the launch's maxit
-  float p1, p2;
-  float obj_pad, obj_div;  // "logreg": pad_rows * log 2 and m_true
-  float cube_c;            // "cubic": c
-  int obj, prox, record;
-};
+// K2's use of the scratch: xs (2, n) x and x_prev by parity, gs (2, n) grad and
+// grad_prev by parity, v (n) v of a rule iteration or z of a momentum iteration,
+// res (m) A x - b, sigmoid(A x) - b ("logreg") or H x ("cubic").
 
 // One solve: K2's arguments, or one row of K2c's table.
 struct Solve {
@@ -149,34 +124,6 @@ struct Rows {
   float* stats;    // (count, 4)
   float* hist;     // (count, 3, hist_len)
 };
-
-__device__ __forceinline__ float f32_nan() { return __int_as_float(0x7fc00000); }
-__device__ __forceinline__ float f32_inf() { return __int_as_float(0x7f800000); }
-
-// jnp.minimum / jnp.maximum: NaN in, NaN out (fminf/fmaxf would drop it).
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (isnan(a) || isnan(b)) ? f32_nan() : (a < b ? a : b);
-}
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (isnan(a) || isnan(b)) ? f32_nan() : (a > b ? a : b);
-}
-// jnp.sign: -1, +1, or the signed zero / NaN itself.
-__device__ __forceinline__ float sign_of(float v) {
-  return v > 0.f ? 1.f : (v < 0.f ? -1.f : v);
-}
-
-__device__ __forceinline__ float prox(int kind, float v, float gamma, float p1, float p2) {
-  switch (kind) {
-    case kL1:
-      return sign_of(v) * nan_max(fabsf(v) - gamma * p1, 0.f);
-    case kBox:
-      return nan_min(nan_max(v, p1), p2);
-    case kElastic:
-      return sign_of(v) * nan_max(fabsf(v) - gamma * p1, 0.f) / (1.f + gamma * p2);
-    default:
-      return v;
-  }
-}
 
 // One step-size update, resident.py::_rule_adapgm / _rule_mm / _rule_fixed, on
 // the carry (gamma, g1, g0).
@@ -202,90 +149,6 @@ __device__ void rule_update(int rule, float ndg2, float dgdx, float ndx2, float&
   }
 }
 
-// VEC consecutive f32 values at p (written during the launch: plain loads).
-template <int VEC>
-__device__ __forceinline__ void load_f32(const float* p, float* out) {
-  if constexpr (VEC == 1) {
-    out[0] = p[0];
-  } else {
-#pragma unroll
-    for (int k = 0; k < VEC; k += 4) {
-      const float4 v = *reinterpret_cast<const float4*>(p + k);
-      out[k] = v.x;
-      out[k + 1] = v.y;
-      out[k + 2] = v.z;
-      out[k + 3] = v.w;
-    }
-  }
-}
-
-// VEC consecutive values of A or A^T (read-only for the whole launch), as floats.
-template <int VEC>
-__device__ __forceinline__ void load_a(const float* __restrict__ p, float* out) {
-  if constexpr (VEC == 1) {
-    out[0] = __ldg(p);
-  } else {
-    static_assert(VEC == 4, "f32 vector loads take 4 values (16 bytes)");
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    out[0] = v.x;
-    out[1] = v.y;
-    out[2] = v.z;
-    out[3] = v.w;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_a(const __nv_bfloat16* __restrict__ p, float* out) {
-  if constexpr (VEC == 1) {
-    out[0] = __bfloat162float(__ldg(p));
-  } else {
-    static_assert(VEC == 8, "bf16 vector loads take 8 values (16 bytes)");
-    const uint4 raw = __ldg(reinterpret_cast<const uint4*>(p));
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 v = __bfloat1622float2(h[q]);
-      out[2 * q] = v.x;
-      out[2 * q + 1] = v.y;
-    }
-  }
-}
-
-// sum_k row[k] * vec[k] over len values, the result in lane 0. Lanes take VEC
-// consecutive values a step (len % VEC == 0 when VEC > 1), then a shuffle tree
-// into lane 0: one fixed order.
-template <typename T, int VEC>
-__device__ __forceinline__ float warp_dot(const T* __restrict__ row, const float* vec,
-                                          long long len, int lane) {
-  float acc = 0.f;
-  const long long steps = len / VEC;
-#pragma unroll 4
-  for (long long k = lane; k < steps; k += 32) {
-    float av[VEC], xv[VEC];
-    load_a<VEC>(row + k * VEC, av);
-    load_f32<VEC>(vec + k * VEC, xv);
-#pragma unroll
-    for (int q = 0; q < VEC; ++q) acc = fmaf(av[q], xv[q], acc);
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(kFull, acc, off);
-  return acc;
-}
-
-// part[k * grid + cta] = the sum over this CTA's warps, in warp order, of
-// warp_part[k] for k in [k0, k1).
-__device__ __forceinline__ void write_partials(float (*warp_part)[kWarps], float* part, int k0,
-                                               int k1) {
-  __syncthreads();
-  const int k = k0 + static_cast<int>(threadIdx.x);
-  if (k < k1) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += warp_part[k][w];
-    part[k * gridDim.x + blockIdx.x] = s;
-  }
-}
-
 // One whole solve (_solve_core, rule or momentum body), run by every thread of
 // the grid. Returns with every CTA past its last grid sync of the solve; the
 // caller syncs before the scratch is used again.
@@ -298,114 +161,28 @@ __device__ void solve(const Problem& p, const Solve& s) {
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const long long gwarp = static_cast<long long>(blockIdx.x) * kWarps + warp;
-  const long long nwarps = static_cast<long long>(gridDim.x) * kWarps;
   const long long gtid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   const long long nthreads = static_cast<long long>(gridDim.x) * kThreads;
-  const long long m = p.m, n = p.n;
+  const long long n = p.n;
   const long long hl = p.hist_len;
-  const T* __restrict__ a = static_cast<const T*>(p.a);
-  const T* __restrict__ at = static_cast<const T*>(p.at);
 
-  // P1: res = A x - b and this CTA's partial of ||res||^2; for "logreg"
-  // res = sigmoid(A x) - b and the partial of (b - 1) A x - softplus(-A x); for
-  // "cubic" res = H x and the partials of ||x||^2 and x (H x) + 2 q x. The
-  // objectives branch outside the row loops (uniform over the grid).
-  auto phase_res = [&](const float* x) {
-    if (p.obj == kCubic) {
-      float nx2 = 0.f, obj = 0.f;
-      for (long long r = gwarp; r < m; r += nwarps) {
-        const float d = warp_dot<T, VA>(a + r * n, x, n, lane);
-        if (lane == 0) {
-          const float xr = x[r];
-          p.res[r] = d;
-          nx2 += xr * xr;
-          obj += xr * d + 2.f * (p.b[r] * xr);
-        }
-      }
-      if (lane == 0) {
-        warp_part[kRes2][warp] = nx2;
-        warp_part[kObj][warp] = obj;
-      }
-      write_partials(warp_part, p.part, kRes2, kObj + 1);
-      return;
-    }
-    float f = 0.f;
-    for (long long r = gwarp; r < m; r += nwarps) {
-      const float d = warp_dot<T, VA>(a + r * n, x, n, lane);
-      if (lane == 0) {
-        if (p.obj == kLogreg) {
-          const float br = p.b[r];
-          p.res[r] = 1.f / (1.f + expf(-d)) - br;
-          // softplus(-z) = logaddexp(0, -z), written stably
-          const float softplus_neg = nan_max(-d, 0.f) + log1pf(expf(-fabsf(d)));
-          f += (br - 1.f) * d - softplus_neg;
-        } else {
-          const float rr = d - p.b[r];
-          p.res[r] = rr;
-          f += rr * rr;
-        }
-      }
-    }
-    if (lane == 0) warp_part[kRes2][warp] = f;
-    write_partials(warp_part, p.part, kRes2, kRes2 + 1);
-  };
-
-  // The sum over CTAs of partial k, by one warp: lanes over CTAs, then a
-  // shuffle tree, one fixed order, so every warp of every CTA gets the same
-  // bits; the total lands in lane 0.
-  auto sum_part = [&](int k) {
-    float t = 0.f;
-    for (int c = lane; c < static_cast<int>(gridDim.x); c += 32) t += p.part[k * gridDim.x + c];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(kFull, t, off);
-    return t;
+  // P1 (resident_common.cuh): res = A x - b and the objective's partials
+  auto phase_p1 = [&](const float* x) {
+    phase_res<T, VA, false>(p, x, p.res, nullptr, warp_part);
   };
 
   // P3's sums, in warp 0.
   auto sum_partials = [&](float* sum) {
 #pragma unroll
-    for (int k = 0; k < kParts; ++k) sum[k] = sum_part(k);
-  };
-
-  // P2's loop over this CTA's coordinates j: body(j, grad_j) in lane 0, grad at
-  // the point x of the last P1: (A^T res)_j, one warp a row of A^T; for "cubic"
-  // (H x)_j + q_j + (||x|| c / 2) x_j from res = H x, elementwise, with ||x|| from
-  // P1's partials (every warp sums them in one order: the same bits everywhere).
-  auto for_each_grad = [&](const float* x, auto&& body) {
-    if (p.obj == kCubic) {
-      const float coef = sqrtf(sum_part(kRes2)) * p.cube_c / 2.f;
-      for (long long j = gwarp; j < n; j += nwarps) {
-        if (lane == 0) body(j, (p.res[j] + p.b[j]) + coef * x[j]);
-      }
-    } else {
-      for (long long j = gwarp; j < n; j += nwarps) {
-        const float g = warp_dot<T, VT>(at + j * m, p.res, m, lane);
-        if (lane == 0) body(j, g);
-      }
-    }
+    for (int k = 0; k < kParts; ++k) sum[k] = sum_part(p.part, k, lane);
   };
 
   // the record row: gamma, norm_res and f + g at the iterate the partials cover
   auto record_row = [&](int it, float gamma, float norm_res, const float* sum) {
-    float gval = 0.f;
-    if (p.prox == kL1) {
-      gval = p.p1 * sum[kAbsX];
-    } else if (p.prox == kElastic) {
-      gval = p.p1 * sum[kAbsX] + 0.5f * p.p2 * sum[kX2];
-    }
-    float fval;
-    if (p.obj == kLogreg) {
-      fval = -(sum[kRes2] + p.obj_pad) / p.obj_div;
-    } else if (p.obj == kCubic) {
-      const float nx = sqrtf(sum[kRes2]);
-      fval = 0.5f * sum[kObj] + nx * nx * nx * p.cube_c / 6.f;
-    } else {
-      fval = 0.5f * sum[kRes2];
-    }
     s.hist[it] = gamma;
     s.hist[hl + it] = norm_res;
-    s.hist[2 * hl + it] = fval + gval;
+    s.hist[2 * hl + it] =
+        objective_of(p, sum[kRes2], sum[kObj]) + gval_of(p, sum[kAbsX], sum[kX2]);
   };
 
   // The carry of _solve_core. Thread 0 of every CTA holds (it, g1, g0, norm_res)
@@ -428,9 +205,9 @@ __device__ void solve(const Problem& p, const Solve& s) {
     // warm-up (_solve_core :224-226): grad0 at x0, v = x0 - gamma0 grad0,
     // x = prox(v); x_prev = x0 goes to xs[1], grad_prev = grad0 to gs[1]. The
     // momentum body does not use it, so momentum solves skip it.
-    phase_res(p.x0);
+    phase_p1(p.x0);
     grid.sync();
-    for_each_grad(p.x0, [&](long long j, float g) {
+    for_each_grad<T, VT>(p, p.x0, p.res, [&](long long j, float g) {
       const float x0j = p.x0[j];
       p.gs[n + j] = g;
       p.xs[n + j] = x0j;
@@ -464,12 +241,12 @@ __device__ void solve(const Problem& p, const Solve& s) {
       grid.sync();
 
       // P1
-      phase_res(z);
+      phase_p1(z);
       grid.sync();
 
       // P2: grad = A^T res at z, x_new = prox(z - gamma grad), the partials
       float acc[kParts] = {};
-      for_each_grad(z, [&](long long j, float g) {
+      for_each_grad<T, VT>(p, z, p.res, [&](long long j, float g) {
         const float zj = z[j];
         const float xn = prox(p.prox, zj - gamma * g, gamma, p.p1, p.p2);
         x_new[j] = xn;
@@ -488,7 +265,7 @@ __device__ void solve(const Problem& p, const Solve& s) {
       // P1': the objective at x_new costs one more forward matvec (:276-280);
       // "cubic" rewrites P1's partials, which P2 has finished reading
       if (p.record) {
-        phase_res(x_new);
+        phase_p1(x_new);
         grid.sync();
       }
 
@@ -523,12 +300,12 @@ __device__ void solve(const Problem& p, const Solve& s) {
       const float* grad_prev = p.gs + (1 - par) * n;
 
       // P1
-      phase_res(x);
+      phase_p1(x);
       grid.sync();
 
       // P2: grad = A^T res, and the partials over this CTA's columns
       float acc[kParts] = {};
-      for_each_grad(x, [&](long long j, float g) {
+      for_each_grad<T, VT>(p, x, p.res, [&](long long j, float g) {
         grad[j] = g;
         const float xj = x[j];
         const float primal = (p.v[j] - xj) / gamma + g;
@@ -636,59 +413,9 @@ __global__ void __launch_bounds__(kThreads, 1) resident_pg_sweep_kernel(const Pr
   }
 }
 
-// pick_<kernel>: the instantiation for (storage, A-row vector width, A^T-row
-// vector width), or null for a combination that does not exist.
-#define ADAPROX_PICK(KERNEL)                                                               \
-  const void* pick_##KERNEL(int a_is_bf16, int va, int vt) {                             \
-    if (a_is_bf16) {                                                                       \
-      if (va == 1 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 1, 1>); \
-      if (va == 1 && vt == 8) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 1, 8>); \
-      if (va == 8 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 8, 1>); \
-      if (va == 8 && vt == 8) return reinterpret_cast<const void*>(&KERNEL<__nv_bfloat16, 8, 8>); \
-    } else {                                                                               \
-      if (va == 1 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<float, 1, 1>);  \
-      if (va == 1 && vt == 4) return reinterpret_cast<const void*>(&KERNEL<float, 1, 4>);  \
-      if (va == 4 && vt == 1) return reinterpret_cast<const void*>(&KERNEL<float, 4, 1>);  \
-      if (va == 4 && vt == 4) return reinterpret_cast<const void*>(&KERNEL<float, 4, 4>);  \
-    }                                                                                      \
-    return nullptr;                                                                        \
-  }
-
 ADAPROX_PICK(resident_pg_kernel)
 ADAPROX_PICK(resident_pg_sweep_kernel)
 #undef ADAPROX_PICK
-
-// Launch kernel cooperatively over the grid K2 and K2c share for this shape: one
-// CTA per SM, fewer when there are fewer rows than warps to spread them over.
-// Returns the cudaError_t (cudaErrorNotSupported: no cooperative launch here).
-cudaError_t launch(const void* kernel, Problem& prob, void* second, long long part_len,
-                   void* stream_ptr) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const long long rows = prob.m > prob.n ? prob.m : prob.n;
-  const long long want = (rows + kWarps - 1) / kWarps;
-  const int grid = static_cast<int>(want < sms ? want : sms);
-  if (static_cast<long long>(kParts) * grid > part_len) return cudaErrorInvalidValue;
-  void* args[] = {&prob, second};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, 0,
-                                    static_cast<cudaStream_t>(stream_ptr));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
-
-bool problem_ok(int obj_kind, long long m, long long n, int maxit, int prox_kind) {
-  return (obj_kind == kLs || obj_kind == kLogreg || (obj_kind == kCubic && m == n)) &&
-         m >= 1 && n >= 1 && maxit >= 0 && prox_kind >= kL1 && prox_kind <= kZero;
-}
 
 }  // namespace
 
@@ -722,7 +449,7 @@ int adaprox_resident_pg(int obj_kind, float obj_pad, float obj_div, float cube_c
   Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1,
                p2, obj_pad, obj_div, cube_c, obj_kind, prox_kind, record};
   Solve s{gamma0, tol, rule_kind, momentum != 0, maxit, x_out, stats, hist};
-  return static_cast<int>(launch(kernel, prob, &s, part_len, stream_ptr));
+  return static_cast<int>(launch(kernel, prob, &s, kParts, part_len, stream_ptr));
 }
 
 // K2c, the rule sweep: `rows` solves of one problem in one launch, in record
@@ -746,7 +473,7 @@ int adaprox_resident_pg_sweep(int obj_kind, float obj_pad, float obj_div, float 
   Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1,
                p2, obj_pad, obj_div, cube_c, obj_kind, prox_kind, 1};
   Rows r{rows_f, rows_i, rows, x_out, stats, hist};
-  return static_cast<int>(launch(kernel, prob, &r, part_len, stream_ptr));
+  return static_cast<int>(launch(kernel, prob, &r, kParts, part_len, stream_ptr));
 }
 
 const char* adaprox_resident_pg_error_string(int err) {

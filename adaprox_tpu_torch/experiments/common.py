@@ -11,15 +11,23 @@ from __future__ import annotations
 import os
 import time
 from collections import defaultdict
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.resident_bt import resident_bt_records
+from ..solvers.backtracking import backtracking_nesterov, backtracking_proxgrad
 from ..utils import logging as tlog
 
 __all__ = ["Sink", "group_rows", "plot_lines", "pad_tiles", "sync_wall", "run_timed",
-           "run_menu"]
+           "run_menu", "BT_ROWS", "bt_menu", "bt_sweep_rows", "add_bt_rows"]
+
+# the backtracking rows of the lasso, sparse_logreg and cubic_sparse_logreg menus,
+# in the reference order: (name, xi, nesterov)
+BT_ROWS = tuple((f"PGM (backtracking)-(xi={xi})", xi, False) for xi in (1.0, 1.5, 2.0)) + (
+    ("Nesterov (backtracking)", 1.0, True),)
 
 
 def pad_tiles(a, b, m_mult=8, n_mult=128):
@@ -64,6 +72,36 @@ def run_menu(sink, times, menu):
         sink.add(run_timed(times, name, lambda mx=mx, make=make: make(
             maxit=mx, history=True)))
     return "default"
+
+
+def bt_menu(rows, x0, gamma0, maxit, base):
+    """Engine menu entries ``(name, maxit, make)`` of backtracking ``rows``
+    ((name, xi, nesterov) each), all from ``gamma0``; ``base`` holds f, g and
+    tol."""
+    def make(name, xi, nesterov):
+        if nesterov:
+            return lambda **o: backtracking_nesterov(x0, gamma0=gamma0, name=name, **base, **o)
+        return lambda **o: backtracking_proxgrad(x0, gamma0=gamma0, xi=xi, name=name, **base,
+                                                 **o)
+
+    return [(name, maxit, make(name, xi, nesterov)) for name, xi, nesterov in rows]
+
+
+def bt_sweep_rows(rows, gamma0):
+    """The (R, 3) table [gamma0, xi, nesterov_flag] of ``resident_bt_sweep``."""
+    return np.asarray([[gamma0, xi, 1.0 if nesterov else 0.0] for _, xi, nesterov in rows])
+
+
+def add_bt_rows(sink, rows, out, maxit, only=None):
+    """Write the records of a ``resident_bt_sweep`` output ``out`` for
+    ``rows`` ((name, xi, nesterov) each, in the table's order), or for the
+    rows named in ``only``, in that order."""
+    _, numit, _, _, _, hists = out
+    index = {name: j for j, (name, _, _) in enumerate(rows)}
+    for name in (only or index):
+        j = index[name]
+        sink.add(SimpleNamespace(records=resident_bt_records(
+            numit[j], *(h[j] for h in hists), maxit=maxit, nesterov=rows[j][2]), name=name))
 
 
 class Sink:

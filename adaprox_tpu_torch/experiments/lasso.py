@@ -6,15 +6,18 @@ sizes (m, n, pfactor), maxit 2000, tol 1e-7 (runme.jl:191-211). Plot:
 F(x_k) - F* vs (grad_f_evals + f_evals).
 
 The menu holds the rows ported so far, in the reference order: PGM
-(fixed), Nesterov (fixed), AdaPGM (MM) and AdaPGM (Ours). ``--fused`` routes
-every oracle call through K1 (``ops.kernels.fused_ls_value_grad``) on an A
-zero-padded as the JAX driver pads it, so the two drivers' JSONL compare row
-for row. ``--resident`` runs the four rows as ONE record-mode launch of the
-rule-sweep kernel K2c (``ops.resident.resident_rule_sweep``) on the same
-padded A, as the JAX driver does, and emits the sweep's wall in a
-``grid_total_s`` meta row. On the card every shape goes to K2c. On the CPU
-the JAX driver's routing rule (``resident_supported``) applies, with its
-printed fallback to the engine, so the two drivers' JSONL compare row for
+(fixed), PGM (backtracking) with xi 1, 1.5 and 2, Nesterov (backtracking),
+Nesterov (fixed), AdaPGM (MM) and AdaPGM (Ours); aGRAAL is skipped and
+printed. ``--fused`` routes every oracle call through K1
+(``ops.kernels.fused_ls_value_grad``) on an A zero-padded as the JAX driver
+pads it, so the two drivers' JSONL compare row for row. ``--resident`` runs
+the four backtracking rows as ONE record-mode launch of the backtracking
+sweep K4b (``ops.resident_bt.resident_bt_sweep``) and the four rule rows as
+ONE launch of the rule sweep K2c (``ops.resident.resident_rule_sweep``) on
+the same padded A, as the JAX driver does, and emits both sweeps' walls in a
+``grid_total_s`` meta row. On the card every shape goes to the kernels. On
+the CPU the JAX driver's routing rule (``resident_supported``) applies, with
+its printed fallback to the engine, so the two drivers' JSONL compare row for
 row there too.
 
     python -m adaprox_tpu_torch.experiments.lasso --fused --sizes 4000x1000x10
@@ -34,14 +37,15 @@ from ..models.objectives import LeastSquares
 from ..models.synthetic import random_lasso
 from ..ops.prox import L1Norm
 from ..ops.resident import resident_records, resident_rule_sweep, resident_supported, rule_rows
+from ..ops.resident_bt import resident_bt_sweep
 from ..solvers.nesterov import fixed_nesterov
 from ..solvers.primal_dual import adaptive_proxgrad, fixed_proxgrad
 from ..solvers.rules import AdaPGMRule, MalitskyMishchenkoRule
-from .common import Sink, group_rows, pad_tiles, plot_lines, run_menu, sync_wall
+from .common import (BT_ROWS, Sink, add_bt_rows, bt_menu, bt_sweep_rows, group_rows, pad_tiles,
+                     plot_lines, run_menu, sync_wall)
 
 # rows of the JAX driver's menu whose solvers are not ported yet
-NOT_PORTED = ("PGM (backtracking)-(xi=1.0)", "PGM (backtracking)-(xi=1.5)",
-              "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)", "aGRAAL")
+NOT_PORTED = ("aGRAAL",)
 
 
 # the rule sweep's rows as (name, rule_kind, momentum), in the reference order
@@ -78,23 +82,38 @@ def run_random_lasso(m, n, pfactor, sink, *, device, tol=1e-7, maxit=2000, dtype
     times = {}
     print(f"  [lasso] skipping rows not ported yet: {', '.join(NOT_PORTED)}")
     if use_resident:
-        # ONE record-mode K2c launch for the four rows; wall_s carries each
-        # row's share, grid_total_s the sweep's wall
+        # ONE record-mode K4b launch for the four backtracking rows and ONE K2c
+        # launch for the four rule rows; wall_s carries each row's share of its
+        # sweep's wall, grid_total_s the sweeps' walls
+        bt_out, bt_wall = sync_wall(lambda: resident_bt_sweep(
+            a, b, x0, bt_sweep_rows(BT_ROWS, gam), tol, maxit, prox_kind="l1", p1=prob.lam))
         specs = [(gam, rule_kind, mom) for _, rule_kind, mom in RESIDENT_ROWS]
         (_, numit, _, _, hists), wall = sync_wall(lambda: resident_rule_sweep(
             a, b, x0, rule_rows(specs, tol=tol, maxit=maxit), tol, maxit, prox_kind="l1",
             p1=prob.lam))
-        for j, (name, _, mom) in enumerate(RESIDENT_ROWS):
+
+        def add_rule_row(j):
+            name, _, mom = RESIDENT_ROWS[j]
             sink.add(SimpleNamespace(records=resident_records(
                 numit[j], *(h[j] for h in hists), maxit=maxit, momentum=mom), name=name))
+
+        # the rows in the reference order
+        add_rule_row(0)
+        add_bt_rows(sink, BT_ROWS, bt_out, maxit)
+        for j in range(1, len(RESIDENT_ROWS)):
+            add_rule_row(j)
+        for name, _, _ in BT_ROWS:
+            times[name] = round(bt_wall / len(BT_ROWS), 4)
+        for name, _, _ in RESIDENT_ROWS:
             times[name] = round(wall / len(RESIDENT_ROWS), 4)
-        sink.emit_meta(grid_total_s={"rule sweep": round(wall, 4)})
+        sink.emit_meta(grid_total_s={"bt sweep": round(bt_wall, 4), "rule sweep": round(wall, 4)})
         fast_path = "resident"
     else:
         base = dict(f=f, g=g, tol=tol)
         menu = [
             ("PGM (fixed)", maxit, lambda **o: fixed_proxgrad(
                 x0, gamma=gam, name="PGM (fixed)", **base, **o)),
+        ] + bt_menu(BT_ROWS, x0, gam, maxit, base) + [
             ("Nesterov (fixed)", maxit, lambda **o: fixed_nesterov(
                 x0, gamma=gam, name="Nesterov (fixed)", **base, **o)),
             ("AdaPGM (MM)", maxit, lambda **o: adaptive_proxgrad(
@@ -133,7 +152,8 @@ def main(argv=None):
     p.add_argument("--fused", action="store_true",
                    help="fused LS oracle (kernel K1) for every solver")
     p.add_argument("--resident", action="store_true",
-                   help="the rule-sweep kernel K2c: every row in one launch")
+                   help="the sweep kernels: the backtracking rows in one K4b launch, the "
+                        "rule rows in one K2c launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")

@@ -7,15 +7,16 @@ logged first as a pseudo row with ``method`` null; k = n = 100, L = 100, tol
 1e-6, maxit 10_000. A sanity check that the adaptive methods degrade
 gracefully against the accelerated one. Plot: F - F* vs grad_f_evals.
 
-The menu holds the rows ported so far, in the reference order: Fixed
-stepsize PGM, Fixed Nesterov, AdaPGM (MM) and AdaPGM; the two backtracking
-rows are skipped and printed. ``--resident`` runs the four rows as ONE
-record-mode launch of the rule-sweep kernel K2c
-(``ops.resident.resident_rule_sweep``) on the worst case written as the
-cubic model with c = 0: the dense H = (L/4) tridiag(-1, 2, -1) on the first
-k coordinates and q = -(L/4) e_1, zero-padded to a multiple of 128 (the
-padded coordinates stay exactly 0); the sweep's wall goes into a
-``grid_total_s`` meta row.
+The menu holds every row of the reference, in its order: Fixed stepsize
+PGM, Backtracking PG, Fixed Nesterov, Backtracking Nesterov, AdaPGM (MM) and
+AdaPGM (the backtracking rows from gamma0 = 1). ``--resident`` runs the two
+backtracking rows as ONE record-mode launch of the backtracking sweep K4b
+(``ops.resident_bt.resident_bt_sweep``) and the four rule rows as ONE launch
+of the rule-sweep kernel K2c (``ops.resident.resident_rule_sweep``) on the
+worst case written as the cubic model with c = 0: the dense H = (L/4)
+tridiag(-1, 2, -1) on the first k coordinates and q = -(L/4) e_1,
+zero-padded to a multiple of 128 (the padded coordinates stay exactly 0); the
+sweeps' walls go into a ``grid_total_s`` meta row.
 
     python -m adaprox_tpu_torch.experiments.nesterov_worst_case
     python -m adaprox_tpu_torch.experiments.nesterov_worst_case --resident
@@ -32,13 +33,15 @@ import torch
 from ..convert import worst_from_numpy
 from ..ops.prox import Zero
 from ..ops.resident import resident_records, resident_rule_sweep, rule_rows
+from ..ops.resident_bt import resident_bt_sweep
 from ..solvers.nesterov import fixed_nesterov
 from ..solvers.primal_dual import adaptive_proxgrad, fixed_proxgrad
 from ..solvers.rules import AdaPGMRule, MalitskyMishchenkoRule
-from .common import Sink, group_rows, plot_lines, run_menu, sync_wall
+from .common import (Sink, add_bt_rows, bt_menu, bt_sweep_rows, group_rows, plot_lines, run_menu,
+                     sync_wall)
 
-# rows of the JAX driver's menu whose solvers are not ported yet
-NOT_PORTED = ("Backtracking PG", "Backtracking Nesterov")
+# the backtracking rows, (name, xi, nesterov), from gamma0 = 1 (runme.jl)
+BT_ROWS = (("Backtracking PG", 1.0, False), ("Backtracking Nesterov", 1.0, True))
 
 # the rule sweep's rows, in the JAX driver's order: (name, rule_kind, momentum)
 RESIDENT_ROWS = (("Fixed stepsize PGM", "fixed", False), ("Fixed Nesterov", "fixed", True),
@@ -73,31 +76,47 @@ def run_nesterov_worst_case(sink, *, device, k=100, n=100, lip=100.0, tol=1e-6, 
     sink.emit_pseudo({"method": None, "it": 1, "objective": optimum})
     x0 = torch.zeros(n, dtype=dtype, device=device)
     times = {}
-    print(f"  [nesterov_worst_case] skipping rows not ported yet: {', '.join(NOT_PORTED)}")
 
     if resident:
-        # ONE record-mode K2c launch for the four rule rows; wall_s carries each
-        # row's share, grid_total_s the sweep's wall
+        # ONE record-mode K4b launch for the two backtracking rows and ONE K2c
+        # launch for the four rule rows; wall_s carries each row's share of its
+        # sweep's wall, grid_total_s the sweeps' walls
         h, q = worst_case_model(k, n, lip, device, dtype)
         x0_pad = torch.zeros(h.shape[0], dtype=dtype, device=device)
+        skw = dict(prox_kind="zero", obj_kind="cubic", cube_c=0.0)
+        bt_out, bt_wall = sync_wall(lambda: resident_bt_sweep(
+            h, q, x0_pad, bt_sweep_rows(BT_ROWS, 1.0), tol, maxit, **skw))
         specs = [(1 / lip, rule, mom) for _, rule, mom in RESIDENT_ROWS]
         (_, numit, _, _, hists), wall = sync_wall(lambda: resident_rule_sweep(
-            h, q, x0_pad, rule_rows(specs, tol=tol, maxit=maxit), tol, maxit, prox_kind="zero",
-            obj_kind="cubic", cube_c=0.0))
-        for j, (name, _, mom) in enumerate(RESIDENT_ROWS):
+            h, q, x0_pad, rule_rows(specs, tol=tol, maxit=maxit), tol, maxit, **skw))
+
+        def add_rule_row(j):
+            name, _, mom = RESIDENT_ROWS[j]
             sink.add(SimpleNamespace(records=resident_records(
                 numit[j], *(h_[j] for h_ in hists), maxit=maxit, momentum=mom), name=name))
+
+        # the rows in the reference order: each backtracking row after its fixed one
+        for j in range(len(RESIDENT_ROWS)):
+            add_rule_row(j)
+            if j < len(BT_ROWS):
+                add_bt_rows(sink, BT_ROWS, bt_out, maxit, only=[BT_ROWS[j][0]])
+        for name, _, _ in BT_ROWS:
+            times[name] = round(bt_wall / len(BT_ROWS), 4)
+        for name, _, _ in RESIDENT_ROWS:
             times[name] = round(wall / len(RESIDENT_ROWS), 4)
-        sink.emit_meta(grid_total_s={"rule sweep": round(wall, 4)})
+        sink.emit_meta(grid_total_s={"bt sweep": round(bt_wall, 4), "rule sweep": round(wall, 4)})
         sink.emit_meta(wall_s=times, fast_path="resident", fast_methods=sorted(times))
         return optimum
 
     base = dict(f=f, g=g, tol=tol)
+    bt_pg, bt_nesterov = bt_menu(BT_ROWS, x0, 1.0, maxit, base)
     menu = [
         ("Fixed stepsize PGM", maxit, lambda **o: fixed_proxgrad(
             x0, gamma=1 / lip, name="Fixed stepsize PGM", **base, **o)),
+        bt_pg,
         ("Fixed Nesterov", maxit, lambda **o: fixed_nesterov(
             x0, gamma=1 / lip, name="Fixed Nesterov", **base, **o)),
+        bt_nesterov,
         ("AdaPGM (MM)", maxit, lambda **o: adaptive_proxgrad(
             x0, rule=MalitskyMishchenkoRule(gamma=1 / lip), name="AdaPGM (MM)", **base, **o)),
         ("AdaPGM", maxit, lambda **o: adaptive_proxgrad(
@@ -130,8 +149,9 @@ def main(argv=None):
     p.add_argument("--n", type=int, default=100)
     p.add_argument("--L", type=float, default=100.0)
     p.add_argument("--resident", action="store_true",
-                   help="the rule-sweep kernel K2c: the four rule rows in one launch, on the "
-                        "dense worst-case quadratic as the c = 0 cubic model")
+                   help="the sweep kernels: the backtracking rows in one K4b launch, the rule "
+                        "rows in one K2c launch, on the dense worst-case quadratic as the c = 0 "
+                        "cubic model")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")

@@ -1,12 +1,14 @@
-"""Times the whole-solve kernels K2 and K2c (``csrc/resident_pg.cu``) on one
-card, at the shapes that set their cost, and prints the card's name and
-power limit, then one line of JSON.
+"""Times the whole-solve kernels K2 and K2c (``csrc/resident_pg.cu``) and
+the backtracking kernels K4 and K4b (``csrc/resident_bt.cu``) on one card, at
+the shapes that set their cost, and prints the card's name and power limit,
+then one line of JSON.
 
     python -m adaprox_tpu_torch.experiments.resident_timing [--reps 5]
 
 CUDA events, best of ``--reps`` after a warm-up (``utils.profiling.timed``);
 A in f32 unless a case says bf16. Cases:
-  build_s          seconds to build (or find built) csrc/resident_pg.cu
+  build_s          seconds to build (or find built) csrc/resident_pg.cu and
+                   csrc/resident_bt.cu
   solve_ms         the resident reference size: random_lasso(4000, 1000, 10)
                    padded to 4096x1024, AdaPGM, l1 (lam 1), tol 1e-4, one K2 launch
   *_it_us          K2 or a one-row K2c sweep, fixed rule, zero prox, tol 0,
@@ -22,6 +24,11 @@ A in f32 unless a case says bf16. Cases:
                      PSD H, 128^2 and 2048^2, tol -1 (no early stop)
   menu_ms          K2c, the lasso menu's four rows at 4000x1000x10 padded to
                    4000x1024 (maxit 2000, tol 1e-7; the sweep's f32 4,4)
+  bt_pg_it_us, bt_nesterov_it_us  K4 at the reference size, xi 1, gamma0
+                   1/||A||_F^2 (one trial an iteration), zero prox, tol -1,
+                   1000 iterations, per iteration
+  bt_menu_ms       K4b, the lasso menu's four backtracking rows on the same
+                   inputs as menu_ms
 """
 
 from __future__ import annotations
@@ -36,8 +43,9 @@ import torch
 
 from ..experiments.common import pad_tiles
 from ..models.synthetic import random_lasso
-from ..ops import resident
+from ..ops import resident, resident_bt
 from ..utils.profiling import timed
+from .common import BT_ROWS, bt_sweep_rows
 
 MENU = (("fixed", False), ("fixed", True), ("mm", False), ("adapgm", False))
 ITERS = 1000
@@ -55,6 +63,7 @@ def main(argv=None):
     out = {}
     t0 = time.perf_counter()
     resident.build_library()
+    resident_bt.build_library()
     out["build_s"] = time.perf_counter() - t0
 
     def it_us(fn):
@@ -115,6 +124,15 @@ def main(argv=None):
         a_d, b_d, torch.zeros(a_d.shape[1], device=dev), rows_d, 1e-7, 2000, p1=prob.lam),
         reps=args.reps)
     out["menu_ms"], out["menu_numit"] = 1e3 * secs, res[1].tolist()
+
+    gam_f = 1.0 / float((a * a).sum())  # <= 1/||A||^2: every first trial passes
+    for label, nesterov in (("bt_pg_it_us", False), ("bt_nesterov_it_us", True)):
+        out[label] = it_us(lambda: resident_bt.resident_backtracking(
+            a, b, x0, gam_f, -1.0, ITERS, prox_kind="zero", nesterov=nesterov))
+    secs, res = timed(lambda: resident_bt.resident_bt_sweep(
+        a_d, b_d, torch.zeros(a_d.shape[1], device=dev), bt_sweep_rows(BT_ROWS, gam), 1e-7, 2000,
+        p1=prob.lam), reps=args.reps)
+    out["bt_menu_ms"], out["bt_menu_numit"] = 1e3 * secs, res[1].tolist()
     print(smi)
     print(json.dumps(out))
 

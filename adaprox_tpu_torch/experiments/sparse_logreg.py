@@ -13,15 +13,18 @@ is not in the datasets directory is replaced by the shape-matched synthetic
 data of ``utils.datasets`` (``data_source`` says which).
 
 The menu holds the rows ported so far, in the reference order: the ground
-truth, PGM (1/Lf), Nesterov (fixed), AdaPGM (MM) and AdaPGM (Ours); the
-backtracking and aGRAAL rows are skipped and printed. ``--resident`` runs
-the five rows as ONE record-mode launch of the rule-sweep kernel K2c
-(``ops.resident.resident_rule_sweep``, ``obj_kind="logreg"``) on [X 1]
-zero-padded as the JAX driver pads it, with per-row tol and caps, and emits
-the sweep's wall in a ``grid_total_s`` meta row. On the card every shape
-goes to K2c. On the CPU the JAX driver's routing rule
-(``resident_supported``) applies, with its printed fallback to the engine,
-so the two drivers' JSONL compare row for row there too.
+truth, PGM (1/Lf), PGM (backtracking) with xi 1, 1.5 and 2 and Nesterov
+(backtracking) (each at maxit/2), Nesterov (fixed), AdaPGM (MM) and AdaPGM
+(Ours); aGRAAL is skipped and printed. ``--resident`` runs the four
+backtracking rows as ONE record-mode launch of the backtracking sweep K4b
+(``ops.resident_bt.resident_bt_sweep``) and the five rule rows as ONE launch
+of the rule-sweep kernel K2c (``ops.resident.resident_rule_sweep``), both
+with ``obj_kind="logreg"`` on [X 1] zero-padded as the JAX driver pads it,
+the rule rows with per-row tol and caps, and emits both sweeps' walls in a
+``grid_total_s`` meta row. On the card every shape goes to the kernels. On
+the CPU the JAX driver's routing rule (``resident_supported``) applies, with
+its printed fallback to the engine, so the two drivers' JSONL compare row for
+row there too.
 
     python -m adaprox_tpu_torch.experiments.sparse_logreg
     python -m adaprox_tpu_torch.experiments.sparse_logreg --resident
@@ -39,16 +42,17 @@ import torch
 from ..models.objectives import LogisticLoss
 from ..ops.prox import L1Norm
 from ..ops.resident import resident_records, resident_rule_sweep, resident_supported, rule_rows
+from ..ops.resident_bt import resident_bt_sweep
 from ..solvers.nesterov import fixed_nesterov
 from ..solvers.primal_dual import adaptive_proxgrad, fixed_proxgrad
 from ..solvers.rules import AdaPGMRule, MalitskyMishchenkoRule
 from ..utils.datasets import load_or_synthesize
 from ..utils.libsvm import load_libsvm_dataset
-from .common import Sink, group_rows, pad_tiles, plot_lines, run_menu, run_timed, sync_wall
+from .common import (BT_ROWS, Sink, add_bt_rows, bt_menu, bt_sweep_rows, group_rows, pad_tiles,
+                     plot_lines, run_menu, run_timed, sync_wall)
 
 # rows of the JAX driver's menu whose solvers are not ported yet
-NOT_PORTED = ("PGM (backtracking)-(xi=1.0)", "PGM (backtracking)-(xi=1.5)",
-              "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)", "aGRAAL")
+NOT_PORTED = ("aGRAAL",)
 
 # the rule sweep's rows, in the JAX driver's order: (name, rule_kind, momentum);
 # the ground truth (name None) runs at tol/10 with cap maxit x 10, Nesterov
@@ -113,20 +117,35 @@ def run_logreg_l1_data(name_or_path, sink, *, device, lam=0.01, tol=1e-7, maxit=
     print(f"  [sparse_logreg] skipping rows not ported yet: {', '.join(NOT_PORTED)}")
 
     if use_resident:
-        # ONE record-mode K2c launch for the five rule rows, the ground truth
-        # included (per-row tol and caps); wall_s carries each row's share,
-        # grid_total_s the sweep's wall
-        specs = rule_specs(gam, tol, maxit)
+        # ONE record-mode K4b launch for the four backtracking rows (half
+        # budget) and ONE K2c launch for the five rule rows, the ground truth
+        # included (per-row tol and caps); wall_s carries each row's share of
+        # its sweep's wall, grid_total_s the sweeps' walls
         x0p = torch.zeros(x1_pad.shape[1], dtype=dtype, device=device)
+        lkw = dict(prox_kind="l1", p1=float(lam), obj_kind="logreg", m_true=float(m))
+        half_it = maxit // 2
+        bt_out, bt_wall = sync_wall(lambda: resident_bt_sweep(
+            x1_pad, y_pad, x0p, bt_sweep_rows(BT_ROWS, gam), tol, half_it, **lkw))
+        specs = rule_specs(gam, tol, maxit)
         (_, numit, _, _, hists), wall = sync_wall(lambda: resident_rule_sweep(
-            x1_pad, y_pad, x0p, rule_rows(specs), tol, maxit * 10, prox_kind="l1",
-            p1=float(lam), obj_kind="logreg", m_true=float(m)))
-        for j, ((name, _, mom), spec) in enumerate(zip(RESIDENT_ROWS, specs)):
-            cap = spec[4]
+            x1_pad, y_pad, x0p, rule_rows(specs), tol, maxit * 10, **lkw))
+
+        def add_rule_row(j):
+            (name, _, mom), cap = RESIDENT_ROWS[j], specs[j][4]
             sink.add(SimpleNamespace(records=resident_records(
                 numit[j], *(h[j][:cap] for h in hists), maxit=cap, momentum=mom), name=name))
+
+        # the rows in the JAX driver's order
+        add_rule_row(0)  # the ground truth
+        add_rule_row(1)
+        add_bt_rows(sink, BT_ROWS, bt_out, half_it)
+        for j in range(2, len(RESIDENT_ROWS)):
+            add_rule_row(j)
+        for name, _, _ in BT_ROWS:
+            times[name] = round(bt_wall / len(BT_ROWS), 4)
+        for name, _, _ in RESIDENT_ROWS:
             times[name or "(ground truth)"] = round(wall / len(RESIDENT_ROWS), 4)
-        sink.emit_meta(grid_total_s={"rule sweep": round(wall, 4)})
+        sink.emit_meta(grid_total_s={"bt sweep": round(bt_wall, 4), "rule sweep": round(wall, 4)})
     else:
         # the ground-truth prerun (tol/10) always runs in history mode: it feeds
         # the optimum the plots normalize against
@@ -137,6 +156,7 @@ def run_logreg_l1_data(name_or_path, sink, *, device, lam=0.01, tol=1e-7, maxit=
         menu = [
             ("PGM (1/Lf)", maxit, lambda **o: fixed_proxgrad(
                 x0, gamma=gam, name="PGM (1/Lf)", **base, **o)),
+        ] + bt_menu(BT_ROWS, x0, gam, maxit // 2, base) + [
             ("Nesterov (fixed)", maxit // 2, lambda **o: fixed_nesterov(
                 x0, gamma=gam, name="Nesterov (fixed)", **base, **o)),
             ("AdaPGM (MM)", maxit, lambda **o: adaptive_proxgrad(
@@ -176,8 +196,8 @@ def main(argv=None):
                    help="tighter ||X1||_2^2/4m instead of the reference's "
                         "Frobenius norm(X1*X1')/4m (runme.jl:58-59)")
     p.add_argument("--resident", action="store_true",
-                   help="the rule-sweep kernel K2c: the five rule rows, the ground "
-                        "truth included, in one launch")
+                   help="the sweep kernels: the backtracking rows in one K4b launch, the "
+                        "five rule rows (the ground truth included) in one K2c launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")

@@ -66,11 +66,12 @@ def _nvcc():
 def build_library(source=SOURCE, flags=NVCC_FLAGS):
     """Compile the CUDA source ``source`` (K1's by default; K3's is
     ``LOGISTIC_SOURCE``) into a shared library with nvcc ``flags`` unless the
-    build for this exact source and flag set exists already. Returns the
-    path; nvcc's register/shared-memory report is kept beside it as
-    ``.log``."""
+    build for this exact source, the headers beside it (``csrc/*.cuh``) and
+    this flag set exists already. Returns the path; nvcc's
+    register/shared-memory report is kept beside it as ``.log``."""
     source = Path(source)
-    src = source.read_bytes()
+    src = source.read_bytes() + b"".join(h.read_bytes()
+                                         for h in sorted(source.parent.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{source.stem}_{key}.so"
     if out.exists():

@@ -282,11 +282,12 @@ def _vec(rows_len, dtype, ptr):
     return vec if rows_len % vec == 0 and ptr % 16 == 0 else 1
 
 
-def _problem(lib, a, b, x0, obj_kind, m_true, cube_c, what):
+def _problem(parts, a, b, x0, obj_kind, m_true, cube_c, what, res_bufs=1):
     """Check what the kernels take, and make the second layout of A and the
-    scratch of one launch (on the current device). Returns the leading
-    arguments of both C entries (obj_kind .. part_len) and the tensors
-    behind them."""
+    scratch of one launch (on the current device), with ``parts`` partial
+    sums a CTA and ``res_bufs`` buffers of length m. Returns the leading
+    arguments of the C entries (obj_kind .. part_len) and the tensors behind
+    them."""
     if a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} stores A as float32 or bfloat16 on CUDA, got {a.dtype}")
     if b.dtype != torch.float32 or x0.dtype != torch.float32:
@@ -304,11 +305,11 @@ def _problem(lib, a, b, x0, obj_kind, m_true, cube_c, what):
     va, vt = _vec(n, a.dtype, a.data_ptr()), _vec(m, a.dtype, at.data_ptr())
     f32 = dict(dtype=torch.float32, device=dev)
     xs, gs = torch.empty((2, n), **f32), torch.empty((2, n), **f32)
-    v, res = torch.empty(n, **f32), torch.empty(m, **f32)
+    v, res = torch.empty(n, **f32), torch.empty(res_bufs * m, **f32)
     # the launcher sizes the grid, at most one CTA per SM
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # zeroed: "ls" and "logreg" never write the cubic objective's slot, which P3 sums
-    part = torch.zeros(lib.adaprox_resident_pg_parts() * sms, **f32)
+    part = torch.zeros(parts * sms, **f32)
     tensors = (a, at, b, x0, xs, gs, v, res, part)
     args = [_OBJ_IDX[obj_kind], pad_rows * math.log(2.0), m_div, float(cube_c), a.data_ptr(),
             at.data_ptr(),
@@ -324,7 +325,8 @@ def _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum
     n = a.shape[1]
     with torch.cuda.device(dev):
         # keep: the tensors behind args
-        args, keep = _problem(lib, a, b, x0, obj_kind, m_true, cube_c, "K2")
+        args, keep = _problem(lib.adaprox_resident_pg_parts(), a, b, x0, obj_kind, m_true,
+                              cube_c, "K2")
         f32 = dict(dtype=torch.float32, device=dev)
         x_out, stats = torch.empty(n, **f32), torch.empty(4, **f32)
         hist = torch.empty((3, maxit), **f32) if record else None
@@ -483,7 +485,8 @@ def _launch_sweep(a, b, x0, rows, maxit, prox_kind, p1, p2, obj_kind, m_true, cu
     count = rows.shape[0]
     with torch.cuda.device(dev):
         # keep: the tensors behind args
-        args, keep = _problem(lib, a, b, x0, obj_kind, m_true, cube_c, "K2c")
+        args, keep = _problem(lib.adaprox_resident_pg_parts(), a, b, x0, obj_kind, m_true,
+                              cube_c, "K2c")
         rows_f = rows[:, [0, 3]].to(device=dev, dtype=torch.float32).contiguous()
         rows_i = torch.stack([rows[:, 1], (rows[:, 2] > 0).to(rows.dtype), rows[:, 4]], 1)
         rows_i = rows_i.to(device=dev, dtype=torch.int32).contiguous()

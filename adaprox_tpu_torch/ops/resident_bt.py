@@ -1,0 +1,335 @@
+"""K4 and K4b, the backtracking whole-solve kernels: backtracking proximal
+gradient (with the per-iteration step inflation xi) and backtracking Nesterov
+of f(x) + g(x) in one launch, for every ``obj_kind`` of K2 ("ls", "logreg",
+"cubic") and every prox kind of its menu.
+
+Counterpart of ``adaprox_tpu/ops/resident_bt.py`` for its backtracking core
+``_bt_core``: ``resident_backtracking`` (K4, one solve) and
+``resident_bt_sweep`` (K4b, the backtracking rows of a method menu in one
+launch, each row with its own gamma0, xi and momentum flag, always in record
+mode). The trial loop runs on the device: at most 101 evaluations an
+iteration, the failure of a capped backtrack latched into ``ls_failed``, and
+with ``exact_bregman`` (least squares only) the sufficient-descent test
+through 0.5 ||res_z - res_x||^2 instead of the raw objective difference. The
+aGRAAL core of the same JAX module is not ported yet.
+
+Here both kernels are hand-written CUDA C++ for Hopper
+(``csrc/resident_bt.cu``, on the P1 phase and the objective switch that K2
+shares through ``csrc/resident_common.cuh``): one cooperative launch with
+grid-wide barriers between the phases of a trial, built with nvcc for
+``sm_90a`` at first use and loaded with ctypes. K4 and K4b run the same
+device routine on the same grid, so a sweep row equals the single solve with
+its arguments bit for bit.
+
+Both entries dispatch on where their tensors lie: CPU tensors take the plain
+versions ``resident_backtracking_plain`` / ``resident_bt_sweep_plain``
+(Python loops over the same iteration); CUDA tensors launch the kernel or
+raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from ..solvers.common import Records
+from . import kernels
+from .resident import _GVAL, _PROX, _PROX_IDX, _check_menu, _obj_split, _problem, _transposed
+
+__all__ = ["resident_backtracking", "resident_backtracking_plain", "resident_bt_sweep",
+           "resident_bt_sweep_plain", "resident_bt_records", "build_library"]
+
+SOURCE = kernels._PKG / "csrc" / "resident_bt.cu"
+# as K2's: every elementwise expression rounds after each operation
+NVCC_FLAGS = kernels.NVCC_FLAGS + ("-fmad=false",)
+
+# the initial trial and up to 100 shrinks: 101 prox/f evaluations an iteration
+_MAX_EVALS = 101
+
+
+def _bt_plain(a, b, x0, gamma0, xi, shrink, tol, maxit, prox_kind, p1, p2, cube_c, nesterov,
+              obj_kind, m_true, record, exact_bregman):
+    """``_bt_core`` line by line. The trial step is gamma * xi: the single
+    entry passes xi = 1 for Nesterov, as the JAX kernel does, and the sweep
+    passes each row's own xi (its "dynamic" post-step)."""
+    dt, dev = x0.dtype, x0.device
+
+    def scalar(v):
+        return torch.as_tensor(v, dtype=dt, device=dev)
+
+    gamma0, xi, shrink, tol, p1, p2, cube_c = (
+        scalar(v) for v in (gamma0, xi, shrink, tol, p1, p2, cube_c))
+    at = _transposed(a, obj_kind, m_true).to(dt)
+    a, b = a.to(dt), b.to(dt)
+    val_aux_of, grad_from_aux = _obj_split(a, at, b, obj_kind, m_true, cube_c)
+    prox_fn, gval_fn = _PROX[prox_kind], _GVAL[prox_kind]
+    # only the least-squares aux (the residual) gives the exact Bregman form
+    exact = bool(exact_bregman) and obj_kind == "ls"
+    hists = torch.zeros((4, maxit), dtype=dt, device=dev)
+
+    f_x, aux_x = val_aux_of(x0)
+    grad_x = grad_from_aux(aux_x)
+    x = z = x0
+    gamma, theta, norm_res = gamma0, scalar(1.0), scalar(math.inf)
+    it, ls_failed = 0, False
+
+    def violates(gamma, z_t, f_z, aux):
+        dz = z_t - x
+        if exact:
+            dres = aux - aux_x
+            return bool(0.5 * torch.sum(dres * dres) > torch.sum(dz * dz) / (2 * gamma))
+        return bool(f_z > f_x + torch.sum(grad_x * dz) + torch.sum(dz * dz) / (2 * gamma))
+
+    while it < maxit and bool(norm_res > tol):  # a NaN residual stops
+        trial_gamma = gamma * xi
+        evals = 1
+        z_t = prox_fn(x - trial_gamma * grad_x, trial_gamma, p1, p2)
+        f_z, aux = val_aux_of(z_t)
+        bad = violates(trial_gamma, z_t, f_z, aux)  # a NaN f_z passes
+        while bad and evals < _MAX_EVALS:
+            trial_gamma = trial_gamma * shrink
+            evals += 1
+            z_t = prox_fn(x - trial_gamma * grad_x, trial_gamma, p1, p2)
+            f_z, aux = val_aux_of(z_t)
+            bad = violates(trial_gamma, z_t, f_z, aux)
+        gamma = trial_gamma
+        dz = z_t - x
+        norm_res = torch.sqrt(torch.sum(dz * dz)) / gamma
+        if record:
+            hists[:, it] = torch.stack([gamma, norm_res, f_z + gval_fn(z_t, p1, p2),
+                                        scalar(evals)])
+        it += 1
+        ls_failed = ls_failed or bad
+        if it < maxit and bool(norm_res > tol):  # the post-step feeds the next iteration only
+            if nesterov:
+                theta_next = (1 + torch.sqrt(1 + 4 * theta * theta)) / 2
+                x = z_t + ((theta - 1) / theta_next) * (z_t - z)
+                theta = theta_next
+                f_x, aux_x = val_aux_of(x)
+            else:
+                x, f_x, aux_x = z_t, f_z, aux
+            grad_x = grad_from_aux(aux_x)
+        z = z_t
+    conv = norm_res <= tol
+    # the TPU kernel's stats travel as f32: numit and norm_res round through it
+    stats = torch.stack([scalar(it), norm_res, gamma, conv.to(dt),
+                         scalar(float(ls_failed))]).to(torch.float32)
+    base = (z, stats[0].to(torch.int32), stats[1].to(dt), stats[3] > 0, stats[4] > 0)
+    return base + tuple(hists) if record else base
+
+
+def resident_backtracking_plain(a, b, x0, gamma0, tol, maxit, *, xi=1.0, shrink=0.5,
+                                prox_kind="l1", p1=0.0, p2=0.0, cube_c=0.0, nesterov=False,
+                                obj_kind="ls", m_true=None, record=False,
+                                exact_bregman=False):
+    """The plain PyTorch version of K4: ``_bt_core``'s loop, one
+    host-checked trial at a time. Scalars are 0-d tensors in the iterate
+    dtype; bf16 storage of ``a`` is upcast to it (for "logreg" after A^T is
+    divided by the mean's divisor in storage dtype, as the kernel's wrapper
+    does). Nesterov takes no inflation (xi is ignored). Returns what
+    ``resident_backtracking`` returns."""
+    return _bt_plain(a, b, x0, gamma0, 1.0 if nesterov else xi, shrink, tol, maxit, prox_kind,
+                     p1, p2, cube_c, bool(nesterov), obj_kind, m_true, record, exact_bregman)
+
+
+def _bt_rows(rows, dtype):
+    """The rows table in the iterate dtype on the host, as the JAX sweep casts
+    it, after checking it: the CUDA kernel reads three values a row, so a
+    table of another width, or an empty one, is refused, and so is a
+    momentum flag outside {0, 1}."""
+    if not isinstance(rows, torch.Tensor):
+        rows = torch.as_tensor(np.asarray(rows))
+    rows = rows.to(device="cpu", dtype=dtype)
+    if rows.ndim != 2 or rows.shape[0] < 1 or rows.shape[1] != 3:
+        raise ValueError(f"rows must be (R >= 1, 3) [gamma0, xi, nesterov_flag], got "
+                         f"{tuple(rows.shape)}")
+    flag = rows[:, 2]
+    if not bool(((flag == 0) | (flag == 1)).all()):
+        raise ValueError(f"every row's nesterov_flag must be 0 or 1, got {flag.tolist()}")
+    return rows
+
+
+def resident_bt_sweep_plain(a, b, x0, rows, tol, maxit, *, shrink=0.5, prox_kind="l1", p1=0.0,
+                            p2=0.0, cube_c=0.0, obj_kind="ls", m_true=None,
+                            exact_bregman=False):
+    """The plain version of the sweep: one plain solve a row, with that row's
+    gamma0, xi and momentum flag (the trial step is gamma * xi for every
+    row), in record mode. Returns what ``resident_bt_sweep`` returns."""
+    rows = _bt_rows(rows, x0.dtype)
+    outs = [_bt_plain(a, b, x0, g0, xi, shrink, tol, maxit, prox_kind, p1, p2, cube_c,
+                      flag > 0, obj_kind, m_true, True, exact_bregman)
+            for g0, xi, flag in rows.tolist()]
+    return (tuple(torch.stack([o[k] for o in outs]) for k in range(5))
+            + (tuple(torch.stack([o[k] for o in outs]) for k in range(5, 9)),))
+
+
+def resident_bt_records(numit, gamma_hist, res_hist, obj_hist, trials_hist, *, maxit,
+                        nesterov=False):
+    """``Records`` from the record-mode histories. The counters follow from
+    the trial counts as the engine meters them at its record: one f and one
+    gradient at the start; each iteration's backtrack costs its trials in
+    prox_g and f; after the record PG finishes the pullback (gradient + 1)
+    and Nesterov evaluates the momentum point (f + 1, gradient + 1). So at
+    iteration ``it``: f_evals = 1 + sum(trials) (+ it - 1 for Nesterov),
+    grad_f_evals = it, prox_g_evals = sum(trials). Rows past ``numit`` are
+    masked out by ``valid``."""
+    dev = gamma_hist.device
+    it = torch.arange(1, maxit + 1, dtype=torch.int64, device=dev)
+    z = torch.zeros(maxit, dtype=torch.int64, device=dev)
+    cum_t = torch.cumsum(trials_hist.to(torch.int64), 0)
+    f_evals = 1 + cum_t + (it - 1 if nesterov else 0)
+    return Records(it=it, gamma=gamma_hist, sigma=torch.zeros_like(gamma_hist),
+                   norm_res=res_hist, objective=obj_hist, f_evals=f_evals, grad_f_evals=it,
+                   prox_g_evals=cum_t, prox_h_evals=z, A_evals=z, At_evals=z,
+                   valid=it <= torch.as_tensor(numit, device=dev))
+
+
+def build_library():
+    """Compile ``csrc/resident_bt.cu`` (see ``ops.kernels.build_library``)."""
+    return kernels.build_library(SOURCE, NVCC_FLAGS)
+
+
+def _library():
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    # obj_kind .. part_len, the leading arguments of both entries (as K2's)
+    problem = [i, f, f, f, p, p, i, i, i, p, p, p, p, p, p, p, ll]
+    return kernels.load_library(SOURCE, NVCC_FLAGS, {
+        "adaprox_resident_bt_parts": ([], i),
+        "adaprox_resident_bt": (problem + [p, p, p, ll, ll, i, f, f, f, f, f, f, i, i, i, i, p],
+                                i),
+        "adaprox_resident_bt_sweep": (problem + [p, i, p, p, p, ll, ll, i, f, f, f, f, i, i, p],
+                                      i),
+        "adaprox_resident_bt_error_string": ([i], ctypes.c_char_p)})
+
+
+def _raise_on(lib, err, what):
+    if err:
+        msg = lib.adaprox_resident_bt_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def _check(what, a, b, x0, prox_kind, obj_kind, maxit):
+    _check_menu(what, a, prox_kind, obj_kind)
+    kernels._check_shapes(a, b, x0)
+    if int(maxit) < 0:
+        raise ValueError(f"{what}: maxit must be >= 0, got {maxit}")
+
+
+def _launch(a, b, x0, gamma0, tol, maxit, xi, shrink, prox_kind, p1, p2, cube_c, nesterov,
+            obj_kind, m_true, record, exact_bregman):
+    lib = _library()
+    dev = a.device
+    n = a.shape[1]
+    with torch.cuda.device(dev):
+        # keep: the tensors behind args; res holds the residuals at x and at z
+        args, keep = _problem(lib.adaprox_resident_bt_parts(), a, b, x0, obj_kind, m_true,
+                              cube_c, "K4", res_bufs=2)
+        f32 = dict(dtype=torch.float32, device=dev)
+        x_out, stats = torch.empty(n, **f32), torch.empty(5, **f32)
+        hist = torch.empty((4, maxit), **f32) if record else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.adaprox_resident_bt(
+            *args, x_out.data_ptr(), stats.data_ptr(),
+            hist.data_ptr() if record and maxit else None, *a.shape, maxit, float(gamma0),
+            1.0 if nesterov else float(xi), float(shrink), float(tol), float(p1), float(p2),
+            _PROX_IDX[prox_kind], int(bool(nesterov)), int(bool(exact_bregman)), int(record),
+            stream)
+    _raise_on(lib, err, "K4 launch")
+    resident_backtracking.launches += 1
+    base = (x_out, stats[0].to(torch.int32), stats[1], stats[3] > 0, stats[4] > 0)
+    return base + tuple(hist) if record else base
+
+
+def resident_backtracking(a, b, x0, gamma0, tol, maxit, *, xi=1.0, shrink=0.5, prox_kind="l1",
+                          p1=0.0, p2=0.0, cube_c=0.0, nesterov=False, obj_kind="ls",
+                          m_true=None, record=False, exact_bregman=False):
+    """Whole-solve backtracking PG (``nesterov=False``, the trial step
+    inflated by ``xi`` each iteration, src/AdaProx.jl:54) or backtracking
+    Nesterov (``nesterov=True``, no inflation, src/AdaProx.jl:72) in one
+    kernel launch, with f and (p1, p2) as ``ops.resident.resident_adapgm``
+    takes them and gamma shrunk by ``shrink`` on each failed trial.
+
+    a: (m, n); b: (m,) (the cubic model's q with a = H, m = n); x0: (n,).
+    Returns (x, numit, norm_res, converged, ls_failed) as tensors on the
+    input's device, plus (gamma_hist, norm_res_hist, objective_hist,
+    trials_hist) of shape (maxit,) when ``record=True`` (zero past numit);
+    ``resident_bt_records`` turns those into ``Records``.
+
+    ``exact_bregman``: the cancellation-resistant sufficient-descent test
+    0.5 ||res_z - res_x||^2 > ||dz||^2 / (2 gamma), for ``obj_kind="ls"``
+    only, as in the JAX package; the other objectives keep the raw test.
+
+    CPU tensors take the plain version, any float dtype. CUDA tensors launch
+    K4: ``a`` f32 or bf16, ``b`` and ``x0`` f32, all contiguous; each launch
+    adds one to ``resident_backtracking.launches``."""
+    _check("resident_backtracking", a, b, x0, prox_kind, obj_kind, maxit)
+    if a.device.type == "cpu":
+        return resident_backtracking_plain(
+            a, b, x0, gamma0, tol, maxit, xi=xi, shrink=shrink, prox_kind=prox_kind, p1=p1,
+            p2=p2, cube_c=cube_c, nesterov=nesterov, obj_kind=obj_kind, m_true=m_true,
+            record=record, exact_bregman=exact_bregman)
+    if a.device.type != "cuda":
+        raise ValueError(f"K4 runs on CPU (plain version) or CUDA tensors, not {a.device}")
+    return _launch(a, b, x0, gamma0, tol, int(maxit), xi, shrink, prox_kind, p1, p2, cube_c,
+                   nesterov, obj_kind, m_true, record, exact_bregman)
+
+
+resident_backtracking.launches = 0
+
+
+def _launch_sweep(a, b, x0, rows, tol, maxit, shrink, prox_kind, p1, p2, cube_c, obj_kind,
+                  m_true, exact_bregman):
+    lib = _library()
+    dev = a.device
+    n = a.shape[1]
+    count = rows.shape[0]
+    with torch.cuda.device(dev):
+        args, keep = _problem(lib.adaprox_resident_bt_parts(), a, b, x0, obj_kind, m_true,
+                              cube_c, "K4b", res_bufs=2)
+        f32 = dict(dtype=torch.float32, device=dev)
+        rows_d = rows.to(**f32).contiguous()
+        x_out, stats = torch.empty((count, n), **f32), torch.empty((count, 5), **f32)
+        hist = torch.empty((count, 4, maxit), **f32)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.adaprox_resident_bt_sweep(
+            *args, rows_d.data_ptr(), count, x_out.data_ptr(), stats.data_ptr(),
+            hist.data_ptr() if maxit else None, *a.shape, maxit, float(shrink), float(tol),
+            float(p1), float(p2), _PROX_IDX[prox_kind], int(bool(exact_bregman)), stream)
+    _raise_on(lib, err, "K4b launch")
+    resident_bt_sweep.launches += 1
+    return (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 3] > 0, stats[:, 4] > 0,
+            tuple(hist[:, k] for k in range(4)))
+
+
+def resident_bt_sweep(a, b, x0, rows, tol, maxit, *, shrink=0.5, prox_kind="l1", p1=0.0,
+                      p2=0.0, cube_c=0.0, obj_kind="ls", m_true=None, exact_bregman=False):
+    """Every backtracking row of an experiment as ONE record-mode launch:
+    ``rows`` is an (R, 3) array of [gamma0, xi, nesterov_flag], the flag 0
+    (PG) or 1 (Nesterov); the trial step is gamma * xi for every row, so a
+    Nesterov row passes xi = 1. Other arguments as ``resident_backtracking``.
+    Returns (x (R, n), numit (R,), norm_res (R,), converged (R,), ls_failed
+    (R,), (hg, hr, ho, ht) each (R, maxit)); feed each row to
+    ``resident_bt_records`` with its own flag.
+
+    CPU tensors take the plain version. CUDA tensors launch K4b, with what K4
+    takes; each launch adds one to ``resident_bt_sweep.launches``. Row j
+    equals ``resident_backtracking`` with row j's arguments. A rows table
+    that is not (R >= 1, 3), or a flag outside {0, 1}, is refused."""
+    _check("resident_bt_sweep", a, b, x0, prox_kind, obj_kind, maxit)
+    rows = _bt_rows(rows, x0.dtype)
+    if a.device.type == "cpu":
+        return resident_bt_sweep_plain(a, b, x0, rows, tol, maxit, shrink=shrink,
+                                       prox_kind=prox_kind, p1=p1, p2=p2, cube_c=cube_c,
+                                       obj_kind=obj_kind, m_true=m_true,
+                                       exact_bregman=exact_bregman)
+    if a.device.type != "cuda":
+        raise ValueError(f"K4b runs on CPU (plain version) or CUDA tensors, not {a.device}")
+    return _launch_sweep(a, b, x0, rows, tol, int(maxit), shrink, prox_kind, p1, p2, cube_c,
+                         obj_kind, m_true, exact_bregman)
+
+
+resident_bt_sweep.launches = 0
+

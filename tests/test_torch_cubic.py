@@ -23,8 +23,9 @@ iteration 19 and MM at 31 (c = 0: AdaPGM at 56, MM never in 60); the
 engine on the same model at 19 and 32, on the worst case below MM at 48 and
 AdaPGM never in 300; the fixed step and the momentum body never.
 On the drivers' rows, past 1e-9: the worst case's MM row at iteration 59 of
-300 (every other row and every cubic_sparse_logreg row on heart_scale
-agreed to the end, 13-24 iterations). Rows are held to rtol 1e-9 over
+300 (every other row, the backtracking rows included, and every
+cubic_sparse_logreg row on heart_scale agreed to the end, 13-70
+iterations). Rows are held to rtol 1e-9 over
 horizons below those.
 """
 
@@ -342,8 +343,15 @@ def test_cubic_refuses_a_non_square_h(entry, shape):
 
 # -- the drivers ----------------------------------------------------------------------
 
-CUBIC_NAMES = [name for name, _ in tcubic.RESIDENT_ROWS]
-WORST_NAMES = [name for name, _, _ in tworst.RESIDENT_ROWS]
+# the rows as the drivers write them: the ground truth, the backtracking rows, the
+# rule rows; the worst case interleaves each backtracking row after its fixed one
+CUBIC_RULE_NAMES = [name for name, _ in tcubic.RESIDENT_ROWS]
+CUBIC_BT_NAMES = [name for name, _, _ in tcubic.BT_ROWS]
+CUBIC_NAMES = CUBIC_RULE_NAMES[:1] + CUBIC_BT_NAMES + CUBIC_RULE_NAMES[1:]
+WORST_RULE_NAMES = [name for name, _, _ in tworst.RESIDENT_ROWS]
+WORST_BT_NAMES = [name for name, _, _ in tworst.BT_ROWS]
+WORST_NAMES = [WORST_RULE_NAMES[0], WORST_BT_NAMES[0], WORST_RULE_NAMES[1], WORST_BT_NAMES[1],
+               *WORST_RULE_NAMES[2:]]
 # the worst case's MM row first differs past 1e-9 at iteration 59 (module docstring)
 WORST_HORIZON = {"AdaPGM (MM)": 45}
 
@@ -371,13 +379,16 @@ def _rows_match(trows, jrows, names, horizon):
                     assert rt[k] == v, (name, k)
 
 
-def _meta_match(trows, jrows, path, names, tail):
+def _meta_match(trows, jrows, path, names, tail, bt_names):
     tmeta = [r for r in trows if "it" not in r]
     jmeta = [r for r in jrows if "it" not in r]
     if path == "resident":
-        assert tmeta[0] == {"grid_total_s": {"rule sweep": tmeta[0]["grid_total_s"]["rule sweep"]}}
-        assert "rule sweep" in jmeta[0]["grid_total_s"]
+        assert list(tmeta[0]) == ["grid_total_s"]
+        assert list(tmeta[0]["grid_total_s"]) == list(jmeta[0]["grid_total_s"]) == [
+            "bt sweep", "rule sweep"]
         tmeta, jmeta = tmeta[1:], jmeta[1:]
+        # each sweep's rows share its wall, the backtracking rows first (as in JAX)
+        names = bt_names + [name for name in names if name not in bt_names]
     assert [list(r) for r in tmeta] == [list(r) for r in jmeta] == [
         ["wall_s", "fast_path", "fast_methods"]] + tail
     assert list(tmeta[0]["wall_s"]) == names
@@ -396,51 +407,66 @@ def test_cubic_driver_jsonl_matches_jax(tmp_path, capsys, no_download, path):
     jcubic.main(["--outdir", str(tmp_path / "jax"), "--cpu", *args])
     capsys.readouterr()
     tcubic.main(["--outdir", str(tmp_path / "torch"), "--device", "cpu", *args])
-    assert "skipping rows not ported yet: PGM (backtracking)" in capsys.readouterr().out
+    assert "skipping rows not ported yet: aGRAAL\n" in capsys.readouterr().out
     jrows = tlog.read_jsonl(tmp_path / "jax" / "heart_scale.jsonl")
     trows = tlog.read_jsonl(tmp_path / "torch" / "heart_scale.jsonl")
     assert trows[0]["method"] is None and list(trows[0])[0] == "method"
     _rows_match(trows, jrows, CUBIC_NAMES, {})
     tmeta, jmeta = _meta_match(trows, jrows, path, ["(ground truth)"] + CUBIC_NAMES[1:],
-                               [["data_source"]])
+                               [["data_source"]], CUBIC_BT_NAMES)
     assert tmeta[1] == jmeta[1] == {"data_source": "synthetic"}
 
 
 @pytest.mark.parametrize("path", ["default", "resident"])
 def test_worst_case_driver_jsonl_matches_jax(tmp_path, capsys, path):
     """k = n = 100, L = 100, tol 1e-6, maxit cut from 10000 to 300, f64:
-    the known-optimum row, then the ported rows in the JAX driver's order."""
+    the known-optimum row, then every row of the JAX driver, in its order
+    (the backtracking rows agreed to the end, trial counts and all)."""
     args = ["--maxit", "300", "--no-plot"] + (["--resident"] if path == "resident" else [])
     jworst.main(["--outdir", str(tmp_path / "jax"), "--cpu", *args])
     capsys.readouterr()
     tworst.main(["--outdir", str(tmp_path / "torch"), "--device", "cpu", *args])
     out = capsys.readouterr().out
-    assert "skipping rows not ported yet: Backtracking PG" in out and "optimum=-12.37623762" in out
+    assert "skipping rows not ported yet" not in out and "optimum=-12.37623762" in out
     jrows = tlog.read_jsonl(tmp_path / "jax" / "nesterov_worst_case.jsonl")
     trows = tlog.read_jsonl(tmp_path / "torch" / "nesterov_worst_case.jsonl")
     assert trows[0] == {"method": None, "it": 1, "objective": (100 / 8) * (1 / 101 - 1)}
     assert trows[0]["objective"] == jrows[0]["objective"]
     _rows_match(trows[1:], jrows[1:], WORST_NAMES, WORST_HORIZON)
-    _meta_match(trows, jrows, path, WORST_NAMES, [])
+    _meta_match(trows, jrows, path, WORST_NAMES, [], WORST_BT_NAMES)
 
 
 @pytest.mark.parametrize("driver", ["cubic", "worst"])
 def test_driver_resident_is_one_sweep(tmp_path, monkeypatch, driver):
-    """``--resident`` runs the rule rows as one sweep call, with the cubic
-    objective, the driver's c and its per-row tol and caps."""
+    """``--resident`` runs the rule rows as one rule-sweep call, with the
+    cubic objective, the driver's c and its per-row tol and caps, and the
+    backtracking rows as one backtracking-sweep call."""
     mod = tcubic if driver == "cubic" else tworst
-    calls = []
-    sweep = mod.resident_rule_sweep
+    calls, bt_calls = [], []
+    sweep, bt_sweep = mod.resident_rule_sweep, mod.resident_bt_sweep
 
     def counting(*args, **kw):
         calls.append((args[3], args[5], kw))
         return sweep(*args, **kw)
 
+    def bt_counting(*args, **kw):
+        bt_calls.append((args[3], args[5], kw))
+        return bt_sweep(*args, **kw)
+
     monkeypatch.setattr(mod, "resident_rule_sweep", counting)
+    monkeypatch.setattr(mod, "resident_bt_sweep", bt_counting)
     args = ["--outdir", str(tmp_path), "--resident", "--maxit", "40", "--no-plot", "--device",
             "cpu"]
     mod.main(args + (["--datasets", "heart_scale"] if driver == "cubic" else []))
-    assert len(calls) == 1
+    assert len(calls) == 1 and len(bt_calls) == 1
+    bt_rows, bt_maxit, bt_kw = bt_calls[0]
+    assert bt_maxit == 40 and bt_kw["obj_kind"] == "cubic" and bt_kw["prox_kind"] == "zero"
+    if driver == "cubic":
+        assert bt_kw["cube_c"] == 1.0 and bt_rows[0, 0] == calls[0][0][0, 0]
+        np.testing.assert_array_equal(bt_rows[:, 1:], [[1.0, 0], [1.5, 0], [2.0, 0], [1.0, 1]])
+    else:
+        assert bt_kw["cube_c"] == 0.0
+        np.testing.assert_array_equal(bt_rows, [[1.0, 1.0, 0], [1.0, 1.0, 1]])
     rows, maxit, kw = calls[0]
     assert kw["obj_kind"] == "cubic" and kw["prox_kind"] == "zero"
     if driver == "cubic":

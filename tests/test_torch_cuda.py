@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K2c and K3 on the card against their plain PyTorch versions
-(K2 and K2c with the least-squares, logistic and cubic objectives).
+"""The CUDA kernels K1, K2, K2c, K3, K4 and K4b on the card against their plain PyTorch
+versions (K2, K2c, K4 and K4b with the least-squares, logistic and cubic objectives).
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. This file imports no
 JAX, so it runs on a machine without it:
@@ -12,6 +12,7 @@ import torch
 
 from adaprox_tpu_torch.ops import kernels as tk
 from adaprox_tpu_torch.ops import resident as tr
+from adaprox_tpu_torch.ops import resident_bt as trb
 
 pytestmark = pytest.mark.cuda
 
@@ -19,7 +20,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K1, K2, K2c and K3 are CUDA kernels; no interpret mode)")
+        pytest.skip("needs a CUDA device (K1, K2, K2c, K3, K4 and K4b are CUDA kernels; no "
+                    "interpret mode)")
     return torch.device("cuda")
 
 
@@ -186,23 +188,23 @@ def test_k2_counts_one_launch_a_solve(dev):
 
 def test_lasso_resident_sends_every_shape_to_k2c_on_card(dev, tmp_path, capsys):
     """7000x1000 pads to 7000x1024 f32, 28.7 MB: past the JAX driver's
-    routing limit (24 MiB), which the CPU applies, but K2c takes it. The four
-    rows are one sweep launch: no K2 launch, no K1 launch."""
+    routing limit (24 MiB), which the CPU applies, but K2c and K4b take it. The
+    four rule rows are one K2c launch and the four backtracking rows one K4b
+    launch: no K2, K4 or K1 launch."""
     from adaprox_tpu_torch.experiments import lasso
     from adaprox_tpu_torch.utils.logging import read_jsonl
 
-    before = (tk.fused_ls_value_grad.launches, tr.resident_adapgm.launches,
-              tr.resident_rule_sweep.launches)
+    counters = (tk.fused_ls_value_grad, tr.resident_adapgm, tr.resident_rule_sweep,
+                trb.resident_backtracking, trb.resident_bt_sweep)
+    before = [c.launches for c in counters]
     lasso.main(["--resident", "--sizes", "7000x1000x10", "--maxit", "5", "--device", "cuda",
                 "--outdir", str(tmp_path), "--no-plot"])
     torch.cuda.synchronize()
     assert "falling back" not in capsys.readouterr().out
-    after = (tk.fused_ls_value_grad.launches, tr.resident_adapgm.launches,
-             tr.resident_rule_sweep.launches)
-    assert after == (before[0], before[1], before[2] + 1)
+    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 1, 0, 1]
     rows = read_jsonl(tmp_path / "lasso_7000_1000_10.jsonl")
     assert rows[-1]["fast_path"] == "resident" and list(rows[-2]) == ["grid_total_s"]
-    assert len({r["method"] for r in rows if r.get("method")}) == 4
+    assert len({r["method"] for r in rows if r.get("method")}) == 8
 
 
 def test_k2_rejects_what_it_does_not_take(dev):
@@ -505,25 +507,27 @@ def test_k2c_logreg_rows_equal_single_k2_launches(dev, dtype):
 
 
 def test_sparse_logreg_resident_is_one_k2c_launch_per_dataset(dev, tmp_path, capsys):
-    """Two datasets (their synthetic stand-ins), each one K2c launch; no K1,
-    K2 or K3 launch."""
+    """Two datasets (their synthetic stand-ins), each one K2c and one K4b
+    launch; no K1, K2, K3 or K4 launch."""
     from adaprox_tpu_torch.experiments import sparse_logreg
     from adaprox_tpu_torch.utils.logging import read_jsonl
 
     counters = (tk.fused_ls_value_grad, tk.fused_logistic_value_grad, tr.resident_adapgm,
-                tr.resident_rule_sweep)
+                tr.resident_rule_sweep, trb.resident_backtracking, trb.resident_bt_sweep)
     before = [c.launches for c in counters]
     sparse_logreg.main(["--resident", "--datasets", "heart_scale,a5a", "--maxit", "50",
                         "--device", "cuda", "--outdir", str(tmp_path), "--no-plot"])
     torch.cuda.synchronize()
     assert "falling back" not in capsys.readouterr().out
-    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 0, 2]
+    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 0, 2, 0, 2]
     for name in ("heart_scale", "a5a"):
         rows = read_jsonl(tmp_path / f"{name}.jsonl")
         assert rows[-2]["fast_path"] == "resident" and rows[-1] == {"data_source": "synthetic"}
         methods = {r.get("method") for r in rows if "it" in r}
         assert methods == {None, "PGM (1/Lf)", "Nesterov (fixed)", "AdaPGM (MM)",
-                           "AdaPGM (Ours)"}
+                           "AdaPGM (Ours)", "PGM (backtracking)-(xi=1.0)",
+                           "PGM (backtracking)-(xi=1.5)", "PGM (backtracking)-(xi=2.0)",
+                           "Nesterov (backtracking)"}
 
 
 # -- K2 and K2c with the cubic objective ---------------------------------------------------
@@ -663,22 +667,222 @@ def test_cubic_refuses_a_non_square_h_on_card(dev):
 
 
 def test_cubic_drivers_resident_are_one_k2c_launch(dev, tmp_path):
-    """Each driver's --resident run is one K2c launch and nothing else."""
+    """Each driver's --resident run is one K2c and one K4b launch and nothing
+    else."""
     from adaprox_tpu_torch.experiments import cubic_sparse_logreg, nesterov_worst_case
     from adaprox_tpu_torch.utils.logging import read_jsonl
 
     counters = (tk.fused_ls_value_grad, tk.fused_logistic_value_grad, tr.resident_adapgm,
-                tr.resident_rule_sweep)
+                tr.resident_rule_sweep, trb.resident_backtracking, trb.resident_bt_sweep)
     before = [c.launches for c in counters]
     cubic_sparse_logreg.main(["--resident", "--datasets", "heart_scale", "--device", "cuda",
                               "--outdir", str(tmp_path), "--no-plot"])
     nesterov_worst_case.main(["--resident", "--maxit", "500", "--device", "cuda", "--outdir",
                               str(tmp_path), "--no-plot"])
     torch.cuda.synchronize()
-    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 0, 2]
+    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 0, 2, 0, 2]
     rows = read_jsonl(tmp_path / "heart_scale.jsonl")
     assert rows[-2]["fast_path"] == "resident"
-    assert {r.get("method") for r in rows if "it" in r} == {None, "AdaPGM (MM)", "AdaPGM (Ours)"}
+    assert {r.get("method") for r in rows if "it" in r} == {
+        None, "AdaPGM (MM)", "AdaPGM (Ours)", "PGM (backtracking)-(xi=1.0)",
+        "PGM (backtracking)-(xi=1.5)", "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)"}
     rows = read_jsonl(tmp_path / "nesterov_worst_case.jsonl")
     assert rows[-1]["fast_path"] == "resident"
     assert [r.get("method") for r in rows if "it" in r][0] is None
+
+
+# -- K4 and K4b, the backtracking kernels ----------------------------------------------------
+
+# PG with xi 1, 1.5 and 2, and Nesterov: (xi, nesterov)
+BT_METHODS = [(1.0, False), (1.5, False), (2.0, False), (1.0, True)]
+# Trial counts and step sizes are held equal, and norm_res and the objective to
+# 1e-3 of their row's largest value, over horizons inside those chip_smoke.py
+# calibrates on the CPU (plain f32 against f64; the trial counts first differed
+# at iteration 7 for xi 2, 10 for xi 1.5, 27 for Nesterov and 64 for xi 1 on the
+# shortest of its problems): after that a knife-edge trial may go either way. The
+# problems below start from 10x the stable step and converge faster: on an H100
+# the card and the plain version first took other trial counts at iteration 40
+# (least squares, bf16 storage, xi 1) and 14 (the logistic and cubic cases, xi 1).
+BT_HORIZON = {1.0: 10, 1.5: 5, 2.0: 4, "nesterov": 12}
+BT_RTOL = 1e-3
+
+
+def bt_case(dev, obj, dtype):
+    """(a, b, gamma0, kwargs) of a K4 case: least squares on 1000x300 (l1,
+    gamma0 10/||A||^2, so the trials shrink), the logistic loss on a sparse
+    1000x128 (l1 0.01, 4 zero-padded rows) or mushrooms-sized cubic model
+    (113 padded to 128, c 1, zero prox)."""
+    if obj == "ls":
+        a, b, _ = _inputs(dev, 1000, 300, torch.float32, seed=7)
+        gam = 10.0 / float(torch.linalg.matrix_norm(a.double(), 2) ** 2)
+        return a.to(dtype), b, gam, dict(prox_kind="l1", p1=0.1)
+    if obj == "logreg":
+        x, y, _, _ = _logistic_inputs(dev, 996, 127, torch.float32, seed=7)
+        a = torch.zeros(1000, 128, device=dev)
+        a[:996, :127], a[:996, 127] = x, 1.0
+        b = torch.zeros(1000, device=dev)
+        b[:996] = y
+        gam = 10.0 * 4 * 996 / float(torch.linalg.matrix_norm(a.double(), 2) ** 2)
+        return a.to(dtype), b, gam, dict(prox_kind="l1", p1=0.01, obj_kind="logreg",
+                                         m_true=996.0)
+    h, q, gam = cubic_problem(dev, 113, 128, 1.0, seed=7)
+    return h.to(dtype), q, 10.0 * gam, dict(prox_kind="zero", obj_kind="cubic", cube_c=1.0)
+
+
+def _bt_close(got, want, horizon):
+    """Trial counts and step sizes equal, norm_res and the objective within
+    BT_RTOL of the plain row's largest value, over the horizon."""
+    assert torch.equal(got[8][:horizon], want[8][:horizon]), (got[8][:horizon], want[8][:horizon])
+    assert torch.equal(got[5][:horizon], want[5][:horizon])
+    for k in (6, 7):
+        u, w = got[k][:horizon], want[k][:horizon]
+        assert float((u - w).abs().max()) <= BT_RTOL * float(w.abs().max()), k
+
+
+@pytest.mark.parametrize("xi,nesterov", BT_METHODS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("obj", ["ls", "logreg", "cubic"])
+def test_k4_matches_plain_on_card(dev, obj, dtype, xi, nesterov):
+    a, b, gam, kw = bt_case(dev, obj, dtype)
+    horizon = BT_HORIZON["nesterov" if nesterov else xi]
+    x0 = torch.zeros(a.shape[1], device=dev)
+    before = trb.resident_backtracking.launches
+    got = trb.resident_backtracking(a, b, x0, gam, -1.0, horizon, xi=xi, nesterov=nesterov,
+                                    record=True, **kw)
+    torch.cuda.synchronize()
+    assert trb.resident_backtracking.launches == before + 1
+    want = trb.resident_backtracking_plain(a, b, x0, gam, -1.0, horizon, xi=xi,
+                                           nesterov=nesterov, record=True, **kw)
+    assert got[0].dtype == torch.float32 and all(h.shape == (horizon,) for h in got[5:])
+    assert int(got[1]) == int(want[1]) == horizon and not bool(got[4]) and not bool(want[4])
+    _bt_close(got, want, horizon)
+    assert float((got[0] - want[0]).abs().max()) <= BT_RTOL * float(want[0].abs().max())
+    if obj == "cubic":
+        assert not bool(got[0][113:].any())
+    # without record mode: the same solve, the same bits
+    plain = trb.resident_backtracking(a, b, x0, gam, -1.0, horizon, xi=xi, nesterov=nesterov,
+                                      **kw)
+    assert all(torch.equal(u, w) for u, w in zip(plain, got[:5]))
+
+
+@pytest.mark.parametrize("xi,nesterov", BT_METHODS)
+def test_k4_exact_bregman_matches_plain_on_card(dev, xi, nesterov):
+    a, b, gam, kw = bt_case(dev, "ls", torch.float32)
+    horizon = BT_HORIZON["nesterov" if nesterov else xi]
+    x0 = torch.zeros(300, device=dev)
+    kw.update(xi=xi, nesterov=nesterov, record=True, exact_bregman=True)
+    got = trb.resident_backtracking(a, b, x0, gam, -1.0, horizon, **kw)
+    want = trb.resident_backtracking_plain(a, b, x0, gam, -1.0, horizon, **kw)
+    _bt_close(got, want, horizon)
+
+
+@pytest.mark.parametrize("obj", ["ls", "logreg", "cubic"])
+def test_k4b_rows_equal_single_k4_launches(dev, obj):
+    """The drivers' four backtracking rows in one sweep, solved to tol 1e-6:
+    each row is its single K4 launch, bit for bit; two launches give the same
+    bits."""
+    from adaprox_tpu_torch.experiments.common import BT_ROWS, bt_sweep_rows
+
+    a, b, gam, kw = bt_case(dev, obj, torch.float32)
+    x0 = torch.zeros(a.shape[1], device=dev)
+    rows = bt_sweep_rows(BT_ROWS, gam)
+    before = trb.resident_bt_sweep.launches
+    runs = [trb.resident_bt_sweep(a, b, x0, rows, 1e-6, 400, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert trb.resident_bt_sweep.launches == before + 2
+    assert all(torch.equal(u, w) for u, w in zip(runs[0][:5], runs[1][:5]))
+    assert all(torch.equal(u, w) for u, w in zip(runs[0][5], runs[1][5]))
+    for j, (g0, xi, flag) in enumerate(rows):
+        one = trb.resident_backtracking(a, b, x0, g0, 1e-6, 400, xi=xi, nesterov=flag > 0,
+                                        record=True, **kw)
+        for k in range(5):
+            assert torch.equal(runs[0][k][j], one[k]), (j, k)
+        for k in range(4):
+            assert torch.equal(runs[0][5][k][j], one[5 + k]), (j, k)
+
+
+def test_k4_is_repeatable_and_zero_iterations_return_x0(dev):
+    a, b, gam, kw = bt_case(dev, "ls", torch.float32)
+    x0 = torch.randn(300, device=dev)
+    runs = [trb.resident_backtracking(a, b, x0, gam, 1e-5, 2000, xi=1.5, record=True, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(*runs))
+    got = trb.resident_backtracking(a, b, x0, gam, 0.0, 0, record=True, **kw)
+    assert int(got[1]) == 0 and torch.equal(got[0], x0) and float(got[2]) == float("inf")
+    assert not bool(got[3]) and not bool(got[4]) and all(h.shape == (0,) for h in got[5:])
+
+
+def test_k4_trial_cap_is_latched_on_card(dev):
+    """shrink = 1 and a step far past stable: each backtrack takes its 101
+    evaluations and fails; ls_failed latches it, as the plain version does."""
+    a, b, gam, kw = bt_case(dev, "ls", torch.float32)
+    x0 = torch.zeros(300, device=dev)
+    got = trb.resident_backtracking(a, b, x0, 1e3 * gam, 0.0, 3, shrink=1.0, record=True, **kw)
+    want = trb.resident_backtracking_plain(a, b, x0, 1e3 * gam, 0.0, 3, shrink=1.0, record=True,
+                                           **kw)
+    assert bool(got[4]) and bool(want[4]) and got[8].tolist() == want[8].tolist() == [101.0] * 3
+
+
+def test_k4_exact_bregman_large_f_on_card(dev):
+    """tests/test_kernels.py's large-|f| f32 lasso (b = A xs 1e3 + noise): the
+    raw sufficient-descent test carries eps |f| noise. PG with the
+    exact-Bregman test converges, in at least 10x fewer iterations or where the
+    raw test does not converge in 20000. Nesterov reaches tol 1e-4 with neither
+    test in f32 (norm_res stalls at the instance's f32 noise floor; see
+    chip_smoke.py, case x), so there the exact test must leave F at least 10x
+    closer to F* after 120 iterations (an f64 run of the plain version gives
+    F*)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    m, n = 1536, 384
+    a_np = rng.standard_normal((m, n)) / np.sqrt(n)
+    xs = rng.standard_normal(n) * (rng.random(n) < 0.1)
+    b_np = a_np @ xs * 1e3 + rng.standard_normal(m)
+    a = torch.as_tensor(a_np, dtype=torch.float32, device=dev)
+    b = torch.as_tensor(b_np, dtype=torch.float32, device=dev)
+    gam = 1.0 / float(np.linalg.norm(a_np, 2) ** 2)
+    raw, exact = (trb.resident_backtracking(a, b, torch.zeros(n, device=dev), gam, 1e-4, 20000,
+                                            p1=1.0, exact_bregman=eb) for eb in (False, True))
+    assert bool(exact[3])
+    assert int(exact[1]) * 10 <= int(raw[1]) or not bool(raw[3]), (int(exact[1]), int(raw[1]))
+    a64, b64 = a.double(), torch.as_tensor(b_np, device=dev)
+    star = trb.resident_backtracking_plain(a64, b64, torch.zeros(n, dtype=torch.float64,
+                                                                 device=dev), gam, 1e-10, 3000,
+                                           nesterov=True, p1=1.0)
+
+    def objective(x):
+        r = a64 @ x.double() - b64
+        return float(0.5 * r @ r + x.double().abs().sum())
+
+    gaps = [objective(trb.resident_backtracking(a, b, torch.zeros(n, device=dev), gam, 1e-4, 120,
+                                                p1=1.0, nesterov=True, exact_bregman=eb)[0])
+            - objective(star[0]) for eb in (False, True)]
+    assert 10 * abs(gaps[1]) <= abs(gaps[0]), gaps
+
+
+def test_k4_counts_one_launch_a_solve(dev):
+    a, b, gam, kw = bt_case(dev, "ls", torch.float32)
+    x0 = torch.zeros(300, device=dev)
+    before = (trb.resident_backtracking.launches, trb.resident_bt_sweep.launches)
+    trb.resident_backtracking(a, b, x0, gam, 0.0, 5, **kw)
+    trb.resident_backtracking(a, b, x0, gam, 0.0, 5, nesterov=True, record=True, **kw)
+    trb.resident_bt_sweep(a, b, x0, [[gam, 1.0, 0.0]], 0.0, 5, **kw)
+    assert (trb.resident_backtracking.launches, trb.resident_bt_sweep.launches) == (
+        before[0] + 2, before[1] + 1)
+
+
+def test_k4_rejects_what_it_does_not_take(dev):
+    a, b, x = _inputs(dev, 16, 8, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        trb.resident_backtracking(a.double(), b, x, 0.1, 0.0, 3)
+    with pytest.raises(TypeError, match="float32 b and x0"):
+        trb.resident_backtracking(a, b.double(), x, 0.1, 0.0, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        trb.resident_backtracking(a.t().contiguous().t(), b, x, 0.1, 0.0, 3)
+    with pytest.raises(ValueError, match="square H"):
+        trb.resident_backtracking(a, b, x, 0.1, 0.0, 3, obj_kind="cubic", cube_c=1.0)
+    for rows in ([[0.1, 1.0]], [[0.1, 1.0, 2.0]], torch.zeros(0, 3)):
+        with pytest.raises(ValueError, match="rows must be|0 or 1"):
+            trb.resident_bt_sweep(a, b, x, rows, 0.0, 3)

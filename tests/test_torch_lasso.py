@@ -28,7 +28,9 @@ from adaprox_tpu_torch.experiments import common as tcommon
 from adaprox_tpu_torch.experiments import lasso as tlasso
 
 REPO = Path(__file__).resolve().parent.parent
-MENU = ("PGM (fixed)", "Nesterov (fixed)", "AdaPGM (MM)", "AdaPGM (Ours)")
+MENU = ("PGM (fixed)", "PGM (backtracking)-(xi=1.0)", "PGM (backtracking)-(xi=1.5)",
+        "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)", "Nesterov (fixed)", "AdaPGM (MM)",
+        "AdaPGM (Ours)")
 
 
 # -- (e) the numpy-only copies ----------------------------------------------
@@ -85,20 +87,21 @@ def test_pad_tiles_matches_jax(m, n):
 
 
 def test_lasso_driver_jsonl_matches_jax(tmp_path, capsys):
-    """Four rows, --device cpu (f64), against the JAX driver's JSONL filtered
-    to those rows. 20 iterations: inside the horizon where the adaptive
-    rules' step sizes agree to 1e-9 (see test_torch_engine.py); measured
-    9e-14."""
+    """The ported rows, --device cpu (f64), against the JAX driver's JSONL
+    filtered to those rows (aGRAAL is skipped). 20 iterations: inside the
+    horizon where the adaptive rules' step sizes agree to 1e-9 (see
+    test_torch_engine.py); measured 9e-14. The backtracking rows agree with
+    JAX's, trial counts and all, to the end."""
     args = ["--sizes", "64x96x8", "--maxit", "20", "--no-plot", "--fused"]
     jlasso.main(["--outdir", str(tmp_path / "jax"), *args])
     tlasso.main(["--outdir", str(tmp_path / "torch"), "--device", "cpu", *args])
-    assert "skipping rows not ported yet" in capsys.readouterr().out
+    assert "skipping rows not ported yet: aGRAAL\n" in capsys.readouterr().out
     jrows = tlog.read_jsonl(tmp_path / "jax" / "lasso_64_96_8.jsonl")
     trows = tlog.read_jsonl(tmp_path / "torch" / "lasso_64_96_8.jsonl")
     assert trows[0] == jrows[0]  # the analytic-optimum pseudo record
     jm = [r for r in jrows if r.get("method") in MENU]
     tm = [r for r in trows if r.get("method") is not None]
-    assert len(tm) == len(jm) == 4 * 20
+    assert len(tm) == len(jm) == len(MENU) * 20
     for rj, rt in zip(jm, tm):
         assert list(rt) == list(rj)  # identical keys in identical order
         for k, v in rj.items():
@@ -183,11 +186,31 @@ cubic_sparse_logreg.main(["--device", "cpu", "--datasets", "heart_scale", "--max
                           "--no-plot", "--resident", "--outdir", sys.argv[1]])
 nesterov_worst_case.main(["--device", "cpu", "--maxit", "50", "--no-plot", "--outdir",
                           sys.argv[1]])
+# the backtracking slice: the engine solvers, K4 and K4b (plain versions), the lasso
+# driver's backtracking rows on both paths
+from adaprox_tpu_torch.experiments import lasso
+prob = random_lasso(m=100, n=300, pfactor=10)
+gam = 10.0 / float(torch.linalg.matrix_norm(torch.from_numpy(prob.a), 2) ** 2)
+x0 = torch.zeros(a.shape[1], dtype=torch.float64)
+f, g = apt.LeastSquares(a, b), apt.L1Norm(prob.lam)
+bt = []
+for solver, kw in ((apt.backtracking_proxgrad, {"xi": 1.5}), (apt.backtracking_nesterov, {})):
+    r = solver(x0, f=f, g=g, gamma0=gam, tol=1e-8, maxit=1000, **kw)
+    bt.append([r.numit, float(f.value(r.x) + g(r.x))])
+for nesterov in (False, True):
+    k4 = apt.resident_backtracking(a, b, x0, gam, 1e-8, 1000, xi=1.5, nesterov=nesterov,
+                                   p1=prob.lam)
+    bt.append([int(k4[1]), float(f.value(k4[0]) + g(k4[0]))])
+sw = apt.resident_bt_sweep(a, b, x0, [[gam, 1.5, 0], [gam, 1.0, 1]], 1e-8, 1000, p1=prob.lam)
+bt += [[int(sw[1][j]), float(f.value(sw[0][j]) + g(sw[0][j]))] for j in range(2)]
+for path in ("--fused", "--resident"):
+    lasso.main(["--device", "cpu", path, "--sizes", "64x128x8", "--maxit", "50", "--no-plot",
+                "--outdir", sys.argv[1] + path])
 import adaprox_tpu_torch.experiments.resident_timing  # the card's timing script
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("jax", "jaxlib", "adaprox_tpu"))
 print(json.dumps({"leaked": leaked, "runs": out, "logreg": logreg, "source": src,
-                  "cubic": cubic}))
+                  "cubic": cubic, "bt": bt}))
 """
 
 
@@ -226,6 +249,15 @@ def test_port_runs_the_slice_without_jax(tmp_path):
     assert abs(f5 - 12.5 * (1 / 11 - 1)) < 1e-9
     assert (tmp_path / "heart_scale.jsonl").stat().st_size > 0
     assert (tmp_path / "nesterov_worst_case.jsonl").stat().st_size > 0
+    # backtracking: the engine, K4 and each K4b row give the same solve (PG reaches
+    # tol 1e-8 at the optimum; Nesterov takes all 1000 iterations) and the lasso
+    # driver wrote its backtracking rows on both paths
+    (n6, f6), (n7, f7), (n8, f8), (n9, f9), (n10, f10), (n11, f11) = got["bt"]
+    assert n6 == n8 == n10 < 1000 and n7 == n9 == n11 == 1000
+    assert f6 == f8 == f10 and f7 == f9 == f11 and abs(f6 - optimum) < 1e-9 * optimum
+    for path in ("--fused", "--resident"):
+        rows = tlog.read_jsonl(tmp_path.parent / (tmp_path.name + path) / "lasso_64_128_8.jsonl")
+        assert {r.get("method") for r in rows if "it" in r} >= {"Nesterov (backtracking)"}
 
 
 # -- (h) chip_smoke.py ---------------------------------------------------------

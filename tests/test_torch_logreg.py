@@ -466,9 +466,12 @@ def test_logreg_refuses_a_bad_m_true(entry, m_true):
 # -- the driver ------------------------------------------------------------------------------
 
 # the first relative differences past 1e-11 (module docstring) come at 25 and 35
-# iterations on the engine path, 21 and 25 through the sweep
+# iterations on the engine path, 21 and 25 through the sweep; the backtracking rows
+# (30 iterations at maxit 60) agreed to the end, trial counts and all
+BT_NAMES = [name for name, _, _ in tdriver.BT_ROWS]
 DRIVER_HORIZON = {None: 20, "PGM (1/Lf)": 60, "Nesterov (fixed)": 30, "AdaPGM (MM)": 25,
-                  "AdaPGM (Ours)": 20}
+                  "AdaPGM (Ours)": 20, **{name: 30 for name in BT_NAMES}}
+RULE_NAMES = [name for name, _, _ in tdriver.RESIDENT_ROWS]
 
 
 def _by_method(rows):
@@ -491,11 +494,11 @@ def test_driver_jsonl_matches_jax(tmp_path, capsys, no_download, path):
     capsys.readouterr()
     tdriver.main(["--outdir", str(tmp_path / "torch"), "--device", "cpu", *args])
     out = capsys.readouterr().out
-    assert "skipping rows not ported yet" in out and "falling back" not in out
+    assert "skipping rows not ported yet: aGRAAL\n" in out and "falling back" not in out
     jrows = tlog.read_jsonl(tmp_path / "jax" / "heart_scale.jsonl")
     trows = tlog.read_jsonl(tmp_path / "torch" / "heart_scale.jsonl")
     jby, tby = _by_method(jrows), _by_method(trows)
-    assert list(tby) == [name for name, _, _ in tdriver.RESIDENT_ROWS]
+    assert list(tby) == RULE_NAMES[:2] + BT_NAMES + RULE_NAMES[2:]
     # the ground truth is logged with method null (the JAX package's native
     # sink drops the key instead; its Python writer writes null)
     assert trows[0]["method"] is None and list(trows[0])[0] == "method"
@@ -512,34 +515,45 @@ def test_driver_jsonl_matches_jax(tmp_path, capsys, no_download, path):
                     assert rt[k] == v, (name, k)
     tmeta = [r for r in trows if "it" not in r]
     jmeta = [r for r in jrows if "it" not in r]
-    names = ["(ground truth)"] + [name for name, _, _ in tdriver.RESIDENT_ROWS[1:]]
+    names = ["(ground truth)"] + RULE_NAMES[1:2] + BT_NAMES + RULE_NAMES[2:]
     if path == "resident":
         assert list(tmeta[0]) == ["grid_total_s"] and list(tmeta[0]["grid_total_s"]) == [
-            "rule sweep"]
-        assert "rule sweep" in jmeta[0]["grid_total_s"]
+            "bt sweep", "rule sweep"] == list(jmeta[0]["grid_total_s"])
         tmeta, jmeta = tmeta[1:], jmeta[1:]
+        # each sweep's rows share its wall, the backtracking rows first (as in JAX)
+        names = BT_NAMES + ["(ground truth)"] + RULE_NAMES[1:]
     assert [list(r) for r in tmeta] == [list(r) for r in jmeta] == [
         ["wall_s", "fast_path", "fast_methods"], ["data_source"]]
     assert list(tmeta[0]["wall_s"]) == names
+    assert list(jmeta[0]["wall_s"]) == names + ["aGRAAL"]
     assert tmeta[0]["fast_path"] == jmeta[0]["fast_path"] == path
     assert tmeta[0]["fast_methods"] == (sorted(names) if path == "resident" else [])
     assert tmeta[1] == jmeta[1] == {"data_source": "synthetic"}
 
 
 def test_driver_resident_is_one_sweep(tmp_path, monkeypatch):
-    """``--resident`` runs the five rows as one sweep call, with the
-    driver's per-row tol and caps and the logistic objective."""
-    calls = []
-    sweep = tdriver.resident_rule_sweep
+    """``--resident`` runs the five rule rows as one rule-sweep call, with the
+    driver's per-row tol and caps and the logistic objective, and the four
+    backtracking rows as one backtracking-sweep call at half the budget."""
+    calls, bt_calls = [], []
+    sweep, bt_sweep = tdriver.resident_rule_sweep, tdriver.resident_bt_sweep
 
     def counting(*args, **kw):
         calls.append((args[3], args[5], kw))
         return sweep(*args, **kw)
 
+    def bt_counting(*args, **kw):
+        bt_calls.append((args[3], args[5], kw))
+        return bt_sweep(*args, **kw)
+
     monkeypatch.setattr(tdriver, "resident_rule_sweep", counting)
+    monkeypatch.setattr(tdriver, "resident_bt_sweep", bt_counting)
     tdriver.main(["--outdir", str(tmp_path), "--resident", "--datasets", "heart_scale",
                   "--maxit", "40", "--no-plot", "--device", "cpu"])
-    assert len(calls) == 1
+    assert len(calls) == 1 and len(bt_calls) == 1
+    bt_rows, bt_maxit, bt_kw = bt_calls[0]
+    assert bt_maxit == 20 and bt_kw["obj_kind"] == "logreg" and bt_kw["m_true"] == 270.0
+    np.testing.assert_array_equal(bt_rows[:, 1:], [[1.0, 0], [1.5, 0], [2.0, 0], [1.0, 1]])
     rows, maxit, kw = calls[0]
     assert maxit == 400 and kw["obj_kind"] == "logreg" and kw["m_true"] == 270.0
     np.testing.assert_array_equal(rows[:, 1:], [[2, 0, 1e-8, 400], [0, 0, 1e-7, 40],

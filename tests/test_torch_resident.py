@@ -183,11 +183,15 @@ def test_resident_rejects_unknown_menu_entries(kw, exc):
 
 # -- the driver's rows --------------------------------------------------------------
 
-MENU = ("PGM (fixed)", "Nesterov (fixed)", "AdaPGM (MM)", "AdaPGM (Ours)")
+MENU = ("PGM (fixed)", "PGM (backtracking)-(xi=1.0)", "PGM (backtracking)-(xi=1.5)",
+        "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)", "Nesterov (fixed)", "AdaPGM (MM)",
+        "AdaPGM (Ours)")
 # the engine horizons of tests/test_torch_engine.py; the momentum row does not
-# amplify (tests/test_torch_sweep.py), so it is held over all 300 iterations
+# amplify (tests/test_torch_sweep.py), so it is held over all 300 iterations, and
+# the backtracking rows agreed with the engine's to the end (trial counts and all;
+# tests/test_torch_backtracking.py)
 DRIVER_HORIZON = {"PGM (fixed)": 300, "Nesterov (fixed)": 300, "AdaPGM (MM)": 60,
-                  "AdaPGM (Ours)": 20}
+                  "AdaPGM (Ours)": 20, **{name: 300 for name in MENU[1:5]}}
 
 
 def _rows_by_method(path):
@@ -199,9 +203,9 @@ def _rows_by_method(path):
 
 
 def test_lasso_driver_resident_matches_engine(tmp_path, capsys):
-    """``--resident`` (one rule sweep) against the port's engine (``--fused``:
-    the same padded A) on the same menu, row for row over the engine
-    horizons."""
+    """``--resident`` (one backtracking sweep and one rule sweep) against the
+    port's engine (``--fused``: the same padded A) on the same menu, row for
+    row over the engine horizons."""
     args = ["--sizes", "100x300x10", "--maxit", "300", "--no-plot", "--device", "cpu"]
     tlasso.main(["--outdir", str(tmp_path / "res"), "--resident", *args])
     assert "falling back" not in capsys.readouterr().out
