@@ -13,14 +13,16 @@ Layout:
   ops/         prox functions, smooth oracles, the accumulation policy, the
                fused oracles K1 (least squares) and K3 (logistic), the
                whole-solve kernels K2 (one solve) and K2c (the rule sweep),
-               and the backtracking whole-solve kernels K4 and K4b (its sweep)
+               the backtracking whole-solve kernels K4 and K4b (its sweep),
+               and K4's aGRAAL kernel
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the proximal-gradient engine,
-               fixed-step Nesterov, backtracking PG and Nesterov
+               fixed-step Nesterov, backtracking PG and Nesterov, aGRAAL
   models/      objectives (least squares, logistic, the cubic model, the
                worst-case quadratic) and problem generators
-  utils/       JSONL telemetry, timing on the card, the LIBSVM loader and the
-               datasets (with their synthetic fallback)
+  utils/       JSONL telemetry, timing on the card, the LIBSVM loader, the
+               datasets (with their synthetic fallback) and a numpy copy of
+               JAX's normal draw
   experiments/ the lasso, sparse logistic regression, cubic-regularized
                logistic and Nesterov worst-case drivers
   convert.py   the JAX side's problem and rule fields, carried over
@@ -46,6 +48,8 @@ from .ops.kernels import (  # noqa: E402
     ls_value_grad_plain,
 )
 from .ops.resident_bt import (  # noqa: E402
+    resident_agraal,
+    resident_agraal_records,
     resident_backtracking,
     resident_bt_records,
     resident_bt_sweep,
@@ -76,6 +80,7 @@ from .solvers.primal_dual import (  # noqa: E402
 )
 from .solvers.nesterov import fixed_nesterov  # noqa: E402
 from .solvers.backtracking import backtracking_nesterov, backtracking_proxgrad  # noqa: E402
+from .solvers.agraal import agraal  # noqa: E402
 from .convert import (  # noqa: E402
     cubic_from_numpy,
     lasso_from_numpy,
@@ -92,7 +97,7 @@ __all__ = [
     "fused_logistic_value_grad", "logistic_value_grad_plain",
     "resident_adapgm", "resident_adapgm_l1", "resident_logreg_l1", "resident_records",
     "resident_rule_sweep", "resident_supported", "rule_rows", "resident_backtracking",
-    "resident_bt_sweep", "resident_bt_records",
+    "resident_bt_sweep", "resident_bt_records", "resident_agraal", "resident_agraal_records",
     # models
     "LeastSquares", "LogisticLoss", "Cubic", "WorstQuadratic", "LassoProblem", "random_lasso",
     # rules
@@ -100,7 +105,7 @@ __all__ = [
     # solvers
     "Counters", "Records", "SolveResult",
     "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "fixed_nesterov",
-    "backtracking_proxgrad", "backtracking_nesterov",
+    "backtracking_proxgrad", "backtracking_nesterov", "agraal",
     # carried over from the JAX side
     "lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
     "rule_from_numpy",

@@ -17,12 +17,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..ops.resident_bt import resident_bt_records
+from ..ops.resident_bt import resident_agraal_records, resident_bt_records
 from ..solvers.backtracking import backtracking_nesterov, backtracking_proxgrad
 from ..utils import logging as tlog
+from ..utils.jax_random import normal
 
 __all__ = ["Sink", "group_rows", "plot_lines", "pad_tiles", "sync_wall", "run_timed",
-           "run_menu", "BT_ROWS", "bt_menu", "bt_sweep_rows", "add_bt_rows"]
+           "run_menu", "BT_ROWS", "bt_menu", "bt_sweep_rows", "add_bt_rows", "companion_point",
+           "add_agraal_row"]
 
 # the backtracking rows of the lasso, sparse_logreg and cubic_sparse_logreg menus,
 # in the reference order: (name, xi, nesterov)
@@ -102,6 +104,23 @@ def add_bt_rows(sink, rows, out, maxit, only=None):
         j = index[name]
         sink.add(SimpleNamespace(records=resident_bt_records(
             numit[j], *(h[j] for h in hists), maxit=maxit, nesterov=rows[j][2]), name=name))
+
+
+def companion_point(x0, n):
+    """aGRAAL's companion point as the JAX drivers draw it: ``x0`` plus
+    ``jax.random.normal(PRNGKey(0), (n,))`` on its first ``n`` coordinates
+    (``utils.jax_random``), so zero-padded coordinates stay 0."""
+    noise = normal(0, (n,), str(x0.dtype).removeprefix("torch."))
+    x0p = x0.clone()
+    x0p[:n] += torch.from_numpy(noise).to(x0.device)
+    return x0p
+
+
+def add_agraal_row(sink, out, maxit):
+    """Write the aGRAAL row of a record-mode ``resident_agraal`` output."""
+    numit, hists = out[1], out[4:7]
+    sink.add(SimpleNamespace(records=resident_agraal_records(numit, *hists, maxit=maxit),
+                             name="aGRAAL"))
 
 
 class Sink:

@@ -11,16 +11,18 @@ mushrooms, a5a and phishing; a dataset whose LIBSVM file is not in the
 datasets directory is replaced by the shape-matched synthetic data of
 ``utils.datasets`` (``data_source`` says which).
 
-The menu holds the rows ported so far, in the reference order: the ground
-truth (AdaPGM at tol/10 and maxit x 10, logged with ``method`` null), PGM
-(backtracking) with xi 1, 1.5 and 2, Nesterov (backtracking), AdaPGM (MM)
-and AdaPGM (Ours); aGRAAL is skipped and printed. ``--resident`` runs the
-four backtracking rows as ONE record-mode launch of the backtracking sweep
-K4b (``ops.resident_bt.resident_bt_sweep``) and the three rule rows as ONE
-launch of the rule-sweep kernel K2c (``ops.resident.resident_rule_sweep``),
-both with ``obj_kind="cubic"`` on H and q zero-padded to a multiple of 128,
-as the JAX driver pads them, the rule rows with per-row tol and caps, and
-emits both sweeps' walls in a ``grid_total_s`` meta row.
+The menu, in the reference order: the ground truth (AdaPGM at tol/10 and
+maxit x 10, logged with ``method`` null), PGM (backtracking) with xi 1, 1.5
+and 2, Nesterov (backtracking), AdaPGM (MM), AdaPGM (Ours) and aGRAAL (its
+companion point drawn as the JAX driver draws it: ``utils.jax_random``).
+``--resident`` runs the four backtracking rows as ONE record-mode launch of
+the backtracking sweep K4b (``ops.resident_bt.resident_bt_sweep``), the
+three rule rows as ONE launch of the rule-sweep kernel K2c
+(``ops.resident.resident_rule_sweep``) and aGRAAL as ONE launch of K4's
+aGRAAL kernel (``ops.resident_bt.resident_agraal``), all with
+``obj_kind="cubic"`` on H and q zero-padded to a multiple of 128, as the JAX
+driver pads them, the rule rows with per-row tol and caps, and emits the two
+sweeps' walls in a ``grid_total_s`` meta row.
 
     python -m adaprox_tpu_torch.experiments.cubic_sparse_logreg
     python -m adaprox_tpu_torch.experiments.cubic_sparse_logreg --resident
@@ -38,16 +40,14 @@ import torch
 from ..convert import cubic_from_numpy
 from ..ops.prox import Zero
 from ..ops.resident import resident_records, resident_rule_sweep, rule_rows
-from ..ops.resident_bt import resident_bt_sweep
+from ..ops.resident_bt import resident_agraal, resident_bt_sweep
+from ..solvers.agraal import agraal
 from ..solvers.primal_dual import adaptive_proxgrad
 from ..solvers.rules import AdaPGMRule, MalitskyMishchenkoRule
 from ..utils.datasets import load_or_synthesize
 from ..utils.libsvm import load_libsvm_dataset
-from .common import (BT_ROWS, Sink, add_bt_rows, bt_menu, bt_sweep_rows, group_rows, plot_lines,
-                     run_menu, run_timed, sync_wall)
-
-# rows of the JAX driver's menu whose solvers are not ported yet
-NOT_PORTED = ("aGRAAL",)
+from .common import (BT_ROWS, Sink, add_agraal_row, add_bt_rows, bt_menu, bt_sweep_rows,
+                     companion_point, group_rows, plot_lines, run_menu, run_timed, sync_wall)
 
 # the rule sweep's rows, in the JAX driver's order: (name, rule_kind); the
 # ground truth (name None) runs at tol/10 with cap maxit x 10
@@ -122,13 +122,12 @@ def run_cubic_logreg_data(name_or_path, sink, *, device, lam=1.0, tol=1e-7, maxi
     gam = secant_gamma(f, x0_np, seed, device, dtype)
     x0 = torch.zeros(n, dtype=dtype, device=device)
     times = {}
-    print(f"  [cubic_sparse_logreg] skipping rows not ported yet: {', '.join(NOT_PORTED)}")
 
     if resident:
-        # ONE record-mode K4b launch for the four backtracking rows and ONE K2c
+        # ONE record-mode K4b launch for the four backtracking rows, ONE K2c
         # launch for the three rule rows, the ground truth included (per-row tol
-        # and caps); wall_s carries each row's share of its sweep's wall,
-        # grid_total_s the sweeps' walls
+        # and caps), and ONE aGRAAL launch; wall_s carries each row's share of
+        # its sweep's wall (aGRAAL its own), grid_total_s the sweeps' walls
         h_pad, q_pad = padded_model(q_mat, q_vec, device, dtype)
         x0_pad = torch.zeros(h_pad.shape[0], dtype=dtype, device=device)
         skw = dict(prox_kind="zero", obj_kind="cubic", cube_c=float(lam))
@@ -137,6 +136,10 @@ def run_cubic_logreg_data(name_or_path, sink, *, device, lam=1.0, tol=1e-7, maxi
         specs = rule_specs(gam, tol, maxit)
         (_, numit, _, _, hists), wall = sync_wall(lambda: resident_rule_sweep(
             h_pad, q_pad, x0_pad, rule_rows(specs), tol, maxit * 10, **skw))
+        # the companion point: noise on the n unpadded coordinates
+        ag_out, ag_wall = sync_wall(lambda: resident_agraal(
+            h_pad, q_pad, x0_pad, companion_point(x0_pad, n), gam, tol, maxit, record=True,
+            **skw))
 
         def add_rule_row(j):
             name, cap = RESIDENT_ROWS[j][0], specs[j][4]
@@ -148,10 +151,12 @@ def run_cubic_logreg_data(name_or_path, sink, *, device, lam=1.0, tol=1e-7, maxi
         add_bt_rows(sink, BT_ROWS, bt_out, maxit)
         for j in range(1, len(RESIDENT_ROWS)):
             add_rule_row(j)
+        add_agraal_row(sink, ag_out, maxit)
         for name, _, _ in BT_ROWS:
             times[name] = round(bt_wall / len(BT_ROWS), 4)
         for name, _ in RESIDENT_ROWS:
             times[name or "(ground truth)"] = round(wall / len(RESIDENT_ROWS), 4)
+        times["aGRAAL"] = round(ag_wall, 4)
         sink.emit_meta(grid_total_s={"bt sweep": round(bt_wall, 4), "rule sweep": round(wall, 4)})
         sink.emit_meta(wall_s=times, fast_path="resident", fast_methods=sorted(times))
         return source
@@ -166,6 +171,8 @@ def run_cubic_logreg_data(name_or_path, sink, *, device, lam=1.0, tol=1e-7, maxi
             x0, rule=MalitskyMishchenkoRule(gamma=gam), name="AdaPGM (MM)", **base, **o)),
         ("AdaPGM (Ours)", maxit, lambda **o: adaptive_proxgrad(
             x0, rule=AdaPGMRule(gamma=gam), name="AdaPGM (Ours)", **base, **o)),
+        # the solver draws the companion point over the whole x
+        ("aGRAAL", maxit, lambda **o: agraal(x0, gamma0=gam, name="aGRAAL", **base, **o)),
     ]
     menu_path = run_menu(sink, times, menu)
     sink.emit_meta(wall_s=times, fast_path=menu_path, fast_methods=[])
@@ -193,8 +200,9 @@ def main(argv=None):
     p.add_argument("--lam", type=float, default=1.0)
     p.add_argument("--datasets", default="mushrooms,a5a,phishing")
     p.add_argument("--resident", action="store_true",
-                   help="the sweep kernels: the backtracking rows in one K4b launch, the "
-                        "three rule rows (the ground truth included) in one K2c launch")
+                   help="the whole-solve kernels: the backtracking rows in one K4b launch, "
+                        "the three rule rows (the ground truth included) in one K2c launch, "
+                        "aGRAAL in one launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")

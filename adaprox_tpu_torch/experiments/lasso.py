@@ -5,17 +5,19 @@ Synthetic problem with a known optimum by construction (runme.jl:45-77);
 sizes (m, n, pfactor), maxit 2000, tol 1e-7 (runme.jl:191-211). Plot:
 F(x_k) - F* vs (grad_f_evals + f_evals).
 
-The menu holds the rows ported so far, in the reference order: PGM
-(fixed), PGM (backtracking) with xi 1, 1.5 and 2, Nesterov (backtracking),
-Nesterov (fixed), AdaPGM (MM) and AdaPGM (Ours); aGRAAL is skipped and
-printed. ``--fused`` routes every oracle call through K1
+The menu, in the reference order: PGM (fixed), PGM (backtracking) with xi
+1, 1.5 and 2, Nesterov (backtracking), Nesterov (fixed), AdaPGM (MM), AdaPGM
+(Ours) and aGRAAL (its companion point x0 + N(0, I) on the first n
+coordinates, drawn as the JAX driver draws it: ``utils.jax_random``).
+``--fused`` routes every oracle call through K1
 (``ops.kernels.fused_ls_value_grad``) on an A zero-padded as the JAX driver
 pads it, so the two drivers' JSONL compare row for row. ``--resident`` runs
 the four backtracking rows as ONE record-mode launch of the backtracking
-sweep K4b (``ops.resident_bt.resident_bt_sweep``) and the four rule rows as
-ONE launch of the rule sweep K2c (``ops.resident.resident_rule_sweep``) on
-the same padded A, as the JAX driver does, and emits both sweeps' walls in a
-``grid_total_s`` meta row. On the card every shape goes to the kernels. On
+sweep K4b (``ops.resident_bt.resident_bt_sweep``), the four rule rows as ONE
+launch of the rule sweep K2c (``ops.resident.resident_rule_sweep``) and
+aGRAAL as ONE launch of K4's aGRAAL kernel (``ops.resident_bt.resident_agraal``)
+on the same padded A, as the JAX driver does, and emits the two sweeps' walls
+in a ``grid_total_s`` meta row. On the card every shape goes to the kernels. On
 the CPU the JAX driver's routing rule (``resident_supported``) applies, with
 its printed fallback to the engine, so the two drivers' JSONL compare row for
 row there too.
@@ -37,15 +39,13 @@ from ..models.objectives import LeastSquares
 from ..models.synthetic import random_lasso
 from ..ops.prox import L1Norm
 from ..ops.resident import resident_records, resident_rule_sweep, resident_supported, rule_rows
-from ..ops.resident_bt import resident_bt_sweep
+from ..ops.resident_bt import resident_agraal, resident_bt_sweep
+from ..solvers.agraal import agraal
 from ..solvers.nesterov import fixed_nesterov
 from ..solvers.primal_dual import adaptive_proxgrad, fixed_proxgrad
 from ..solvers.rules import AdaPGMRule, MalitskyMishchenkoRule
-from .common import (BT_ROWS, Sink, add_bt_rows, bt_menu, bt_sweep_rows, group_rows, pad_tiles,
-                     plot_lines, run_menu, sync_wall)
-
-# rows of the JAX driver's menu whose solvers are not ported yet
-NOT_PORTED = ("aGRAAL",)
+from .common import (BT_ROWS, Sink, add_agraal_row, add_bt_rows, bt_menu, bt_sweep_rows,
+                     companion_point, group_rows, pad_tiles, plot_lines, run_menu, sync_wall)
 
 
 # the rule sweep's rows as (name, rule_kind, momentum), in the reference order
@@ -79,18 +79,24 @@ def run_random_lasso(m, n, pfactor, sink, *, device, tol=1e-7, maxit=2000, dtype
 
     gam = 1.0 / float(np.linalg.norm(prob.a, 2) ** 2)
     x0 = torch.zeros(a.shape[1], dtype=dtype, device=device)
+    # aGRAAL's companion point: noise on the first n coordinates only, so that
+    # zero-padded coordinates stay 0 and the padded run draws what the unpadded
+    # one does
+    x0_ag = companion_point(x0, n)
     times = {}
-    print(f"  [lasso] skipping rows not ported yet: {', '.join(NOT_PORTED)}")
     if use_resident:
-        # ONE record-mode K4b launch for the four backtracking rows and ONE K2c
-        # launch for the four rule rows; wall_s carries each row's share of its
-        # sweep's wall, grid_total_s the sweeps' walls
+        # ONE record-mode K4b launch for the four backtracking rows, ONE K2c
+        # launch for the four rule rows and ONE aGRAAL launch; wall_s carries each
+        # row's share of its sweep's wall (aGRAAL its own), grid_total_s the
+        # sweeps' walls
         bt_out, bt_wall = sync_wall(lambda: resident_bt_sweep(
             a, b, x0, bt_sweep_rows(BT_ROWS, gam), tol, maxit, prox_kind="l1", p1=prob.lam))
         specs = [(gam, rule_kind, mom) for _, rule_kind, mom in RESIDENT_ROWS]
         (_, numit, _, _, hists), wall = sync_wall(lambda: resident_rule_sweep(
             a, b, x0, rule_rows(specs, tol=tol, maxit=maxit), tol, maxit, prox_kind="l1",
             p1=prob.lam))
+        ag_out, ag_wall = sync_wall(lambda: resident_agraal(
+            a, b, x0, x0_ag, gam, tol, maxit, prox_kind="l1", p1=prob.lam, record=True))
 
         def add_rule_row(j):
             name, _, mom = RESIDENT_ROWS[j]
@@ -102,10 +108,12 @@ def run_random_lasso(m, n, pfactor, sink, *, device, tol=1e-7, maxit=2000, dtype
         add_bt_rows(sink, BT_ROWS, bt_out, maxit)
         for j in range(1, len(RESIDENT_ROWS)):
             add_rule_row(j)
+        add_agraal_row(sink, ag_out, maxit)
         for name, _, _ in BT_ROWS:
             times[name] = round(bt_wall / len(BT_ROWS), 4)
         for name, _, _ in RESIDENT_ROWS:
             times[name] = round(wall / len(RESIDENT_ROWS), 4)
+        times["aGRAAL"] = round(ag_wall, 4)
         sink.emit_meta(grid_total_s={"bt sweep": round(bt_wall, 4), "rule sweep": round(wall, 4)})
         fast_path = "resident"
     else:
@@ -121,6 +129,8 @@ def run_random_lasso(m, n, pfactor, sink, *, device, tol=1e-7, maxit=2000, dtype
                 **base, **o)),
             ("AdaPGM (Ours)", maxit, lambda **o: adaptive_proxgrad(
                 x0, rule=AdaPGMRule(gamma=gam), name="AdaPGM (Ours)", **base, **o)),
+            ("aGRAAL", maxit, lambda **o: agraal(
+                x0, x0=x0_ag, gamma0=gam, name="aGRAAL", **base, **o)),
         ]
         menu_path = run_menu(sink, times, menu)
         fast_path = "fused" if fused else menu_path
@@ -152,8 +162,8 @@ def main(argv=None):
     p.add_argument("--fused", action="store_true",
                    help="fused LS oracle (kernel K1) for every solver")
     p.add_argument("--resident", action="store_true",
-                   help="the sweep kernels: the backtracking rows in one K4b launch, the "
-                        "rule rows in one K2c launch")
+                   help="the whole-solve kernels: the backtracking rows in one K4b launch, "
+                        "the rule rows in one K2c launch, aGRAAL in one launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")

@@ -12,15 +12,17 @@ Plot: F(x_k) - F* vs (grad_f_evals + f_evals). A dataset whose LIBSVM file
 is not in the datasets directory is replaced by the shape-matched synthetic
 data of ``utils.datasets`` (``data_source`` says which).
 
-The menu holds the rows ported so far, in the reference order: the ground
-truth, PGM (1/Lf), PGM (backtracking) with xi 1, 1.5 and 2 and Nesterov
-(backtracking) (each at maxit/2), Nesterov (fixed), AdaPGM (MM) and AdaPGM
-(Ours); aGRAAL is skipped and printed. ``--resident`` runs the four
-backtracking rows as ONE record-mode launch of the backtracking sweep K4b
-(``ops.resident_bt.resident_bt_sweep``) and the five rule rows as ONE launch
-of the rule-sweep kernel K2c (``ops.resident.resident_rule_sweep``), both
-with ``obj_kind="logreg"`` on [X 1] zero-padded as the JAX driver pads it,
-the rule rows with per-row tol and caps, and emits both sweeps' walls in a
+The menu, in the reference order: the ground truth, PGM (1/Lf), PGM
+(backtracking) with xi 1, 1.5 and 2 and Nesterov (backtracking) (each at
+maxit/2), Nesterov (fixed), AdaPGM (MM), AdaPGM (Ours) and aGRAAL (its
+companion point drawn as the JAX driver draws it: ``utils.jax_random``).
+``--resident`` runs the four backtracking rows as ONE record-mode launch of
+the backtracking sweep K4b (``ops.resident_bt.resident_bt_sweep``), the five
+rule rows as ONE launch of the rule-sweep kernel K2c
+(``ops.resident.resident_rule_sweep``) and aGRAAL as ONE launch of K4's
+aGRAAL kernel (``ops.resident_bt.resident_agraal``), all with
+``obj_kind="logreg"`` on [X 1] zero-padded as the JAX driver pads it, the
+rule rows with per-row tol and caps, and emits the two sweeps' walls in a
 ``grid_total_s`` meta row. On the card every shape goes to the kernels. On
 the CPU the JAX driver's routing rule (``resident_supported``) applies, with
 its printed fallback to the engine, so the two drivers' JSONL compare row for
@@ -42,17 +44,16 @@ import torch
 from ..models.objectives import LogisticLoss
 from ..ops.prox import L1Norm
 from ..ops.resident import resident_records, resident_rule_sweep, resident_supported, rule_rows
-from ..ops.resident_bt import resident_bt_sweep
+from ..ops.resident_bt import resident_agraal, resident_bt_sweep
+from ..solvers.agraal import agraal
 from ..solvers.nesterov import fixed_nesterov
 from ..solvers.primal_dual import adaptive_proxgrad, fixed_proxgrad
 from ..solvers.rules import AdaPGMRule, MalitskyMishchenkoRule
 from ..utils.datasets import load_or_synthesize
 from ..utils.libsvm import load_libsvm_dataset
-from .common import (BT_ROWS, Sink, add_bt_rows, bt_menu, bt_sweep_rows, group_rows, pad_tiles,
-                     plot_lines, run_menu, run_timed, sync_wall)
-
-# rows of the JAX driver's menu whose solvers are not ported yet
-NOT_PORTED = ("aGRAAL",)
+from .common import (BT_ROWS, Sink, add_agraal_row, add_bt_rows, bt_menu, bt_sweep_rows,
+                     companion_point, group_rows, pad_tiles, plot_lines, run_menu, run_timed,
+                     sync_wall)
 
 # the rule sweep's rows, in the JAX driver's order: (name, rule_kind, momentum);
 # the ground truth (name None) runs at tol/10 with cap maxit x 10, Nesterov
@@ -114,13 +115,13 @@ def run_logreg_l1_data(name_or_path, sink, *, device, lam=0.01, tol=1e-7, maxit=
         if not use_resident:
             print(f"  [resident] unsupported shape/size {tuple(x1_pad.shape)} "
                   f"({x1_pad.dtype}); falling back to the engine")
-    print(f"  [sparse_logreg] skipping rows not ported yet: {', '.join(NOT_PORTED)}")
 
     if use_resident:
         # ONE record-mode K4b launch for the four backtracking rows (half
-        # budget) and ONE K2c launch for the five rule rows, the ground truth
-        # included (per-row tol and caps); wall_s carries each row's share of
-        # its sweep's wall, grid_total_s the sweeps' walls
+        # budget), ONE K2c launch for the five rule rows, the ground truth
+        # included (per-row tol and caps), and ONE aGRAAL launch; wall_s carries
+        # each row's share of its sweep's wall (aGRAAL its own), grid_total_s
+        # the sweeps' walls
         x0p = torch.zeros(x1_pad.shape[1], dtype=dtype, device=device)
         lkw = dict(prox_kind="l1", p1=float(lam), obj_kind="logreg", m_true=float(m))
         half_it = maxit // 2
@@ -129,6 +130,9 @@ def run_logreg_l1_data(name_or_path, sink, *, device, lam=0.01, tol=1e-7, maxit=
         specs = rule_specs(gam, tol, maxit)
         (_, numit, _, _, hists), wall = sync_wall(lambda: resident_rule_sweep(
             x1_pad, y_pad, x0p, rule_rows(specs), tol, maxit * 10, **lkw))
+        # the companion point: noise on the n = n_feat + 1 unpadded coordinates
+        ag_out, ag_wall = sync_wall(lambda: resident_agraal(
+            x1_pad, y_pad, x0p, companion_point(x0p, n), gam, tol, maxit, record=True, **lkw))
 
         def add_rule_row(j):
             (name, _, mom), cap = RESIDENT_ROWS[j], specs[j][4]
@@ -141,10 +145,12 @@ def run_logreg_l1_data(name_or_path, sink, *, device, lam=0.01, tol=1e-7, maxit=
         add_bt_rows(sink, BT_ROWS, bt_out, half_it)
         for j in range(2, len(RESIDENT_ROWS)):
             add_rule_row(j)
+        add_agraal_row(sink, ag_out, maxit)
         for name, _, _ in BT_ROWS:
             times[name] = round(bt_wall / len(BT_ROWS), 4)
         for name, _, _ in RESIDENT_ROWS:
             times[name or "(ground truth)"] = round(wall / len(RESIDENT_ROWS), 4)
+        times["aGRAAL"] = round(ag_wall, 4)
         sink.emit_meta(grid_total_s={"bt sweep": round(bt_wall, 4), "rule sweep": round(wall, 4)})
     else:
         # the ground-truth prerun (tol/10) always runs in history mode: it feeds
@@ -164,6 +170,8 @@ def run_logreg_l1_data(name_or_path, sink, *, device, lam=0.01, tol=1e-7, maxit=
                 **base, **o)),
             ("AdaPGM (Ours)", maxit, lambda **o: adaptive_proxgrad(
                 x0, rule=AdaPGMRule(gamma=gam), name="AdaPGM (Ours)", **base, **o)),
+            # the solver draws the companion point over the whole x
+            ("aGRAAL", maxit, lambda **o: agraal(x0, gamma0=gam, name="aGRAAL", **base, **o)),
         ]
         run_menu(sink, times, menu)
     sink.emit_meta(wall_s=times, fast_path="resident" if use_resident else "default",
@@ -196,8 +204,9 @@ def main(argv=None):
                    help="tighter ||X1||_2^2/4m instead of the reference's "
                         "Frobenius norm(X1*X1')/4m (runme.jl:58-59)")
     p.add_argument("--resident", action="store_true",
-                   help="the sweep kernels: the backtracking rows in one K4b launch, the "
-                        "five rule rows (the ground truth included) in one K2c launch")
+                   help="the whole-solve kernels: the backtracking rows in one K4b launch, "
+                        "the five rule rows (the ground truth included) in one K2c launch, "
+                        "aGRAAL in one launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")

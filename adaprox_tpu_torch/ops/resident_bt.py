@@ -1,30 +1,33 @@
 """K4 and K4b, the backtracking whole-solve kernels: backtracking proximal
 gradient (with the per-iteration step inflation xi) and backtracking Nesterov
 of f(x) + g(x) in one launch, for every ``obj_kind`` of K2 ("ls", "logreg",
-"cubic") and every prox kind of its menu.
+"cubic") and every prox kind of its menu; and K4's aGRAAL core, a whole
+aGRAAL solve in one launch, for the same objectives and prox kinds.
 
-Counterpart of ``adaprox_tpu/ops/resident_bt.py`` for its backtracking core
+Counterpart of ``adaprox_tpu/ops/resident_bt.py``. For its backtracking core
 ``_bt_core``: ``resident_backtracking`` (K4, one solve) and
 ``resident_bt_sweep`` (K4b, the backtracking rows of a method menu in one
 launch, each row with its own gamma0, xi and momentum flag, always in record
 mode). The trial loop runs on the device: at most 101 evaluations an
 iteration, the failure of a capped backtrack latched into ``ls_failed``, and
 with ``exact_bregman`` (least squares only) the sufficient-descent test
-through 0.5 ||res_z - res_x||^2 instead of the raw objective difference. The
-aGRAAL core of the same JAX module is not ported yet.
+through 0.5 ||res_z - res_x||^2 instead of the raw objective difference. For
+its aGRAAL core ``_agraal_core``: ``resident_agraal`` (the golden-ratio
+average, the inverse-cocoercivity step and, for ``gamma0 <= 0``, the secant
+gamma0 computed on the device) and ``resident_agraal_records``.
 
-Here both kernels are hand-written CUDA C++ for Hopper
-(``csrc/resident_bt.cu``, on the P1 phase and the objective switch that K2
-shares through ``csrc/resident_common.cuh``): one cooperative launch with
-grid-wide barriers between the phases of a trial, built with nvcc for
-``sm_90a`` at first use and loaded with ctypes. K4 and K4b run the same
-device routine on the same grid, so a sweep row equals the single solve with
-its arguments bit for bit.
+Here the kernels are hand-written CUDA C++ for Hopper, on the P1 phase,
+gradient loop and objective switch that K2 shares through
+``csrc/resident_common.cuh``: K4 and K4b in ``csrc/resident_bt.cu``, aGRAAL
+in ``csrc/resident_agraal.cu``. Each is one cooperative launch with grid-wide
+barriers between its phases, built with nvcc for ``sm_90a`` at first use and
+loaded with ctypes. K4 and K4b run the same device routine on the same grid,
+so a sweep row equals the single solve with its arguments bit for bit.
 
-Both entries dispatch on where their tensors lie: CPU tensors take the plain
-versions ``resident_backtracking_plain`` / ``resident_bt_sweep_plain``
-(Python loops over the same iteration); CUDA tensors launch the kernel or
-raise.
+Every entry dispatches on where its tensors lie: CPU tensors take the plain
+versions ``resident_backtracking_plain`` / ``resident_bt_sweep_plain`` /
+``resident_agraal_plain`` (Python loops over the same iteration); CUDA tensors
+launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -40,9 +43,12 @@ from . import kernels
 from .resident import _GVAL, _PROX, _PROX_IDX, _check_menu, _obj_split, _problem, _transposed
 
 __all__ = ["resident_backtracking", "resident_backtracking_plain", "resident_bt_sweep",
-           "resident_bt_sweep_plain", "resident_bt_records", "build_library"]
+           "resident_bt_sweep_plain", "resident_bt_records", "resident_agraal",
+           "resident_agraal_plain", "resident_agraal_records", "build_library",
+           "build_agraal_library"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_bt.cu"
+AGRAAL_SOURCE = kernels._PKG / "csrc" / "resident_agraal.cu"
 # as K2's: every elementwise expression rounds after each operation
 NVCC_FLAGS = kernels.NVCC_FLAGS + ("-fmad=false",)
 
@@ -187,9 +193,89 @@ def resident_bt_records(numit, gamma_hist, res_hist, obj_hist, trials_hist, *, m
                    valid=it <= torch.as_tensor(numit, device=dev))
 
 
+def resident_agraal_plain(a, b, x1, x0, gamma0, tol, maxit, *, gamma_max=1e6, phi=1.5,
+                          prox_kind="l1", p1=0.0, p2=0.0, cube_c=0.0, obj_kind="ls", m_true=None,
+                          record=False):
+    """The plain PyTorch version of K4's aGRAAL core: ``_agraal_core`` line
+    by line, one host-checked iteration at a time. Scalars are 0-d tensors
+    in the iterate dtype; bf16 storage of ``a`` is upcast to it (for "logreg"
+    after A^T is divided by the mean's divisor in storage dtype, as the
+    kernel's wrapper does). Returns what ``resident_agraal`` returns."""
+    dt, dev = x1.dtype, x1.device
+
+    def scalar(v):
+        return torch.as_tensor(v, dtype=dt, device=dev)
+
+    gamma0, gamma_max, phi, tol, p1, p2, cube_c = (
+        scalar(v) for v in (gamma0, gamma_max, phi, tol, p1, p2, cube_c))
+    at = _transposed(a, obj_kind, m_true).to(dt)
+    a, b = a.to(dt), b.to(dt)
+    val_aux_of, grad_from_aux = _obj_split(a, at, b, obj_kind, m_true, cube_c)
+    prox_fn, gval_fn = _PROX[prox_kind], _GVAL[prox_kind]
+    hists = torch.zeros((3, maxit), dtype=dt, device=dev)
+    rho = 1 / phi + 1 / (phi * phi)
+
+    grad_x = grad_from_aux(val_aux_of(x1)[1])
+    grad_prev = grad_from_aux(val_aux_of(x0)[1])
+    dx0, dg0 = x1 - x0, grad_x - grad_prev
+    secant = torch.sqrt(torch.sum(dx0 * dx0)) / torch.sqrt(torch.sum(dg0 * dg0))
+    gamma = torch.where(gamma0 > 0, gamma0, secant)
+    x, x_prev, x_bar = x1, x0, x1
+    theta, norm_res = scalar(1.0), scalar(math.inf)
+    it = 0
+    while it < maxit and bool(norm_res > tol):  # a NaN residual stops
+        # identical iterates give 0/0 = NaN: taken as +inf (engine semantics)
+        dx, dg = x - x_prev, grad_x - grad_prev
+        curv = torch.sum(dx * dx) / torch.sum(dg * dg)
+        curv = torch.where(torch.isnan(curv), scalar(math.inf), curv)
+        gamma_new = torch.minimum(torch.minimum(rho * gamma, phi * theta * curv / (4 * gamma)),
+                                  gamma_max)
+        theta = phi * gamma_new / gamma
+        gamma = gamma_new
+        x_bar = ((phi - 1) * x + x_bar) / phi
+        x_new = prox_fn(x_bar - gamma * grad_x, gamma, p1, p2)
+        dxn = x_new - x
+        norm_res = torch.sqrt(torch.sum(dxn * dxn)) / gamma
+        if record:
+            # the objective at the NEW prox point, as the engine records it
+            objective = val_aux_of(x_new)[0] + gval_fn(x_new, p1, p2)
+            hists[:, it] = torch.stack([gamma, norm_res, objective])
+        it += 1
+        if it < maxit and bool(norm_res > tol):  # the gradient feeds the next iteration only
+            x_prev, grad_prev = x, grad_x
+            grad_x = grad_from_aux(val_aux_of(x_new)[1])
+        x = x_new
+    conv = norm_res <= tol
+    # the TPU kernel's stats travel as f32: numit and norm_res round through it
+    stats = torch.stack([scalar(it), norm_res, gamma, conv.to(dt)]).to(torch.float32)
+    base = (x, stats[0].to(torch.int32), stats[1].to(dt), stats[3] > 0)
+    return base + tuple(hists) if record else base
+
+
+def resident_agraal_records(numit, gamma_hist, res_hist, obj_hist, *, maxit):
+    """``Records`` from the record-mode histories of ``resident_agraal``. The
+    counters are deterministic, as the engine meters them at its record: two
+    f and gradient evaluations at the start (both companion points), then per
+    iteration one prox before the record and one f and gradient after it. So
+    at iteration ``it``: f_evals = grad_f_evals = it + 1, prox_g_evals = it.
+    Rows past ``numit`` are masked out by ``valid``."""
+    dev = gamma_hist.device
+    it = torch.arange(1, maxit + 1, dtype=torch.int64, device=dev)
+    z = torch.zeros(maxit, dtype=torch.int64, device=dev)
+    return Records(it=it, gamma=gamma_hist, sigma=torch.zeros_like(gamma_hist),
+                   norm_res=res_hist, objective=obj_hist, f_evals=it + 1, grad_f_evals=it + 1,
+                   prox_g_evals=it, prox_h_evals=z, A_evals=z, At_evals=z,
+                   valid=it <= torch.as_tensor(numit, device=dev))
+
+
 def build_library():
     """Compile ``csrc/resident_bt.cu`` (see ``ops.kernels.build_library``)."""
     return kernels.build_library(SOURCE, NVCC_FLAGS)
+
+
+def build_agraal_library():
+    """Compile ``csrc/resident_agraal.cu`` (see ``ops.kernels.build_library``)."""
+    return kernels.build_library(AGRAAL_SOURCE, NVCC_FLAGS)
 
 
 def _library():
@@ -205,10 +291,9 @@ def _library():
         "adaprox_resident_bt_error_string": ([i], ctypes.c_char_p)})
 
 
-def _raise_on(lib, err, what):
+def _raise_on(error_string, err, what):
     if err:
-        msg = lib.adaprox_resident_bt_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({error_string(err).decode()})")
 
 
 def _check(what, a, b, x0, prox_kind, obj_kind, maxit):
@@ -237,7 +322,7 @@ def _launch(a, b, x0, gamma0, tol, maxit, xi, shrink, prox_kind, p1, p2, cube_c,
             1.0 if nesterov else float(xi), float(shrink), float(tol), float(p1), float(p2),
             _PROX_IDX[prox_kind], int(bool(nesterov)), int(bool(exact_bregman)), int(record),
             stream)
-    _raise_on(lib, err, "K4 launch")
+    _raise_on(lib.adaprox_resident_bt_error_string, err, "K4 launch")
     resident_backtracking.launches += 1
     base = (x_out, stats[0].to(torch.int32), stats[1], stats[3] > 0, stats[4] > 0)
     return base + tuple(hist) if record else base
@@ -298,7 +383,7 @@ def _launch_sweep(a, b, x0, rows, tol, maxit, shrink, prox_kind, p1, p2, cube_c,
             *args, rows_d.data_ptr(), count, x_out.data_ptr(), stats.data_ptr(),
             hist.data_ptr() if maxit else None, *a.shape, maxit, float(shrink), float(tol),
             float(p1), float(p2), _PROX_IDX[prox_kind], int(bool(exact_bregman)), stream)
-    _raise_on(lib, err, "K4b launch")
+    _raise_on(lib.adaprox_resident_bt_error_string, err, "K4b launch")
     resident_bt_sweep.launches += 1
     return (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 3] > 0, stats[:, 4] > 0,
             tuple(hist[:, k] for k in range(4)))
@@ -332,4 +417,80 @@ def resident_bt_sweep(a, b, x0, rows, tol, maxit, *, shrink=0.5, prox_kind="l1",
 
 
 resident_bt_sweep.launches = 0
+
+
+def _agraal_library():
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    # obj_kind .. part_len, the leading arguments (as K2's)
+    problem = [i, f, f, f, p, p, i, i, i, p, p, p, p, p, p, p, ll]
+    return kernels.load_library(AGRAAL_SOURCE, NVCC_FLAGS, {
+        "adaprox_resident_agraal_parts": ([], i),
+        "adaprox_resident_agraal": (problem + [p, p, p, p, ll, ll, i, f, f, f, f, f, f, i, i, p],
+                                    i),
+        "adaprox_resident_agraal_error_string": ([i], ctypes.c_char_p)})
+
+
+def _launch_agraal(a, b, x1, x0, gamma0, tol, maxit, gamma_max, phi, prox_kind, p1, p2, cube_c,
+                   obj_kind, m_true, record):
+    lib = _agraal_library()
+    dev = a.device
+    n = a.shape[1]
+    if x0.device != dev or x0.dtype != torch.float32 or not x0.is_contiguous():
+        raise TypeError(f"K4 (aGRAAL) takes a contiguous float32 x0 on {dev}, got {x0.dtype} "
+                        f"on {x0.device}")
+    with torch.cuda.device(dev):
+        # keep: the tensors behind args; x1 rides in the problem's x0 slot
+        args, keep = _problem(lib.adaprox_resident_agraal_parts(), a, b, x1, obj_kind, m_true,
+                              cube_c, "K4 (aGRAAL)")
+        f32 = dict(dtype=torch.float32, device=dev)
+        x_out, stats = torch.empty(n, **f32), torch.empty(5, **f32)
+        hist = torch.empty((3, maxit), **f32) if record else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.adaprox_resident_agraal(
+            *args, x0.data_ptr(), x_out.data_ptr(), stats.data_ptr(),
+            hist.data_ptr() if record and maxit else None, *a.shape, maxit, float(gamma0),
+            float(gamma_max), float(phi), float(tol), float(p1), float(p2), _PROX_IDX[prox_kind],
+            int(record), stream)
+    _raise_on(lib.adaprox_resident_agraal_error_string, err, "K4 (aGRAAL) launch")
+    resident_agraal.launches += 1
+    base = (x_out, stats[0].to(torch.int32), stats[1], stats[3] > 0)
+    return base + tuple(hist) if record else base
+
+
+def resident_agraal(a, b, x1, x0, gamma0, tol, maxit, *, gamma_max=1e6, phi=1.5, prox_kind="l1",
+                    p1=0.0, p2=0.0, cube_c=0.0, obj_kind="ls", m_true=None, record=False):
+    """Whole-solve aGRAAL in one kernel launch (reference
+    src/AdaProx.jl:150-192), with f and (p1, p2) as
+    ``ops.resident.resident_adapgm`` takes them. ``x0`` is the companion
+    point (the engine draws x1 + noise; pass the same to match its
+    trajectory, and keep zero-padded coordinates 0 so that the padded sums
+    are exact); ``gamma0 <= 0`` selects the secant estimate
+    ||x1 - x0|| / ||grad(x1) - grad(x0)||.
+
+    a: (m, n); b: (m,) (the cubic model's q with a = H, m = n); x1, x0: (n,).
+    Returns (x, numit, norm_res, converged) as tensors on the input's device,
+    plus (gamma_hist, norm_res_hist, objective_hist) of shape (maxit,) when
+    ``record=True`` (zero past numit); ``resident_agraal_records`` turns those
+    into ``Records``.
+
+    CPU tensors take the plain version, any float dtype. CUDA tensors launch
+    K4's aGRAAL kernel (``csrc/resident_agraal.cu``): ``a`` f32 or bf16,
+    ``b``, ``x1`` and ``x0`` f32, all contiguous; each launch adds one to
+    ``resident_agraal.launches``."""
+    _check("resident_agraal", a, b, x1, prox_kind, obj_kind, maxit)
+    if x0.shape != x1.shape:
+        raise ValueError(f"resident_agraal: x0 {tuple(x0.shape)} must have x1's shape "
+                         f"{tuple(x1.shape)}")
+    if a.device.type == "cpu":
+        return resident_agraal_plain(a, b, x1, x0, gamma0, tol, maxit, gamma_max=gamma_max,
+                                     phi=phi, prox_kind=prox_kind, p1=p1, p2=p2, cube_c=cube_c,
+                                     obj_kind=obj_kind, m_true=m_true, record=record)
+    if a.device.type != "cuda":
+        raise ValueError(f"K4 (aGRAAL) runs on CPU (plain version) or CUDA tensors, not "
+                         f"{a.device}")
+    return _launch_agraal(a, b, x1, x0, gamma0, tol, int(maxit), gamma_max, phi, prox_kind, p1,
+                          p2, cube_c, obj_kind, m_true, record)
+
+
+resident_agraal.launches = 0
 

@@ -5,8 +5,9 @@
 Phases, one line each, any failure exits non-zero:
   1. device:   a CUDA device is required; prints nvidia-smi's name and power limit
   2. build:    K1 (csrc/fused_ls.cu), K3 (csrc/fused_logistic.cu), K2/K2c
-               (csrc/resident_pg.cu) and K4/K4b (csrc/resident_bt.cu), one
-               nvcc each, started together, from this checkout's sources
+               (csrc/resident_pg.cu), K4/K4b (csrc/resident_bt.cu) and K4's
+               aGRAAL core (csrc/resident_agraal.cu), one nvcc each, started
+               together, from this checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
@@ -21,10 +22,11 @@ Phases, one line each, any failure exits non-zero:
                momentum bodies, f32 and bf16, padded rows) and K2c's logistic
                rows bit for bit against single K2 launches (case n)
   4. driver:   the lasso driver at the reference size 4000x1000x10, with
-               --fused (the main path through K1, the backtracking trials
-               included) and with --resident (the four rule rows in one K2c
-               launch, the four backtracking rows in one K4b launch),
-               counting each kernel's launches
+               --fused (the main path through K1, the backtracking trials and
+               aGRAAL included) and with --resident (the four rule rows in one
+               K2c launch, the four backtracking rows in one K4b launch, aGRAAL
+               in one launch of K4's aGRAAL core), counting each kernel's
+               launches
   5. headline: AdaPGM, 200 iterations on 16384^2 f32, fused and two-matmul
   6. resident: the resident reference size (4096x1024 f32, lam 1, tol 1e-4,
                maxit 4000): one K2 solve (the single-solve path,
@@ -54,8 +56,9 @@ Phases, one line each, any failure exits non-zero:
                the known optimum); both drivers' engine paths (the worst case
                at --maxit 1000, cut from 10000); the cubic iteration at 128^2
                and 2048^2. Every --resident driver run of phases 4, 7 and 8 is
-               exactly one K2c and one K4b launch, and the engine paths launch
-               neither K4 nor K4b
+               exactly one K2c, one K4b and (but the worst case's) one aGRAAL
+               launch, every aGRAAL row's F within a CPU-calibrated bound, and
+               the engine paths launch no whole-solve kernel
   9. backtracking: K4 against its plain version ([backtracking] lines, cases
                s-v: the padded lasso reference size 4096x1024 in f32 and bf16,
                with and without the exact-Bregman test, mushrooms' [X 1] with
@@ -68,6 +71,14 @@ Phases, one line each, any failure exits non-zero:
                reference size, counted), the lasso driver's backtracking sweep
                held against its plain version and timed, and a one-trial PG and
                a Nesterov iteration at 4096x1024 and 8x2176 beside K2's
+ 10. agraal:   K4's aGRAAL core against its plain version ([agraal] lines: the
+               padded lasso 4096x1024 f32 and bf16, mushrooms' [X 1], the cubic
+               models of phase 8; from the drivers' gamma0 and the secant
+               gamma0; rows over CPU-calibrated horizons, the padded
+               coordinates exactly 0), its own path on the lasso driver's
+               inputs (one solve, counted and timed, held against its plain
+               version, two launches the same bits, F within its bound) and its
+               iteration at 4096x1024 and 8x2176 beside K2's
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -109,10 +120,17 @@ KERNEL_RTOL = 1e-5
 # 0.0232 at 2000). Where the collapse starts depends on the rounding, so its
 # bound is 10x: a sanity bound. K4b itself is held against its plain version on
 # the driver's inputs in phase 9.
+# aGRAAL does not converge in the 2000 iterations, in f32 or f64: computed with
+# resident_agraal_plain (the --resident row) and the engine's agraal under a fused
+# LeastSquares (the --fused row) on the driver's padded inputs and companion point,
+# both gave F - F* = 7.46e-3 in f32 (f64 6.53e-3; 0.606 at iteration 1000). The
+# step-size recurrence amplifies rounding, so where the card lands depends on it:
+# bound 0.02, 2.7x the CPU's f32 gap. K4 (aGRAAL) itself is held against its plain
+# version in phase 10.
 GAP_BOUND = {"PGM (fixed)": 3.2e-5, "PGM (backtracking)-(xi=1.0)": 2.5e-4,
              "PGM (backtracking)-(xi=1.5)": 1e-5, "PGM (backtracking)-(xi=2.0)": 1e-5,
              "Nesterov (backtracking)": 0.25, "Nesterov (fixed)": 1e-5, "AdaPGM (MM)": 1e-5,
-             "AdaPGM (Ours)": 1e-5}
+             "AdaPGM (Ours)": 1e-5, "aGRAAL": 0.02}
 HEADLINE = 16384
 HEADLINE_ITERS = 200
 
@@ -160,13 +178,17 @@ MENU = (("PGM (fixed)", "fixed", False), ("Nesterov (fixed)", "fixed", True),
 # a5a), 1.1e-4 to 2.4e-4 above, noise-limited as on the lasso (bound 10x). The
 # engine path at --maxit 200 (100 backtracking iterations): xi 1 7.6e-5 (bound
 # 2x), xi 1.5 and 2 0, Nesterov (backtracking) 4.3e-5 (bound 10x).
+# aGRAAL (maxit 2000; the same with resident_agraal_plain and the engine's agraal in
+# f32 against an f64 AdaPGM optimum): 97-115 iterations, within 6.6e-8 of F* on both
+# paths and at --maxit 200 (bound 1e-6, the other rows').
 LOGREG_GAP_BOUND = 1e-6
 LOGREG_BT_GAP_BOUND = {"PGM (backtracking)-(xi=1.0)": 2e-6, "PGM (backtracking)-(xi=1.5)": 1e-6,
                        "PGM (backtracking)-(xi=2.0)": 1e-6, "Nesterov (backtracking)": 2.5e-3}
 LOGREG_ENGINE_GAP_BOUND = {"PGM (1/Lf)": 1e-6, "PGM (backtracking)-(xi=1.0)": 1.5e-4,
                            "PGM (backtracking)-(xi=1.5)": 1e-6,
                            "PGM (backtracking)-(xi=2.0)": 1e-6, "Nesterov (backtracking)": 4.3e-4,
-                           "Nesterov (fixed)": 2.5e-6, "AdaPGM (MM)": 1e-6, "AdaPGM (Ours)": 1e-6}
+                           "Nesterov (fixed)": 2.5e-6, "AdaPGM (MM)": 1e-6, "AdaPGM (Ours)": 1e-6,
+                           "aGRAAL": 1e-6}
 LOGREG_DATASETS = ("a5a", "mushrooms", "phishing")
 # K2 with the logistic objective against its plain version: the adaptive rules
 # amplify the f32 summation-order difference as with least squares (case a),
@@ -203,7 +225,9 @@ CUBIC_HORIZON = {"mushrooms": {"fixed": 300, "mm": 15, "adapgm": 7, "momentum": 
 # The backtracking rows there (maxit 100; same runs, and the engine path on
 # mushrooms): the PG rows within 2.2e-8 (the bound 2e-7 holds them), Nesterov
 # (backtracking) at its cap, 1.3e-6 to 3.4e-6 above; noise-limited, it read
-# 2.66e-5 on an H100 (engine path): bound 1e-4.
+# 2.66e-5 on an H100 (engine path): bound 1e-4. aGRAAL (same calibration as the
+# logistic rows'): 98-100 iterations, within 1.2e-8 of the optimum on both paths
+# (the bound 2e-7 holds it).
 CUBIC_GAP_BOUND = 2e-7
 CUBIC_NESTEROV_BT_GAP_BOUND = 1e-4
 CUBIC_DATASETS = ("a5a", "mushrooms", "phishing")
@@ -247,6 +271,17 @@ BT_HORIZON = {"lasso": {1.0: 200, 1.5: 200, 2.0: 200, "nesterov": 200},
               "worst": {1.0: 260, 1.5: 260, 2.0: 6, "nesterov": 130}}
 BT_RTOL = 1e-3
 BT_METHODS = ((1.0, False), (1.5, False), (2.0, False), (1.0, True))
+# K4 (aGRAAL) against its plain version (phase 10), f32 on the card. Calibrated on
+# the CPU with resident_agraal_plain in f32 against f64, tol -1, from the drivers'
+# gamma0 ("given") and the secant gamma0, with the drivers' companion point
+# (experiments.common.companion_point): the iteration where the step size, norm_res
+# or the objective first parts by more than 1e-3 of its row's largest value, given /
+# secant: the padded lasso 4096x1024 (lam 1) 62 / 46; mushrooms' [X 1] 41 / 29;
+# mushrooms' cubic model 58 / 66; the worst case 42 / 51 (past 1e-5 at 17-41). The
+# rows are held to 1e-3 over about two thirds of those.
+AGRAAL_HORIZON = {"lasso": {"given": 40, "secant": 30}, "logreg": {"given": 27, "secant": 19},
+                  "mushrooms": {"given": 38, "secant": 44}, "worst": {"given": 28, "secant": 34}}
+AGRAAL_RTOL = 1e-3
 # peak rates of one H100 SXM (data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -692,6 +727,27 @@ def logreg_menu_checks(name, got, want, smi):
     return max_abs_err
 
 
+def k4b_sweep_timing(a, b, rows, tol, maxit, kw, tag, label, smi):
+    """K4b on a driver's own inputs (its backtracking rows, tol and maxit):
+    CUDA events (best of 3) beside its plain version (one run) and its bound
+    from this run's iteration and trial counts (bt_work)."""
+    from adaprox_tpu_torch.ops import resident_bt
+    from adaprox_tpu_torch.utils.profiling import timed
+
+    x0 = torch.zeros(a.shape[1], device=a.device)
+    secs, got = timed(lambda: resident_bt.resident_bt_sweep(a, b, x0, rows, tol, maxit, **kw),
+                      reps=3)
+    plain_ms, _ = once_ms(lambda: resident_bt.resident_bt_sweep_plain(a, b, x0, rows, tol, maxit,
+                                                                       **kw))
+    numits, trials = got[1].tolist(), [int(t) for t in got[5][3].sum(1).tolist()]
+    m, n = a.shape
+    bnd = bound(*bt_work(m, n, a.element_size(), kw.get("obj_kind", "ls"), numits, trials,
+                         [flag > 0 for _, _, flag in rows], maxit))
+    print(f"[{tag}] K4b sweep {label} {m}x{n} f32 (numit {numits}, trials {trials}, 1 launch): "
+          f"{1e3 * secs:.4f} ms, plain {plain_ms:.2f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}) "
+          f"({smi})", flush=True)
+
+
 def logreg_phase(apt, resident, logreg, counting, dev, smi):
     """Phase 7: LogisticLoss(fused=True) in the engine, the sparse_logreg
     driver on the card (--resident on each dataset, the engine path on
@@ -699,6 +755,7 @@ def logreg_phase(apt, resident, logreg, counting, dev, smi):
     read_counts). Returns (K3 launches of the library run, the sweeps'
     measurements by dataset)."""
     from adaprox_tpu_torch.experiments import sparse_logreg
+    from adaprox_tpu_torch.experiments.common import bt_sweep_rows
     from adaprox_tpu_torch.experiments.sparse_logreg import BT_ROWS, RESIDENT_ROWS, rule_specs
     from adaprox_tpu_torch.utils.logging import read_jsonl
     from adaprox_tpu_torch.utils.profiling import timed
@@ -706,7 +763,7 @@ def logreg_phase(apt, resident, logreg, counting, dev, smi):
     zero_counts, read_counts = counting
     counts = {}
     # the driver's rows, in its order (the backtracking rows after PGM (1/Lf))
-    row_order = [name for name, _, _ in RESIDENT_ROWS]
+    row_order = [name for name, _, _ in RESIDENT_ROWS] + ["aGRAAL"]
     row_order[2:2] = [name for name, _, _ in BT_ROWS]
 
     # LogisticLoss(fused=True) in the engine: AdaPGM on mushrooms' X, padded
@@ -747,8 +804,8 @@ def logreg_phase(apt, resident, logreg, counting, dev, smi):
               f"iteration fused (K3), {1e3 * secs_mv / LIBRARY_ITERS:.4f} two-matvec ({smi})",
               flush=True)
         check(counts[True][3] == res_k3.counters.f_evals == LIBRARY_ITERS + 1
-              and counts[True][:3] == (0, 0, 0) and counts[True][4:] == (0, 0)
-              and counts[False] == (0,) * 6,
+              and counts[True][:3] == (0, 0, 0) and counts[True][4:] == (0, 0, 0)
+              and counts[False] == (0,) * 7,
               f"LogisticLoss {shape}: K3 launches != oracle calls (or a launch without fused)")
         check(rows_rel <= LOGREG_CASE_K_RTOL and obj_rel <= LIBRARY_F_RTOL
               and bool(torch.isfinite(res_k3.x).all()), f"LogisticLoss {shape}: fused and unfused "
@@ -769,15 +826,15 @@ def logreg_phase(apt, resident, logreg, counting, dev, smi):
         by = group_by_method(rows)
         fstar = min(r["objective"] for r in by[None])
         bounds = {name: LOGREG_GAP_BOUND for name, _, _ in RESIDENT_ROWS[1:]}
-        bounds.update(LOGREG_BT_GAP_BOUND)
+        bounds.update(LOGREG_BT_GAP_BOUND, aGRAAL=LOGREG_GAP_BOUND)
         gaps = {name: by[name][-1]["objective"] - fstar for name in bounds}
         meta = [r for r in rows if "it" not in r]
         print(f"[logreg] sparse_logreg --resident {ds} f32: numit "
               f"{[rs[-1]['it'] for rs in by.values()]}, F-F* "
               f"{', '.join(f'{k} {v:.3e} (bound {bounds[k]:g})' for k, v in gaps.items())} | "
-              f"K1, K2, K2c, K3, K4, K4b launches {c} | {meta} ({smi})", flush=True)
-        check(c == (0, 0, 1, 0, 0, 1),
-              f"sparse_logreg --resident {ds}: launches {c}, not one K2c and one K4b")
+              f"K1, K2, K2c, K3, K4, K4b, aGRAAL launches {c} | {meta} ({smi})", flush=True)
+        check(c == (0, 0, 1, 0, 0, 1, 1),
+              f"sparse_logreg --resident {ds}: launches {c}, not one K2c, one K4b and one aGRAAL")
         check(list(by) == row_order
               and all(math.isfinite(v) and abs(v) <= bounds[k] for k, v in gaps.items()),
               f"sparse_logreg --resident {ds}: rows {list(by)}, F-F* {gaps}")
@@ -802,6 +859,9 @@ def logreg_phase(apt, resident, logreg, counting, dev, smi):
         logreg_sweeps[ds] = dict(ms=1e3 * sweep_s, plain_ms=plain_ms, bound=bnd, err=err)
         print(f"[logreg] K2c sweep {ds} {m_}x{n_} f32 (numit {numits}): {1e3 * sweep_s:.4f} ms, "
               f"plain {plain_ms:.2f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}) ({smi})", flush=True)
+        # the driver's backtracking rows (maxit/2), the K4b sweep its --resident run launched
+        k4b_sweep_timing(a_, b_, bt_sweep_rows(BT_ROWS, d["gam"]), 1e-7, 1000, kw, "logreg", ds,
+                         smi)
 
     # the driver's engine path (LogisticLoss without the fused branch, as the
     # JAX driver runs it) on mushrooms, depth cut to --maxit 200
@@ -819,7 +879,7 @@ def logreg_phase(apt, resident, logreg, counting, dev, smi):
           f"numit {[rs[-1]['it'] for rs in by.values()]}, F-F* "
           f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} | launches {c} | "
           f"wall_s {rows[-2]['wall_s']} ({smi})", flush=True)
-    check(rows[-2]["fast_path"] == "default" and c == (0,) * 6 and list(by) == row_order
+    check(rows[-2]["fast_path"] == "default" and c == (0,) * 7 and list(by) == row_order
           and all(math.isfinite(v) and abs(v) <= LOGREG_ENGINE_GAP_BOUND[k]
                   for k, v in gaps.items()), "sparse_logreg engine path: bad rows")
 
@@ -932,6 +992,7 @@ def cubic_phase(resident, models, counting, dev, smi):
     """Phase 8: both cubic drivers on the card (--resident and the engine)
     and the cubic iteration. ``counting`` is (zero_counts, read_counts)."""
     from adaprox_tpu_torch.experiments import cubic_sparse_logreg, nesterov_worst_case
+    from adaprox_tpu_torch.experiments.common import bt_sweep_rows
     from adaprox_tpu_torch.utils.logging import read_jsonl
     from adaprox_tpu_torch.utils.profiling import timed
 
@@ -952,7 +1013,7 @@ def cubic_phase(resident, models, counting, dev, smi):
     names = [name for name, _ in cubic_sparse_logreg.RESIDENT_ROWS]
     bt_names = [name for name, _, _ in cubic_sparse_logreg.BT_ROWS]
     # the driver's rows, in its order (the backtracking rows after the ground truth)
-    row_order = names[:1] + bt_names + names[1:]
+    row_order = names[:1] + bt_names + names[1:] + ["aGRAAL"]
     cubic_bounds = {name: CUBIC_GAP_BOUND for name in row_order[1:]}
     cubic_bounds["Nesterov (backtracking)"] = CUBIC_NESTEROV_BT_GAP_BOUND
     for ds in CUBIC_DATASETS:
@@ -967,11 +1028,13 @@ def cubic_phase(resident, models, counting, dev, smi):
         fstar = by[None][-1]["objective"]
         gaps = {name: by[name][-1]["objective"] - fstar for name in row_order[1:]}
         grid = [r["grid_total_s"] for r in rows if "grid_total_s" in r]
+        ag_wall = [r["wall_s"]["aGRAAL"] for r in rows if "wall_s" in r]
         print(f"[cubic] cubic_sparse_logreg --resident {ds} f32: numit "
               f"{[rs[-1]['it'] for rs in by.values()]}, F-F_gt "
               f"{', '.join(f'{k} {v:.3e} (bound {cubic_bounds[k]:g})' for k, v in gaps.items())} "
-              f"| K1, K2, K2c, K3, K4, K4b launches {c} | grid_total_s {grid} ({smi})", flush=True)
-        check(c == (0, 0, 1, 0, 0, 1), f"cubic_sparse_logreg --resident {ds}: launches {c}")
+              f"| K1, K2, K2c, K3, K4, K4b, aGRAAL launches {c} | grid_total_s {grid}, aGRAAL "
+              f"wall_s {ag_wall} ({smi})", flush=True)
+        check(c == (0, 0, 1, 0, 0, 1, 1), f"cubic_sparse_logreg --resident {ds}: launches {c}")
         check(list(by) == row_order and all(math.isfinite(v) and abs(v) <= cubic_bounds[k]
                                             for k, v in gaps.items()),
               f"cubic_sparse_logreg --resident {ds}: rows {list(by)}, F-F_gt {gaps}")
@@ -1003,6 +1066,8 @@ def cubic_phase(resident, models, counting, dev, smi):
         print(f"[cubic] K2c sweep {ds} {n}x{n} f32 (numit {numits}, 1 launch): {1e3 * secs:.4f} "
               f"ms, plain {plain_ms:.2f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}); largest |x| error "
               f"{max_abs:.2e} ({smi})", flush=True)
+        k4b_sweep_timing(h, q, bt_sweep_rows(cubic_sparse_logreg.BT_ROWS, gam), 1e-7, 100, kw,
+                         "cubic", ds, smi)
 
     # nesterov_worst_case --resident at its defaults: one K2c and one K4b launch
     outdir = os.path.join("results", "chip_smoke", "nesterov_worst_case")
@@ -1020,9 +1085,10 @@ def cubic_phase(resident, models, counting, dev, smi):
     print(f"[cubic] nesterov_worst_case --resident (k = n = 100, L 100, tol 1e-6, maxit 10000) "
           f"f32: numit {[rs[-1]['it'] for rs in by.values()]}, F-F* "
           f"{', '.join(f'{k} {v:.3e}' for k, v in gaps.items())} (bounds {wbounds}) | K1, K2, "
-          f"K2c, K3, K4, K4b launches {c} | grid_total_s {rows[-2]['grid_total_s']} ({smi})",
-          flush=True)
-    check(c == (0, 0, 1, 0, 0, 1), f"nesterov_worst_case --resident: launches {c}")
+          f"K2c, K3, K4, K4b, aGRAAL launches {c} | grid_total_s {rows[-2]['grid_total_s']} "
+          f"({smi})", flush=True)
+    # (its menu has no aGRAAL row)
+    check(c == (0, 0, 1, 0, 0, 1, 0), f"nesterov_worst_case --resident: launches {c}")
     check(list(by) == [wnames[0], wbt[0], wnames[1], wbt[1], *wnames[2:]]
           and all(math.isfinite(gaps[k]) and abs(gaps[k]) <= v for k, v in wbounds.items()),
           f"nesterov_worst_case --resident: {gaps}")
@@ -1036,6 +1102,10 @@ def cubic_phase(resident, models, counting, dev, smi):
     bnd = sweep_bound(h.shape[0], numits, [mom for _, _, mom in nesterov_worst_case.RESIDENT_ROWS])
     print(f"[cubic] K2c sweep worst case 128x128 f32 (numit {numits}, 1 launch): {1e3 * secs:.4f} "
           f"ms, bound {bnd[0]:.6f} ms ({bnd[1]}) ({smi})", flush=True)
+    # its two backtracking rows from gamma0 = 1, tol 1e-6, maxit 10000
+    k4b_sweep_timing(h, q, bt_sweep_rows(nesterov_worst_case.BT_ROWS, 1.0), 1e-6, 10000,
+                     dict(prox_kind="zero", obj_kind="cubic", cube_c=0.0), "cubic", "worst case",
+                     smi)
 
     # the engine paths: cubic_sparse_logreg on mushrooms at its defaults, and
     # the worst case at --maxit 1000 (depth cut from 10000)
@@ -1067,7 +1137,8 @@ def cubic_phase(resident, models, counting, dev, smi):
         print(f"[cubic] {label} f32: numit {[rs[-1]['it'] for rs in by.values()]}, F-F* "
               f"{', '.join(f'{k} {v:.3e} (bound {bounds[k]:g})' for k, v in gaps.items())} | "
               f"launches {c} | wall_s {meta['wall_s']} ({smi})", flush=True)
-        check(meta["fast_path"] == "default" and c == (0,) * 6 and list(gaps) == list(by)[-6:]
+        check(meta["fast_path"] == "default" and c == (0,) * 7
+              and list(gaps) == list(by)[-len(gaps):]
               and all(math.isfinite(v) and -WORST_GAP_BOUND <= v <= bounds[k]
                       for k, v in gaps.items()), f"{label}: bad rows")
 
@@ -1260,7 +1331,7 @@ def bt_phase(resident, resident_bt, ref, counting, dev, smi):
     resident_bt.resident_backtracking(a, b, x0, gam, 1e-4, 4000, xi=1.5, p1=1.0)
     torch.cuda.synchronize()
     single = read_counts()
-    check(single == (0, 0, 0, 0, 1, 0), f"K4 single solve: launches {single}")
+    check(single == (0, 0, 0, 0, 1, 0, 0), f"K4 single solve: launches {single}")
     k4_s, out = timed(lambda: resident_bt.resident_backtracking(a, b, x0, gam, 1e-4, 4000,
                                                                 xi=1.5, p1=1.0), reps=5)
     plain_s, _ = timed(lambda: resident_bt.resident_backtracking_plain(
@@ -1356,6 +1427,139 @@ def bt_phase(resident, resident_bt, ref, counting, dev, smi):
                  bound=k4b_bound))
 
 
+def agraal_checks(resident_bt, ref, logreg, cubic_models, dev, smi):
+    """Phase 10, K4 (aGRAAL) against its plain version on the card: the padded
+    lasso 4096x1024 in f32 and bf16 storage, mushrooms' [X 1] with the
+    logistic objective and the cubic models of phase 8, each from the
+    drivers' gamma0 and from the secant gamma0 (gamma0 = 0), with the
+    drivers' companion point; tol -1, the rows over CPU-calibrated horizons,
+    the padded coordinates exactly 0. Returns the largest |x| error of the
+    f32 lasso cases, for the kernels line."""
+    from adaprox_tpu_torch.experiments.common import companion_point
+
+    a, b, gam = ref["a"], ref["b"], ref["gam"]
+    lasso_kw = dict(prox_kind="l1", p1=1.0)
+    cases = [("lasso", "lasso 4096x1024 f32", a, b, 1000, gam, lasso_kw),
+             ("lasso", "lasso 4096x1024 bf16", a.to(torch.bfloat16), b, 1000, gam, lasso_kw),
+             ("logreg", "mushrooms [X 1] 8128x128 f32", logreg["a"], logreg["b"],
+              logreg["n_feat"] + 1, logreg["gam"],
+              dict(prox_kind="l1", p1=0.01, obj_kind="logreg", m_true=logreg["m_true"]))]
+    for name in ("mushrooms", "worst"):
+        h, q, c, gam_c, n_true = cubic_models[name]
+        cases.append((name, f"{name} cubic {h.shape[0]}x{h.shape[1]} f32 c {c:g}", h, q, n_true,
+                      gam_c, dict(prox_kind="zero", obj_kind="cubic", cube_c=c)))
+    max_abs_err = 0.0
+    for key, label, a_, b_, n_true, gam_, kw in cases:
+        x1 = torch.zeros(a_.shape[1], device=dev)
+        x0 = companion_point(x1, n_true)
+        for mode, g0 in (("given", gam_), ("secant", 0.0)):
+            horizon = AGRAAL_HORIZON[key][mode]
+            got = resident_bt.resident_agraal(a_, b_, x1, x0, g0, -1.0, horizon, record=True, **kw)
+            want = resident_bt.resident_agraal_plain(a_, b_, x1, x0, g0, -1.0, horizon,
+                                                     record=True, **kw)
+            torch.cuda.synchronize()
+            err, xe = rows_err(got, want, horizon), x_err(got, want)
+            pad_zero = not bool(got[0][n_true:].any())
+            if label == "lasso 4096x1024 f32":
+                max_abs_err = max(max_abs_err, float((got[0] - want[0]).abs().max()))
+            print(f"[agraal] K4 (aGRAAL) {label} gamma0 {mode} tol -1 maxit {horizon}: rows rel "
+                  f"err {err:.2e} (tol {AGRAAL_RTOL:g}; CPU-calibrated horizon); x rel err "
+                  f"{xe:.2e}; padded coordinates stay 0: {pad_zero} ({smi})", flush=True)
+            check(int(got[1]) == int(want[1]) == horizon and err <= AGRAAL_RTOL and pad_zero,
+                  f"K4 (aGRAAL) {label} gamma0 {mode} disagrees with its plain version")
+    return max_abs_err
+
+
+def agraal_phase(resident, resident_bt, counting, dev, smi):
+    """Phase 10: K4 (aGRAAL)'s own path on the lasso driver's inputs (one
+    solve, counted and timed) held against its plain version, two launches
+    the same bits, and the iteration beside K2's. Returns the kernels line's
+    measurements."""
+    from adaprox_tpu_torch.experiments.common import companion_point, pad_tiles
+    from adaprox_tpu_torch.models.synthetic import random_lasso
+    from adaprox_tpu_torch.utils.profiling import timed
+
+    zero_counts, read_counts = counting
+    # the lasso driver's aGRAAL row on its own inputs: 4000x1000x10 padded to
+    # 4000x1024 f32, lam 1, tol 1e-7, maxit 2000, the companion point on the
+    # first 1000 coordinates; a solve as a user calls it (no records), counted
+    prob = random_lasso(m=4000, n=1000, pfactor=10, seed=0)
+    a, b = pad_tiles(torch.as_tensor(prob.a, dtype=torch.float32, device=dev),
+                     torch.as_tensor(prob.b, dtype=torch.float32, device=dev))
+    gam = 1.0 / float(np.linalg.norm(prob.a, 2) ** 2)
+    x1 = torch.zeros(a.shape[1], device=dev)
+    x0 = companion_point(x1, 1000)
+    kw = dict(prox_kind="l1", p1=prob.lam)
+    zero_counts()
+    resident_bt.resident_agraal(a, b, x1, x0, gam, 1e-7, 2000, **kw)
+    torch.cuda.synchronize()
+    single = read_counts()
+    check(single == (0, 0, 0, 0, 0, 0, 1), f"K4 (aGRAAL) single solve: launches {single}")
+    ag_s, out = timed(lambda: resident_bt.resident_agraal(a, b, x1, x0, gam, 1e-7, 2000, **kw),
+                      reps=3)
+    plain_s, want = timed(lambda: resident_bt.resident_agraal_plain(a, b, x1, x0, gam, 1e-7, 2000,
+                                                                    record=True, **kw), reps=1)
+    runs = [resident_bt.resident_agraal(a, b, x1, x0, gam, 1e-7, 2000, record=True, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    same = (all(torch.equal(u, w) for u, w in zip(*runs))
+            and all(torch.equal(u, w) for u, w in zip(out, runs[0][:4])))
+    got = runs[0]
+    horizon = AGRAAL_HORIZON["lasso"]["given"]
+    err = rows_err(got, want, horizon)
+    a64, b64 = a.double(), b.double()
+
+    def objective(x):
+        r = a64 @ x.double() - b64
+        return float(0.5 * r @ r + prob.lam * x.double().abs().sum())
+
+    gaps = (objective(got[0]) - prob.optimum, objective(want[0]) - prob.optimum)
+    numit = int(got[1])
+    m, n = a.shape
+    # A read once, b, x1 and x0 in, x and the stats out; 8 m n flops at the start
+    # (the forward pass and the gradient at x1 and at x0), 4 m n an iteration
+    ag_bound = bound(4 * m * n + 4 * m + 12 * n + 20, 8 * m * n + 4 * m * n * numit)
+    print(f"[agraal] K4 (aGRAAL) lasso driver 4000x1024 f32 lam 1 tol 1e-7 maxit 2000: solve "
+          f"{1e3 * ag_s:.4f} ms (CUDA events, best of 3), numit {numit} (plain {int(want[1])}), "
+          f"converged {bool(got[3])}; rows over {horizon} it rel err {err:.2e} (tol "
+          f"{AGRAAL_RTOL:g}); F - F* {gaps[0]:.4e} (plain {gaps[1]:.4e}; bound "
+          f"{GAP_BOUND['aGRAAL']:g}); two launches and the record mode the same bits: {same} | "
+          f"plain {1e3 * plain_s:.2f} ms | bound {ag_bound[0]:.4f} ms ({ag_bound[1]}) | launches "
+          f"{single} ({smi})", flush=True)
+    check(same and err <= AGRAAL_RTOL and not bool(got[0][1000:].any())
+          and all(math.isfinite(v) and abs(v) <= GAP_BOUND["aGRAAL"] for v in gaps),
+          "K4 (aGRAAL) on the lasso driver's inputs: bad solve")
+
+    # the iteration: zero prox, tol -1, 1000 iterations, beside K2's fixed-rule
+    # iteration, at the reference size and at 8x2176 (a full grid with almost no
+    # work: the barriers and the latency); gamma0 = 1e-3/||A||_F^2, the
+    # companion point x1 + N(0, I)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    us = {}
+    for m_, n_ in ((4096, 1024), (8, 2176)):
+        if (m_, n_) == (4096, 1024):
+            a_, b_ = a, b
+        else:
+            a_ = torch.randn(m_, n_, generator=gen, device=dev) / n_
+            b_ = torch.randn(m_, generator=gen, device=dev)
+        gam_ = 1e-3 / float((a_ * a_).sum())
+        x1_ = torch.zeros(n_, device=dev)
+        x0_ = torch.randn(n_, generator=gen, device=dev)
+        for label, fn in (
+                ("K4 (aGRAAL)", lambda: resident_bt.resident_agraal(
+                    a_, b_, x1_, x0_, gam_, -1.0, 1000, prox_kind="zero")),
+                ("K2 fixed", lambda: resident.resident_adapgm(
+                    a_, b_, x1_, gam_, 0.0, 1000, prox_kind="zero", rule_kind="fixed"))):
+            secs, res = timed(fn, reps=3)
+            check(int(res[1]) == 1000, f"{label} {m_}x{n_}: not 1000 iterations")
+            us[f"{label} {m_}x{n_}"] = 1e3 * secs
+        print(f"[agraal] iteration {m_}x{n_} f32, zero prox, 1000 iterations: "
+              f"{', '.join(f'{k} {v:.3f} us' for k, v in us.items() if k.endswith(f'{m_}x{n_}'))}"
+              f" ({smi})", flush=True)
+    return dict(launches=single[6], ms=1e3 * ag_s, plain_ms=1e3 * plain_s, bound=ag_bound)
+
+
 def main():
     # 1. device --------------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: needs a CUDA device")
@@ -1376,18 +1580,19 @@ def main():
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = [(name, pool.submit(build)) for name, build in
                   (("K1", kernels.build_library),
                    ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
                    ("K2/K2c", resident.build_library),
-                   ("K4/K4b", resident_bt.build_library))]
+                   ("K4/K4b", resident_bt.build_library),
+                   ("K4 (aGRAAL)", resident_bt.build_agraal_library))]
         for name, fut in builds:
             lib_path = fut.result()
             regs = ptxas_report(lib_path.with_suffix(".log").read_text())
             print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
                   f"bytes: {'; '.join(regs)})", flush=True)
-    print(f"[build] all four in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all five in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -1431,12 +1636,14 @@ def main():
         kernels.fused_ls_value_grad.launches = resident.resident_adapgm.launches = 0
         resident.resident_rule_sweep.launches = kernels.fused_logistic_value_grad.launches = 0
         resident_bt.resident_backtracking.launches = resident_bt.resident_bt_sweep.launches = 0
+        resident_bt.resident_agraal.launches = 0
 
     def read_counts():
-        """Launches of (K1, K2, K2c, K3, K4, K4b) since zero_counts()."""
+        """Launches of (K1, K2, K2c, K3, K4, K4b, K4 (aGRAAL)) since zero_counts()."""
         return (kernels.fused_ls_value_grad.launches, resident.resident_adapgm.launches,
                 resident.resident_rule_sweep.launches, kernels.fused_logistic_value_grad.launches,
-                resident_bt.resident_backtracking.launches, resident_bt.resident_bt_sweep.launches)
+                resident_bt.resident_backtracking.launches, resident_bt.resident_bt_sweep.launches,
+                resident_bt.resident_agraal.launches)
 
     counts, walls = {}, {}
     for path in ("fused", "resident"):
@@ -1452,12 +1659,14 @@ def main():
         check(list(last) == list(GAP_BOUND), f"driver rows {list(last)}")
         check(rows[-1]["fast_path"] == path, f"driver took {rows[-1]['fast_path']}, not {path}")
         walls[path] = rows[-1]["wall_s"]
-        # the oracle calls the rows count, and two kinds of K1 call that the last
+        # the oracle calls the rows count, and three kinds of K1 call that the last
         # rows do not count: the Nesterov (fixed) row's logging-only f.value(x) of
-        # each recorded iteration, and the Nesterov (backtracking) row's momentum
-        # point after its last record (its f_evals is taken at the record)
+        # each recorded iteration, the Nesterov (backtracking) row's momentum point
+        # after its last record (its f_evals is taken at the record), and aGRAAL's
+        # record objective f.value(x) of each iteration and its gradient after the
+        # last record (2 + 2 numit calls against the last row's numit + 1)
         oracle_calls = sum(r["f_evals"] for r in last.values())
-        logging_calls = last["Nesterov (fixed)"]["it"] + 1
+        logging_calls = last["Nesterov (fixed)"]["it"] + 1 + last["aGRAAL"]["it"] + 1
         parts = []
         for name, r in last.items():
             gap = r["objective"] - optimum
@@ -1466,16 +1675,17 @@ def main():
         grid = rows[-2].get("grid_total_s")
         print(f"[driver] lasso 4000x1000x10 --{path} f32: {'; '.join(parts)} | K1 launches "
               f"{counts[path][0]}, K2 launches {counts[path][1]}, K2c launches "
-              f"{counts[path][2]}, K4/K4b launches {counts[path][4:]}, oracle calls "
+              f"{counts[path][2]}, K4/K4b/aGRAAL launches {counts[path][4:]}, oracle calls "
               f"{oracle_calls}, uncounted f calls {logging_calls} | wall_s {walls[path]}, "
               f"grid_total_s {grid} ({smi})", flush=True)
         if path == "fused":
             check(counts[path][0] == oracle_calls + logging_calls > 0
-                  and counts[path][1:] == (0,) * 5,
+                  and counts[path][1:] == (0,) * 6,
                   "--fused: K1 launches != oracle calls + uncounted f calls (or another kernel)")
         else:
-            check(counts[path] == (0, 0, 1, 0, 0, 1) and grid is not None,
-                  "--resident: not exactly one K2c and one K4b launch (and nothing else)")
+            check(counts[path] == (0, 0, 1, 0, 0, 1, 1) and grid is not None,
+                  "--resident: not exactly one K2c, one K4b and one aGRAAL launch (and nothing "
+                  "else)")
 
     # 5. the headline ----------------------------------------------------------
     a, b, _ = big
@@ -1506,7 +1716,8 @@ def main():
     resident.resident_adapgm_l1(a, b, x0, gam, 1.0, 1e-4, 4000)
     torch.cuda.synchronize()
     counts["single"] = read_counts()
-    check(counts["single"] == (0, 1, 0, 0, 0, 0), f"single solve: launches {counts['single']}")
+    check(counts["single"] == (0, 1, 0, 0, 0, 0, 0),
+          f"single solve: launches {counts['single']}")
     secs, out = timed(lambda: resident.resident_adapgm_l1(a, b, x0, gam, 1.0, 1e-4, 4000),
                       reps=5)
     numit = int(out[1])
@@ -1606,6 +1817,10 @@ def main():
     k4_meas, k4b_meas = bt_phase(resident, resident_bt, ref, (zero_counts, read_counts), dev,
                                  smi)
 
+    # 10. aGRAAL ---------------------------------------------------------------------
+    ag_err = agraal_checks(resident_bt, ref, logreg, cubic_models, dev, smi)
+    ag_meas = agraal_phase(resident, resident_bt, (zero_counts, read_counts), dev, smi)
+
     head = measured["16384x16384 f32"]
     k3_head = k3_meas["16384x16384 f32"]
     hm = hn = HEADLINE
@@ -1661,6 +1876,13 @@ def main():
         "launches": counts["resident"][5], "max_abs_err": k4b_meas["max_abs_err"],
         "ms": k4b_meas["ms"], "plain_ms": k4b_meas["plain_ms"], "bound_ms": k4b_meas["bound"][0],
         "bound_by": k4b_meas["bound"][1], "library_ms": None,
+        "objectives": ["ls", "logreg", "cubic"]}, {
+        "name": "resident_agraal", "route": "cuda",
+        "source": "adaprox_tpu_torch/csrc/resident_agraal.cu",
+        "replaces": "adaprox_tpu/ops/resident_bt.py:423",
+        "launches": counts["resident"][6], "max_abs_err": ag_err,
+        "ms": ag_meas["ms"], "plain_ms": ag_meas["plain_ms"], "bound_ms": ag_meas["bound"][0],
+        "bound_by": ag_meas["bound"][1], "library_ms": None,
         "objectives": ["ls", "logreg", "cubic"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

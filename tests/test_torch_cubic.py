@@ -352,6 +352,9 @@ WORST_RULE_NAMES = [name for name, _, _ in tworst.RESIDENT_ROWS]
 WORST_BT_NAMES = [name for name, _, _ in tworst.BT_ROWS]
 WORST_NAMES = [WORST_RULE_NAMES[0], WORST_BT_NAMES[0], WORST_RULE_NAMES[1], WORST_BT_NAMES[1],
                *WORST_RULE_NAMES[2:]]
+# heart_scale's aGRAAL row (85 iterations to tol) first differs past 1e-9 at iteration 68
+# on the engine path and 84 under --resident (f64 on the CPU): held over 45
+CUBIC_AGRAAL_HORIZON = {"aGRAAL": 45}
 # the worst case's MM row first differs past 1e-9 at iteration 59 (module docstring)
 WORST_HORIZON = {"AdaPGM (MM)": 45}
 
@@ -401,19 +404,21 @@ def _meta_match(trows, jrows, path, names, tail, bt_names):
 def test_cubic_driver_jsonl_matches_jax(tmp_path, capsys, no_download, path):
     """heart_scale (its synthetic stand-in, 270x13: H is 14x14, padded to
     128 under --resident), the defaults (maxit 100, tol 1e-7, lam 1), f64,
-    against the JAX driver's JSONL filtered to the ported rows."""
+    against the JAX driver's JSONL, every row, aGRAAL's included."""
     args = ["--datasets", "heart_scale", "--no-plot"] + (["--resident"] if path == "resident"
                                                          else [])
     jcubic.main(["--outdir", str(tmp_path / "jax"), "--cpu", *args])
     capsys.readouterr()
     tcubic.main(["--outdir", str(tmp_path / "torch"), "--device", "cpu", *args])
-    assert "skipping rows not ported yet: aGRAAL\n" in capsys.readouterr().out
+    assert "skipping rows not ported yet" not in capsys.readouterr().out
     jrows = tlog.read_jsonl(tmp_path / "jax" / "heart_scale.jsonl")
     trows = tlog.read_jsonl(tmp_path / "torch" / "heart_scale.jsonl")
     assert trows[0]["method"] is None and list(trows[0])[0] == "method"
-    _rows_match(trows, jrows, CUBIC_NAMES, {})
-    tmeta, jmeta = _meta_match(trows, jrows, path, ["(ground truth)"] + CUBIC_NAMES[1:],
+    _rows_match(trows, jrows, CUBIC_NAMES + ["aGRAAL"], CUBIC_AGRAAL_HORIZON)
+    tmeta, jmeta = _meta_match(trows, jrows, path,
+                               ["(ground truth)"] + CUBIC_NAMES[1:] + ["aGRAAL"],
                                [["data_source"]], CUBIC_BT_NAMES)
+    assert list(tmeta[0]["wall_s"]) == list(jmeta[0]["wall_s"])
     assert tmeta[1] == jmeta[1] == {"data_source": "synthetic"}
 
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K2, K2c, K3, K4 and K4b on the card against their plain PyTorch
-versions (K2, K2c, K4 and K4b with the least-squares, logistic and cubic objectives).
+"""The CUDA kernels K1, K2, K2c, K3, K4, K4b and K4's aGRAAL core on the card against their
+plain PyTorch versions (K2, K2c, K4, K4b and aGRAAL with the least-squares, logistic and cubic
+objectives).
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. This file imports no
 JAX, so it runs on a machine without it:
@@ -20,8 +21,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (K1, K2, K2c, K3, K4 and K4b are CUDA kernels; no "
-                    "interpret mode)")
+        pytest.skip("needs a CUDA device (K1, K2, K2c, K3, K4, K4b and aGRAAL are CUDA "
+                    "kernels; no interpret mode)")
     return torch.device("cuda")
 
 
@@ -188,23 +189,23 @@ def test_k2_counts_one_launch_a_solve(dev):
 
 def test_lasso_resident_sends_every_shape_to_k2c_on_card(dev, tmp_path, capsys):
     """7000x1000 pads to 7000x1024 f32, 28.7 MB: past the JAX driver's
-    routing limit (24 MiB), which the CPU applies, but K2c and K4b take it. The
-    four rule rows are one K2c launch and the four backtracking rows one K4b
-    launch: no K2, K4 or K1 launch."""
+    routing limit (24 MiB), which the CPU applies, but K2c, K4b and K4's aGRAAL
+    core take it. The four rule rows are one K2c launch, the four backtracking
+    rows one K4b launch and aGRAAL one launch: no K2, K4 or K1 launch."""
     from adaprox_tpu_torch.experiments import lasso
     from adaprox_tpu_torch.utils.logging import read_jsonl
 
     counters = (tk.fused_ls_value_grad, tr.resident_adapgm, tr.resident_rule_sweep,
-                trb.resident_backtracking, trb.resident_bt_sweep)
+                trb.resident_backtracking, trb.resident_bt_sweep, trb.resident_agraal)
     before = [c.launches for c in counters]
     lasso.main(["--resident", "--sizes", "7000x1000x10", "--maxit", "5", "--device", "cuda",
                 "--outdir", str(tmp_path), "--no-plot"])
     torch.cuda.synchronize()
     assert "falling back" not in capsys.readouterr().out
-    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 1, 0, 1]
+    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 1, 0, 1, 1]
     rows = read_jsonl(tmp_path / "lasso_7000_1000_10.jsonl")
     assert rows[-1]["fast_path"] == "resident" and list(rows[-2]) == ["grid_total_s"]
-    assert len({r["method"] for r in rows if r.get("method")}) == 8
+    assert len({r["method"] for r in rows if r.get("method")}) == 9
 
 
 def test_k2_rejects_what_it_does_not_take(dev):
@@ -507,19 +508,20 @@ def test_k2c_logreg_rows_equal_single_k2_launches(dev, dtype):
 
 
 def test_sparse_logreg_resident_is_one_k2c_launch_per_dataset(dev, tmp_path, capsys):
-    """Two datasets (their synthetic stand-ins), each one K2c and one K4b
-    launch; no K1, K2, K3 or K4 launch."""
+    """Two datasets (their synthetic stand-ins), each one K2c, one K4b and one
+    aGRAAL launch; no K1, K2, K3 or K4 launch."""
     from adaprox_tpu_torch.experiments import sparse_logreg
     from adaprox_tpu_torch.utils.logging import read_jsonl
 
     counters = (tk.fused_ls_value_grad, tk.fused_logistic_value_grad, tr.resident_adapgm,
-                tr.resident_rule_sweep, trb.resident_backtracking, trb.resident_bt_sweep)
+                tr.resident_rule_sweep, trb.resident_backtracking, trb.resident_bt_sweep,
+                trb.resident_agraal)
     before = [c.launches for c in counters]
     sparse_logreg.main(["--resident", "--datasets", "heart_scale,a5a", "--maxit", "50",
                         "--device", "cuda", "--outdir", str(tmp_path), "--no-plot"])
     torch.cuda.synchronize()
     assert "falling back" not in capsys.readouterr().out
-    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 0, 2, 0, 2]
+    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 0, 2, 0, 2, 2]
     for name in ("heart_scale", "a5a"):
         rows = read_jsonl(tmp_path / f"{name}.jsonl")
         assert rows[-2]["fast_path"] == "resident" and rows[-1] == {"data_source": "synthetic"}
@@ -527,7 +529,7 @@ def test_sparse_logreg_resident_is_one_k2c_launch_per_dataset(dev, tmp_path, cap
         assert methods == {None, "PGM (1/Lf)", "Nesterov (fixed)", "AdaPGM (MM)",
                            "AdaPGM (Ours)", "PGM (backtracking)-(xi=1.0)",
                            "PGM (backtracking)-(xi=1.5)", "PGM (backtracking)-(xi=2.0)",
-                           "Nesterov (backtracking)"}
+                           "Nesterov (backtracking)", "aGRAAL"}
 
 
 # -- K2 and K2c with the cubic objective ---------------------------------------------------
@@ -667,25 +669,28 @@ def test_cubic_refuses_a_non_square_h_on_card(dev):
 
 
 def test_cubic_drivers_resident_are_one_k2c_launch(dev, tmp_path):
-    """Each driver's --resident run is one K2c and one K4b launch and nothing
-    else."""
+    """Each driver's --resident run is one K2c and one K4b launch, and
+    cubic_sparse_logreg's one aGRAAL launch more (the worst case's menu has no
+    aGRAAL row), and nothing else."""
     from adaprox_tpu_torch.experiments import cubic_sparse_logreg, nesterov_worst_case
     from adaprox_tpu_torch.utils.logging import read_jsonl
 
     counters = (tk.fused_ls_value_grad, tk.fused_logistic_value_grad, tr.resident_adapgm,
-                tr.resident_rule_sweep, trb.resident_backtracking, trb.resident_bt_sweep)
+                tr.resident_rule_sweep, trb.resident_backtracking, trb.resident_bt_sweep,
+                trb.resident_agraal)
     before = [c.launches for c in counters]
     cubic_sparse_logreg.main(["--resident", "--datasets", "heart_scale", "--device", "cuda",
                               "--outdir", str(tmp_path), "--no-plot"])
     nesterov_worst_case.main(["--resident", "--maxit", "500", "--device", "cuda", "--outdir",
                               str(tmp_path), "--no-plot"])
     torch.cuda.synchronize()
-    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 0, 2, 0, 2]
+    assert [c.launches - k for c, k in zip(counters, before)] == [0, 0, 0, 2, 0, 2, 1]
     rows = read_jsonl(tmp_path / "heart_scale.jsonl")
     assert rows[-2]["fast_path"] == "resident"
     assert {r.get("method") for r in rows if "it" in r} == {
         None, "AdaPGM (MM)", "AdaPGM (Ours)", "PGM (backtracking)-(xi=1.0)",
-        "PGM (backtracking)-(xi=1.5)", "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)"}
+        "PGM (backtracking)-(xi=1.5)", "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)",
+        "aGRAAL"}
     rows = read_jsonl(tmp_path / "nesterov_worst_case.jsonl")
     assert rows[-1]["fast_path"] == "resident"
     assert [r.get("method") for r in rows if "it" in r][0] is None
@@ -886,3 +891,91 @@ def test_k4_rejects_what_it_does_not_take(dev):
     for rows in ([[0.1, 1.0]], [[0.1, 1.0, 2.0]], torch.zeros(0, 3)):
         with pytest.raises(ValueError, match="rows must be|0 or 1"):
             trb.resident_bt_sweep(a, b, x, rows, 0.0, 3)
+
+
+# -- K4's aGRAAL core -------------------------------------------------------------------------
+
+# The rows are held within 1e-3 of their largest value over 15 iterations: on the
+# CPU the plain version in f32 first parted from f64 by more than 1e-5 at
+# iteration 17 to 41, and by more than 1e-3 at 29 to 62 (chip_smoke.py,
+# AGRAAL_HORIZON); the card sums in another order than the plain version.
+AG_HORIZON = 15
+AG_RTOL = 1e-3
+
+
+def ag_case(dev, obj, dtype):
+    """(a, b, x1, x0, n_true, gamma0, kwargs) of an aGRAAL case: K4's problems
+    (bt_case) from x1 = 0, with gamma0 = 1/L and the companion point x1 + N(0, I)
+    on the unpadded coordinates."""
+    a, b, gam, kw = bt_case(dev, obj, dtype)
+    n = a.shape[1]
+    n_true = 113 if obj == "cubic" else n
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    x1 = torch.zeros(n, device=dev)
+    x0 = x1.clone()
+    x0[:n_true] = torch.randn(n_true, generator=gen, device=dev)
+    return a, b, x1, x0, n_true, gam / 10, kw
+
+
+def _ag_close(got, want, horizon):
+    for k in (4, 5, 6):
+        u, w = got[k][:horizon], want[k][:horizon]
+        assert float((u - w).abs().max()) <= AG_RTOL * float(w.abs().max()), k
+
+
+@pytest.mark.parametrize("secant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("obj", ["ls", "logreg", "cubic"])
+def test_k4_agraal_matches_plain_on_card(dev, obj, dtype, secant):
+    a, b, x1, x0, n_true, gam, kw = ag_case(dev, obj, dtype)
+    g0 = 0.0 if secant else gam
+    before = trb.resident_agraal.launches
+    got = trb.resident_agraal(a, b, x1, x0, g0, -1.0, AG_HORIZON, record=True, **kw)
+    torch.cuda.synchronize()
+    assert trb.resident_agraal.launches == before + 1
+    want = trb.resident_agraal_plain(a, b, x1, x0, g0, -1.0, AG_HORIZON, record=True, **kw)
+    assert got[0].dtype == torch.float32 and all(h.shape == (AG_HORIZON,) for h in got[4:])
+    assert int(got[1]) == int(want[1]) == AG_HORIZON and not bool(got[3])
+    _ag_close(got, want, AG_HORIZON)
+    assert float((got[0] - want[0]).abs().max()) <= AG_RTOL * float(want[0].abs().max())
+    assert not bool(got[0][n_true:].any())
+    # without record mode: the same solve, the same bits
+    plain = trb.resident_agraal(a, b, x1, x0, g0, -1.0, AG_HORIZON, **kw)
+    assert all(torch.equal(u, w) for u, w in zip(plain, got[:4]))
+
+
+def test_k4_agraal_is_repeatable_and_zero_iterations_return_x1(dev):
+    a, b, x1, x0, _, gam, kw = ag_case(dev, "ls", torch.float32)
+    runs = [trb.resident_agraal(a, b, x1, x0, gam, 1e-4, 2000, record=True, **kw)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(*runs))
+    x1 = torch.randn(300, device=dev)
+    got = trb.resident_agraal(a, b, x1, x1 + 1.0, gam, 0.0, 0, record=True, **kw)
+    assert int(got[1]) == 0 and torch.equal(got[0], x1) and float(got[2]) == float("inf")
+    assert not bool(got[3]) and all(h.shape == (0,) for h in got[4:])
+
+
+def test_k4_agraal_counts_one_launch_a_solve(dev):
+    a, b, x1, x0, _, gam, kw = ag_case(dev, "ls", torch.float32)
+    before = trb.resident_agraal.launches
+    trb.resident_agraal(a, b, x1, x0, gam, 0.0, 5, **kw)
+    trb.resident_agraal(a, b, x1, x0, 0.0, 0.0, 5, record=True, **kw)
+    assert trb.resident_agraal.launches == before + 2
+
+
+def test_k4_agraal_rejects_what_it_does_not_take(dev):
+    a, b, x = _inputs(dev, 16, 8, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        trb.resident_agraal(a.double(), b, x, x, 0.1, 0.0, 3)
+    with pytest.raises(TypeError, match="float32 b and x0"):
+        trb.resident_agraal(a, b.double(), x, x, 0.1, 0.0, 3)
+    with pytest.raises(TypeError, match="float32 x0"):
+        trb.resident_agraal(a, b, x, x.double(), 0.1, 0.0, 3)
+    with pytest.raises(TypeError, match="float32 x0"):
+        trb.resident_agraal(a, b, x, x.cpu(), 0.1, 0.0, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        trb.resident_agraal(a.t().contiguous().t(), b, x, x, 0.1, 0.0, 3)
+    with pytest.raises(ValueError, match="square H"):
+        trb.resident_agraal(a, b, x, x, 0.1, 0.0, 3, obj_kind="cubic", cube_c=1.0)

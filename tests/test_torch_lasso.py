@@ -30,7 +30,7 @@ from adaprox_tpu_torch.experiments import lasso as tlasso
 REPO = Path(__file__).resolve().parent.parent
 MENU = ("PGM (fixed)", "PGM (backtracking)-(xi=1.0)", "PGM (backtracking)-(xi=1.5)",
         "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)", "Nesterov (fixed)", "AdaPGM (MM)",
-        "AdaPGM (Ours)")
+        "AdaPGM (Ours)", "aGRAAL")
 
 
 # -- (e) the numpy-only copies ----------------------------------------------
@@ -87,15 +87,16 @@ def test_pad_tiles_matches_jax(m, n):
 
 
 def test_lasso_driver_jsonl_matches_jax(tmp_path, capsys):
-    """The ported rows, --device cpu (f64), against the JAX driver's JSONL
-    filtered to those rows (aGRAAL is skipped). 20 iterations: inside the
-    horizon where the adaptive rules' step sizes agree to 1e-9 (see
-    test_torch_engine.py); measured 9e-14. The backtracking rows agree with
+    """The whole menu, --device cpu (f64), against the JAX driver's JSONL row
+    for row, aGRAAL included (its companion point from the numpy copy of
+    JAX's draw). 20 iterations: inside the horizon where the adaptive rules'
+    step sizes agree to 1e-9 (see test_torch_engine.py and
+    test_torch_agraal.py); measured 9e-14. The backtracking rows agree with
     JAX's, trial counts and all, to the end."""
     args = ["--sizes", "64x96x8", "--maxit", "20", "--no-plot", "--fused"]
     jlasso.main(["--outdir", str(tmp_path / "jax"), *args])
     tlasso.main(["--outdir", str(tmp_path / "torch"), "--device", "cpu", *args])
-    assert "skipping rows not ported yet: aGRAAL\n" in capsys.readouterr().out
+    assert "skipping rows not ported yet" not in capsys.readouterr().out
     jrows = tlog.read_jsonl(tmp_path / "jax" / "lasso_64_96_8.jsonl")
     trows = tlog.read_jsonl(tmp_path / "torch" / "lasso_64_96_8.jsonl")
     assert trows[0] == jrows[0]  # the analytic-optimum pseudo record
@@ -112,7 +113,8 @@ def test_lasso_driver_jsonl_matches_jax(tmp_path, capsys):
     jmeta, tmeta = jrows[-1], trows[-1]
     assert list(tmeta) == list(jmeta) == ["wall_s", "fast_path", "fast_methods"]
     assert tmeta["fast_path"] == jmeta["fast_path"] == "fused"
-    assert sorted(tmeta["wall_s"]) == sorted(MENU) == tmeta["fast_methods"]
+    assert list(tmeta["wall_s"]) == list(jmeta["wall_s"]) == list(MENU)
+    assert sorted(MENU) == tmeta["fast_methods"]
 
 
 def test_lasso_driver_refuses_missing_cuda(tmp_path):
@@ -206,11 +208,22 @@ bt += [[int(sw[1][j]), float(f.value(sw[0][j]) + g(sw[0][j]))] for j in range(2)
 for path in ("--fused", "--resident"):
     lasso.main(["--device", "cpu", path, "--sizes", "64x128x8", "--maxit", "50", "--no-plot",
                 "--outdir", sys.argv[1] + path])
+# the aGRAAL slice: the engine solver and K4's aGRAAL core (plain version) from the
+# companion point the drivers draw (the numpy copy of JAX's draw), and the engine
+# drawing its own companion point
+from adaprox_tpu_torch.experiments.common import companion_point
+gam = 1.0 / float(torch.linalg.matrix_norm(torch.from_numpy(prob.a), 2) ** 2)
+xc = companion_point(x0, 300)
+ra = apt.agraal(x0, x0=xc, f=f, g=g, gamma0=gam, tol=1e-8, maxit=5000)
+ka = apt.resident_agraal(a, b, x0, xc, gam, 1e-8, 5000, p1=prob.lam)
+rd = apt.agraal(torch.zeros(14, dtype=torch.float64), f=fc, g=apt.Zero(), tol=1e-9, maxit=2000)
+ag = [[ra.numit, float(f.value(ra.x) + g(ra.x))], [int(ka[1]), float(f.value(ka[0]) + g(ka[0]))],
+      [rd.numit, float(fc.value(rd.x))]]
 import adaprox_tpu_torch.experiments.resident_timing  # the card's timing script
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("jax", "jaxlib", "adaprox_tpu"))
 print(json.dumps({"leaked": leaked, "runs": out, "logreg": logreg, "source": src,
-                  "cubic": cubic, "bt": bt}))
+                  "cubic": cubic, "bt": bt, "agraal": ag}))
 """
 
 
@@ -257,7 +270,16 @@ def test_port_runs_the_slice_without_jax(tmp_path):
     assert f6 == f8 == f10 and f7 == f9 == f11 and abs(f6 - optimum) < 1e-9 * optimum
     for path in ("--fused", "--resident"):
         rows = tlog.read_jsonl(tmp_path.parent / (tmp_path.name + path) / "lasso_64_128_8.jsonl")
-        assert {r.get("method") for r in rows if "it" in r} >= {"Nesterov (backtracking)"}
+        assert {r.get("method") for r in rows if "it" in r} >= {"Nesterov (backtracking)",
+                                                                 "aGRAAL"}
+    # aGRAAL: the engine and K4's aGRAAL core from the same companion point reach the
+    # optimum at the same iteration; the engine's own draw reaches the cubic minimum;
+    # the cubic driver wrote its aGRAAL row
+    (n12, f12), (n13, f13), (n14, f14) = got["agraal"]
+    assert n12 == n13 < 5000 and abs(f12 - optimum) < 1e-9 * optimum and abs(f13 - f12) < 1e-12
+    assert n14 < 2000 and abs(f14 - f3) < 1e-9 * abs(f3)
+    rows = tlog.read_jsonl(tmp_path / "heart_scale.jsonl")
+    assert "aGRAAL" in {r.get("method") for r in rows if "it" in r}
 
 
 # -- (h) chip_smoke.py ---------------------------------------------------------

@@ -470,7 +470,7 @@ def test_logreg_refuses_a_bad_m_true(entry, m_true):
 # (30 iterations at maxit 60) agreed to the end, trial counts and all
 BT_NAMES = [name for name, _, _ in tdriver.BT_ROWS]
 DRIVER_HORIZON = {None: 20, "PGM (1/Lf)": 60, "Nesterov (fixed)": 30, "AdaPGM (MM)": 25,
-                  "AdaPGM (Ours)": 20, **{name: 30 for name in BT_NAMES}}
+                  "AdaPGM (Ours)": 20, **{name: 30 for name in BT_NAMES}, "aGRAAL": 20}
 RULE_NAMES = [name for name, _, _ in tdriver.RESIDENT_ROWS]
 
 
@@ -494,11 +494,11 @@ def test_driver_jsonl_matches_jax(tmp_path, capsys, no_download, path):
     capsys.readouterr()
     tdriver.main(["--outdir", str(tmp_path / "torch"), "--device", "cpu", *args])
     out = capsys.readouterr().out
-    assert "skipping rows not ported yet: aGRAAL\n" in out and "falling back" not in out
+    assert "skipping rows not ported yet" not in out and "falling back" not in out
     jrows = tlog.read_jsonl(tmp_path / "jax" / "heart_scale.jsonl")
     trows = tlog.read_jsonl(tmp_path / "torch" / "heart_scale.jsonl")
     jby, tby = _by_method(jrows), _by_method(trows)
-    assert list(tby) == RULE_NAMES[:2] + BT_NAMES + RULE_NAMES[2:]
+    assert list(tby) == list(jby) == RULE_NAMES[:2] + BT_NAMES + RULE_NAMES[2:] + ["aGRAAL"]
     # the ground truth is logged with method null (the JAX package's native
     # sink drops the key instead; its Python writer writes null)
     assert trows[0]["method"] is None and list(trows[0])[0] == "method"
@@ -515,17 +515,16 @@ def test_driver_jsonl_matches_jax(tmp_path, capsys, no_download, path):
                     assert rt[k] == v, (name, k)
     tmeta = [r for r in trows if "it" not in r]
     jmeta = [r for r in jrows if "it" not in r]
-    names = ["(ground truth)"] + RULE_NAMES[1:2] + BT_NAMES + RULE_NAMES[2:]
+    names = ["(ground truth)"] + RULE_NAMES[1:2] + BT_NAMES + RULE_NAMES[2:] + ["aGRAAL"]
     if path == "resident":
         assert list(tmeta[0]) == ["grid_total_s"] and list(tmeta[0]["grid_total_s"]) == [
             "bt sweep", "rule sweep"] == list(jmeta[0]["grid_total_s"])
         tmeta, jmeta = tmeta[1:], jmeta[1:]
         # each sweep's rows share its wall, the backtracking rows first (as in JAX)
-        names = BT_NAMES + ["(ground truth)"] + RULE_NAMES[1:]
+        names = BT_NAMES + ["(ground truth)"] + RULE_NAMES[1:] + ["aGRAAL"]
     assert [list(r) for r in tmeta] == [list(r) for r in jmeta] == [
         ["wall_s", "fast_path", "fast_methods"], ["data_source"]]
-    assert list(tmeta[0]["wall_s"]) == names
-    assert list(jmeta[0]["wall_s"]) == names + ["aGRAAL"]
+    assert list(tmeta[0]["wall_s"]) == list(jmeta[0]["wall_s"]) == names
     assert tmeta[0]["fast_path"] == jmeta[0]["fast_path"] == path
     assert tmeta[0]["fast_methods"] == (sorted(names) if path == "resident" else [])
     assert tmeta[1] == jmeta[1] == {"data_source": "synthetic"}

@@ -185,13 +185,14 @@ def test_resident_rejects_unknown_menu_entries(kw, exc):
 
 MENU = ("PGM (fixed)", "PGM (backtracking)-(xi=1.0)", "PGM (backtracking)-(xi=1.5)",
         "PGM (backtracking)-(xi=2.0)", "Nesterov (backtracking)", "Nesterov (fixed)", "AdaPGM (MM)",
-        "AdaPGM (Ours)")
+        "AdaPGM (Ours)", "aGRAAL")
 # the engine horizons of tests/test_torch_engine.py; the momentum row does not
 # amplify (tests/test_torch_sweep.py), so it is held over all 300 iterations, and
 # the backtracking rows agreed with the engine's to the end (trial counts and all;
-# tests/test_torch_backtracking.py)
+# tests/test_torch_backtracking.py); aGRAAL's plain kernel and engine compute with
+# the same torch operations from the same companion point: equal over all 300
 DRIVER_HORIZON = {"PGM (fixed)": 300, "Nesterov (fixed)": 300, "AdaPGM (MM)": 60,
-                  "AdaPGM (Ours)": 20, **{name: 300 for name in MENU[1:5]}}
+                  "AdaPGM (Ours)": 20, **{name: 300 for name in MENU[1:5]}, "aGRAAL": 300}
 
 
 def _rows_by_method(path):

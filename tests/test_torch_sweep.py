@@ -334,11 +334,14 @@ def test_fixed_nesterov_refuses_what_is_not_ported(opt):
 
 
 def test_lasso_resident_is_one_sweep(tmp_path, monkeypatch):
-    """``--resident`` runs the four rule rows as one rule-sweep call and the
-    four backtracking rows as one backtracking-sweep call, and writes both
-    sweeps' walls in ``grid_total_s`` before the ``wall_s`` row."""
-    calls, bt_calls = [], []
+    """``--resident`` runs the four rule rows as one rule-sweep call, the four
+    backtracking rows as one backtracking-sweep call and aGRAAL as one
+    resident_agraal call, and writes the two sweeps' walls in
+    ``grid_total_s`` before the ``wall_s`` row (aGRAAL's wall is its own, as
+    in JAX)."""
+    calls, bt_calls, ag_calls = [], [], []
     sweep, bt_sweep = tlasso.resident_rule_sweep, tlasso.resident_bt_sweep
+    ag = tlasso.resident_agraal
 
     def counting(*args, **kw):
         calls.append(args[3])
@@ -348,24 +351,31 @@ def test_lasso_resident_is_one_sweep(tmp_path, monkeypatch):
         bt_calls.append(args[3])
         return bt_sweep(*args, **kw)
 
+    def ag_counting(*args, **kw):
+        ag_calls.append(args[3])
+        return ag(*args, **kw)
+
     monkeypatch.setattr(tlasso, "resident_rule_sweep", counting)
     monkeypatch.setattr(tlasso, "resident_bt_sweep", bt_counting)
+    monkeypatch.setattr(tlasso, "resident_agraal", ag_counting)
     tlasso.main(["--outdir", str(tmp_path), "--resident", "--sizes", "64x128x8", "--maxit", "50",
                  "--no-plot", "--device", "cpu"])
-    assert len(calls) == 1 and len(bt_calls) == 1
+    assert len(calls) == 1 and len(bt_calls) == 1 and len(ag_calls) == 1
+    # the companion point: noise on the 128 unpadded coordinates
+    assert bool((ag_calls[0] != 0).all())
     names = [name for name, _, _ in tlasso.RESIDENT_ROWS]
     bt_names = [name for name, _, _ in tlasso.BT_ROWS]
     np.testing.assert_array_equal(calls[0][:, 1:3], [[0, 0], [0, 1], [1, 0], [2, 0]])
     np.testing.assert_array_equal(bt_calls[0][:, 1:], [[1.0, 0], [1.5, 0], [2.0, 0], [1.0, 1]])
     rows = tlog.read_jsonl(tmp_path / "lasso_64_128_8.jsonl")
     methods = [r["method"] for r in rows if r.get("method")]
-    assert list(dict.fromkeys(methods)) == names[:1] + bt_names + names[1:]
+    assert list(dict.fromkeys(methods)) == names[:1] + bt_names + names[1:] + ["aGRAAL"]
     grid, meta = rows[-2], rows[-1]
     assert list(grid) == ["grid_total_s"] and list(grid["grid_total_s"]) == ["bt sweep",
                                                                            "rule sweep"]
     assert list(meta) == ["wall_s", "fast_path", "fast_methods"]
-    assert list(meta["wall_s"]) == bt_names + names
-    assert meta["fast_methods"] == sorted(names + bt_names)
+    assert list(meta["wall_s"]) == bt_names + names + ["aGRAAL"]
+    assert meta["fast_methods"] == sorted(names + bt_names + ["aGRAAL"])
     # each row's share of its sweep's wall; both columns are rounded to 1e-4 s
     for group, key in ((names, "rule sweep"), (bt_names, "bt sweep")):
         total = grid["grid_total_s"][key]
