@@ -1,8 +1,9 @@
 """adaprox_tpu_torch: the PyTorch + CUDA port of ``adaprox_tpu``.
 
-The adaptive proximal-gradient family (AdaPGM) for
+The adaptive proximal-gradient family (AdaPGM) and the adaptive
+primal-dual method (AdaPDM) for
 
-    minimize_x  f(x) + g(x)
+    minimize_x  f(x) + g(x) + h(Ax)
 
 on one NVIDIA H100, with hand-written Hopper kernels where the JAX package
 had Pallas TPU kernels. The JAX package stays the reference: module paths
@@ -10,21 +11,25 @@ mirror it, and the tests hold each piece to its JAX counterpart on the same
 numpy inputs. This package imports torch and numpy, never jax.
 
 Layout:
-  ops/         prox functions, smooth oracles, the accumulation policy, the
-               fused oracles K1 (least squares) and K3 (logistic), the
-               whole-solve kernels K2 (one solve) and K2c (the rule sweep),
-               the backtracking whole-solve kernels K4 and K4b (its sweep),
-               and K4's aGRAAL kernel
+  ops/         prox functions and conjugates, smooth oracles, the dense
+               operator and the accumulation policy, the fused oracles K1
+               (least squares) and K3 (logistic), the whole-solve kernels K2
+               (one solve) and K2c (the rule sweep), the backtracking
+               whole-solve kernels K4 and K4b (its sweep), K4's aGRAAL kernel,
+               and the dual-SVM primal-dual kernels K6a, K6b (the t-sweep) and
+               K6d (Condat-Vu)
   csrc/        CUDA C++ sources of the kernels
-  solvers/     stepsize rules, counters/records, the proximal-gradient engine,
-               fixed-step Nesterov, backtracking PG and Nesterov, aGRAAL
-  models/      objectives (least squares, logistic, the cubic model, the
-               worst-case quadratic) and problem generators
+  solvers/     stepsize rules, counters/records, the primal-dual engine (its
+               proximal-gradient case and Condat-Vu), fixed-step Nesterov,
+               backtracking PG and Nesterov, aGRAAL
+  models/      objectives (least squares, logistic, the quadratic and its
+               factored form, the cubic model, the worst-case quadratic) and
+               problem generators
   utils/       JSONL telemetry, timing on the card, the LIBSVM loader, the
                datasets (with their synthetic fallback) and a numpy copy of
                JAX's normal draw
   experiments/ the lasso, sparse logistic regression, cubic-regularized
-               logistic and Nesterov worst-case drivers
+               logistic, Nesterov worst-case and dual SVM drivers
   convert.py   the JAX side's problem and rule fields, carried over
 
 Importing the package sets full-f32 matrix products on the card: TF32 off
@@ -39,7 +44,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from .ops.prox import Zero, L1Norm  # noqa: E402
+from .ops.prox import Zero, L1Norm, IndZero, IndBox, MoreauConjugate, conjugate  # noqa: E402
+from .ops.linops import DenseOperator, frobenius_norm  # noqa: E402
 from .ops.oracles import SmoothOracle  # noqa: E402
 from .ops.kernels import (  # noqa: E402
     fused_logistic_value_grad,
@@ -54,6 +60,13 @@ from .ops.resident_bt import (  # noqa: E402
     resident_bt_records,
     resident_bt_sweep,
 )
+from .ops.resident_pd import (  # noqa: E402
+    resident_adapdm_dsvm,
+    resident_adapdm_dsvm_sweep,
+    resident_cv_dsvm,
+    resident_cv_records,
+    resident_pd_records,
+)
 from .ops.resident import (  # noqa: E402
     resident_adapgm,
     resident_adapgm_l1,
@@ -63,7 +76,14 @@ from .ops.resident import (  # noqa: E402
     resident_supported,
     rule_rows,
 )
-from .models.objectives import Cubic, LeastSquares, LogisticLoss, WorstQuadratic  # noqa: E402
+from .models.objectives import (  # noqa: E402
+    Cubic,
+    FactoredQuadratic,
+    LeastSquares,
+    LogisticLoss,
+    Quadratic,
+    WorstQuadratic,
+)
 from .models.synthetic import LassoProblem, random_lasso  # noqa: E402
 from .solvers.rules import (  # noqa: E402
     Curvature,
@@ -76,6 +96,8 @@ from .solvers.common import Counters, Records, SolveResult  # noqa: E402
 from .solvers.primal_dual import (  # noqa: E402
     adaptive_primal_dual,
     adaptive_proxgrad,
+    condat_vu,
+    condat_vu_steps,
     fixed_proxgrad,
 )
 from .solvers.nesterov import fixed_nesterov  # noqa: E402
@@ -83,8 +105,11 @@ from .solvers.backtracking import backtracking_nesterov, backtracking_proxgrad  
 from .solvers.agraal import agraal  # noqa: E402
 from .convert import (  # noqa: E402
     cubic_from_numpy,
+    dsvm_from_numpy,
+    factored_from_numpy,
     lasso_from_numpy,
     logreg_from_numpy,
+    quadratic_from_numpy,
     rule_from_numpy,
     worst_from_numpy,
 )
@@ -93,20 +118,24 @@ __version__ = "0.1.0"
 
 __all__ = [
     # ops
-    "Zero", "L1Norm", "SmoothOracle", "fused_ls_value_grad", "ls_value_grad_plain",
+    "Zero", "L1Norm", "IndZero", "IndBox", "MoreauConjugate", "conjugate", "DenseOperator",
+    "frobenius_norm", "SmoothOracle", "fused_ls_value_grad", "ls_value_grad_plain",
     "fused_logistic_value_grad", "logistic_value_grad_plain",
     "resident_adapgm", "resident_adapgm_l1", "resident_logreg_l1", "resident_records",
     "resident_rule_sweep", "resident_supported", "rule_rows", "resident_backtracking",
     "resident_bt_sweep", "resident_bt_records", "resident_agraal", "resident_agraal_records",
+    "resident_adapdm_dsvm", "resident_adapdm_dsvm_sweep", "resident_cv_dsvm",
+    "resident_pd_records", "resident_cv_records",
     # models
-    "LeastSquares", "LogisticLoss", "Cubic", "WorstQuadratic", "LassoProblem", "random_lasso",
+    "LeastSquares", "LogisticLoss", "Quadratic", "FactoredQuadratic", "Cubic", "WorstQuadratic", "LassoProblem", "random_lasso",
     # rules
     "Curvature", "FixedStepsize", "MalitskyMishchenkoRule", "AdaPGMRule", "OurRule",
     # solvers
     "Counters", "Records", "SolveResult",
-    "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "fixed_nesterov",
+    "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "condat_vu",
+    "condat_vu_steps", "fixed_nesterov",
     "backtracking_proxgrad", "backtracking_nesterov", "agraal",
     # carried over from the JAX side
     "lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
-    "rule_from_numpy",
+    "quadratic_from_numpy", "factored_from_numpy", "dsvm_from_numpy", "rule_from_numpy",
 ]

@@ -9,12 +9,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .models.objectives import Cubic, LeastSquares, LogisticLoss, WorstQuadratic
+from .models.objectives import (Cubic, FactoredQuadratic, LeastSquares, LogisticLoss, Quadratic,
+                                WorstQuadratic)
 from .ops.prox import L1Norm
 from .solvers import rules
 
 __all__ = ["lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
-           "rule_from_numpy"]
+           "quadratic_from_numpy", "factored_from_numpy", "dsvm_from_numpy", "rule_from_numpy"]
 
 _RULES = {cls.__name__: cls for cls in
           (rules.FixedStepsize, rules.MalitskyMishchenkoRule, rules.AdaPGMRule)}
@@ -62,6 +63,39 @@ def worst_from_numpy(k, lip, n, *, device, dtype):
         raise ValueError(f"need 1 <= k <= n, got k={k}, n={n}")
     return WorstQuadratic(int(k), torch.as_tensor(float(np.asarray(lip)), dtype=dtype,
                                                   device=device))
+
+
+def quadratic_from_numpy(q_mat, q_vec, *, device, dtype):
+    """``Quadratic`` of 0.5 x'Qx + q'x on ``device``. ``dtype`` is the storage
+    dtype of Q (bf16 allowed); q takes ``dtype`` too unless it is bf16, where
+    it takes float32."""
+    vec_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+    return Quadratic(torch.as_tensor(np.asarray(q_mat), device=device).to(dtype),
+                     torch.as_tensor(np.asarray(q_vec), device=device).to(vec_dtype))
+
+
+def factored_from_numpy(b_mat, q_vec, *, device, dtype):
+    """``FactoredQuadratic`` of 0.5 x'(B B')x + q'x on ``device``, dtypes as
+    ``quadratic_from_numpy``."""
+    vec_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+    return FactoredQuadratic(torch.as_tensor(np.asarray(b_mat), device=device).to(dtype),
+                             torch.as_tensor(np.asarray(q_vec), device=device).to(vec_dtype))
+
+
+def dsvm_from_numpy(x, labels, big_c, *, device, dtype):
+    """The dual SVM of features ``x`` (N, d) and labels in {-1, +1}
+    (experiments/dual_svm/runme.jl:44-61): ``(f, g, h, A)`` with f =
+    ``FactoredQuadratic(B = D_y X, q = -1)``, g = ``IndBox(0, big_c)``, h =
+    ``IndZero`` and A = ``DenseOperator`` of the 1 x N row y', on ``device``
+    in ``dtype`` (B is formed in float64 on the host, then cast)."""
+    from .ops.linops import DenseOperator
+    from .ops.prox import IndBox, IndZero
+
+    lab = np.asarray(labels, dtype=np.float64)
+    dyx = lab[:, None] * np.asarray(x, dtype=np.float64)
+    f = factored_from_numpy(dyx, -np.ones(lab.shape[0]), device=device, dtype=dtype)
+    a = DenseOperator(torch.as_tensor(lab[None, :], device=device).to(f.q_vec.dtype))
+    return f, IndBox(0.0, float(big_c)), IndZero(), a
 
 
 def rule_from_numpy(kind, **fields):

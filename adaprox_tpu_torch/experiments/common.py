@@ -124,23 +124,29 @@ def add_agraal_row(sink, out, maxit):
 
 
 class Sink:
-    """JSONL sink + console echo for one experiment output file."""
+    """JSONL sink + console echo for one experiment output file. ``keys``
+    projects every record row onto those columns, as the reference's
+    ``get_logger(path, keys)`` does (experiments/logging.jl:24-27)."""
 
-    def __init__(self, path):
+    def __init__(self, path, keys=None):
         self.path = str(path)
+        self.keys = keys
         os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
         open(self.path, "w").close()  # truncate
 
     def emit_pseudo(self, row: dict):
         """A non-solver record (e.g. the known optimum, lasso runme.jl:79)."""
-        tlog.write_jsonl(self.path, [row])
+        tlog.write_jsonl(self.path, [row], keys=self.keys)
 
     def emit_meta(self, **meta):
-        """A metadata row (e.g. the drivers' wall_s)."""
+        """An unprojected metadata row (e.g. the drivers' wall_s)."""
         tlog.write_jsonl(self.path, [dict(meta)])
 
-    def add(self, result):
-        n, last = tlog.write_records_jsonl(self.path, result.records.numpy(), result.name)
+    def add(self, result, primal_dual=None):
+        """Write ``result``'s valid record rows; ``primal_dual`` picks the PD
+        schema (inferred from the A_evals column when None)."""
+        n, last = tlog.write_records_jsonl(self.path, result.records.numpy(), result.name,
+                                           primal_dual=primal_dual, keys=self.keys)
         if last is not None:
             tlog.echo_logstep_rows([last])
         return n

@@ -4,6 +4,7 @@ structs:
 
   * LeastSquares    experiments/lasso/runme.jl:16-27
   * LogisticLoss    experiments/sparse_logreg/runme.jl:18-39
+  * Quadratic, FactoredQuadratic  experiments/dual_svm/runme.jl:19-28
   * Cubic           experiments/cubic_sparse_logreg/runme.jl:26-32
   * WorstQuadratic  experiments/nesterov_worst_case/runme.jl:14-40
 """
@@ -14,10 +15,11 @@ import torch
 from torch import nn
 
 from ..ops import kernels
-from ..ops.linops import acc_dtype
+from ..ops.linops import acc_dtype, frobenius_norm
 from ..ops.oracles import SmoothOracle
 
-__all__ = ["LeastSquares", "LogisticLoss", "Cubic", "WorstQuadratic"]
+__all__ = ["LeastSquares", "LogisticLoss", "Quadratic", "FactoredQuadratic", "Cubic",
+           "WorstQuadratic"]
 
 
 class LeastSquares(nn.Module, SmoothOracle):
@@ -107,6 +109,68 @@ class LogisticLoss(nn.Module, SmoothOracle):
         diff = aux - self.y
         gw = torch.mv(self.x.to(acc_dtype(self.x, diff)).t(), diff) / self.y.shape[0]
         return torch.cat([gw, torch.mean(diff)[None]]).to(w.dtype)
+
+
+class Quadratic(nn.Module, SmoothOracle):
+    """f(x) = 0.5 x'Qx + q'x, with ``q_mat`` (n, n) and ``q_vec`` (n,) as
+    buffers; aux = Qx, grad = Qx + q. ``q_mat`` may be stored bf16; results
+    accumulate in the iterate dtype."""
+
+    def __init__(self, q_mat, q_vec):
+        super().__init__()
+        self.register_buffer("q_mat", q_mat)
+        self.register_buffer("q_vec", q_vec)
+
+    def forward(self, x):
+        return self.value(x)
+
+    def value_and_aux(self, x):
+        qx = torch.mv(self.q_mat.to(acc_dtype(self.q_mat, x)), x)
+        return 0.5 * torch.dot(x, qx) + torch.dot(x, self.q_vec), qx
+
+    def grad_from_aux(self, x, qx):
+        del x
+        return qx + self.q_vec
+
+    def bregman_from_aux(self, dx, aux, aux_prev):
+        # 0.5 dx'Q dx = 0.5 <dx, qx - qx_prev>, clamped at 0 (Q PSD in every use)
+        return torch.clamp_min(0.5 * torch.dot(dx, aux - aux_prev), 0.0)
+
+
+class FactoredQuadratic(nn.Module, SmoothOracle):
+    """f(x) = 0.5 x'(B B')x + q'x without the (m, m) Gram: aux = B (B' x), two
+    skinny matvecs, with ``b_mat`` (m, d) and ``q_vec`` (m,) as buffers. The
+    dual SVM's objective at scale (B = D_y X; the reference builds the Gram,
+    dual_svm/runme.jl:47-50). ``norm_q()`` is the Frobenius norm of the
+    implied Gram from the (d, d) B'B (||B B'||_F = ||B'B||_F), the
+    reference's Lf (runme.jl:56). ``b_mat`` may be stored bf16."""
+
+    def __init__(self, b_mat, q_vec):
+        super().__init__()
+        self.register_buffer("b_mat", b_mat)
+        self.register_buffer("q_vec", q_vec)
+
+    def forward(self, x):
+        return self.value(x)
+
+    def value_and_aux(self, x):
+        b = self.b_mat.to(acc_dtype(self.b_mat, x))
+        qx = torch.mv(b, torch.mv(b.t(), x))
+        return 0.5 * torch.dot(x, qx) + torch.dot(x, self.q_vec), qx
+
+    def grad_from_aux(self, x, qx):
+        del x
+        return qx + self.q_vec
+
+    def bregman_from_aux(self, dx, aux, aux_prev):
+        # 0.5 dx'BB'dx = 0.5 <dx, qx - qx_prev>, clamped at 0 (BB' PSD)
+        return torch.clamp_min(0.5 * torch.dot(dx, aux - aux_prev), 0.0)
+
+    def norm_q(self):
+        # the (d, d) Gram accumulated in >= f32: a bf16 sum over m ~ 8k terms is
+        # percent-level wrong, and this seeds every solver's Lf
+        b = self.b_mat.float() if self.b_mat.dtype == torch.bfloat16 else self.b_mat
+        return frobenius_norm(b.t() @ b)
 
 
 class Cubic(nn.Module, SmoothOracle):

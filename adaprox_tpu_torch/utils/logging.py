@@ -32,6 +32,7 @@ __all__ = [
     "read_jsonl",
     "is_logstep",
     "echo_logstep_rows",
+    "find_best",
 ]
 
 PG_KEYS = ["method", "it", "gamma", "norm_res", "objective",
@@ -127,3 +128,33 @@ def echo_logstep_rows(rows, base: int = 10, out=print):
         if is_logstep(int(row.get("it", 0)), base):
             stamp = time.strftime("%Y-%m-%d %H:%M:%S")
             out(f"[{stamp}] " + json.dumps(row))
+
+
+def find_best(groups: dict, names, objective_key: str, objective_target: float, duration_key):
+    """Pick the best hyperparameter variant of a method family
+    (experiments/logging.jl:48-67): among the runs whose final
+    ``objective_key`` reached ``objective_target``, the one with the smallest
+    duration (the max of ``duration_key``, a column name or a callable on the
+    rows); if none reached it, the one with the best final value. ``groups``
+    maps name -> list of record rows (dicts)."""
+    def duration(rows):
+        if callable(duration_key):
+            return max(duration_key(row) for row in rows)
+        return max(row[duration_key] for row in rows)
+
+    names = list(names)
+    best_name, rest = names[0], names[1:]
+    best_duration = -1.0
+    best_val = groups[best_name][-1][objective_key]
+    if best_val <= objective_target:
+        best_duration = duration(groups[best_name])
+    for name in rest:
+        dur = duration(groups[name])
+        val = groups[name][-1][objective_key]
+        if val <= objective_target and (dur < best_duration or best_duration < 0):
+            best_name = name
+            best_duration = dur
+        elif best_duration < 0 and val < best_val:
+            best_name = name
+            best_val = val
+    return best_name

@@ -5,9 +5,10 @@
 Phases, one line each, any failure exits non-zero:
   1. device:   a CUDA device is required; prints nvidia-smi's name and power limit
   2. build:    K1 (csrc/fused_ls.cu), K3 (csrc/fused_logistic.cu), K2/K2c
-               (csrc/resident_pg.cu), K4/K4b (csrc/resident_bt.cu) and K4's
-               aGRAAL core (csrc/resident_agraal.cu), one nvcc each, started
-               together, from this checkout's sources
+               (csrc/resident_pg.cu), K4/K4b (csrc/resident_bt.cu), K4's
+               aGRAAL core (csrc/resident_agraal.cu) and K6a/K6b/K6d
+               (csrc/resident_pd.cu), one nvcc each, started together, from
+               this checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
@@ -79,6 +80,20 @@ Phases, one line each, any failure exits non-zero:
                inputs (one solve, counted and timed, held against its plain
                version, two launches the same bits, F within its bound) and its
                iteration at 4096x1024 and 8x2176 beside K2's
+ 11. pd:       K6a, K6b and K6d (csrc/resident_pd.cu) against their plain
+               versions ([pd] lines) on the dual_svm driver's inputs:
+               svmguide3's dense 1280^2, heart_scale's 384^2 (f32 and bf16) and
+               mushrooms' factored 8192x128 (f32 and bf16), C 0.1 and 1, rows
+               over CPU-calibrated horizons, the padded coordinates exactly 0,
+               two launches the same bits; K6b's rows bit for bit against K6a
+               launches (dense) or one-row sweeps (factored) at tol 1e-5, maxit
+               10000; dual_svm --resident at its defaults on the three stand-ins
+               x C 0.1 and 1 (exactly one K6b and one K6d launch each, every
+               row's x in [0, C] with |y'x| within its CPU-calibrated bound, the
+               two launches timed on the driver's own inputs); K6a's own path
+               (one solve, counted); the engine path at --maxit 300 on
+               heart_scale and svmguide3 (no K6 launch); the PD iteration at
+               1280^2, 384^2 and 8192x128 beside K2's
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -282,6 +297,27 @@ BT_METHODS = ((1.0, False), (1.5, False), (2.0, False), (1.0, True))
 AGRAAL_HORIZON = {"lasso": {"given": 40, "secant": 30}, "logreg": {"given": 27, "secant": 19},
                   "mushrooms": {"given": 38, "secant": 44}, "worst": {"given": 28, "secant": 34}}
 AGRAAL_RTOL = 1e-3
+# K6a, K6b and K6d against their plain versions (phase 11), f32 on the card, tol -1.
+# Calibrated on the CPU with the plain versions in f32 against f64 on the dual_svm
+# driver's own inputs (the three stand-ins x C 0.1 and 1; experiments.dual_svm.
+# resident_inputs): the first iteration where an AdaPDM row's step size parted by
+# more than 1e-3 of its row's largest value came at 39 to 180 (heart_scale C 1, t =
+# 0.15, first), the residual rows at 77 or later, Condat-Vu's rows never in 300. The
+# AdaPDM rows are held to 1e-3 over 25 iterations, Condat-Vu's over 300.
+PD_HORIZON = {"adapdm": 25, "cv": 300}
+PD_RTOL = 1e-3
+PD_DATASETS = ("svmguide3", "mushrooms", "heart_scale")
+# |y'x| of the driver's rows at its defaults (maxit 10000, tol 1e-5), from the same
+# calibration: a converged row stops at norm_res <= tol, and norm_res >= |y'x| at the
+# check, so every f32 converged row read |y'x| <= 9.9e-6 (bound 2e-5); the rows that
+# run their 10000 iterations (t = 0.01 and the large t; Condat-Vu everywhere) read up
+# to these largest values, f32 or f64 (svmguide3 C 1: 0.0274 in f64, 0.0024 in f32):
+# bound 2x the largest.
+PD_CONVERGED_YX = 2e-5
+PD_YX_BOUND = {("heart_scale", 0.1): 0.018, ("heart_scale", 1.0): 0.51,
+               ("svmguide3", 0.1): 0.25, ("svmguide3", 1.0): 0.055,
+               ("mushrooms", 0.1): 0.19, ("mushrooms", 1.0): 4.8}
+PD_ENGINE_MAXIT = 300
 # peak rates of one H100 SXM (data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -1560,6 +1596,322 @@ def agraal_phase(resident, resident_bt, counting, dev, smi):
     return dict(launches=single[6], ms=1e3 * ag_s, plain_ms=1e3 * plain_s, bound=ag_bound)
 
 
+def pd_inputs(name, big_c, dev):
+    """The dual_svm driver's resident inputs for dataset ``name`` (its synthetic
+    stand-in) on the card, f32: the dense Gram or the factored B, the padded labels,
+    and the scalars the driver passes (norm_a, Condat-Vu's steps from Lf)."""
+    from adaprox_tpu_torch.experiments import dual_svm
+
+    x, y, _ = dual_svm.load(name)
+    dyx = y[:, None] * x
+    q, lab, factored = dual_svm.resident_inputs(dyx, y, torch.float32, dev)
+    norm_a = float(np.linalg.norm(y))
+    gamma, sigma = dual_svm.cv_steps(float(np.linalg.norm(dyx.T @ dyx)), norm_a)
+    return dict(q=q, lab=lab, factored=factored, n=len(y), y=y, norm_a=norm_a, gamma=gamma,
+                sigma=sigma, big_c=big_c)
+
+
+def pd_rows_err(got, want, horizon):
+    """Largest error of the history rows over ``horizon`` iterations, each relative
+    to its plain row's largest magnitude there."""
+    err = 0.0
+    for u, w in zip(got, want):
+        u, w = u.reshape(-1, u.shape[-1])[:, :horizon], w.reshape(-1, w.shape[-1])[:, :horizon]
+        err = max(err, float(((u - w).abs().amax(1) / w.abs().amax(1)).max()))
+    return err
+
+
+def pd_work(inp, numits, hist_len, rows):
+    """(bytes, flops) of a K6 launch on ``inp``: Q or B read once, the labels (and
+    the couplings) in, x, the stats and the histories out; 2 N^2 flops an iteration
+    dense (Q x), 4 N d factored (B'x, then B (B'x))."""
+    n, cols = inp["q"].shape
+    elt = inp["q"].element_size()
+    moved = elt * n * cols + 4 * n + 4 * rows + 4 * rows * n + 16 * rows + 8 * rows * hist_len
+    per_it = 4 * n * cols if inp["factored"] else 2 * n * n
+    return moved, per_it * sum(numits)
+
+
+def pd_checks(resident_pd, dev, smi):
+    """Phase 11, K6a, K6b and K6d against their plain versions on the card, on the
+    dual_svm driver's inputs: svmguide3's dense 1280^2, heart_scale's 384^2 (f32 and
+    bf16 Q) and mushrooms' factored 8192x128 (f32 and bf16 B), C 0.1 and 1; tol -1,
+    the rows over CPU-calibrated horizons, the padded coordinates exactly 0, two
+    launches the same bits. Returns the largest |x| error of each kernel on the f32
+    cases."""
+    from adaprox_tpu_torch.experiments.dual_svm import T_VALUES
+
+    cases = []
+    for name in PD_DATASETS:
+        for big_c in (0.1, 1.0):
+            cases.append((f"{name} C {big_c:g}", pd_inputs(name, big_c, dev)))
+    for name in ("heart_scale", "mushrooms"):
+        inp = dict(pd_inputs(name, 0.1, dev))
+        inp["q"] = inp["q"].to(torch.bfloat16)
+        cases.append((f"{name} C 0.1 bf16", inp))
+    errs = {"k6a": 0.0, "k6b": 0.0, "k6d": 0.0}
+    h_pd, h_cv = PD_HORIZON["adapdm"], PD_HORIZON["cv"]
+    for label, inp in cases:
+        q, lab, n, fac, big_c = inp["q"], inp["lab"], inp["n"], inp["factored"], inp["big_c"]
+        shape = f"{'B' if fac else 'Q'} {q.shape[0]}x{q.shape[1]}"
+        kw = dict(n_true=n, record=True, factored=fac)
+        args = (q, lab, big_c, T_VALUES, inp["norm_a"], -1.0, h_pd)
+        got = resident_pd.resident_adapdm_dsvm_sweep(*args, **kw)
+        again = resident_pd.resident_adapdm_dsvm_sweep(*args, **kw)
+        want = resident_pd.resident_adapdm_dsvm_sweep_plain(*args, **kw)
+        cv_args = (q, lab, big_c, inp["gamma"], inp["sigma"], -1.0, h_cv)
+        got_cv = resident_pd.resident_cv_dsvm(*cv_args, **kw)
+        again_cv = resident_pd.resident_cv_dsvm(*cv_args, **kw)
+        want_cv = resident_pd.resident_cv_dsvm_plain(*cv_args, **kw)
+        torch.cuda.synchronize()
+        same = (all(torch.equal(u, w) for u, w in zip(got[:4], again[:4]))
+                and all(torch.equal(u, w) for u, w in zip(got[4:], again[4:]))
+                and all(torch.equal(u, w) for u, w in zip(got_cv[:4], again_cv[:4]))
+                and all(torch.equal(u, w) for u, w in zip(got_cv[4], again_cv[4])))
+        err_b, err_d = pd_rows_err(got[4:], want[4:], h_pd), pd_rows_err(got_cv[4], want_cv[4],
+                                                                          h_cv)
+        xb = float((got[0] - want[0]).abs().max())
+        xd = float((got_cv[0] - want_cv[0]).abs().max())
+        pad_zero = not bool(got[0][:, n:].any()) and not bool(got_cv[0][n:].any())
+        numits_ok = (got[1].tolist() == [h_pd] * len(T_VALUES) and int(got_cv[1]) == h_cv)
+        line = (f"[pd] {label} {shape}: K6b rows over {h_pd} it rel err {err_b:.2e}, x abs err "
+                f"{xb:.2e}; K6d rows over {h_cv} it rel err {err_d:.2e}, x abs err {xd:.2e}")
+        ok_a = True
+        if not fac:
+            t = T_VALUES[1]
+            one = resident_pd.resident_adapdm_dsvm(q, lab, big_c, t, inp["norm_a"], -1.0, h_pd,
+                                                   n_true=n)
+            one_want = resident_pd.resident_adapdm_dsvm_plain(q, lab, big_c, t, inp["norm_a"],
+                                                              -1.0, h_pd, n_true=n)
+            xa = float((one[0] - one_want[0]).abs().max())
+            ok_a = (int(one[1]) == h_pd and xa <= PD_RTOL * float(one_want[0].abs().max())
+                    and not bool(one[0][n:].any()))
+            line += f"; K6a (t={t}) x abs err {xa:.2e}"
+            if "bf16" not in label:
+                errs["k6a"] = max(errs["k6a"], xa)
+        if "bf16" not in label:
+            errs["k6b"], errs["k6d"] = max(errs["k6b"], xb), max(errs["k6d"], xd)
+        print(f"{line} (tol {PD_RTOL:g}; CPU-calibrated horizons); padded coordinates stay 0: "
+              f"{pad_zero}; two launches the same bits: {same} ({smi})", flush=True)
+        check(numits_ok and same and pad_zero and ok_a and err_b <= PD_RTOL
+              and err_d <= PD_RTOL and xb <= PD_RTOL * float(want[0].abs().max())
+              and xd <= PD_RTOL * float(want_cv[0].abs().max()),
+              f"K6 {label} disagrees with its plain version")
+    return errs
+
+
+def pd_phase(resident, resident_pd, ref, counting, dev, smi):
+    """Phase 11: K6b's rows bit for bit against single launches; dual_svm --resident
+    at its defaults on the three stand-ins x C 0.1 and 1 (one K6b and one K6d launch
+    each, every row's x in the box and |y'x| within its bound), the K6b sweep's and
+    K6d's times on each; K6a's own path (one solve, counted); the engine path at
+    --maxit 300; the PD iteration beside K2's. Returns the kernels line's
+    measurements."""
+    from adaprox_tpu_torch.experiments import dual_svm
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+    from adaprox_tpu_torch.utils.profiling import timed
+
+    zero_counts, read_counts = counting
+    k6 = (resident_pd.resident_adapdm_dsvm, resident_pd.resident_adapdm_dsvm_sweep,
+          resident_pd.resident_cv_dsvm)
+
+    def k6_counts():
+        return tuple(f.launches for f in k6)
+
+    t_values = dual_svm.T_VALUES
+    # K6b's rows against single launches at the driver's settings (tol 1e-5, maxit
+    # 10000): a dense row is its K6a launch, a factored row its one-row sweep
+    for name in PD_DATASETS:
+        inp = pd_inputs(name, 0.1, dev)
+        q, lab, n, fac = inp["q"], inp["lab"], inp["n"], inp["factored"]
+        kw = dict(n_true=n, factored=fac)
+        sweep = resident_pd.resident_adapdm_dsvm_sweep(q, lab, 0.1, t_values, inp["norm_a"], 1e-5,
+                                                       10000, **kw)
+        same = True
+        for j, t in enumerate(t_values):
+            if fac:
+                one = [v[0] for v in resident_pd.resident_adapdm_dsvm_sweep(
+                    q, lab, 0.1, [t], inp["norm_a"], 1e-5, 10000, **kw)]
+            else:
+                one = resident_pd.resident_adapdm_dsvm(q, lab, 0.1, t, inp["norm_a"], 1e-5, 10000,
+                                                       n_true=n)
+            same &= all(torch.equal(u, w[j]) for u, w in zip(one, sweep))
+        print(f"[pd] K6b rows bit for bit against {'one-row sweeps' if fac else 'K6a launches'}"
+              f", {name} C 0.1 tol 1e-5 maxit 10000 (numit {sweep[1].tolist()}): {same} "
+              f"({smi})", flush=True)
+        check(same, f"K6b rows on {name} differ from their single launches")
+
+    # dual_svm --resident at its defaults: each (dataset, C) one K6b and one K6d launch
+    # and nothing else; the kernels' x captured from the driver's own calls
+    captured = {}
+    real_sweep, real_cv = dual_svm.resident_adapdm_dsvm_sweep, dual_svm.resident_cv_dsvm
+
+    def sweep_capture(*args, **kw):
+        out = real_sweep(*args, **kw)
+        captured["sweep"] = (args, kw, out)
+        return out
+
+    def cv_capture(*args, **kw):
+        out = real_cv(*args, **kw)
+        captured["cv"] = (args, kw, out)
+        return out
+
+    meas = {}
+    names = [f"AdaPDM (t={t})" for t in t_values] + ["Condat-Vu"]
+    dual_svm.resident_adapdm_dsvm_sweep, dual_svm.resident_cv_dsvm = sweep_capture, cv_capture
+    try:
+        for name in PD_DATASETS:
+            for big_c in (0.1, 1.0):
+                outdir = os.path.join("results", "chip_smoke", "dual_svm")
+                zero_counts()
+                dual_svm.main(["--resident", "--datasets", name, "--C", str(big_c), "--device",
+                               "cuda", "--outdir", outdir, "--no-plot"])
+                torch.cuda.synchronize()
+                counts, others = k6_counts(), read_counts()
+                rows = read_jsonl(os.path.join(outdir, f"{name}_C_{big_c}.jsonl"))
+                order = list(dict.fromkeys(r["method"] for r in rows if "it" in r))
+                keys_ok = all(list(r) == dual_svm.KEYS for r in rows if "it" in r)
+                meta = rows[-2]
+                s_args, s_kw, s_out = captured["sweep"]
+                c_args, c_kw, c_out = captured["cv"]
+                xs = torch.cat([s_out[0], c_out[0][None]]).cpu()
+                conv = s_out[3].tolist() + [bool(c_out[3])]
+                numits = s_out[1].tolist() + [int(c_out[1])]
+                n = s_kw["n_true"]
+                y = torch.as_tensor(dual_svm.load(name)[1], dtype=torch.float64)
+                yx = (xs[:, :n].double() @ y).abs()
+                # the clamp's upper end is C in f32 (0.1 rounds up to 0.10000000149)
+                box = bool((xs >= 0).all() and (xs <= torch.tensor(big_c)).all()
+                           and not xs[:, n:].any())
+                yx_bound = PD_YX_BOUND[(name, big_c)]
+                yx_ok = all(v <= (PD_CONVERGED_YX if c else yx_bound)
+                            for v, c in zip(yx.tolist(), conv))
+                # the CUDA-event times of the two launches on the driver's own inputs (the
+                # driver's run loaded the library: one call each)
+                sweep_ms, _ = once_ms(lambda: real_sweep(*s_args, **s_kw))
+                cv_ms, _ = once_ms(lambda: real_cv(*c_args, **c_kw))
+                inp = dict(q=s_args[0], factored=s_kw["factored"])
+                form = f"{'factored B' if inp['factored'] else 'dense Q'} {tuple(inp['q'].shape)}"
+                hl = resident_pd.hist_len(10000)
+                b_sweep = bound(*pd_work(inp, numits[:-1], hl, len(t_values)))
+                b_cv = bound(*pd_work(inp, numits[-1:], hl, 1))
+                yx_conv = max([v for v, c in zip(yx.tolist(), conv) if c], default=0.0)
+                meas[(name, big_c)] = dict(counts=counts, sweep_ms=sweep_ms, cv_ms=cv_ms,
+                                           bound_sweep=b_sweep, bound_cv=b_cv, numits=numits,
+                                           args=(s_args, s_kw, c_args, c_kw))
+                print(f"[pd] dual_svm --resident {name} C {big_c:g} ({form} f32, maxit 10000, "
+                      f"tol 1e-5): numit {numits}, converged {sum(conv)} of 13; max |y'x| of the "
+                      f"converged rows {yx_conv:.2e} (bound {PD_CONVERGED_YX:g}), of all "
+                      f"{float(yx.max()):.2e} (bound {yx_bound:g}); "
+                      f"x in [0, C], padded 0: {box} | K6a/K6b/K6d launches {counts}, others "
+                      f"{others} | K6b sweep {sweep_ms:.4f} ms (bound {b_sweep[0]:.4f} ms, "
+                      f"{b_sweep[1]}), K6d {cv_ms:.4f} ms (bound {b_cv[0]:.4f} ms) | wall_s "
+                      f"{meta['wall_s']} ({smi})", flush=True)
+                check(counts == (0, 1, 1) and others == (0,) * 7 and order == names and keys_ok
+                      and meta["fast_path"] == "resident"
+                      and meta["fast_methods"] == dual_svm.FAST_METHODS and box and yx_ok
+                      and all(math.isfinite(r["norm_res"]) for r in rows if "it" in r),
+                      f"dual_svm --resident {name} C {big_c}: bad run")
+    finally:
+        dual_svm.resident_adapdm_dsvm_sweep, dual_svm.resident_cv_dsvm = real_sweep, real_cv
+
+    # the plain versions on heart_scale C 0.1, the kernels line's case (one call each:
+    # the sweep's takes tens of seconds, a host sync an iteration)
+    s_args, s_kw, c_args, c_kw = meas[("heart_scale", 0.1)]["args"]
+    plain_sweep_ms, _ = once_ms(lambda: resident_pd.resident_adapdm_dsvm_sweep_plain(*s_args,
+                                                                                     **s_kw))
+    plain_cv_ms, _ = once_ms(lambda: resident_pd.resident_cv_dsvm_plain(*c_args, **c_kw))
+    print(f"[pd] plain versions on the card, heart_scale C 0.1 at the driver's defaults: the "
+          f"sweep {plain_sweep_ms:.2f} ms, Condat-Vu {plain_cv_ms:.2f} ms ({smi})", flush=True)
+
+    # K6a's own path: one AdaPDM solve on heart_scale C 0.1 (t = 0.15, which converges),
+    # counted, as a user calls it
+    q, lab, _, _, na, tol, maxit = s_args
+    t_v, n = 0.15, s_kw["n_true"]
+    zero_counts()
+    one = resident_pd.resident_adapdm_dsvm(q, lab, 0.1, t_v, na, tol, maxit, n_true=n)
+    torch.cuda.synchronize()
+    single = k6_counts()
+    check(single == (1, 0, 0) and read_counts() == (0,) * 7,
+          f"K6a single solve: launches {single}")
+    k6a_s, one = timed(lambda: resident_pd.resident_adapdm_dsvm(q, lab, 0.1, t_v, na, tol, maxit,
+                                                                n_true=n), reps=3)
+    k6a_plain_ms, one_plain = once_ms(lambda: resident_pd.resident_adapdm_dsvm_plain(
+        q, lab, 0.1, t_v, na, tol, maxit, n_true=n))
+    k6a_bound = bound(*pd_work(dict(q=q, factored=False), [int(one[1])], 0, 1))
+    print(f"[pd] K6a heart_scale C 0.1 t {t_v} tol 1e-5: solve {1e3 * k6a_s:.4f} ms (CUDA events, "
+          f"best of 3), numit {int(one[1])} (plain {int(one_plain[1])}), converged {bool(one[3])} "
+          f"| plain {k6a_plain_ms:.2f} ms | bound {k6a_bound[0]:.5f} ms ({k6a_bound[1]}) | "
+          f"launches {single} ({smi})", flush=True)
+    check(bool(one[3]) and not bool(one[0][n:].any()), "K6a single solve: not converged")
+
+    # the engine path, depth cut to --maxit 300 (it syncs every iteration): no K6 launch
+    outdir = os.path.join("results", "chip_smoke", "dual_svm_engine")
+    zero_counts()
+    dual_svm.main(["--datasets", "heart_scale,svmguide3", "--maxit", str(PD_ENGINE_MAXIT),
+                   "--device", "cuda", "--outdir", outdir, "--no-plot"])
+    torch.cuda.synchronize()
+    counts, others = k6_counts(), read_counts()
+    for name in ("heart_scale", "svmguide3"):
+        for big_c in (0.1, 1.0):
+            rows = read_jsonl(os.path.join(outdir, f"{name}_C_{big_c}.jsonl"))
+            last = {r["method"]: r for r in rows if "it" in r}
+            res = ", ".join(f"{r['norm_res']:.3e}" for r in last.values())
+            print(f"[pd] dual_svm {name} C {big_c:g} --maxit {PD_ENGINE_MAXIT} (engine path, "
+                  f"depth cut from 10000) f32: numit {[r['it'] for r in last.values()]}, "
+                  f"norm_res {res} | K6 "
+                  f"launches {counts}, others {others} | wall_s {rows[-2]['wall_s']} ({smi})",
+                  flush=True)
+            check(list(last) == names and all(math.isfinite(r["norm_res"]) for r in last.values())
+                  and counts == (0, 0, 0) and others == (0,) * 7,
+                  f"dual_svm engine path {name} C {big_c}: bad run")
+
+    # the PD iteration: tol -1, 1000 iterations, one-row sweeps and Condat-Vu, dense
+    # 1280^2 (svmguide3's Q) and factored 8192x128 (mushrooms' B), beside K2's
+    # fixed-rule iteration at 4096x1024 and 8x2176 in the same call
+    us = {}
+    for name in ("svmguide3", "heart_scale", "mushrooms"):
+        inp = pd_inputs(name, 0.1, dev)
+        q, lab, n, fac = inp["q"], inp["lab"], inp["n"], inp["factored"]
+        shape = f"{'B' if fac else 'Q'} {q.shape[0]}x{q.shape[1]}"
+        for label, fn in (
+                ("K6b one-row sweep", lambda: resident_pd.resident_adapdm_dsvm_sweep(
+                    q, lab, 0.1, [0.5], inp["norm_a"], -1.0, 1000, n_true=n, factored=fac)),
+                ("K6b one-row sweep, record", lambda: resident_pd.resident_adapdm_dsvm_sweep(
+                    q, lab, 0.1, [0.5], inp["norm_a"], -1.0, 1000, n_true=n, factored=fac,
+                    record=True)),
+                ("K6d", lambda: resident_pd.resident_cv_dsvm(
+                    q, lab, 0.1, inp["gamma"], inp["sigma"], -1.0, 1000, n_true=n,
+                    factored=fac))):
+            secs, res = timed(fn, reps=3)
+            check(int(res[1].reshape(-1)[0]) == 1000, f"{label} {shape}: not 1000 iterations")
+            us[f"{label} {shape}"] = 1e3 * secs
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for m_, n_ in ((4096, 1024), (8, 2176)):
+        if (m_, n_) == (4096, 1024):
+            a_, b_ = ref["a"], ref["b"]
+        else:
+            a_ = torch.randn(m_, n_, generator=gen, device=dev) / n_
+            b_ = torch.randn(m_, generator=gen, device=dev)
+        gam_ = 1.0 / float((a_ * a_).sum())
+        x0_ = torch.zeros(n_, device=dev)
+        secs, res = timed(lambda: resident.resident_adapgm(
+            a_, b_, x0_, gam_, 0.0, 1000, prox_kind="zero", rule_kind="fixed"), reps=3)
+        check(int(res[1]) == 1000, f"K2 {m_}x{n_}: not 1000 iterations")
+        us[f"K2 fixed {m_}x{n_}"] = 1e3 * secs
+    print(f"[pd] iteration, 1000 iterations, tol -1, f32: "
+          f"{'; '.join(f'{k} {v:.3f} us' for k, v in us.items())} ({smi})", flush=True)
+
+    case = meas[("heart_scale", 0.1)]
+    return dict(
+        k6a=dict(launches=single[0], ms=1e3 * k6a_s, plain_ms=k6a_plain_ms, bound=k6a_bound),
+        k6b=dict(launches=case["counts"][1], ms=case["sweep_ms"], plain_ms=plain_sweep_ms,
+                 bound=case["bound_sweep"]),
+        k6d=dict(launches=case["counts"][2], ms=case["cv_ms"], plain_ms=plain_cv_ms,
+                 bound=case["bound_cv"]))
+
+
 def main():
     # 1. device --------------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: needs a CUDA device")
@@ -1574,25 +1926,26 @@ def main():
     from adaprox_tpu_torch.experiments import lasso
     from adaprox_tpu_torch.experiments.common import pad_tiles
     from adaprox_tpu_torch.models.synthetic import random_lasso
-    from adaprox_tpu_torch.ops import kernels, resident, resident_bt
+    from adaprox_tpu_torch.ops import kernels, resident, resident_bt, resident_pd
     from adaprox_tpu_torch.utils.logging import read_jsonl
     from adaprox_tpu_torch.utils.profiling import timed
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
+    with ThreadPoolExecutor(6) as pool:
         builds = [(name, pool.submit(build)) for name, build in
                   (("K1", kernels.build_library),
                    ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
                    ("K2/K2c", resident.build_library),
                    ("K4/K4b", resident_bt.build_library),
-                   ("K4 (aGRAAL)", resident_bt.build_agraal_library))]
+                   ("K4 (aGRAAL)", resident_bt.build_agraal_library),
+                   ("K6a/K6b/K6d", resident_pd.build_library))]
         for name, fut in builds:
             lib_path = fut.result()
             regs = ptxas_report(lib_path.with_suffix(".log").read_text())
             print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
                   f"bytes: {'; '.join(regs)})", flush=True)
-    print(f"[build] all five in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all six in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -1637,6 +1990,8 @@ def main():
         resident.resident_rule_sweep.launches = kernels.fused_logistic_value_grad.launches = 0
         resident_bt.resident_backtracking.launches = resident_bt.resident_bt_sweep.launches = 0
         resident_bt.resident_agraal.launches = 0
+        resident_pd.resident_adapdm_dsvm.launches = 0
+        resident_pd.resident_adapdm_dsvm_sweep.launches = resident_pd.resident_cv_dsvm.launches = 0
 
     def read_counts():
         """Launches of (K1, K2, K2c, K3, K4, K4b, K4 (aGRAAL)) since zero_counts()."""
@@ -1821,6 +2176,10 @@ def main():
     ag_err = agraal_checks(resident_bt, ref, logreg, cubic_models, dev, smi)
     ag_meas = agraal_phase(resident, resident_bt, (zero_counts, read_counts), dev, smi)
 
+    # 11. the dual-SVM primal-dual kernels ---------------------------------------------
+    pd_err = pd_checks(resident_pd, dev, smi)
+    pd_meas = pd_phase(resident, resident_pd, ref, (zero_counts, read_counts), dev, smi)
+
     head = measured["16384x16384 f32"]
     k3_head = k3_meas["16384x16384 f32"]
     hm = hn = HEADLINE
@@ -1883,7 +2242,15 @@ def main():
         "launches": counts["resident"][6], "max_abs_err": ag_err,
         "ms": ag_meas["ms"], "plain_ms": ag_meas["plain_ms"], "bound_ms": ag_meas["bound"][0],
         "bound_by": ag_meas["bound"][1], "library_ms": None,
-        "objectives": ["ls", "logreg", "cubic"]}]}))
+        "objectives": ["ls", "logreg", "cubic"]}] + [{
+        "name": name, "route": "cuda", "source": "adaprox_tpu_torch/csrc/resident_pd.cu",
+        "replaces": replaces, "launches": pd_meas[key]["launches"], "max_abs_err": pd_err[key],
+        "ms": pd_meas[key]["ms"], "plain_ms": pd_meas[key]["plain_ms"],
+        "bound_ms": pd_meas[key]["bound"][0], "bound_by": pd_meas[key]["bound"][1],
+        "library_ms": None} for name, replaces, key in (
+            ("resident_adapdm_dsvm", "adaprox_tpu/ops/resident.py:1388", "k6a"),
+            ("resident_adapdm_dsvm_sweep", "adaprox_tpu/ops/resident.py:1447", "k6b"),
+            ("resident_cv_dsvm", "adaprox_tpu/ops/resident.py:1284", "k6d"))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

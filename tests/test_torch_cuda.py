@@ -979,3 +979,172 @@ def test_k4_agraal_rejects_what_it_does_not_take(dev):
         trb.resident_agraal(a.t().contiguous().t(), b, x, x, 0.1, 0.0, 3)
     with pytest.raises(ValueError, match="square H"):
         trb.resident_agraal(a, b, x, x, 0.1, 0.0, 3, obj_kind="cubic", cube_c=1.0)
+
+
+# -- K6a, K6b and K6d, the dual-SVM primal-dual kernels -----------------------------------------
+
+# Rows against the plain version within 1e-3 of their largest value over 25 iterations: on
+# the CPU the plain version in f32 first parted from f64 by more than 1e-3 at iteration 39
+# to 180 on the dual_svm driver's inputs (the step sizes; the residuals and Condat-Vu's rows
+# not in 300; chip_smoke.py, PD_HORIZON); the card sums in another order than the plain
+# version.
+PD_HORIZON = 25
+PD_RTOL = 1e-3
+PD_TS = [0.05, 0.5, 2.0]
+
+
+def pd_case(dev, dtype, factored, n=300, d=20, seed=3):
+    """(q, labels, n_true, norm_a) of a dual SVM of n points, zero-padded to 384: the Gram
+    D_y X X' D_y (384, 384), or B = D_y X padded to (384, 128) when factored; q in
+    ``dtype`` storage, the labels f32 (zero on the padded coordinates)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)) / d**0.5
+    y = np.where(rng.standard_normal(n) >= 0, 1.0, -1.0)
+    dyx = y[:, None] * x
+    n_pad = 384
+    if factored:
+        q = np.zeros((n_pad, 128))
+        q[:n, :d] = dyx
+    else:
+        q = np.zeros((n_pad, n_pad))
+        q[:n, :n] = dyx @ dyx.T
+    lab = np.zeros(n_pad)
+    lab[:n] = y
+    return (torch.as_tensor(q, dtype=torch.float32, device=dev).to(dtype),
+            torch.as_tensor(lab, dtype=torch.float32, device=dev), n, float(np.linalg.norm(y)))
+
+
+def _pd_rows_close(got, want, horizon):
+    for u, w in zip(got, want):
+        u, w = u[..., :horizon], w[..., :horizon]
+        assert float((u - w).abs().max()) <= PD_RTOL * float(w.abs().max())
+
+
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6b_matches_plain_on_card(dev, dtype, factored):
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    q, lab, n, na = pd_case(dev, dtype, factored)
+    kw = dict(n_true=n, record=True, factored=factored)
+    before = tp.resident_adapdm_dsvm_sweep.launches
+    got = tp.resident_adapdm_dsvm_sweep(q, lab, 0.5, PD_TS, na, -1.0, PD_HORIZON, **kw)
+    torch.cuda.synchronize()
+    assert tp.resident_adapdm_dsvm_sweep.launches == before + 1
+    want = tp.resident_adapdm_dsvm_sweep_plain(q, lab, 0.5, PD_TS, na, -1.0, PD_HORIZON, **kw)
+    assert got[0].dtype == torch.float32 and got[4].shape == (3, PD_HORIZON)
+    assert got[1].tolist() == want[1].tolist() == [PD_HORIZON] * 3 and not bool(got[3].any())
+    _pd_rows_close(got[4:], want[4:], PD_HORIZON)
+    assert float((got[0] - want[0]).abs().max()) <= PD_RTOL * float(want[0].abs().max())
+    assert not bool(got[0][:, n:].any())  # the padded coordinates stay exactly 0
+
+
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6d_matches_plain_on_card(dev, dtype, factored):
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    q, lab, n, na = pd_case(dev, dtype, factored)
+    kw = dict(n_true=n, record=True, factored=factored)
+    gamma, sigma = 0.05, 0.99 / na
+    before = tp.resident_cv_dsvm.launches
+    got = tp.resident_cv_dsvm(q, lab, 0.5, gamma, sigma, -1.0, 200, **kw)
+    torch.cuda.synchronize()
+    assert tp.resident_cv_dsvm.launches == before + 1
+    want = tp.resident_cv_dsvm_plain(q, lab, 0.5, gamma, sigma, -1.0, 200, **kw)
+    assert int(got[1]) == int(want[1]) == 200 and got[4][0].shape == (200,)
+    # the fixed steps contract rounding: the whole run is held
+    _pd_rows_close(got[4], want[4], 200)
+    assert float((got[0] - want[0]).abs().max()) <= PD_RTOL * float(want[0].abs().max())
+    assert not bool(got[0][n:].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6b_dense_rows_are_k6a_launches_bit_for_bit(dev, dtype):
+    """A dense sweep row is its single K6a launch, bit for bit; a factored row its
+    one-row sweep; two launches give the same bits."""
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    q, lab, n, na = pd_case(dev, dtype, False)
+    sweep = tp.resident_adapdm_dsvm_sweep(q, lab, 0.5, PD_TS, na, 1e-4, 3000, n_true=n,
+                                          record=True)
+    again = tp.resident_adapdm_dsvm_sweep(q, lab, 0.5, PD_TS, na, 1e-4, 3000, n_true=n,
+                                          record=True)
+    assert all(torch.equal(u, w) for u, w in zip(sweep, again))
+    for j, t in enumerate(PD_TS):
+        one = tp.resident_adapdm_dsvm(q, lab, 0.5, t, na, 1e-4, 3000, n_true=n)
+        assert torch.equal(one[0], sweep[0][j]) and int(one[1]) == int(sweep[1][j])
+        assert torch.equal(one[2], sweep[2][j]) and bool(one[3]) == bool(sweep[3][j])
+    qf, labf, n, na = pd_case(dev, dtype, True)
+    sweep = tp.resident_adapdm_dsvm_sweep(qf, labf, 0.5, PD_TS, na, 1e-4, 3000, n_true=n,
+                                          factored=True)
+    for j, t in enumerate(PD_TS):
+        one = tp.resident_adapdm_dsvm_sweep(qf, labf, 0.5, [t], na, 1e-4, 3000, n_true=n,
+                                            factored=True)
+        assert all(torch.equal(u[0], w[j]) for u, w in zip(one, sweep))
+
+
+@pytest.mark.parametrize("factored", [False, True])
+def test_k6_converged_returns_the_checked_iterate(dev, factored):
+    """Converged at iteration k, the solve returns the x of the check: the x after k - 1
+    second halves, which a run capped at k - 1 iterations returns."""
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    q, lab, n, na = pd_case(dev, torch.float32, factored)
+    kw = dict(n_true=n, factored=factored)
+    x, numit, nres, conv = tp.resident_adapdm_dsvm_sweep(q, lab, 0.5, [0.5], na, 1e-3, 5000, **kw)
+    k = int(numit[0])
+    assert bool(conv[0]) and float(nres[0]) <= 1e-3 and k > 1
+    capped = tp.resident_adapdm_dsvm_sweep(q, lab, 0.5, [0.5], na, -1.0, k - 1, **kw)
+    assert torch.equal(capped[0], x)
+    x, numit, _, conv = tp.resident_cv_dsvm(q, lab, 0.5, 0.05, 0.99 / na, 1e-3, 20000, **kw)
+    assert bool(conv)
+    capped = tp.resident_cv_dsvm(q, lab, 0.5, 0.05, 0.99 / na, -1.0, int(numit) - 1, **kw)
+    assert torch.equal(capped[0], x)
+
+
+def test_k6_zero_iterations_and_refusals(dev):
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    q, lab, n, na = pd_case(dev, torch.float32, False)
+    x, numit, nres, conv = tp.resident_adapdm_dsvm(q, lab, 0.5, 1.0, na, 0.0, 0, n_true=n)
+    want = tp.resident_adapdm_dsvm_plain(q, lab, 0.5, 1.0, na, 0.0, 0, n_true=n)
+    assert int(numit) == 0 and float(nres) == float("inf") and not bool(conv)
+    assert torch.equal(x, want[0])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tp.resident_adapdm_dsvm(q.double(), lab, 0.5, 1.0, na, 0.0, 3)
+    with pytest.raises(TypeError, match="float32 labels"):
+        tp.resident_cv_dsvm(q, lab.double(), 0.5, 0.1, 0.1, 0.0, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tp.resident_adapdm_dsvm_sweep(q.t().contiguous().t()[:, :384], lab, 0.5, [1.0], na, 0.0,
+                                      3, factored=True)
+    with pytest.raises(ValueError, match="must be positive"):
+        tp.resident_adapdm_dsvm(q, lab, 0.5, 0.0, na, 0.0, 3)
+    with pytest.raises(ValueError, match="square"):
+        tp.resident_adapdm_dsvm(q[:, :128], lab, 0.5, 1.0, na, 0.0, 3)
+
+
+def test_dual_svm_resident_is_one_k6b_and_one_k6d_launch(dev, tmp_path):
+    """dual_svm --resident on heart_scale's stand-in (dense Q) at C 0.1 and 1: one K6b and
+    one K6d launch each, no K6a launch; the engine path launches none."""
+    from adaprox_tpu_torch.experiments import dual_svm
+    from adaprox_tpu_torch.ops import resident_pd as tp
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+
+    counters = (tp.resident_adapdm_dsvm, tp.resident_adapdm_dsvm_sweep, tp.resident_cv_dsvm)
+    before = [c.launches for c in counters]
+    dual_svm.main(["--resident", "--datasets", "heart_scale", "--maxit", "300", "--device",
+                   "cuda", "--outdir", str(tmp_path), "--no-plot"])
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 2, 2]
+    for big_c in ("0.1", "1.0"):
+        rows = read_jsonl(tmp_path / f"heart_scale_C_{big_c}.jsonl")
+        names = list(dict.fromkeys(r["method"] for r in rows if "it" in r))
+        assert names == [f"AdaPDM (t={t})" for t in dual_svm.T_VALUES] + ["Condat-Vu"]
+        assert all(list(r) == dual_svm.KEYS for r in rows if "it" in r)
+        assert rows[-2]["fast_path"] == "resident"
+    before = [c.launches for c in counters]
+    dual_svm.main(["--datasets", "heart_scale", "--C", "0.1", "--maxit", "20", "--device",
+                   "cuda", "--outdir", str(tmp_path / "engine"), "--no-plot"])
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 0, 0]

@@ -182,7 +182,8 @@ def test_rule_nan_latch_matches_jax():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(A=object(), y0=torch.zeros(3)), NotImplementedError),
+    # the dual branch runs since its port; resuming it is not ported
+    (dict(A=object(), y0=torch.zeros(3), resume_state=object()), NotImplementedError),
     (dict(resume_state=object()), NotImplementedError),
     (dict(scalar_dtype=torch.float64), NotImplementedError),
     (dict(it_cap=5), NotImplementedError),

@@ -219,11 +219,32 @@ ka = apt.resident_agraal(a, b, x0, xc, gam, 1e-8, 5000, p1=prob.lam)
 rd = apt.agraal(torch.zeros(14, dtype=torch.float64), f=fc, g=apt.Zero(), tol=1e-9, maxit=2000)
 ag = [[ra.numit, float(f.value(ra.x) + g(ra.x))], [int(ka[1]), float(f.value(ka[0]) + g(ka[0]))],
       [rd.numit, float(fc.value(rd.x))]]
+# the dual-SVM slice: the engine's dual branch and Condat-Vu, K6a (plain version) and
+# the driver on both paths
+from adaprox_tpu_torch.experiments import dual_svm
+xs, ys, _ = dual_svm.load("heart_scale")
+fq, gb, hz, ao = apt.dsvm_from_numpy(xs, ys, 0.1, device="cpu", dtype=torch.float64)
+na = float(np.linalg.norm(ys))
+z, zy = torch.zeros(270, dtype=torch.float64), torch.zeros(1, dtype=torch.float64)
+rp = apt.adaptive_primal_dual(z, zy, f=fq, g=gb, h=hz, A=ao, tol=1e-5, maxit=5000,
+                              rule=apt.AdaPGMRule.make(t=0.5, norm_a=na))
+rv = apt.condat_vu(z, zy, f=fq, g=gb, h=hz, A=ao, Lf=float(fq.norm_q()), tol=1e-5, maxit=200)
+qd, labd, _ = dual_svm.resident_inputs(ys[:, None] * xs, ys, torch.float64, "cpu")
+k6 = apt.resident_adapdm_dsvm(qd, labd, 0.1, 0.5, na, 1e-5, 5000, n_true=270)
+pd = [[rp.numit, float(fq.value(rp.x)), float(ys @ rp.x.numpy()), float(rp.x.min()),
+       float(rp.x.max())],
+      [int(k6[1]), float(fq.value(k6[0][:270])), float(ys @ k6[0][:270].numpy()),
+       float(k6[0].min()), float(k6[0].max())],
+      [rv.numit, float(fq.value(rv.x)), float(ys @ rv.x.numpy()), float(rv.x.min()),
+       float(rv.x.max())]]
+for path in ([], ["--resident"]):
+    dual_svm.main(["--device", "cpu", "--datasets", "heart_scale", "--C", "0.1", "--maxit", "40",
+                   "--no-plot", "--outdir", sys.argv[1] + "-dsvm" + "".join(path), *path])
 import adaprox_tpu_torch.experiments.resident_timing  # the card's timing script
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("jax", "jaxlib", "adaprox_tpu"))
 print(json.dumps({"leaked": leaked, "runs": out, "logreg": logreg, "source": src,
-                  "cubic": cubic, "bt": bt, "agraal": ag}))
+                  "cubic": cubic, "bt": bt, "agraal": ag, "pd": pd}))
 """
 
 
@@ -280,6 +301,16 @@ def test_port_runs_the_slice_without_jax(tmp_path):
     assert n14 < 2000 and abs(f14 - f3) < 1e-9 * abs(f3)
     rows = tlog.read_jsonl(tmp_path / "heart_scale.jsonl")
     assert "aGRAAL" in {r.get("method") for r in rows if "it" in r}
+    # the dual SVM: the engine's AdaPDM and K6a's plain version converge to the same
+    # feasible point; Condat-Vu stays in the box; the driver wrote both paths' JSONL
+    (n15, f15, e15, lo15, hi15), (n16, f16, e16, lo16, hi16), (n17, _, _, lo17, hi17) = got["pd"]
+    assert n15 < 5000 and n16 < 5000 and abs(n15 - n16) <= 0.1 * n15 and n17 == 200
+    assert abs(f16 - f15) < 1e-6 * abs(f15) and max(abs(e15), abs(e16)) < 1e-5
+    assert min(lo15, lo16, lo17) >= 0.0 and max(hi15, hi16, hi17) <= 0.1
+    for path in ("", "--resident"):
+        rows = tlog.read_jsonl(tmp_path.parent / (tmp_path.name + "-dsvm" + path)
+                               / "heart_scale_C_0.1.jsonl")
+        assert [r["method"] for r in rows if r.get("it") == 40][-1] == "Condat-Vu"
 
 
 # -- (h) chip_smoke.py ---------------------------------------------------------
