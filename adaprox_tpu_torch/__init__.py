@@ -16,12 +16,12 @@ Layout:
                (least squares) and K3 (logistic), the whole-solve kernels K2
                (one solve) and K2c (the rule sweep), the backtracking
                whole-solve kernels K4 and K4b (its sweep), K4's aGRAAL kernel,
-               and the dual-SVM primal-dual kernels K6a, K6b (the t-sweep) and
-               K6d (Condat-Vu)
+               the dual-SVM primal-dual kernels K6a, K6b (the t-sweep) and
+               K6d (Condat-Vu), and K6c (the Malitsky-Pock t-sweep)
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the primal-dual engine (its
                proximal-gradient case and Condat-Vu), fixed-step Nesterov,
-               backtracking PG and Nesterov, aGRAAL
+               backtracking PG and Nesterov, aGRAAL, Malitsky-Pock
   models/      objectives (least squares, logistic, the quadratic and its
                factored form, the cubic model, the worst-case quadratic) and
                problem generators
@@ -67,6 +67,7 @@ from .ops.resident_pd import (  # noqa: E402
     resident_cv_records,
     resident_pd_records,
 )
+from .ops.resident_mp import resident_mp_dsvm_sweep, resident_mp_records  # noqa: E402
 from .ops.resident import (  # noqa: E402
     resident_adapgm,
     resident_adapgm_l1,
@@ -103,6 +104,7 @@ from .solvers.primal_dual import (  # noqa: E402
 from .solvers.nesterov import fixed_nesterov  # noqa: E402
 from .solvers.backtracking import backtracking_nesterov, backtracking_proxgrad  # noqa: E402
 from .solvers.agraal import agraal  # noqa: E402
+from .solvers.malitsky_pock import malitsky_pock  # noqa: E402
 from .convert import (  # noqa: E402
     cubic_from_numpy,
     dsvm_from_numpy,
@@ -125,7 +127,7 @@ __all__ = [
     "resident_rule_sweep", "resident_supported", "rule_rows", "resident_backtracking",
     "resident_bt_sweep", "resident_bt_records", "resident_agraal", "resident_agraal_records",
     "resident_adapdm_dsvm", "resident_adapdm_dsvm_sweep", "resident_cv_dsvm",
-    "resident_pd_records", "resident_cv_records",
+    "resident_pd_records", "resident_cv_records", "resident_mp_dsvm_sweep", "resident_mp_records",
     # models
     "LeastSquares", "LogisticLoss", "Quadratic", "FactoredQuadratic", "Cubic", "WorstQuadratic", "LassoProblem", "random_lasso",
     # rules
@@ -134,7 +136,7 @@ __all__ = [
     "Counters", "Records", "SolveResult",
     "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "condat_vu",
     "condat_vu_steps", "fixed_nesterov",
-    "backtracking_proxgrad", "backtracking_nesterov", "agraal",
+    "backtracking_proxgrad", "backtracking_nesterov", "agraal", "malitsky_pock",
     # carried over from the JAX side
     "lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
     "quadratic_from_numpy", "factored_from_numpy", "dsvm_from_numpy", "rule_from_numpy",

@@ -38,7 +38,8 @@
 // values, so in practice the grid-wide barriers set the pace: two an iteration
 // dense, three factored.
 //
-// Design (first, simple version):
+// Design (first, simple version; resident_dsvm.cuh has the row dot, phase F, the
+// B'x reduce and the launch, which K6c shares):
 //   * One persistent cooperative launch, at most one CTA per SM, fewer when N
 //     has fewer rows than the grid has warps (heart_scale's 384 rows take 24
 //     CTAs of 16 warps). Q, the labels and every vector stay in global memory,
@@ -71,7 +72,7 @@
 //     expression rounds after every operation as the plain PyTorch version does;
 //     the dot products use explicit fmaf).
 
-#include "resident_common.cuh"
+#include "resident_dsvm.cuh"
 
 namespace {
 
@@ -118,89 +119,6 @@ struct PdSolve {
   float* stats;
   float* hist;
 };
-
-template <typename T>
-__device__ __forceinline__ float as_f32(T v);
-template <>
-__device__ __forceinline__ float as_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float as_f32<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// Threads take columns c of d: when d < kThreads, kThreads / d groups of d threads
-// split a range and their sums are added in group order (one fixed order).
-__device__ __forceinline__ int col_groups(long long d) {
-  return d >= kThreads ? 1 : kThreads / static_cast<int>(d);
-}
-
-// F: this CTA's partials of B'x over its slice of rows, part_bx[cta * d + c]
-// (consecutive columns in consecutive words: coalesced stores and loads).
-template <typename T>
-__device__ void phase_btx(const PdProblem& p, const float* x, float* part_bx, float* s_red) {
-  const T* __restrict__ b = static_cast<const T*>(p.q);
-  const long long n = p.n, d = p.d;
-  const long long slice = (n + gridDim.x - 1) / gridDim.x;
-  const long long r0 = blockIdx.x * slice;
-  const long long r1 = r0 + slice < n ? r0 + slice : n;
-  const int groups = col_groups(d);
-  const int width = groups == 1 ? kThreads : static_cast<int>(d);
-  const int g = threadIdx.x / width;
-  if (g < groups) {
-    for (long long c = threadIdx.x % width; c < d; c += width) {
-      float acc = 0.f;
-      for (long long r = r0 + g; r < r1; r += groups) {
-        acc = fmaf(as_f32(__ldg(b + r * d + c)), x[r], acc);
-      }
-      if (groups == 1) {
-        part_bx[blockIdx.x * d + c] = acc;
-      } else {
-        s_red[g * width + c] = acc;
-      }
-    }
-  }
-  if (groups > 1) {
-    __syncthreads();
-    if (threadIdx.x < d) {
-      float s = 0.f;
-      for (int k = 0; k < groups; ++k) s += s_red[k * width + threadIdx.x];
-      part_bx[blockIdx.x * d + threadIdx.x] = s;
-    }
-  }
-}
-
-// B'x into s_btx (d floats of shared memory): every CTA reduces all the grid's
-// partials, every thread at work, in one fixed order, so every CTA holds the
-// same bits. Thread (g, c) sums the CTAs g, g + groups, ... of column c; then
-// the group sums are added in group order.
-__device__ void reduce_btx(const PdProblem& p, const float* part_bx, float* s_btx,
-                           float* s_red) {
-  const long long d = p.d;
-  const int groups = col_groups(d);
-  const int width = groups == 1 ? kThreads : static_cast<int>(d);
-  const int g = threadIdx.x / width;
-  if (g < groups) {
-    for (long long c = threadIdx.x % width; c < d; c += width) {
-      float acc = 0.f;
-#pragma unroll 4
-      for (int k = g; k < static_cast<int>(gridDim.x); k += groups) acc += part_bx[k * d + c];
-      if (groups == 1) {
-        s_btx[c] = acc;
-      } else {
-        s_red[g * width + c] = acc;
-      }
-    }
-  }
-  if (groups > 1) {
-    __syncthreads();
-    if (threadIdx.x < d) {
-      float s = 0.f;
-      for (int k = 0; k < groups; ++k) s += s_red[k * width + threadIdx.x];
-      s_btx[threadIdx.x] = s;
-    }
-  }
-  __syncthreads();
-}
 
 // One whole solve (_pd_core or _dsvm_cv_core), run by every thread of the grid.
 // Returns with every CTA past its last grid sync of the solve.
@@ -258,20 +176,17 @@ __device__ void solve(const PdProblem& p, const PdRows& r, const PdSolve& s) {
   while (go) {
     const float* x = p.xs + par * n;
     const float* x_prev = p.xs + (1 - par) * n;
-    const T* __restrict__ q = static_cast<const T*>(p.q);
-
     // F (factored): the partials of B'x
     if (p.factored) {
-      phase_btx<T>(p, x, part_bx, s_red);
+      phase_btx<T>(p.q, n, p.d, x, part_bx, s_red);
       grid.sync();
-      reduce_btx(p, part_bx, s_btx, s_red);
+      reduce_btx(p.d, part_bx, s_btx, s_red);
     }
 
     // P1: (Q x)_i a warp a row; lane 0 the gradient, the curvature and residual terms
     float acc[kPdParts] = {};
     for (long long i = gwarp; i < n; i += nwarps) {
-      const float qx = p.factored ? warp_dot<T, V>(q + i * p.d, s_btx, p.d, lane)
-                                  : warp_dot<T, V>(q + i * n, x, n, lane);
+      const float qx = row_dot<T, V>(p.q, i, n, p.d, p.factored, x, s_btx, lane);
       if (lane == 0) {
         const float one = i < p.n_true ? 1.f : 0.f;
         const float g = qx - one;
@@ -404,48 +319,7 @@ __global__ void __launch_bounds__(kThreads, 1) resident_pd_kernel(const PdProble
   }
 }
 
-const void* pick_resident_pd_kernel(int q_is_bf16, int vec) {
-  if (q_is_bf16) {
-    if (vec == 1) return reinterpret_cast<const void*>(&resident_pd_kernel<__nv_bfloat16, 1>);
-    if (vec == 8) return reinterpret_cast<const void*>(&resident_pd_kernel<__nv_bfloat16, 8>);
-  } else {
-    if (vec == 1) return reinterpret_cast<const void*>(&resident_pd_kernel<float, 1>);
-    if (vec == 4) return reinterpret_cast<const void*>(&resident_pd_kernel<float, 4>);
-  }
-  return nullptr;
-}
-
-// Launch over a grid sized from n: enough warps for the rows, at most one CTA
-// per SM; the factored B'x lives in d floats of dynamic shared memory.
-cudaError_t launch_pd(const void* kernel, PdProblem& prob, PdRows& rows, long long part_len,
-                      void* stream_ptr) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  const size_t smem = prob.factored ? static_cast<size_t>(prob.d) * sizeof(float) : 0;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const long long want = (prob.n + kWarps - 1) / kWarps;
-  const int grid = static_cast<int>(want < sms ? want : sms);
-  const long long parts = kPdParts + (prob.factored ? prob.d : 0);
-  if (parts * grid > part_len) return cudaErrorInvalidValue;
-  void* args[] = {&prob, &rows};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, smem,
-                                    static_cast<cudaStream_t>(stream_ptr));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
-}
+ADAPROX_PICK_DSVM(resident_pd_kernel)
 
 int run(const void* q, int q_is_bf16, int vec, int factored, long long n, long long d,
         const float* lab, int n_true, float big_c, float* xs, float* grad, float* v, float* part,
@@ -460,7 +334,9 @@ int run(const void* q, int q_is_bf16, int vec, int factored, long long n, long l
   PdProblem prob{q, lab, xs, grad, v, part, n, factored ? d : 0, n_true, factored != 0, big_c,
                  hist_len};
   if (!rows.record) rows.hist = nullptr;
-  return static_cast<int>(launch_pd(kernel, prob, rows, part_len, stream_ptr));
+  void* args[] = {&prob, &rows};
+  return static_cast<int>(launch_dsvm(kernel, args, n, prob.d, prob.factored, kPdParts, part_len,
+                                      stream_ptr));
 }
 
 }  // namespace

@@ -9,20 +9,27 @@ heart_scale, C in {0.1, 1}, maxit 10000, tol 1e-5; the JSONL keeps only
 is not in the datasets directory is replaced by the shape-matched synthetic
 data of ``utils.datasets`` with labels -1/+1 (``data_source`` says which).
 
-The menu: AdaPDM for the 12 couplings t of ``T_VALUES`` (in that order) and
-Condat-Vu with the reference's par heuristics. The engine runs f as
+The menu, in the JAX driver's order: AdaPDM for the 12 couplings t of
+``T_VALUES``, Malitsky-Pock for the same 12 (sigma0 = 1/||y||) and Condat-Vu
+with the reference's par heuristics. The engine runs f as
 ``FactoredQuadratic(B = D_y X)``, which never forms the N x N Gram. The
-Malitsky-Pock rows are not ported yet (ROADMAP.md, the queue): the driver says
-so and writes the other rows.
+Malitsky-Pock linesearch takes its Bregman term in the exact form
+0.5 <dx, Q dx> below f64 (``--exact-bregman auto``): in f32 the reference's raw
+objective difference carries eps*|f| noise that stalls it.
 
-``--resident`` runs the 12 AdaPDM rows as ONE launch of the t-sweep kernel K6b
-(``ops.resident_pd.resident_adapdm_dsvm_sweep``) and Condat-Vu as ONE launch
-of K6d (``resident_cv_dsvm``), with the JAX driver's choice of form: the dense
-Gram when itemsize * n_pad^2 <= 24 MiB (svmguide3 and heart_scale), else B
-padded to (n_pad, d_pad) (mushrooms); n_pad and d_pad are multiples of 128,
-the labels are zero-padded and the unpadded count is passed as ``n_true``.
-Where neither form fits, the CPU falls back to the engine as the JAX driver
-does; the card takes the factored kernel at any size.
+Where it runs. The default path runs every row through the engine
+(``adaptive_primal_dual``, ``malitsky_pock``, ``condat_vu``), on the card or,
+with ``--device cpu``, on the CPU in f64. ``--resident`` runs the 12 AdaPDM rows
+as ONE launch of the t-sweep kernel K6b
+(``ops.resident_pd.resident_adapdm_dsvm_sweep``), the 12 Malitsky-Pock rows as
+ONE launch of K6c (``ops.resident_mp.resident_mp_dsvm_sweep``) and Condat-Vu as
+ONE launch of K6d (``resident_cv_dsvm``), with the JAX driver's choice of form:
+the dense Gram when itemsize * n_pad^2 <= 24 MiB (svmguide3 and heart_scale),
+else B padded to (n_pad, d_pad) (mushrooms); n_pad and d_pad are multiples of
+128, the labels are zero-padded and the unpadded count is passed as
+``n_true``. On the CPU the same calls take the kernels' plain versions; where
+neither form fits, the CPU falls back to the engine as the JAX driver does; the
+card takes the factored kernels at any size.
 
     python -m adaprox_tpu_torch.experiments.dual_svm
     python -m adaprox_tpu_torch.experiments.dual_svm --resident
@@ -39,8 +46,10 @@ import torch
 import torch.nn.functional as F
 
 from ..convert import dsvm_from_numpy
+from ..ops.resident_mp import resident_mp_dsvm_sweep, resident_mp_records
 from ..ops.resident_pd import (resident_adapdm_dsvm_sweep, resident_cv_dsvm,
                                resident_cv_records, resident_pd_records)
+from ..solvers.malitsky_pock import malitsky_pock
 from ..solvers.primal_dual import adaptive_primal_dual, condat_vu, condat_vu_steps
 from ..solvers.rules import AdaPGMRule
 from ..utils.datasets import load_or_synthesize
@@ -51,7 +60,7 @@ T_VALUES = [0.01, 0.15, 0.02, 0.025, 0.05, 0.1, 0.2, 0.5, 1, 2, 5, 10]
 KEYS = ["method", "it", "f_evals", "norm_res"]
 # the JAX driver's routing limit: Q (or B) in a TPU core's VMEM
 _VMEM_BYTES = 24 * 1024 * 1024
-FAST_METHODS = ["AdaPDM t-sweep (resident)", "Condat-Vu"]
+FAST_METHODS = ["AdaPDM t-sweep (resident)", "MP t-sweep (resident)", "Condat-Vu"]
 
 
 def load(name_or_path):
@@ -91,10 +100,11 @@ def resident_inputs(dyx, labels, dtype, device):
 
 
 def run_dsvm(name_or_path, sink, *, device, big_c=0.1, tol=1e-5, maxit=10_000, dtype=None,
-             resident=False):
+             resident=False, exact_bregman=None):
     """Run the menu on dataset ``name_or_path`` on ``device``. ``dtype``
     defaults to float64 on the CPU (the reference's regime) and float32 on
-    CUDA. Returns the data source ("libsvm" or "synthetic")."""
+    CUDA. ``exact_bregman`` (the Malitsky-Pock acceptance test's form) defaults
+    to on below float64. Returns the data source ("libsvm" or "synthetic")."""
     device = torch.device(device)
     if dtype is None:
         dtype = torch.float64 if device.type == "cpu" else torch.float32
@@ -106,8 +116,9 @@ def run_dsvm(name_or_path, sink, *, device, big_c=0.1, tol=1e-5, maxit=10_000, d
     x0 = torch.zeros(n_pts, dtype=dtype, device=device)
     y0 = torch.zeros(1, dtype=dtype, device=device)
     times = {}
-    print(f"  [dual_svm] skipping the 12 Malitsky-Pock rows: not ported yet (ROADMAP.md, "
-          "the Malitsky-Pock slice)")
+    if exact_bregman is None:
+        exact_bregman = torch.finfo(dtype).bits < 64
+    sigma0 = 1.0 / norm_a
 
     inputs = None
     if resident:
@@ -125,6 +136,14 @@ def run_dsvm(name_or_path, sink, *, device, big_c=0.1, tol=1e-5, maxit=10_000, d
         for i, t in enumerate(T_VALUES):
             recs = resident_pd_records(numits[i], hg[i], hr[i], maxit=maxit, t=float(t))
             sink.add(SimpleNamespace(records=recs, name=f"AdaPDM (t={t})"), primal_dual=True)
+        (_, numits, _, _, _, hists), wall = sync_wall(lambda: resident_mp_dsvm_sweep(
+            q, lab_pad, float(big_c), T_VALUES, sigma0, tol, maxit,
+            exact_bregman=exact_bregman, **kw))
+        times["MP t-sweep (resident)"] = round(wall, 4)
+        for i, t in enumerate(T_VALUES):
+            recs = resident_mp_records(numits[i], tuple(h[i] for h in hists), maxit=maxit)
+            sink.add(SimpleNamespace(records=recs, name=f"Malitsky-Pock (t={t})"),
+                     primal_dual=True)
         gamma, sigma = cv_steps(lf, norm_a)
         _, numit, _, _, hists = run_timed(times, "Condat-Vu", lambda: resident_cv_dsvm(
             q, lab_pad, float(big_c), gamma, sigma, tol, maxit, **kw))
@@ -140,6 +159,14 @@ def run_dsvm(name_or_path, sink, *, device, big_c=0.1, tol=1e-5, maxit=10_000, d
             sink.add(res, primal_dual=True)
             total += wall
         times["AdaPDM t-sweep"] = round(total, 4)
+        total = 0.0
+        for t in T_VALUES:
+            res, wall = sync_wall(lambda t=t: malitsky_pock(
+                x0, y0, f=f, g=g, h=h, A=a_op, t=float(t), sigma=sigma0, tol=tol, maxit=maxit,
+                history=True, name=f"Malitsky-Pock (t={t})", exact_bregman=exact_bregman))
+            sink.add(res, primal_dual=True)
+            total += wall
+        times["MP t-sweep"] = round(total, 4)
         sink.add(run_timed(times, "Condat-Vu", lambda: condat_vu(
             x0, y0, f=f, g=g, h=h, A=a_op, Lf=lf, tol=tol, maxit=maxit, history=True,
             name="Condat-Vu")), primal_dual=True)
@@ -171,11 +198,15 @@ def main(argv=None):
     p.add_argument("--datasets", default="svmguide3,mushrooms,heart_scale")
     p.add_argument("--C", default="0.1,1")
     p.add_argument("--resident", action="store_true",
-                   help="the whole-solve kernels: the 12 AdaPDM rows in one K6b launch, "
-                        "Condat-Vu in one K6d launch")
+                   help="the whole-solve kernels: the 12 AdaPDM rows in one K6b launch, the 12 "
+                        "Malitsky-Pock rows in one K6c launch, Condat-Vu in one K6d launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")
+    p.add_argument("--exact-bregman", choices=("auto", "on", "off"), default="auto",
+                   help="MP linesearch Bregman term: 'auto' uses the cancellation-resistant "
+                        "quadratic form in f32 (where the reference's raw difference stalls at "
+                        "eps*|f| noise) and the reference-exact difference in f64")
     args = p.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but PyTorch finds no CUDA device; "
@@ -186,7 +217,9 @@ def main(argv=None):
             path = os.path.join(args.outdir, f"{os.path.basename(ds)}_C_{big_c}.jsonl")
             sink = Sink(path, keys=KEYS)
             src = run_dsvm(ds, sink, device=args.device, big_c=big_c, tol=args.tol,
-                           maxit=args.maxit, resident=args.resident)
+                           maxit=args.maxit, resident=args.resident,
+                           exact_bregman={"auto": None, "on": True,
+                                          "off": False}[args.exact_bregman])
             sink.emit_meta(data_source=src)
             print(f"{path}: data={src}")
             if not args.no_plot:

@@ -29,6 +29,14 @@ A in f32 unless a case says bf16. Cases:
                    1000 iterations, per iteration
   bt_menu_ms       K4b, the lasso menu's four backtracking rows on the same
                    inputs as menu_ms
+
+With ``--pd`` it times K6's PD iteration instead (csrc/resident_pd.cu): a
+one-row K6b sweep, t 0.5, tol -1, 1000 iterations, per iteration, on the
+dual_svm driver's inputs (``experiments.dual_svm.resident_inputs``, C 0.1):
+  pd_384_it_us     heart_scale's dense Q, 384^2
+  pd_1280_it_us    svmguide3's dense Q, 1280^2
+  pd_8192x128_it_us  mushrooms' factored B, 8192x128
+  pd_build_s       seconds to build (or find built) csrc/resident_pd.cu
 """
 
 from __future__ import annotations
@@ -54,12 +62,43 @@ ITERS = 1000
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--pd", action="store_true", help="time K6's PD iteration only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("resident_timing: needs a CUDA device")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    out = pd_timing(dev, args.reps) if args.pd else k2_k4_timing(dev, args.reps)
+    print(smi)
+    print(json.dumps(out))
+
+
+def pd_timing(dev, reps):
+    """K6's PD iteration at the dual_svm driver's three shapes (see the module
+    docstring)."""
+    from . import dual_svm
+    from ..ops import resident_pd
+
+    out = {}
+    t0 = time.perf_counter()
+    resident_pd.build_library()
+    out["pd_build_s"] = time.perf_counter() - t0
+    for name, key in (("heart_scale", "pd_384_it_us"), ("svmguide3", "pd_1280_it_us"),
+                      ("mushrooms", "pd_8192x128_it_us")):
+        x, y, _ = dual_svm.load(name)
+        q, lab, factored = dual_svm.resident_inputs(y[:, None] * x, y, torch.float32, dev)
+        na = float(np.linalg.norm(y))
+        secs, res = timed(lambda: resident_pd.resident_adapdm_dsvm_sweep(
+            q, lab, 0.1, [0.5], na, -1.0, ITERS, n_true=len(y), factored=factored), reps=reps)
+        if int(res[1][0]) != ITERS:
+            raise RuntimeError(f"{name}: ran {int(res[1][0])} of {ITERS} iterations")
+        out[key] = 1e6 * secs / ITERS
+    return out
+
+
+def k2_k4_timing(dev, reps):
+    """K2, K2c, K4 and K4b at the cases of the module docstring."""
     out = {}
     t0 = time.perf_counter()
     resident.build_library()
@@ -68,7 +107,7 @@ def main(argv=None):
 
     def it_us(fn):
         """Per-iteration microseconds of ``fn``, a run of ITERS iterations."""
-        secs, res = timed(fn, reps=args.reps)
+        secs, res = timed(fn, reps=reps)
         if int(res[1].reshape(-1)[0]) != ITERS:
             raise RuntimeError(f"ran {int(res[1].reshape(-1)[0])} of {ITERS} iterations")
         return 1e6 * secs / ITERS
@@ -93,7 +132,7 @@ def main(argv=None):
     gam = 1.0 / float(np.linalg.norm(prob.a, 2) ** 2)
     x0 = torch.zeros(1024, device=dev)
     secs, res = timed(lambda: resident.resident_adapgm_l1(a, b, x0, gam, 1.0, 1e-4, 4000),
-                      reps=args.reps)
+                      reps=reps)
     out["solve_ms"], out["solve_numit"] = 1e3 * secs, int(res[1])
     out["ls_it_us"] = k2_it_us(a, b, gam)
     out["ls_bf16_it_us"] = k2_it_us(a.to(torch.bfloat16), b, gam)
@@ -122,7 +161,7 @@ def main(argv=None):
     rows_d = resident.rule_rows([(gam, rule, mom) for rule, mom in MENU], tol=1e-7, maxit=2000)
     secs, res = timed(lambda: resident.resident_rule_sweep(
         a_d, b_d, torch.zeros(a_d.shape[1], device=dev), rows_d, 1e-7, 2000, p1=prob.lam),
-        reps=args.reps)
+        reps=reps)
     out["menu_ms"], out["menu_numit"] = 1e3 * secs, res[1].tolist()
 
     gam_f = 1.0 / float((a * a).sum())  # <= 1/||A||^2: every first trial passes
@@ -131,10 +170,9 @@ def main(argv=None):
             a, b, x0, gam_f, -1.0, ITERS, prox_kind="zero", nesterov=nesterov))
     secs, res = timed(lambda: resident_bt.resident_bt_sweep(
         a_d, b_d, torch.zeros(a_d.shape[1], device=dev), bt_sweep_rows(BT_ROWS, gam), 1e-7, 2000,
-        p1=prob.lam), reps=args.reps)
+        p1=prob.lam), reps=reps)
     out["bt_menu_ms"], out["bt_menu_numit"] = 1e3 * secs, res[1].tolist()
-    print(smi)
-    print(json.dumps(out))
+    return out
 
 
 if __name__ == "__main__":

@@ -174,12 +174,13 @@ def resident_adapdm_dsvm_plain(q, labels, big_c, t, norm_a, tol, maxit, n_true=N
 
 
 def _ts(ts, dt):
-    """The couplings as the JAX sweep casts them: the iterate dtype, on the host."""
-    ts = torch.as_tensor(np.asarray(ts.cpu() if isinstance(ts, torch.Tensor) else ts,
-                                    dtype=np.float64)).to(dt).reshape(-1)
-    if ts.numel() < 1:
-        raise ValueError("ts must hold at least one coupling value")
-    return ts
+    """The couplings as the JAX sweeps cast them: the iterate dtype, on the host;
+    one dimension of at least one value."""
+    ts = np.asarray(ts.cpu() if isinstance(ts, torch.Tensor) else ts, dtype=np.float64)
+    if ts.ndim != 1 or ts.size < 1:
+        raise ValueError(f"ts must be one dimension of at least one coupling value, got shape "
+                         f"{ts.shape}")
+    return torch.as_tensor(ts).to(dt)
 
 
 def resident_adapdm_dsvm_sweep_plain(q, labels, big_c, ts, norm_a, tol, maxit, n_true=None,

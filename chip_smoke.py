@@ -6,9 +6,9 @@ Phases, one line each, any failure exits non-zero:
   1. device:   a CUDA device is required; prints nvidia-smi's name and power limit
   2. build:    K1 (csrc/fused_ls.cu), K3 (csrc/fused_logistic.cu), K2/K2c
                (csrc/resident_pg.cu), K4/K4b (csrc/resident_bt.cu), K4's
-               aGRAAL core (csrc/resident_agraal.cu) and K6a/K6b/K6d
-               (csrc/resident_pd.cu), one nvcc each, started together, from
-               this checkout's sources
+               aGRAAL core (csrc/resident_agraal.cu), K6a/K6b/K6d
+               (csrc/resident_pd.cu) and K6c (csrc/resident_mp.cu), one nvcc
+               each, started together, from this checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
@@ -88,12 +88,25 @@ Phases, one line each, any failure exits non-zero:
                two launches the same bits; K6b's rows bit for bit against K6a
                launches (dense) or one-row sweeps (factored) at tol 1e-5, maxit
                10000; dual_svm --resident at its defaults on the three stand-ins
-               x C 0.1 and 1 (exactly one K6b and one K6d launch each, every
-               row's x in [0, C] with |y'x| within its CPU-calibrated bound, the
-               two launches timed on the driver's own inputs); K6a's own path
-               (one solve, counted); the engine path at --maxit 300 on
-               heart_scale and svmguide3 (no K6 launch); the PD iteration at
+               x C 0.1 and 1 (exactly one K6b, one K6c and one K6d launch each,
+               every row's x in [0, C] with |y'x| within its CPU-calibrated
+               bound, JAX's fast_methods, the three launches timed on the
+               driver's own inputs); K6a's own path (one solve, counted); the
+               engine path at --maxit 300 on heart_scale and svmguide3, the
+               Malitsky-Pock rows included (no K6 launch); the PD iteration at
                1280^2, 384^2 and 8192x128 beside K2's
+ 12. mp:       K6c (csrc/resident_mp.cu) against its plain version ([mp]
+               lines) on the dual_svm driver's inputs (svmguide3's dense 1280^2,
+               heart_scale's 384^2 f32 and bf16, mushrooms' factored 8192x128
+               f32 and bf16; C 0.1 and 1; the exact Bregman form and the raw
+               one): trial counts equal and gamma, sigma, norm_res within 1e-3
+               over a CPU-calibrated horizon, the objective after 300
+               iterations, the padded coordinates exactly 0, two launches the
+               same bits; every row of the driver's sweeps bit for bit against
+               its one-row launch; the large-|f| f32 instance (the exact form
+               beats the raw one); the MP iteration at 1280^2, 384^2 and
+               8192x128 with its mean trials, beside K6's PD iteration; the
+               K6c sweep and its plain version timed at a cut depth
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -318,6 +331,33 @@ PD_YX_BOUND = {("heart_scale", 0.1): 0.018, ("heart_scale", 1.0): 0.51,
                ("svmguide3", 0.1): 0.25, ("svmguide3", 1.0): 0.055,
                ("mushrooms", 0.1): 0.19, ("mushrooms", 1.0): 4.8}
 PD_ENGINE_MAXIT = 300
+# K6c against its plain version (phase 12), f32 on the card, tol -1. Calibrated on the
+# CPU with the plain version in f32 against f64 on the dual_svm driver's inputs (the
+# three stand-ins x C 0.1 and 1, the exact and the raw form, 300 iterations): the first
+# iteration where a row's trial count differed, or its gamma, sigma or norm_res parted by
+# more than 1e-3 of its row's largest value so far, came at 34 (mushrooms, t = 0.5) to
+# 300; the trial counts first differed at 42 or later. The rows are held over 20
+# iterations: trial counts equal, the rest within 1e-3. 1.49-1.54 trials an iteration.
+MP_HORIZON = 20
+MP_RTOL = 1e-3
+MP_CUT = 300  # the depth at which the plain sweep (a host sync a trial) is held and timed
+# The objective after MP_CUT iterations, same calibration: f32 parted from f64 by up to
+# 3.7e-2 of its value (mushrooms C 1, t = 0.15: the trajectories have parted by then;
+# bf16 Q up to 2.1e-3). Bound 2x the largest.
+MP_OBJ_RTOL = 0.075
+# |y'x| of the driver's Malitsky-Pock rows at its defaults (maxit 10000, tol 1e-5),
+# computed with the plain version on the CPU in f32 with the exact form (the card's
+# default) and in f64 with the raw form (the CPU's): the converged rows read at most
+# 9.1e-6 (PD_CONVERGED_YX holds them); the others up to heart_scale 1.2e-5 / 2.8e-5 (C
+# 0.1 / 1), svmguide3 1.5e-6 / 7.7e-4, mushrooms 7.8e-5 / 8.7e-3. Bound 2x the largest,
+# and no tighter than the converged rows'. (The raw form in f32 converges on no row and
+# leaves |y'x| up to 0.15: the stall the exact form removes.)
+MP_YX_BOUND = {("heart_scale", 0.1): 2.5e-5, ("heart_scale", 1.0): 5.5e-5,
+               ("svmguide3", 0.1): 2e-5, ("svmguide3", 1.0): 1.6e-3,
+               ("mushrooms", 0.1): 1.6e-4, ("mushrooms", 1.0): 0.018}
+# JAX's --resident meta row (adaprox_tpu/experiments/dual_svm.py): fast_methods and the
+# wall_s keys
+JAX_DSVM_FAST_METHODS = ["AdaPDM t-sweep (resident)", "MP t-sweep (resident)", "Condat-Vu"]
 # peak rates of one H100 SXM (data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -1700,22 +1740,38 @@ def pd_checks(resident_pd, dev, smi):
     return errs
 
 
-def pd_phase(resident, resident_pd, ref, counting, dev, smi):
+def mp_work(inp, trials, rows, hist_len):
+    """(bytes, flops) of a K6c launch on ``inp``: Q or B read once, the labels and the
+    couplings in, x, the stats and the five histories out; 2 N^2 flops a trial dense
+    (Q x), 4 N d factored (B'x, then B (B'x)), for the ``trials`` the run took."""
+    n, cols = inp["q"].shape
+    moved = (inp["q"].element_size() * n * cols + 4 * n + 4 * rows + 4 * rows * n + 16 * rows
+             + 20 * rows * hist_len)
+    return moved, (4 * n * cols if inp["factored"] else 2 * n * n) * trials
+
+
+def mp_trials(out):
+    """The trials a recorded K6c (or plain) run took: the sum of its trial-count rows."""
+    return int(out[5][3].sum())
+
+
+def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
     """Phase 11: K6b's rows bit for bit against single launches; dual_svm --resident
-    at its defaults on the three stand-ins x C 0.1 and 1 (one K6b and one K6d launch
-    each, every row's x in the box and |y'x| within its bound), the K6b sweep's and
-    K6d's times on each; K6a's own path (one solve, counted); the engine path at
+    at its defaults on the three stand-ins x C 0.1 and 1 (one K6b, one K6c and one K6d
+    launch each, every row's x in the box and |y'x| within its bound), the K6b, K6c and
+    K6d times on each; K6a's own path (one solve, counted); the engine path at
     --maxit 300; the PD iteration beside K2's. Returns the kernels line's
-    measurements."""
+    measurements and the driver's K6c calls."""
     from adaprox_tpu_torch.experiments import dual_svm
     from adaprox_tpu_torch.utils.logging import read_jsonl
     from adaprox_tpu_torch.utils.profiling import timed
 
     zero_counts, read_counts = counting
     k6 = (resident_pd.resident_adapdm_dsvm, resident_pd.resident_adapdm_dsvm_sweep,
-          resident_pd.resident_cv_dsvm)
+          resident_pd.resident_cv_dsvm, resident_mp.resident_mp_dsvm_sweep)
 
     def k6_counts():
+        """Launches of (K6a, K6b, K6d, K6c) since zero_counts()."""
         return tuple(f.launches for f in k6)
 
     t_values = dual_svm.T_VALUES
@@ -1745,6 +1801,12 @@ def pd_phase(resident, resident_pd, ref, counting, dev, smi):
     # and nothing else; the kernels' x captured from the driver's own calls
     captured = {}
     real_sweep, real_cv = dual_svm.resident_adapdm_dsvm_sweep, dual_svm.resident_cv_dsvm
+    real_mp = dual_svm.resident_mp_dsvm_sweep
+
+    def mp_capture(*args, **kw):
+        out = real_mp(*args, **kw)
+        captured["mp"] = (args, kw, out)
+        return out
 
     def sweep_capture(*args, **kw):
         out = real_sweep(*args, **kw)
@@ -1757,8 +1819,10 @@ def pd_phase(resident, resident_pd, ref, counting, dev, smi):
         return out
 
     meas = {}
-    names = [f"AdaPDM (t={t})" for t in t_values] + ["Condat-Vu"]
+    names = ([f"AdaPDM (t={t})" for t in t_values] + [f"Malitsky-Pock (t={t})" for t in t_values]
+             + ["Condat-Vu"])
     dual_svm.resident_adapdm_dsvm_sweep, dual_svm.resident_cv_dsvm = sweep_capture, cv_capture
+    dual_svm.resident_mp_dsvm_sweep = mp_capture
     try:
         for name in PD_DATASETS:
             for big_c in (0.1, 1.0):
@@ -1774,6 +1838,7 @@ def pd_phase(resident, resident_pd, ref, counting, dev, smi):
                 meta = rows[-2]
                 s_args, s_kw, s_out = captured["sweep"]
                 c_args, c_kw, c_out = captured["cv"]
+                m_args, m_kw, m_out = captured["mp"]
                 xs = torch.cat([s_out[0], c_out[0][None]]).cpu()
                 conv = s_out[3].tolist() + [bool(c_out[3])]
                 numits = s_out[1].tolist() + [int(c_out[1])]
@@ -1786,34 +1851,54 @@ def pd_phase(resident, resident_pd, ref, counting, dev, smi):
                 yx_bound = PD_YX_BOUND[(name, big_c)]
                 yx_ok = all(v <= (PD_CONVERGED_YX if c else yx_bound)
                             for v, c in zip(yx.tolist(), conv))
+                # the Malitsky-Pock rows: x in the box, |y'x| within its own bound
+                xm = m_out[0].cpu()
+                yx_mp = (xm[:, :n].double() @ y).abs()
+                box_mp = bool((xm >= 0).all() and (xm <= torch.tensor(big_c)).all()
+                              and not xm[:, n:].any())
+                mp_bound = MP_YX_BOUND[(name, big_c)]
+                mp_ok = (box_mp and not bool(m_out[4].any())
+                         and all(v <= (PD_CONVERGED_YX if c else mp_bound)
+                                 for v, c in zip(yx_mp.tolist(), m_out[3].tolist())))
                 # the CUDA-event times of the two launches on the driver's own inputs (the
                 # driver's run loaded the library: one call each)
                 sweep_ms, _ = once_ms(lambda: real_sweep(*s_args, **s_kw))
                 cv_ms, _ = once_ms(lambda: real_cv(*c_args, **c_kw))
+                mp_ms, _ = once_ms(lambda: real_mp(*m_args, **m_kw))
+                mp_numits = m_out[1].tolist()
                 inp = dict(q=s_args[0], factored=s_kw["factored"])
                 form = f"{'factored B' if inp['factored'] else 'dense Q'} {tuple(inp['q'].shape)}"
                 hl = resident_pd.hist_len(10000)
                 b_sweep = bound(*pd_work(inp, numits[:-1], hl, len(t_values)))
                 b_cv = bound(*pd_work(inp, numits[-1:], hl, 1))
+                b_mp = bound(*mp_work(inp, mp_trials(m_out), len(t_values), hl))
                 yx_conv = max([v for v, c in zip(yx.tolist(), conv) if c], default=0.0)
                 meas[(name, big_c)] = dict(counts=counts, sweep_ms=sweep_ms, cv_ms=cv_ms,
                                            bound_sweep=b_sweep, bound_cv=b_cv, numits=numits,
-                                           args=(s_args, s_kw, c_args, c_kw))
+                                           args=(s_args, s_kw, c_args, c_kw), mp_ms=mp_ms,
+                                           bound_mp=b_mp, mp=(m_args, m_kw, m_out))
                 print(f"[pd] dual_svm --resident {name} C {big_c:g} ({form} f32, maxit 10000, "
                       f"tol 1e-5): numit {numits}, converged {sum(conv)} of 13; max |y'x| of the "
                       f"converged rows {yx_conv:.2e} (bound {PD_CONVERGED_YX:g}), of all "
                       f"{float(yx.max()):.2e} (bound {yx_bound:g}); "
-                      f"x in [0, C], padded 0: {box} | K6a/K6b/K6d launches {counts}, others "
-                      f"{others} | K6b sweep {sweep_ms:.4f} ms (bound {b_sweep[0]:.4f} ms, "
-                      f"{b_sweep[1]}), K6d {cv_ms:.4f} ms (bound {b_cv[0]:.4f} ms) | wall_s "
-                      f"{meta['wall_s']} ({smi})", flush=True)
-                check(counts == (0, 1, 1) and others == (0,) * 7 and order == names and keys_ok
+                      f"x in [0, C], padded 0: {box} | Malitsky-Pock (K6c, exact Bregman) numit "
+                      f"{mp_numits}, converged {int(m_out[3].sum())} of 12, ls_failed "
+                      f"{int(m_out[4].sum())}, max |y'x| {float(yx_mp.max()):.2e} (bound "
+                      f"{mp_bound:g}, converged rows {PD_CONVERGED_YX:g}), x in [0, C], padded 0: "
+                      f"{box_mp} | K6a/K6b/K6d/K6c launches {counts}, others {others} | K6b "
+                      f"sweep {sweep_ms:.4f} ms (bound {b_sweep[0]:.4f} ms, {b_sweep[1]}), K6c "
+                      f"sweep {mp_ms:.4f} ms ({mp_trials(m_out)} trials; bound {b_mp[0]:.4f} ms, "
+                      f"{b_mp[1]}), K6d {cv_ms:.4f} ms (bound {b_cv[0]:.4f} ms) | fast_methods "
+                      f"{meta['fast_methods']} | wall_s {meta['wall_s']} ({smi})", flush=True)
+                check(counts == (0, 1, 1, 1) and others == (0,) * 7 and order == names and keys_ok
                       and meta["fast_path"] == "resident"
-                      and meta["fast_methods"] == dual_svm.FAST_METHODS and box and yx_ok
+                      and meta["fast_methods"] == JAX_DSVM_FAST_METHODS and box and yx_ok
+                      and mp_ok and list(meta["wall_s"]) == JAX_DSVM_FAST_METHODS
                       and all(math.isfinite(r["norm_res"]) for r in rows if "it" in r),
                       f"dual_svm --resident {name} C {big_c}: bad run")
     finally:
         dual_svm.resident_adapdm_dsvm_sweep, dual_svm.resident_cv_dsvm = real_sweep, real_cv
+        dual_svm.resident_mp_dsvm_sweep = real_mp
 
     # the plain versions on heart_scale C 0.1, the kernels line's case (one call each:
     # the sweep's takes tens of seconds, a host sync an iteration)
@@ -1832,7 +1917,7 @@ def pd_phase(resident, resident_pd, ref, counting, dev, smi):
     one = resident_pd.resident_adapdm_dsvm(q, lab, 0.1, t_v, na, tol, maxit, n_true=n)
     torch.cuda.synchronize()
     single = k6_counts()
-    check(single == (1, 0, 0) and read_counts() == (0,) * 7,
+    check(single == (1, 0, 0, 0) and read_counts() == (0,) * 7,
           f"K6a single solve: launches {single}")
     k6a_s, one = timed(lambda: resident_pd.resident_adapdm_dsvm(q, lab, 0.1, t_v, na, tol, maxit,
                                                                 n_true=n), reps=3)
@@ -1863,7 +1948,7 @@ def pd_phase(resident, resident_pd, ref, counting, dev, smi):
                   f"launches {counts}, others {others} | wall_s {rows[-2]['wall_s']} ({smi})",
                   flush=True)
             check(list(last) == names and all(math.isfinite(r["norm_res"]) for r in last.values())
-                  and counts == (0, 0, 0) and others == (0,) * 7,
+                  and counts == (0, 0, 0, 0) and others == (0,) * 7,
                   f"dual_svm engine path {name} C {big_c}: bad run")
 
     # the PD iteration: tol -1, 1000 iterations, one-row sweeps and Condat-Vu, dense
@@ -1909,7 +1994,161 @@ def pd_phase(resident, resident_pd, ref, counting, dev, smi):
         k6b=dict(launches=case["counts"][1], ms=case["sweep_ms"], plain_ms=plain_sweep_ms,
                  bound=case["bound_sweep"]),
         k6d=dict(launches=case["counts"][2], ms=case["cv_ms"], plain_ms=plain_cv_ms,
-                 bound=case["bound_cv"]))
+                 bound=case["bound_cv"]),
+        k6c=dict(launches=case["counts"][3], driver_ms=case["mp_ms"],
+                 driver_bound=case["bound_mp"])), {k: v["mp"] for k, v in meas.items()}
+
+
+def mp_rows_err(got, want, horizon):
+    """(trial counts equal over ``horizon``, the largest error of the gamma, sigma and
+    norm_res rows there relative to each plain row's largest magnitude)."""
+    same = torch.equal(got[3][:, :horizon], want[3][:, :horizon])
+    return same, pd_rows_err(got[:3], want[:3], horizon)
+
+
+def mp_checks(resident_mp, dev, smi):
+    """Phase 12, K6c against its plain version on the card, on the dual_svm driver's
+    inputs: svmguide3's dense 1280^2, heart_scale's 384^2 (f32 and bf16 Q) and mushrooms'
+    factored 8192x128 (f32 and bf16 B), C 0.1 and 1, the exact Bregman form and the raw
+    one; tol -1 and MP_CUT iterations: the trial counts equal and gamma, sigma, norm_res
+    within MP_RTOL over MP_HORIZON, the objective at the end within MP_OBJ_RTOL, the
+    padded coordinates exactly 0, two launches the same bits. Returns the largest |x|
+    error after MP_HORIZON iterations (f32 cases)."""
+    from adaprox_tpu_torch.experiments.dual_svm import T_VALUES
+
+    cases = []
+    for name in PD_DATASETS:
+        for big_c in (0.1, 1.0):
+            cases.append((f"{name} C {big_c:g}", pd_inputs(name, big_c, dev)))
+    for name in ("heart_scale", "mushrooms"):
+        inp = dict(pd_inputs(name, 0.1, dev))
+        inp["q"] = inp["q"].to(torch.bfloat16)
+        cases.append((f"{name} C 0.1 bf16", inp))
+    x_err = 0.0
+    for label, inp in cases:
+        q, lab, n, fac, big_c = inp["q"], inp["lab"], inp["n"], inp["factored"], inp["big_c"]
+        shape = f"{'B' if fac else 'Q'} {q.shape[0]}x{q.shape[1]}"
+        parts = []
+        ok = True
+        for exact in (True, False):
+            kw = dict(n_true=n, record=True, factored=fac, exact_bregman=exact)
+            args = (q, lab, big_c, T_VALUES, 1.0 / inp["norm_a"], -1.0)
+            got = resident_mp.resident_mp_dsvm_sweep(*args, MP_CUT, **kw)
+            again = resident_mp.resident_mp_dsvm_sweep(*args, MP_CUT, **kw)
+            want = resident_mp.resident_mp_dsvm_sweep_plain(*args, MP_CUT, **kw)
+            short = resident_mp.resident_mp_dsvm_sweep(*args, MP_HORIZON, **kw)
+            short_want = resident_mp.resident_mp_dsvm_sweep_plain(*args, MP_HORIZON, **kw)
+            torch.cuda.synchronize()
+            flat = lambda out: list(out[:5]) + list(out[5])  # noqa: E731
+            same = all(torch.equal(u, w) for u, w in zip(flat(got), flat(again)))
+            trials_ok, err = mp_rows_err(got[5], want[5], MP_HORIZON)
+            xe = float((short[0] - short_want[0]).abs().max())
+            x_ok = xe <= MP_RTOL * float(short_want[0].abs().max())
+            obj = float(((got[5][4][:, -1] - want[5][4][:, -1]).abs()
+                         / want[5][4][:, -1].abs()).max())
+            pad_zero = not bool(got[0][:, n:].any())
+            numits_ok = got[1].tolist() == [MP_CUT] * len(T_VALUES)
+            mean_trials = float(got[5][3].mean())
+            if exact and "bf16" not in label:
+                x_err = max(x_err, xe)
+            parts.append(f"{'exact' if exact else 'raw'}: trial counts equal over "
+                         f"{MP_HORIZON} it {trials_ok}, rows rel err {err:.2e}, x abs err "
+                         f"{xe:.2e}; objective after {MP_CUT} it rel err {obj:.2e} (tol "
+                         f"{MP_OBJ_RTOL:g}); {mean_trials:.3f} trials an iteration "
+                         f"(plain {float(want[5][3].mean()):.3f}); padded 0: {pad_zero}; "
+                         f"two launches the same bits: {same}")
+            ok &= (trials_ok and err <= MP_RTOL and x_ok and obj <= MP_OBJ_RTOL and pad_zero
+                   and same and numits_ok)
+        print(f"[mp] K6c {label} {shape} (tol {MP_RTOL:g}; CPU-calibrated horizon): "
+              f"{' | '.join(parts)} ({smi})", flush=True)
+        check(ok, f"K6c {label} disagrees with its plain version")
+    return x_err
+
+
+def mp_phase(resident_pd, resident_mp, driver_mp, counting, dev, smi):
+    """Phase 12: every row of the driver's K6c sweeps (phase 11) bit for bit against
+    its one-row launch; the large-|f| f32 instance; the MP iteration beside K6's PD
+    iteration; the K6c sweep and its plain version timed at a cut depth on one driver
+    input. Returns the kernels line's measurements."""
+    from adaprox_tpu_torch.utils.profiling import timed
+
+    zero_counts, read_counts = counting
+    # each row of the driver's sweep at its defaults is its one-row launch, bit for bit
+    for (name, big_c), (args, kw, out) in sorted(driver_mp.items()):
+        q, lab, _, ts, sigma0, tol, maxit = args
+        same = True
+        for j, t in enumerate(ts):
+            one = resident_mp.resident_mp_dsvm_sweep(q, lab, big_c, [t], sigma0, tol, maxit, **kw)
+            same &= all(torch.equal(u[0], w[j]) for u, w in zip(one[:5], out[:5]))
+            same &= all(torch.equal(u[0], w[j]) for u, w in zip(one[5], out[5]))
+        print(f"[mp] K6c rows bit for bit against one-row launches, dual_svm --resident "
+              f"{name} C {big_c:g} (tol {tol:g}, maxit {maxit}, numit {out[1].tolist()}): "
+              f"{same} ({smi})", flush=True)
+        check(same, f"K6c rows on {name} C {big_c} differ from their one-row launches")
+
+    # the large-|f| f32 instance (the JAX suite's tests/test_solvers.py: 256 points, B
+    # 256x16 times 2, t 0.15, tol 1e-5, maxit 1500): the exact form beats the raw one
+    rng = np.random.default_rng(1)
+    bmat = rng.standard_normal((256, 16)) * 2.0
+    labels = np.where(rng.standard_normal(256) > 0, 1.0, -1.0)
+    bmat *= labels[:, None]
+    q_l = torch.as_tensor(np.pad(bmat, ((0, 0), (0, 112))), dtype=torch.float32, device=dev)
+    lab_l = torch.as_tensor(labels, dtype=torch.float32, device=dev)
+    na_l = float(np.linalg.norm(labels))
+    large = {eb: resident_mp.resident_mp_dsvm_sweep(q_l, lab_l, 0.1, [0.15], 1 / na_l, 1e-5, 1500,
+                                                    n_true=256, factored=True, exact_bregman=eb)
+             for eb in (True, False)}
+    res = {eb: float(o[2][0]) for eb, o in large.items()}
+    print(f"[mp] large-|f| f32 (B 256x16 x 2, t 0.15, tol 1e-5, maxit 1500): exact form "
+          f"norm_res {res[True]:.3e} at {int(large[True][1][0])} it, raw form {res[False]:.3e} "
+          f"at {int(large[False][1][0])} it ({smi})", flush=True)
+    check(res[True] < res[False] / 10 or res[True] <= 1e-5,
+          "large-|f|: the exact form does not beat the raw one")
+
+    # the MP iteration: tol -1, 1000 iterations, one-row sweeps (t 0.5, exact form), with
+    # its mean trials an iteration, beside K6's PD iteration (one-row K6b) in the same call
+    us = {}
+    for name in ("svmguide3", "heart_scale", "mushrooms"):
+        inp = pd_inputs(name, 0.1, dev)
+        q, lab, n, fac = inp["q"], inp["lab"], inp["n"], inp["factored"]
+        shape = f"{'B' if fac else 'Q'} {q.shape[0]}x{q.shape[1]}"
+        secs, res_mp = timed(lambda: resident_mp.resident_mp_dsvm_sweep(
+            q, lab, 0.1, [0.5], 1 / inp["norm_a"], -1.0, 1000, n_true=n, factored=fac,
+            record=True, exact_bregman=True), reps=3)
+        check(int(res_mp[1][0]) == 1000, f"K6c {shape}: not 1000 iterations")
+        trials = float(res_mp[5][3].mean())
+        pd_secs, res_pd = timed(lambda: resident_pd.resident_adapdm_dsvm_sweep(
+            q, lab, 0.1, [0.5], inp["norm_a"], -1.0, 1000, n_true=n, factored=fac), reps=3)
+        check(int(res_pd[1][0]) == 1000, f"K6b {shape}: not 1000 iterations")
+        us[shape] = (1e3 * secs, trials, 1e3 * pd_secs)
+    print(f"[mp] iteration, 1000 iterations, tol -1, f32, t 0.5, record: "
+          f"{'; '.join(f'{k}: MP {v[0]:.3f} us ({v[1]:.3f} trials an iteration, '
+                        f'{v[0] / v[1]:.3f} us a trial), PD (K6b one-row sweep) {v[2]:.3f} us'
+                        for k, v in us.items())} ({smi})", flush=True)
+
+    # the K6c sweep and its plain version at a cut depth (the plain version syncs the
+    # host every trial) on heart_scale C 0.1, the driver's inputs, tol 1e-5: the
+    # kernels line's case; K6c counted on its own call
+    args, kw, _ = driver_mp[("heart_scale", 0.1)]
+    args = args[:-1] + (MP_CUT,)
+    zero_counts()
+    cut = resident_mp.resident_mp_dsvm_sweep(*args, **kw)
+    torch.cuda.synchronize()
+    launches = resident_mp.resident_mp_dsvm_sweep.launches
+    check(launches == 1 and read_counts() == (0,) * 7, f"K6c cut-depth sweep: {launches}")
+    ms, cut = once_ms(lambda: resident_mp.resident_mp_dsvm_sweep(*args, **kw))
+    plain_ms, cut_plain = once_ms(lambda: resident_mp.resident_mp_dsvm_sweep_plain(*args, **kw))
+    trials_ok, err = mp_rows_err(cut[5], cut_plain[5], MP_HORIZON)
+    inp = dict(q=args[0], factored=kw["factored"])
+    b_cut = bound(*mp_work(inp, mp_trials(cut), len(args[3]), resident_pd.hist_len(MP_CUT)))
+    print(f"[mp] K6c sweep vs its plain version, heart_scale C 0.1 (dense Q 384x384 f32, "
+          f"exact form, tol 1e-5, depth cut from 10000 to maxit {MP_CUT}): numit "
+          f"{cut[1].tolist()} (plain {cut_plain[1].tolist()}), {mp_trials(cut)} trials; K6c "
+          f"{ms:.4f} ms, plain {plain_ms:.2f} ms (one call each, CUDA events); bound "
+          f"{b_cut[0]:.5f} ms ({b_cut[1]}); trial counts equal over {MP_HORIZON} it "
+          f"{trials_ok}, rows rel err {err:.2e} ({smi})", flush=True)
+    check(trials_ok and err <= MP_RTOL, "K6c cut-depth sweep disagrees with its plain version")
+    return dict(ms=ms, plain_ms=plain_ms, bound=b_cut)
 
 
 def main():
@@ -1926,26 +2165,27 @@ def main():
     from adaprox_tpu_torch.experiments import lasso
     from adaprox_tpu_torch.experiments.common import pad_tiles
     from adaprox_tpu_torch.models.synthetic import random_lasso
-    from adaprox_tpu_torch.ops import kernels, resident, resident_bt, resident_pd
+    from adaprox_tpu_torch.ops import kernels, resident, resident_bt, resident_mp, resident_pd
     from adaprox_tpu_torch.utils.logging import read_jsonl
     from adaprox_tpu_torch.utils.profiling import timed
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         builds = [(name, pool.submit(build)) for name, build in
                   (("K1", kernels.build_library),
                    ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
                    ("K2/K2c", resident.build_library),
                    ("K4/K4b", resident_bt.build_library),
                    ("K4 (aGRAAL)", resident_bt.build_agraal_library),
-                   ("K6a/K6b/K6d", resident_pd.build_library))]
+                   ("K6a/K6b/K6d", resident_pd.build_library),
+                   ("K6c", resident_mp.build_library))]
         for name, fut in builds:
             lib_path = fut.result()
             regs = ptxas_report(lib_path.with_suffix(".log").read_text())
             print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
                   f"bytes: {'; '.join(regs)})", flush=True)
-    print(f"[build] all six in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all seven in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -1992,6 +2232,7 @@ def main():
         resident_bt.resident_agraal.launches = 0
         resident_pd.resident_adapdm_dsvm.launches = 0
         resident_pd.resident_adapdm_dsvm_sweep.launches = resident_pd.resident_cv_dsvm.launches = 0
+        resident_mp.resident_mp_dsvm_sweep.launches = 0
 
     def read_counts():
         """Launches of (K1, K2, K2c, K3, K4, K4b, K4 (aGRAAL)) since zero_counts()."""
@@ -2178,7 +2419,12 @@ def main():
 
     # 11. the dual-SVM primal-dual kernels ---------------------------------------------
     pd_err = pd_checks(resident_pd, dev, smi)
-    pd_meas = pd_phase(resident, resident_pd, ref, (zero_counts, read_counts), dev, smi)
+    pd_meas, driver_mp = pd_phase(resident, resident_pd, resident_mp, ref,
+                                  (zero_counts, read_counts), dev, smi)
+
+    # 12. the Malitsky-Pock kernel ------------------------------------------------------
+    mp_err = mp_checks(resident_mp, dev, smi)
+    mp_meas = mp_phase(resident_pd, resident_mp, driver_mp, (zero_counts, read_counts), dev, smi)
 
     head = measured["16384x16384 f32"]
     k3_head = k3_meas["16384x16384 f32"]
@@ -2250,7 +2496,14 @@ def main():
         "library_ms": None} for name, replaces, key in (
             ("resident_adapdm_dsvm", "adaprox_tpu/ops/resident.py:1388", "k6a"),
             ("resident_adapdm_dsvm_sweep", "adaprox_tpu/ops/resident.py:1447", "k6b"),
-            ("resident_cv_dsvm", "adaprox_tpu/ops/resident.py:1284", "k6d"))]}))
+            ("resident_cv_dsvm", "adaprox_tpu/ops/resident.py:1284", "k6d"))] + [{
+        "name": "resident_mp_dsvm_sweep", "route": "cuda",
+        "source": "adaprox_tpu_torch/csrc/resident_mp.cu",
+        "replaces": "adaprox_tpu/ops/resident.py:1196", "launches": pd_meas["k6c"]["launches"],
+        "max_abs_err": mp_err, "ms": mp_meas["ms"], "plain_ms": mp_meas["plain_ms"],
+        "bound_ms": mp_meas["bound"][0], "bound_by": mp_meas["bound"][1], "library_ms": None,
+        "depth": MP_CUT, "driver_ms": pd_meas["k6c"]["driver_ms"],
+        "driver_bound_ms": pd_meas["k6c"]["driver_bound"][0]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
-"""The CUDA kernels K1, K2, K2c, K3, K4, K4b and K4's aGRAAL core on the card against their
-plain PyTorch versions (K2, K2c, K4, K4b and aGRAAL with the least-squares, logistic and cubic
-objectives).
+"""The CUDA kernels K1, K2, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c and K6d on the
+card against their plain PyTorch versions (K2, K2c, K4, K4b and aGRAAL with the least-squares,
+logistic and cubic objectives; K6 and K6c with the dual SVM's dense Q or factored B).
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. This file imports no
 JAX, so it runs on a machine without it:
@@ -1127,24 +1127,128 @@ def test_k6_zero_iterations_and_refusals(dev):
 
 
 def test_dual_svm_resident_is_one_k6b_and_one_k6d_launch(dev, tmp_path):
-    """dual_svm --resident on heart_scale's stand-in (dense Q) at C 0.1 and 1: one K6b and
-    one K6d launch each, no K6a launch; the engine path launches none."""
+    """dual_svm --resident on heart_scale's stand-in (dense Q) at C 0.1 and 1: one K6b, one
+    K6c and one K6d launch each, no K6a launch; the engine path launches none."""
     from adaprox_tpu_torch.experiments import dual_svm
+    from adaprox_tpu_torch.ops import resident_mp as tm
     from adaprox_tpu_torch.ops import resident_pd as tp
     from adaprox_tpu_torch.utils.logging import read_jsonl
 
-    counters = (tp.resident_adapdm_dsvm, tp.resident_adapdm_dsvm_sweep, tp.resident_cv_dsvm)
+    counters = (tp.resident_adapdm_dsvm, tp.resident_adapdm_dsvm_sweep,
+                tm.resident_mp_dsvm_sweep, tp.resident_cv_dsvm)
     before = [c.launches for c in counters]
     dual_svm.main(["--resident", "--datasets", "heart_scale", "--maxit", "300", "--device",
                    "cuda", "--outdir", str(tmp_path), "--no-plot"])
-    assert [c.launches - b for c, b in zip(counters, before)] == [0, 2, 2]
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 2, 2, 2]
     for big_c in ("0.1", "1.0"):
         rows = read_jsonl(tmp_path / f"heart_scale_C_{big_c}.jsonl")
         names = list(dict.fromkeys(r["method"] for r in rows if "it" in r))
-        assert names == [f"AdaPDM (t={t})" for t in dual_svm.T_VALUES] + ["Condat-Vu"]
+        assert names == ([f"AdaPDM (t={t})" for t in dual_svm.T_VALUES]
+                         + [f"Malitsky-Pock (t={t})" for t in dual_svm.T_VALUES] + ["Condat-Vu"])
         assert all(list(r) == dual_svm.KEYS for r in rows if "it" in r)
         assert rows[-2]["fast_path"] == "resident"
+        assert rows[-2]["fast_methods"] == ["AdaPDM t-sweep (resident)", "MP t-sweep (resident)",
+                                            "Condat-Vu"]
     before = [c.launches for c in counters]
     dual_svm.main(["--datasets", "heart_scale", "--C", "0.1", "--maxit", "20", "--device",
                    "cuda", "--outdir", str(tmp_path / "engine"), "--no-plot"])
-    assert [c.launches - b for c, b in zip(counters, before)] == [0, 0, 0]
+    assert [c.launches - b for c, b in zip(counters, before)] == [0, 0, 0, 0]
+
+
+# K6c against its plain version, exact Bregman form (the card's default), tol -1: on the CPU
+# the plain version in f32 (Q f32 or bf16) first took another trial count than in f64, or
+# parted from it by more than 1e-3 of its row's largest value (gamma, sigma, norm_res), at
+# iteration 63 to 300 on pd_case (dense and factored, t = 2 first; 1.48-1.51 trials an
+# iteration). The rows are held over 40 iterations: trial counts equal, the rest within 1e-3.
+MP_HORIZON = 40
+
+
+def _mp_rows_close(got, want, horizon):
+    assert torch.equal(got[3][..., :horizon], want[3][..., :horizon])  # the trial counts
+    for k in (0, 1, 2, 4):
+        u, w = got[k][..., :horizon], want[k][..., :horizon]
+        assert float((u - w).abs().max()) <= PD_RTOL * float(w.abs().max())
+
+
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6c_matches_plain_on_card(dev, dtype, factored):
+    from adaprox_tpu_torch.ops import resident_mp as tm
+
+    q, lab, n, na = pd_case(dev, dtype, factored)
+    kw = dict(n_true=n, record=True, factored=factored, exact_bregman=True)
+    before = tm.resident_mp_dsvm_sweep.launches
+    got = tm.resident_mp_dsvm_sweep(q, lab, 0.5, PD_TS, 1 / na, -1.0, MP_HORIZON, **kw)
+    torch.cuda.synchronize()
+    assert tm.resident_mp_dsvm_sweep.launches == before + 1
+    want = tm.resident_mp_dsvm_sweep_plain(q, lab, 0.5, PD_TS, 1 / na, -1.0, MP_HORIZON, **kw)
+    assert got[0].dtype == torch.float32 and got[5][0].shape == (3, MP_HORIZON)
+    assert got[1].tolist() == want[1].tolist() == [MP_HORIZON] * 3
+    assert not bool(got[3].any()) and not bool(got[4].any())
+    _mp_rows_close(got[5], want[5], MP_HORIZON)
+    assert float((got[0] - want[0]).abs().max()) <= PD_RTOL * float(want[0].abs().max())
+    assert not bool(got[0][:, n:].any())  # the padded coordinates stay exactly 0
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("factored", [False, True])
+def test_k6c_rows_are_one_row_launches_bit_for_bit(dev, factored, exact):
+    """Each row of the sweep is its one-row launch, bit for bit, solved to tol 1e-4 with
+    records; two launches give the same bits."""
+    from adaprox_tpu_torch.ops import resident_mp as tm
+
+    q, lab, n, na = pd_case(dev, torch.float32, factored)
+    kw = dict(n_true=n, record=True, factored=factored, exact_bregman=exact)
+    sweep = tm.resident_mp_dsvm_sweep(q, lab, 0.5, PD_TS, 1 / na, 1e-4, 3000, **kw)
+    again = tm.resident_mp_dsvm_sweep(q, lab, 0.5, PD_TS, 1 / na, 1e-4, 3000, **kw)
+    flat = lambda out: list(out[:5]) + list(out[5])  # noqa: E731
+    assert all(torch.equal(u, w) for u, w in zip(flat(sweep), flat(again)))
+    for j, t in enumerate(PD_TS):
+        one = tm.resident_mp_dsvm_sweep(q, lab, 0.5, [t], 1 / na, 1e-4, 3000, **kw)
+        assert all(torch.equal(u[0], w[j]) for u, w in zip(flat(one), flat(sweep)))
+
+
+def test_k6c_zero_iterations_and_refusals(dev):
+    from adaprox_tpu_torch.ops import resident_mp as tm
+
+    q, lab, n, na = pd_case(dev, torch.float32, False)
+    x, numit, nres, conv, lsf, hists = tm.resident_mp_dsvm_sweep(q, lab, 0.5, [1.0], 1 / na, 0.0,
+                                                                 0, n_true=n, record=True)
+    assert int(numit[0]) == 0 and float(nres[0]) == float("inf") and not bool(conv[0])
+    assert not bool(x.any()) and not bool(lsf[0]) and hists[0].shape == (1, 0)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tm.resident_mp_dsvm_sweep(q.double(), lab, 0.5, [1.0], 1 / na, 0.0, 3)
+    with pytest.raises(TypeError, match="float32 labels"):
+        tm.resident_mp_dsvm_sweep(q, lab.double(), 0.5, [1.0], 1 / na, 0.0, 3)
+    with pytest.raises(ValueError, match="must be positive"):
+        tm.resident_mp_dsvm_sweep(q, lab, 0.5, [1.0], 0.0, 0.0, 3)
+    with pytest.raises(ValueError, match="one dimension"):
+        tm.resident_mp_dsvm_sweep(q, lab, 0.5, [[1.0, 2.0]], 1 / na, 0.0, 3)
+    with pytest.raises(ValueError, match="one dimension"):
+        tm.resident_mp_dsvm_sweep(q, lab, 0.5, [], 1 / na, 0.0, 3)
+    with pytest.raises(ValueError, match="square"):
+        tm.resident_mp_dsvm_sweep(q[:, :128], lab, 0.5, [1.0], 1 / na, 0.0, 3)
+    with pytest.raises(ValueError, match="labels"):
+        tm.resident_mp_dsvm_sweep(q[:128, :128], lab, 0.5, [1.0], 1 / na, 0.0, 3, factored=True)
+
+
+def test_k6c_exact_bregman_large_f_on_card(dev):
+    """The large-|f| f32 instance of the JAX suite (tests/test_solvers.py: 256 points, B 256x16
+    times 2, t 0.15, tol 1e-5, maxit 1500): the exact form's residual is below the raw form's
+    tenth, or at tol."""
+    import numpy as np
+
+    from adaprox_tpu_torch.ops import resident_mp as tm
+
+    rng = np.random.default_rng(1)
+    m, d = 256, 16
+    bmat = rng.standard_normal((m, d)) * 2.0
+    labels = np.where(rng.standard_normal(m) > 0, 1.0, -1.0)
+    bmat *= labels[:, None]
+    q = torch.as_tensor(np.pad(bmat, ((0, 0), (0, 128 - d))), dtype=torch.float32, device=dev)
+    lab = torch.as_tensor(labels, dtype=torch.float32, device=dev)
+    na = float(np.linalg.norm(labels))
+    res = {eb: float(tm.resident_mp_dsvm_sweep(q, lab, 0.1, [0.15], 1 / na, 1e-5, 1500, n_true=m,
+                                               factored=True, exact_bregman=eb)[2][0])
+           for eb in (True, False)}
+    assert res[True] < res[False] / 10 or res[True] <= 1e-5

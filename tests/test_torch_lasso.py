@@ -231,12 +231,18 @@ rp = apt.adaptive_primal_dual(z, zy, f=fq, g=gb, h=hz, A=ao, tol=1e-5, maxit=500
 rv = apt.condat_vu(z, zy, f=fq, g=gb, h=hz, A=ao, Lf=float(fq.norm_q()), tol=1e-5, maxit=200)
 qd, labd, _ = dual_svm.resident_inputs(ys[:, None] * xs, ys, torch.float64, "cpu")
 k6 = apt.resident_adapdm_dsvm(qd, labd, 0.1, 0.5, na, 1e-5, 5000, n_true=270)
+rm = apt.malitsky_pock(z, zy, f=fq, g=gb, h=hz, A=ao, sigma=1 / na, t=0.5, tol=1e-5, maxit=5000)
+k6c = apt.resident_mp_dsvm_sweep(qd, labd, 0.1, [0.5], 1 / na, 1e-5, 5000, n_true=270)
 pd = [[rp.numit, float(fq.value(rp.x)), float(ys @ rp.x.numpy()), float(rp.x.min()),
        float(rp.x.max())],
       [int(k6[1]), float(fq.value(k6[0][:270])), float(ys @ k6[0][:270].numpy()),
        float(k6[0].min()), float(k6[0].max())],
       [rv.numit, float(fq.value(rv.x)), float(ys @ rv.x.numpy()), float(rv.x.min()),
-       float(rv.x.max())]]
+       float(rv.x.max())],
+      [rm.numit, float(fq.value(rm.x)), float(ys @ rm.x.numpy()), float(rm.x.min()),
+       float(rm.x.max())],
+      [int(k6c[1][0]), float(fq.value(k6c[0][0][:270])), float(ys @ k6c[0][0][:270].numpy()),
+       float(k6c[0].min()), float(k6c[0].max())]]
 for path in ([], ["--resident"]):
     dual_svm.main(["--device", "cpu", "--datasets", "heart_scale", "--C", "0.1", "--maxit", "40",
                    "--no-plot", "--outdir", sys.argv[1] + "-dsvm" + "".join(path), *path])
@@ -301,16 +307,22 @@ def test_port_runs_the_slice_without_jax(tmp_path):
     assert n14 < 2000 and abs(f14 - f3) < 1e-9 * abs(f3)
     rows = tlog.read_jsonl(tmp_path / "heart_scale.jsonl")
     assert "aGRAAL" in {r.get("method") for r in rows if "it" in r}
-    # the dual SVM: the engine's AdaPDM and K6a's plain version converge to the same
-    # feasible point; Condat-Vu stays in the box; the driver wrote both paths' JSONL
-    (n15, f15, e15, lo15, hi15), (n16, f16, e16, lo16, hi16), (n17, _, _, lo17, hi17) = got["pd"]
+    # the dual SVM: the engine's AdaPDM and K6a's plain version, the engine's
+    # Malitsky-Pock and K6c's plain version converge to the same feasible point;
+    # Condat-Vu stays in the box; the driver wrote both paths' JSONL, all 25 rows
+    (n15, f15, e15, lo15, hi15), (n16, f16, e16, lo16, hi16), (n17, _, _, lo17, hi17), \
+        (n18, f18, e18, lo18, hi18), (n19, f19, e19, lo19, hi19) = got["pd"]
     assert n15 < 5000 and n16 < 5000 and abs(n15 - n16) <= 0.1 * n15 and n17 == 200
+    assert n18 < 5000 and n19 < 5000 and abs(n18 - n19) <= 0.1 * n18
     assert abs(f16 - f15) < 1e-6 * abs(f15) and max(abs(e15), abs(e16)) < 1e-5
-    assert min(lo15, lo16, lo17) >= 0.0 and max(hi15, hi16, hi17) <= 0.1
+    assert max(abs(f18 - f15), abs(f19 - f15)) < 1e-6 * abs(f15)
+    assert max(abs(e18), abs(e19)) < 1e-5
+    assert min(lo15, lo16, lo17, lo18, lo19) >= 0.0 and max(hi15, hi16, hi17, hi18, hi19) <= 0.1
     for path in ("", "--resident"):
         rows = tlog.read_jsonl(tmp_path.parent / (tmp_path.name + "-dsvm" + path)
                                / "heart_scale_C_0.1.jsonl")
-        assert [r["method"] for r in rows if r.get("it") == 40][-1] == "Condat-Vu"
+        last = [r["method"] for r in rows if r.get("it") == 40]
+        assert len(last) == 25 and last[12] == "Malitsky-Pock (t=0.01)" and last[-1] == "Condat-Vu"
 
 
 # -- (h) chip_smoke.py ---------------------------------------------------------
