@@ -11,17 +11,20 @@ mirror it, and the tests hold each piece to its JAX counterpart on the same
 numpy inputs. This package imports torch and numpy, never jax.
 
 Layout:
-  ops/         prox functions and conjugates, smooth oracles, the dense
+  ops/         prox functions (the norms, indicators, Translate) and
+               conjugates, smooth oracles (ZeroSmooth among them), the dense
                operator and the accumulation policy, the fused oracles K1
                (least squares) and K3 (logistic), the whole-solve kernels K2
                (one solve) and K2c (the rule sweep), the backtracking
                whole-solve kernels K4 and K4b (its sweep), K4's aGRAAL kernel,
                the dual-SVM primal-dual kernels K6a, K6b (the t-sweep) and
-               K6d (Condat-Vu), and K6c (the Malitsky-Pock t-sweep)
+               K6d (Condat-Vu), K6c (the Malitsky-Pock t-sweep), and K7d (the
+               f = 0 family's Condat-Vu: square-root lasso, least absolute
+               deviation)
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the primal-dual engine (its
                proximal-gradient case and Condat-Vu), fixed-step Nesterov,
-               backtracking PG and Nesterov, aGRAAL, Malitsky-Pock
+               backtracking PG and Nesterov, aGRAAL, Malitsky-Pock, AdaPDM+
   models/      objectives (least squares, logistic, the quadratic and its
                factored form, the cubic model, the worst-case quadratic) and
                problem generators
@@ -29,7 +32,8 @@ Layout:
                datasets (with their synthetic fallback) and a numpy copy of
                JAX's normal draw
   experiments/ the lasso, sparse logistic regression, cubic-regularized
-               logistic, Nesterov worst-case and dual SVM drivers
+               logistic, Nesterov worst-case, dual SVM, square-root lasso and
+               least-absolute-deviation drivers
   convert.py   the JAX side's problem and rule fields, carried over
 
 Importing the package sets full-f32 matrix products on the card: TF32 off
@@ -44,9 +48,19 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from .ops.prox import Zero, L1Norm, IndZero, IndBox, MoreauConjugate, conjugate  # noqa: E402
+from .ops.prox import (  # noqa: E402
+    IndBall2,
+    IndBox,
+    IndZero,
+    L1Norm,
+    L2Norm,
+    MoreauConjugate,
+    Translate,
+    Zero,
+    conjugate,
+)
 from .ops.linops import DenseOperator, frobenius_norm  # noqa: E402
-from .ops.oracles import SmoothOracle  # noqa: E402
+from .ops.oracles import SmoothOracle, ZeroSmooth  # noqa: E402
 from .ops.kernels import (  # noqa: E402
     fused_logistic_value_grad,
     fused_ls_value_grad,
@@ -68,6 +82,7 @@ from .ops.resident_pd import (  # noqa: E402
     resident_pd_records,
 )
 from .ops.resident_mp import resident_mp_dsvm_sweep, resident_mp_records  # noqa: E402
+from .ops.resident_f0 import resident_condat_vu  # noqa: E402
 from .ops.resident import (  # noqa: E402
     resident_adapgm,
     resident_adapgm_l1,
@@ -105,6 +120,7 @@ from .solvers.nesterov import fixed_nesterov  # noqa: E402
 from .solvers.backtracking import backtracking_nesterov, backtracking_proxgrad  # noqa: E402
 from .solvers.agraal import agraal  # noqa: E402
 from .solvers.malitsky_pock import malitsky_pock  # noqa: E402
+from .solvers.adapdm_plus import adaptive_linesearch_primal_dual  # noqa: E402
 from .convert import (  # noqa: E402
     cubic_from_numpy,
     dsvm_from_numpy,
@@ -113,6 +129,7 @@ from .convert import (  # noqa: E402
     logreg_from_numpy,
     quadratic_from_numpy,
     rule_from_numpy,
+    sqrt_lasso_from_numpy,
     worst_from_numpy,
 )
 
@@ -120,14 +137,16 @@ __version__ = "0.1.0"
 
 __all__ = [
     # ops
-    "Zero", "L1Norm", "IndZero", "IndBox", "MoreauConjugate", "conjugate", "DenseOperator",
-    "frobenius_norm", "SmoothOracle", "fused_ls_value_grad", "ls_value_grad_plain",
+    "Zero", "L1Norm", "L2Norm", "IndZero", "IndBox", "IndBall2", "Translate", "MoreauConjugate",
+    "conjugate", "DenseOperator", "frobenius_norm", "SmoothOracle", "ZeroSmooth",
+    "fused_ls_value_grad", "ls_value_grad_plain",
     "fused_logistic_value_grad", "logistic_value_grad_plain",
     "resident_adapgm", "resident_adapgm_l1", "resident_logreg_l1", "resident_records",
     "resident_rule_sweep", "resident_supported", "rule_rows", "resident_backtracking",
     "resident_bt_sweep", "resident_bt_records", "resident_agraal", "resident_agraal_records",
     "resident_adapdm_dsvm", "resident_adapdm_dsvm_sweep", "resident_cv_dsvm",
     "resident_pd_records", "resident_cv_records", "resident_mp_dsvm_sweep", "resident_mp_records",
+    "resident_condat_vu",
     # models
     "LeastSquares", "LogisticLoss", "Quadratic", "FactoredQuadratic", "Cubic", "WorstQuadratic", "LassoProblem", "random_lasso",
     # rules
@@ -137,7 +156,9 @@ __all__ = [
     "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "condat_vu",
     "condat_vu_steps", "fixed_nesterov",
     "backtracking_proxgrad", "backtracking_nesterov", "agraal", "malitsky_pock",
+    "adaptive_linesearch_primal_dual",
     # carried over from the JAX side
     "lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
-    "quadratic_from_numpy", "factored_from_numpy", "dsvm_from_numpy", "rule_from_numpy",
+    "quadratic_from_numpy", "factored_from_numpy", "dsvm_from_numpy", "sqrt_lasso_from_numpy",
+    "rule_from_numpy",
 ]

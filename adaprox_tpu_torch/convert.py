@@ -15,7 +15,8 @@ from .ops.prox import L1Norm
 from .solvers import rules
 
 __all__ = ["lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
-           "quadratic_from_numpy", "factored_from_numpy", "dsvm_from_numpy", "rule_from_numpy"]
+           "quadratic_from_numpy", "factored_from_numpy", "dsvm_from_numpy",
+           "sqrt_lasso_from_numpy", "rule_from_numpy"]
 
 _RULES = {cls.__name__: cls for cls in
           (rules.FixedStepsize, rules.MalitskyMishchenkoRule, rules.AdaPGMRule)}
@@ -96,6 +97,28 @@ def dsvm_from_numpy(x, labels, big_c, *, device, dtype):
     f = factored_from_numpy(dyx, -np.ones(lab.shape[0]), device=device, dtype=dtype)
     a = DenseOperator(torch.as_tensor(lab[None, :], device=device).to(f.q_vec.dtype))
     return f, IndBox(0.0, float(big_c)), IndZero(), a
+
+
+def sqrt_lasso_from_numpy(x, y, lam, inner, *, device, dtype):
+    """The square-root lasso (``inner="l2"``) or the least absolute deviation
+    (``inner="l1"``) of features ``x`` (m, n) and targets ``y`` (m,)
+    (experiments/square_root_lasso/runme.jl:37-42): ``(f, g, h, A, norm_a)`` with
+    f = ``ZeroSmooth``, g = ``L1Norm(lam)``, h = ``Translate(inner(1), -y)``, A =
+    the ``DenseOperator`` of [X 1] (m, n + 1) on ``device`` in ``dtype``, and
+    ``norm_a`` its Frobenius norm, a Python float from the float64 matrix."""
+    from .ops.linops import DenseOperator
+    from .ops.oracles import ZeroSmooth
+    from .ops.prox import L2Norm, Translate
+
+    inners = {"l2": L2Norm, "l1": L1Norm}
+    if inner not in inners:
+        raise ValueError(f"inner must be 'l2' or 'l1', got {inner!r}")
+    x = np.asarray(x, dtype=np.float64)
+    a = np.hstack([x, np.ones((x.shape[0], 1))])
+    y_t = torch.as_tensor(np.asarray(y, dtype=np.float64), device=device).to(dtype)
+    h = Translate(inners[inner](1.0), -y_t)
+    return (ZeroSmooth(), L1Norm(float(lam)), h,
+            DenseOperator(torch.as_tensor(a, device=device).to(dtype)), float(np.linalg.norm(a)))
 
 
 def rule_from_numpy(kind, **fields):

@@ -37,6 +37,18 @@ dual_svm driver's inputs (``experiments.dual_svm.resident_inputs``, C 0.1):
   pd_1280_it_us    svmguide3's dense Q, 1280^2
   pd_8192x128_it_us  mushrooms' factored B, 8192x128
   pd_build_s       seconds to build (or find built) csrc/resident_pd.cu
+
+With ``--cv`` it times K7d's iteration (csrc/resident_cv.cu): one Condat-Vu
+solve, tol -1, 1000 iterations, per iteration, on the square-root lasso driver's
+padded inputs (``experiments.square_root_lasso.resident_inputs``, lam 10), with
+h's inner norm l2 and l1, beside K6d's Condat-Vu iteration on the dual_svm
+driver's inputs in the same call:
+  cv_l2_512x128_it_us, cv_l1_512x128_it_us      housing_scale (506 x 14 -> 512 x 128)
+  cv_l2_4224x128_it_us, cv_l1_4224x128_it_us    abalone (4177 x 9 -> 4224 x 128)
+  cv_l2_8192x128_it_us, cv_l1_8192x128_it_us    cpusmall_scale (8192 x 13 -> 8192 x 128)
+  k6d_384_it_us, k6d_1280_it_us, k6d_8192x128_it_us  K6d at heart_scale's dense Q,
+                   svmguide3's dense Q and mushrooms' factored B (C 0.1)
+  cv_build_s       seconds to build (or find built) csrc/resident_cv.cu
 """
 
 from __future__ import annotations
@@ -62,14 +74,18 @@ ITERS = 1000
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--pd", action="store_true", help="time K6's PD iteration only")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--pd", action="store_true", help="time K6's PD iteration only")
+    mode.add_argument("--cv", action="store_true",
+                      help="time K7d's Condat-Vu iteration, beside K6d's, only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("resident_timing: needs a CUDA device")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    out = pd_timing(dev, args.reps) if args.pd else k2_k4_timing(dev, args.reps)
+    timing = pd_timing if args.pd else cv_timing if args.cv else k2_k4_timing
+    out = timing(dev, args.reps)
     print(smi)
     print(json.dumps(out))
 
@@ -94,6 +110,45 @@ def pd_timing(dev, reps):
         if int(res[1][0]) != ITERS:
             raise RuntimeError(f"{name}: ran {int(res[1][0])} of {ITERS} iterations")
         out[key] = 1e6 * secs / ITERS
+    return out
+
+
+def cv_timing(dev, reps):
+    """K7d's Condat-Vu iteration at the square-root lasso driver's three shapes, and
+    K6d's at the dual_svm driver's (see the module docstring)."""
+    from . import dual_svm, square_root_lasso
+    from ..convert import sqrt_lasso_from_numpy
+    from ..ops import resident_f0, resident_pd
+
+    def per_it(fn):
+        secs, res = timed(fn, reps=reps)
+        if int(res[1]) != ITERS:
+            raise RuntimeError(f"ran {int(res[1])} of {ITERS} iterations")
+        return 1e6 * secs / ITERS
+
+    out = {}
+    t0 = time.perf_counter()
+    resident_f0.build_library()
+    out["cv_build_s"] = time.perf_counter() - t0
+    for name in ("housing_scale", "abalone", "cpusmall_scale"):
+        x, y, _ = square_root_lasso.load(name)
+        _, _, h, a_op, na = sqrt_lasso_from_numpy(x, y, 10.0, "l2", device=dev,
+                                                  dtype=torch.float32)
+        a, bv = square_root_lasso.resident_inputs(a_op.a, -h.b)
+        gamma, sigma = square_root_lasso.cv_steps(na)
+        for h_kind in resident_f0.H_KINDS:
+            out[f"cv_{h_kind}_{a.shape[0]}x{a.shape[1]}_it_us"] = per_it(
+                lambda: resident_f0.resident_condat_vu(a, bv, 10.0, gamma, sigma, -1.0, ITERS,
+                                                       h_kind=h_kind))
+    for name, key in (("heart_scale", "k6d_384_it_us"), ("svmguide3", "k6d_1280_it_us"),
+                      ("mushrooms", "k6d_8192x128_it_us")):
+        x, y, _ = dual_svm.load(name)
+        dyx = y[:, None] * x
+        q, lab, factored = dual_svm.resident_inputs(dyx, y, torch.float32, dev)
+        gamma, sigma = dual_svm.cv_steps(float(np.linalg.norm(dyx.T @ dyx)),
+                                         float(np.linalg.norm(y)))
+        out[key] = per_it(lambda: resident_pd.resident_cv_dsvm(
+            q, lab, 0.1, gamma, sigma, -1.0, ITERS, n_true=len(y), factored=factored))
     return out
 
 

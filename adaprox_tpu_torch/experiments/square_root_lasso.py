@@ -1,0 +1,183 @@
+"""Square-root lasso experiment (counterpart of
+``adaprox_tpu/experiments/square_root_lasso.py``; reference
+experiments/square_root_lasso/runme.jl).
+
+A fully nonsmooth composite: f = 0, g = lam ||.||_1, h = Translate(NormL2, -y),
+i.e. ||A x - y||_2, with A = [X 1] dense (runme.jl:37-42). Datasets
+cpusmall_scale, abalone and housing_scale, lam 10, maxit 5000, tol 1e-5; the
+JSONL keeps [method, norm_res, A_evals, At_evals] (the cost is A_evals +
+At_evals). A dataset whose LIBSVM file is not in the datasets directory is
+replaced by the shape-matched synthetic data of ``utils.datasets``
+(``data_source`` says which). ``least_absolute_deviation`` is this driver with
+h = Translate(NormL1, -y).
+
+The menu, in the JAX driver's order: Condat-Vu with the reference's par steps
+(Lf = 0: gamma = 1/||A||, sigma = 0.99/||A||, ||A|| the Frobenius norm),
+Malitsky-Pock for the 15 couplings t of ``T_VALUES`` (sigma0 = 1) and AdaPDM+
+for the same 15 (eta0 = ||A||): 31 rows.
+
+Where it runs. The default path runs every row through the engine
+(``condat_vu``, ``malitsky_pock``, ``adaptive_linesearch_primal_dual``), on the
+card or, with ``--device cpu``, on the CPU in f64. ``--resident`` pads A and y
+with zeros to multiples of 128 in both dimensions (exact for this f = 0
+translate family) and writes the Condat-Vu row from ONE launch of K7d
+(``ops.resident_f0.resident_condat_vu``) when the padded A fits the JAX
+driver's routing limit (24 MiB a layout), else falls back to the engine as the
+JAX driver does; the two t-sweeps' kernel (K7a) is not ported yet, so they are
+skipped and say so. The wall_s of the meta row times the solves only, not the
+JSONL writes.
+
+    python -m adaprox_tpu_torch.experiments.square_root_lasso
+    python -m adaprox_tpu_torch.experiments.square_root_lasso --resident
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+from types import SimpleNamespace
+
+import torch
+
+from ..convert import sqrt_lasso_from_numpy
+from ..ops.resident_f0 import resident_condat_vu
+from ..ops.resident_pd import resident_cv_records
+from ..solvers.adapdm_plus import adaptive_linesearch_primal_dual
+from ..solvers.malitsky_pock import malitsky_pock
+from ..solvers.primal_dual import condat_vu
+from ..utils.datasets import load_or_synthesize
+from ..utils.libsvm import load_libsvm_dataset
+from .common import Sink, group_rows, pad_tiles, plot_lines, run_timed, sync_wall
+
+T_VALUES = [0.01, 0.15, 0.02, 0.025, 0.05, 0.1, 0.2, 0.5, 1, 2, 5, 10, 20, 50, 100]
+KEYS = ["method", "norm_res", "A_evals", "At_evals"]
+# the JAX driver's routing limit: a layout of A in a TPU core's VMEM
+_VMEM_BYTES = 24 * 1024 * 1024
+FAST_METHODS = ["Condat-Vu"]
+NOT_OFFERED = ("--vmap-sweep, --fused, --resident-grid and --live are not offered yet: "
+               "they need the batched engine, K5 (the fused primal-dual update), K7b/K7c "
+               "(the dataset grid) and utils/live.py")
+
+
+def load(name_or_path):
+    """(X, y, source) of a LIBSVM file or a dataset name."""
+    if os.path.isfile(str(name_or_path)):
+        x_np, y_np = load_libsvm_dataset(name_or_path)
+        return x_np, y_np, "libsvm"
+    return load_or_synthesize(str(name_or_path))
+
+
+def cv_steps(norm_a):
+    """Condat-Vu's (gamma, sigma) with Lf = 0 as Python floats (alpha = 1)."""
+    return 1.0 / norm_a, 0.99 / norm_a
+
+
+def resident_inputs(a, y):
+    """A and y zero-padded to multiples of 128 in both dimensions, as the JAX
+    driver pads them, or None when a layout exceeds the routing limit."""
+    a_pad, bv_pad = pad_tiles(a, y, m_mult=128, n_mult=128)
+    if a_pad.numel() * a_pad.element_size() > _VMEM_BYTES:
+        return None
+    return a_pad, bv_pad
+
+
+def run_composite(name_or_path, sink, inner="l2", *, device, lam=10.0, tol=1e-5, maxit=5000,
+                  dtype=None, resident=False):
+    """Run the menu on dataset ``name_or_path`` on ``device`` with h's inner norm
+    ``inner`` ("l2" or "l1"). ``dtype`` defaults to float64 on the CPU (the
+    reference's regime) and float32 on CUDA. Returns the data source ("libsvm" or
+    "synthetic")."""
+    device = torch.device(device)
+    if dtype is None:
+        dtype = torch.float64 if device.type == "cpu" else torch.float32
+    x_np, y_np, source = load(name_or_path)
+    m, n = x_np.shape
+    f, g, h, a_op, norm_a = sqrt_lasso_from_numpy(x_np, y_np, lam, inner, device=device,
+                                                  dtype=dtype)
+    x0 = torch.zeros(n + 1, dtype=dtype, device=device)
+    y0 = torch.zeros(m, dtype=dtype, device=device)
+    times = {}
+
+    inputs = resident_inputs(a_op.a, -h.b) if resident else None
+    if resident and inputs is None:
+        print(f"  [resident] {(-(-m // 128) * 128, -(-(n + 1) // 128) * 128)} exceeds the "
+              "routing limit; falling back to the engine")
+    if inputs is not None:
+        a_pad, bv_pad = inputs
+        gamma, sigma = cv_steps(norm_a)
+        _, numit, _, _, hists = run_timed(times, "Condat-Vu", lambda: resident_condat_vu(
+            a_pad, bv_pad, float(lam), gamma, sigma, tol, maxit, record=True, h_kind=inner))
+        sink.add(SimpleNamespace(records=resident_cv_records(numit, gamma, sigma, hists,
+                                                             maxit=maxit), name="Condat-Vu"),
+                 primal_dual=True)
+        print("  [resident] skipped: the Malitsky-Pock t-sweep and the AdaPDM+ t-sweep (their "
+              "kernel, K7a, is not ported yet)")
+    else:
+        sink.add(run_timed(times, "Condat-Vu", lambda: condat_vu(
+            x0, y0, f=f, g=g, h=h, A=a_op, Lf=0.0, norm_A=norm_a, tol=tol, maxit=maxit,
+            history=True, name="Condat-Vu")), primal_dual=True)
+        sweeps = (("Malitsky-Pock", lambda t, name: malitsky_pock(
+            x0, y0, f=f, g=g, h=h, A=a_op, sigma=1.0, t=t, tol=tol, maxit=maxit, history=True,
+            name=name)), ("AdaPDM+", lambda t, name: adaptive_linesearch_primal_dual(
+                x0, y0, f=f, g=g, h=h, A=a_op, eta=norm_a, t=t, tol=tol, maxit=maxit,
+                history=True, name=name)))
+        for fam, solve in sweeps:
+            total = 0.0
+            for t in T_VALUES:
+                res, wall = sync_wall(lambda t=t: solve(float(t), f"{fam} (t={t})"))
+                sink.add(res, primal_dual=True)
+                total += wall
+            times[f"{fam} t-sweep"] = round(total, 4)
+    sink.emit_meta(wall_s=times, fast_path="resident" if inputs is not None else "default",
+                   fast_methods=FAST_METHODS if inputs is not None else [])
+    return source
+
+
+def plot_residual(path, title_prefix="Square root lasso"):
+    from ..utils.logging import find_best, read_jsonl
+
+    groups = group_rows(read_jsonl(path))
+    names = []
+    for fam in ["Condat-Vu", "Malitsky-Pock", "AdaPDM+"]:
+        matching = [k for k in groups if k.startswith(fam)]
+        if matching:
+            names.append(find_best(groups, matching, "norm_res", 1e-5,
+                                   lambda row: row["A_evals"] + row["At_evals"]))
+    series = [(name, [r["A_evals"] + r["At_evals"] for r in groups[name]],
+               [r["norm_res"] for r in groups[name]]) for name in names]
+    return plot_lines(path, series, f"{title_prefix} ({os.path.basename(path)})",
+                      "#calls to A, A'", "||v||")
+
+
+def main(argv=None, inner="l2", default_outdir="results/square_root_lasso"):
+    p = argparse.ArgumentParser(epilog=NOT_OFFERED)
+    p.add_argument("--outdir", default=default_outdir)
+    p.add_argument("--maxit", type=int, default=5000)
+    p.add_argument("--tol", type=float, default=1e-5)
+    p.add_argument("--lam", type=float, default=10.0)
+    p.add_argument("--datasets", default="cpusmall_scale,abalone,housing_scale")
+    p.add_argument("--resident", action="store_true",
+                   help="the whole-solve kernel: Condat-Vu in one K7d launch (the two t-sweeps "
+                        "are skipped until their kernel is ported)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                   help="cuda runs float32; cpu runs float64, the reference's regime")
+    p.add_argument("--no-plot", action="store_true")
+    args = p.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but PyTorch finds no CUDA device; "
+                           "pass --device cpu to run on the CPU")
+
+    title = "Square root lasso" if inner == "l2" else "Least absolute deviation"
+    for ds in args.datasets.split(","):
+        path = os.path.join(args.outdir, f"{os.path.basename(ds)}.jsonl")
+        sink = Sink(path, keys=KEYS)
+        src = run_composite(ds, sink, inner, device=args.device, lam=args.lam, tol=args.tol,
+                            maxit=args.maxit, resident=args.resident)
+        sink.emit_meta(data_source=src)
+        print(f"{path}: data={src}")
+        if not args.no_plot:
+            plot_residual(path, title)
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,9 @@ function, as the JAX package does:
 
 from __future__ import annotations
 
-__all__ = ["SmoothOracle"]
+import torch
+
+__all__ = ["SmoothOracle", "ZeroSmooth"]
 
 
 class SmoothOracle:
@@ -42,3 +44,16 @@ class SmoothOracle:
         form than the raw difference (see the JAX package's docstring)."""
         del dx, aux, aux_prev
         return None
+
+
+class ZeroSmooth(SmoothOracle):
+    """f = 0 with a zero gradient, for the fully nonsmooth problems (the
+    reference defines it ad hoc at square_root_lasso/runme.jl:18-21): the value
+    is a 0-d zero in the iterate's dtype and on its device."""
+
+    def value_and_aux(self, x):
+        return torch.zeros((), dtype=x.dtype, device=x.device), None
+
+    def grad_from_aux(self, x, aux):
+        del aux
+        return torch.zeros_like(x)

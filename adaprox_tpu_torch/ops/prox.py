@@ -1,7 +1,7 @@
-"""Proximable functions, main-path subset (counterpart of
-``adaprox_tpu/ops/prox.py``): ``Zero``, ``L1Norm``, ``IndZero``, ``IndBox``
-and the convex conjugate (closed forms for these classes, the Moreau
-identity otherwise).
+"""Proximable functions, the ported subset (counterpart of
+``adaprox_tpu/ops/prox.py``): ``Zero``, ``L1Norm``, ``L2Norm``, ``IndZero``,
+``IndBox``, ``IndBall2``, ``Translate`` and the convex conjugate (closed forms
+for these classes, the Moreau identity otherwise).
 
 Every operator has:
 
@@ -17,7 +17,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["Zero", "L1Norm", "IndZero", "IndBox", "MoreauConjugate", "conjugate"]
+__all__ = ["Zero", "L1Norm", "L2Norm", "IndZero", "IndBox", "IndBall2", "Translate",
+           "MoreauConjugate", "conjugate"]
 
 
 class Zero:
@@ -44,6 +45,24 @@ class L1Norm:
         thr = gamma * self.lam
         y = torch.sign(v) * torch.clamp_min(torch.abs(v) - thr, 0)
         return y, self(y)
+
+
+class L2Norm:
+    """g(x) = lam * ||x||_2; prox = block soft-thresholding (NormL2). The
+    division is guarded (nrm > 0) as in the JAX package, so v = 0 gives 0."""
+
+    def __init__(self, lam=1.0):
+        self.lam = lam
+
+    def __call__(self, x):
+        return self.lam * torch.sqrt(torch.sum(x * x))
+
+    def prox(self, v, gamma):
+        nrm = torch.sqrt(torch.sum(v * v))
+        thr = gamma * self.lam
+        one, zero = torch.ones_like(nrm), torch.zeros_like(nrm)
+        scale = torch.where(nrm > thr, 1 - thr / torch.where(nrm > 0, nrm, one), zero)
+        return scale * v, self.lam * scale * nrm
 
 
 class IndZero:
@@ -81,6 +100,49 @@ class IndBox:
                 torch.zeros((), dtype=v.dtype, device=v.device))
 
 
+class IndBall2:
+    """Indicator of the L2 ball of radius r; prox = radial projection. It
+    arises as the conjugate of L2Norm(r)."""
+
+    def __init__(self, r=1.0):
+        self.r = r
+
+    def __call__(self, x):
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        nrm = torch.sqrt(torch.sum(x * x))
+        # a dtype-relative tolerance: the projection lands on the boundary in exact
+        # arithmetic, but its recomputed norm can overshoot by a few ulp (a fixed
+        # 1e-12 is below f32's eps, so the prox's own output would read inf in f32)
+        fi = torch.finfo(x.dtype)
+        ok = nrm <= torch.as_tensor(self.r, dtype=x.dtype, device=x.device) * (
+            1 + 8 * fi.eps) + fi.tiny
+        return torch.where(ok, zero, torch.full_like(zero, torch.inf))
+
+    def prox(self, v, gamma):
+        del gamma
+        nrm = torch.sqrt(torch.sum(v * v))
+        one = torch.ones_like(nrm)
+        scale = torch.where(nrm > self.r, self.r / torch.where(nrm > 0, nrm, one), one)
+        return scale * v, torch.zeros((), dtype=v.dtype, device=v.device)
+
+
+class Translate:
+    """g(x) = inner(x + b) (ProximalOperators.Translate; the square-root lasso's
+    h = Translate(NormL2(), -y), experiments/square_root_lasso/runme.jl:41), with
+    prox_{gamma g}(v) = prox_{gamma inner}(v + b) - b."""
+
+    def __init__(self, inner, b):
+        self.inner = inner
+        self.b = b
+
+    def __call__(self, x):
+        return self.inner(x + self.b)
+
+    def prox(self, v, gamma):
+        u, val = self.inner.prox(v + self.b, gamma)
+        return u - self.b, val
+
+
 class MoreauConjugate:
     """Convex conjugate h* with prox by the Moreau identity
 
@@ -103,11 +165,16 @@ class MoreauConjugate:
 
 def conjugate(g):
     """Convex conjugate of ``g``: closed form for the ported classes
-    (Zero <-> IndZero, L1Norm(lam) -> IndBox(-lam, lam)), Moreau otherwise."""
+    (Zero <-> IndZero, L1Norm(lam) -> IndBox(-lam, lam), L2Norm(lam) <->
+    IndBall2(lam)), Moreau otherwise (``Translate`` among them, as in JAX)."""
     if isinstance(g, Zero):
         return IndZero()
     if isinstance(g, IndZero):
         return Zero()
     if isinstance(g, L1Norm):
         return IndBox(-g.lam, g.lam)
+    if isinstance(g, L2Norm):
+        return IndBall2(g.lam)
+    if isinstance(g, IndBall2):
+        return L2Norm(lam=g.r)
     return MoreauConjugate(g)

@@ -7,8 +7,9 @@ Phases, one line each, any failure exits non-zero:
   2. build:    K1 (csrc/fused_ls.cu), K3 (csrc/fused_logistic.cu), K2/K2c
                (csrc/resident_pg.cu), K4/K4b (csrc/resident_bt.cu), K4's
                aGRAAL core (csrc/resident_agraal.cu), K6a/K6b/K6d
-               (csrc/resident_pd.cu) and K6c (csrc/resident_mp.cu), one nvcc
-               each, started together, from this checkout's sources
+               (csrc/resident_pd.cu), K6c (csrc/resident_mp.cu) and K7d
+               (csrc/resident_cv.cu), one nvcc each, started together, from this
+               checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
@@ -107,6 +108,19 @@ Phases, one line each, any failure exits non-zero:
                beats the raw one); the MP iteration at 1280^2, 384^2 and
                8192x128 with its mean trials, beside K6's PD iteration; the
                K6c sweep and its plain version timed at a cut depth
+ 13. f0:       K7d (csrc/resident_cv.cu) against its plain version ([f0] lines) on
+               the square-root lasso driver's padded inputs (housing_scale 512x128,
+               abalone 4224x128, cpusmall_scale 8192x128), h's inner norm l2 and l1,
+               A f32 and bf16, at tol -1 and at the drivers' tol 1e-5, maxit 5000:
+               the histories, x and the final objective within CPU-calibrated
+               bounds, the padded coordinates exactly 0, two launches the same
+               bits; square_root_lasso and least_absolute_deviation --resident on
+               the three stand-ins (exactly one K7d launch a dataset and nothing
+               else, the Condat-Vu row alone, its final objective within a
+               calibrated bound of an f64 CPU run); both drivers' engine paths at
+               --maxit 300 on housing_scale (31 finite rows, no K7d launch); K7d
+               against its plain version timed on the driver's cpusmall_scale call,
+               and K7d's iteration beside K6d's
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -358,6 +372,22 @@ MP_YX_BOUND = {("heart_scale", 0.1): 2.5e-5, ("heart_scale", 1.0): 5.5e-5,
 # JAX's --resident meta row (adaprox_tpu/experiments/dual_svm.py): fast_methods and the
 # wall_s keys
 JAX_DSVM_FAST_METHODS = ["AdaPDM t-sweep (resident)", "MP t-sweep (resident)", "Condat-Vu"]
+# K7d against its plain version (phase 13), f32 on the card. Calibrated on the CPU with the
+# plain version in f32 against f64 on the square-root lasso driver's padded inputs (the
+# three stand-ins, l2 and l1, A f32 and bf16, 5000 iterations at tol -1 and at tol 1e-5):
+# the norm_res history parted from f64 by at most 1.44e-5 of its row's largest value
+# (housing_scale, l1, bf16 A), the objective history by 2.8e-7, x by 6.1e-6 of max |x|,
+# and the final objective by 1.15e-6 of its value. Bounds about 7-10x those: rows 1e-4,
+# x 5e-5, the final objective 1e-5. In f32 the l2 residual floors near 1e-5, so at tol
+# 1e-5 one side may stop and the other run on (cpusmall_scale: f32 ran 5000 iterations,
+# f64 stopped at 325): the iteration counts are not compared there, the common prefix
+# of the histories and the final objective are.
+K7D_RTOL = 1e-4
+K7D_X_RTOL = 5e-5
+K7D_OBJ_RTOL = 1e-5
+F0_DATASETS = ("housing_scale", "abalone", "cpusmall_scale")
+F0_DRIVERS = ("square_root_lasso", "least_absolute_deviation")
+F0_ENGINE_MAXIT = 300
 # peak rates of one H100 SXM (data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -2151,6 +2181,197 @@ def mp_phase(resident_pd, resident_mp, driver_mp, counting, dev, smi):
     return dict(ms=ms, plain_ms=plain_ms, bound=b_cut)
 
 
+def f0_inputs(name, dev, dtype=torch.float32):
+    """The square-root lasso driver's resident inputs for dataset ``name`` (its
+    synthetic stand-in) on ``dev``: A = [X 1] and y zero-padded to multiples of 128 in
+    ``dtype``, the unpadded column count, and Condat-Vu's steps (Lf = 0)."""
+    from adaprox_tpu_torch.convert import sqrt_lasso_from_numpy
+    from adaprox_tpu_torch.experiments import square_root_lasso
+
+    x, y, _ = square_root_lasso.load(name)
+    _, _, h, a_op, norm_a = sqrt_lasso_from_numpy(x, y, 10.0, "l2", device=dev, dtype=dtype)
+    a, bv = square_root_lasso.resident_inputs(a_op.a, -h.b)
+    gamma, sigma = square_root_lasso.cv_steps(norm_a)
+    return dict(a=a, bv=bv, n=x.shape[1] + 1, gamma=gamma, sigma=sigma, lam=10.0)
+
+
+def f0_rows_err(got, want):
+    """The largest error of the two history rows over their common prefix, each
+    relative to its plain row's largest magnitude there."""
+    k = min(int(got[1]), int(want[1]))
+    return max(float((u[:k] - w[:k]).abs().max() / w[:k].abs().max())
+               for u, w in zip(got[4], want[4]))
+
+
+def f0_final_obj(out):
+    return float(out[4][1][int(out[1]) - 1])
+
+
+def f0_checks(resident_f0, dev, smi):
+    """Phase 13, K7d against its plain version on the card on the square-root lasso
+    driver's padded inputs: the three stand-ins, l2 and l1, A f32 and bf16, at tol -1
+    and at tol 1e-5 (maxit 5000): the histories over their common prefix, x and the
+    final objective within CPU-calibrated bounds, the padded coordinates exactly 0, two
+    launches the same bits. Returns the largest |x| error on the f32 cases."""
+    x_abs = 0.0
+    for name in F0_DATASETS:
+        inp = f0_inputs(name, dev)
+        for h_kind in resident_f0.H_KINDS:
+            for dtype in (torch.float32, torch.bfloat16):
+                a, bv, n = inp["a"].to(dtype), inp["bv"], inp["n"]
+                parts = []
+                ok = True
+                for tol in (-1.0, 1e-5):
+                    args = (a, bv, inp["lam"], inp["gamma"], inp["sigma"], tol, 5000)
+                    got = resident_f0.resident_condat_vu(*args, record=True, h_kind=h_kind)
+                    again = resident_f0.resident_condat_vu(*args, record=True, h_kind=h_kind)
+                    want = resident_f0.resident_condat_vu_plain(*args, record=True,
+                                                                h_kind=h_kind)
+                    torch.cuda.synchronize()
+                    same = (all(torch.equal(u, w) for u, w in zip(got[:4], again[:4]))
+                            and all(torch.equal(u, w) for u, w in zip(got[4], again[4])))
+                    err = f0_rows_err(got, want)
+                    dx = float((got[0] - want[0]).abs().max())
+                    x_err = dx / float(want[0].abs().max())
+                    obj_err = abs(f0_final_obj(got) - f0_final_obj(want)) / abs(
+                        f0_final_obj(want))
+                    pad_zero = not bool(got[0][n:].any())
+                    finite = bool(torch.isfinite(got[0]).all()) and math.isfinite(float(got[2]))
+                    numit_ok = tol > 0 or int(got[1]) == int(want[1]) == 5000
+                    parts.append(f"tol {tol:g}: numit {int(got[1])} (plain {int(want[1])}), "
+                                 f"converged {bool(got[3])} (plain {bool(want[3])}), rows rel "
+                                 f"err {err:.2e}, x rel err {x_err:.2e}, final objective rel "
+                                 f"err {obj_err:.2e}, padded 0 {pad_zero}, same bits {same}")
+                    ok &= (same and pad_zero and finite and numit_ok and err <= K7D_RTOL
+                           and x_err <= K7D_X_RTOL and obj_err <= K7D_OBJ_RTOL)
+                    if dtype == torch.float32:
+                        x_abs = max(x_abs, dx)
+                label = f"{name} {tuple(a.shape)} {h_kind} {str(dtype).removeprefix('torch.')}"
+                print(f"[f0] K7d vs plain, {label}, maxit 5000: {'; '.join(parts)} (bounds rows "
+                      f"{K7D_RTOL:g}, x {K7D_X_RTOL:g}, objective {K7D_OBJ_RTOL:g}; "
+                      f"CPU-calibrated) ({smi})", flush=True)
+                check(ok, f"K7d {label} disagrees with its plain version")
+    return x_abs
+
+
+def f0_work(a, numit, hist_len):
+    """(bytes, flops) of a K7d solve: A read once, bv in, x, the stats and the two
+    histories out; 4 m n flops an iteration (A x and A'y)."""
+    m, n = a.shape
+    return a.element_size() * m * n + 4 * m + 4 * n + 12 + 8 * hist_len, 4 * m * n * numit
+
+
+def f0_phase(resident_f0, resident_pd, counting, dev, smi):
+    """Phase 13: both drivers --resident on the three stand-ins (one K7d launch a
+    dataset, the final objective against an f64 CPU run), their engine paths, and K7d
+    timed against its plain version and beside K6d. Returns the kernels line's
+    measurements."""
+    import importlib
+
+    from adaprox_tpu_torch.experiments import resident_timing
+    from adaprox_tpu_torch.ops import resident_mp
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+
+    zero_counts, read_counts = counting
+    drivers = {d: importlib.import_module(f"adaprox_tpu_torch.experiments.{d}")
+               for d in F0_DRIVERS}
+    walls, total = {}, 0
+    for driver, mod in drivers.items():
+        h_kind = "l2" if driver == "square_root_lasso" else "l1"
+        outdir = os.path.join("results", "chip_smoke", driver)
+        zero_counts()
+        mod.main(["--resident", "--device", "cuda", "--outdir", outdir, "--no-plot"])
+        torch.cuda.synchronize()
+        launches = resident_f0.resident_condat_vu.launches
+        others = read_counts() + (resident_pd.resident_adapdm_dsvm.launches,
+                                  resident_pd.resident_adapdm_dsvm_sweep.launches,
+                                  resident_pd.resident_cv_dsvm.launches,
+                                  resident_mp.resident_mp_dsvm_sweep.launches)
+        total += launches
+        check(launches == len(F0_DATASETS) and others == (0,) * 11,
+              f"{driver} --resident: {launches} K7d launches for {len(F0_DATASETS)} datasets, "
+              f"other kernels {others}")
+        parts = []
+        for name in F0_DATASETS:
+            rows = read_jsonl(os.path.join(outdir, f"{name}.jsonl"))
+            cv = [r for r in rows if "norm_res" in r]
+            meta = rows[-2]
+            check({r["method"] for r in cv} == {"Condat-Vu"} and meta["fast_path"] == "resident"
+                  and meta["fast_methods"] == ["Condat-Vu"],
+                  f"{driver} --resident {name}: rows {sorted({r['method'] for r in cv})}, "
+                  f"meta {meta}")
+            walls[(driver, name)] = meta["wall_s"]["Condat-Vu"]
+            # the driver's call again, recorded: its numit and residual are the row's, and
+            # its final objective is held against the plain version in f64 on the CPU
+            inp = f0_inputs(name, dev)
+            kw = dict(record=True, h_kind=h_kind)
+            args = (inp["lam"], inp["gamma"], inp["sigma"], 1e-5, 5000)
+            out = resident_f0.resident_condat_vu(inp["a"], inp["bv"], *args, **kw)
+            inp64 = f0_inputs(name, "cpu", torch.float64)
+            ref = resident_f0.resident_condat_vu_plain(inp64["a"], inp64["bv"], *args, **kw)
+            same_row = (int(out[1]) == len(cv) and float(out[2]) == cv[-1]["norm_res"]
+                        and cv[-1]["A_evals"] == len(cv) + 1)
+            obj_err = abs(f0_final_obj(out) - f0_final_obj(ref)) / abs(f0_final_obj(ref))
+            parts.append(f"{name}: numit {len(cv)} (f64 CPU {int(ref[1])}), norm_res "
+                         f"{cv[-1]['norm_res']:.3e}, final objective {f0_final_obj(out):.6f} "
+                         f"(f64 CPU {f0_final_obj(ref):.6f}, rel err {obj_err:.2e}), the "
+                         f"recorded call is the row: {same_row}, wall_s {walls[(driver, name)]}")
+            check(same_row and obj_err <= K7D_OBJ_RTOL,
+                  f"{driver} --resident {name}: the Condat-Vu row disagrees")
+        print(f"[f0] {driver} --resident at its defaults (lam 10, tol 1e-5, maxit 5000): K7d "
+              f"launches {launches} (one a dataset), other kernels 0; {'; '.join(parts)} "
+              f"(objective bound {K7D_OBJ_RTOL:g}, CPU-calibrated) ({smi})", flush=True)
+
+    # the engine path, depth cut from 5000 to 300 (a host sync an iteration, the
+    # linesearch rows one a trial): no K7d launch, 31 finite rows
+    for driver, mod in drivers.items():
+        outdir = os.path.join("results", "chip_smoke", f"{driver}_engine")
+        zero_counts()
+        t0 = time.perf_counter()
+        mod.main(["--datasets", "housing_scale", "--maxit", str(F0_ENGINE_MAXIT), "--device",
+                  "cuda", "--outdir", outdir, "--no-plot"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rows = read_jsonl(os.path.join(outdir, "housing_scale.jsonl"))
+        last = {}
+        for r in rows:
+            if "norm_res" in r:
+                last[r["method"]] = r
+        check(len(last) == 31 and all(math.isfinite(r["norm_res"]) for r in last.values())
+              and resident_f0.resident_condat_vu.launches == 0,
+              f"{driver} engine path: {len(last)} rows, K7d launches "
+              f"{resident_f0.resident_condat_vu.launches}")
+        print(f"[f0] {driver} engine path, housing_scale, --maxit {F0_ENGINE_MAXIT} (cut from "
+              f"5000): 31 finite rows, K7d launches 0, wall {secs:.2f} s, wall_s "
+              f"{rows[-2]['wall_s']} ({smi})", flush=True)
+
+    # K7d against its plain version on the driver's largest call (cpusmall_scale 8192x128,
+    # l2, tol 1e-5, maxit 5000, record), one call each (the plain version syncs the host
+    # every iteration), and the iteration beside K6d's
+    inp = f0_inputs("cpusmall_scale", dev)
+    args = (inp["a"], inp["bv"], inp["lam"], inp["gamma"], inp["sigma"], 1e-5, 5000)
+    resident_f0.resident_condat_vu(*args, record=True)  # warm-up
+    ms, out = once_ms(lambda: resident_f0.resident_condat_vu(*args, record=True))
+    plain_ms, out_plain = once_ms(lambda: resident_f0.resident_condat_vu_plain(*args, record=True))
+    numit = int(out[1])
+    b = bound(*f0_work(inp["a"], numit, resident_pd.hist_len(5000)))
+    print(f"[f0] K7d vs its plain version, cpusmall_scale 8192x128 f32 l2 (the driver's call: "
+          f"tol 1e-5, maxit 5000, record): numit {numit} (plain {int(out_plain[1])}); K7d "
+          f"{ms:.4f} ms ({1e3 * ms / max(numit, 1):.3f} us an iteration), plain {plain_ms:.2f} "
+          f"ms (one call each, CUDA events); bound {b[0]:.5f} ms ({b[1]}) ({smi})", flush=True)
+    us = resident_timing.cv_timing(dev, 3)
+    # an iteration's bound were A and A' read from HBM every iteration: the larger of
+    # 4mn flops and 2mn * 4 bytes
+    it_bounds = {f"{m}x{n}": bound(2 * m * n * 4, 4 * m * n)
+                 for m, n in ((512, 128), (4224, 128), (8192, 128))}
+    print(f"[f0] iteration, tol -1, 1000 iterations, f32, best of 3: "
+          f"{', '.join(f'{k} {v:.3f}' for k, v in us.items())}; an iteration's bound (4mn "
+          f"flops, 2mn*4 bytes) "
+          f"{', '.join(f'{k} {1e3 * v[0]:.4f} us ({v[1]})' for k, v in it_bounds.items())} "
+          f"({smi})", flush=True)
+    return dict(launches=total, ms=ms, plain_ms=plain_ms, bound=b, it_us=us)
+
+
 def main():
     # 1. device --------------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: needs a CUDA device")
@@ -2165,13 +2386,14 @@ def main():
     from adaprox_tpu_torch.experiments import lasso
     from adaprox_tpu_torch.experiments.common import pad_tiles
     from adaprox_tpu_torch.models.synthetic import random_lasso
-    from adaprox_tpu_torch.ops import kernels, resident, resident_bt, resident_mp, resident_pd
+    from adaprox_tpu_torch.ops import (kernels, resident, resident_bt, resident_f0, resident_mp,
+                                       resident_pd)
     from adaprox_tpu_torch.utils.logging import read_jsonl
     from adaprox_tpu_torch.utils.profiling import timed
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         builds = [(name, pool.submit(build)) for name, build in
                   (("K1", kernels.build_library),
                    ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
@@ -2179,13 +2401,14 @@ def main():
                    ("K4/K4b", resident_bt.build_library),
                    ("K4 (aGRAAL)", resident_bt.build_agraal_library),
                    ("K6a/K6b/K6d", resident_pd.build_library),
-                   ("K6c", resident_mp.build_library))]
+                   ("K6c", resident_mp.build_library),
+                   ("K7d", resident_f0.build_library))]
         for name, fut in builds:
             lib_path = fut.result()
             regs = ptxas_report(lib_path.with_suffix(".log").read_text())
             print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
                   f"bytes: {'; '.join(regs)})", flush=True)
-    print(f"[build] all seven in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all eight in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -2233,6 +2456,7 @@ def main():
         resident_pd.resident_adapdm_dsvm.launches = 0
         resident_pd.resident_adapdm_dsvm_sweep.launches = resident_pd.resident_cv_dsvm.launches = 0
         resident_mp.resident_mp_dsvm_sweep.launches = 0
+        resident_f0.resident_condat_vu.launches = 0
 
     def read_counts():
         """Launches of (K1, K2, K2c, K3, K4, K4b, K4 (aGRAAL)) since zero_counts()."""
@@ -2426,6 +2650,10 @@ def main():
     mp_err = mp_checks(resident_mp, dev, smi)
     mp_meas = mp_phase(resident_pd, resident_mp, driver_mp, (zero_counts, read_counts), dev, smi)
 
+    # 13. the f = 0 family's Condat-Vu kernel -------------------------------------------
+    f0_err = f0_checks(resident_f0, dev, smi)
+    f0_meas = f0_phase(resident_f0, resident_pd, (zero_counts, read_counts), dev, smi)
+
     head = measured["16384x16384 f32"]
     k3_head = k3_meas["16384x16384 f32"]
     hm = hn = HEADLINE
@@ -2503,7 +2731,13 @@ def main():
         "max_abs_err": mp_err, "ms": mp_meas["ms"], "plain_ms": mp_meas["plain_ms"],
         "bound_ms": mp_meas["bound"][0], "bound_by": mp_meas["bound"][1], "library_ms": None,
         "depth": MP_CUT, "driver_ms": pd_meas["k6c"]["driver_ms"],
-        "driver_bound_ms": pd_meas["k6c"]["driver_bound"][0]}]}))
+        "driver_bound_ms": pd_meas["k6c"]["driver_bound"][0]}, {
+        "name": "resident_condat_vu", "route": "cuda",
+        "source": "adaprox_tpu_torch/csrc/resident_cv.cu",
+        "replaces": "adaprox_tpu/ops/resident.py:2056", "launches": f0_meas["launches"],
+        "max_abs_err": f0_err, "ms": f0_meas["ms"], "plain_ms": f0_meas["plain_ms"],
+        "bound_ms": f0_meas["bound"][0], "bound_by": f0_meas["bound"][1], "library_ms": None,
+        "it_us": f0_meas["it_us"]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
-"""The CUDA kernels K1, K2, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c and K6d on the
-card against their plain PyTorch versions (K2, K2c, K4, K4b and aGRAAL with the least-squares,
-logistic and cubic objectives; K6 and K6c with the dual SVM's dense Q or factored B).
+"""The CUDA kernels K1, K2, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c, K6d and K7d on
+the card against their plain PyTorch versions (K2, K2c, K4, K4b and aGRAAL with the
+least-squares, logistic and cubic objectives; K6 and K6c with the dual SVM's dense Q or
+factored B; K7d with the square-root lasso's and the least absolute deviation's h).
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. This file imports no
 JAX, so it runs on a machine without it:
@@ -1252,3 +1253,132 @@ def test_k6c_exact_bregman_large_f_on_card(dev):
                                                factored=True, exact_bregman=eb)[2][0])
            for eb in (True, False)}
     assert res[True] < res[False] / 10 or res[True] <= 1e-5
+
+
+# -- K7d, the f = 0 family's Condat-Vu ----------------------------------------------------------
+
+# K7d against its plain version, tol -1, 300 iterations: on the CPU the plain version in f32
+# (A f32 or bf16) parted from f64 by at most 7.9e-7 of each history row's largest value and
+# 7.0e-7 of max |x| on k7d_case (l2 and l1); the card sums in another order than the plain
+# version. Held at 1e-5.
+K7D_RTOL = 1e-5
+
+
+def k7d_case(dev, dtype, m=500, n=100, seed=6):
+    """(a, bv, gamma, sigma, n) of a square-root-lasso problem: A (m, n) Gaussian / sqrt(n),
+    bv = A w + noise with a sparse w, zero-padded to (512, 128) as the drivers pad; a in
+    ``dtype`` storage, bv f32; the Condat-Vu steps from the Frobenius norm (Lf = 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, n)) / n**0.5
+    w = rng.standard_normal(n) * (rng.random(n) < 0.2)
+    bv = a @ w + 0.1 * rng.standard_normal(m)
+    a_pad, b_pad = np.zeros((512, 128)), np.zeros(512)
+    a_pad[:m, :n], b_pad[:m] = a, bv
+    na = float(np.linalg.norm(a))
+    return (torch.as_tensor(a_pad, dtype=torch.float32, device=dev).to(dtype),
+            torch.as_tensor(b_pad, dtype=torch.float32, device=dev), 1.0 / na, 0.99 / na, n)
+
+
+@pytest.mark.parametrize("h_kind", ["l2", "l1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7d_matches_plain_on_card(dev, dtype, h_kind):
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    a, bv, gamma, sigma, n = k7d_case(dev, dtype)
+    before = tf.resident_condat_vu.launches
+    got = tf.resident_condat_vu(a, bv, 0.1, gamma, sigma, -1.0, 300, record=True, h_kind=h_kind)
+    torch.cuda.synchronize()
+    assert tf.resident_condat_vu.launches == before + 1
+    want = tf.resident_condat_vu_plain(a, bv, 0.1, gamma, sigma, -1.0, 300, record=True,
+                                       h_kind=h_kind)
+    assert got[0].dtype == torch.float32 and got[4][0].shape == (300,)
+    assert int(got[1]) == int(want[1]) == 300 and not bool(got[3])
+    for u, w in zip(got[4], want[4]):
+        assert float((u - w).abs().max()) <= K7D_RTOL * float(w.abs().max())
+    assert float((got[0] - want[0]).abs().max()) <= K7D_RTOL * float(want[0].abs().max())
+    assert not bool(got[0][n:].any())  # the padded coordinates stay exactly 0
+
+
+def test_k7d_odd_shapes_take_scalar_loads(dev):
+    """Rows that are not whole 16-byte groups (517 x 13: the scalar instantiations)."""
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    a = torch.randn(517, 13, generator=gen, device=dev) / 13**0.5
+    bv = torch.randn(517, generator=gen, device=dev)
+    na = float(torch.linalg.matrix_norm(a))
+    for h_kind in ("l2", "l1"):
+        for dtype in (torch.float32, torch.bfloat16):
+            got = tf.resident_condat_vu(a.to(dtype), bv, 0.1, 1 / na, 0.99 / na, -1.0, 200,
+                                        record=True, h_kind=h_kind)
+            want = tf.resident_condat_vu_plain(a.to(dtype), bv, 0.1, 1 / na, 0.99 / na, -1.0,
+                                               200, record=True, h_kind=h_kind)
+            for u, w in zip(got[4], want[4]):
+                assert float((u - w).abs().max()) <= K7D_RTOL * float(w.abs().max())
+            assert float((got[0] - want[0]).abs().max()) <= K7D_RTOL * float(
+                want[0].abs().max())
+
+
+def test_k7d_is_repeatable_and_returns_the_checked_iterate(dev):
+    """Two launches give the same bits; converged at iteration k, the solve returns the x
+    of the check, which a run capped at k - 1 iterations returns; maxit 0 returns the
+    warm-up's x = 0 with an infinite residual."""
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    a, bv, gamma, sigma, _ = k7d_case(dev, torch.float32)
+    one = tf.resident_condat_vu(a, bv, 0.1, gamma, sigma, 1e-3, 20000, record=True)
+    two = tf.resident_condat_vu(a, bv, 0.1, gamma, sigma, 1e-3, 20000, record=True)
+    assert all(torch.equal(u, w) for u, w in zip(one[:4], two[:4]))
+    assert all(torch.equal(u, w) for u, w in zip(one[4], two[4]))
+    k = int(one[1])
+    assert bool(one[3]) and float(one[2]) <= 1e-3 and 1 < k < 20000
+    assert float(one[4][0][k - 1]) <= 1e-3 and not bool(one[4][0][k:].any())
+    capped = tf.resident_condat_vu(a, bv, 0.1, gamma, sigma, -1.0, k - 1)
+    assert torch.equal(capped[0], one[0])
+    x, numit, nres, conv = tf.resident_condat_vu(a, bv, 0.1, gamma, sigma, 0.0, 0)
+    assert int(numit) == 0 and float(nres) == float("inf") and not bool(conv)
+    assert not bool(x.any())
+
+
+def test_k7d_refusals(dev):
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    a, bv, gamma, sigma, _ = k7d_case(dev, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tf.resident_condat_vu(a.double(), bv, 0.1, gamma, sigma, 0.0, 3)
+    with pytest.raises(TypeError, match="float32 bv"):
+        tf.resident_condat_vu(a, bv.double(), 0.1, gamma, sigma, 0.0, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tf.resident_condat_vu(a.t().contiguous().t(), bv, 0.1, gamma, sigma, 0.0, 3)
+    with pytest.raises(ValueError, match="h_kind"):
+        tf.resident_condat_vu(a, bv, 0.1, gamma, sigma, 0.0, 3, h_kind="linf")
+
+
+@pytest.mark.parametrize("driver", ["square_root_lasso", "least_absolute_deviation"])
+def test_sqrt_lasso_drivers_resident_is_one_k7d_launch(dev, tmp_path, driver):
+    """--resident on housing_scale's stand-in: one K7d launch, the Condat-Vu row alone
+    (the t-sweeps skipped), JAX's keys; the engine path launches none and writes 31 rows."""
+    import importlib
+
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+
+    mod = importlib.import_module(f"adaprox_tpu_torch.experiments.{driver}")
+    before = tf.resident_condat_vu.launches
+    mod.main(["--resident", "--datasets", "housing_scale", "--maxit", "300", "--device", "cuda",
+              "--outdir", str(tmp_path), "--no-plot"])
+    assert tf.resident_condat_vu.launches == before + 1
+    rows = read_jsonl(tmp_path / "housing_scale.jsonl")
+    assert {r["method"] for r in rows if "norm_res" in r} == {"Condat-Vu"}
+    assert all(list(r) == ["method", "norm_res", "A_evals", "At_evals"] for r in rows
+               if "norm_res" in r)
+    assert rows[-2]["fast_path"] == "resident" and rows[-2]["fast_methods"] == ["Condat-Vu"]
+    before = tf.resident_condat_vu.launches
+    mod.main(["--datasets", "housing_scale", "--maxit", "20", "--device", "cuda", "--outdir",
+              str(tmp_path / "engine"), "--no-plot"])
+    assert tf.resident_condat_vu.launches == before
+    rows = read_jsonl(tmp_path / "engine" / "housing_scale.jsonl")
+    assert len({r["method"] for r in rows if "norm_res" in r}) == 31

@@ -246,11 +246,30 @@ pd = [[rp.numit, float(fq.value(rp.x)), float(ys @ rp.x.numpy()), float(rp.x.min
 for path in ([], ["--resident"]):
     dual_svm.main(["--device", "cpu", "--datasets", "heart_scale", "--C", "0.1", "--maxit", "40",
                    "--no-plot", "--outdir", sys.argv[1] + "-dsvm" + "".join(path), *path])
+# the square-root lasso slice: the engine's Condat-Vu, K7d (plain version) on the padded
+# problem and AdaPDM+ on the least absolute deviation, and its driver on both paths
+from adaprox_tpu_torch.experiments import least_absolute_deviation, square_root_lasso
+xl, yl, _ = square_root_lasso.load("housing_scale")
+fz, gl, hl, al, nal = apt.sqrt_lasso_from_numpy(xl, yl, 10.0, "l1", device="cpu",
+                                                dtype=torch.float64)
+z14, z506 = torch.zeros(14, dtype=torch.float64), torch.zeros(506, dtype=torch.float64)
+rcv = apt.condat_vu(z14, z506, f=fz, g=gl, h=hl, A=al, Lf=0.0, norm_A=nal, tol=1e-5, maxit=300)
+apad, bpad = square_root_lasso.resident_inputs(al.a, -hl.b)
+k7 = apt.resident_condat_vu(apad, bpad, 10.0, 1 / nal, 0.99 / nal, 1e-5, 300, h_kind="l1")
+rpl = apt.adaptive_linesearch_primal_dual(z14, z506, f=fz, g=gl, h=hl, A=al, eta=nal, t=1.0,
+                                          tol=1e-5, maxit=300)
+f0 = [[r_x.shape[0], n_it, float(gl(r_x[:14]) + hl(al.matvec(r_x[:14]))),
+       float(r_x[14:].abs().sum())]
+      for r_x, n_it in ((rcv.x, rcv.numit), (k7[0], int(k7[1])), (rpl.x, rpl.numit))]
+for path in ([], ["--resident"]):
+    least_absolute_deviation.main(["--device", "cpu", "--datasets", "housing_scale", "--maxit",
+                                   "30", "--no-plot", "--outdir",
+                                   sys.argv[1] + "-lad" + "".join(path), *path])
 import adaprox_tpu_torch.experiments.resident_timing  # the card's timing script
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("jax", "jaxlib", "adaprox_tpu"))
 print(json.dumps({"leaked": leaked, "runs": out, "logreg": logreg, "source": src,
-                  "cubic": cubic, "bt": bt, "agraal": ag, "pd": pd}))
+                  "cubic": cubic, "bt": bt, "agraal": ag, "pd": pd, "f0": f0}))
 """
 
 
@@ -323,6 +342,21 @@ def test_port_runs_the_slice_without_jax(tmp_path):
                                / "heart_scale_C_0.1.jsonl")
         last = [r["method"] for r in rows if r.get("it") == 40]
         assert len(last) == 25 and last[12] == "Malitsky-Pock (t=0.01)" and last[-1] == "Condat-Vu"
+    # the least absolute deviation: the engine's Condat-Vu and K7d's plain version on A
+    # padded to 512 x 128 take the same iterations to the same objective, the padded
+    # coordinates 0; AdaPDM+ runs; the driver wrote its 31 rows, and --resident the
+    # Condat-Vu row alone
+    (n20, i20, f20, _), (n21, i21, f21, p21), (n22, i22, f22, _) = got["f0"]
+    assert (n20, n21, n22) == (14, 128, 14) and i20 == i21 == i22 == 300 and p21 == 0.0
+    assert abs(f21 - f20) < 1e-9 * abs(f20) and np.isfinite(f22)
+    for path, names in (("", 31), ("--resident", 1)):
+        rows = tlog.read_jsonl(tmp_path.parent / (tmp_path.name + "-lad" + path)
+                               / "housing_scale.jsonl")
+        counts = {}
+        for r in rows:
+            if "norm_res" in r:
+                counts[r["method"]] = counts.get(r["method"], 0) + 1
+        assert len(counts) == names and set(counts.values()) == {30}
 
 
 # -- (h) chip_smoke.py ---------------------------------------------------------

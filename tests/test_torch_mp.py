@@ -113,23 +113,6 @@ def test_mp_engine_converges_to_jax_solution():
     assert (xt >= 0).all() and (xt <= big_c).all() and abs(labels @ xt) < 1e-5
 
 
-class _TranslateL2:
-    """h(z) = ||z + b|| (the reference's Translate(NormL2(1), b)), for the mirror's
-    problem; the engine takes its conjugate by the Moreau identity."""
-
-    def __init__(self, b):
-        self.b = b
-
-    def __call__(self, z):
-        return torch.linalg.vector_norm(z + self.b)
-
-    def prox(self, v, gamma):
-        u = v + self.b
-        nu = torch.linalg.vector_norm(u)
-        y = torch.clamp_min(1 - gamma / nu, 0.0) * u - self.b
-        return y, self(y)
-
-
 def test_mp_engine_matches_numpy_mirror():
     """The reference loop transcribed in numpy (tests/test_reference_mirror.py), with
     sigma0 too large so the halving branch fires: step sizes to rtol 1e-7 over 60
@@ -148,7 +131,7 @@ def test_mp_engine_matches_numpy_mirror():
     assert trials_np.max() > 1
     res = apt.malitsky_pock(torch.zeros(n, dtype=F64), torch.zeros(m, dtype=F64),
                             f=apt.LeastSquares(t64(a_f), t64(b_f)), g=apt.L1Norm(lam),
-                            h=_TranslateL2(-t64(yv)),
+                            h=apt.Translate(apt.L2Norm(1.0), -t64(yv)),
                             A=apt.DenseOperator(t64(a)), sigma=sigma0, t=t, tol=0.0,
                             maxit=iters, history=True)
     np.testing.assert_allclose(np_of(res.records.gamma), gam_np, rtol=1e-7)
