@@ -82,7 +82,12 @@ from .ops.resident_pd import (  # noqa: E402
     resident_pd_records,
 )
 from .ops.resident_mp import resident_mp_dsvm_sweep, resident_mp_records  # noqa: E402
-from .ops.resident_f0 import resident_condat_vu  # noqa: E402
+from .ops.resident_f0 import (  # noqa: E402
+    resident_adapdmp_records,
+    resident_adapdmp_sweep,
+    resident_condat_vu,
+    resident_mpls_sweep,
+)
 from .ops.resident import (  # noqa: E402
     resident_adapgm,
     resident_adapgm_l1,
@@ -146,7 +151,8 @@ __all__ = [
     "resident_bt_sweep", "resident_bt_records", "resident_agraal", "resident_agraal_records",
     "resident_adapdm_dsvm", "resident_adapdm_dsvm_sweep", "resident_cv_dsvm",
     "resident_pd_records", "resident_cv_records", "resident_mp_dsvm_sweep", "resident_mp_records",
-    "resident_condat_vu",
+    "resident_condat_vu", "resident_mpls_sweep", "resident_adapdmp_sweep",
+    "resident_adapdmp_records",
     # models
     "LeastSquares", "LogisticLoss", "Quadratic", "FactoredQuadratic", "Cubic", "WorstQuadratic", "LassoProblem", "random_lasso",
     # rules

@@ -38,7 +38,7 @@ dual_svm driver's inputs (``experiments.dual_svm.resident_inputs``, C 0.1):
   pd_8192x128_it_us  mushrooms' factored B, 8192x128
   pd_build_s       seconds to build (or find built) csrc/resident_pd.cu
 
-With ``--cv`` it times K7d's iteration (csrc/resident_cv.cu): one Condat-Vu
+With ``--cv`` it times K7d's iteration (csrc/resident_cv.cu) and K7a's: one Condat-Vu
 solve, tol -1, 1000 iterations, per iteration, on the square-root lasso driver's
 padded inputs (``experiments.square_root_lasso.resident_inputs``, lam 10), with
 h's inner norm l2 and l1, beside K6d's Condat-Vu iteration on the dual_svm
@@ -48,7 +48,12 @@ driver's inputs in the same call:
   cv_l2_8192x128_it_us, cv_l1_8192x128_it_us    cpusmall_scale (8192 x 13 -> 8192 x 128)
   k6d_384_it_us, k6d_1280_it_us, k6d_8192x128_it_us  K6d at heart_scale's dense Q,
                    svmguide3's dense Q and mushrooms' factored B (C 0.1)
-  cv_build_s       seconds to build (or find built) csrc/resident_cv.cu
+  mp_l2_512x128_it_us, ..., adapdmp_l1_8192x128_it_us  K7a's two cores
+                   (csrc/resident_f0_sweep.cu) at the same shapes and h: a one-row sweep, t
+                   1, tol -1, 1000 iterations, per iteration, and
+  mp_l2_512x128_trials, ...  their mean trials an iteration
+  cv_build_s       seconds to build (or find built) csrc/resident_cv.cu and
+                   csrc/resident_f0_sweep.cu
 """
 
 from __future__ import annotations
@@ -77,7 +82,8 @@ def main(argv=None):
     mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--pd", action="store_true", help="time K6's PD iteration only")
     mode.add_argument("--cv", action="store_true",
-                      help="time K7d's Condat-Vu iteration, beside K6d's, only")
+                      help="time K7d's Condat-Vu iteration and K7a's two cores', beside "
+                           "K6d's, only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("resident_timing: needs a CUDA device")
@@ -114,32 +120,41 @@ def pd_timing(dev, reps):
 
 
 def cv_timing(dev, reps):
-    """K7d's Condat-Vu iteration at the square-root lasso driver's three shapes, and
-    K6d's at the dual_svm driver's (see the module docstring)."""
+    """K7d's Condat-Vu iteration and K7a's two cores' at the square-root lasso driver's
+    three shapes, and K6d's at the dual_svm driver's (see the module docstring)."""
     from . import dual_svm, square_root_lasso
     from ..convert import sqrt_lasso_from_numpy
     from ..ops import resident_f0, resident_pd
 
     def per_it(fn):
         secs, res = timed(fn, reps=reps)
-        if int(res[1]) != ITERS:
-            raise RuntimeError(f"ran {int(res[1])} of {ITERS} iterations")
-        return 1e6 * secs / ITERS
+        if int(res[1].reshape(-1)[0]) != ITERS:
+            raise RuntimeError(f"ran {int(res[1].reshape(-1)[0])} of {ITERS} iterations")
+        return 1e6 * secs / ITERS, res
 
     out = {}
     t0 = time.perf_counter()
     resident_f0.build_library()
+    resident_f0.build_sweep_library()
     out["cv_build_s"] = time.perf_counter() - t0
+    sweeps = {"mp": resident_f0.resident_mpls_sweep, "adapdmp": resident_f0.resident_adapdmp_sweep}
     for name in ("housing_scale", "abalone", "cpusmall_scale"):
         x, y, _ = square_root_lasso.load(name)
         _, _, h, a_op, na = sqrt_lasso_from_numpy(x, y, 10.0, "l2", device=dev,
                                                   dtype=torch.float32)
         a, bv = square_root_lasso.resident_inputs(a_op.a, -h.b)
         gamma, sigma = square_root_lasso.cv_steps(na)
+        shape = f"{a.shape[0]}x{a.shape[1]}"
         for h_kind in resident_f0.H_KINDS:
-            out[f"cv_{h_kind}_{a.shape[0]}x{a.shape[1]}_it_us"] = per_it(
+            out[f"cv_{h_kind}_{shape}_it_us"] = per_it(
                 lambda: resident_f0.resident_condat_vu(a, bv, 10.0, gamma, sigma, -1.0, ITERS,
-                                                       h_kind=h_kind))
+                                                       h_kind=h_kind))[0]
+            for core, sweep in sweeps.items():
+                p2 = 1.0 if core == "mp" else na
+                us, res = per_it(lambda: sweep(a, bv, 10.0, [1.0], p2, -1.0, ITERS, record=True,
+                                               h_kind=h_kind))
+                out[f"{core}_{h_kind}_{shape}_it_us"] = us
+                out[f"{core}_{h_kind}_{shape}_trials"] = float(res[5][3].mean())
     for name, key in (("heart_scale", "k6d_384_it_us"), ("svmguide3", "k6d_1280_it_us"),
                       ("mushrooms", "k6d_8192x128_it_us")):
         x, y, _ = dual_svm.load(name)
@@ -148,7 +163,7 @@ def cv_timing(dev, reps):
         gamma, sigma = dual_svm.cv_steps(float(np.linalg.norm(dyx.T @ dyx)),
                                          float(np.linalg.norm(y)))
         out[key] = per_it(lambda: resident_pd.resident_cv_dsvm(
-            q, lab, 0.1, gamma, sigma, -1.0, ITERS, n_true=len(y), factored=factored))
+            q, lab, 0.1, gamma, sigma, -1.0, ITERS, n_true=len(y), factored=factored))[0]
     return out
 
 

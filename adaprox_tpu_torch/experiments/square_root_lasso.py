@@ -20,12 +20,13 @@ Where it runs. The default path runs every row through the engine
 (``condat_vu``, ``malitsky_pock``, ``adaptive_linesearch_primal_dual``), on the
 card or, with ``--device cpu``, on the CPU in f64. ``--resident`` pads A and y
 with zeros to multiples of 128 in both dimensions (exact for this f = 0
-translate family) and writes the Condat-Vu row from ONE launch of K7d
-(``ops.resident_f0.resident_condat_vu``) when the padded A fits the JAX
-driver's routing limit (24 MiB a layout), else falls back to the engine as the
-JAX driver does; the two t-sweeps' kernel (K7a) is not ported yet, so they are
-skipped and say so. The wall_s of the meta row times the solves only, not the
-JSONL writes.
+translate family) and writes all 31 rows from three launches: the Condat-Vu
+row from one K7d launch (``ops.resident_f0.resident_condat_vu``), the 15
+Malitsky-Pock rows from one K7a launch (``resident_mpls_sweep``) and the 15
+AdaPDM+ rows from another (``resident_adapdmp_sweep``), when the padded A fits
+the JAX driver's routing limit (24 MiB a layout), else it falls back to the
+engine as the JAX driver does. The wall_s of the meta row times the solves
+only, not the JSONL writes.
 
     python -m adaprox_tpu_torch.experiments.square_root_lasso
     python -m adaprox_tpu_torch.experiments.square_root_lasso --resident
@@ -40,7 +41,9 @@ from types import SimpleNamespace
 import torch
 
 from ..convert import sqrt_lasso_from_numpy
-from ..ops.resident_f0 import resident_condat_vu
+from ..ops.resident_f0 import (resident_adapdmp_records, resident_adapdmp_sweep,
+                               resident_condat_vu, resident_mpls_sweep)
+from ..ops.resident_mp import resident_mp_records
 from ..ops.resident_pd import resident_cv_records
 from ..solvers.adapdm_plus import adaptive_linesearch_primal_dual
 from ..solvers.malitsky_pock import malitsky_pock
@@ -53,7 +56,7 @@ T_VALUES = [0.01, 0.15, 0.02, 0.025, 0.05, 0.1, 0.2, 0.5, 1, 2, 5, 10, 20, 50, 1
 KEYS = ["method", "norm_res", "A_evals", "At_evals"]
 # the JAX driver's routing limit: a layout of A in a TPU core's VMEM
 _VMEM_BYTES = 24 * 1024 * 1024
-FAST_METHODS = ["Condat-Vu"]
+FAST_METHODS = ["Condat-Vu", "Malitsky-Pock t-sweep", "AdaPDM+ t-sweep"]
 NOT_OFFERED = ("--vmap-sweep, --fused, --resident-grid and --live are not offered yet: "
                "they need the batched engine, K5 (the fused primal-dual update), K7b/K7c "
                "(the dataset grid) and utils/live.py")
@@ -110,8 +113,17 @@ def run_composite(name_or_path, sink, inner="l2", *, device, lam=10.0, tol=1e-5,
         sink.add(SimpleNamespace(records=resident_cv_records(numit, gamma, sigma, hists,
                                                              maxit=maxit), name="Condat-Vu"),
                  primal_dual=True)
-        print("  [resident] skipped: the Malitsky-Pock t-sweep and the AdaPDM+ t-sweep (their "
-              "kernel, K7a, is not ported yet)")
+        # each t-sweep is one launch; its rows are written after it
+        sweeps = (("Malitsky-Pock", resident_mpls_sweep, 1.0, resident_mp_records),
+                  ("AdaPDM+", resident_adapdmp_sweep, norm_a, resident_adapdmp_records))
+        for fam, sweep, p2, records in sweeps:
+            _, numits, _, _, _, hists = run_timed(times, f"{fam} t-sweep", lambda: sweep(
+                a_pad, bv_pad, float(lam), T_VALUES, p2, tol, maxit, record=True,
+                h_kind=inner))
+            for i, t in enumerate(T_VALUES):
+                sink.add(SimpleNamespace(records=records(numits[i], tuple(h[i] for h in hists),
+                                                         maxit=maxit),
+                                         name=f"{fam} (t={t})"), primal_dual=True)
     else:
         sink.add(run_timed(times, "Condat-Vu", lambda: condat_vu(
             x0, y0, f=f, g=g, h=h, A=a_op, Lf=0.0, norm_A=norm_a, tol=tol, maxit=maxit,
@@ -157,8 +169,8 @@ def main(argv=None, inner="l2", default_outdir="results/square_root_lasso"):
     p.add_argument("--lam", type=float, default=10.0)
     p.add_argument("--datasets", default="cpusmall_scale,abalone,housing_scale")
     p.add_argument("--resident", action="store_true",
-                   help="the whole-solve kernel: Condat-Vu in one K7d launch (the two t-sweeps "
-                        "are skipped until their kernel is ported)")
+                   help="the whole-solve kernels: Condat-Vu in one K7d launch, each t-sweep in "
+                        "one K7a launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")

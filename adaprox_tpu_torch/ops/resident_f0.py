@@ -1,25 +1,32 @@
-"""K7d, the whole-solve Condat-Vu kernel of the f = 0 composite family: the
-square-root lasso and the least absolute deviation,
+"""The whole-solve kernels of the f = 0 composite family: the square-root lasso
+and the least absolute deviation,
 
-    min_x lam ||x||_1 + h(A x),   h = Translate(inner, -bv),   inner = NormL2 or NormL1,
+    min_x lam ||x||_1 + h(A x),   h = Translate(inner, -bv),   inner = NormL2 or NormL1
 
-with fixed steps (gamma, sigma) (experiments/square_root_lasso/runme.jl:37-47).
+(experiments/square_root_lasso/runme.jl:37-47, 80-95).
 
-Counterpart of ``adaprox_tpu/ops/resident.py:1529-1638, 2056-2093``:
-``resident_condat_vu`` (K7d, ``_cv_kernel[_rec]`` over ``_cv_core`` on
-``_f0_ops``); its records are ``resident_pd.resident_cv_records``, one function
-in JAX too. Here the entry reaches a hand-written CUDA C++ routine for Hopper
-(``csrc/resident_cv.cu`` on ``csrc/resident_f0.cuh``): one cooperative launch
-for the whole early-exit solve, built with nvcc for ``sm_90a`` at first use and
-loaded with ctypes.
+Counterpart of ``adaprox_tpu/ops/resident.py:1529-2316``:
+  * K7d, ``resident_condat_vu`` (``_cv_kernel[_rec]`` over ``_cv_core`` on
+    ``_f0_ops``): one Condat-Vu solve with fixed steps (gamma, sigma); its
+    records are ``resident_pd.resident_cv_records``, one function in JAX too.
+  * K7a, ``resident_mpls_sweep`` and ``resident_adapdmp_sweep`` (``_f0_sweep``
+    over ``_mpls_core`` or ``_adapdmp_core``): one early-exit Malitsky-Pock or
+    AdaPDM+ solve for each coupling t of a sweep, the linesearch included. The
+    MP records are ``resident_mp.resident_mp_records`` (shared with K6c, as in
+    JAX); the AdaPDM+ records are ``resident_adapdmp_records``.
+Here the entries reach hand-written CUDA C++ routines for Hopper: K7d
+``csrc/resident_cv.cu`` and K7a ``csrc/resident_f0_sweep.cu`` (both cores, one
+launch for the whole sweep), both on ``csrc/resident_f0.cuh``, each one
+cooperative launch, built with nvcc for ``sm_90a`` at first use and loaded
+with ctypes.
 
-The entry dispatches on where its tensors lie: CPU tensors take the plain
-version ``resident_condat_vu_plain`` (``_cv_core`` line by line, one
-host-checked iteration at a time); CUDA tensors launch the kernel or raise. A
-may be stored bf16; the iterates and scalars follow ``bv``'s dtype. Zero
-padding is exact for this family: padded rows of A and bv and padded columns
-of A leave their coordinates of y and x exactly 0, so the kernel takes no
-unpadded size.
+The entries dispatch on where their tensors lie: CPU tensors take the plain
+versions (``*_plain``: the JAX cores line by line, one host-checked iteration,
+and for the linesearch one host-checked trial, at a time); CUDA tensors
+launch the kernel or raise. A may be stored bf16; the iterates and scalars
+follow ``bv``'s dtype. Zero padding is exact for this family: padded rows of A
+and bv and padded columns of A leave their coordinates of y and x exactly 0,
+so the kernels take no unpadded size.
 """
 
 from __future__ import annotations
@@ -28,10 +35,14 @@ import ctypes
 
 import torch
 
+from ..solvers.common import Records
+from ..solvers.rules import validate_positive
 from . import kernels
-from .resident_pd import _device, _scalars, _stats, hist_len
+from .resident_pd import _device, _scalars, _stats, _ts, hist_len
 
-__all__ = ["resident_condat_vu", "resident_condat_vu_plain", "build_library", "H_KINDS"]
+__all__ = ["resident_condat_vu", "resident_condat_vu_plain", "resident_mpls_sweep",
+           "resident_mpls_sweep_plain", "resident_adapdmp_sweep", "resident_adapdmp_sweep_plain",
+           "resident_adapdmp_records", "build_library", "build_sweep_library", "H_KINDS"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_cv.cu"
 # -fmad=false: every elementwise expression rounds after each operation, as the
@@ -41,17 +52,16 @@ NVCC_FLAGS = kernels.NVCC_FLAGS + ("-fmad=false",)
 H_KINDS = ("l2", "l1")
 
 
-def _check(a, bv, maxit, h_kind):
+def _check(a, bv, maxit, h_kind, what="resident_condat_vu"):
     if a.ndim != 2 or bv.ndim != 1 or a.shape[0] != bv.shape[0]:
-        raise ValueError(f"resident_condat_vu: need a (m, n) and bv (m,); got "
+        raise ValueError(f"{what}: need a (m, n) and bv (m,); got "
                          f"{tuple(a.shape)}, {tuple(bv.shape)}")
     if a.device != bv.device:
-        raise ValueError(f"resident_condat_vu: a and bv on different devices: {a.device}, "
-                         f"{bv.device}")
+        raise ValueError(f"{what}: a and bv on different devices: {a.device}, {bv.device}")
     if h_kind not in H_KINDS:
-        raise ValueError(f"resident_condat_vu: h_kind must be 'l2' or 'l1', got {h_kind!r}")
+        raise ValueError(f"{what}: h_kind must be 'l2' or 'l1', got {h_kind!r}")
     if int(maxit) < 0:
-        raise ValueError(f"resident_condat_vu: maxit must be >= 0, got {maxit}")
+        raise ValueError(f"{what}: maxit must be >= 0, got {maxit}")
 
 
 def _soft(v, thr):
@@ -136,6 +146,197 @@ def resident_condat_vu_plain(a, bv, lam, gamma, sigma, tol, maxit, record=False,
     return base
 
 
+# -- K7a's plain versions ----------------------------------------------------------------
+
+# the initial trial and up to 100 halvings (MP) or inflations (AdaPDM+): the engines'
+# _MAX_TRIALS = 100
+MAX_TRIALS = 101
+# AdaPDM+'s constants (_adapdmp_core's defaults, the engine's and the reference's)
+DELTA, THETA_BIG, R_UP, R_DOWN = 1e-8, 1.2, 2.0, 0.95
+# the sweeps' cores, in the order of the kernel entry's core argument
+CORES = ("mp", "adapdmp")
+
+
+def _mpls_core_plain(a, bv, lam, t, sigma0, tol, *, maxit, h_kind, record):
+    """``_mpls_core`` line by line: Malitsky-Pock with f = 0 from x0 = 0, y0 = 0,
+    sigma x sqrt(2) a first trial, halved while gamma sigma ||A dx||^2 > 0.95
+    ||dx||^2, at most MAX_TRIALS trials (a test still failing then is latched).
+    Returns (x, it, norm_res, converged, ls_failed, hists (5, hist_len) or None):
+    ``final.x``, not the iterate at the check."""
+    dt, dev = bv.dtype, bv.device
+    a_mv, at_mv, prox_hconj, obj_of = _f0_ops(a, bv, lam, h_kind)
+    t, sigma, tol = _scalars(dt, dev, t, sigma0, tol)
+    sqrt2 = torch.sqrt(torch.tensor(2.0, dtype=dt, device=dev))
+    m, n = a.shape
+    x = torch.zeros(n, dtype=dt, device=dev)
+    y = torch.zeros(m, dtype=dt, device=dev)
+    a_x, at_y = a_mv(x), at_mv(y)
+    hists = torch.zeros((5, hist_len(maxit)), dtype=dt, device=dev) if record else None
+    norm_res = torch.full((), torch.inf, dtype=dt, device=dev)
+    ls_failed = False
+    it = 0
+    while it < maxit and bool(norm_res > tol):  # a NaN residual stops
+        at_y_prev = at_y
+        w = y + sigma * a_x
+        y = prox_hconj(w, sigma)
+        at_y = at_mv(y)
+        sigma_prev = sigma
+        x_prev, a_x_prev = x, a_x
+        s, trials = sigma * sqrt2, 1
+        while True:
+            theta = s / sigma_prev
+            gamma = t * t * s
+            at_ybar = (1 + theta) * at_y - theta * at_y_prev
+            v = x_prev - gamma * at_ybar  # grad = 0
+            x = _soft(v, gamma * lam)
+            a_x = a_mv(x)
+            dax = a_x - a_x_prev
+            lhs = gamma * s * torch.sum(dax * dax)  # the f = 0 terms vanish
+            dx = x - x_prev
+            failed = bool(lhs > 0.95 * torch.sum(dx * dx))  # the host sync of each trial
+            if not (failed and trials < MAX_TRIALS):
+                break
+            s, trials = s / 2, trials + 1
+        ls_failed = ls_failed or failed
+        primal = (v - x) / gamma + at_y
+        dual = (w - y) / sigma_prev - a_x
+        norm_res = torch.sqrt(torch.sum(primal * primal) + torch.sum(dual * dual))
+        if record:
+            hists[:, it] = torch.stack([gamma, s, norm_res,
+                                        torch.tensor(float(trials), dtype=dt, device=dev),
+                                        obj_of(x, a_x)])
+        sigma = s
+        it += 1
+    return x, it, norm_res, norm_res <= tol, ls_failed, hists
+
+
+def _adapdmp_core_plain(a, bv, lam, t, eta0, tol, *, maxit, h_kind, record):
+    """``_adapdmp_core`` line by line: AdaPDM+ with f = 0 (big_delta = 0) from x0 =
+    0, y0 = 0 and gamma0 = 1/(2 Theta t eta0): eta decays by R_DOWN a first trial
+    and inflates by R_UP while eta < ||A'dy|| / ||dy||, at most MAX_TRIALS trials.
+    Returns what ``_mpls_core_plain`` returns; on convergence x is the iterate at
+    the check."""
+    dt, dev = bv.dtype, bv.device
+    a_mv, at_mv, prox_hconj, obj_of = _f0_ops(a, bv, lam, h_kind)
+    t, eta, tol, zero = _scalars(dt, dev, t, eta0, tol, 0.0)
+    gamma0 = 1.0 / (2 * THETA_BIG * t * eta)
+    delta1 = 1.0 + DELTA
+    m, n = a.shape
+    # warm-up (engine :66-84): x0 = 0, y0 = 0; grad = 0 throughout (f = 0)
+    x0 = torch.zeros(n, dtype=dt, device=dev)
+    y = torch.zeros(m, dtype=dt, device=dev)
+    a_x_prev, at_y = a_mv(x0), at_mv(y)
+    v = x0 - gamma0 * at_y
+    x = ck_x = _soft(v, gamma0 * lam)
+    gamma = gamma_prev = gamma0
+    hists = torch.zeros((5, hist_len(maxit)), dtype=dt, device=dev) if record else None
+    norm_res = torch.full((), torch.inf, dtype=dt, device=dev)
+    ls_failed = False
+    it = 0
+    while it < maxit and bool(norm_res > tol):  # a NaN residual stops
+        a_x = a_mv(x)
+        primal = (v - x) / gamma + at_y
+        # big_delta = gamma (gamma ||dg||^2 - dgdx) / ||dx||^2 with dg = 0
+        xi = t * gamma * eta * delta1
+        m4xim1 = 1 - 4 * (xi * xi)
+        e, trials = R_DOWN * eta, 1
+        while True:
+            p = t * e * gamma
+            gamma_next = torch.minimum(
+                gamma * torch.sqrt(1 + gamma / gamma_prev),
+                torch.minimum(1 / (2 * THETA_BIG * t * e),
+                              gamma * torch.sqrt(m4xim1 / (2 * delta1 * (zero + torch.sqrt(
+                                  zero * zero + m4xim1 * (p * p)))))))
+            rho = gamma_next / gamma
+            sigma = t * t * gamma_next
+            w = y + sigma * ((1 + rho) * a_x - rho * a_x_prev)
+            y_next = prox_hconj(w, sigma)
+            at_y_next = at_mv(y_next)
+            daty, dy = at_y_next - at_y, y_next - y
+            # the host sync of each trial; a NaN ratio (dy = 0) fails it
+            ok = bool(e >= torch.sqrt(torch.sum(daty * daty)) / torch.sqrt(torch.sum(dy * dy)))
+            if ok or trials >= MAX_TRIALS:
+                break
+            e, trials = e * R_UP, trials + 1
+        ls_failed = ls_failed or not ok
+        dual = (w - y_next) / sigma - a_x
+        norm_res = torch.sqrt(torch.sum(primal * primal) + torch.sum(dual * dual))
+        if record:
+            hists[:, it] = torch.stack([gamma_next, sigma, norm_res,
+                                        torch.tensor(float(trials), dtype=dt, device=dev),
+                                        obj_of(x, a_x)])
+        y, at_y, eta = y_next, at_y_next, e
+        v = x - gamma_next * at_y
+        ck_x, a_x_prev = x, a_x
+        x = _soft(v, gamma_next * lam)
+        gamma_prev, gamma = gamma, gamma_next
+        it += 1
+    conv = norm_res <= tol
+    return torch.where(conv, ck_x, x), it, norm_res, conv, ls_failed, hists
+
+
+def _sweep_check(what, a, bv, ts, maxit, h_kind, **positive):
+    """Everything a K7a entry refuses, before anything runs, on either device. Returns
+    the couplings as float64 on the host."""
+    validate_positive(**positive)
+    _check(a, bv, maxit, h_kind, what)
+    ts = _ts(ts, torch.float64)
+    # JAX's kernel runs any t: t = 0 gives 0/0 residuals, a negative t AdaPDM+'s
+    # gamma0 < 0 and MP the run of |t|. Refused here, as the engines refuse them.
+    if not bool((torch.isfinite(ts) & (ts > 0)).all()):
+        raise ValueError(f"{what}: every coupling t must be positive and finite, got "
+                         f"{ts.tolist()}")
+    return ts
+
+
+def _sweep_plain(core, a, bv, lam, ts, p2, tol, maxit, record, h_kind):
+    dt, dev = bv.dtype, bv.device
+    maxit = int(maxit)
+    lam_t = torch.as_tensor(lam, dtype=dt, device=dev)
+    outs = [core(a, bv, lam_t, t, p2, tol, maxit=maxit, h_kind=h_kind, record=record)
+            for t in ts.to(dt).tolist()]
+    # the TPU kernel's stats travel as f32
+    stats = torch.stack([_stats(dt, dev, o[1], o[2], o[3].to(dt), float(o[4])) for o in outs])
+    base = (torch.stack([o[0] for o in outs]), stats[:, 0].to(torch.int32), stats[:, 1].to(dt),
+            stats[:, 2] > 0, stats[:, 3] > 0)
+    if record:
+        hists = torch.stack([o[5] for o in outs])  # (T, 5, hist_len)
+        return base + (tuple(hists[:, k, :maxit] for k in range(5)),)
+    return base
+
+
+def resident_mpls_sweep_plain(a, bv, lam, ts, sigma0, tol, maxit, record=False, h_kind="l2"):
+    """The plain version of K7a's MP core: one ``_mpls_core`` solve a coupling value,
+    in order. Returns what ``resident_mpls_sweep`` returns."""
+    ts = _sweep_check("resident_mpls_sweep", a, bv, ts, maxit, h_kind, sigma0=sigma0)
+    return _sweep_plain(_mpls_core_plain, a, bv, lam, ts, sigma0, tol,
+                        maxit, record, h_kind)
+
+
+def resident_adapdmp_sweep_plain(a, bv, lam, ts, eta0, tol, maxit, record=False, h_kind="l2"):
+    """The plain version of K7a's AdaPDM+ core: one ``_adapdmp_core`` solve a coupling
+    value, in order. Returns what ``resident_adapdmp_sweep`` returns."""
+    ts = _sweep_check("resident_adapdmp_sweep", a, bv, ts, maxit, h_kind, eta0=eta0)
+    return _sweep_plain(_adapdmp_core_plain, a, bv, lam, ts, eta0, tol, maxit, record,
+                        h_kind)
+
+
+def resident_adapdmp_records(numit, hists, *, maxit):
+    """``Records`` of one resident AdaPDM+ row from its histories (gamma, sigma,
+    norm_res, trials, objective). The counters are rebuilt from the trial counts as
+    the engine meters them (solvers/adapdm_plus.py): each iteration A, f and grad_f
+    +1, prox_h and At + trials, prox_g +1 (the second half); the warm-up A, f,
+    grad_f, At and prox_g +1. The record precedes the second half's prox_g, so row k
+    reads k. Rows past ``numit`` are masked out by ``valid``."""
+    hg, hs, hr, ht, ho = hists
+    dev = hg.device
+    it = torch.arange(1, maxit + 1, dtype=torch.int64, device=dev)
+    cum_t = torch.cumsum(ht.to(torch.int64), 0)
+    return Records(it=it, gamma=hg, sigma=hs, norm_res=hr, objective=ho, f_evals=1 + it,
+                   grad_f_evals=1 + it, prox_g_evals=it, prox_h_evals=cum_t, A_evals=1 + it,
+                   At_evals=1 + cum_t, valid=it <= torch.as_tensor(numit, device=dev))
+
+
 # -- the CUDA kernel --------------------------------------------------------------------
 
 
@@ -213,3 +414,119 @@ def resident_condat_vu(a, bv, lam, gamma, sigma, tol, maxit, record=False, h_kin
 
 
 resident_condat_vu.launches = 0
+
+
+# -- K7a on the card --------------------------------------------------------------------
+
+SWEEP_SOURCE = kernels._PKG / "csrc" / "resident_f0_sweep.cu"
+
+
+def build_sweep_library():
+    """Compile ``csrc/resident_f0_sweep.cu`` (see ``ops.kernels.build_library``)."""
+    return kernels.build_library(SWEEP_SOURCE, NVCC_FLAGS)
+
+
+def _sweep_library():
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    return kernels.load_library(SWEEP_SOURCE, NVCC_FLAGS, {
+        "adaprox_resident_f0_sweep_parts": ([], i),
+        # a, at, a_is_bf16, vec, m, n, bv, h_kind, lam, core, xs, v, at_ys, ys, axs, w,
+        # part, part_len, ts, count, p2, tol, maxit, record, x_out, stats, hist, stream
+        "adaprox_resident_f0_sweep": ([p, p, i, i, ll, ll, p, i, f, i, p, p, p, p, p, p, p, ll, p,
+                                       i, f, f, i, i, p, p, p, p], i),
+        "adaprox_resident_f0_sweep_error_string": ([i], ctypes.c_char_p)})
+
+
+def _sweep_launch(what, core, a, bv, lam, ts, p2, tol, maxit, record, h_kind):
+    """One K7a launch. Returns what the entries return."""
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what} stores A as float32 or bfloat16 on CUDA, got {a.dtype}")
+    if bv.dtype != torch.float32:
+        raise TypeError(f"{what} takes a float32 bv on CUDA, got {bv.dtype}")
+    if not (a.is_contiguous() and bv.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous a and bv")
+    lib = _sweep_library()
+    dev = a.device
+    m, n = a.shape
+    maxit = int(maxit)
+    with torch.cuda.device(dev):
+        ts_d = ts.to(device=dev, dtype=torch.float32)
+        count = ts_d.numel()
+        at = a.t().contiguous()
+        # 16-byte loads when both layouts' rows are whole 16-byte groups
+        vec = 8 if a.dtype == torch.bfloat16 else 4
+        if m % vec or n % vec or a.data_ptr() % 16 or at.data_ptr() % 16:
+            vec = 1
+        f32 = dict(dtype=torch.float32, device=dev)
+        xs, v, at_ys = torch.empty((2, n), **f32), torch.empty(n, **f32), torch.empty((2, n), **f32)
+        ys, axs, w = torch.empty((2, m), **f32), torch.empty((2, m), **f32), torch.empty(m, **f32)
+        # the launcher sizes the grid, at most one CTA per SM
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        part = torch.empty(lib.adaprox_resident_f0_sweep_parts() * sms, **f32)
+        x_out, stats = torch.empty((count, n), **f32), torch.empty((count, 4), **f32)
+        hist = torch.empty((count, 5, hist_len(maxit)), **f32) if record else None
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.adaprox_resident_f0_sweep(
+            a.data_ptr(), at.data_ptr(), int(a.dtype == torch.bfloat16), vec, m, n,
+            bv.data_ptr(), H_KINDS.index(h_kind), float(lam), CORES.index(core), xs.data_ptr(),
+            v.data_ptr(), at_ys.data_ptr(), ys.data_ptr(), axs.data_ptr(), w.data_ptr(),
+            part.data_ptr(), part.numel(), ts_d.data_ptr(), count, float(p2), float(tol), maxit,
+            int(record), x_out.data_ptr(), stats.data_ptr(),
+            hist.data_ptr() if record and maxit else None, stream)
+    if err:
+        msg = lib.adaprox_resident_f0_sweep_error_string(err).decode()
+        raise RuntimeError(f"{what} (K7a) launch failed: CUDA error {err} ({msg})")
+    base = (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 2] > 0, stats[:, 3] > 0)
+    if record:
+        return base + (tuple(hist[:, k, :maxit] for k in range(5)),)
+    return base
+
+
+def resident_mpls_sweep(a, bv, lam, ts, sigma0, tol, maxit, record=False, h_kind="l2"):
+    """The Malitsky-Pock coupling sweep (square_root_lasso/runme.jl:80-88) as ONE
+    kernel launch: a whole early-exit linesearch solve of min lam ||x||_1 + ||A x -
+    bv|| (``h_kind`` "l2") or lam ||x||_1 + ||A x - bv||_1 ("l1") for each value of
+    ``ts``, one after another, from x0 = 0, y0 = 0 and the first dual step
+    ``sigma0``. ``sigma0`` and every t must be positive, ``ts`` 1-D with at least one
+    value (checked before anything runs, on either device).
+
+    Returns (x (T, n), numit (T,) int32, norm_res (T,), converged (T,),
+    ls_failed (T,)), plus the histories (gamma, sigma, norm_res, trials,
+    objective) of shape (T, maxit) as a tuple when ``record=True`` (zero past
+    numit); ``resident_mp.resident_mp_records`` turns a row into ``Records``. x is
+    the last accepted iterate (``final.x``). CPU tensors take the plain version,
+    any float dtype. CUDA tensors launch K7a (``csrc/resident_f0_sweep.cu``): ``a``
+    f32 or bf16, ``bv`` f32, both contiguous; each launch adds one to
+    ``resident_mpls_sweep.launches``. Every row equals a one-row sweep with its t
+    bit for bit."""
+    what = "resident_mpls_sweep"
+    ts = _sweep_check(what, a, bv, ts, maxit, h_kind, sigma0=sigma0)
+    if not _device("K7a", a):
+        return _sweep_plain(_mpls_core_plain, a, bv, lam, ts, sigma0, tol, maxit, record,
+                            h_kind)
+    out = _sweep_launch(what, "mp", a, bv, lam, ts, sigma0, tol, maxit, record, h_kind)
+    resident_mpls_sweep.launches += 1
+    return out
+
+
+resident_mpls_sweep.launches = 0
+
+
+def resident_adapdmp_sweep(a, bv, lam, ts, eta0, tol, maxit, record=False, h_kind="l2"):
+    """The AdaPDM+ coupling sweep (square_root_lasso/runme.jl:90-95) as ONE kernel
+    launch: the contract of ``resident_mpls_sweep`` with the initial operator-norm
+    estimate ``eta0`` (the drivers' ||A||_F, positive) in place of sigma0. On
+    convergence a row's x is the iterate at the check. The histories feed
+    ``resident_adapdmp_records``. CUDA tensors launch K7a's AdaPDM+ core; each
+    launch adds one to ``resident_adapdmp_sweep.launches``."""
+    what = "resident_adapdmp_sweep"
+    ts = _sweep_check(what, a, bv, ts, maxit, h_kind, eta0=eta0)
+    if not _device("K7a", a):
+        return _sweep_plain(_adapdmp_core_plain, a, bv, lam, ts, eta0, tol, maxit, record,
+                            h_kind)
+    out = _sweep_launch(what, "adapdmp", a, bv, lam, ts, eta0, tol, maxit, record, h_kind)
+    resident_adapdmp_sweep.launches += 1
+    return out
+
+
+resident_adapdmp_sweep.launches = 0

@@ -224,8 +224,8 @@ resident_mp_dsvm_sweep.launches = 0
 
 
 def resident_mp_records(numit, hists, *, maxit):
-    """``Records`` of one resident MP row from its histories (gamma, sigma,
-    norm_res, trials, f). The counters are rebuilt from the trial counts as the
+    """``Records`` of one resident MP row (K6c, or K7a's MP core) from its histories
+    (gamma, sigma, norm_res, trials, and f or the f = 0 family's objective). The counters are rebuilt from the trial counts as the
     engine meters them (solvers/malitsky_pock.py): each iteration prox_h and
     At +1, grad_f +2, f_evals 1 + trials, prox_g and A + trials; the start A and
     At +1. Rows past ``numit`` are masked out by ``valid``."""

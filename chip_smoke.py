@@ -7,9 +7,9 @@ Phases, one line each, any failure exits non-zero:
   2. build:    K1 (csrc/fused_ls.cu), K3 (csrc/fused_logistic.cu), K2/K2c
                (csrc/resident_pg.cu), K4/K4b (csrc/resident_bt.cu), K4's
                aGRAAL core (csrc/resident_agraal.cu), K6a/K6b/K6d
-               (csrc/resident_pd.cu), K6c (csrc/resident_mp.cu) and K7d
-               (csrc/resident_cv.cu), one nvcc each, started together, from this
-               checkout's sources
+               (csrc/resident_pd.cu), K6c (csrc/resident_mp.cu), K7d
+               (csrc/resident_cv.cu) and K7a (csrc/resident_f0_sweep.cu), one nvcc
+               each, started together, from this checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
@@ -108,19 +108,28 @@ Phases, one line each, any failure exits non-zero:
                beats the raw one); the MP iteration at 1280^2, 384^2 and
                8192x128 with its mean trials, beside K6's PD iteration; the
                K6c sweep and its plain version timed at a cut depth
- 13. f0:       K7d (csrc/resident_cv.cu) against its plain version ([f0] lines) on
-               the square-root lasso driver's padded inputs (housing_scale 512x128,
-               abalone 4224x128, cpusmall_scale 8192x128), h's inner norm l2 and l1,
-               A f32 and bf16, at tol -1 and at the drivers' tol 1e-5, maxit 5000:
-               the histories, x and the final objective within CPU-calibrated
-               bounds, the padded coordinates exactly 0, two launches the same
-               bits; square_root_lasso and least_absolute_deviation --resident on
-               the three stand-ins (exactly one K7d launch a dataset and nothing
-               else, the Condat-Vu row alone, its final objective within a
-               calibrated bound of an f64 CPU run); both drivers' engine paths at
-               --maxit 300 on housing_scale (31 finite rows, no K7d launch); K7d
-               against its plain version timed on the driver's cpusmall_scale call,
-               and K7d's iteration beside K6d's
+ 13. f0:       K7d (csrc/resident_cv.cu) and K7a (csrc/resident_f0_sweep.cu, its
+               Malitsky-Pock and AdaPDM+ cores) against their plain versions ([f0]
+               lines) on the square-root lasso driver's padded inputs (housing_scale
+               512x128, abalone 4224x128, cpusmall_scale 8192x128), h's inner norm l2
+               and l1, A f32 and bf16: K7d at tol -1 and at the drivers' tol 1e-5,
+               maxit 5000 (the histories, x and the final objective within
+               CPU-calibrated bounds); K7a at five couplings, tol -1 (trial counts and
+               ls_failed equal and the rows and x within bounds over a CPU-calibrated
+               horizon, the rows within a bound while the trial counts agree, the
+               objective after K7A_CUT iterations, the t = 1 row equal to
+               its one-row launch) and one tol 1e-5 case a core; the padded
+               coordinates exactly 0, two launches the same bits;
+               square_root_lasso and least_absolute_deviation --resident on the three
+               stand-ins (exactly one K7d, one K7a MP and one K7a AdaPDM+ launch a
+               dataset and nothing else, JAX's 31 rows and fast_methods, the Condat-Vu
+               row's and every converged t-sweep row's final objective within a
+               calibrated bound of an f64 CPU run, the sweeps timed with their bounds,
+               non-finite gamma/sigma/norm_res counted); both drivers' engine paths at
+               --maxit 300 on housing_scale (31 finite rows, no K7d or K7a launch); K7d
+               and K7a against their plain versions timed on the driver's
+               cpusmall_scale call (K7a cut to K7A_CUT iterations), and the K7d and K7a
+               iterations beside K6d's; the phase's wall
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -385,6 +394,12 @@ JAX_DSVM_FAST_METHODS = ["AdaPDM t-sweep (resident)", "MP t-sweep (resident)", "
 K7D_RTOL = 1e-4
 K7D_X_RTOL = 5e-5
 K7D_OBJ_RTOL = 1e-5
+# K7a's bounds (phase 13: K7A_TS, K7A_HORIZON, K7A_RTOL, K7A_X_RTOL, K7A_CUT, K7A_OBJ_RTOL,
+# K7A_L1_TOL, K7A_L1_TS, K7A_L1_OBJ_RTOL, K7A_DRIVER_OBJ_RTOL) are stated once, beside the
+# CPU readings they were set from, in adaprox_tpu_torch/experiments/k7a_calibration.py.
+# JAX's --resident meta row (adaprox_tpu/experiments/square_root_lasso.py): fast_methods and
+# the wall_s keys
+JAX_F0_FAST_METHODS = ["Condat-Vu", "Malitsky-Pock t-sweep", "AdaPDM+ t-sweep"]
 F0_DATASETS = ("housing_scale", "abalone", "cpusmall_scale")
 F0_DRIVERS = ("square_root_lasso", "least_absolute_deviation")
 F0_ENGINE_MAXIT = 300
@@ -2192,7 +2207,7 @@ def f0_inputs(name, dev, dtype=torch.float32):
     _, _, h, a_op, norm_a = sqrt_lasso_from_numpy(x, y, 10.0, "l2", device=dev, dtype=dtype)
     a, bv = square_root_lasso.resident_inputs(a_op.a, -h.b)
     gamma, sigma = square_root_lasso.cv_steps(norm_a)
-    return dict(a=a, bv=bv, n=x.shape[1] + 1, gamma=gamma, sigma=sigma, lam=10.0)
+    return dict(a=a, bv=bv, n=x.shape[1] + 1, gamma=gamma, sigma=sigma, lam=10.0, norm_a=norm_a)
 
 
 def f0_rows_err(got, want):
@@ -2254,6 +2269,134 @@ def f0_checks(resident_f0, dev, smi):
     return x_abs
 
 
+def k7a_cores(resident_f0):
+    """{label: (kernel entry, plain version, p2 of the drivers' call from ||A||_F)}."""
+    return {"MP": (resident_f0.resident_mpls_sweep, resident_f0.resident_mpls_sweep_plain,
+                   lambda norm_a: 1.0),
+            "AdaPDM+": (resident_f0.resident_adapdmp_sweep,
+                        resident_f0.resident_adapdmp_sweep_plain, lambda norm_a: norm_a)}
+
+
+K7A_ROWS = (0, 1, 2, 4)  # gamma, sigma, norm_res and the objective of the five histories
+
+
+def k7a_rows_err(got, want, horizon):
+    """The largest error of the gamma, sigma, norm_res and objective rows of a sweep over
+    ``horizon`` iterations, each relative to its plain row's largest magnitude there."""
+    return max(float(((got[k][:, :horizon] - want[k][:, :horizon]).abs().amax(1)
+                      / want[k][:, :horizon].abs().amax(1)).max()) for k in K7A_ROWS)
+
+
+def k7a_x_err(got, want):
+    """The largest |x| error of a sweep's rows, each relative to its plain row's max |x|
+    (absolute where that row is all zero)."""
+    xm = want.abs().amax(1)
+    return float(((got - want).abs().amax(1) / torch.where(xm > 0, xm, torch.ones_like(xm))).max())
+
+
+def k7a_work(a, numits, trials, count, hist_len):
+    """(bytes, flops) of a K7a sweep of ``count`` rows: A and A' read once, bv and the t
+    values in, x, the stats and the five histories out; 2mn flops a trial (MP's A x,
+    AdaPDM+'s A'y') and 2mn an iteration (MP's A'y, AdaPDM+'s A x)."""
+    m, n = a.shape
+    moved = 2 * a.element_size() * m * n + 4 * m + 4 * count + count * (4 * n + 16 + 20 * hist_len)
+    return moved, 2 * m * n * (numits + trials)
+
+
+def k7a_trials(out):
+    return int(out[5][3].sum())
+
+
+def k7a_checks(resident_f0, dev, smi):
+    """Phase 13, K7a against its plain version on the card on the square-root lasso
+    driver's padded inputs: both cores, the three stand-ins, l2 and l1, A f32 and bf16, the
+    couplings K7A_TS at tol -1: the trial counts and ls_failed equal and the rows within
+    K7A_RTOL over K7A_HORIZON, x within K7A_X_RTOL there, the objective after K7A_CUT
+    within K7A_OBJ_RTOL, the padded coordinates exactly 0, two launches the same bits, the
+    t = 1 row equal to its one-row launch; then one converged case a core with each inner
+    norm: l2 at the drivers' tol 1e-5, l1 at K7A_L1_TOL (no f32 l1 row reaches 1e-5), the
+    final objectives within a calibrated bound. Returns the largest |x| error over the
+    horizon on the f32 cases."""
+    from adaprox_tpu_torch.experiments.k7a_calibration import (
+        K7A_CUT, K7A_DRIVER_OBJ_RTOL, K7A_HORIZON, K7A_L1_OBJ_RTOL, K7A_L1_TOL, K7A_L1_TS,
+        K7A_OBJ_RTOL, K7A_RTOL, K7A_TS, K7A_X_RTOL)
+
+    x_abs = 0.0
+    hz = K7A_HORIZON
+    flat = lambda out: list(out[:5]) + list(out[5])  # noqa: E731
+    for name in F0_DATASETS:
+        inp = f0_inputs(name, dev)
+        for h_kind in resident_f0.H_KINDS:
+            for dtype in (torch.float32, torch.bfloat16):
+                a, bv, n = inp["a"].to(dtype), inp["bv"], inp["n"]
+                parts, ok = [], True
+                for core, (kernel, plain, p2_of) in k7a_cores(resident_f0).items():
+                    kw = dict(record=True, h_kind=h_kind)
+                    args = (a, bv, inp["lam"], K7A_TS, p2_of(inp["norm_a"]), -1.0)
+                    got = kernel(*args, K7A_CUT, **kw)
+                    again = kernel(*args, K7A_CUT, **kw)
+                    one = kernel(a, bv, inp["lam"], [1.0], args[4], -1.0, K7A_CUT, **kw)
+                    want = plain(*args, K7A_CUT, **kw)
+                    short = kernel(*args, hz, **kw)
+                    short_want = plain(*args, hz, **kw)
+                    torch.cuda.synchronize()
+                    same = all(torch.equal(u, w) for u, w in zip(flat(got), flat(again)))
+                    j = K7A_TS.index(1.0)
+                    row_same = all(torch.equal(u[0], w[j]) for u, w in zip(flat(one), flat(got)))
+                    trials_ok = (torch.equal(got[5][3][:, :hz], want[5][3][:, :hz])
+                                 and torch.equal(short[4], short_want[4]))
+                    err = k7a_rows_err(got[5], want[5], hz)
+                    xe = k7a_x_err(short[0], short_want[0])
+                    obj = float(((got[5][4][:, -1] - want[5][4][:, -1]).abs()
+                                 / want[5][4][:, -1].abs()).max())
+                    pad_zero = not bool(got[0][:, n:].any())
+                    numits_ok = got[1].tolist() == want[1].tolist() == [K7A_CUT] * len(K7A_TS)
+                    finite = all(bool(torch.isfinite(h).all()) for h in got[5][:3])
+                    if dtype == torch.float32:
+                        x_abs = max(x_abs, float((short[0] - short_want[0]).abs().max()))
+                    parts.append(
+                        f"{core}: trial counts and ls_failed equal over {hz} it {trials_ok}, "
+                        f"rows rel err {err:.2e}, x rel err {xe:.2e}; objective after {K7A_CUT} "
+                        f"it rel err {obj:.2e}; {float(got[5][3].mean()):.3f} trials an "
+                        f"iteration (plain {float(want[5][3].mean()):.3f}); ls_failed "
+                        f"{int(got[4].sum())}; gamma/sigma/norm_res finite {finite}; padded 0 "
+                        f"{pad_zero}; same bits {same}; t 1 row = its one-row launch {row_same}")
+                    ok &= (trials_ok and err <= K7A_RTOL and xe <= K7A_X_RTOL
+                           and obj <= K7A_OBJ_RTOL and pad_zero and same and row_same
+                           and numits_ok and finite)
+                label = f"{name} {tuple(a.shape)} {h_kind} {str(dtype).removeprefix('torch.')}"
+                print(f"[f0] K7a vs plain, {label}, t {K7A_TS}, tol -1, maxit {K7A_CUT}: "
+                      f"{' | '.join(parts)} (bounds rows {K7A_RTOL:g}, x {K7A_X_RTOL:g} over "
+                      f"{hz} it, objective {K7A_OBJ_RTOL:g}; CPU-calibrated) ({smi})", flush=True)
+                check(ok, f"K7a {label} disagrees with its plain version")
+    # one converged case a core with each inner norm (housing_scale, f32, maxit 5000): l2 at
+    # the drivers' tol 1e-5 and t 1; l1 at K7A_L1_TOL and a coupling K7A_L1_TS where the f32
+    # row converges. Past the horizon the two trajectories part, but both converge, so their
+    # final objectives are held as two converged runs are (the calibrated bounds).
+    inp = f0_inputs("housing_scale", dev)
+    for h_kind, tol, t_of, rtol in (
+            ("l2", 1e-5, lambda core: 1.0, 2 * K7A_DRIVER_OBJ_RTOL["l2"]),
+            ("l1", K7A_L1_TOL, lambda core: K7A_L1_TS["mp" if core == "MP" else "adapdmp"],
+             K7A_L1_OBJ_RTOL)):
+        parts, ok = [], True
+        for core, (kernel, plain, p2_of) in k7a_cores(resident_f0).items():
+            args = (inp["a"], inp["bv"], inp["lam"], [t_of(core)], p2_of(inp["norm_a"]), tol,
+                    5000)
+            kw = dict(record=True, h_kind=h_kind)
+            got, want = kernel(*args, **kw), plain(*args, **kw)
+            f_got, f_want = (float(o[5][4][0][int(o[1][0]) - 1]) for o in (got, want))
+            rel = abs(f_got - f_want) / abs(f_want)
+            parts.append(f"{core} (t {t_of(core):g}): numit {int(got[1][0])} (plain "
+                         f"{int(want[1][0])}), converged {bool(got[3][0])} (plain "
+                         f"{bool(want[3][0])}), final objective rel err {rel:.2e}")
+            ok &= bool(got[3][0]) and bool(want[3][0]) and rel <= rtol
+        print(f"[f0] K7a vs plain at tol {tol:g}, housing_scale (512, 128) {h_kind} f32, maxit "
+              f"5000: {'; '.join(parts)} (bound {rtol:g}: calibrated on two converged runs) "
+              f"({smi})", flush=True)
+        check(ok, f"K7a at tol {tol:g} ({h_kind}) disagrees with its plain version")
+    return x_abs
+
+
 def f0_work(a, numit, hist_len):
     """(bytes, flops) of a K7d solve: A read once, bv in, x, the stats and the two
     histories out; 4 m n flops an iteration (A x and A'y)."""
@@ -2262,71 +2405,124 @@ def f0_work(a, numit, hist_len):
 
 
 def f0_phase(resident_f0, resident_pd, counting, dev, smi):
-    """Phase 13: both drivers --resident on the three stand-ins (one K7d launch a
-    dataset, the final objective against an f64 CPU run), their engine paths, and K7d
-    timed against its plain version and beside K6d. Returns the kernels line's
-    measurements."""
+    """Phase 13: both drivers --resident on the three stand-ins (one K7d, one K7a MP and one
+    K7a AdaPDM+ launch a dataset; the Condat-Vu row's and every converged t-sweep row's final
+    objective against an f64 CPU run; the two sweeps timed by CUDA events), their engine
+    paths, K7d and K7a timed against their plain versions, and the iterations beside K6d's.
+    Returns the kernels line's measurements."""
     import importlib
 
     from adaprox_tpu_torch.experiments import resident_timing
+    from adaprox_tpu_torch.experiments.k7a_calibration import (
+        K7A_CUT, K7A_DRIVER_OBJ_RTOL, K7A_HORIZON, K7A_RTOL, K7A_TS)
     from adaprox_tpu_torch.ops import resident_mp
     from adaprox_tpu_torch.utils.logging import read_jsonl
 
     zero_counts, read_counts = counting
+    cores = k7a_cores(resident_f0)
+    records = {"MP": resident_mp.resident_mp_records,
+               "AdaPDM+": resident_f0.resident_adapdmp_records}
+    fams = {"MP": "Malitsky-Pock", "AdaPDM+": "AdaPDM+"}
     drivers = {d: importlib.import_module(f"adaprox_tpu_torch.experiments.{d}")
                for d in F0_DRIVERS}
-    walls, total = {}, 0
+    t_values = drivers["square_root_lasso"].T_VALUES
+    names = (["Condat-Vu"] + [f"Malitsky-Pock (t={t})" for t in t_values]
+             + [f"AdaPDM+ (t={t})" for t in t_values])
+    walls, total, sweep_ms, k7a_launches = {}, 0, {}, {core: 0 for core in cores}
     for driver, mod in drivers.items():
         h_kind = "l2" if driver == "square_root_lasso" else "l1"
         outdir = os.path.join("results", "chip_smoke", driver)
         zero_counts()
+        resident_f0.resident_mpls_sweep.launches = resident_f0.resident_adapdmp_sweep.launches = 0
         mod.main(["--resident", "--device", "cuda", "--outdir", outdir, "--no-plot"])
         torch.cuda.synchronize()
         launches = resident_f0.resident_condat_vu.launches
+        mine = {core: kernel.launches for core, (kernel, _, _) in cores.items()}
         others = read_counts() + (resident_pd.resident_adapdm_dsvm.launches,
                                   resident_pd.resident_adapdm_dsvm_sweep.launches,
                                   resident_pd.resident_cv_dsvm.launches,
                                   resident_mp.resident_mp_dsvm_sweep.launches)
         total += launches
-        check(launches == len(F0_DATASETS) and others == (0,) * 11,
-              f"{driver} --resident: {launches} K7d launches for {len(F0_DATASETS)} datasets, "
-              f"other kernels {others}")
+        for core in cores:
+            k7a_launches[core] += mine[core]
+        check(launches == len(F0_DATASETS) and list(mine.values()) == [len(F0_DATASETS)] * 2
+              and others == (0,) * 11,
+              f"{driver} --resident: {launches} K7d launches and K7a {mine} for "
+              f"{len(F0_DATASETS)} datasets, other kernels {others}")
         parts = []
         for name in F0_DATASETS:
             rows = read_jsonl(os.path.join(outdir, f"{name}.jsonl"))
-            cv = [r for r in rows if "norm_res" in r]
+            by = {}
+            for r in rows:
+                if "norm_res" in r:
+                    by.setdefault(r["method"], []).append(r)
             meta = rows[-2]
-            check({r["method"] for r in cv} == {"Condat-Vu"} and meta["fast_path"] == "resident"
-                  and meta["fast_methods"] == ["Condat-Vu"],
-                  f"{driver} --resident {name}: rows {sorted({r['method'] for r in cv})}, "
-                  f"meta {meta}")
-            walls[(driver, name)] = meta["wall_s"]["Condat-Vu"]
-            # the driver's call again, recorded: its numit and residual are the row's, and
-            # its final objective is held against the plain version in f64 on the CPU
+            check(list(by) == names and meta["fast_path"] == "resident"
+                  and meta["fast_methods"] == JAX_F0_FAST_METHODS
+                  and list(meta["wall_s"]) == JAX_F0_FAST_METHODS,
+                  f"{driver} --resident {name}: rows {list(by)}, meta {meta}")
+            walls[(driver, name)] = meta["wall_s"]
+            cv = by["Condat-Vu"]
+            # the driver's calls again, recorded: their numits and residuals are the rows',
+            # and their final objectives are held against the plain Condat-Vu in f64 on the CPU
             inp = f0_inputs(name, dev)
             kw = dict(record=True, h_kind=h_kind)
             args = (inp["lam"], inp["gamma"], inp["sigma"], 1e-5, 5000)
             out = resident_f0.resident_condat_vu(inp["a"], inp["bv"], *args, **kw)
             inp64 = f0_inputs(name, "cpu", torch.float64)
             ref = resident_f0.resident_condat_vu_plain(inp64["a"], inp64["bv"], *args, **kw)
+            f_ref = f0_final_obj(ref)
             same_row = (int(out[1]) == len(cv) and float(out[2]) == cv[-1]["norm_res"]
                         and cv[-1]["A_evals"] == len(cv) + 1)
-            obj_err = abs(f0_final_obj(out) - f0_final_obj(ref)) / abs(f0_final_obj(ref))
-            parts.append(f"{name}: numit {len(cv)} (f64 CPU {int(ref[1])}), norm_res "
-                         f"{cv[-1]['norm_res']:.3e}, final objective {f0_final_obj(out):.6f} "
-                         f"(f64 CPU {f0_final_obj(ref):.6f}, rel err {obj_err:.2e}), the "
-                         f"recorded call is the row: {same_row}, wall_s {walls[(driver, name)]}")
+            obj_err = abs(f0_final_obj(out) - f_ref) / abs(f_ref)
             check(same_row and obj_err <= K7D_OBJ_RTOL,
                   f"{driver} --resident {name}: the Condat-Vu row disagrees")
+            sweep_parts = []
+            for core, (kernel, _, p2_of) in cores.items():
+                fam = fams[core]
+                sargs = (inp["a"], inp["bv"], inp["lam"], t_values, p2_of(inp["norm_a"]), 1e-5,
+                         5000)
+                ms, sw = once_ms(lambda: kernel(*sargs, **kw))
+                b = bound(*k7a_work(inp["a"], int(sw[1].sum()), k7a_trials(sw), len(t_values),
+                                    resident_pd.hist_len(5000)))
+                sweep_ms[(driver, name, core)] = (ms, b)
+                same, gaps, nonfinite = True, [], 0
+                for i, t in enumerate(t_values):
+                    rs = by[f"{fam} (t={t})"]
+                    k = int(sw[1][i])
+                    rec = records[core](sw[1][i], tuple(h[i] for h in sw[5]), maxit=5000)
+                    same &= (k == len(rs) and float(rec.norm_res[k - 1]) == rs[-1]["norm_res"]
+                             and float(rec.norm_res[k - 1]) == float(sw[2][i])
+                             and int(rec.A_evals[k - 1]) == rs[-1]["A_evals"]
+                             and int(rec.At_evals[k - 1]) == rs[-1]["At_evals"])
+                    nonfinite += sum(int((~torch.isfinite(h[i][:k])).sum()) for h in sw[5][:3])
+                    if bool(sw[3][i]):
+                        gaps.append(abs(float(sw[5][4][i][k - 1]) - f_ref) / abs(f_ref))
+                gap = max(gaps, default=0.0)
+                sweep_parts.append(
+                    f"{fam} sweep {ms:.4f} ms (bound {b[0]:.5f} ms, {b[1]}), numit "
+                    f"{sw[1].tolist()}, {k7a_trials(sw)} trials, converged {int(sw[3].sum())}/15, "
+                    f"ls_failed {int(sw[4].sum())}, non-finite gamma/sigma/norm_res {nonfinite}, "
+                    f"converged rows' objective rel err <= {gap:.2e}, the recorded call is the "
+                    f"rows: {same}")
+                check(same and gap <= K7A_DRIVER_OBJ_RTOL[h_kind],
+                      f"{driver} --resident {name}: the {fam} rows disagree (objective {gap})")
+            parts.append(f"{name}: Condat-Vu numit {len(cv)} (f64 CPU {int(ref[1])}), norm_res "
+                         f"{cv[-1]['norm_res']:.3e}, final objective {f0_final_obj(out):.6f} (f64 "
+                         f"CPU {f_ref:.6f}, rel err {obj_err:.2e}), the recorded call is the row: "
+                         f"{same_row}; {'; '.join(sweep_parts)}; wall_s {walls[(driver, name)]}")
         print(f"[f0] {driver} --resident at its defaults (lam 10, tol 1e-5, maxit 5000): K7d "
-              f"launches {launches} (one a dataset), other kernels 0; {'; '.join(parts)} "
-              f"(objective bound {K7D_OBJ_RTOL:g}, CPU-calibrated) ({smi})", flush=True)
+              f"launches {launches}, K7a {mine} (one each a dataset), other kernels 0; "
+              f"{' | '.join(parts)} (objective bounds: Condat-Vu {K7D_OBJ_RTOL:g}, the sweeps' "
+              f"converged rows {K7A_DRIVER_OBJ_RTOL[h_kind]:g}; CPU-calibrated) ({smi})",
+              flush=True)
 
     # the engine path, depth cut from 5000 to 300 (a host sync an iteration, the
-    # linesearch rows one a trial): no K7d launch, 31 finite rows
+    # linesearch rows one a trial): no K7d or K7a launch, 31 finite rows
     for driver, mod in drivers.items():
         outdir = os.path.join("results", "chip_smoke", f"{driver}_engine")
         zero_counts()
+        resident_f0.resident_mpls_sweep.launches = resident_f0.resident_adapdmp_sweep.launches = 0
         t0 = time.perf_counter()
         mod.main(["--datasets", "housing_scale", "--maxit", str(F0_ENGINE_MAXIT), "--device",
                   "cuda", "--outdir", outdir, "--no-plot"])
@@ -2337,12 +2533,13 @@ def f0_phase(resident_f0, resident_pd, counting, dev, smi):
         for r in rows:
             if "norm_res" in r:
                 last[r["method"]] = r
+        whole = (resident_f0.resident_condat_vu.launches, resident_f0.resident_mpls_sweep.launches,
+                 resident_f0.resident_adapdmp_sweep.launches)
         check(len(last) == 31 and all(math.isfinite(r["norm_res"]) for r in last.values())
-              and resident_f0.resident_condat_vu.launches == 0,
-              f"{driver} engine path: {len(last)} rows, K7d launches "
-              f"{resident_f0.resident_condat_vu.launches}")
+              and whole == (0, 0, 0),
+              f"{driver} engine path: {len(last)} rows, K7d/K7a launches {whole}")
         print(f"[f0] {driver} engine path, housing_scale, --maxit {F0_ENGINE_MAXIT} (cut from "
-              f"5000): 31 finite rows, K7d launches 0, wall {secs:.2f} s, wall_s "
+              f"5000): 31 finite rows, K7d and K7a launches 0, wall {secs:.2f} s, wall_s "
               f"{rows[-2]['wall_s']} ({smi})", flush=True)
 
     # K7d against its plain version on the driver's largest call (cpusmall_scale 8192x128,
@@ -2359,17 +2556,51 @@ def f0_phase(resident_f0, resident_pd, counting, dev, smi):
           f"tol 1e-5, maxit 5000, record): numit {numit} (plain {int(out_plain[1])}); K7d "
           f"{ms:.4f} ms ({1e3 * ms / max(numit, 1):.3f} us an iteration), plain {plain_ms:.2f} "
           f"ms (one call each, CUDA events); bound {b[0]:.5f} ms ({b[1]}) ({smi})", flush=True)
+    # K7a against its plain version on the driver's largest call cut to K7A_CUT iterations
+    # (cpusmall_scale 8192x128, l2, the couplings K7A_TS, tol 1e-5, record), one call each
+    # (the plain version syncs the host every trial)
+    k7a = {}
+    for core, (kernel, plain, p2_of) in cores.items():
+        sargs = (inp["a"], inp["bv"], inp["lam"], K7A_TS, p2_of(inp["norm_a"]), 1e-5, K7A_CUT)
+        zero_counts()
+        before = kernel.launches
+        kernel(*sargs, record=True)  # warm-up
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1 and read_counts() == (0,) * 7,
+              f"K7a {core}: cut-depth sweep launches")
+        k_ms, cut = once_ms(lambda: kernel(*sargs, record=True))
+        p_ms, cut_plain = once_ms(lambda: plain(*sargs, record=True))
+        trials_ok = torch.equal(cut[5][3][:, :K7A_HORIZON], cut_plain[5][3][:, :K7A_HORIZON])
+        err = k7a_rows_err(cut[5], cut_plain[5], K7A_HORIZON)
+        b_cut = bound(*k7a_work(inp["a"], int(cut[1].sum()), k7a_trials(cut), len(K7A_TS),
+                                resident_pd.hist_len(K7A_CUT)))
+        k7a[core] = dict(ms=k_ms, plain_ms=p_ms, bound=b_cut, depth=K7A_CUT)
+        print(f"[f0] K7a {core} sweep vs its plain version, cpusmall_scale 8192x128 f32 l2, t "
+              f"{K7A_TS}, tol 1e-5, depth cut from 5000 to maxit {K7A_CUT}: numit "
+              f"{cut[1].tolist()} (plain {cut_plain[1].tolist()}), {k7a_trials(cut)} trials; "
+              f"K7a {k_ms:.4f} ms, plain {p_ms:.2f} ms (one call each, CUDA events); bound "
+              f"{b_cut[0]:.5f} ms ({b_cut[1]}); trial counts equal over {K7A_HORIZON} it "
+              f"{trials_ok}, rows rel err {err:.2e} ({smi})", flush=True)
+        check(trials_ok and err <= K7A_RTOL, f"K7a {core} cut-depth sweep disagrees")
     us = resident_timing.cv_timing(dev, 3)
     # an iteration's bound were A and A' read from HBM every iteration: the larger of
     # 4mn flops and 2mn * 4 bytes
     it_bounds = {f"{m}x{n}": bound(2 * m * n * 4, 4 * m * n)
                  for m, n in ((512, 128), (4224, 128), (8192, 128))}
-    print(f"[f0] iteration, tol -1, 1000 iterations, f32, best of 3: "
+    print(f"[f0] iteration, tol -1, 1000 iterations, f32, best of 3 (K7a: a one-row sweep at t "
+          f"1, with its trials an iteration): "
           f"{', '.join(f'{k} {v:.3f}' for k, v in us.items())}; an iteration's bound (4mn "
           f"flops, 2mn*4 bytes) "
           f"{', '.join(f'{k} {1e3 * v[0]:.4f} us ({v[1]})' for k, v in it_bounds.items())} "
           f"({smi})", flush=True)
-    return dict(launches=total, ms=ms, plain_ms=plain_ms, bound=b, it_us=us)
+    for core, key in (("MP", "mp"), ("AdaPDM+", "adapdmp")):
+        k7a[core].update(
+            launches=k7a_launches[core],
+            it_us={k: v for k, v in us.items() if k.startswith(key + "_")},
+            driver_ms=sum(v[0] for (d, n, c), v in sweep_ms.items() if c == core),
+            driver_bound_ms=sum(v[1][0] for (d, n, c), v in sweep_ms.items() if c == core))
+    return dict(launches=total, ms=ms, plain_ms=plain_ms, bound=b,
+                it_us={k: v for k, v in us.items() if k.startswith(("cv_", "k6d_"))}, k7a=k7a)
 
 
 def main():
@@ -2393,7 +2624,7 @@ def main():
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(9) as pool:
         builds = [(name, pool.submit(build)) for name, build in
                   (("K1", kernels.build_library),
                    ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
@@ -2402,13 +2633,14 @@ def main():
                    ("K4 (aGRAAL)", resident_bt.build_agraal_library),
                    ("K6a/K6b/K6d", resident_pd.build_library),
                    ("K6c", resident_mp.build_library),
-                   ("K7d", resident_f0.build_library))]
+                   ("K7d", resident_f0.build_library),
+                   ("K7a", resident_f0.build_sweep_library))]
         for name, fut in builds:
             lib_path = fut.result()
             regs = ptxas_report(lib_path.with_suffix(".log").read_text())
             print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
                   f"bytes: {'; '.join(regs)})", flush=True)
-    print(f"[build] all eight in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all nine in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -2457,6 +2689,7 @@ def main():
         resident_pd.resident_adapdm_dsvm_sweep.launches = resident_pd.resident_cv_dsvm.launches = 0
         resident_mp.resident_mp_dsvm_sweep.launches = 0
         resident_f0.resident_condat_vu.launches = 0
+        resident_f0.resident_mpls_sweep.launches = resident_f0.resident_adapdmp_sweep.launches = 0
 
     def read_counts():
         """Launches of (K1, K2, K2c, K3, K4, K4b, K4 (aGRAAL)) since zero_counts()."""
@@ -2650,9 +2883,12 @@ def main():
     mp_err = mp_checks(resident_mp, dev, smi)
     mp_meas = mp_phase(resident_pd, resident_mp, driver_mp, (zero_counts, read_counts), dev, smi)
 
-    # 13. the f = 0 family's Condat-Vu kernel -------------------------------------------
+    # 13. the f = 0 family's Condat-Vu and t-sweep kernels -------------------------------
+    t13 = time.perf_counter()
     f0_err = f0_checks(resident_f0, dev, smi)
+    k7a_err = k7a_checks(resident_f0, dev, smi)
     f0_meas = f0_phase(resident_f0, resident_pd, (zero_counts, read_counts), dev, smi)
+    print(f"[f0] phase 13 wall {time.perf_counter() - t13:.1f} s ({smi})", flush=True)
 
     head = measured["16384x16384 f32"]
     k3_head = k3_meas["16384x16384 f32"]
@@ -2737,7 +2973,18 @@ def main():
         "replaces": "adaprox_tpu/ops/resident.py:2056", "launches": f0_meas["launches"],
         "max_abs_err": f0_err, "ms": f0_meas["ms"], "plain_ms": f0_meas["plain_ms"],
         "bound_ms": f0_meas["bound"][0], "bound_by": f0_meas["bound"][1], "library_ms": None,
-        "it_us": f0_meas["it_us"]}]}))
+        "it_us": f0_meas["it_us"]}] + [{
+        "name": name, "route": "cuda", "source": "adaprox_tpu_torch/csrc/resident_f0_sweep.cu",
+        "replaces": replaces, "launches": f0_meas["k7a"][core]["launches"],
+        "max_abs_err": k7a_err, "ms": f0_meas["k7a"][core]["ms"],
+        "plain_ms": f0_meas["k7a"][core]["plain_ms"],
+        "bound_ms": f0_meas["k7a"][core]["bound"][0],
+        "bound_by": f0_meas["k7a"][core]["bound"][1], "library_ms": None,
+        "it_us": f0_meas["k7a"][core]["it_us"], "depth": f0_meas["k7a"][core]["depth"],
+        "driver_ms": f0_meas["k7a"][core]["driver_ms"],
+        "driver_bound_ms": f0_meas["k7a"][core]["driver_bound_ms"]} for name, replaces, core in (
+            ("resident_mpls_sweep", "adaprox_tpu/ops/resident.py:2096", "MP"),
+            ("resident_adapdmp_sweep", "adaprox_tpu/ops/resident.py:2282", "AdaPDM+"))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

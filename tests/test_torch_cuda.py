@@ -1,7 +1,8 @@
-"""The CUDA kernels K1, K2, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c, K6d and K7d on
-the card against their plain PyTorch versions (K2, K2c, K4, K4b and aGRAAL with the
+"""The CUDA kernels K1, K2, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c, K6d, K7a and
+K7d on the card against their plain PyTorch versions (K2, K2c, K4, K4b and aGRAAL with the
 least-squares, logistic and cubic objectives; K6 and K6c with the dual SVM's dense Q or
-factored B; K7d with the square-root lasso's and the least absolute deviation's h).
+factored B; K7a's two cores and K7d with the square-root lasso's and the least absolute
+deviation's h).
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. This file imports no
 JAX, so it runs on a machine without it:
@@ -12,6 +13,8 @@ JAX, so it runs on a machine without it:
 import pytest
 import torch
 
+from adaprox_tpu_torch.experiments.k7a_calibration import (K7A_HORIZON, K7A_RTOL, K7A_TS,
+                                                           K7A_X_RTOL)
 from adaprox_tpu_torch.ops import kernels as tk
 from adaprox_tpu_torch.ops import resident as tr
 from adaprox_tpu_torch.ops import resident_bt as trb
@@ -1357,28 +1360,146 @@ def test_k7d_refusals(dev):
         tf.resident_condat_vu(a, bv, 0.1, gamma, sigma, 0.0, 3, h_kind="linf")
 
 
+# -- K7a, the f = 0 family's Malitsky-Pock and AdaPDM+ t-sweeps -------------------------------
+
+# K7a against its plain version, tol -1, on the drivers' padded inputs: the couplings, the
+# horizon over which the trial counts are held equal and the bounds on the rows and on x
+# are the ones calibrated on the CPU in adaprox_tpu_torch/experiments/k7a_calibration.py.
+
+
+def k7a_inputs(dev, name, dtype):
+    """(a, bv, eta0, n) of the square-root lasso driver's resident call on ``name``'s
+    stand-in: [X 1] and y zero-padded to multiples of 128, A in ``dtype``, bv f32."""
+    from adaprox_tpu_torch.convert import sqrt_lasso_from_numpy
+    from adaprox_tpu_torch.experiments import square_root_lasso
+
+    x, y, _ = square_root_lasso.load(name)
+    _, _, h, a_op, norm_a = sqrt_lasso_from_numpy(x, y, 10.0, "l2", device=dev,
+                                                  dtype=torch.float32)
+    a, bv = square_root_lasso.resident_inputs(a_op.a, -h.b)
+    return a.to(dtype), bv, norm_a, x.shape[1] + 1
+
+
+def _k7a(core):
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    if core == "mp":
+        return tf.resident_mpls_sweep, tf.resident_mpls_sweep_plain
+    return tf.resident_adapdmp_sweep, tf.resident_adapdmp_sweep_plain
+
+
+@pytest.mark.parametrize("h_kind", ["l2", "l1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["housing_scale", "abalone", "cpusmall_scale"])
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+def test_k7a_matches_plain_on_card(dev, core, name, dtype, h_kind):
+    """Each core at the drivers' three padded shapes (512x128, 4224x128, 8192x128), over
+    the calibrated horizon: numit, the trial counts and ls_failed equal, the gamma,
+    sigma, norm_res and objective rows within K7A_RTOL and x within K7A_X_RTOL, the padded
+    coordinates of x 0."""
+    kernel, plain = _k7a(core)
+    a, bv, norm_a, n = k7a_inputs(dev, name, dtype)
+    p2 = 1.0 if core == "mp" else norm_a
+    args = (a, bv, 10.0, K7A_TS, p2, -1.0, K7A_HORIZON)
+    before = kernel.launches
+    got = kernel(*args, record=True, h_kind=h_kind)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(*args, record=True, h_kind=h_kind)
+    rows = len(K7A_TS)
+    assert got[0].dtype == torch.float32 and got[5][0].shape == (rows, K7A_HORIZON)
+    assert got[1].tolist() == want[1].tolist() == [K7A_HORIZON] * rows
+    assert torch.equal(got[4], want[4]) and torch.equal(got[5][3], want[5][3])
+    for k in (0, 1, 2, 4):
+        u, w = got[5][k], want[5][k]
+        assert float((u - w).abs().max()) <= K7A_RTOL * float(w.abs().max()), k
+    assert float((got[0] - want[0]).abs().max()) <= K7A_X_RTOL * max(
+        float(want[0].abs().max()), 1e-30)
+    assert not bool(got[0][:, n:].any())
+
+
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+def test_k7a_rows_are_one_row_launches_and_repeatable(dev, core):
+    """At the drivers' tol 1e-5: two launches give the same bits, and each row of a
+    sweep equals its one-row launch bit for bit (the rows run in turn on the same
+    grid)."""
+    kernel, _ = _k7a(core)
+    a, bv, norm_a, _ = k7a_inputs(dev, "housing_scale", torch.float32)
+    p2 = 1.0 if core == "mp" else norm_a
+    for h_kind in ("l2", "l1"):
+        args = (a, bv, 10.0, K7A_TS, p2, 1e-5, 2000)
+        one = kernel(*args, record=True, h_kind=h_kind)
+        two = kernel(*args, record=True, h_kind=h_kind)
+        flat = lambda out: list(out[:5]) + list(out[5])  # noqa: E731
+        assert all(torch.equal(u, w) for u, w in zip(flat(one), flat(two)))
+        for j, t in enumerate(K7A_TS):
+            row = kernel(a, bv, 10.0, [t], p2, 1e-5, 2000, record=True, h_kind=h_kind)
+            assert all(torch.equal(u[0], w[j]) for u, w in zip(flat(row), flat(one)))
+
+
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+def test_k7a_returns_the_cores_iterate_and_zero_iterations(dev, core):
+    """Converged, MP returns the last accepted iterate and AdaPDM+ the iterate at the
+    check: both equal what a run capped at numit returns (MP) or numit - 1 returns as its
+    non-converged x (AdaPDM+). maxit 0 returns x = 0, numit 0 and an infinite residual."""
+    kernel, _ = _k7a(core)
+    a, bv, norm_a, _ = k7a_inputs(dev, "housing_scale", torch.float32)
+    p2 = 1.0 if core == "mp" else norm_a
+    out = kernel(a, bv, 10.0, [1.0], p2, 1e-4, 5000, record=True)
+    k = int(out[1][0])
+    assert bool(out[3][0]) and 1 < k < 5000 and not bool(out[5][0][0, k:].any())
+    capped = kernel(a, bv, 10.0, [1.0], p2, -1.0, k if core == "mp" else k - 1)
+    assert torch.equal(capped[0], out[0])
+    x, numit, nres, conv, lsf = kernel(a, bv, 10.0, [1.0, 2.0], p2, 0.0, 0)
+    assert numit.tolist() == [0, 0] and bool(torch.isinf(nres).all()) and not bool(conv.any())
+    assert not bool(x.any()) and not bool(lsf.any())
+
+
+def test_k7a_refusals(dev):
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    a, bv, norm_a, _ = k7a_inputs(dev, "housing_scale", torch.float32)
+    for fn, p2 in ((tf.resident_mpls_sweep, 1.0), (tf.resident_adapdmp_sweep, norm_a)):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fn(a.double(), bv, 10.0, K7A_TS, p2, 0.0, 3)
+        with pytest.raises(TypeError, match="float32 bv"):
+            fn(a, bv.double(), 10.0, K7A_TS, p2, 0.0, 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(a.t().contiguous().t(), bv, 10.0, K7A_TS, p2, 0.0, 3)
+        with pytest.raises(ValueError, match="positive"):
+            fn(a, bv, 10.0, K7A_TS, -p2, 0.0, 3)
+        with pytest.raises(ValueError, match="coupling t"):
+            fn(a, bv, 10.0, [0.0], p2, 0.0, 3)
+
+
 @pytest.mark.parametrize("driver", ["square_root_lasso", "least_absolute_deviation"])
 def test_sqrt_lasso_drivers_resident_is_one_k7d_launch(dev, tmp_path, driver):
-    """--resident on housing_scale's stand-in: one K7d launch, the Condat-Vu row alone
-    (the t-sweeps skipped), JAX's keys; the engine path launches none and writes 31 rows."""
+    """--resident on housing_scale's stand-in: one K7d, one K7a MP and one K7a AdaPDM+
+    launch, and the 31 rows with JAX's names, keys and fast_methods; the engine path
+    launches none of them and writes 31 rows too."""
     import importlib
 
+    from adaprox_tpu_torch.experiments.square_root_lasso import T_VALUES
     from adaprox_tpu_torch.ops import resident_f0 as tf
     from adaprox_tpu_torch.utils.logging import read_jsonl
 
+    kernels = (tf.resident_condat_vu, tf.resident_mpls_sweep, tf.resident_adapdmp_sweep)
     mod = importlib.import_module(f"adaprox_tpu_torch.experiments.{driver}")
-    before = tf.resident_condat_vu.launches
+    before = [k.launches for k in kernels]
     mod.main(["--resident", "--datasets", "housing_scale", "--maxit", "300", "--device", "cuda",
               "--outdir", str(tmp_path), "--no-plot"])
-    assert tf.resident_condat_vu.launches == before + 1
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1]
     rows = read_jsonl(tmp_path / "housing_scale.jsonl")
-    assert {r["method"] for r in rows if "norm_res" in r} == {"Condat-Vu"}
+    names = list(dict.fromkeys(r["method"] for r in rows if "norm_res" in r))
+    assert names == (["Condat-Vu"] + [f"Malitsky-Pock (t={t})" for t in T_VALUES]
+                     + [f"AdaPDM+ (t={t})" for t in T_VALUES])
     assert all(list(r) == ["method", "norm_res", "A_evals", "At_evals"] for r in rows
                if "norm_res" in r)
-    assert rows[-2]["fast_path"] == "resident" and rows[-2]["fast_methods"] == ["Condat-Vu"]
-    before = tf.resident_condat_vu.launches
+    assert rows[-2]["fast_path"] == "resident" and rows[-2]["fast_methods"] == [
+        "Condat-Vu", "Malitsky-Pock t-sweep", "AdaPDM+ t-sweep"]
+    before = [k.launches for k in kernels]
     mod.main(["--datasets", "housing_scale", "--maxit", "20", "--device", "cuda", "--outdir",
               str(tmp_path / "engine"), "--no-plot"])
-    assert tf.resident_condat_vu.launches == before
+    assert [k.launches for k in kernels] == before
     rows = read_jsonl(tmp_path / "engine" / "housing_scale.jsonl")
     assert len({r["method"] for r in rows if "norm_res" in r}) == 31

@@ -258,9 +258,14 @@ apad, bpad = square_root_lasso.resident_inputs(al.a, -hl.b)
 k7 = apt.resident_condat_vu(apad, bpad, 10.0, 1 / nal, 0.99 / nal, 1e-5, 300, h_kind="l1")
 rpl = apt.adaptive_linesearch_primal_dual(z14, z506, f=fz, g=gl, h=hl, A=al, eta=nal, t=1.0,
                                           tol=1e-5, maxit=300)
+rmp = apt.malitsky_pock(z14, z506, f=fz, g=gl, h=hl, A=al, sigma=1.0, t=1.0, tol=1e-5, maxit=300)
+kmp = apt.resident_mpls_sweep(apad, bpad, 10.0, [1.0], 1.0, 1e-5, 300, h_kind="l1")
+kpd = apt.resident_adapdmp_sweep(apad, bpad, 10.0, [1.0], nal, 1e-5, 300, h_kind="l1")
 f0 = [[r_x.shape[0], n_it, float(gl(r_x[:14]) + hl(al.matvec(r_x[:14]))),
        float(r_x[14:].abs().sum())]
-      for r_x, n_it in ((rcv.x, rcv.numit), (k7[0], int(k7[1])), (rpl.x, rpl.numit))]
+      for r_x, n_it in ((rcv.x, rcv.numit), (k7[0], int(k7[1])), (rpl.x, rpl.numit),
+                        (rmp.x, rmp.numit), (kmp[0][0], int(kmp[1][0])),
+                        (kpd[0][0], int(kpd[1][0])))]
 for path in ([], ["--resident"]):
     least_absolute_deviation.main(["--device", "cpu", "--datasets", "housing_scale", "--maxit",
                                    "30", "--no-plot", "--outdir",
@@ -342,14 +347,17 @@ def test_port_runs_the_slice_without_jax(tmp_path):
                                / "heart_scale_C_0.1.jsonl")
         last = [r["method"] for r in rows if r.get("it") == 40]
         assert len(last) == 25 and last[12] == "Malitsky-Pock (t=0.01)" and last[-1] == "Condat-Vu"
-    # the least absolute deviation: the engine's Condat-Vu and K7d's plain version on A
-    # padded to 512 x 128 take the same iterations to the same objective, the padded
-    # coordinates 0; AdaPDM+ runs; the driver wrote its 31 rows, and --resident the
-    # Condat-Vu row alone
-    (n20, i20, f20, _), (n21, i21, f21, p21), (n22, i22, f22, _) = got["f0"]
-    assert (n20, n21, n22) == (14, 128, 14) and i20 == i21 == i22 == 300 and p21 == 0.0
+    # the least absolute deviation: the engine's Condat-Vu, Malitsky-Pock and AdaPDM+
+    # and the plain versions of K7d and K7a's two cores on A padded to 512 x 128 take the
+    # same iterations to the same objective, the padded coordinates 0; the driver wrote
+    # its 31 rows on both paths
+    (n20, i20, f20, _), (n21, i21, f21, p21), (n22, i22, f22, _) = got["f0"][:3]
+    (n23, i23, f23, _), (n24, i24, f24, p24), (n25, i25, f25, p25) = got["f0"][3:]
+    assert (n20, n21, n22, n23, n24, n25) == (14, 128, 14, 14, 128, 128)
+    assert i20 == i21 == i22 == i23 == i24 == i25 == 300 and p21 == p24 == p25 == 0.0
     assert abs(f21 - f20) < 1e-9 * abs(f20) and np.isfinite(f22)
-    for path, names in (("", 31), ("--resident", 1)):
+    assert abs(f24 - f23) < 1e-9 * abs(f23) and abs(f25 - f22) < 1e-9 * abs(f22)
+    for path, names in (("", 31), ("--resident", 31)):
         rows = tlog.read_jsonl(tmp_path.parent / (tmp_path.name + "-lad" + path)
                                / "housing_scale.jsonl")
         counts = {}

@@ -3,7 +3,7 @@ against the JAX package, on the same numpy inputs (f64 on the CPU unless a test
 says f32): ``ZeroSmooth``, ``L2Norm``, ``IndBall2``, ``Translate`` and the
 conjugates, AdaPDM+ (``adaptive_linesearch_primal_dual``), the engine's
 Condat-Vu and Malitsky-Pock on the f = 0 problems, the plain version of K7d
-(``resident_condat_vu``) and its records, and both drivers' JSONL.
+(``resident_condat_vu``) and its records, and both drivers' JSONL on both paths.
 
 The JAX side runs K7d in interpret mode, as tests/test_kernels.py does; the
 port's wrapper takes its plain version on CPU tensors. The CUDA kernel is
@@ -17,7 +17,9 @@ counters never differed); Malitsky-Pock and Condat-Vu never in 400. The
 linesearch rows are held over 300 iterations, the counters exactly over the
 same horizon. K7d's plain version agreed with JAX's interpret-mode kernel to
 2e-15 over 5000 iterations (128x128, l2 and l1), so it is held to rtol 1e-9
-over the whole run. The drivers' 31 rows at maxit 50 agree through all 50.
+over the whole run. The drivers' 31 rows at maxit 50 agree through all 50, and under
+--resident (K7d's and K7a's plain versions against JAX's interpret-mode kernels) at
+maxit 60 through all 60. K7a itself is held in tests/test_torch_f0_sweep.py.
 """
 
 import urllib.error
@@ -443,9 +445,9 @@ DRIVER_NAMES = (["Condat-Vu"] + [f"Malitsky-Pock (t={t})" for t in tsl.T_VALUES]
 DRIVERS = {"sqrt_lasso": (jsl, tsl), "lad": (jlad, tlad)}
 
 
-def _driver_rows(tmp_path, capsys, which, extra):
+def _driver_rows(tmp_path, capsys, which, extra, maxit=50):
     jmod, tmod = DRIVERS[which]
-    args = ["--datasets", "housing_scale", "--maxit", "50", "--no-plot", *extra]
+    args = ["--datasets", "housing_scale", "--maxit", str(maxit), "--no-plot", *extra]
     jmod.main(["--cpu", "--f64", "--outdir", str(tmp_path / "jax"), *args])
     capsys.readouterr()
     tmod.main(["--outdir", str(tmp_path / "torch"), "--device", "cpu", *args])
@@ -493,19 +495,28 @@ def test_driver_jsonl_matches_jax(tmp_path, capsys, no_download, which):
 
 @pytest.mark.parametrize("which", ["sqrt_lasso", "lad"])
 def test_driver_resident_condat_vu_row_matches_jax(tmp_path, capsys, no_download, which):
-    """--resident: the Condat-Vu row from K7d's plain version on the 128-padded A
-    against JAX's --resident row (its interpret-mode kernel), row for row; the two
-    t-sweeps are skipped and say so, and fast_methods names the one row written."""
-    (_, trows), (jby, tby), out = _driver_rows(tmp_path, capsys, which, ["--resident"])
-    assert "skipped: the Malitsky-Pock t-sweep and the AdaPDM+ t-sweep" in out
-    assert list(tby) == ["Condat-Vu"] and len(jby) == 31
-    for rt, rj in zip(tby["Condat-Vu"], jby["Condat-Vu"], strict=True):
-        assert list(rt) == tsl.KEYS
-        assert (rt["A_evals"], rt["At_evals"]) == (rj["A_evals"], rj["At_evals"])
-        assert rt["norm_res"] == pytest.approx(rj["norm_res"], rel=1e-9)
-    meta = [r for r in trows if "norm_res" not in r]
-    assert meta[0]["fast_path"] == "resident" and meta[0]["fast_methods"] == ["Condat-Vu"]
-    assert list(meta[0]["wall_s"]) == ["Condat-Vu"]
+    """--resident at --maxit 60: all 31 rows from the three kernels' plain versions (K7d,
+    K7a's MP and AdaPDM+ cores) on the 128-padded A against JAX's --resident rows (its
+    interpret-mode kernels), in JAX's order and names: the counters row by row exactly
+    and norm_res to rel 1e-9 over all 60 iterations; no row is skipped, and the meta
+    row's fast_methods and wall_s keys are JAX's."""
+    (jrows, trows), (jby, tby), out = _driver_rows(tmp_path, capsys, which, ["--resident"],
+                                                   maxit=60)
+    assert "skipped" not in out and "not ported" not in out
+    assert list(tby) == list(jby) == DRIVER_NAMES
+    for name in DRIVER_NAMES:
+        for rt, rj in zip(tby[name], jby[name], strict=True):
+            assert list(rt) == tsl.KEYS
+            assert (rt["method"], rt["A_evals"], rt["At_evals"]) == (
+                rj["method"], rj["A_evals"], rj["At_evals"]), name
+            assert rt["norm_res"] == pytest.approx(rj["norm_res"], rel=1e-9), name
+        assert len(tby[name]) == 60, name
+    tmeta = [r for r in trows if "norm_res" not in r]
+    jmeta = [r for r in jrows if "norm_res" not in r]
+    assert tmeta[0]["fast_path"] == jmeta[0]["fast_path"] == "resident"
+    assert tmeta[0]["fast_methods"] == jmeta[0]["fast_methods"] == tsl.FAST_METHODS == [
+        "Condat-Vu", "Malitsky-Pock t-sweep", "AdaPDM+ t-sweep"]
+    assert list(tmeta[0]["wall_s"]) == list(jmeta[0]["wall_s"]) == tsl.FAST_METHODS
 
 
 def test_driver_resident_routing_limit_falls_back(tmp_path, capsys, monkeypatch):
