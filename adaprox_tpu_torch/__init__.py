@@ -18,9 +18,10 @@ Layout:
                (one solve) and K2c (the rule sweep), the backtracking
                whole-solve kernels K4 and K4b (its sweep), K4's aGRAAL kernel,
                the dual-SVM primal-dual kernels K6a, K6b (the t-sweep) and
-               K6d (Condat-Vu), K6c (the Malitsky-Pock t-sweep), and K7d (the
-               f = 0 family's Condat-Vu: square-root lasso, least absolute
-               deviation)
+               K6d (Condat-Vu), K6c (the Malitsky-Pock t-sweep), and the f = 0
+               family's (square-root lasso, least absolute deviation): K7d
+               (Condat-Vu), K7a (the MP and AdaPDM+ t-sweeps), K7b (their
+               dataset x t grids) and K7c (Condat-Vu over the datasets)
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the primal-dual engine (its
                proximal-gradient case and Condat-Vu), fixed-step Nesterov,
@@ -83,9 +84,12 @@ from .ops.resident_pd import (  # noqa: E402
 )
 from .ops.resident_mp import resident_mp_dsvm_sweep, resident_mp_records  # noqa: E402
 from .ops.resident_f0 import (  # noqa: E402
+    resident_adapdmp_grid,
     resident_adapdmp_records,
     resident_adapdmp_sweep,
     resident_condat_vu,
+    resident_cv_grid,
+    resident_mpls_grid,
     resident_mpls_sweep,
 )
 from .ops.resident import (  # noqa: E402
@@ -152,7 +156,8 @@ __all__ = [
     "resident_adapdm_dsvm", "resident_adapdm_dsvm_sweep", "resident_cv_dsvm",
     "resident_pd_records", "resident_cv_records", "resident_mp_dsvm_sweep", "resident_mp_records",
     "resident_condat_vu", "resident_mpls_sweep", "resident_adapdmp_sweep",
-    "resident_adapdmp_records",
+    "resident_adapdmp_records", "resident_mpls_grid", "resident_adapdmp_grid",
+    "resident_cv_grid",
     # models
     "LeastSquares", "LogisticLoss", "Quadratic", "FactoredQuadratic", "Cubic", "WorstQuadratic", "LassoProblem", "random_lasso",
     # rules

@@ -10,6 +10,11 @@
 // (_cv_kernel[_rec] over _cv_core on _f0_ops). A is stored as f32 or bf16; every
 // iterate, reduction and scalar is f32.
 //
+// K7c, in this file too, replaces adaprox_tpu/ops/resident.py::resident_cv_grid
+// (_cv_grid_kernel_rec over _cv_core): the same solve for each of D datasets zero-padded
+// to one common (m, n) (A (D, m, n), bv (D, m); each its own lam, gamma and sigma), in
+// record mode, one launch for all D, through the same routine (cv_solve).
+//
 // The iteration (_cv_core, the engine's order with FixedStepsize, rho = 1, f = 0):
 //     a_x    = A x
 //     primal = (v - x) / gamma + A'y_prev
@@ -29,7 +34,7 @@
 // barriers an iteration with NormL1, three with NormL2.
 //
 // Design (first, simple version; resident_f0.cuh has the block dot, the dual prox
-// pieces and the launch, which K7a's cores will share):
+// pieces and the launch, which K7a's cores share):
 //   * One persistent cooperative launch, at most one CTA per SM, enough warps for the
 //     longer of m and n (housing_scale's 512 x 128 takes 32 CTAs of 16 warps). A, A',
 //     bv and every vector stay in global memory, so any shape runs.
@@ -72,9 +77,10 @@ struct CvArgs {
   float* hist;   // (2, hist_len): norm_res, the objective; zero past numit
 };
 
+// One whole Condat-Vu solve (_cv_core), run by every thread of the grid: K7d's kernel
+// runs it once, K7c's once a dataset.
 template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, 1) resident_cv_kernel(const F0Problem p,
-                                                                 const CvArgs r) {
+__device__ void cv_solve(const F0Problem& p, const CvArgs& r) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float warp_part[kCvParts][kWarps];
   __shared__ float s_red[kWarps];
@@ -245,7 +251,58 @@ __global__ void __launch_bounds__(kThreads, 1) resident_cv_kernel(const F0Proble
   }
 }
 
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 1) resident_cv_kernel(const F0Problem p,
+                                                                 const CvArgs r) {
+  cv_solve<T, V>(p, r);
+}
+
+// K7c's per-dataset entries of JAX's (D, 4) scalar table [gamma, sigma, lam, tol]; tol
+// and the rest come in CvArgs as in K7d.
+struct CvSets {
+  const float* gammas;  // (D,) on the device
+  const float* sigmas;  // (D,)
+  const float* lams;    // (D,)
+  int dcount;
+};
+
+// K7c: the datasets one after another, a grid sync between two (the next solve reuses the
+// scratch that other CTAs may still read). Each solve's problem and arguments are copies
+// in shared memory with its dataset's a, at and bv slices (64-bit offsets), lam, gamma,
+// sigma and outputs, written by thread 0 from the device tables and published by the
+// block barrier; cv_solve then reads the same fields as in K7d. So each dataset's solve
+// equals K7d's launch on its slice bit for bit.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 1) resident_cv_grid_kernel(const F0Problem p,
+                                                                      const CvArgs r,
+                                                                      const CvSets g) {
+  __shared__ F0Problem cp;
+  __shared__ CvArgs cr;
+  const long long mn = p.m * p.n;
+  for (int i = 0; i < g.dcount; ++i) {
+    // also a block barrier: every thread is done with the previous solve's cp and cr
+    if (i > 0) cg::this_grid().sync();
+    if (threadIdx.x == 0) {
+      const long long d = i;
+      cp = p;
+      cp.a = static_cast<const T*>(p.a) + d * mn;
+      cp.at = static_cast<const T*>(p.at) + d * mn;
+      cp.bv = p.bv + d * p.m;
+      cp.lam = g.lams[d];
+      cr = r;
+      cr.gamma = g.gammas[d];
+      cr.sigma = g.sigmas[d];
+      cr.x_out = r.x_out + d * p.n;
+      cr.stats = r.stats + 3 * d;
+      cr.hist = r.hist ? r.hist + 2 * d * p.hist_len : nullptr;
+    }
+    __syncthreads();
+    cv_solve<T, V>(cp, cr);
+  }
+}
+
 ADAPROX_PICK_F0(resident_cv_kernel)
+ADAPROX_PICK_F0(resident_cv_grid_kernel)
 
 }  // namespace
 
@@ -276,6 +333,34 @@ int adaprox_resident_condat_vu(const void* a, const void* at, int a_is_bf16, int
   F0Problem prob{a, at, bv, xs, v, at_y, y, ax, w, part, m, n, h_kind, lam, hist_len};
   CvArgs args{gamma, sigma, tol, maxit, record, x_out, stats, record ? hist : nullptr};
   void* kargs[] = {&prob, &args};
+  return static_cast<int>(launch_f0(kernel, kargs, m, n, kCvParts, part_len, stream_ptr));
+}
+
+// K7c: dcount Condat-Vu solves, one a dataset, in record mode. a (dcount, m, n) and at
+// (dcount, n, m) row-major, f32 (a_is_bf16 = 0) or bf16; vec as for K7d. bv (dcount, m);
+// lams, gammas and sigmas (dcount) on the device. xs (2, n), v (n), at_y (n), y (m), ax
+// (m), w (m), part (part_len): f32 device buffers the caller owns. h_kind: 0 NormL2, 1
+// NormL1. x_out (dcount, n); stats (dcount, 3): numit, norm_res, converged; hist (dcount,
+// 2, hist_len), hist_len = maxit rounded up to 128: norm_res and the objective, zero past
+// numit (null only at maxit 0). Returns the cudaError_t of the launch (0 on success).
+int adaprox_resident_cv_grid(const void* a, const void* at, int a_is_bf16, int vec, long long m,
+                             long long n, const float* bv, int h_kind, const float* lams,
+                             const float* gammas, const float* sigmas, int dcount, float* xs,
+                             float* v, float* at_y, float* y, float* ax, float* w, float* part,
+                             long long part_len, float tol, int maxit, float* x_out,
+                             float* stats, float* hist, void* stream_ptr) {
+  const void* kernel = pick_resident_cv_grid_kernel(a_is_bf16, vec);
+  if (kernel == nullptr || !lams || !gammas || !sigmas || m < 1 || n < 1 ||
+      (h_kind != kHL2 && h_kind != kHL1) || dcount < 1 || maxit < 0 || !x_out || !stats ||
+      (maxit > 0 && !hist)) {
+    return cudaErrorInvalidValue;
+  }
+  const int hist_len = (maxit + 127) / 128 * 128;  // _hist_len(maxit)
+  // lam, gamma, sigma and the outputs are each dataset's; the launch's are placeholders
+  F0Problem prob{a, at, bv, xs, v, at_y, y, ax, w, part, m, n, h_kind, 0.f, hist_len};
+  CvArgs args{0.f, 0.f, tol, maxit, 1, x_out, stats, hist};
+  CvSets sets{gammas, sigmas, lams, dcount};
+  void* kargs[] = {&prob, &args, &sets};
   return static_cast<int>(launch_f0(kernel, kargs, m, n, kCvParts, part_len, stream_ptr));
 }
 

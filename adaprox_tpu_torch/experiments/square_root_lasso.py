@@ -28,8 +28,18 @@ the JAX driver's routing limit (24 MiB a layout), else it falls back to the
 engine as the JAX driver does. The wall_s of the meta row times the solves
 only, not the JSONL writes.
 
+``--resident-grid`` runs the whole multi-dataset experiment in three launches: the
+datasets' [X 1] and y zero-padded to one common shape (the largest multiples of 128
+over the datasets), Condat-Vu for all of them in one K7c launch
+(``resident_cv_grid``), the 15 couplings x the datasets in one K7b launch a family
+(``resident_mpls_grid``, ``resident_adapdmp_grid``). It writes each dataset's 31 rows,
+a meta row with the grid totals (``grid_total_s``) and each file's share of them
+(``wall_s``, the total over the dataset count), as the JAX driver does. Past the
+routing limit it raises, as the JAX driver does: there is no fallback.
+
     python -m adaprox_tpu_torch.experiments.square_root_lasso
     python -m adaprox_tpu_torch.experiments.square_root_lasso --resident
+    python -m adaprox_tpu_torch.experiments.square_root_lasso --resident-grid
 """
 
 from __future__ import annotations
@@ -38,11 +48,13 @@ import argparse
 import os
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 
 from ..convert import sqrt_lasso_from_numpy
-from ..ops.resident_f0 import (resident_adapdmp_records, resident_adapdmp_sweep,
-                               resident_condat_vu, resident_mpls_sweep)
+from ..ops.resident_f0 import (resident_adapdmp_grid, resident_adapdmp_records,
+                               resident_adapdmp_sweep, resident_condat_vu, resident_cv_grid,
+                               resident_mpls_grid, resident_mpls_sweep)
 from ..ops.resident_mp import resident_mp_records
 from ..ops.resident_pd import resident_cv_records
 from ..solvers.adapdm_plus import adaptive_linesearch_primal_dual
@@ -57,9 +69,8 @@ KEYS = ["method", "norm_res", "A_evals", "At_evals"]
 # the JAX driver's routing limit: a layout of A in a TPU core's VMEM
 _VMEM_BYTES = 24 * 1024 * 1024
 FAST_METHODS = ["Condat-Vu", "Malitsky-Pock t-sweep", "AdaPDM+ t-sweep"]
-NOT_OFFERED = ("--vmap-sweep, --fused, --resident-grid and --live are not offered yet: "
-               "they need the batched engine, K5 (the fused primal-dual update), K7b/K7c "
-               "(the dataset grid) and utils/live.py")
+NOT_OFFERED = ("--vmap-sweep, --fused and --live are not offered yet: they need the batched "
+               "engine, K5 (the fused primal-dual update) and utils/live.py")
 
 
 def load(name_or_path):
@@ -145,6 +156,87 @@ def run_composite(name_or_path, sink, inner="l2", *, device, lam=10.0, tol=1e-5,
     return source
 
 
+def grid_inputs(datasets, *, device, dtype):
+    """The datasets of ``--resident-grid`` as the JAX driver stacks them: each [X 1] and y
+    zero-padded to the common shape (m_max, n_max), the largest multiples of 128 over the
+    datasets, in ``dtype`` on ``device``. Returns (names, a_stack (D, m_max, n_max),
+    bv_stack (D, m_max), norm_as (each unpadded [X 1]'s Frobenius norm, from float64),
+    sources). Raises ValueError when one padded layout exceeds the routing limit (24 MiB
+    a layout), as the JAX driver does."""
+    loaded, m_max, n_max = [], 0, 0
+    for ds in datasets:
+        x_np, y_np, source = load(ds)
+        m, n = x_np.shape
+        a_np = np.hstack([np.asarray(x_np, dtype=np.float64), np.ones((m, 1))])
+        loaded.append((os.path.basename(str(ds)), a_np, np.asarray(y_np, dtype=np.float64),
+                       source))
+        m_max = max(m_max, -(-m // 128) * 128)
+        n_max = max(n_max, -(-(n + 1) // 128) * 128)
+    if m_max * n_max * torch.empty((), dtype=dtype).element_size() > _VMEM_BYTES:
+        raise ValueError(f"common padded shape ({m_max}, {n_max}) exceeds the resident VMEM "
+                         "budget; run per-dataset --resident instead")
+    a_stack = np.zeros((len(loaded), m_max, n_max))
+    bv_stack = np.zeros((len(loaded), m_max))
+    for i, (_, a_np, y_np, _) in enumerate(loaded):
+        a_stack[i, :a_np.shape[0], :a_np.shape[1]] = a_np
+        bv_stack[i, :y_np.shape[0]] = y_np
+    return ([name for name, _, _, _ in loaded],
+            torch.as_tensor(a_stack, device=device).to(dtype),
+            torch.as_tensor(bv_stack, device=device).to(dtype),
+            [float(np.linalg.norm(a_np)) for _, a_np, _, _ in loaded],
+            [source for _, _, _, source in loaded])
+
+
+def run_composite_grid(datasets, outdir, inner="l2", *, device, lam=10.0, tol=1e-5,
+                       maxit=5000, dtype=None):
+    """The whole multi-dataset experiment in three launches (JAX's ``run_composite_grid``):
+    the datasets stacked by ``grid_inputs``, Condat-Vu for all of them in one
+    ``resident_cv_grid`` call and each family's (dataset x t) grid in one
+    ``resident_mpls_grid`` or ``resident_adapdmp_grid`` call, each timed alone
+    (``sync_wall``). Writes ``outdir/<dataset>.jsonl`` for each dataset: its Condat-Vu,
+    15 Malitsky-Pock and 15 AdaPDM+ rows, a meta row with each file's share of the
+    three walls (``wall_s``, the total over the dataset count), ``fast_path``
+    "resident-grid", the totals (``grid_total_s``) and ``fast_methods``, and the data
+    source. ``dtype`` defaults to float64 on the CPU and float32 on CUDA."""
+    device = torch.device(device)
+    if dtype is None:
+        dtype = torch.float64 if device.type == "cpu" else torch.float32
+    names, a_stack, bv_stack, norm_as, sources = grid_inputs(datasets, device=device,
+                                                             dtype=dtype)
+    dcount = len(names)
+    lams = [float(lam)] * dcount
+    steps = [cv_steps(na) for na in norm_as]
+    cv_out, cv_wall = sync_wall(lambda: resident_cv_grid(
+        a_stack, bv_stack, lams, [g for g, _ in steps], [s for _, s in steps], tol, maxit,
+        h_kind=inner))
+    mp_out, mp_wall = sync_wall(lambda: resident_mpls_grid(
+        a_stack, bv_stack, lams, T_VALUES, [1.0] * dcount, tol, maxit, record=True,
+        h_kind=inner))
+    pd_out, pd_wall = sync_wall(lambda: resident_adapdmp_grid(
+        a_stack, bv_stack, lams, T_VALUES, norm_as, tol, maxit, record=True, h_kind=inner))
+    walls = dict(zip(FAST_METHODS, (cv_wall, mp_wall, pd_wall)))
+    for i, (name, source) in enumerate(zip(names, sources)):
+        path = os.path.join(outdir, f"{name}.jsonl")
+        sink = Sink(path, keys=KEYS)
+        gamma, sigma = steps[i]
+        sink.add(SimpleNamespace(records=resident_cv_records(
+            cv_out[1][i], gamma, sigma, tuple(h[i] for h in cv_out[4]), maxit=maxit),
+            name="Condat-Vu"), primal_dual=True)
+        for fam, out, records in (("Malitsky-Pock", mp_out, resident_mp_records),
+                                  ("AdaPDM+", pd_out, resident_adapdmp_records)):
+            for j, t in enumerate(T_VALUES):
+                sink.add(SimpleNamespace(records=records(
+                    out[1][i][j], tuple(h[i][j] for h in out[5]), maxit=maxit),
+                    name=f"{fam} (t={t})"), primal_dual=True)
+        sink.emit_meta(wall_s={k: round(v / dcount, 4) for k, v in walls.items()},
+                       fast_path="resident-grid",
+                       grid_total_s={k: round(v, 4) for k, v in walls.items()},
+                       fast_methods=FAST_METHODS)
+        sink.emit_meta(data_source=source)
+        print(f"{path}: data={source} (grid-batched)")
+    return names
+
+
 def plot_residual(path, title_prefix="Square root lasso"):
     from ..utils.logging import find_best, read_jsonl
 
@@ -171,6 +263,10 @@ def main(argv=None, inner="l2", default_outdir="results/square_root_lasso"):
     p.add_argument("--resident", action="store_true",
                    help="the whole-solve kernels: Condat-Vu in one K7d launch, each t-sweep in "
                         "one K7a launch")
+    p.add_argument("--resident-grid", action="store_true",
+                   help="the whole multi-dataset experiment in three launches: Condat-Vu over "
+                        "the datasets in one K7c launch, each family's (dataset x t) grid in "
+                        "one K7b launch")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")
@@ -180,6 +276,14 @@ def main(argv=None, inner="l2", default_outdir="results/square_root_lasso"):
                            "pass --device cpu to run on the CPU")
 
     title = "Square root lasso" if inner == "l2" else "Least absolute deviation"
+    if args.resident_grid:
+        names = run_composite_grid(args.datasets.split(","), args.outdir, inner,
+                                   device=args.device, lam=args.lam, tol=args.tol,
+                                   maxit=args.maxit)
+        if not args.no_plot:
+            for name in names:
+                plot_residual(os.path.join(args.outdir, f"{name}.jsonl"), title)
+        return
     for ds in args.datasets.split(","):
         path = os.path.join(args.outdir, f"{os.path.basename(ds)}.jsonl")
         sink = Sink(path, keys=KEYS)

@@ -14,11 +14,16 @@ Counterpart of ``adaprox_tpu/ops/resident.py:1529-2316``:
     AdaPDM+ solve for each coupling t of a sweep, the linesearch included. The
     MP records are ``resident_mp.resident_mp_records`` (shared with K6c, as in
     JAX); the AdaPDM+ records are ``resident_adapdmp_records``.
-Here the entries reach hand-written CUDA C++ routines for Hopper: K7d
-``csrc/resident_cv.cu`` and K7a ``csrc/resident_f0_sweep.cu`` (both cores, one
-launch for the whole sweep), both on ``csrc/resident_f0.cuh``, each one
-cooperative launch, built with nvcc for ``sm_90a`` at first use and loaded
-with ctypes.
+  * K7b, ``resident_mpls_grid`` and ``resident_adapdmp_grid`` (``_f0_grid``): K7a's
+    solves for every (dataset, t) cell of D datasets zero-padded to one common shape,
+    d-major, each dataset with its own lam and sigma0 or eta0.
+  * K7c, ``resident_cv_grid`` (``_cv_grid_kernel_rec``): K7d's solve, recorded, for
+    each of the D datasets, each with its own lam, gamma and sigma.
+Here the entries reach hand-written CUDA C++ routines for Hopper: K7d and K7c
+``csrc/resident_cv.cu`` (one routine), K7a ``csrc/resident_f0_sweep.cu`` and K7b
+``csrc/resident_f0_grid.cu`` (both cores' routines in ``csrc/resident_f0_cores.cuh``),
+all on ``csrc/resident_f0.cuh``, each entry one cooperative launch, built with nvcc for
+``sm_90a`` at first use and loaded with ctypes.
 
 The entries dispatch on where their tensors lie: CPU tensors take the plain
 versions (``*_plain``: the JAX cores line by line, one host-checked iteration,
@@ -33,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..solvers.common import Records
@@ -42,7 +48,10 @@ from .resident_pd import _device, _scalars, _stats, _ts, hist_len
 
 __all__ = ["resident_condat_vu", "resident_condat_vu_plain", "resident_mpls_sweep",
            "resident_mpls_sweep_plain", "resident_adapdmp_sweep", "resident_adapdmp_sweep_plain",
-           "resident_adapdmp_records", "build_library", "build_sweep_library", "H_KINDS"]
+           "resident_adapdmp_records", "resident_mpls_grid", "resident_mpls_grid_plain",
+           "resident_adapdmp_grid", "resident_adapdmp_grid_plain", "resident_cv_grid",
+           "resident_cv_grid_plain", "build_library", "build_sweep_library",
+           "build_grid_library", "H_KINDS"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_cv.cu"
 # -fmad=false: every elementwise expression rounds after each operation, as the
@@ -275,18 +284,24 @@ def _adapdmp_core_plain(a, bv, lam, t, eta0, tol, *, maxit, h_kind, record):
     return torch.where(conv, ck_x, x), it, norm_res, conv, ls_failed, hists
 
 
+def _couplings(what, ts):
+    """The couplings as float64 on the host: one dimension of at least one value, each
+    positive and finite. JAX's kernels run any t: t = 0 gives 0/0 residuals, a negative
+    t AdaPDM+'s gamma0 < 0 and MP the run of |t|. Refused here, as the engines refuse
+    them."""
+    ts = _ts(ts, torch.float64)
+    if not bool((torch.isfinite(ts) & (ts > 0)).all()):
+        raise ValueError(f"{what}: every coupling t must be positive and finite, got "
+                         f"{ts.tolist()}")
+    return ts
+
+
 def _sweep_check(what, a, bv, ts, maxit, h_kind, **positive):
     """Everything a K7a entry refuses, before anything runs, on either device. Returns
     the couplings as float64 on the host."""
     validate_positive(**positive)
     _check(a, bv, maxit, h_kind, what)
-    ts = _ts(ts, torch.float64)
-    # JAX's kernel runs any t: t = 0 gives 0/0 residuals, a negative t AdaPDM+'s
-    # gamma0 < 0 and MP the run of |t|. Refused here, as the engines refuse them.
-    if not bool((torch.isfinite(ts) & (ts > 0)).all()):
-        raise ValueError(f"{what}: every coupling t must be positive and finite, got "
-                         f"{ts.tolist()}")
-    return ts
+    return _couplings(what, ts)
 
 
 def _sweep_plain(core, a, bv, lam, ts, p2, tol, maxit, record, h_kind):
@@ -321,6 +336,105 @@ def resident_adapdmp_sweep_plain(a, bv, lam, ts, eta0, tol, maxit, record=False,
                         h_kind)
 
 
+# -- K7b's and K7c's plain versions: the dataset grids -------------------------------------
+
+
+def _table(what, name, vals, dcount, positive):
+    """A per-dataset scalar table as float64 on the host: (D,), real, finite and, for the
+    steps, positive."""
+    if isinstance(vals, torch.Tensor):
+        if vals.dtype == torch.bool or vals.is_complex():
+            raise TypeError(f"{what}: {name} must be real numbers, got {vals.dtype}")
+        arr = vals.detach().to("cpu", torch.float64).numpy()
+    else:
+        arr = np.asarray(vals)
+        if arr.dtype == np.bool_ or not np.issubdtype(arr.dtype, np.number) or np.iscomplexobj(
+                arr):
+            raise TypeError(f"{what}: {name} must be real numbers, got {arr.dtype}")
+        arr = arr.astype(np.float64)
+    if arr.shape != (dcount,):
+        raise ValueError(f"{what}: {name} must hold one value a dataset, shape ({dcount},); "
+                         f"got {arr.shape}")
+    if not np.isfinite(arr).all() or (positive and not (arr > 0).all()):
+        kind = "positive and finite" if positive else "finite"
+        raise ValueError(f"{what}: every entry of {name} must be {kind}, got {arr.tolist()}")
+    return torch.as_tensor(arr)
+
+
+def _grid_check(what, a_stack, bv_stack, maxit, h_kind, ts=None, **tables):
+    """Everything a grid entry refuses, before anything runs, on either device: a_stack
+    (D, m, n) with D >= 1 and bv_stack (D, m) on one device, h_kind, maxit >= 0; each
+    table (D,) and finite, ``lams`` of any sign (as the sweeps take lam), the steps (sigma0s,
+    eta0s, gammas, sigmas) positive; with ``ts``, every coupling positive and finite (the
+    sweeps' rule). Returns the tables, then the couplings, as float64 host tensors."""
+    if (a_stack.ndim != 3 or bv_stack.ndim != 2 or tuple(bv_stack.shape) != tuple(
+            a_stack.shape[:2]) or a_stack.shape[0] < 1):
+        raise ValueError(f"{what}: need a_stack (D, m, n) with D >= 1 and bv_stack (D, m); got "
+                         f"{tuple(a_stack.shape)}, {tuple(bv_stack.shape)}")
+    if a_stack.device != bv_stack.device:
+        raise ValueError(f"{what}: a_stack and bv_stack on different devices: "
+                         f"{a_stack.device}, {bv_stack.device}")
+    if h_kind not in H_KINDS:
+        raise ValueError(f"{what}: h_kind must be 'l2' or 'l1', got {h_kind!r}")
+    if int(maxit) < 0:
+        raise ValueError(f"{what}: maxit must be >= 0, got {maxit}")
+    dcount = a_stack.shape[0]
+    out = [_table(what, name, vals, dcount, positive=name != "lams")
+           for name, vals in tables.items()]
+    if ts is not None:
+        out.append(_couplings(what, ts))
+    return out
+
+
+def _grid_plain(core, a_stack, bv_stack, lams, ts, p2s, tol, maxit, record, h_kind):
+    """The (dataset x t) grid as the plain sweep of each dataset on its slice, stacked."""
+    outs = [_sweep_plain(core, a_stack[d], bv_stack[d], float(lams[d]), ts, float(p2s[d]), tol,
+                         maxit, record, h_kind) for d in range(a_stack.shape[0])]
+    base = tuple(torch.stack([o[k] for o in outs]) for k in range(5))
+    if record:
+        return base + (tuple(torch.stack([o[5][k] for o in outs]) for k in range(5)),)
+    return base
+
+
+def resident_mpls_grid_plain(a_stack, bv_stack, lams, ts, sigma0s, tol, maxit, record=False,
+                             h_kind="l2"):
+    """The plain version of K7b's MP core: ``resident_mpls_sweep_plain`` on each
+    dataset's slice with its lam and sigma0. Returns what ``resident_mpls_grid``
+    returns."""
+    lams, sigma0s, ts = _grid_check("resident_mpls_grid", a_stack, bv_stack, maxit, h_kind, ts,
+                                    lams=lams, sigma0s=sigma0s)
+    return _grid_plain(_mpls_core_plain, a_stack, bv_stack, lams, ts, sigma0s, tol, maxit,
+                       record, h_kind)
+
+
+def resident_adapdmp_grid_plain(a_stack, bv_stack, lams, ts, eta0s, tol, maxit, record=False,
+                                h_kind="l2"):
+    """The plain version of K7b's AdaPDM+ core: ``resident_adapdmp_sweep_plain`` on each
+    dataset's slice with its lam and eta0. Returns what ``resident_adapdmp_grid``
+    returns."""
+    lams, eta0s, ts = _grid_check("resident_adapdmp_grid", a_stack, bv_stack, maxit, h_kind, ts,
+                                  lams=lams, eta0s=eta0s)
+    return _grid_plain(_adapdmp_core_plain, a_stack, bv_stack, lams, ts, eta0s, tol, maxit,
+                       record, h_kind)
+
+
+def _cv_grid_plain(a_stack, bv_stack, lams, gammas, sigmas, tol, maxit, h_kind):
+    outs = [resident_condat_vu_plain(a_stack[d], bv_stack[d], float(lams[d]), float(gammas[d]),
+                                     float(sigmas[d]), tol, maxit, record=True, h_kind=h_kind)
+            for d in range(a_stack.shape[0])]
+    return tuple(torch.stack([o[k] for o in outs]) for k in range(4)) + (
+        tuple(torch.stack([o[4][k] for o in outs]) for k in range(2)),)
+
+
+def resident_cv_grid_plain(a_stack, bv_stack, lams, gammas, sigmas, tol, maxit, h_kind="l2"):
+    """The plain version of K7c: ``resident_condat_vu_plain`` in record mode on each
+    dataset's slice with its lam, gamma and sigma. Returns what ``resident_cv_grid``
+    returns."""
+    lams, gammas, sigmas = _grid_check("resident_cv_grid", a_stack, bv_stack, maxit, h_kind,
+                                       lams=lams, gammas=gammas, sigmas=sigmas)
+    return _cv_grid_plain(a_stack, bv_stack, lams, gammas, sigmas, tol, maxit, h_kind)
+
+
 def resident_adapdmp_records(numit, hists, *, maxit):
     """``Records`` of one resident AdaPDM+ row from its histories (gamma, sigma,
     norm_res, trials, objective). The counters are rebuilt from the trial counts as
@@ -337,7 +451,58 @@ def resident_adapdmp_records(numit, hists, *, maxit):
                    At_evals=1 + cum_t, valid=it <= torch.as_tensor(numit, device=dev))
 
 
-# -- the CUDA kernel --------------------------------------------------------------------
+# -- the CUDA kernels --------------------------------------------------------------------
+
+
+def _layouts(what, a, bv):
+    """The checks every launch makes of A (f32 or bf16) and bv (f32), and A's second
+    layout, A' (the last two dimensions swapped), with the vector width both take:
+    16-byte loads when both layouts' rows are whole 16-byte groups (then so is every
+    dataset's slice of a stack)."""
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what} stores A as float32 or bfloat16 on CUDA, got {a.dtype}")
+    if bv.dtype != torch.float32:
+        raise TypeError(f"{what} takes a float32 bv on CUDA, got {bv.dtype}")
+    if not (a.is_contiguous() and bv.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous a and bv")
+    at = a.transpose(-2, -1).contiguous()
+    m, n = a.shape[-2:]
+    vec = 8 if a.dtype == torch.bfloat16 else 4
+    if m % vec or n % vec or a.data_ptr() % 16 or at.data_ptr() % 16:
+        vec = 1
+    return at, vec
+
+
+def _partials(parts, dev):
+    """The per-CTA partials: the launcher sizes the grid, at most one CTA per SM."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return torch.empty(parts * sms, dtype=torch.float32, device=dev)
+
+
+def _cv_scratch(m, n, dev):
+    """K7d's and K7c's scratch, in the entries' order: xs (2, n), v, at_y (n), y, ax, w
+    (m)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    return [torch.empty((2, n), **f32), torch.empty(n, **f32), torch.empty(n, **f32),
+            torch.empty(m, **f32), torch.empty(m, **f32), torch.empty(m, **f32)]
+
+
+def _sweep_scratch(m, n, dev):
+    """K7a's and K7b's scratch, in the entries' order: xs (2, n), v (n), at_ys (2, n), ys
+    (2, m), axs (2, m), w (m)."""
+    f32 = dict(dtype=torch.float32, device=dev)
+    return [torch.empty((2, n), **f32), torch.empty(n, **f32), torch.empty((2, n), **f32),
+            torch.empty((2, m), **f32), torch.empty((2, m), **f32), torch.empty(m, **f32)]
+
+
+def _ptrs(bufs):
+    return [b.data_ptr() for b in bufs]
+
+
+def _raise_on(err, what, error_string):
+    if err:
+        msg = error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
 def build_library():
@@ -353,6 +518,10 @@ def _library():
         # part_len, gamma, sigma, tol, maxit, record, x_out, stats, hist, stream
         "adaprox_resident_condat_vu": ([p, p, i, i, ll, ll, p, i, f, p, p, p, p, p, p, p, ll, f,
                                         f, f, i, i, p, p, p, p], i),
+        # a, at, a_is_bf16, vec, m, n, bv, h_kind, lams, gammas, sigmas, dcount, xs, v, at_y,
+        # y, ax, w, part, part_len, tol, maxit, x_out, stats, hist, stream
+        "adaprox_resident_cv_grid": ([p, p, i, i, ll, ll, p, i, p, p, p, i, p, p, p, p, p, p, p,
+                                      ll, f, i, p, p, p, p], i),
         "adaprox_resident_cv_error_string": ([i], ctypes.c_char_p)})
 
 
@@ -371,41 +540,24 @@ def resident_condat_vu(a, bv, lam, gamma, sigma, tol, maxit, record=False, h_kin
     if not _device("K7d", a):
         return resident_condat_vu_plain(a, bv, lam, gamma, sigma, tol, maxit, record, h_kind)
     _check(a, bv, maxit, h_kind)
-    if a.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"K7d stores A as float32 or bfloat16 on CUDA, got {a.dtype}")
-    if bv.dtype != torch.float32:
-        raise TypeError(f"K7d takes a float32 bv on CUDA, got {bv.dtype}")
-    if not (a.is_contiguous() and bv.is_contiguous()):
-        raise ValueError("K7d needs contiguous a and bv")
+    at, vec = _layouts("K7d", a, bv)
     lib = _library()
     dev = a.device
     m, n = a.shape
     maxit = int(maxit)
     with torch.cuda.device(dev):
-        at = a.t().contiguous()
-        # 16-byte loads when both layouts' rows are whole 16-byte groups
-        vec = 8 if a.dtype == torch.bfloat16 else 4
-        if m % vec or n % vec or a.data_ptr() % 16 or at.data_ptr() % 16:
-            vec = 1
         f32 = dict(dtype=torch.float32, device=dev)
-        xs, v, at_y = torch.empty((2, n), **f32), torch.empty(n, **f32), torch.empty(n, **f32)
-        y, ax, w = torch.empty(m, **f32), torch.empty(m, **f32), torch.empty(m, **f32)
-        # the launcher sizes the grid, at most one CTA per SM
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        part = torch.empty(lib.adaprox_resident_f0_parts() * sms, **f32)
+        scratch = _cv_scratch(m, n, dev)
+        part = _partials(lib.adaprox_resident_f0_parts(), dev)
         x_out, stats = torch.empty(n, **f32), torch.empty(3, **f32)
         hist = torch.empty((2, hist_len(maxit)), **f32) if record else None
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.adaprox_resident_condat_vu(
             a.data_ptr(), at.data_ptr(), int(a.dtype == torch.bfloat16), vec, m, n,
-            bv.data_ptr(), H_KINDS.index(h_kind), float(lam), xs.data_ptr(), v.data_ptr(),
-            at_y.data_ptr(), y.data_ptr(), ax.data_ptr(), w.data_ptr(), part.data_ptr(),
+            bv.data_ptr(), H_KINDS.index(h_kind), float(lam), *_ptrs(scratch), part.data_ptr(),
             part.numel(), float(gamma), float(sigma), float(tol), maxit, int(record),
             x_out.data_ptr(), stats.data_ptr(), hist.data_ptr() if record and maxit else None,
-            stream)
-    if err:
-        msg = lib.adaprox_resident_cv_error_string(err).decode()
-        raise RuntimeError(f"K7d launch failed: CUDA error {err} ({msg})")
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "K7d", lib.adaprox_resident_cv_error_string)
     resident_condat_vu.launches += 1
     base = (x_out, stats[0].to(torch.int32), stats[1], stats[2] > 0)
     if record:
@@ -439,12 +591,7 @@ def _sweep_library():
 
 def _sweep_launch(what, core, a, bv, lam, ts, p2, tol, maxit, record, h_kind):
     """One K7a launch. Returns what the entries return."""
-    if a.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{what} stores A as float32 or bfloat16 on CUDA, got {a.dtype}")
-    if bv.dtype != torch.float32:
-        raise TypeError(f"{what} takes a float32 bv on CUDA, got {bv.dtype}")
-    if not (a.is_contiguous() and bv.is_contiguous()):
-        raise ValueError(f"{what} needs contiguous a and bv")
+    at, vec = _layouts(what, a, bv)
     lib = _sweep_library()
     dev = a.device
     m, n = a.shape
@@ -452,30 +599,19 @@ def _sweep_launch(what, core, a, bv, lam, ts, p2, tol, maxit, record, h_kind):
     with torch.cuda.device(dev):
         ts_d = ts.to(device=dev, dtype=torch.float32)
         count = ts_d.numel()
-        at = a.t().contiguous()
-        # 16-byte loads when both layouts' rows are whole 16-byte groups
-        vec = 8 if a.dtype == torch.bfloat16 else 4
-        if m % vec or n % vec or a.data_ptr() % 16 or at.data_ptr() % 16:
-            vec = 1
         f32 = dict(dtype=torch.float32, device=dev)
-        xs, v, at_ys = torch.empty((2, n), **f32), torch.empty(n, **f32), torch.empty((2, n), **f32)
-        ys, axs, w = torch.empty((2, m), **f32), torch.empty((2, m), **f32), torch.empty(m, **f32)
-        # the launcher sizes the grid, at most one CTA per SM
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        part = torch.empty(lib.adaprox_resident_f0_sweep_parts() * sms, **f32)
+        scratch = _sweep_scratch(m, n, dev)
+        part = _partials(lib.adaprox_resident_f0_sweep_parts(), dev)
         x_out, stats = torch.empty((count, n), **f32), torch.empty((count, 4), **f32)
         hist = torch.empty((count, 5, hist_len(maxit)), **f32) if record else None
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.adaprox_resident_f0_sweep(
             a.data_ptr(), at.data_ptr(), int(a.dtype == torch.bfloat16), vec, m, n,
-            bv.data_ptr(), H_KINDS.index(h_kind), float(lam), CORES.index(core), xs.data_ptr(),
-            v.data_ptr(), at_ys.data_ptr(), ys.data_ptr(), axs.data_ptr(), w.data_ptr(),
-            part.data_ptr(), part.numel(), ts_d.data_ptr(), count, float(p2), float(tol), maxit,
-            int(record), x_out.data_ptr(), stats.data_ptr(),
-            hist.data_ptr() if record and maxit else None, stream)
-    if err:
-        msg = lib.adaprox_resident_f0_sweep_error_string(err).decode()
-        raise RuntimeError(f"{what} (K7a) launch failed: CUDA error {err} ({msg})")
+            bv.data_ptr(), H_KINDS.index(h_kind), float(lam), CORES.index(core),
+            *_ptrs(scratch), part.data_ptr(), part.numel(), ts_d.data_ptr(), count, float(p2),
+            float(tol), maxit, int(record), x_out.data_ptr(), stats.data_ptr(),
+            hist.data_ptr() if record and maxit else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, f"{what} (K7a)", lib.adaprox_resident_f0_sweep_error_string)
     base = (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 2] > 0, stats[:, 3] > 0)
     if record:
         return base + (tuple(hist[:, k, :maxit] for k in range(5)),)
@@ -530,3 +666,156 @@ def resident_adapdmp_sweep(a, bv, lam, ts, eta0, tol, maxit, record=False, h_kin
 
 
 resident_adapdmp_sweep.launches = 0
+
+
+# -- K7b and K7c on the card ------------------------------------------------------------
+
+GRID_SOURCE = kernels._PKG / "csrc" / "resident_f0_grid.cu"
+
+
+def build_grid_library():
+    """Compile ``csrc/resident_f0_grid.cu`` (see ``ops.kernels.build_library``)."""
+    return kernels.build_library(GRID_SOURCE, NVCC_FLAGS)
+
+
+def _grid_library():
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    return kernels.load_library(GRID_SOURCE, NVCC_FLAGS, {
+        "adaprox_resident_f0_grid_parts": ([], i),
+        # a, at, a_is_bf16, vec, m, n, bv, h_kind, lams, p2s, dcount, core, xs, v, at_ys, ys,
+        # axs, w, part, part_len, ts, count, tol, maxit, record, x_out, stats, hist, stream
+        "adaprox_resident_f0_grid": ([p, p, i, i, ll, ll, p, i, p, p, i, i, p, p, p, p, p, p, p,
+                                      ll, p, i, f, i, i, p, p, p, p], i),
+        "adaprox_resident_f0_grid_error_string": ([i], ctypes.c_char_p)})
+
+
+def _grid_launch(what, core, a_stack, bv_stack, lams, ts, p2s, tol, maxit, record, h_kind):
+    """One K7b launch. Returns what the entries return."""
+    at, vec = _layouts(what, a_stack, bv_stack)
+    lib = _grid_library()
+    dev = a_stack.device
+    dcount, m, n = a_stack.shape
+    maxit = int(maxit)
+    with torch.cuda.device(dev):
+        f32 = dict(dtype=torch.float32, device=dev)
+        lams_d, p2s_d, ts_d = (v.to(**f32) for v in (lams, p2s, ts))
+        count = ts_d.numel()
+        scratch = _sweep_scratch(m, n, dev)
+        part = _partials(lib.adaprox_resident_f0_grid_parts(), dev)
+        x_out = torch.empty((dcount, count, n), **f32)
+        stats = torch.empty((dcount, count, 4), **f32)
+        hist = torch.empty((dcount, count, 5, hist_len(maxit)), **f32) if record else None
+        err = lib.adaprox_resident_f0_grid(
+            a_stack.data_ptr(), at.data_ptr(), int(a_stack.dtype == torch.bfloat16), vec, m, n,
+            bv_stack.data_ptr(), H_KINDS.index(h_kind), lams_d.data_ptr(), p2s_d.data_ptr(),
+            dcount, CORES.index(core), *_ptrs(scratch), part.data_ptr(), part.numel(),
+            ts_d.data_ptr(), count, float(tol), maxit, int(record), x_out.data_ptr(),
+            stats.data_ptr(), hist.data_ptr() if record and maxit else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, f"{what} (K7b)", lib.adaprox_resident_f0_grid_error_string)
+    base = (x_out, stats[..., 0].to(torch.int32), stats[..., 1], stats[..., 2] > 0,
+            stats[..., 3] > 0)
+    if record:
+        return base + (tuple(hist[:, :, k, :maxit] for k in range(5)),)
+    return base
+
+
+def resident_mpls_grid(a_stack, bv_stack, lams, ts, sigma0s, tol, maxit, record=False,
+                       h_kind="l2"):
+    """The Malitsky-Pock (dataset x t) grid (square_root_lasso/runme.jl:100-110 over the
+    datasets x :80-88 over t) as ONE kernel launch: for each dataset d and each value of
+    ``ts``, d-major, a whole early-exit linesearch solve of min lams[d] ||x||_1 + ||A_d x -
+    bv_d|| (``h_kind`` "l2") or lams[d] ||x||_1 + ||A_d x - bv_d||_1 ("l1") from x0 = 0, y0
+    = 0 and the first dual step sigma0s[d]. ``a_stack`` (D, m, n): the datasets
+    zero-padded to one common shape (exact for this family); ``bv_stack`` (D, m); ``lams``
+    and ``sigma0s`` (D,), finite, sigma0s positive; ``ts`` (T,), positive and finite
+    (checked before anything runs, on either device).
+
+    Returns ``resident_mpls_sweep``'s contract with a leading D axis: (x (D, T, n),
+    numit (D, T) int32, norm_res, converged, ls_failed (D, T)), plus the five histories
+    (D, T, maxit) when ``record=True``. CPU tensors take the plain version, any float
+    dtype. CUDA tensors launch K7b (``csrc/resident_f0_grid.cu``): ``a_stack`` f32 or
+    bf16, ``bv_stack`` f32, both contiguous; each launch adds one to
+    ``resident_mpls_grid.launches``. Every cell equals the one-row K7a launch on its
+    dataset's slice bit for bit."""
+    what = "resident_mpls_grid"
+    lams, sigma0s, ts = _grid_check(what, a_stack, bv_stack, maxit, h_kind, ts, lams=lams,
+                                    sigma0s=sigma0s)
+    if not _device("K7b", a_stack):
+        return _grid_plain(_mpls_core_plain, a_stack, bv_stack, lams, ts, sigma0s, tol, maxit,
+                           record, h_kind)
+    out = _grid_launch(what, "mp", a_stack, bv_stack, lams, ts, sigma0s, tol, maxit, record,
+                       h_kind)
+    resident_mpls_grid.launches += 1
+    return out
+
+
+resident_mpls_grid.launches = 0
+
+
+def resident_adapdmp_grid(a_stack, bv_stack, lams, ts, eta0s, tol, maxit, record=False,
+                          h_kind="l2"):
+    """The AdaPDM+ (dataset x t) grid as ONE kernel launch: the contract of
+    ``resident_mpls_grid`` with each dataset's operator-norm estimate ``eta0s[d]`` (the
+    drivers' ||A_d||_F, positive) in place of sigma0s. On convergence a cell's x is the
+    iterate at the check. CUDA tensors launch K7b's AdaPDM+ core; each launch adds one to
+    ``resident_adapdmp_grid.launches``."""
+    what = "resident_adapdmp_grid"
+    lams, eta0s, ts = _grid_check(what, a_stack, bv_stack, maxit, h_kind, ts, lams=lams,
+                                  eta0s=eta0s)
+    if not _device("K7b", a_stack):
+        return _grid_plain(_adapdmp_core_plain, a_stack, bv_stack, lams, ts, eta0s, tol, maxit,
+                           record, h_kind)
+    out = _grid_launch(what, "adapdmp", a_stack, bv_stack, lams, ts, eta0s, tol, maxit, record,
+                       h_kind)
+    resident_adapdmp_grid.launches += 1
+    return out
+
+
+resident_adapdmp_grid.launches = 0
+
+
+def resident_cv_grid(a_stack, bv_stack, lams, gammas, sigmas, tol, maxit, h_kind="l2"):
+    """Condat-Vu across all D datasets as ONE record-mode kernel launch (with the two
+    t-grids, the whole f = 0 experiment is three launches): for each dataset d the solve
+    of ``resident_condat_vu`` on its slice with the fixed steps (gammas[d], sigmas[d]) and
+    lams[d]. ``a_stack`` (D, m, n) zero-padded to one common shape, ``bv_stack`` (D, m),
+    ``lams``, ``gammas``, ``sigmas`` (D,), finite, the steps positive (checked before
+    anything runs, on either device).
+
+    Returns (x (D, n), numit (D,) int32, norm_res (D,), converged (D,), (norm_res_hist,
+    objective_hist) each (D, maxit)), zero past numit; on convergence x is the iterate at
+    the check. CPU tensors take the plain version, any float dtype. CUDA tensors launch
+    K7c (``csrc/resident_cv.cu``): ``a_stack`` f32 or bf16, ``bv_stack`` f32, both
+    contiguous; each launch adds one to ``resident_cv_grid.launches``. Each dataset's
+    solve equals the K7d launch on its slice bit for bit."""
+    what = "resident_cv_grid"
+    lams, gammas, sigmas = _grid_check(what, a_stack, bv_stack, maxit, h_kind, lams=lams,
+                                       gammas=gammas, sigmas=sigmas)
+    if not _device("K7c", a_stack):
+        return _cv_grid_plain(a_stack, bv_stack, lams, gammas, sigmas, tol, maxit, h_kind)
+    at, vec = _layouts(what, a_stack, bv_stack)
+    lib = _library()
+    dev = a_stack.device
+    dcount, m, n = a_stack.shape
+    maxit = int(maxit)
+    with torch.cuda.device(dev):
+        f32 = dict(dtype=torch.float32, device=dev)
+        lams_d, gammas_d, sigmas_d = (v.to(**f32) for v in (lams, gammas, sigmas))
+        scratch = _cv_scratch(m, n, dev)
+        part = _partials(lib.adaprox_resident_f0_parts(), dev)
+        x_out, stats = torch.empty((dcount, n), **f32), torch.empty((dcount, 3), **f32)
+        hist = torch.empty((dcount, 2, hist_len(maxit)), **f32)
+        err = lib.adaprox_resident_cv_grid(
+            a_stack.data_ptr(), at.data_ptr(), int(a_stack.dtype == torch.bfloat16), vec, m, n,
+            bv_stack.data_ptr(), H_KINDS.index(h_kind), lams_d.data_ptr(), gammas_d.data_ptr(),
+            sigmas_d.data_ptr(), dcount, *_ptrs(scratch), part.data_ptr(), part.numel(),
+            float(tol), maxit, x_out.data_ptr(), stats.data_ptr(),
+            hist.data_ptr() if maxit else None, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "resident_cv_grid (K7c)", lib.adaprox_resident_cv_error_string)
+    resident_cv_grid.launches += 1
+    return (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 2] > 0,
+            (hist[:, 0, :maxit], hist[:, 1, :maxit]))
+
+
+resident_cv_grid.launches = 0

@@ -7,9 +7,10 @@ Phases, one line each, any failure exits non-zero:
   2. build:    K1 (csrc/fused_ls.cu), K3 (csrc/fused_logistic.cu), K2/K2c
                (csrc/resident_pg.cu), K4/K4b (csrc/resident_bt.cu), K4's
                aGRAAL core (csrc/resident_agraal.cu), K6a/K6b/K6d
-               (csrc/resident_pd.cu), K6c (csrc/resident_mp.cu), K7d
-               (csrc/resident_cv.cu) and K7a (csrc/resident_f0_sweep.cu), one nvcc
-               each, started together, from this checkout's sources
+               (csrc/resident_pd.cu), K6c (csrc/resident_mp.cu), K7d and K7c
+               (csrc/resident_cv.cu), K7a (csrc/resident_f0_sweep.cu) and K7b
+               (csrc/resident_f0_grid.cu), one nvcc each, started together, from
+               this checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
@@ -130,6 +131,22 @@ Phases, one line each, any failure exits non-zero:
                and K7a against their plain versions timed on the driver's
                cpusmall_scale call (K7a cut to K7A_CUT iterations), and the K7d and K7a
                iterations beside K6d's; the phase's wall
+ 14. grid:     K7b (csrc/resident_f0_grid.cu, both cores) and K7c (csrc/resident_cv.cu)
+               against their plain versions ([grid] lines) at D = 3 over the stand-ins
+               zero-padded to the common 8192x128, l2 and l1, A f32 and bf16: K7b at
+               the couplings K7A_TS over K7A_HORIZON (trial counts and ls_failed
+               equal, each cell's rows and x within K7a's bounds), K7c over K7A_CUT
+               iterations (K7d's bounds); two launches the same bits; every K7b cell
+               bit for bit equal to its one-row K7a launch on its dataset's slice and
+               every K7c row to its K7d launch; a first dataset that breaks down (an
+               infinite bv entry) leaves the next one's bits as they were; both f = 0
+               drivers --resident-grid at their defaults (exactly one K7c, one K7b MP
+               and one K7b AdaPDM+ launch each and no other kernel; JAX's 31 rows and
+               meta rows a file; the recorded calls again, every cell against its
+               single launch; converged rows' final objectives within calibrated bounds
+               of phase 13's f64 CPU Condat-Vu; nothing non-finite; the grids by CUDA
+               events beside phase 13's --resident sweeps); K7b and K7c against their
+               plain versions timed at K7A_CUT; the phase's wall
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -2287,11 +2304,12 @@ def k7a_rows_err(got, want, horizon):
                       / want[k][:, :horizon].abs().amax(1)).max()) for k in K7A_ROWS)
 
 
-def k7a_x_err(got, want):
-    """The largest |x| error of a sweep's rows, each relative to its plain row's max |x|
-    (absolute where that row is all zero)."""
-    xm = want.abs().amax(1)
-    return float(((got - want).abs().amax(1) / torch.where(xm > 0, xm, torch.ones_like(xm))).max())
+def cell_rel(got, want):
+    """The largest error over the rows (cells) of a stacked x or history, each relative to
+    its plain row's largest magnitude (absolute where that row is all zero)."""
+    scale = want.abs().amax(-1)
+    return float(((got - want).abs().amax(-1) / torch.where(scale > 0, scale,
+                                                            torch.ones_like(scale))).max())
 
 
 def k7a_work(a, numits, trials, count, hist_len):
@@ -2346,7 +2364,7 @@ def k7a_checks(resident_f0, dev, smi):
                     trials_ok = (torch.equal(got[5][3][:, :hz], want[5][3][:, :hz])
                                  and torch.equal(short[4], short_want[4]))
                     err = k7a_rows_err(got[5], want[5], hz)
-                    xe = k7a_x_err(short[0], short_want[0])
+                    xe = cell_rel(short[0], short_want[0])
                     obj = float(((got[5][4][:, -1] - want[5][4][:, -1]).abs()
                                  / want[5][4][:, -1].abs()).max())
                     pad_zero = not bool(got[0][:, n:].any())
@@ -2429,6 +2447,7 @@ def f0_phase(resident_f0, resident_pd, counting, dev, smi):
     names = (["Condat-Vu"] + [f"Malitsky-Pock (t={t})" for t in t_values]
              + [f"AdaPDM+ (t={t})" for t in t_values])
     walls, total, sweep_ms, k7a_launches = {}, 0, {}, {core: 0 for core in cores}
+    f_refs = {}  # (driver, dataset): the f64 CPU Condat-Vu's final objective (phase 14's too)
     for driver, mod in drivers.items():
         h_kind = "l2" if driver == "square_root_lasso" else "l1"
         outdir = os.path.join("results", "chip_smoke", driver)
@@ -2471,7 +2490,7 @@ def f0_phase(resident_f0, resident_pd, counting, dev, smi):
             out = resident_f0.resident_condat_vu(inp["a"], inp["bv"], *args, **kw)
             inp64 = f0_inputs(name, "cpu", torch.float64)
             ref = resident_f0.resident_condat_vu_plain(inp64["a"], inp64["bv"], *args, **kw)
-            f_ref = f0_final_obj(ref)
+            f_ref = f_refs[(driver, name)] = f0_final_obj(ref)
             same_row = (int(out[1]) == len(cv) and float(out[2]) == cv[-1]["norm_res"]
                         and cv[-1]["A_evals"] == len(cv) + 1)
             obj_err = abs(f0_final_obj(out) - f_ref) / abs(f_ref)
@@ -2600,7 +2619,354 @@ def f0_phase(resident_f0, resident_pd, counting, dev, smi):
             driver_ms=sum(v[0] for (d, n, c), v in sweep_ms.items() if c == core),
             driver_bound_ms=sum(v[1][0] for (d, n, c), v in sweep_ms.items() if c == core))
     return dict(launches=total, ms=ms, plain_ms=plain_ms, bound=b,
-                it_us={k: v for k, v in us.items() if k.startswith(("cv_", "k6d_"))}, k7a=k7a)
+                it_us={k: v for k, v in us.items() if k.startswith(("cv_", "k6d_"))}, k7a=k7a,
+                f_refs=f_refs, sweep_ms=sweep_ms)
+
+
+
+# --resident-grid's datasets, in the f = 0 drivers' default order, and their default maxit
+GRID_DATASETS = ("cpusmall_scale", "abalone", "housing_scale")
+GRID_MAXIT = 5000
+
+
+def grid_stack(dev, dtype=torch.float32, names=GRID_DATASETS):
+    """The f = 0 drivers' --resident-grid inputs on ``dev`` (``grid_inputs``): [X 1] and y of
+    the stand-ins zero-padded to the common shape (8192x128 for the three), A in ``dtype``,
+    bv f32; each dataset's ||A||_F, its unpadded column count, lam 10 and Condat-Vu's steps."""
+    from adaprox_tpu_torch.experiments import square_root_lasso
+
+    _, a, bv, norms, _ = square_root_lasso.grid_inputs(list(names), device=dev,
+                                                       dtype=torch.float32)
+    steps = [square_root_lasso.cv_steps(na) for na in norms]
+    return dict(a=a.to(dtype), bv=bv, norms=norms, lams=[10.0] * len(names),
+                ns=[square_root_lasso.load(nm)[0].shape[1] + 1 for nm in names],
+                gammas=[g for g, _ in steps], sigmas=[s for _, s in steps])
+
+
+def k7b_cores(resident_f0):
+    """{label: (grid entry, its plain version, the K7a sweep a cell equals, p2s from the
+    datasets' ||A||_F)}."""
+    return {"MP": (resident_f0.resident_mpls_grid, resident_f0.resident_mpls_grid_plain,
+                   resident_f0.resident_mpls_sweep, lambda norms: [1.0] * len(norms)),
+            "AdaPDM+": (resident_f0.resident_adapdmp_grid, resident_f0.resident_adapdmp_grid_plain,
+                        resident_f0.resident_adapdmp_sweep, lambda norms: list(norms))}
+
+
+def grid_flat(out):
+    return list(out[:5]) + list(out[5])
+
+
+def cv_flat(out):
+    return list(out[:4]) + list(out[4])
+
+
+def cells_are_rows(out, sweep, inp, p2s, ts, tol, maxit, h_kind):
+    """Whether every cell of a K7b output equals the one-row K7a launch on its dataset's
+    slice bit for bit, and those launches' ms (CUDA events, one call each)."""
+    same, total = True, 0.0
+    flat = grid_flat(out)
+    for d in range(inp["a"].shape[0]):
+        for j, t in enumerate(ts):
+            ms, row = once_ms(lambda: sweep(inp["a"][d], inp["bv"][d], inp["lams"][d], [t], p2s[d],
+                                            tol, maxit, record=True, h_kind=h_kind))
+            total += ms
+            same &= all(torch.equal(u[0], w[d, j]) for u, w in zip(grid_flat(row), flat))
+    return same, total
+
+
+def cv_rows_are_k7d(out, resident_f0, inp, tol, maxit, h_kind):
+    """Whether every row of a K7c output equals the K7d launch on its dataset's slice bit
+    for bit, and those launches' ms (CUDA events, one call each)."""
+    same, total = True, 0.0
+    flat = cv_flat(out)
+    for d in range(inp["a"].shape[0]):
+        ms, one = once_ms(lambda: resident_f0.resident_condat_vu(
+            inp["a"][d], inp["bv"][d], inp["lams"][d], inp["gammas"][d], inp["sigmas"][d], tol,
+            maxit, record=True, h_kind=h_kind))
+        total += ms
+        same &= all(torch.equal(u[d], w) for u, w in zip(flat, cv_flat(one)))
+    return same, total
+
+
+def grid_checks(resident_f0, dev, smi):
+    """Phase 14, K7b and K7c against their plain versions on the card at D = 3 over the
+    stand-ins padded to 8192x128, l2 and l1, A f32 and bf16: K7b's two cores at the
+    couplings K7A_TS, tol -1, over K7A_HORIZON (trial counts and ls_failed equal, each cell's
+    rows within K7A_RTOL and x within K7A_X_RTOL, the padded coordinates 0); K7c at tol -1
+    over K7A_CUT iterations (rows within K7D_RTOL, x within K7D_X_RTOL); two launches the
+    same bits; every K7b cell equal to its one-row K7a launch on its slice and every K7c row
+    to its K7d launch, bit for bit; then a first dataset that breaks down (an infinite bv
+    entry) beside one that converges, with the same second dataset. Returns the largest |x|
+    errors on the f32 cases, {"K7b": .., "K7c": ..}."""
+    from adaprox_tpu_torch.experiments.k7a_calibration import (K7A_CUT, K7A_HORIZON, K7A_RTOL,
+                                                               K7A_TS, K7A_X_RTOL)
+
+    hz, x_abs = K7A_HORIZON, {"K7b": 0.0, "K7c": 0.0}
+    for h_kind in resident_f0.H_KINDS:
+        for dtype in (torch.float32, torch.bfloat16):
+            inp = grid_stack(dev, dtype)
+            parts, ok = [], True
+            for core, (kernel, plain, sweep, p2_of) in k7b_cores(resident_f0).items():
+                p2s = p2_of(inp["norms"])
+                args = (inp["a"], inp["bv"], inp["lams"], K7A_TS, p2s, -1.0, hz)
+                kw = dict(record=True, h_kind=h_kind)
+                got, again = kernel(*args, **kw), kernel(*args, **kw)
+                want = plain(*args, **kw)
+                torch.cuda.synchronize()
+                same = all(torch.equal(u, w) for u, w in zip(grid_flat(got), grid_flat(again)))
+                rows_same, _ = cells_are_rows(got, sweep, inp, p2s, K7A_TS, -1.0, hz, h_kind)
+                trials_ok = torch.equal(got[5][3], want[5][3]) and torch.equal(got[4], want[4])
+                numits_ok = got[1].tolist() == want[1].tolist() == [[hz] * len(K7A_TS)] * 3
+                err = max(cell_rel(got[5][k], want[5][k]) for k in K7A_ROWS)
+                xe = cell_rel(got[0], want[0])
+                pad_zero = all(not bool(got[0][d, :, n:].any()) for d, n in enumerate(inp["ns"]))
+                finite = all(bool(torch.isfinite(h).all()) for h in got[5][:3])
+                if dtype == torch.float32:
+                    x_abs["K7b"] = max(x_abs["K7b"], float((got[0] - want[0]).abs().max()))
+                parts.append(f"K7b {core}: trial counts and ls_failed equal over {hz} it "
+                             f"{trials_ok}, rows rel err {err:.2e}, x rel err {xe:.2e}; "
+                             f"{float(got[5][3].mean()):.3f} trials an iteration; gamma/sigma/"
+                             f"norm_res finite {finite}; padded 0 {pad_zero}; same bits {same}; "
+                             f"every cell = its one-row K7a launch {rows_same}")
+                ok &= (trials_ok and numits_ok and err <= K7A_RTOL and xe <= K7A_X_RTOL
+                       and pad_zero and finite and same and rows_same)
+            cargs = (inp["a"], inp["bv"], inp["lams"], inp["gammas"], inp["sigmas"], -1.0, K7A_CUT)
+            got = resident_f0.resident_cv_grid(*cargs, h_kind=h_kind)
+            again = resident_f0.resident_cv_grid(*cargs, h_kind=h_kind)
+            want = resident_f0.resident_cv_grid_plain(*cargs, h_kind=h_kind)
+            torch.cuda.synchronize()
+            same = all(torch.equal(u, w) for u, w in zip(cv_flat(got), cv_flat(again)))
+            rows_same, _ = cv_rows_are_k7d(got, resident_f0, inp, -1.0, K7A_CUT, h_kind)
+            err = max(cell_rel(u, w) for u, w in zip(got[4], want[4]))
+            xe = cell_rel(got[0], want[0])
+            numits_ok = got[1].tolist() == want[1].tolist() == [K7A_CUT] * 3
+            pad_zero = all(not bool(got[0][d, n:].any()) for d, n in enumerate(inp["ns"]))
+            if dtype == torch.float32:
+                x_abs["K7c"] = max(x_abs["K7c"], float((got[0] - want[0]).abs().max()))
+            parts.append(f"K7c over {K7A_CUT} it: rows rel err {err:.2e}, x rel err {xe:.2e}, "
+                         f"padded 0 {pad_zero}, same bits {same}, every row = its K7d launch "
+                         f"{rows_same}")
+            ok &= (numits_ok and err <= K7D_RTOL and xe <= K7D_X_RTOL and pad_zero and same
+                   and rows_same)
+            label = f"D = 3 {tuple(inp['a'].shape)} {h_kind} {str(dtype).removeprefix('torch.')}"
+            print(f"[grid] K7b and K7c vs plain, {label}, tol -1: {' | '.join(parts)} (bounds "
+                  f"K7b rows {K7A_RTOL:g}, x {K7A_X_RTOL:g} over {hz} it; K7c rows {K7D_RTOL:g}, "
+                  f"x {K7D_X_RTOL:g}; CPU-calibrated) ({smi})", flush=True)
+            check(ok, f"K7b/K7c {label} disagree with their plain versions or their single "
+                      "launches")
+    # the scratch across datasets: housing_scale with an infinite bv entry (NaN from the first
+    # dual step into every slot) before abalone, against housing_scale as it is
+    inp = grid_stack(dev, names=("housing_scale", "abalone"))
+    broken = inp["bv"].clone()
+    broken[0, 0] = float("inf")
+    parts, ok = [], True
+    for h_kind in resident_f0.H_KINDS:
+        for core, (kernel, _, _, p2_of) in k7b_cores(resident_f0).items():
+            bad, good = (kernel(inp["a"], b, inp["lams"], K7A_TS, p2_of(inp["norms"]), 1e-5, 1000,
+                                record=True, h_kind=h_kind) for b in (broken, inp["bv"]))
+            broke = bad[1][0].tolist() == [1] * len(K7A_TS) and bool(torch.isnan(bad[2][0]).all())
+            kept = all(torch.equal(u[1], w[1]) for u, w in zip(grid_flat(bad), grid_flat(good)))
+            parts.append(f"{h_kind} K7b {core}: broke {broke}, second dataset's bits kept {kept}")
+            ok &= broke and kept
+        cargs = (inp["lams"], inp["gammas"], inp["sigmas"], 1e-5, 1000)
+        bad, good = (resident_f0.resident_cv_grid(inp["a"], b, *cargs, h_kind=h_kind)
+                     for b in (broken, inp["bv"]))
+        broke = int(bad[1][0]) == 1 and bool(torch.isnan(bad[2][0]))
+        kept = all(torch.equal(u[1], w[1]) for u, w in zip(cv_flat(bad), cv_flat(good)))
+        parts.append(f"{h_kind} K7c: broke {broke}, second dataset's bits kept {kept}")
+        ok &= broke and kept
+    print(f"[grid] a first dataset that breaks down (housing_scale, bv[0] = inf) before abalone, "
+          f"{tuple(inp['a'].shape)} f32, tol 1e-5, maxit 1000: {'; '.join(parts)} ({smi})",
+          flush=True)
+    check(ok, "a broken first dataset changed the next dataset's cells")
+    return x_abs
+
+
+def grid_work(a_stack, numits, trials, cells, hist_len):
+    """(bytes, flops) of a K7b grid of ``cells`` cells: each dataset's A and A' read once,
+    bv, lam, p2 and the t values in, x, the stats and the five histories out; 2mn flops a
+    trial and 2mn an iteration at the common shape."""
+    d, m, n = a_stack.shape
+    moved = (2 * a_stack.element_size() * d * m * n + 4 * d * m + 8 * d + 4 * (cells // d)
+             + cells * (4 * n + 16 + 20 * hist_len))
+    return moved, 2 * m * n * (numits + trials)
+
+
+def cv_grid_work(a_stack, numits, hist_len):
+    """(bytes, flops) of a K7c launch: each dataset's A read once, bv, lam, gamma and sigma
+    in, x, the stats and the two histories out; 4mn flops an iteration at the common shape."""
+    d, m, n = a_stack.shape
+    return (a_stack.element_size() * d * m * n + 4 * d * m + 12 * d
+            + d * (4 * n + 12 + 8 * hist_len)), 4 * m * n * numits
+
+
+def grid_phase(resident_f0, resident_pd, f0_meas, counting, dev, smi):
+    """Phase 14: both drivers --resident-grid at their defaults (one K7c, one K7b MP and one
+    K7b AdaPDM+ launch each, nothing else; JAX's 31 rows and meta rows a file; the recorded
+    calls again, by CUDA events, bit for bit against the single launches on each slice; the
+    Condat-Vu rows' and every converged row's final objective against phase 13's f64 CPU
+    Condat-Vu; the grids beside phase 13's --resident sweeps); then K7b and K7c against their
+    plain versions timed at K7A_CUT. Returns the kernels line's measurements."""
+    import importlib
+
+    from adaprox_tpu_torch.experiments.k7a_calibration import (K7A_CUT, K7A_DRIVER_OBJ_RTOL,
+                                                               K7A_TS)
+    from adaprox_tpu_torch.ops import resident_mp
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+
+    zero_counts, read_counts = counting
+    cores = k7b_cores(resident_f0)
+    records = {"MP": resident_mp.resident_mp_records,
+               "AdaPDM+": resident_f0.resident_adapdmp_records}
+    fams = {"MP": "Malitsky-Pock", "AdaPDM+": "AdaPDM+"}
+    drivers = {d: importlib.import_module(f"adaprox_tpu_torch.experiments.{d}")
+               for d in F0_DRIVERS}
+    t_values = drivers["square_root_lasso"].T_VALUES
+    names = (["Condat-Vu"] + [f"Malitsky-Pock (t={t})" for t in t_values]
+             + [f"AdaPDM+ (t={t})" for t in t_values])
+    grids = {"K7c": resident_f0.resident_cv_grid, "MP": cores["MP"][0],
+             "AdaPDM+": cores["AdaPDM+"][0]}
+    singles = (resident_f0.resident_condat_vu, resident_f0.resident_mpls_sweep,
+               resident_f0.resident_adapdmp_sweep)
+    meas = {k: dict(launches=0, driver_ms=0.0, driver_bound_ms=0.0) for k in grids}
+    inp = grid_stack(dev)
+    hl = resident_pd.hist_len(GRID_MAXIT)
+    for driver, mod in drivers.items():
+        h_kind = "l2" if driver == "square_root_lasso" else "l1"
+        outdir = os.path.join("results", "chip_smoke", f"{driver}_grid")
+        zero_counts()
+        mod.main(["--resident-grid", "--maxit", str(GRID_MAXIT), "--device", "cuda", "--outdir",
+                  outdir, "--no-plot"])
+        torch.cuda.synchronize()
+        launches = [g.launches for g in grids.values()]
+        others = read_counts() + (resident_pd.resident_adapdm_dsvm.launches,
+                                  resident_pd.resident_adapdm_dsvm_sweep.launches,
+                                  resident_pd.resident_cv_dsvm.launches,
+                                  resident_mp.resident_mp_dsvm_sweep.launches) + tuple(
+            k.launches for k in singles)
+        check(launches == [1, 1, 1] and others == (0,) * 14,
+              f"{driver} --resident-grid: K7c/K7b MP/K7b AdaPDM+ launches {launches}, other "
+              f"kernels {others}")
+        for key, n in zip(grids, launches):
+            meas[key]["launches"] += n
+        # the driver's three calls again, recorded and timed (CUDA events, one call each)
+        ms, outs = {}, {}
+        ms["K7c"], outs["K7c"] = once_ms(lambda: resident_f0.resident_cv_grid(
+            inp["a"], inp["bv"], inp["lams"], inp["gammas"], inp["sigmas"], 1e-5, GRID_MAXIT,
+            h_kind=h_kind))
+        for core, (kernel, _, _, p2_of) in cores.items():
+            ms[core], outs[core] = once_ms(lambda: kernel(
+                inp["a"], inp["bv"], inp["lams"], t_values, p2_of(inp["norms"]), 1e-5,
+                GRID_MAXIT, record=True, h_kind=h_kind))
+        bounds = {"K7c": bound(*cv_grid_work(inp["a"], int(outs["K7c"][1].sum()), hl))}
+        for core in cores:
+            bounds[core] = bound(*grid_work(inp["a"], int(outs[core][1].sum()),
+                                            k7a_trials(outs[core]), outs[core][1].numel(), hl))
+        for key in grids:
+            meas[key]["driver_ms"] += ms[key]
+            meas[key]["driver_bound_ms"] += bounds[key][0]
+        # each cell and row against its single launch on the slice, bit for bit
+        cv_same, k7d_ms = cv_rows_are_k7d(outs["K7c"], resident_f0, inp, 1e-5, GRID_MAXIT,
+                                          h_kind)
+        cell_same = {core: cells_are_rows(outs[core], sweep, inp, p2_of(inp["norms"]), t_values,
+                                          1e-5, GRID_MAXIT, h_kind)[0]
+                     for core, (_, _, sweep, p2_of) in cores.items()}
+        parts = []
+        for i, name in enumerate(GRID_DATASETS):
+            rows = read_jsonl(os.path.join(outdir, f"{name}.jsonl"))
+            by = {}
+            for r in rows:
+                if "norm_res" in r:
+                    by.setdefault(r["method"], []).append(r)
+            meta = rows[-2]
+            check(list(by) == names and meta.get("fast_path") == "resident-grid"
+                  and list(meta) == ["wall_s", "fast_path", "grid_total_s", "fast_methods"]
+                  and meta["fast_methods"] == JAX_F0_FAST_METHODS
+                  and list(meta["wall_s"]) == list(meta["grid_total_s"]) == JAX_F0_FAST_METHODS,
+                  f"{driver} --resident-grid {name}: rows {list(by)}, meta {meta}")
+            f_ref = f0_meas["f_refs"][(driver, name)]
+            cv, cvr = outs["K7c"], by["Condat-Vu"]
+            k = int(cv[1][i])
+            cv_err = abs(float(cv[4][1][i][k - 1]) - f_ref) / abs(f_ref)
+            same_row = (k == len(cvr) and float(cv[2][i]) == cvr[-1]["norm_res"]
+                        and cvr[-1]["A_evals"] == k + 1)
+            check(same_row and cv_err <= K7D_OBJ_RTOL,
+                  f"{driver} --resident-grid {name}: the Condat-Vu row disagrees")
+            dparts = [f"Condat-Vu numit {k}, objective rel err {cv_err:.2e}"]
+            for core in cores:
+                out, fam = outs[core], fams[core]
+                same, gaps, nonfinite = True, [], 0
+                for j, t in enumerate(t_values):
+                    rs = by[f"{fam} (t={t})"]
+                    kk = int(out[1][i][j])
+                    rec = records[core](out[1][i][j], tuple(h[i][j] for h in out[5]),
+                                        maxit=GRID_MAXIT)
+                    same &= (kk == len(rs) and float(rec.norm_res[kk - 1]) == rs[-1]["norm_res"]
+                             and int(rec.A_evals[kk - 1]) == rs[-1]["A_evals"]
+                             and int(rec.At_evals[kk - 1]) == rs[-1]["At_evals"])
+                    nonfinite += sum(int((~torch.isfinite(h[i][j][:kk])).sum())
+                                     for h in out[5][:3])
+                    if bool(out[3][i][j]):
+                        gaps.append(abs(float(out[5][4][i][j][kk - 1]) - f_ref) / abs(f_ref))
+                gap = max(gaps, default=0.0)
+                dparts.append(f"{fam} converged {len(gaps)}/15, ls_failed {int(out[4][i].sum())}, "
+                              f"non-finite gamma/sigma/norm_res {nonfinite}, converged rows' "
+                              f"objective rel err <= {gap:.2e}, the recorded call is the rows: "
+                              f"{same}")
+                check(same and nonfinite == 0 and gap <= K7A_DRIVER_OBJ_RTOL[h_kind],
+                      f"{driver} --resident-grid {name}: the {fam} rows disagree (objective "
+                      f"{gap}, non-finite {nonfinite})")
+            parts.append(f"{name}: {', '.join(dparts)}; wall_s {meta['wall_s']}")
+        check(cv_same and all(cell_same.values()),
+              f"{driver} --resident-grid: a cell differs from its single launch on the slice "
+              f"(K7c {cv_same}, K7b {cell_same})")
+        sweeps = {core: sum(v[0] for (d_, _, c_), v in f0_meas["sweep_ms"].items()
+                            if d_ == driver and c_ == core) for core in cores}
+        print(f"[grid] {driver} --resident-grid at its defaults (lam 10, tol 1e-5, maxit "
+              f"{GRID_MAXIT}, D = 3 padded to {tuple(inp['a'].shape[1:])}): launches K7c 1, K7b "
+              f"MP 1, K7b AdaPDM+ 1, every other kernel 0; timed again by CUDA events: K7c "
+              f"{ms['K7c']:.4f} ms (bound {bounds['K7c'][0]:.5f} ms, {bounds['K7c'][1]}; the "
+              f"three K7d launches on the slices {k7d_ms:.4f} ms), "
+              + ", ".join(f"K7b {core} {ms[core]:.4f} ms (bound {bounds[core][0]:.5f} ms, "
+                          f"{bounds[core][1]}; phase 13's three --resident sweeps "
+                          f"{sweeps[core]:.4f} ms, ratio {ms[core] / sweeps[core]:.3f}; "
+                          f"{k7a_trials(outs[core])} trials, numit {outs[core][1].tolist()})"
+                          for core in cores)
+              + f"; every K7b cell = its one-row K7a launch {cell_same}, every K7c row = its "
+              f"K7d launch {cv_same}; {' | '.join(parts)} (objective bounds: Condat-Vu "
+              f"{K7D_OBJ_RTOL:g}, converged rows {K7A_DRIVER_OBJ_RTOL[h_kind]:g}; "
+              f"CPU-calibrated) ({smi})", flush=True)
+
+    # K7b and K7c against their plain versions (a host sync a trial or an iteration) on the
+    # drivers' stack, l2, tol 1e-5, depth cut from 5000 to K7A_CUT; K7b at the couplings
+    # K7A_TS. One call each, CUDA events.
+    zero_counts()
+    calls = {"K7c": (resident_f0.resident_cv_grid, resident_f0.resident_cv_grid_plain,
+                     (inp["a"], inp["bv"], inp["lams"], inp["gammas"], inp["sigmas"], 1e-5,
+                      K7A_CUT), {})}
+    for core, (kernel, plain, _, p2_of) in cores.items():
+        calls[core] = (kernel, plain, (inp["a"], inp["bv"], inp["lams"], K7A_TS,
+                                       p2_of(inp["norms"]), 1e-5, K7A_CUT), dict(record=True))
+    for key, (kernel, plain, args, kw) in calls.items():
+        k_ms, out = once_ms(lambda: kernel(*args, **kw))
+        p_ms, out_p = once_ms(lambda: plain(*args, **kw))
+        if key == "K7c":
+            b = bound(*cv_grid_work(inp["a"], int(out[1].sum()), resident_pd.hist_len(K7A_CUT)))
+            counts = f"numit {out[1].tolist()} (plain {out_p[1].tolist()})"
+        else:
+            b = bound(*grid_work(inp["a"], int(out[1].sum()), k7a_trials(out), out[1].numel(),
+                                 resident_pd.hist_len(K7A_CUT)))
+            counts = (f"numit {out[1].tolist()} (plain {out_p[1].tolist()}), {k7a_trials(out)} "
+                      "trials")
+        meas[key].update(ms=k_ms, plain_ms=p_ms, bound=b, depth=K7A_CUT)
+        print(f"[grid] {'K7c' if key == 'K7c' else 'K7b ' + key} vs its plain version, D = 3 "
+              f"{tuple(inp['a'].shape)} f32 l2, tol 1e-5, depth cut from {GRID_MAXIT} to maxit "
+              f"{K7A_CUT}{'' if key == 'K7c' else f', t {K7A_TS}'}: {counts}; kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.2f} ms (one call each, CUDA events); bound "
+              f"{b[0]:.5f} ms ({b[1]}) ({smi})", flush=True)
+    check(tuple(g.launches for g in grids.values()) == (1, 1, 1),
+          "phase 14's cut-depth calls: not one launch of each grid")
+    return meas
 
 
 def main():
@@ -2624,7 +2990,7 @@ def main():
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(9) as pool:
+    with ThreadPoolExecutor(10) as pool:
         builds = [(name, pool.submit(build)) for name, build in
                   (("K1", kernels.build_library),
                    ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
@@ -2634,13 +3000,14 @@ def main():
                    ("K6a/K6b/K6d", resident_pd.build_library),
                    ("K6c", resident_mp.build_library),
                    ("K7d", resident_f0.build_library),
-                   ("K7a", resident_f0.build_sweep_library))]
+                   ("K7a", resident_f0.build_sweep_library),
+                   ("K7b", resident_f0.build_grid_library))]
         for name, fut in builds:
             lib_path = fut.result()
             regs = ptxas_report(lib_path.with_suffix(".log").read_text())
             print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
                   f"bytes: {'; '.join(regs)})", flush=True)
-    print(f"[build] all nine in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all ten in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -2690,6 +3057,8 @@ def main():
         resident_mp.resident_mp_dsvm_sweep.launches = 0
         resident_f0.resident_condat_vu.launches = 0
         resident_f0.resident_mpls_sweep.launches = resident_f0.resident_adapdmp_sweep.launches = 0
+        resident_f0.resident_cv_grid.launches = resident_f0.resident_mpls_grid.launches = 0
+        resident_f0.resident_adapdmp_grid.launches = 0
 
     def read_counts():
         """Launches of (K1, K2, K2c, K3, K4, K4b, K4 (aGRAAL)) since zero_counts()."""
@@ -2890,6 +3259,13 @@ def main():
     f0_meas = f0_phase(resident_f0, resident_pd, (zero_counts, read_counts), dev, smi)
     print(f"[f0] phase 13 wall {time.perf_counter() - t13:.1f} s ({smi})", flush=True)
 
+    # 14. the f = 0 family's dataset grids ------------------------------------------------
+    t14 = time.perf_counter()
+    grid_err = grid_checks(resident_f0, dev, smi)
+    grid_meas = grid_phase(resident_f0, resident_pd, f0_meas, (zero_counts, read_counts), dev,
+                           smi)
+    print(f"[grid] phase 14 wall {time.perf_counter() - t14:.1f} s ({smi})", flush=True)
+
     head = measured["16384x16384 f32"]
     k3_head = k3_meas["16384x16384 f32"]
     hm = hn = HEADLINE
@@ -2984,7 +3360,21 @@ def main():
         "driver_ms": f0_meas["k7a"][core]["driver_ms"],
         "driver_bound_ms": f0_meas["k7a"][core]["driver_bound_ms"]} for name, replaces, core in (
             ("resident_mpls_sweep", "adaprox_tpu/ops/resident.py:2096", "MP"),
-            ("resident_adapdmp_sweep", "adaprox_tpu/ops/resident.py:2282", "AdaPDM+"))]}))
+            ("resident_adapdmp_sweep", "adaprox_tpu/ops/resident.py:2282", "AdaPDM+"))] + [{
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": grid_meas[key]["launches"], "max_abs_err": grid_err[err_key],
+        "ms": grid_meas[key]["ms"], "plain_ms": grid_meas[key]["plain_ms"],
+        "bound_ms": grid_meas[key]["bound"][0], "bound_by": grid_meas[key]["bound"][1],
+        "library_ms": None, "depth": grid_meas[key]["depth"],
+        "driver_ms": grid_meas[key]["driver_ms"],
+        "driver_bound_ms": grid_meas[key]["driver_bound_ms"]}
+        for name, source, replaces, key, err_key in (
+            ("resident_mpls_grid", "adaprox_tpu_torch/csrc/resident_f0_grid.cu",
+             "adaprox_tpu/ops/resident.py:2040", "MP", "K7b"),
+            ("resident_adapdmp_grid", "adaprox_tpu_torch/csrc/resident_f0_grid.cu",
+             "adaprox_tpu/ops/resident.py:2047", "AdaPDM+", "K7b"),
+            ("resident_cv_grid", "adaprox_tpu_torch/csrc/resident_cv.cu",
+             "adaprox_tpu/ops/resident.py:1988", "K7c", "K7c"))]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,8 @@
-"""The CUDA kernels K1, K2, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c, K6d, K7a and
-K7d on the card against their plain PyTorch versions (K2, K2c, K4, K4b and aGRAAL with the
-least-squares, logistic and cubic objectives; K6 and K6c with the dual SVM's dense Q or
-factored B; K7a's two cores and K7d with the square-root lasso's and the least absolute
-deviation's h).
+"""The CUDA kernels K1, K2, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c, K6d, K7a,
+K7b, K7c and K7d on the card against their plain PyTorch versions (K2, K2c, K4, K4b and
+aGRAAL with the least-squares, logistic and cubic objectives; K6 and K6c with the dual SVM's
+dense Q or factored B; K7a's two cores, their dataset grids K7b, K7c and K7d with the
+square-root lasso's and the least absolute deviation's h).
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. This file imports no
 JAX, so it runs on a machine without it:
@@ -1503,3 +1503,227 @@ def test_sqrt_lasso_drivers_resident_is_one_k7d_launch(dev, tmp_path, driver):
     assert [k.launches for k in kernels] == before
     rows = read_jsonl(tmp_path / "engine" / "housing_scale.jsonl")
     assert len({r["method"] for r in rows if "norm_res" in r}) == 31
+
+
+# -- K7b and K7c, the f = 0 dataset grids ------------------------------------------------------
+
+# K7b against its plain version over K7a's calibrated horizon and bounds (the datasets'
+# padding to the common shape adds exact zeros to every sum of the plain version); K7c
+# against its plain version over 300 iterations at K7D_RTOL on two k7d_case problems (seeds
+# 6 and 7: on the CPU the f32 plain version parted from f64 by at most 1.2e-6 of a history
+# row's largest value and 7.0e-7 of max |x| there, l2 and l1, A f32 and bf16).
+F0_GRID_DATASETS = ["housing_scale", "abalone", "cpusmall_scale"]
+
+
+def grid_stack(dev, dtype, names=F0_GRID_DATASETS):
+    """(a_stack, bv_stack, norm_as) of the drivers' --resident-grid on the stand-ins: [X 1]
+    and y zero-padded to the common 8192 x 128, A in ``dtype``, bv f32."""
+    from adaprox_tpu_torch.experiments import square_root_lasso
+
+    _, a, bv, norms, _ = square_root_lasso.grid_inputs(list(names), device=dev,
+                                                       dtype=torch.float32)
+    return a.to(dtype), bv, norms
+
+
+def _k7b(core):
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    if core == "mp":
+        return tf.resident_mpls_grid, tf.resident_mpls_grid_plain, tf.resident_mpls_sweep
+    return tf.resident_adapdmp_grid, tf.resident_adapdmp_grid_plain, tf.resident_adapdmp_sweep
+
+
+def _flat(out):
+    return list(out[:5]) + list(out[5])
+
+
+@pytest.mark.parametrize("h_kind", ["l2", "l1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+def test_k7b_matches_plain_on_card(dev, core, dtype, h_kind):
+    """Each core over the three stand-ins padded to 8192 x 128, the couplings K7A_TS, over
+    the calibrated horizon: numit, the trial counts and ls_failed equal, each cell's gamma,
+    sigma, norm_res and objective rows within K7A_RTOL and x within K7A_X_RTOL, the padded
+    coordinates of x 0; one launch."""
+    kernel, plain, _ = _k7b(core)
+    a, bv, norms = grid_stack(dev, dtype)
+    p2s = [1.0] * 3 if core == "mp" else norms
+    args = (a, bv, [10.0] * 3, K7A_TS, p2s, -1.0, K7A_HORIZON)
+    before = kernel.launches
+    got = kernel(*args, record=True, h_kind=h_kind)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(*args, record=True, h_kind=h_kind)
+    cells = (3, len(K7A_TS))
+    assert got[0].dtype == torch.float32 and got[5][0].shape == cells + (K7A_HORIZON,)
+    assert got[1].tolist() == want[1].tolist() == [[K7A_HORIZON] * cells[1]] * 3
+    assert torch.equal(got[4], want[4]) and torch.equal(got[5][3], want[5][3])
+    for k in (0, 1, 2, 4):
+        err = (got[5][k] - want[5][k]).abs().amax(-1) / want[5][k].abs().amax(-1)
+        assert float(err.max()) <= K7A_RTOL, k
+    for d, n in enumerate((14, 9, 13)):  # [X 1]'s columns: housing 13 + 1, abalone 8 + 1, ...
+        assert float((got[0][d] - want[0][d]).abs().max()) <= K7A_X_RTOL * max(
+            float(want[0][d].abs().max()), 1e-30)
+        assert not bool(got[0][d, :, n:].any())
+
+
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+def test_k7b_cells_are_one_row_launches_and_repeatable(dev, core):
+    """At the drivers' tol 1e-5: two launches give the same bits, and each cell equals the
+    one-row K7a launch on its dataset's slice with its lam and p2, bit for bit."""
+    kernel, _, sweep = _k7b(core)
+    a, bv, norms = grid_stack(dev, torch.float32)
+    p2s = [1.0] * 3 if core == "mp" else norms
+    lams = [10.0, 5.0, 20.0]
+    for h_kind in ("l2", "l1"):
+        args = (a, bv, lams, K7A_TS, p2s, 1e-5, 2000)
+        one, two = (kernel(*args, record=True, h_kind=h_kind) for _ in range(2))
+        assert all(torch.equal(u, w) for u, w in zip(_flat(one), _flat(two)))
+        for d in range(3):
+            for j, t in enumerate(K7A_TS):
+                row = sweep(a[d], bv[d], lams[d], [t], p2s[d], 1e-5, 2000, record=True,
+                            h_kind=h_kind)
+                assert all(torch.equal(u[0], w[d, j]) for u, w in zip(_flat(row), _flat(one)))
+
+
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+def test_k7b_broken_first_dataset_leaves_the_second_alone(dev, core):
+    """A first dataset that breaks down (an infinite entry of bv: NaN from the first dual
+    step) leaves NaN in every scratch slot; the next dataset's cells still equal those of a
+    grid whose first dataset converges, and their one-row K7a launches, bit for bit."""
+    kernel, _, sweep = _k7b(core)
+    a, bv, norms = grid_stack(dev, torch.float32, names=("housing_scale", "abalone"))
+    p2s = [1.0] * 2 if core == "mp" else norms
+    broken = bv.clone()
+    broken[0, 0] = float("inf")
+    for h_kind in ("l2", "l1"):
+        bad, good = (kernel(a, b, [10.0, 10.0], K7A_TS, p2s, 1e-5, 1000, record=True,
+                            h_kind=h_kind) for b in (broken, bv))
+        assert bad[1][0].tolist() == [1] * len(K7A_TS) and bool(torch.isnan(bad[2][0]).all())
+        assert bool(torch.isnan(bad[0][0]).all())
+        assert all(torch.equal(u[1], w[1]) for u, w in zip(_flat(bad), _flat(good)))
+        row = sweep(a[1], bv[1], 10.0, K7A_TS, p2s[1], 1e-5, 1000, record=True, h_kind=h_kind)
+        assert all(torch.equal(u, w[1]) for u, w in zip(_flat(row), _flat(bad)))
+
+
+def cv_grid_case(dev, dtype):
+    """k7d_case at seeds 6 and 7, stacked: (a_stack (2, 512, 128), bv_stack, gammas, sigmas,
+    the unpadded column count)."""
+    cases = [k7d_case(dev, dtype, seed=seed) for seed in (6, 7)]
+    return (torch.stack([c[0] for c in cases]), torch.stack([c[1] for c in cases]),
+            [c[2] for c in cases], [c[3] for c in cases], cases[0][4])
+
+
+@pytest.mark.parametrize("h_kind", ["l2", "l1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7c_matches_plain_on_card(dev, dtype, h_kind):
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    a, bv, gammas, sigmas, n = cv_grid_case(dev, dtype)
+    before = tf.resident_cv_grid.launches
+    got = tf.resident_cv_grid(a, bv, [0.1, 0.1], gammas, sigmas, -1.0, 300, h_kind=h_kind)
+    torch.cuda.synchronize()
+    assert tf.resident_cv_grid.launches == before + 1
+    want = tf.resident_cv_grid_plain(a, bv, [0.1, 0.1], gammas, sigmas, -1.0, 300,
+                                     h_kind=h_kind)
+    assert got[0].dtype == torch.float32 and got[4][0].shape == (2, 300)
+    assert got[1].tolist() == want[1].tolist() == [300, 300] and not bool(got[3].any())
+    for u, w in zip(got[4], want[4]):
+        assert float(((u - w).abs().amax(1) / w.abs().amax(1)).max()) <= K7D_RTOL
+    xe = (got[0] - want[0]).abs().amax(1) / want[0].abs().amax(1)
+    assert float(xe.max()) <= K7D_RTOL and not bool(got[0][:, n:].any())
+
+
+def test_k7c_rows_are_k7d_launches_and_repeatable(dev):
+    """Each dataset's Condat-Vu equals the K7d launch on its slice bit for bit, at the
+    drivers' tol 1e-5 (housing_scale and abalone converge with l2, cpusmall_scale runs on),
+    and two launches give the same bits; a first dataset that breaks down (an infinite bv
+    entry) leaves the next one's solve as it was."""
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    a, bv, norms = grid_stack(dev, torch.float32)
+    gammas, sigmas = [1 / na for na in norms], [0.99 / na for na in norms]
+    for h_kind in ("l2", "l1"):
+        args = (a, bv, [10.0] * 3, gammas, sigmas, 1e-5, 5000)
+        one, two = (tf.resident_cv_grid(*args, h_kind=h_kind) for _ in range(2))
+        flat = lambda out: list(out[:4]) + list(out[4])  # noqa: E731
+        assert all(torch.equal(u, w) for u, w in zip(flat(one), flat(two)))
+        for d in range(3):
+            k7d = tf.resident_condat_vu(a[d], bv[d], 10.0, gammas[d], sigmas[d], 1e-5, 5000,
+                                        record=True, h_kind=h_kind)
+            assert all(torch.equal(u[d], w) for u, w in zip(flat(one), flat(k7d)))
+        broken = bv.clone()
+        broken[0, 0] = float("inf")
+        bad = tf.resident_cv_grid(a, broken, *args[2:], h_kind=h_kind)
+        assert int(bad[1][0]) == 1 and bool(torch.isnan(bad[2][0]))
+        assert all(torch.equal(u[1:], w[1:]) for u, w in zip(flat(bad), flat(one)))
+
+
+def test_f0_grids_zero_iterations_and_refusals(dev):
+    """maxit 0: x = 0, numit 0, an infinite residual and empty histories; the launches'
+    refusals (A f64, bv f64, non-contiguous) and the shared ones (a table not (D,), a
+    non-positive step or t) on CUDA tensors."""
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    a, bv, norms = grid_stack(dev, torch.float32, names=("housing_scale", "abalone"))
+    lams = [10.0, 10.0]
+    for core in ("mp", "adapdmp"):
+        kernel, _, _ = _k7b(core)
+        p2s = [1.0, 1.0] if core == "mp" else norms
+        x, numit, nres, conv, lsf, hists = kernel(a, bv, lams, [1.0, 2.0], p2s, 0.0, 0,
+                                                  record=True)
+        assert numit.tolist() == [[0, 0]] * 2 and bool(torch.isinf(nres).all())
+        assert not bool(conv.any()) and not bool(lsf.any()) and not bool(x.any())
+        assert all(h.shape == (2, 2, 0) for h in hists)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            kernel(a.double(), bv, lams, K7A_TS, p2s, 0.0, 3)
+        with pytest.raises(TypeError, match="float32 bv"):
+            kernel(a, bv.double(), lams, K7A_TS, p2s, 0.0, 3)
+        with pytest.raises(ValueError, match="contiguous"):
+            kernel(a.transpose(1, 2).contiguous().transpose(1, 2), bv, lams, K7A_TS, p2s, 0.0, 3)
+        with pytest.raises(ValueError, match="one value a dataset"):
+            kernel(a, bv, [10.0], K7A_TS, p2s, 0.0, 3)
+        with pytest.raises(ValueError, match="must be positive"):
+            kernel(a, bv, lams, K7A_TS, [-p for p in p2s], 0.0, 3)
+        with pytest.raises(ValueError, match="coupling t"):
+            kernel(a, bv, lams, [0.0], p2s, 0.0, 3)
+    steps = ([1 / na for na in norms], [0.99 / na for na in norms])
+    x, numit, nres, conv, hists = tf.resident_cv_grid(a, bv, lams, *steps, 0.0, 0)
+    assert numit.tolist() == [0, 0] and bool(torch.isinf(nres).all()) and not bool(x.any())
+    assert all(h.shape == (2, 0) for h in hists)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tf.resident_cv_grid(a.double(), bv, lams, *steps, 0.0, 3)
+    with pytest.raises(ValueError, match="every entry of sigmas must be positive"):
+        tf.resident_cv_grid(a, bv, lams, steps[0], [0.0, 1.0], 0.0, 3)
+
+
+@pytest.mark.parametrize("driver", ["square_root_lasso", "least_absolute_deviation"])
+def test_f0_drivers_resident_grid_is_three_launches(dev, tmp_path, driver):
+    """--resident-grid on housing_scale's and abalone's stand-ins: one K7c, one K7b MP and
+    one K7b AdaPDM+ launch and no K7d or K7a launch; each file's 31 rows with JAX's names
+    and keys, and JAX's meta rows (fast_path "resident-grid", grid_total_s, fast_methods)."""
+    import importlib
+
+    from adaprox_tpu_torch.experiments.square_root_lasso import T_VALUES
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+
+    kernels = (tf.resident_cv_grid, tf.resident_mpls_grid, tf.resident_adapdmp_grid,
+               tf.resident_condat_vu, tf.resident_mpls_sweep, tf.resident_adapdmp_sweep)
+    mod = importlib.import_module(f"adaprox_tpu_torch.experiments.{driver}")
+    before = [k.launches for k in kernels]
+    mod.main(["--resident-grid", "--datasets", "housing_scale,abalone", "--maxit", "300",
+              "--device", "cuda", "--outdir", str(tmp_path), "--no-plot"])
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 1, 0, 0, 0]
+    fast = ["Condat-Vu", "Malitsky-Pock t-sweep", "AdaPDM+ t-sweep"]
+    for name in ("housing_scale", "abalone"):
+        rows = read_jsonl(tmp_path / f"{name}.jsonl")
+        names = list(dict.fromkeys(r["method"] for r in rows if "norm_res" in r))
+        assert names == (["Condat-Vu"] + [f"Malitsky-Pock (t={t})" for t in T_VALUES]
+                         + [f"AdaPDM+ (t={t})" for t in T_VALUES])
+        assert all(list(r) == ["method", "norm_res", "A_evals", "At_evals"] for r in rows
+                   if "norm_res" in r)
+        meta = rows[-2]
+        assert list(meta) == ["wall_s", "fast_path", "grid_total_s", "fast_methods"]
+        assert meta["fast_path"] == "resident-grid" and meta["fast_methods"] == fast
+        assert list(meta["wall_s"]) == list(meta["grid_total_s"]) == fast

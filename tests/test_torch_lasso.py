@@ -270,11 +270,23 @@ for path in ([], ["--resident"]):
     least_absolute_deviation.main(["--device", "cpu", "--datasets", "housing_scale", "--maxit",
                                    "30", "--no-plot", "--outdir",
                                    sys.argv[1] + "-lad" + "".join(path), *path])
+# the dataset grids (K7b's two cores, K7c) on two copies of the padded problem: each
+# cell equals the solve on its slice; the driver's --resident-grid wrote its rows
+a2, b2 = torch.stack([apad, apad]), torch.stack([bpad, bpad])
+g7 = apt.resident_cv_grid(a2, b2, [10.0, 10.0], [1 / nal] * 2, [0.99 / nal] * 2, 1e-5, 300,
+                          h_kind="l1")
+gmp = apt.resident_mpls_grid(a2, b2, [10.0, 10.0], [1.0], [1.0, 1.0], 1e-5, 300, h_kind="l1")
+gpd = apt.resident_adapdmp_grid(a2, b2, [10.0, 10.0], [1.0], [nal, nal], 1e-5, 300, h_kind="l1")
+grid = [all(torch.equal(g[k][d], o[k]) for d in range(2) for k in range(4))
+        for g, o in ((g7, k7), (gmp, kmp), (gpd, kpd))]
+least_absolute_deviation.main(["--device", "cpu", "--datasets", "housing_scale", "--maxit", "30",
+                               "--no-plot", "--resident-grid", "--outdir",
+                               sys.argv[1] + "-lad--resident-grid"])
 import adaprox_tpu_torch.experiments.resident_timing  # the card's timing script
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("jax", "jaxlib", "adaprox_tpu"))
 print(json.dumps({"leaked": leaked, "runs": out, "logreg": logreg, "source": src,
-                  "cubic": cubic, "bt": bt, "agraal": ag, "pd": pd, "f0": f0}))
+                  "cubic": cubic, "bt": bt, "agraal": ag, "pd": pd, "f0": f0, "grid": grid}))
 """
 
 
@@ -357,7 +369,9 @@ def test_port_runs_the_slice_without_jax(tmp_path):
     assert i20 == i21 == i22 == i23 == i24 == i25 == 300 and p21 == p24 == p25 == 0.0
     assert abs(f21 - f20) < 1e-9 * abs(f20) and np.isfinite(f22)
     assert abs(f24 - f23) < 1e-9 * abs(f23) and abs(f25 - f22) < 1e-9 * abs(f22)
-    for path, names in (("", 31), ("--resident", 31)):
+    # the dataset grids: every cell equals the solve on its slice (K7c, K7b's two cores)
+    assert got["grid"] == [True, True, True]
+    for path, names in (("", 31), ("--resident", 31), ("--resident-grid", 31)):
         rows = tlog.read_jsonl(tmp_path.parent / (tmp_path.name + "-lad" + path)
                                / "housing_scale.jsonl")
         counts = {}

@@ -540,5 +540,6 @@ def test_driver_refuses_cuda_without_a_card(tmp_path):
 def test_driver_says_which_flags_are_not_offered(capsys):
     with pytest.raises(SystemExit):
         tsl.main(["--help"])
-    assert "--vmap-sweep, --fused, --resident-grid and --live are not offered yet" in " ".join(
-        capsys.readouterr().out.split())
+    out = " ".join(capsys.readouterr().out.split())
+    assert "--vmap-sweep, --fused and --live are not offered yet" in out
+    assert "--resident-grid" in out and "one K7c launch" in out
