@@ -1,4 +1,4 @@
-// K7d for Hopper: one whole Condat-Vu solve of the f = 0 composite family in one
+// K7d and K7c for Hopper: whole Condat-Vu solves of the f = 0 composite family in one
 // cooperative kernel launch,
 //
 //     min lam ||x||_1 + h(A x),   h = Translate(inner, -bv),   inner = NormL2 or NormL1,
@@ -10,10 +10,10 @@
 // (_cv_kernel[_rec] over _cv_core on _f0_ops). A is stored as f32 or bf16; every
 // iterate, reduction and scalar is f32.
 //
-// K7c, in this file too, replaces adaprox_tpu/ops/resident.py::resident_cv_grid
+// K7c, the same kernel, replaces adaprox_tpu/ops/resident.py::resident_cv_grid
 // (_cv_grid_kernel_rec over _cv_core): the same solve for each of D datasets zero-padded
-// to one common (m, n) (A (D, m, n), bv (D, m); each its own lam, gamma and sigma), in
-// record mode, one launch for all D, through the same routine (cv_solve).
+// to one common (m, n) (A (D, m, n), bv (D, m); each its own lam, gamma and sigma), one
+// launch for all D. K7d is its launch at D = 1.
 //
 // The iteration (_cv_core, the engine's order with FixedStepsize, rho = 1, f = 0):
 //     a_x    = A x
@@ -34,7 +34,7 @@
 // barriers an iteration with NormL1, three with NormL2.
 //
 // Design (first, simple version; resident_f0.cuh has the block dot, the dual prox
-// pieces and the launch, which K7a's cores share):
+// pieces and the launch, which K7a/K7b's cores share):
 //   * One persistent cooperative launch, at most one CTA per SM, enough warps for the
 //     longer of m and n (housing_scale's 512 x 128 takes 32 CTAs of 16 warps). A, A',
 //     bv and every vector stay in global memory, so any shape runs.
@@ -77,10 +77,12 @@ struct CvArgs {
   float* hist;   // (2, hist_len): norm_res, the objective; zero past numit
 };
 
-// One whole Condat-Vu solve (_cv_core), run by every thread of the grid: K7d's kernel
-// runs it once, K7c's once a dataset.
+// One whole Condat-Vu solve (_cv_core), run by every thread of the grid, once a dataset.
+// p and r come by value: each thread's own copy of the dataset's problem (which the
+// kernel keeps in shared memory) lets the compiler hold them in registers; read by
+// reference from shared memory, the iteration ran 2-7% slower.
 template <typename T, int V>
-__device__ void cv_solve(const F0Problem& p, const CvArgs& r) {
+__device__ void cv_solve(const F0Problem p, const CvArgs r) {
   cg::grid_group grid = cg::this_grid();
   __shared__ float warp_part[kCvParts][kWarps];
   __shared__ float s_red[kWarps];
@@ -251,14 +253,8 @@ __device__ void cv_solve(const F0Problem& p, const CvArgs& r) {
   }
 }
 
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads, 1) resident_cv_kernel(const F0Problem p,
-                                                                 const CvArgs r) {
-  cv_solve<T, V>(p, r);
-}
-
-// K7c's per-dataset entries of JAX's (D, 4) scalar table [gamma, sigma, lam, tol]; tol
-// and the rest come in CvArgs as in K7d.
+// The per-dataset entries of JAX's (D, 4) scalar table [gamma, sigma, lam, tol]; tol
+// and the rest come in CvArgs.
 struct CvSets {
   const float* gammas;  // (D,) on the device
   const float* sigmas;  // (D,)
@@ -266,12 +262,12 @@ struct CvSets {
   int dcount;
 };
 
-// K7c: the datasets one after another, a grid sync between two (the next solve reuses the
+// The datasets one after another, a grid sync between two (the next solve reuses the
 // scratch that other CTAs may still read). Each solve's problem and arguments are copies
 // in shared memory with its dataset's a, at and bv slices (64-bit offsets), lam, gamma,
 // sigma and outputs, written by thread 0 from the device tables and published by the
-// block barrier; cv_solve then reads the same fields as in K7d. So each dataset's solve
-// equals K7d's launch on its slice bit for bit.
+// block barrier. So each dataset's solve equals the D = 1 launch on its slice bit for
+// bit.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads, 1) resident_cv_grid_kernel(const F0Problem p,
                                                                       const CvArgs r,
@@ -301,7 +297,6 @@ __global__ void __launch_bounds__(kThreads, 1) resident_cv_grid_kernel(const F0P
   }
 }
 
-ADAPROX_PICK_F0(resident_cv_kernel)
 ADAPROX_PICK_F0(resident_cv_grid_kernel)
 
 }  // namespace
@@ -311,54 +306,30 @@ extern "C" {
 // The partials a CTA needs: part holds this many floats for each CTA of the grid.
 int adaprox_resident_f0_parts() { return kCvParts; }
 
-// K7d: one Condat-Vu solve. a (m, n) and at (n, m) row-major, f32 (a_is_bf16 = 0) or
-// bf16; vec: 1, or 4 (f32) / 8 (bf16) when m and n are multiples of it and a and at
-// are 16-byte aligned. bv (m), xs (2, n), v (n), at_y (n), y (m), ax (m), w (m), part
-// (part_len): f32 device buffers the caller owns. h_kind: 0 NormL2, 1 NormL1. stats
-// (3): numit, norm_res, converged; hist (2, hist_len), hist_len = maxit rounded up to
-// 128: norm_res and the objective, zero past numit. Returns the cudaError_t of the
-// launch (0 on success).
-int adaprox_resident_condat_vu(const void* a, const void* at, int a_is_bf16, int vec,
-                               long long m, long long n, const float* bv, int h_kind, float lam,
-                               float* xs, float* v, float* at_y, float* y, float* ax, float* w,
-                               float* part, long long part_len, float gamma, float sigma,
-                               float tol, int maxit, int record, float* x_out, float* stats,
-                               float* hist, void* stream_ptr) {
-  const void* kernel = pick_resident_cv_kernel(a_is_bf16, vec);
-  if (kernel == nullptr || m < 1 || n < 1 || (h_kind != kHL2 && h_kind != kHL1) || maxit < 0 ||
-      !x_out || !stats || (record && maxit > 0 && !hist)) {
-    return cudaErrorInvalidValue;
-  }
-  const int hist_len = (maxit + 127) / 128 * 128;  // _hist_len(maxit)
-  F0Problem prob{a, at, bv, xs, v, at_y, y, ax, w, part, m, n, h_kind, lam, hist_len};
-  CvArgs args{gamma, sigma, tol, maxit, record, x_out, stats, record ? hist : nullptr};
-  void* kargs[] = {&prob, &args};
-  return static_cast<int>(launch_f0(kernel, kargs, m, n, kCvParts, part_len, stream_ptr));
-}
-
-// K7c: dcount Condat-Vu solves, one a dataset, in record mode. a (dcount, m, n) and at
-// (dcount, n, m) row-major, f32 (a_is_bf16 = 0) or bf16; vec as for K7d. bv (dcount, m);
+// K7c, and K7d at dcount 1: dcount Condat-Vu solves, one a dataset. a (dcount, m, n) and
+// at (dcount, n, m) row-major, f32 (a_is_bf16 = 0) or bf16; vec: 1, or 4 (f32) / 8
+// (bf16) when m and n are multiples of it and a and at are 16-byte aligned. bv (dcount, m);
 // lams, gammas and sigmas (dcount) on the device. xs (2, n), v (n), at_y (n), y (m), ax
 // (m), w (m), part (part_len): f32 device buffers the caller owns. h_kind: 0 NormL2, 1
 // NormL1. x_out (dcount, n); stats (dcount, 3): numit, norm_res, converged; hist (dcount,
 // 2, hist_len), hist_len = maxit rounded up to 128: norm_res and the objective, zero past
-// numit (null only at maxit 0). Returns the cudaError_t of the launch (0 on success).
+// numit (read only when record). Returns the cudaError_t of the launch (0 on success).
 int adaprox_resident_cv_grid(const void* a, const void* at, int a_is_bf16, int vec, long long m,
                              long long n, const float* bv, int h_kind, const float* lams,
                              const float* gammas, const float* sigmas, int dcount, float* xs,
                              float* v, float* at_y, float* y, float* ax, float* w, float* part,
-                             long long part_len, float tol, int maxit, float* x_out,
-                             float* stats, float* hist, void* stream_ptr) {
+                             long long part_len, float tol, int maxit, int record,
+                             float* x_out, float* stats, float* hist, void* stream_ptr) {
   const void* kernel = pick_resident_cv_grid_kernel(a_is_bf16, vec);
   if (kernel == nullptr || !lams || !gammas || !sigmas || m < 1 || n < 1 ||
       (h_kind != kHL2 && h_kind != kHL1) || dcount < 1 || maxit < 0 || !x_out || !stats ||
-      (maxit > 0 && !hist)) {
+      (record && maxit > 0 && !hist)) {
     return cudaErrorInvalidValue;
   }
   const int hist_len = (maxit + 127) / 128 * 128;  // _hist_len(maxit)
   // lam, gamma, sigma and the outputs are each dataset's; the launch's are placeholders
   F0Problem prob{a, at, bv, xs, v, at_y, y, ax, w, part, m, n, h_kind, 0.f, hist_len};
-  CvArgs args{0.f, 0.f, tol, maxit, 1, x_out, stats, hist};
+  CvArgs args{0.f, 0.f, tol, maxit, record, x_out, stats, record ? hist : nullptr};
   CvSets sets{gammas, sigmas, lams, dcount};
   void* kargs[] = {&prob, &args, &sets};
   return static_cast<int>(launch_f0(kernel, kargs, m, n, kCvParts, part_len, stream_ptr));

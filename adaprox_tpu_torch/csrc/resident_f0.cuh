@@ -1,8 +1,8 @@
 // What the whole-solve kernels of the f = 0 composite family share (the square-root
 // lasso and the least absolute deviation: min lam ||x||_1 + h(A x) with h =
 // Translate(inner, -bv), inner = NormL2 or NormL1): K7d's Condat-Vu (resident_cv.cu)
-// and K7a's Malitsky-Pock and AdaPDM+ cores (resident_f0_sweep.cu, which keeps its own
-// problem struct: it needs two slots of y and A x). A (m x n) and A' (n x m) are both
+// and K7a/K7b's Malitsky-Pock and AdaPDM+ cores (resident_f0_cores.cuh, which keeps its
+// own problem struct: it needs two slots of y and A x). A (m x n) and A' (n x m) are both
 // kept, row-major, so both products read rows: A x a warp a row of A (n short: one
 // 16-byte load a lane at the drivers' n = 128), A'y a CTA a row of A' (n rows of m
 // values each: a warp a row would leave all but n warps of the grid idle and walk m

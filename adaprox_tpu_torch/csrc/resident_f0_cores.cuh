@@ -1,9 +1,69 @@
-// The solve routines of the f = 0 composite family's linesearch cores, shared by K7a
-// (resident_f0_sweep.cu: the t-sweep) and K7b (resident_f0_grid.cu: the dataset x t
-// grid): one whole early-exit Malitsky-Pock solve (mp_solve, JAX's _mpls_core) or AdaPDM+
-// solve (adapdmp_solve, _adapdmp_core) run by every thread of a cooperative grid, the
-// problem, the row's scalars and its outputs handed in by the caller. What they compute,
-// and the phases and grid syncs of an iteration, are set out in resident_f0_sweep.cu.
+// The solve routines of the f = 0 composite family's linesearch cores, run by K7a (the
+// t-sweep) and K7b (the dataset x t grid), both one kernel in resident_f0_grid.cu: one
+// whole early-exit Malitsky-Pock solve (mp_solve, JAX's _mpls_core) or AdaPDM+ solve
+// (adapdmp_solve, _adapdmp_core) run by every thread of a cooperative grid, the problem,
+// the row's scalars and its outputs handed in by the caller,
+//
+//     min lam ||x||_1 + h(A x),   h = Translate(inner, -bv),   inner = NormL2 or NormL1.
+//
+// A is stored as f32 or bf16; every iterate, reduction and scalar is f32.
+//
+// The Malitsky-Pock core (_mpls_core), from x0 = 0, y0 = 0 (A x0 = 0, A'y0 = 0):
+//     w = y + sigma a_x;  y = prox_{sigma h*}(w);  at_y = A'y;  s = sigma sqrt(2)
+//     trial: theta = s / sigma_prev, gamma = t t s,
+//            v = x_prev - gamma ((1 + theta) at_y - theta at_y_prev),  x = soft(v, gamma lam)
+//            a_x = A x;  lhs = gamma s ||a_x - a_x_prev||^2
+//     halve s while lhs > 0.95 ||x - x_prev||^2 and fewer than 101 trials ran (a test still
+//     failing at the cap is latched into ls_failed);
+//     norm_res = sqrt(||(v - x)/gamma + at_y||^2 + ||(w - y)/sigma_prev - a_x||^2)
+// The record row: gamma, s, norm_res, trials, lam ||x||_1 + h(a_x). x returned is the
+// last accepted trial's (final.x).
+//
+// The AdaPDM+ core (_adapdmp_core, big_delta = 0 as f = 0), from x0 = 0, y0 = 0,
+// gamma0 = 1 / (2 Theta t eta0), x1 = soft(-gamma0 A'y0, gamma0 lam):
+//     a_x = A x;  primal = (v - x)/gamma + at_y;  xi = t gamma eta delta1
+//     trial at e (0.95 eta, then doubled): gamma' = min(gamma sqrt(1 + gamma/gamma_prev),
+//            1/(2 Theta t e), gamma sqrt((1 - 4 xi^2) / (2 delta1 sqrt((1 - 4 xi^2)(t e gamma)^2))))
+//            rho = gamma'/gamma, sigma = t t gamma', w = y + sigma((1 + rho) a_x - rho a_x_prev)
+//            y' = prox_{sigma h*}(w), at_y' = A'y'
+//     accept when e >= sqrt(||at_y' - at_y||^2) / sqrt(||y' - y||^2) (0/0 fails), at most
+//     101 trials; norm_res = sqrt(||primal||^2 + ||(w - y')/sigma - a_x||^2)
+//     v = x - gamma' at_y';  x' = soft(v, gamma' lam)
+// The record row: gamma', sigma, norm_res, trials, lam ||x||_1 + h(a_x) at the
+// iteration's x; on convergence the x of the check is returned.
+//
+// What bounds it on the card. A and A' are read from device memory once (4 MB each at
+// cpusmall_scale's 8192 x 128 f32) and then stay in the 50 MB L2; an MP trial or an
+// AdaPDM+ trial does 2 m n flops, an iteration 4 m n at one trial (0.06 us at 8192 x
+// 128 on 67 TFLOP/s of f32 outside the tensor cores). So, as for K7d, the grid-wide
+// barriers and the phases' latency set the pace.
+//
+// Design (first, simple version, on K7d's pieces in resident_f0.cuh):
+//   * A solve runs on a persistent cooperative grid (launch_f0: at most one CTA per SM,
+//     enough warps for the longer of m and n). A, A', bv and every vector stay in
+//     global memory, so any shape runs.
+//   * The phases, each ended by a grid sync: D (the dual step, elementwise over m; with
+//     NormL2 a second phase takes the block scale from ||z||^2 over all m), P1 (A x, a
+//     warp a row of A), P2 (A'y, a CTA a row of A', as K7d), T (MP's trial x,
+//     elementwise over n).
+//       MP, an iteration:      D [D2] | P2 + the first trial's x | P1 | (T | P1) a further trial
+//       AdaPDM+, an iteration: P1 + the first trial's D | [D2] | P2 + the candidate x' |
+//                              (D | [D2] | P2) a further trial
+//     So an iteration at one trial waits at 3 grid syncs (MP) or 2 (AdaPDM+) with NormL1,
+//     4 or 3 with NormL2, and each further trial at 2 (3 for AdaPDM+ with NormL2).
+//   * The decisions: warp k of every CTA sums partial k over the CTAs in one fixed order
+//     (no atomics), so every thread takes the accept, halve/inflate or cap decision, and
+//     the stop decision, from the same bits; a CTA that decided otherwise would wait at a
+//     barrier the others never reach. NaN compares false, as in jnp.
+//   * Every partial is written in a phase that ends in a grid sync and read right after
+//     that sync, before the next one; no slot is written again until a further sync has
+//     passed, so one slot set does.
+//   * x, A'y and (AdaPDM+) y are two buffers each, swapped by parity on acceptance, and A
+//     x alternates by iteration: no copies.
+//   * IEEE semantics as K7d (no fast math, IEEE division and square root, NaN-propagating
+//     min/max like jnp.minimum / jnp.maximum, jnp.sign's signed zero; -fmad=false, so each
+//     elementwise expression rounds after every operation as the plain PyTorch version
+//     does; the dot products use explicit fmaf).
 //
 // Every function is deterministic: one fixed order of every sum, no atomics, so a solve
 // gives the same bits whichever launch runs it on a grid of the same size.
@@ -28,8 +88,8 @@ constexpr float kRUp = 2.f, kRDown = 0.95f;
 // [kDual2, kDaty2].
 enum SwPart { kZ2 = 0, kPrimal2, kAbsX, kHVal, kDual2, kDy2, kDaty2, kDx2, kDax2, kSwParts };
 
-// The problem and the scratch, shared by every row of a launch (K7b hands each cell a
-// copy whose a, at, bv and lam are its dataset's). Every vector is f32.
+// The problem and the scratch of a launch; each cell's copy has its dataset's a, at, bv
+// and lam. Every vector is f32.
 struct SwProblem {
   const void* a;    // (m, n) row-major, f32 or bf16
   const void* at;   // (n, m) row-major: the same values transposed
@@ -47,9 +107,9 @@ struct SwProblem {
   int hist_len;     // maxit rounded up to 128 (the JAX kernels' _hist_len)
 };
 
-// The sweep: `count` rows, one t each; the other entries of JAX's per-row scalar table
-// (sigma0 or eta0, lam, tol) are the same for every row of a sweep (of a dataset's
-// cells in K7b's grid, whose copy carries that dataset's p2).
+// A dataset's rows: `count` rows, one t each; the other entries of JAX's per-row scalar
+// table (sigma0 or eta0, lam, tol) are the same for every row of a dataset (each cell's
+// copy carries its dataset's p2).
 struct SwRows {
   const float* ts;  // (count,) on the device
   int count;

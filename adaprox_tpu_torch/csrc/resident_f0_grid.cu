@@ -1,49 +1,49 @@
-// K7b for Hopper: the (dataset x t) grids of the f = 0 composite family in one cooperative
-// kernel launch each, with the linesearch on the device,
+// K7a and K7b for Hopper: the coupling sweeps and the (dataset x t) grids of the f = 0
+// composite family, one cooperative kernel launch each, with the linesearch on the device,
 //
 //     min lam_d ||x||_1 + h_d(A_d x),   h_d = Translate(inner, -bv_d),   inner = NormL2 or NormL1,
 //
-// the square-root lasso's (NormL2) and the least absolute deviation's (NormL1) whole
-// multi-dataset experiment (experiments/square_root_lasso/runme.jl:100-110 over the
-// datasets x :48 over t): one whole early-exit solve for each (dataset, coupling t) cell,
-// with one of K7a's two cores, each its own kernel.
+// the square-root lasso's (NormL2) and the least absolute deviation's (NormL1) sweep over
+// t (experiments/square_root_lasso/runme.jl:80-95) and their whole multi-dataset
+// experiment (:100-110 over the datasets x :80-95 over t): one whole early-exit solve for
+// each (dataset, coupling t) cell, with one of two cores, each its own kernel.
 //
-// Replaces the Pallas TPU kernel adaprox_tpu/ops/resident.py::_f0_grid (_f0_grid_kernel[_rec]
-// over _mpls_core or _adapdmp_core), entered by resident_mpls_grid and
-// resident_adapdmp_grid. The D datasets come zero-padded to one common (m, n) (exact for
-// this translate family: padded rows and columns stay exactly 0), stacked as A (D, m, n)
-// and A' (D, n, m), f32 or bf16, and bv (D, m); each dataset has its own lam and p2
-// (sigma0 for MP, eta0 = its ||A||_F for AdaPDM+), the t values are shared. Every iterate,
-// reduction and scalar is f32.
+// Replaces the Pallas TPU kernels adaprox_tpu/ops/resident.py::_f0_sweep (K7a, entered by
+// resident_mpls_sweep and resident_adapdmp_sweep) and ::_f0_grid (K7b, entered by
+// resident_mpls_grid and resident_adapdmp_grid), each over _mpls_core or _adapdmp_core.
+// JAX's grid is its sweep with a dataset axis; here a sweep is the grid of one dataset.
+// The D datasets come zero-padded to one common (m, n) (exact for this translate family:
+// padded rows and columns stay exactly 0), stacked as A (D, m, n) and A' (D, n, m), f32
+// or bf16, and bv (D, m); each dataset has its own lam and p2 (sigma0 for MP, eta0 = its
+// ||A||_F for AdaPDM+), the t values are shared. Every iterate, reduction and scalar is
+// f32. The solve routines and what they compute are in resident_f0_cores.cuh.
 //
-// What bounds it on the card. As K7a: a trial or an iteration does 2 m n flops (0.03 us at
-// 8192 x 128 on 67 TFLOP/s of f32 outside the tensor cores) on a dataset's A and A', which
-// stay in the 50 MB L2 (8 MB at 8192 x 128 f32) while its cells run. The grid-wide barriers
-// and the phases' latency set the pace, at the common shape: a dataset smaller than the
-// common one runs at the common shape's iteration.
+// What bounds it on the card. A trial does 2 m n flops (0.03 us at 8192 x 128 on 67
+// TFLOP/s of f32 outside the tensor cores) on a dataset's A and A', which stay in the
+// 50 MB L2 (8 MB at 8192 x 128 f32) while its cells run. The grid-wide barriers and the
+// phases' latency set the pace, at the common shape: a dataset smaller than the common
+// one runs at the common shape's iteration.
 //
-// Design: K7a's launch shape over the cells instead of the rows.
+// Design:
 //   * One persistent cooperative launch for all D x T cells (launch_f0 sizes the grid from
-//     the common shape, as a K7a launch on one dataset's slice does). The cells run one
-//     after another, d-major (cell i = d T + t, the order of JAX's _f0_grid_kernel), a grid
-//     sync between two cells, through K7a's unchanged solve routines
-//     (resident_f0_cores.cuh). So each cell equals the one-row K7a launch on its dataset's
+//     the common shape). The cells run one after another, d-major (cell i = d T + t, the
+//     order of JAX's _f0_grid_kernel), a grid sync between two cells, through the same
+//     routine on the same grid. So each cell equals the one-row launch on its dataset's
 //     slice bit for bit.
 //   * A cell's problem is a copy of the launch's, in shared memory, with its dataset's a,
 //     at and bv slices (64-bit offsets) and lam; its rows a copy with its dataset's p2.
 //     Thread 0 writes both from the device tables of lam and p2 before the routine runs,
-//     and the block barrier that follows publishes them. The routines then read the same
-//     fields as in K7a, from shared memory instead of the kernel's parameters.
-//   * The scratch is the launch's, as in K7a: each solve writes every slot it reads
-//     before reading it (x0 = 0, y0 = 0, A x0 = 0, A'y0 = 0 to start), so nothing of the
-//     previous dataset's cells, NaN included, reaches the next.
+//     and the block barrier that follows publishes them.
+//   * The scratch is the launch's: each solve writes every slot it reads before reading
+//     it (x0 = 0, y0 = 0, A x0 = 0, A'y0 = 0 to start), so nothing of the previous
+//     dataset's cells, NaN included, reaches the next.
 
 #include "resident_f0_cores.cuh"
 
 namespace {
 
 // The per-dataset entries of JAX's (D x T, 4) scalar table [t, p2_d, lam_d, tol]; t, tol
-// and the rest come in SwRows as in K7a.
+// and the rest come in SwRows.
 struct GridSets {
   const float* lams;  // (D,) on the device
   const float* p2s;   // (D,): sigma0 (MP) or eta0 (AdaPDM+)
@@ -113,9 +113,9 @@ extern "C" {
 // The partials a CTA needs: part holds this many floats for each CTA of the grid.
 int adaprox_resident_f0_grid_parts() { return kSwParts; }
 
-// K7b: dcount x count solves of one core (0: Malitsky-Pock from the first dual step
-// sigma0; 1: AdaPDM+ from the operator-norm estimate eta0), one for each (dataset d,
-// coupling ts[t]) cell, d-major. a (dcount, m, n) and at (dcount, n, m) row-major, f32
+// K7b, and K7a at dcount 1: dcount x count solves of one core (0: Malitsky-Pock from the
+// first dual step sigma0; 1: AdaPDM+ from the operator-norm estimate eta0), one for each
+// (dataset d, coupling ts[t]) cell, d-major. a (dcount, m, n) and at (dcount, n, m) row-major, f32
 // (a_is_bf16 = 0) or bf16; vec: 1, or 4 (f32) / 8 (bf16) when m and n are multiples of it
 // and a and at are 16-byte aligned. bv (dcount, m); lams and p2s (dcount) and ts (count) on
 // the device. xs (2, n), v (n), at_ys (2, n), ys (2, m), axs (2, m), w (m), part

@@ -49,11 +49,11 @@ driver's inputs in the same call:
   k6d_384_it_us, k6d_1280_it_us, k6d_8192x128_it_us  K6d at heart_scale's dense Q,
                    svmguide3's dense Q and mushrooms' factored B (C 0.1)
   mp_l2_512x128_it_us, ..., adapdmp_l1_8192x128_it_us  K7a's two cores
-                   (csrc/resident_f0_sweep.cu) at the same shapes and h: a one-row sweep, t
+                   (csrc/resident_f0_grid.cu) at the same shapes and h: a one-row sweep, t
                    1, tol -1, 1000 iterations, per iteration, and
   mp_l2_512x128_trials, ...  their mean trials an iteration
   cv_build_s       seconds to build (or find built) csrc/resident_cv.cu and
-                   csrc/resident_f0_sweep.cu
+                   csrc/resident_f0_grid.cu
 """
 
 from __future__ import annotations
@@ -135,7 +135,7 @@ def cv_timing(dev, reps):
     out = {}
     t0 = time.perf_counter()
     resident_f0.build_library()
-    resident_f0.build_sweep_library()
+    resident_f0.build_grid_library()
     out["cv_build_s"] = time.perf_counter() - t0
     sweeps = {"mp": resident_f0.resident_mpls_sweep, "adapdmp": resident_f0.resident_adapdmp_sweep}
     for name in ("housing_scale", "abalone", "cpusmall_scale"):

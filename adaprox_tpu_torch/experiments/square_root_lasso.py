@@ -188,7 +188,7 @@ def grid_inputs(datasets, *, device, dtype):
 
 
 def run_composite_grid(datasets, outdir, inner="l2", *, device, lam=10.0, tol=1e-5,
-                       maxit=5000, dtype=None):
+                       maxit=5000):
     """The whole multi-dataset experiment in three launches (JAX's ``run_composite_grid``):
     the datasets stacked by ``grid_inputs``, Condat-Vu for all of them in one
     ``resident_cv_grid`` call and each family's (dataset x t) grid in one
@@ -197,10 +197,10 @@ def run_composite_grid(datasets, outdir, inner="l2", *, device, lam=10.0, tol=1e
     15 Malitsky-Pock and 15 AdaPDM+ rows, a meta row with each file's share of the
     three walls (``wall_s``, the total over the dataset count), ``fast_path``
     "resident-grid", the totals (``grid_total_s``) and ``fast_methods``, and the data
-    source. ``dtype`` defaults to float64 on the CPU and float32 on CUDA."""
+    source. The datasets are float64 on the CPU (the plain versions) and float32 on CUDA
+    (the kernels)."""
     device = torch.device(device)
-    if dtype is None:
-        dtype = torch.float64 if device.type == "cpu" else torch.float32
+    dtype = torch.float64 if device.type == "cpu" else torch.float32
     names, a_stack, bv_stack, norm_as, sources = grid_inputs(datasets, device=device,
                                                              dtype=dtype)
     dcount = len(names)

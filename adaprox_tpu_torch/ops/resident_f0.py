@@ -19,10 +19,11 @@ Counterpart of ``adaprox_tpu/ops/resident.py:1529-2316``:
     d-major, each dataset with its own lam and sigma0 or eta0.
   * K7c, ``resident_cv_grid`` (``_cv_grid_kernel_rec``): K7d's solve, recorded, for
     each of the D datasets, each with its own lam, gamma and sigma.
-Here the entries reach hand-written CUDA C++ routines for Hopper: K7d and K7c
-``csrc/resident_cv.cu`` (one routine), K7a ``csrc/resident_f0_sweep.cu`` and K7b
-``csrc/resident_f0_grid.cu`` (both cores' routines in ``csrc/resident_f0_cores.cuh``),
-all on ``csrc/resident_f0.cuh``, each entry one cooperative launch, built with nvcc for
+Here the entries reach hand-written CUDA C++ kernels for Hopper: K7d and K7c one kernel
+in ``csrc/resident_cv.cu``, K7a and K7b one kernel a core in ``csrc/resident_f0_grid.cu``
+(both cores' routines in ``csrc/resident_f0_cores.cuh``), all on ``csrc/resident_f0.cuh``.
+A grid launch over one dataset is K7a's sweep (K7d's solve), as JAX's grids are its
+sweeps with a dataset axis. Each entry is one cooperative launch, built with nvcc for
 ``sm_90a`` at first use and loaded with ctypes.
 
 The entries dispatch on where their tensors lie: CPU tensors take the plain
@@ -50,8 +51,7 @@ __all__ = ["resident_condat_vu", "resident_condat_vu_plain", "resident_mpls_swee
            "resident_mpls_sweep_plain", "resident_adapdmp_sweep", "resident_adapdmp_sweep_plain",
            "resident_adapdmp_records", "resident_mpls_grid", "resident_mpls_grid_plain",
            "resident_adapdmp_grid", "resident_adapdmp_grid_plain", "resident_cv_grid",
-           "resident_cv_grid_plain", "build_library", "build_sweep_library",
-           "build_grid_library", "H_KINDS"]
+           "resident_cv_grid_plain", "build_library", "build_grid_library", "H_KINDS"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_cv.cu"
 # -fmad=false: every elementwise expression rounds after each operation, as the
@@ -514,15 +514,51 @@ def _library():
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return kernels.load_library(SOURCE, NVCC_FLAGS, {
         "adaprox_resident_f0_parts": ([], i),
-        # a, at, a_is_bf16, vec, m, n, bv, h_kind, lam, xs, v, at_y, y, ax, w, part,
-        # part_len, gamma, sigma, tol, maxit, record, x_out, stats, hist, stream
-        "adaprox_resident_condat_vu": ([p, p, i, i, ll, ll, p, i, f, p, p, p, p, p, p, p, ll, f,
-                                        f, f, i, i, p, p, p, p], i),
         # a, at, a_is_bf16, vec, m, n, bv, h_kind, lams, gammas, sigmas, dcount, xs, v, at_y,
-        # y, ax, w, part, part_len, tol, maxit, x_out, stats, hist, stream
+        # y, ax, w, part, part_len, tol, maxit, record, x_out, stats, hist, stream
         "adaprox_resident_cv_grid": ([p, p, i, i, ll, ll, p, i, p, p, p, i, p, p, p, p, p, p, p,
-                                      ll, f, i, p, p, p, p], i),
+                                      ll, f, i, i, p, p, p, p], i),
         "adaprox_resident_cv_error_string": ([i], ctypes.c_char_p)})
+
+
+def _cv_launch(what, a_stack, bv_stack, lams, gammas, sigmas, tol, maxit, record, h_kind):
+    """One launch of the Condat-Vu kernel over the D datasets of the stack: K7c, or K7d at
+    D = 1. The tables are float64 host tensors. Returns what ``resident_cv_grid``
+    returns, the histories only when ``record``."""
+    at, vec = _layouts(what, a_stack, bv_stack)
+    lib = _library()
+    dev = a_stack.device
+    dcount, m, n = a_stack.shape
+    maxit = int(maxit)
+    with torch.cuda.device(dev):
+        f32 = dict(dtype=torch.float32, device=dev)
+        lams_d, gammas_d, sigmas_d = (v.to(**f32) for v in (lams, gammas, sigmas))
+        scratch = _cv_scratch(m, n, dev)
+        part = _partials(lib.adaprox_resident_f0_parts(), dev)
+        x_out, stats = torch.empty((dcount, n), **f32), torch.empty((dcount, 3), **f32)
+        hist = torch.empty((dcount, 2, hist_len(maxit)), **f32) if record else None
+        err = lib.adaprox_resident_cv_grid(
+            a_stack.data_ptr(), at.data_ptr(), int(a_stack.dtype == torch.bfloat16), vec, m, n,
+            bv_stack.data_ptr(), H_KINDS.index(h_kind), lams_d.data_ptr(), gammas_d.data_ptr(),
+            sigmas_d.data_ptr(), dcount, *_ptrs(scratch), part.data_ptr(), part.numel(),
+            float(tol), maxit, int(record), x_out.data_ptr(), stats.data_ptr(),
+            hist.data_ptr() if record and maxit else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, what, lib.adaprox_resident_cv_error_string)
+    base = (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 2] > 0)
+    if record:
+        return base + ((hist[:, 0, :maxit], hist[:, 1, :maxit]),)
+    return base
+
+
+def _one(value):
+    """The float64 host table of one dataset."""
+    return torch.tensor([float(value)], dtype=torch.float64)
+
+
+def _first(out):
+    """A one-dataset launch's outputs without the dataset axis (the histories last)."""
+    return tuple(tuple(h[0] for h in o) if isinstance(o, tuple) else o[0] for o in out)
 
 
 def resident_condat_vu(a, bv, lam, gamma, sigma, tol, maxit, record=False, h_kind="l2"):
@@ -535,140 +571,22 @@ def resident_condat_vu(a, bv, lam, gamma, sigma, tol, maxit, record=False, h_kin
     objective lam ||x||_1 + h(A x) at the iteration's x); ``resident_pd.
     resident_cv_records`` turns them into ``Records``. On convergence x is the
     iterate at the check. CPU tensors take the plain version, any float dtype.
-    CUDA tensors launch K7d (``csrc/resident_cv.cu``): ``a`` f32 or bf16, ``bv``
-    f32, both contiguous; each launch adds one to ``resident_condat_vu.launches``."""
+    CUDA tensors launch K7d, the Condat-Vu kernel of ``csrc/resident_cv.cu`` over one
+    dataset: ``a`` f32 or bf16, ``bv`` f32, both contiguous; each launch adds one to
+    ``resident_condat_vu.launches``."""
     if not _device("K7d", a):
         return resident_condat_vu_plain(a, bv, lam, gamma, sigma, tol, maxit, record, h_kind)
     _check(a, bv, maxit, h_kind)
-    at, vec = _layouts("K7d", a, bv)
-    lib = _library()
-    dev = a.device
-    m, n = a.shape
-    maxit = int(maxit)
-    with torch.cuda.device(dev):
-        f32 = dict(dtype=torch.float32, device=dev)
-        scratch = _cv_scratch(m, n, dev)
-        part = _partials(lib.adaprox_resident_f0_parts(), dev)
-        x_out, stats = torch.empty(n, **f32), torch.empty(3, **f32)
-        hist = torch.empty((2, hist_len(maxit)), **f32) if record else None
-        err = lib.adaprox_resident_condat_vu(
-            a.data_ptr(), at.data_ptr(), int(a.dtype == torch.bfloat16), vec, m, n,
-            bv.data_ptr(), H_KINDS.index(h_kind), float(lam), *_ptrs(scratch), part.data_ptr(),
-            part.numel(), float(gamma), float(sigma), float(tol), maxit, int(record),
-            x_out.data_ptr(), stats.data_ptr(), hist.data_ptr() if record and maxit else None,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "K7d", lib.adaprox_resident_cv_error_string)
+    out = _cv_launch("K7d", a[None], bv[None], _one(lam), _one(gamma), _one(sigma), tol, maxit,
+                     record, h_kind)
     resident_condat_vu.launches += 1
-    base = (x_out, stats[0].to(torch.int32), stats[1], stats[2] > 0)
-    if record:
-        return base + ((hist[0, :maxit], hist[1, :maxit]),)
-    return base
+    return _first(out)
 
 
 resident_condat_vu.launches = 0
 
 
-# -- K7a on the card --------------------------------------------------------------------
-
-SWEEP_SOURCE = kernels._PKG / "csrc" / "resident_f0_sweep.cu"
-
-
-def build_sweep_library():
-    """Compile ``csrc/resident_f0_sweep.cu`` (see ``ops.kernels.build_library``)."""
-    return kernels.build_library(SWEEP_SOURCE, NVCC_FLAGS)
-
-
-def _sweep_library():
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    return kernels.load_library(SWEEP_SOURCE, NVCC_FLAGS, {
-        "adaprox_resident_f0_sweep_parts": ([], i),
-        # a, at, a_is_bf16, vec, m, n, bv, h_kind, lam, core, xs, v, at_ys, ys, axs, w,
-        # part, part_len, ts, count, p2, tol, maxit, record, x_out, stats, hist, stream
-        "adaprox_resident_f0_sweep": ([p, p, i, i, ll, ll, p, i, f, i, p, p, p, p, p, p, p, ll, p,
-                                       i, f, f, i, i, p, p, p, p], i),
-        "adaprox_resident_f0_sweep_error_string": ([i], ctypes.c_char_p)})
-
-
-def _sweep_launch(what, core, a, bv, lam, ts, p2, tol, maxit, record, h_kind):
-    """One K7a launch. Returns what the entries return."""
-    at, vec = _layouts(what, a, bv)
-    lib = _sweep_library()
-    dev = a.device
-    m, n = a.shape
-    maxit = int(maxit)
-    with torch.cuda.device(dev):
-        ts_d = ts.to(device=dev, dtype=torch.float32)
-        count = ts_d.numel()
-        f32 = dict(dtype=torch.float32, device=dev)
-        scratch = _sweep_scratch(m, n, dev)
-        part = _partials(lib.adaprox_resident_f0_sweep_parts(), dev)
-        x_out, stats = torch.empty((count, n), **f32), torch.empty((count, 4), **f32)
-        hist = torch.empty((count, 5, hist_len(maxit)), **f32) if record else None
-        err = lib.adaprox_resident_f0_sweep(
-            a.data_ptr(), at.data_ptr(), int(a.dtype == torch.bfloat16), vec, m, n,
-            bv.data_ptr(), H_KINDS.index(h_kind), float(lam), CORES.index(core),
-            *_ptrs(scratch), part.data_ptr(), part.numel(), ts_d.data_ptr(), count, float(p2),
-            float(tol), maxit, int(record), x_out.data_ptr(), stats.data_ptr(),
-            hist.data_ptr() if record and maxit else None,
-            torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, f"{what} (K7a)", lib.adaprox_resident_f0_sweep_error_string)
-    base = (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 2] > 0, stats[:, 3] > 0)
-    if record:
-        return base + (tuple(hist[:, k, :maxit] for k in range(5)),)
-    return base
-
-
-def resident_mpls_sweep(a, bv, lam, ts, sigma0, tol, maxit, record=False, h_kind="l2"):
-    """The Malitsky-Pock coupling sweep (square_root_lasso/runme.jl:80-88) as ONE
-    kernel launch: a whole early-exit linesearch solve of min lam ||x||_1 + ||A x -
-    bv|| (``h_kind`` "l2") or lam ||x||_1 + ||A x - bv||_1 ("l1") for each value of
-    ``ts``, one after another, from x0 = 0, y0 = 0 and the first dual step
-    ``sigma0``. ``sigma0`` and every t must be positive, ``ts`` 1-D with at least one
-    value (checked before anything runs, on either device).
-
-    Returns (x (T, n), numit (T,) int32, norm_res (T,), converged (T,),
-    ls_failed (T,)), plus the histories (gamma, sigma, norm_res, trials,
-    objective) of shape (T, maxit) as a tuple when ``record=True`` (zero past
-    numit); ``resident_mp.resident_mp_records`` turns a row into ``Records``. x is
-    the last accepted iterate (``final.x``). CPU tensors take the plain version,
-    any float dtype. CUDA tensors launch K7a (``csrc/resident_f0_sweep.cu``): ``a``
-    f32 or bf16, ``bv`` f32, both contiguous; each launch adds one to
-    ``resident_mpls_sweep.launches``. Every row equals a one-row sweep with its t
-    bit for bit."""
-    what = "resident_mpls_sweep"
-    ts = _sweep_check(what, a, bv, ts, maxit, h_kind, sigma0=sigma0)
-    if not _device("K7a", a):
-        return _sweep_plain(_mpls_core_plain, a, bv, lam, ts, sigma0, tol, maxit, record,
-                            h_kind)
-    out = _sweep_launch(what, "mp", a, bv, lam, ts, sigma0, tol, maxit, record, h_kind)
-    resident_mpls_sweep.launches += 1
-    return out
-
-
-resident_mpls_sweep.launches = 0
-
-
-def resident_adapdmp_sweep(a, bv, lam, ts, eta0, tol, maxit, record=False, h_kind="l2"):
-    """The AdaPDM+ coupling sweep (square_root_lasso/runme.jl:90-95) as ONE kernel
-    launch: the contract of ``resident_mpls_sweep`` with the initial operator-norm
-    estimate ``eta0`` (the drivers' ||A||_F, positive) in place of sigma0. On
-    convergence a row's x is the iterate at the check. The histories feed
-    ``resident_adapdmp_records``. CUDA tensors launch K7a's AdaPDM+ core; each
-    launch adds one to ``resident_adapdmp_sweep.launches``."""
-    what = "resident_adapdmp_sweep"
-    ts = _sweep_check(what, a, bv, ts, maxit, h_kind, eta0=eta0)
-    if not _device("K7a", a):
-        return _sweep_plain(_adapdmp_core_plain, a, bv, lam, ts, eta0, tol, maxit, record,
-                            h_kind)
-    out = _sweep_launch(what, "adapdmp", a, bv, lam, ts, eta0, tol, maxit, record, h_kind)
-    resident_adapdmp_sweep.launches += 1
-    return out
-
-
-resident_adapdmp_sweep.launches = 0
-
-
-# -- K7b and K7c on the card ------------------------------------------------------------
+# -- K7a and K7b on the card ----------------------------------------------------------------
 
 GRID_SOURCE = kernels._PKG / "csrc" / "resident_f0_grid.cu"
 
@@ -690,7 +608,9 @@ def _grid_library():
 
 
 def _grid_launch(what, core, a_stack, bv_stack, lams, ts, p2s, tol, maxit, record, h_kind):
-    """One K7b launch. Returns what the entries return."""
+    """One launch of a core's kernel over the D datasets of the stack: K7b, or K7a at D =
+    1. The tables and couplings are float64 host tensors. Returns what the grid entries
+    return."""
     at, vec = _layouts(what, a_stack, bv_stack)
     lib = _grid_library()
     dev = a_stack.device
@@ -712,12 +632,68 @@ def _grid_launch(what, core, a_stack, bv_stack, lams, ts, p2s, tol, maxit, recor
             ts_d.data_ptr(), count, float(tol), maxit, int(record), x_out.data_ptr(),
             stats.data_ptr(), hist.data_ptr() if record and maxit else None,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, f"{what} (K7b)", lib.adaprox_resident_f0_grid_error_string)
+    _raise_on(err, what, lib.adaprox_resident_f0_grid_error_string)
     base = (x_out, stats[..., 0].to(torch.int32), stats[..., 1], stats[..., 2] > 0,
             stats[..., 3] > 0)
     if record:
         return base + (tuple(hist[:, :, k, :maxit] for k in range(5)),)
     return base
+
+
+def _sweep_launch(what, core, a, bv, lam, ts, p2, tol, maxit, record, h_kind):
+    """One K7a launch: a core's kernel over one dataset. Returns what the sweeps return."""
+    return _first(_grid_launch(f"{what} (K7a)", core, a[None], bv[None], _one(lam), ts, _one(p2),
+                               tol, maxit, record, h_kind))
+
+
+def resident_mpls_sweep(a, bv, lam, ts, sigma0, tol, maxit, record=False, h_kind="l2"):
+    """The Malitsky-Pock coupling sweep (square_root_lasso/runme.jl:80-88) as ONE
+    kernel launch: a whole early-exit linesearch solve of min lam ||x||_1 + ||A x -
+    bv|| (``h_kind`` "l2") or lam ||x||_1 + ||A x - bv||_1 ("l1") for each value of
+    ``ts``, one after another, from x0 = 0, y0 = 0 and the first dual step
+    ``sigma0``. ``sigma0`` and every t must be positive, ``ts`` 1-D with at least one
+    value (checked before anything runs, on either device).
+
+    Returns (x (T, n), numit (T,) int32, norm_res (T,), converged (T,),
+    ls_failed (T,)), plus the histories (gamma, sigma, norm_res, trials,
+    objective) of shape (T, maxit) as a tuple when ``record=True`` (zero past
+    numit); ``resident_mp.resident_mp_records`` turns a row into ``Records``. x is
+    the last accepted iterate (``final.x``). CPU tensors take the plain version,
+    any float dtype. CUDA tensors launch K7a, the MP kernel of
+    ``csrc/resident_f0_grid.cu`` over one dataset: ``a`` f32 or bf16, ``bv`` f32, both
+    contiguous; each launch adds one to ``resident_mpls_sweep.launches``. Every row
+    equals a one-row sweep with its t bit for bit."""
+    what = "resident_mpls_sweep"
+    ts = _sweep_check(what, a, bv, ts, maxit, h_kind, sigma0=sigma0)
+    if not _device("K7a", a):
+        return _sweep_plain(_mpls_core_plain, a, bv, lam, ts, sigma0, tol, maxit, record,
+                            h_kind)
+    out = _sweep_launch(what, "mp", a, bv, lam, ts, sigma0, tol, maxit, record, h_kind)
+    resident_mpls_sweep.launches += 1
+    return out
+
+
+resident_mpls_sweep.launches = 0
+
+
+def resident_adapdmp_sweep(a, bv, lam, ts, eta0, tol, maxit, record=False, h_kind="l2"):
+    """The AdaPDM+ coupling sweep (square_root_lasso/runme.jl:90-95) as ONE kernel
+    launch: the contract of ``resident_mpls_sweep`` with the initial operator-norm
+    estimate ``eta0`` (the drivers' ||A||_F, positive) in place of sigma0. On
+    convergence a row's x is the iterate at the check. The histories feed
+    ``resident_adapdmp_records``. CUDA tensors launch K7a's AdaPDM+ kernel; each
+    launch adds one to ``resident_adapdmp_sweep.launches``."""
+    what = "resident_adapdmp_sweep"
+    ts = _sweep_check(what, a, bv, ts, maxit, h_kind, eta0=eta0)
+    if not _device("K7a", a):
+        return _sweep_plain(_adapdmp_core_plain, a, bv, lam, ts, eta0, tol, maxit, record,
+                            h_kind)
+    out = _sweep_launch(what, "adapdmp", a, bv, lam, ts, eta0, tol, maxit, record, h_kind)
+    resident_adapdmp_sweep.launches += 1
+    return out
+
+
+resident_adapdmp_sweep.launches = 0
 
 
 def resident_mpls_grid(a_stack, bv_stack, lams, ts, sigma0s, tol, maxit, record=False,
@@ -744,7 +720,7 @@ def resident_mpls_grid(a_stack, bv_stack, lams, ts, sigma0s, tol, maxit, record=
     if not _device("K7b", a_stack):
         return _grid_plain(_mpls_core_plain, a_stack, bv_stack, lams, ts, sigma0s, tol, maxit,
                            record, h_kind)
-    out = _grid_launch(what, "mp", a_stack, bv_stack, lams, ts, sigma0s, tol, maxit, record,
+    out = _grid_launch(f"{what} (K7b)", "mp", a_stack, bv_stack, lams, ts, sigma0s, tol, maxit, record,
                        h_kind)
     resident_mpls_grid.launches += 1
     return out
@@ -766,7 +742,7 @@ def resident_adapdmp_grid(a_stack, bv_stack, lams, ts, eta0s, tol, maxit, record
     if not _device("K7b", a_stack):
         return _grid_plain(_adapdmp_core_plain, a_stack, bv_stack, lams, ts, eta0s, tol, maxit,
                            record, h_kind)
-    out = _grid_launch(what, "adapdmp", a_stack, bv_stack, lams, ts, eta0s, tol, maxit, record,
+    out = _grid_launch(f"{what} (K7b)", "adapdmp", a_stack, bv_stack, lams, ts, eta0s, tol, maxit, record,
                        h_kind)
     resident_adapdmp_grid.launches += 1
     return out
@@ -794,28 +770,10 @@ def resident_cv_grid(a_stack, bv_stack, lams, gammas, sigmas, tol, maxit, h_kind
                                        gammas=gammas, sigmas=sigmas)
     if not _device("K7c", a_stack):
         return _cv_grid_plain(a_stack, bv_stack, lams, gammas, sigmas, tol, maxit, h_kind)
-    at, vec = _layouts(what, a_stack, bv_stack)
-    lib = _library()
-    dev = a_stack.device
-    dcount, m, n = a_stack.shape
-    maxit = int(maxit)
-    with torch.cuda.device(dev):
-        f32 = dict(dtype=torch.float32, device=dev)
-        lams_d, gammas_d, sigmas_d = (v.to(**f32) for v in (lams, gammas, sigmas))
-        scratch = _cv_scratch(m, n, dev)
-        part = _partials(lib.adaprox_resident_f0_parts(), dev)
-        x_out, stats = torch.empty((dcount, n), **f32), torch.empty((dcount, 3), **f32)
-        hist = torch.empty((dcount, 2, hist_len(maxit)), **f32)
-        err = lib.adaprox_resident_cv_grid(
-            a_stack.data_ptr(), at.data_ptr(), int(a_stack.dtype == torch.bfloat16), vec, m, n,
-            bv_stack.data_ptr(), H_KINDS.index(h_kind), lams_d.data_ptr(), gammas_d.data_ptr(),
-            sigmas_d.data_ptr(), dcount, *_ptrs(scratch), part.data_ptr(), part.numel(),
-            float(tol), maxit, x_out.data_ptr(), stats.data_ptr(),
-            hist.data_ptr() if maxit else None, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "resident_cv_grid (K7c)", lib.adaprox_resident_cv_error_string)
+    out = _cv_launch(f"{what} (K7c)", a_stack, bv_stack, lams, gammas, sigmas, tol, maxit,
+                     True, h_kind)
     resident_cv_grid.launches += 1
-    return (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 2] > 0,
-            (hist[:, 0, :maxit], hist[:, 1, :maxit]))
+    return out
 
 
 resident_cv_grid.launches = 0

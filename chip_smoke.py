@@ -8,9 +8,10 @@ Phases, one line each, any failure exits non-zero:
                (csrc/resident_pg.cu), K4/K4b (csrc/resident_bt.cu), K4's
                aGRAAL core (csrc/resident_agraal.cu), K6a/K6b/K6d
                (csrc/resident_pd.cu), K6c (csrc/resident_mp.cu), K7d and K7c
-               (csrc/resident_cv.cu), K7a (csrc/resident_f0_sweep.cu) and K7b
-               (csrc/resident_f0_grid.cu), one nvcc each, started together, from
-               this checkout's sources
+               (csrc/resident_cv.cu, one kernel: K7d is its launch over one dataset),
+               K7a and K7b (csrc/resident_f0_grid.cu, one kernel a core: K7a is its
+               launch over one dataset), one nvcc each, started together, from this
+               checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
@@ -109,7 +110,7 @@ Phases, one line each, any failure exits non-zero:
                beats the raw one); the MP iteration at 1280^2, 384^2 and
                8192x128 with its mean trials, beside K6's PD iteration; the
                K6c sweep and its plain version timed at a cut depth
- 13. f0:       K7d (csrc/resident_cv.cu) and K7a (csrc/resident_f0_sweep.cu, its
+ 13. f0:       K7d (csrc/resident_cv.cu) and K7a (csrc/resident_f0_grid.cu, its
                Malitsky-Pock and AdaPDM+ cores) against their plain versions ([f0]
                lines) on the square-root lasso driver's padded inputs (housing_scale
                512x128, abalone 4224x128, cpusmall_scale 8192x128), h's inner norm l2
@@ -2593,7 +2594,10 @@ def f0_phase(resident_f0, resident_pd, counting, dev, smi):
         err = k7a_rows_err(cut[5], cut_plain[5], K7A_HORIZON)
         b_cut = bound(*k7a_work(inp["a"], int(cut[1].sum()), k7a_trials(cut), len(K7A_TS),
                                 resident_pd.hist_len(K7A_CUT)))
-        k7a[core] = dict(ms=k_ms, plain_ms=p_ms, bound=b_cut, depth=K7A_CUT)
+        # what ms, plain_ms and bound_ms were taken at (driver_ms: the full-depth driver run)
+        k7a[core] = dict(ms=k_ms, plain_ms=p_ms, bound=b_cut,
+                         ms_at=dict(data="cpusmall_scale 8192x128 f32 l2", maxit=K7A_CUT,
+                                    ts=K7A_TS, tol=1e-5))
         print(f"[f0] K7a {core} sweep vs its plain version, cpusmall_scale 8192x128 f32 l2, t "
               f"{K7A_TS}, tol 1e-5, depth cut from 5000 to maxit {K7A_CUT}: numit "
               f"{cut[1].tolist()} (plain {cut_plain[1].tolist()}), {k7a_trials(cut)} trials; "
@@ -2958,7 +2962,10 @@ def grid_phase(resident_f0, resident_pd, f0_meas, counting, dev, smi):
                                  resident_pd.hist_len(K7A_CUT)))
             counts = (f"numit {out[1].tolist()} (plain {out_p[1].tolist()}), {k7a_trials(out)} "
                       "trials")
-        meas[key].update(ms=k_ms, plain_ms=p_ms, bound=b, depth=K7A_CUT)
+        # what ms, plain_ms and bound_ms were taken at (driver_ms: the full-depth driver runs)
+        meas[key].update(ms=k_ms, plain_ms=p_ms, bound=b, ms_at=dict(
+            data=f"D = 3 stack {'x'.join(map(str, inp['a'].shape))} f32 l2", maxit=K7A_CUT,
+            ts=None if key == "K7c" else K7A_TS, tol=1e-5))
         print(f"[grid] {'K7c' if key == 'K7c' else 'K7b ' + key} vs its plain version, D = 3 "
               f"{tuple(inp['a'].shape)} f32 l2, tol 1e-5, depth cut from {GRID_MAXIT} to maxit "
               f"{K7A_CUT}{'' if key == 'K7c' else f', t {K7A_TS}'}: {counts}; kernel "
@@ -2990,7 +2997,7 @@ def main():
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(10) as pool:
+    with ThreadPoolExecutor(9) as pool:
         builds = [(name, pool.submit(build)) for name, build in
                   (("K1", kernels.build_library),
                    ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
@@ -2999,15 +3006,14 @@ def main():
                    ("K4 (aGRAAL)", resident_bt.build_agraal_library),
                    ("K6a/K6b/K6d", resident_pd.build_library),
                    ("K6c", resident_mp.build_library),
-                   ("K7d", resident_f0.build_library),
-                   ("K7a", resident_f0.build_sweep_library),
-                   ("K7b", resident_f0.build_grid_library))]
+                   ("K7d/K7c", resident_f0.build_library),
+                   ("K7a/K7b", resident_f0.build_grid_library))]
         for name, fut in builds:
             lib_path = fut.result()
             regs = ptxas_report(lib_path.with_suffix(".log").read_text())
             print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
                   f"bytes: {'; '.join(regs)})", flush=True)
-    print(f"[build] all ten in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all nine in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -3350,13 +3356,13 @@ def main():
         "max_abs_err": f0_err, "ms": f0_meas["ms"], "plain_ms": f0_meas["plain_ms"],
         "bound_ms": f0_meas["bound"][0], "bound_by": f0_meas["bound"][1], "library_ms": None,
         "it_us": f0_meas["it_us"]}] + [{
-        "name": name, "route": "cuda", "source": "adaprox_tpu_torch/csrc/resident_f0_sweep.cu",
+        "name": name, "route": "cuda", "source": "adaprox_tpu_torch/csrc/resident_f0_grid.cu",
         "replaces": replaces, "launches": f0_meas["k7a"][core]["launches"],
         "max_abs_err": k7a_err, "ms": f0_meas["k7a"][core]["ms"],
         "plain_ms": f0_meas["k7a"][core]["plain_ms"],
         "bound_ms": f0_meas["k7a"][core]["bound"][0],
         "bound_by": f0_meas["k7a"][core]["bound"][1], "library_ms": None,
-        "it_us": f0_meas["k7a"][core]["it_us"], "depth": f0_meas["k7a"][core]["depth"],
+        "it_us": f0_meas["k7a"][core]["it_us"], "ms_at": f0_meas["k7a"][core]["ms_at"],
         "driver_ms": f0_meas["k7a"][core]["driver_ms"],
         "driver_bound_ms": f0_meas["k7a"][core]["driver_bound_ms"]} for name, replaces, core in (
             ("resident_mpls_sweep", "adaprox_tpu/ops/resident.py:2096", "MP"),
@@ -3365,7 +3371,7 @@ def main():
         "launches": grid_meas[key]["launches"], "max_abs_err": grid_err[err_key],
         "ms": grid_meas[key]["ms"], "plain_ms": grid_meas[key]["plain_ms"],
         "bound_ms": grid_meas[key]["bound"][0], "bound_by": grid_meas[key]["bound"][1],
-        "library_ms": None, "depth": grid_meas[key]["depth"],
+        "library_ms": None, "ms_at": grid_meas[key]["ms_at"],
         "driver_ms": grid_meas[key]["driver_ms"],
         "driver_bound_ms": grid_meas[key]["driver_bound_ms"]}
         for name, source, replaces, key, err_key in (
