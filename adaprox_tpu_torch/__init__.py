@@ -21,11 +21,14 @@ Layout:
                K6d (Condat-Vu), K6c (the Malitsky-Pock t-sweep), and the f = 0
                family's (square-root lasso, least absolute deviation): K7d
                (Condat-Vu), K7a (the MP and AdaPDM+ t-sweeps), K7b (their
-               dataset x t grids) and K7c (Condat-Vu over the datasets)
+               dataset x t grids) and K7c (Condat-Vu over the datasets), and K5,
+               the fused one-pass primal-dual update; ElasticNet, PadTail and
+               PadDomain for its solver's menu and auto-pad
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the primal-dual engine (its
                proximal-gradient case and Condat-Vu), fixed-step Nesterov,
-               backtracking PG and Nesterov, aGRAAL, Malitsky-Pock, AdaPDM+
+               backtracking PG and Nesterov, aGRAAL, Malitsky-Pock, AdaPDM+, and
+               the primal-dual engine on K5 (AdaPDM and Condat-Vu)
   models/      objectives (least squares, logistic, the quadratic and its
                factored form, the cubic model, the worst-case quadratic) and
                problem generators
@@ -50,18 +53,21 @@ torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
 from .ops.prox import (  # noqa: E402
+    ElasticNet,
     IndBall2,
     IndBox,
     IndZero,
     L1Norm,
     L2Norm,
     MoreauConjugate,
+    PadTail,
     Translate,
     Zero,
     conjugate,
 )
 from .ops.linops import DenseOperator, frobenius_norm  # noqa: E402
-from .ops.oracles import SmoothOracle, ZeroSmooth  # noqa: E402
+from .ops.oracles import PadDomain, SmoothOracle, ZeroSmooth  # noqa: E402
+from .ops.pd_kernels import fused_pd_primal_update, pd_primal_update_plain  # noqa: E402
 from .ops.kernels import (  # noqa: E402
     fused_logistic_value_grad,
     fused_ls_value_grad,
@@ -130,6 +136,7 @@ from .solvers.backtracking import backtracking_nesterov, backtracking_proxgrad  
 from .solvers.agraal import agraal  # noqa: E402
 from .solvers.malitsky_pock import malitsky_pock  # noqa: E402
 from .solvers.adapdm_plus import adaptive_linesearch_primal_dual  # noqa: E402
+from .solvers.pd_fused import fused_adaptive_primal_dual, fused_condat_vu  # noqa: E402
 from .convert import (  # noqa: E402
     cubic_from_numpy,
     dsvm_from_numpy,
@@ -146,8 +153,9 @@ __version__ = "0.1.0"
 
 __all__ = [
     # ops
-    "Zero", "L1Norm", "L2Norm", "IndZero", "IndBox", "IndBall2", "Translate", "MoreauConjugate",
-    "conjugate", "DenseOperator", "frobenius_norm", "SmoothOracle", "ZeroSmooth",
+    "Zero", "L1Norm", "L2Norm", "ElasticNet", "IndZero", "IndBox", "IndBall2", "Translate",
+    "PadTail", "MoreauConjugate", "conjugate", "DenseOperator", "frobenius_norm", "SmoothOracle",
+    "ZeroSmooth", "PadDomain", "fused_pd_primal_update", "pd_primal_update_plain",
     "fused_ls_value_grad", "ls_value_grad_plain",
     "fused_logistic_value_grad", "logistic_value_grad_plain",
     "resident_adapgm", "resident_adapgm_l1", "resident_logreg_l1", "resident_records",
@@ -167,7 +175,7 @@ __all__ = [
     "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "condat_vu",
     "condat_vu_steps", "fixed_nesterov",
     "backtracking_proxgrad", "backtracking_nesterov", "agraal", "malitsky_pock",
-    "adaptive_linesearch_primal_dual",
+    "adaptive_linesearch_primal_dual", "fused_adaptive_primal_dual", "fused_condat_vu",
     # carried over from the JAX side
     "lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
     "quadratic_from_numpy", "factored_from_numpy", "dsvm_from_numpy", "sqrt_lasso_from_numpy",

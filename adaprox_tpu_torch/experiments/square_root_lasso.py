@@ -28,6 +28,13 @@ the JAX driver's routing limit (24 MiB a layout), else it falls back to the
 engine as the JAX driver does. The wall_s of the meta row times the solves
 only, not the JSONL writes.
 
+``--fused`` runs the Condat-Vu row on the fused one-pass primal-dual update
+(``solvers.pd_fused.fused_condat_vu``: one K5 pass over A' an iteration, A'
+formed once and passed as ``at``; the LIBSVM shapes auto-pad, [X 1]' to 16 x m
+rounded up to 128) and the 30 t-sweep rows on the engine, as the JAX driver does.
+With ``--resident`` as well, the resident path writes the Condat-Vu row when it
+is taken.
+
 ``--resident-grid`` runs the whole multi-dataset experiment in three launches: the
 datasets' [X 1] and y zero-padded to one common shape (the largest multiples of 128
 over the datasets), Condat-Vu for all of them in one K7c launch
@@ -39,6 +46,7 @@ routing limit it raises, as the JAX driver does: there is no fallback.
 
     python -m adaprox_tpu_torch.experiments.square_root_lasso
     python -m adaprox_tpu_torch.experiments.square_root_lasso --resident
+    python -m adaprox_tpu_torch.experiments.square_root_lasso --fused
     python -m adaprox_tpu_torch.experiments.square_root_lasso --resident-grid
 """
 
@@ -59,6 +67,7 @@ from ..ops.resident_mp import resident_mp_records
 from ..ops.resident_pd import resident_cv_records
 from ..solvers.adapdm_plus import adaptive_linesearch_primal_dual
 from ..solvers.malitsky_pock import malitsky_pock
+from ..solvers.pd_fused import fused_condat_vu
 from ..solvers.primal_dual import condat_vu
 from ..utils.datasets import load_or_synthesize
 from ..utils.libsvm import load_libsvm_dataset
@@ -69,8 +78,8 @@ KEYS = ["method", "norm_res", "A_evals", "At_evals"]
 # the JAX driver's routing limit: a layout of A in a TPU core's VMEM
 _VMEM_BYTES = 24 * 1024 * 1024
 FAST_METHODS = ["Condat-Vu", "Malitsky-Pock t-sweep", "AdaPDM+ t-sweep"]
-NOT_OFFERED = ("--vmap-sweep, --fused and --live are not offered yet: they need the batched "
-               "engine, K5 (the fused primal-dual update) and utils/live.py")
+NOT_OFFERED = ("--vmap-sweep and --live are not offered yet: they need the batched engine and "
+               "utils/live.py")
 
 
 def load(name_or_path):
@@ -96,11 +105,11 @@ def resident_inputs(a, y):
 
 
 def run_composite(name_or_path, sink, inner="l2", *, device, lam=10.0, tol=1e-5, maxit=5000,
-                  dtype=None, resident=False):
+                  dtype=None, resident=False, fused=False):
     """Run the menu on dataset ``name_or_path`` on ``device`` with h's inner norm
-    ``inner`` ("l2" or "l1"). ``dtype`` defaults to float64 on the CPU (the
-    reference's regime) and float32 on CUDA. Returns the data source ("libsvm" or
-    "synthetic")."""
+    ``inner`` ("l2" or "l1"); ``fused`` puts the Condat-Vu row on K5. ``dtype``
+    defaults to float64 on the CPU (the reference's regime) and float32 on CUDA.
+    Returns the data source ("libsvm" or "synthetic")."""
     device = torch.device(device)
     if dtype is None:
         dtype = torch.float64 if device.type == "cpu" else torch.float32
@@ -136,9 +145,16 @@ def run_composite(name_or_path, sink, inner="l2", *, device, lam=10.0, tol=1e-5,
                                                          maxit=maxit),
                                          name=f"{fam} (t={t})"), primal_dual=True)
     else:
-        sink.add(run_timed(times, "Condat-Vu", lambda: condat_vu(
-            x0, y0, f=f, g=g, h=h, A=a_op, Lf=0.0, norm_A=norm_a, tol=tol, maxit=maxit,
-            history=True, name="Condat-Vu")), primal_dual=True)
+        if fused:
+            # A' formed once, contiguous: the kernel streams its rows
+            at = a_op.a.t().contiguous()
+            sink.add(run_timed(times, "Condat-Vu", lambda: fused_condat_vu(
+                x0, y0, f=f, g=g, h=h, A=a_op.a, at=at, Lf=0.0, norm_A=norm_a, tol=tol,
+                maxit=maxit, history=True, name="Condat-Vu")), primal_dual=True)
+        else:
+            sink.add(run_timed(times, "Condat-Vu", lambda: condat_vu(
+                x0, y0, f=f, g=g, h=h, A=a_op, Lf=0.0, norm_A=norm_a, tol=tol, maxit=maxit,
+                history=True, name="Condat-Vu")), primal_dual=True)
         sweeps = (("Malitsky-Pock", lambda t, name: malitsky_pock(
             x0, y0, f=f, g=g, h=h, A=a_op, sigma=1.0, t=t, tol=tol, maxit=maxit, history=True,
             name=name)), ("AdaPDM+", lambda t, name: adaptive_linesearch_primal_dual(
@@ -151,8 +167,13 @@ def run_composite(name_or_path, sink, inner="l2", *, device, lam=10.0, tol=1e-5,
                 sink.add(res, primal_dual=True)
                 total += wall
             times[f"{fam} t-sweep"] = round(total, 4)
-    sink.emit_meta(wall_s=times, fast_path="resident" if inputs is not None else "default",
-                   fast_methods=FAST_METHODS if inputs is not None else [])
+    if inputs is not None:
+        fast_path, fast_methods = "resident", FAST_METHODS
+    elif fused:
+        fast_path, fast_methods = "fused", ["Condat-Vu"]
+    else:
+        fast_path, fast_methods = "default", []
+    sink.emit_meta(wall_s=times, fast_path=fast_path, fast_methods=fast_methods)
     return source
 
 
@@ -267,6 +288,9 @@ def main(argv=None, inner="l2", default_outdir="results/square_root_lasso"):
                    help="the whole multi-dataset experiment in three launches: Condat-Vu over "
                         "the datasets in one K7c launch, each family's (dataset x t) grid in "
                         "one K7b launch")
+    p.add_argument("--fused", action="store_true",
+                   help="Condat-Vu on the one-pass fused primal-dual update, K5 (auto-pads "
+                        "LIBSVM shapes); the t-sweeps on the engine")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda runs float32; cpu runs float64, the reference's regime")
     p.add_argument("--no-plot", action="store_true")
@@ -288,7 +312,7 @@ def main(argv=None, inner="l2", default_outdir="results/square_root_lasso"):
         path = os.path.join(args.outdir, f"{os.path.basename(ds)}.jsonl")
         sink = Sink(path, keys=KEYS)
         src = run_composite(ds, sink, inner, device=args.device, lam=args.lam, tol=args.tol,
-                            maxit=args.maxit, resident=args.resident)
+                            maxit=args.maxit, resident=args.resident, fused=args.fused)
         sink.emit_meta(data_source=src)
         print(f"{path}: data={src}")
         if not args.no_plot:

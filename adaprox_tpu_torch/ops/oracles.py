@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["SmoothOracle", "ZeroSmooth"]
+__all__ = ["SmoothOracle", "ZeroSmooth", "PadDomain"]
 
 
 class SmoothOracle:
@@ -57,3 +57,21 @@ class ZeroSmooth(SmoothOracle):
     def grad_from_aux(self, x, aux):
         del aux
         return torch.zeros_like(x)
+
+
+class PadDomain(SmoothOracle):
+    """f_pad(x) = inner(x[:n_true]) with a gradient tail of exact zeros: the f of a
+    problem whose coupling matrix was zero-padded with trailing columns (the fused
+    primal-dual solver's auto-pad). With a prox that maps 0 to 0 the padded
+    coordinates stay exactly 0 through the solve."""
+
+    def __init__(self, inner, n_true):
+        self.inner = inner
+        self.n_true = int(n_true)
+
+    def value_and_aux(self, x):
+        return self.inner.value_and_aux(x[:self.n_true])
+
+    def grad_from_aux(self, x, aux):
+        g = self.inner.grad_from_aux(x[:self.n_true], aux)
+        return torch.cat([g, torch.zeros_like(x[self.n_true:])])

@@ -1,7 +1,7 @@
 """Proximable functions, the ported subset (counterpart of
-``adaprox_tpu/ops/prox.py``): ``Zero``, ``L1Norm``, ``L2Norm``, ``IndZero``,
-``IndBox``, ``IndBall2``, ``Translate`` and the convex conjugate (closed forms
-for these classes, the Moreau identity otherwise).
+``adaprox_tpu/ops/prox.py``): ``Zero``, ``L1Norm``, ``L2Norm``, ``ElasticNet``,
+``IndZero``, ``IndBox``, ``IndBall2``, ``Translate``, ``PadTail`` and the convex
+conjugate (closed forms for these classes, the Moreau identity otherwise).
 
 Every operator has:
 
@@ -17,8 +17,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["Zero", "L1Norm", "L2Norm", "IndZero", "IndBox", "IndBall2", "Translate",
-           "MoreauConjugate", "conjugate"]
+__all__ = ["Zero", "L1Norm", "L2Norm", "ElasticNet", "IndZero", "IndBox", "IndBall2",
+           "Translate", "PadTail", "MoreauConjugate", "conjugate"]
 
 
 class Zero:
@@ -63,6 +63,24 @@ class L2Norm:
         one, zero = torch.ones_like(nrm), torch.zeros_like(nrm)
         scale = torch.where(nrm > thr, 1 - thr / torch.where(nrm > 0, nrm, one), zero)
         return scale * v, self.lam * scale * nrm
+
+
+class ElasticNet:
+    """g(x) = lam1 ||x||_1 + (lam2 / 2) ||x||_2^2; prox = soft-thresholding, then
+    a shrink by 1 + gamma lam2 (closed form; beyond the reference's set). Its
+    conjugate is taken by the Moreau identity, as in JAX."""
+
+    def __init__(self, lam1=1.0, lam2=1.0):
+        self.lam1 = lam1
+        self.lam2 = lam2
+
+    def __call__(self, x):
+        return self.lam1 * torch.sum(torch.abs(x)) + 0.5 * self.lam2 * torch.sum(x * x)
+
+    def prox(self, v, gamma):
+        soft = torch.sign(v) * torch.clamp_min(torch.abs(v) - gamma * self.lam1, 0)
+        y = soft / (1 + gamma * self.lam2)
+        return y, self(y)
 
 
 class IndZero:
@@ -143,6 +161,41 @@ class Translate:
         return u - self.b, val
 
 
+class PadTail:
+    """h_pad(z) = inner(z[:m_true]): the h of a problem whose coupling matrix was
+    zero-padded with trailing rows (the fused primal-dual solver's auto-pad). The
+    padded entries of A x are exactly 0, so ``inner`` on the head is exact; the tail
+    is unpenalized, so the prox passes it through."""
+
+    def __init__(self, inner, m_true):
+        self.inner = inner
+        self.m_true = int(m_true)
+
+    def __call__(self, z):
+        return self.inner(z[:self.m_true])
+
+    def prox(self, v, gamma):
+        u, val = self.inner.prox(v[:self.m_true], gamma)
+        return torch.cat([u, v[self.m_true:]]), val
+
+
+class _PadTailConjugate:
+    """The conjugate of ``PadTail``: inner* on the head, the tail pinned to 0
+    (h_pad*(y) = inner*(y_head) + ind{y_tail = 0}), so the padded dual
+    coordinates add nothing to A'y or to the residuals."""
+
+    def __init__(self, inner, m_true):
+        self.inner = inner
+        self.m_true = int(m_true)
+
+    def __call__(self, y):
+        raise NotImplementedError("the PadTail conjugate's value is never needed by solvers")
+
+    def prox(self, v, gamma):
+        u, val = self.inner.prox(v[:self.m_true], gamma)
+        return torch.cat([u, torch.zeros_like(v[self.m_true:])]), val
+
+
 class MoreauConjugate:
     """Convex conjugate h* with prox by the Moreau identity
 
@@ -166,7 +219,8 @@ class MoreauConjugate:
 def conjugate(g):
     """Convex conjugate of ``g``: closed form for the ported classes
     (Zero <-> IndZero, L1Norm(lam) -> IndBox(-lam, lam), L2Norm(lam) <->
-    IndBall2(lam)), Moreau otherwise (``Translate`` among them, as in JAX)."""
+    IndBall2(lam), PadTail(inner) -> inner* on the head with the tail pinned to 0),
+    Moreau otherwise (``Translate`` and ``ElasticNet`` among them, as in JAX)."""
     if isinstance(g, Zero):
         return IndZero()
     if isinstance(g, IndZero):
@@ -177,4 +231,6 @@ def conjugate(g):
         return IndBall2(g.lam)
     if isinstance(g, IndBall2):
         return L2Norm(lam=g.r)
+    if isinstance(g, PadTail):
+        return _PadTailConjugate(conjugate(g.inner), g.m_true)
     return MoreauConjugate(g)

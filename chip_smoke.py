@@ -10,8 +10,8 @@ Phases, one line each, any failure exits non-zero:
                (csrc/resident_pd.cu), K6c (csrc/resident_mp.cu), K7d and K7c
                (csrc/resident_cv.cu, one kernel: K7d is its launch over one dataset),
                K7a and K7b (csrc/resident_f0_grid.cu, one kernel a core: K7a is its
-               launch over one dataset), one nvcc each, started together, from this
-               checkout's sources
+               launch over one dataset), K5 (csrc/fused_pd.cu), one nvcc each, started
+               together, from this checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
@@ -148,6 +148,21 @@ Phases, one line each, any failure exits non-zero:
                of phase 13's f64 CPU Condat-Vu; nothing non-finite; the grids by CUDA
                events beside phase 13's --resident sweeps); K7b and K7c against their
                plain versions timed at K7A_CUT; the phase's wall
+ 15. pd_fused: K5 (csrc/fused_pd.cu) against its plain version ([pd_fused] lines) at the
+               f = 0 drivers' padded A' (cpusmall_scale 16x8192, abalone 16x4224,
+               housing_scale 16x512), 16384^2 and a ragged 64x1000, A' f32 and bf16,
+               every prox kind (l1, box, elastic, zero), two launches the same bits; each
+               shape timed eager and in a CUDA graph (the device time) beside the plain
+               version, the two torch.mv it replaces and its bound; both f = 0 drivers
+               --fused on the three stand-ins at --maxit 300 (cut from 5000: the 30
+               t-sweep rows run on the engine): the Condat-Vu row on K5, exactly 1 + numit
+               launches a solve and no other kernel, JAX's 31 rows and meta rows
+               (fast_path "fused", fast_methods ["Condat-Vu"]), all finite;
+               fused_condat_vu at the drivers' defaults (tol 1e-5, maxit 5000) on
+               cpusmall_scale l2 and l1, its final objective within FUSED_CV_OBJ_RTOL of
+               phase 13's f64 CPU Condat-Vu, timed beside the engine's condat_vu; the PD
+               headline (AdaPDM, 200 iterations at 16384^2): fused f32 and bf16 A' beside
+               the engine's two torch.mv, iterations/s and GB/s of A; the phase's wall
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -2976,6 +2991,240 @@ def grid_phase(resident_f0, resident_pd, f0_meas, counting, dev, smi):
     return meas
 
 
+# the f = 0 drivers' --fused depth: cut from 5000 so that phase 15 stays short (the 30
+# t-sweep rows run on the engine, a host sync an iteration and one a trial)
+FUSED_DRIVER_MAXIT = 300
+# fused_condat_vu's final objective at the drivers' defaults (tol 1e-5, maxit 5000) against
+# phase 13's f64 CPU Condat-Vu. Calibrated on the CPU with the fused solver's plain path in
+# f32 against that f64 run on the three stand-ins, l2 and l1: at most 3.71e-7 of the
+# objective (housing_scale l1; cpusmall_scale l2 4.83e-8, l1 3.31e-7), and 0 in f64 (the
+# fused solve in f64 is the plain Condat-Vu's to the last bit). About 10x that.
+FUSED_CV_OBJ_RTOL = 4e-6
+
+
+def graph_ms(fn, reps=20):
+    """Mean ms per call of fn() on the card without the host's launch overhead: reps calls
+    captured in one CUDA graph, CUDA events around its replay (after a warm-up replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # builds and allocates outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def k5_work(at):
+    """(bytes, flops) of one K5 call: A' read once, y, x, grad in, A'y, v, x_new and A x_new
+    out (f32); 4 flops an element of A'."""
+    n, m = at.shape
+    return at.element_size() * n * m + 4 * (m + 2 * n) + 4 * (3 * n + m), 4 * n * m
+
+
+def fused_inputs(name, dev, dtype=torch.float32):
+    """The f = 0 drivers' fused operator for dataset ``name`` (its stand-in): [X 1]'
+    zero-padded as fused_condat_vu auto-pads it, n to 8 (16 for bf16) and m to 128."""
+    from adaprox_tpu_torch.convert import sqrt_lasso_from_numpy
+    from adaprox_tpu_torch.experiments import square_root_lasso
+
+    from adaprox_tpu_torch.ops.pd_kernels import LANE, sublane
+
+    x, y, _ = square_root_lasso.load(name)
+    _, _, _, a_op, _ = sqrt_lasso_from_numpy(x, y, 10.0, "l2", device=dev, dtype=torch.float32)
+    m, n = a_op.shape
+    sub = sublane(torch.empty((), dtype=dtype).element_size())
+    at = torch.zeros(-(-n // sub) * sub, -(-m // LANE) * LANE, device=dev)
+    at[:n, :m] = a_op.a.t()
+    return at.to(dtype)
+
+
+def k5_checks(pd_kernels, big, dev, smi):
+    """Phase 15, K5 against its plain version on the card: the drivers' padded A' (16 x 8192,
+    16 x 4224, 16 x 512), 16384^2 and a ragged m, A' f32 and bf16, every prox kind, two
+    launches the same bits; each shape timed (CUDA events, eager and in a CUDA graph) beside
+    the plain version, the two torch.mv it replaces and its bound. Returns the
+    measurements."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15)
+    menu = (("l1", 0.7, 0.0), ("box", -0.5, 0.5), ("elastic", 0.3, 0.2), ("zero", 0.0, 0.0))
+    shapes = [(f"{name} {'x'.join(map(str, fused_inputs(name, 'cpu').shape))}",
+               lambda dt, name=name: fused_inputs(name, dev, dt))
+              for name in ("cpusmall_scale", "abalone", "housing_scale")]
+    shapes += [(f"{HEADLINE}x{HEADLINE}", lambda dt: big[0].t().contiguous().to(dt)),
+               ("64x1000 (ragged m)", lambda dt: torch.randn(64, 1000, generator=gen,
+                                                             device=dev).to(dt) / 1000**0.5)]
+    meas = {}
+    gamma = torch.tensor(0.37, device=dev)
+    for label, make in shapes:
+        for dt in (torch.float32, torch.bfloat16):
+            at = make(dt)
+            n, m = at.shape
+            y, x, grad = (torch.randn(k, generator=gen, device=dev) for k in (m, n, n))
+            errs, abs_err = [], 0.0
+            for kind, p1, p2 in menu:
+                got = pd_kernels.fused_pd_primal_update(at, y, x, grad, gamma, p1, p2, kind)
+                again = pd_kernels.fused_pd_primal_update(at, y, x, grad, gamma, p1, p2, kind)
+                want = pd_kernels.pd_primal_update_plain(at, y, x, grad, gamma, p1, p2, kind)
+                torch.cuda.synchronize()
+                same = all(torch.equal(u, w) for u, w in zip(got, again))
+                err = max(float((u - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                          for u, w in zip(got, want))
+                abs_err = max(abs_err, max(float((u - w).abs().max()) for u, w in zip(got, want)))
+                check(same and math.isfinite(err) and err <= KERNEL_RTOL,
+                      f"K5 {label} {dt} {kind}: rel err {err}, same bits twice {same}")
+                errs.append(f"{kind} {err:.2e}")
+            af = at.float()  # the plain version and the two mv on f32 storage
+            ms = event_ms(lambda: pd_kernels.fused_pd_primal_update(at, y, x, grad, gamma, 0.7))
+            g_ms = graph_ms(lambda: pd_kernels.fused_pd_primal_update(at, y, x, grad, gamma,
+                                                                      0.7))
+            plain_ms = event_ms(lambda: pd_kernels.pd_primal_update_plain(af, y, x, grad, gamma,
+                                                                          0.7))
+            mv_ms = graph_ms(lambda: (torch.mv(af, y), torch.mv(af.t(), x)))
+            b = bound(*k5_work(at))
+            tag = "f32" if dt == torch.float32 else "bf16"
+            meas[f"{label} {tag}"] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms, mv_ms=mv_ms,
+                                          bound=b, max_abs_err=abs_err)
+            print(f"[pd_fused] K5 {label} A' {tag}: rel err {', '.join(errs)} (tol "
+                  f"{KERNEL_RTOL:g}; two launches the same bits) | K5 {ms:.4f} ms a call "
+                  f"(eager), {g_ms:.4f} ms on the device (CUDA graph); plain {plain_ms:.4f} "
+                  f"ms; the two torch.mv it replaces {mv_ms:.4f} ms (CUDA graph); bound "
+                  f"{b[0]:.5f} ms ({b[1]}) ({smi})", flush=True)
+            del at, af
+    return meas
+
+
+def pd_fused_phase(pd_kernels, others, f_refs, big, dev, smi):
+    """Phase 15: both f = 0 drivers --fused on the three stand-ins (the Condat-Vu row on K5,
+    1 + numit launches a solve, no other kernel; JAX's 31 rows and meta rows), fused_condat_vu
+    at the drivers' defaults on cpusmall_scale l2 and l1 against phase 13's f64 CPU Condat-Vu
+    and timed beside the engine's condat_vu, and the PD headline (AdaPDM at 16384^2, fused f32
+    and bf16 beside the engine). Returns the kernels line's measurements."""
+    import importlib
+
+    import adaprox_tpu_torch as apt
+    from adaprox_tpu_torch.experiments.common import sync_wall
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+    from adaprox_tpu_torch.utils.profiling import timed
+
+    k5 = pd_kernels.fused_pd_primal_update
+    drivers = {d: importlib.import_module(f"adaprox_tpu_torch.experiments.{d}")
+               for d in F0_DRIVERS}
+    t_values = drivers["square_root_lasso"].T_VALUES
+    names = (["Condat-Vu"] + [f"Malitsky-Pock (t={t})" for t in t_values]
+             + [f"AdaPDM+ (t={t})" for t in t_values])
+    launches = 0
+    for driver, mod in drivers.items():
+        outdir = os.path.join("results", "chip_smoke", f"{driver}_fused")
+        before = others()
+        k5.launches = 0
+        t0 = time.perf_counter()
+        mod.main(["--fused", "--device", dev.type, "--maxit", str(FUSED_DRIVER_MAXIT),
+                  "--outdir", outdir, "--no-plot"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        parts, want = [], 0
+        for name in F0_DATASETS:
+            rows = read_jsonl(os.path.join(outdir, f"{name}.jsonl"))
+            by = {}
+            for r in rows:
+                if "norm_res" in r:
+                    by.setdefault(r["method"], []).append(r)
+            meta = rows[-2]
+            cv = by.get("Condat-Vu", [])
+            want += 1 + len(cv)
+            finite = all(math.isfinite(r["norm_res"]) for rs in by.values() for r in rs)
+            check(list(by) == names and meta["fast_path"] == "fused"
+                  and meta["fast_methods"] == ["Condat-Vu"]
+                  and list(meta["wall_s"]) == JAX_F0_FAST_METHODS and finite
+                  and (cv[0]["A_evals"], cv[0]["At_evals"]) == (2, 1)
+                  and (cv[-1]["A_evals"], cv[-1]["At_evals"]) == (len(cv) + 1, len(cv)),
+                  f"{driver} --fused {name}: rows {list(by)}, meta {meta}, finite {finite}")
+            parts.append(f"{name}: Condat-Vu numit {len(cv)}, norm_res {cv[-1]['norm_res']:.3e}, "
+                         f"wall_s {meta['wall_s']}")
+        launches += k5.launches
+        check(k5.launches == want and others() == before,
+              f"{driver} --fused: {k5.launches} K5 launches, not 1 + numit a Condat-Vu solve "
+              f"({want}), or another kernel ran")
+        print(f"[pd_fused] {driver} --fused on the three stand-ins, --maxit "
+              f"{FUSED_DRIVER_MAXIT} (cut from 5000): K5 launches {k5.launches} (1 + numit a "
+              f"Condat-Vu solve), no other kernel, JAX's 31 rows and meta rows, all finite; "
+              f"{' | '.join(parts)}; wall {secs:.2f} s ({smi})", flush=True)
+
+    # fused_condat_vu at the drivers' defaults on the largest stand-in, l2 and l1, beside the
+    # engine's condat_vu on the same inputs (one solve each, host clock after a sync)
+    from adaprox_tpu_torch.convert import sqrt_lasso_from_numpy
+    from adaprox_tpu_torch.experiments import square_root_lasso
+
+    x_np, y_np, _ = square_root_lasso.load("cpusmall_scale")
+    cv_meas = {}
+    for driver, inner in (("square_root_lasso", "l2"), ("least_absolute_deviation", "l1")):
+        f, g, h, a_op, norm_a = sqrt_lasso_from_numpy(x_np, y_np, 10.0, inner, device=dev,
+                                                      dtype=torch.float32)
+        m, n = a_op.shape
+        x0, y0 = torch.zeros(n, device=dev), torch.zeros(m, device=dev)
+        at = a_op.a.t().contiguous()
+        kw = dict(f=f, g=g, h=h, Lf=0.0, norm_A=norm_a, tol=1e-5, maxit=5000, history=True)
+        k5.launches = 0
+        res, wall = sync_wall(lambda: apt.fused_condat_vu(x0, y0, A=a_op.a, at=at, **kw))
+        n_k5 = k5.launches
+        ref, ref_wall = sync_wall(lambda: apt.condat_vu(x0, y0, A=a_op, **kw))
+        obj = float(res.records.objective[-1])
+        f_ref = f_refs[(driver, "cpusmall_scale")]
+        err = abs(obj - f_ref) / abs(f_ref)
+        cv_meas[inner] = dict(wall=wall, engine_wall=ref_wall, numit=res.numit)
+        print(f"[pd_fused] fused_condat_vu, cpusmall_scale {m}x{n} f32 {inner} (A' padded to "
+              f"16x8192), tol 1e-5, maxit 5000: numit {res.numit} (engine {ref.numit}), K5 "
+              f"launches {n_k5}, final objective {obj:.6f} (f64 CPU {f_ref:.6f}, rel err "
+              f"{err:.2e}, bound {FUSED_CV_OBJ_RTOL:g}, CPU-calibrated), wall {1e3 * wall:.1f} "
+              f"ms ({1e3 * wall / max(res.numit, 1):.4f} ms an iteration) beside the engine's "
+              f"condat_vu {1e3 * ref_wall:.1f} ms ({1e3 * ref_wall / max(ref.numit, 1):.4f}) "
+              f"({smi})", flush=True)
+        check(n_k5 == 1 + res.numit and math.isfinite(obj) and err <= FUSED_CV_OBJ_RTOL,
+              f"fused_condat_vu cpusmall_scale {inner}: {n_k5} K5 launches, objective {obj}")
+
+    # the PD headline (bench.py's pd_* runners): AdaPDM, f = 0, g = L1Norm(0.01), h =
+    # Translate(L2Norm(1), -y), AdaPGMRule.make(t = 1, ||A||_F), 200 iterations at 16384^2
+    a, yv, _ = big
+    x0, y0 = torch.zeros(HEADLINE, device=dev), torch.zeros(HEADLINE, device=dev)
+    h = apt.Translate(apt.L2Norm(1.0), -yv)
+    kw = dict(f=apt.ZeroSmooth(), g=apt.L1Norm(0.01), h=h,
+              rule=apt.AdaPGMRule.make(t=1.0, norm_a=float(apt.frobenius_norm(a))), tol=0.0,
+              maxit=HEADLINE_ITERS)
+    at32 = a.t().contiguous()
+    at16 = at32.to(torch.bfloat16)
+    head = {}
+    for label, run, bytes_it in (
+            ("fused f32 (K5)", lambda: apt.fused_adaptive_primal_dual(x0, y0, A=a, at=at32, **kw),
+             4 * HEADLINE * HEADLINE),
+            ("fused bf16 (K5)", lambda: apt.fused_adaptive_primal_dual(
+                x0, y0, A=at16.t(), at=at16, **kw), 2 * HEADLINE * HEADLINE),
+            ("engine f32 (two torch.mv)", lambda: apt.adaptive_primal_dual(
+                x0, y0, A=apt.DenseOperator(a), **kw), 8 * HEADLINE * HEADLINE)):
+        secs, res = timed(run, reps=3)
+        check(res.numit == HEADLINE_ITERS and math.isfinite(float(res.norm_res))
+              and bool(torch.isfinite(res.x).all()),
+              f"PD headline {label}: numit {res.numit}, norm_res {float(res.norm_res)}")
+        ips = HEADLINE_ITERS / secs
+        head[label] = ips
+        print(f"[pd_fused] PD headline AdaPDM {HEADLINE}^2 {label}: {ips:.1f} iters/s "
+              f"({1e3 * secs / HEADLINE_ITERS:.4f} ms an iteration), {bytes_it * ips / 1e9:.1f} "
+              f"GB/s of A (norm_res {float(res.norm_res):.3e}; best of 3 after a warm-up; "
+              f"{smi})", flush=True)
+    del at32, at16
+    return dict(launches=launches, cv=cv_meas, head=head)
+
+
 def main():
     # 1. device --------------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: needs a CUDA device")
@@ -2990,14 +3239,14 @@ def main():
     from adaprox_tpu_torch.experiments import lasso
     from adaprox_tpu_torch.experiments.common import pad_tiles
     from adaprox_tpu_torch.models.synthetic import random_lasso
-    from adaprox_tpu_torch.ops import (kernels, resident, resident_bt, resident_f0, resident_mp,
-                                       resident_pd)
+    from adaprox_tpu_torch.ops import (kernels, pd_kernels, resident, resident_bt, resident_f0,
+                                       resident_mp, resident_pd)
     from adaprox_tpu_torch.utils.logging import read_jsonl
     from adaprox_tpu_torch.utils.profiling import timed
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(9) as pool:
+    with ThreadPoolExecutor(10) as pool:
         builds = [(name, pool.submit(build)) for name, build in
                   (("K1", kernels.build_library),
                    ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
@@ -3007,13 +3256,14 @@ def main():
                    ("K6a/K6b/K6d", resident_pd.build_library),
                    ("K6c", resident_mp.build_library),
                    ("K7d/K7c", resident_f0.build_library),
-                   ("K7a/K7b", resident_f0.build_grid_library))]
+                   ("K7a/K7b", resident_f0.build_grid_library),
+                   ("K5", pd_kernels.build_library))]
         for name, fut in builds:
             lib_path = fut.result()
             regs = ptxas_report(lib_path.with_suffix(".log").read_text())
             print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
                   f"bytes: {'; '.join(regs)})", flush=True)
-    print(f"[build] all nine in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all ten in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -3065,6 +3315,7 @@ def main():
         resident_f0.resident_mpls_sweep.launches = resident_f0.resident_adapdmp_sweep.launches = 0
         resident_f0.resident_cv_grid.launches = resident_f0.resident_mpls_grid.launches = 0
         resident_f0.resident_adapdmp_grid.launches = 0
+        pd_kernels.fused_pd_primal_update.launches = 0
 
     def read_counts():
         """Launches of (K1, K2, K2c, K3, K4, K4b, K4 (aGRAAL)) since zero_counts()."""
@@ -3272,7 +3523,24 @@ def main():
                            smi)
     print(f"[grid] phase 14 wall {time.perf_counter() - t14:.1f} s ({smi})", flush=True)
 
+    # 15. the fused primal-dual update ----------------------------------------------------
+    t15 = time.perf_counter()
+
+    def other_counts():
+        """Launches of every kernel but K5."""
+        return read_counts() + tuple(k.launches for k in (
+            resident_pd.resident_adapdm_dsvm, resident_pd.resident_adapdm_dsvm_sweep,
+            resident_pd.resident_cv_dsvm, resident_mp.resident_mp_dsvm_sweep,
+            resident_f0.resident_condat_vu, resident_f0.resident_mpls_sweep,
+            resident_f0.resident_adapdmp_sweep, resident_f0.resident_cv_grid,
+            resident_f0.resident_mpls_grid, resident_f0.resident_adapdmp_grid))
+
+    k5_meas = k5_checks(pd_kernels, big, dev, smi)
+    pdf_meas = pd_fused_phase(pd_kernels, other_counts, f0_meas["f_refs"], big, dev, smi)
+    print(f"[pd_fused] phase 15 wall {time.perf_counter() - t15:.1f} s ({smi})", flush=True)
+
     head = measured["16384x16384 f32"]
+    k5_head = k5_meas[f"{HEADLINE}x{HEADLINE} f32"]
     k3_head = k3_meas["16384x16384 f32"]
     hm = hn = HEADLINE
     k1_bound = bound(4 * hm * hn + 4 * (hm + hn) + 4 * (hn + 1), 4 * hm * hn)
@@ -3380,7 +3648,15 @@ def main():
             ("resident_adapdmp_grid", "adaprox_tpu_torch/csrc/resident_f0_grid.cu",
              "adaprox_tpu/ops/resident.py:2047", "AdaPDM+", "K7b"),
             ("resident_cv_grid", "adaprox_tpu_torch/csrc/resident_cv.cu",
-             "adaprox_tpu/ops/resident.py:1988", "K7c", "K7c"))]}))
+             "adaprox_tpu/ops/resident.py:1988", "K7c", "K7c"))] + [{
+        "name": "fused_pd_primal_update", "route": "cuda",
+        "source": "adaprox_tpu_torch/csrc/fused_pd.cu",
+        "replaces": "adaprox_tpu/ops/pd_kernels.py:127", "launches": pdf_meas["launches"],
+        "max_abs_err": k5_head["max_abs_err"], "ms": k5_head["ms"],
+        "plain_ms": k5_head["plain_ms"], "bound_ms": k5_head["bound"][0],
+        "bound_by": k5_head["bound"][1], "library_ms": None, "two_mv_ms": k5_head["mv_ms"],
+        "ms_at": {k: {"ms": v["ms"], "graph_ms": v["graph_ms"], "bound_ms": v["bound"][0]}
+                  for k, v in k5_meas.items()}}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,5 @@
 """The CUDA kernels K1, K2, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c, K6d, K7a,
-K7b, K7c and K7d on the card against their plain PyTorch versions (K2, K2c, K4, K4b and
+K7b, K7c, K7d and K5 on the card against their plain PyTorch versions (K2, K2c, K4, K4b and
 aGRAAL with the least-squares, logistic and cubic objectives; K6 and K6c with the dual SVM's
 dense Q or factored B; K7a's two cores, their dataset grids K7b, K7c and K7d with the
 square-root lasso's and the least absolute deviation's h).
@@ -1727,3 +1727,173 @@ def test_f0_drivers_resident_grid_is_three_launches(dev, tmp_path, driver):
         assert list(meta) == ["wall_s", "fast_path", "grid_total_s", "fast_methods"]
         assert meta["fast_path"] == "resident-grid" and meta["fast_methods"] == fast
         assert list(meta["wall_s"]) == list(meta["grid_total_s"]) == fast
+
+
+# -- K5, the fused one-pass primal-dual update ---------------------------------------------------
+
+# K5 against its plain version: f32 FMAs in another summation order than cuBLAS's gemv, so
+# each output is held to 1e-5 of its largest magnitude, as K1 is (the prox is 1-Lipschitz in
+# v, so x_new inherits v's rounding; A x_new sums over n rows of A').
+K5_RTOL = 1e-5
+K5_MENU = [("l1", 0.7, 0.0), ("box", -0.5, 0.5), ("elastic", 0.3, 0.2), ("zero", 0.0, 0.0)]
+
+
+def _k5_inputs(dev, n, m, dtype, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    at = (torch.randn(n, m, generator=gen, device=dev) / m**0.5).to(dtype)
+    y, x, grad = (torch.randn(k, generator=gen, device=dev) for k in (m, n, n))
+    return at, y, x, grad
+
+
+def _k5_err(got, want):
+    return max(float((u - w).abs().max() / w.abs().max().clamp_min(1e-30))
+               for u, w in zip(got, want))
+
+
+@pytest.mark.parametrize("n,m", [(16, 8192), (16, 4224), (16, 512), (64, 1024), (256, 777),
+                                 (48, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,p1,p2", K5_MENU)
+def test_k5_matches_plain_on_card(dev, n, m, dtype, kind, p1, p2):
+    """The drivers' padded A' (16 x 8192, 16 x 4224, 16 x 512), an aligned 64 x 1024 and
+    ragged m (777, 1): every output within K5_RTOL of its largest magnitude."""
+    at, y, x, grad = _k5_inputs(dev, n, m, dtype)
+    gamma = torch.tensor(0.37, device=dev)
+    from adaprox_tpu_torch.ops import pd_kernels as tp
+
+    got = tp.fused_pd_primal_update(at, y, x, grad, gamma, p1, p2, prox_kind=kind)
+    want = tp.pd_primal_update_plain(at, y, x, grad, gamma, p1, p2, prox_kind=kind)
+    torch.cuda.synchronize()
+    assert [t.shape for t in got] == [(n,), (n,), (n,), (m,)]
+    assert all(t.dtype == torch.float32 and t.device == at.device for t in got)
+    assert _k5_err(got, want) <= K5_RTOL
+
+
+def test_k5_is_repeatable_and_counts_its_launches(dev):
+    """No atomics: two launches give the same bits; each launch adds one to the counter
+    and a CPU call (the plain version) adds none; gamma as a number or on the card is the
+    same."""
+    from adaprox_tpu_torch.ops import pd_kernels as tp
+
+    at, y, x, grad = _k5_inputs(dev, 4096, 4096, torch.float32, seed=3)
+    before = tp.fused_pd_primal_update.launches
+    one = tp.fused_pd_primal_update(at, y, x, grad, torch.tensor(0.01, device=dev), 0.2)
+    two = tp.fused_pd_primal_update(at, y, x, grad, 0.01, 0.2)
+    assert all(torch.equal(u, w) for u, w in zip(one, two))
+    assert tp.fused_pd_primal_update.launches == before + 2
+    tp.fused_pd_primal_update(at.cpu(), y.cpu(), x.cpu(), grad.cpu(), 0.01, 0.2)
+    assert tp.fused_pd_primal_update.launches == before + 2
+
+
+@pytest.mark.parametrize("kind,p1,p2", K5_MENU)
+def test_k5_keeps_nan_semantics(dev, kind, p1, p2):
+    """jnp's NaN semantics in the prox: a NaN in x gives NaN at its x_new (sign, maximum
+    and clip propagate it) and NaN in every entry of A x_new, as the plain version does;
+    a zero v gives an exact zero (sign(0) = 0)."""
+    from adaprox_tpu_torch.ops import pd_kernels as tp
+
+    at, y, x, grad = _k5_inputs(dev, 32, 256, torch.float32, seed=4)
+    x[5] = float("nan")
+    y[:], grad[7], x[7] = 0.0, 0.0, 0.0
+    got = tp.fused_pd_primal_update(at, y, x, grad, 0.5, p1, p2, prox_kind=kind)
+    want = tp.pd_primal_update_plain(at, y, x, grad, 0.5, p1, p2, prox_kind=kind)
+    for u, w in zip(got, want):
+        assert torch.equal(torch.isnan(u), torch.isnan(w))
+    assert bool(torch.isnan(got[2][5])) and bool(torch.isnan(got[3]).all())
+    assert float(got[2][7]) == 0.0 and not bool(torch.isnan(got[0]).any())
+
+
+def test_k5_refuses_what_it_does_not_take(dev):
+    from adaprox_tpu_torch.ops import pd_kernels as tp
+
+    at, y, x, grad = _k5_inputs(dev, 16, 256, torch.float32)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tp.fused_pd_primal_update(at.double(), y, x, grad, 0.1)
+    with pytest.raises(TypeError, match="float32 y, x and grad"):
+        tp.fused_pd_primal_update(at, y.double(), x, grad, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tp.fused_pd_primal_update(at.t().contiguous().t(), y, x, grad, 0.1)
+    with pytest.raises(TypeError, match="gamma"):
+        tp.fused_pd_primal_update(at, y, x, grad, torch.tensor(0.1))
+    with pytest.raises(ValueError, match="not divisible"):
+        tp.fused_pd_primal_update(at[:12].contiguous(), y, x[:12], grad[:12], 0.1)
+    with pytest.raises(ValueError, match="not divisible"):  # bf16 rows come in 16s
+        tp.fused_pd_primal_update(torch.zeros(8, 256, dtype=torch.bfloat16, device=dev), y,
+                                  x[:8], grad[:8], 0.1)
+
+
+def _all_launch_counts():
+    from adaprox_tpu_torch.ops import resident_f0, resident_mp, resident_pd
+
+    return [f.launches for f in (
+        tk.fused_ls_value_grad, tk.fused_logistic_value_grad, tr.resident_adapgm,
+        tr.resident_rule_sweep, trb.resident_backtracking, trb.resident_bt_sweep,
+        trb.resident_agraal, resident_pd.resident_adapdm_dsvm,
+        resident_pd.resident_adapdm_dsvm_sweep, resident_pd.resident_cv_dsvm,
+        resident_mp.resident_mp_dsvm_sweep, resident_f0.resident_condat_vu,
+        resident_f0.resident_mpls_sweep, resident_f0.resident_adapdmp_sweep,
+        resident_f0.resident_mpls_grid, resident_f0.resident_adapdmp_grid,
+        resident_f0.resident_cv_grid)]
+
+
+@pytest.mark.parametrize("inner", ["l2", "l1"])
+def test_fused_condat_vu_launches_k5_and_nothing_else(dev, inner):
+    """fused_condat_vu on housing_scale's stand-in in f32 on the card: exactly 1 + numit
+    K5 launches (the warm-up and one an iteration) and no other kernel; its objective
+    within 1e-4 of the engine's condat_vu on the card (the same iteration in another
+    summation order), both run to maxit 300 at tol 0, and the engine's counters but the
+    one A x ahead."""
+    import numpy as np
+
+    import adaprox_tpu_torch as apt
+    from adaprox_tpu_torch.ops import pd_kernels as tp
+    from adaprox_tpu_torch.utils.datasets import load_or_synthesize
+
+    x_np, y_np, _ = load_or_synthesize("housing_scale")
+    f, g, h, a_op, norm_a = apt.sqrt_lasso_from_numpy(x_np, y_np, 10.0, inner, device=dev,
+                                                      dtype=torch.float32)
+    m, n = a_op.shape
+    x0, y0 = torch.zeros(n, device=dev), torch.zeros(m, device=dev)
+    others, before = _all_launch_counts(), tp.fused_pd_primal_update.launches
+    res = apt.fused_condat_vu(x0, y0, f=f, g=g, h=h, A=a_op.a, at=a_op.a.t().contiguous(),
+                              Lf=0.0, norm_A=norm_a, tol=0.0, maxit=300)
+    torch.cuda.synchronize()
+    assert tp.fused_pd_primal_update.launches - before == 1 + res.numit == 301
+    assert _all_launch_counts() == others
+    ref = apt.condat_vu(x0, y0, f=f, g=g, h=h, A=a_op, Lf=0.0, norm_A=norm_a, tol=0.0,
+                        maxit=300)
+    obj = float(g(res.x) + h(a_op.matvec(res.x)))
+    obj_ref = float(g(ref.x) + h(a_op.matvec(ref.x)))
+    assert res.x.shape == (n,) and res.y.shape == (m,) and np.isfinite(obj)
+    assert abs(obj - obj_ref) <= 1e-4 * abs(obj_ref)
+    # unconverged, the fused pass has made the next iteration's A x already
+    assert res.counters._replace(A_evals=res.counters.A_evals - 1) == ref.counters
+
+
+@pytest.mark.parametrize("driver", ["square_root_lasso", "least_absolute_deviation"])
+def test_f0_drivers_fused_is_one_k5_pass_an_iteration(dev, tmp_path, driver):
+    """--fused on housing_scale's stand-in at --maxit 300: the Condat-Vu row on K5 (1 + its
+    iterations launches), no whole-solve kernel, the 31 rows with JAX's names and keys, and
+    JAX's meta row (fast_path "fused", fast_methods ["Condat-Vu"])."""
+    import importlib
+
+    from adaprox_tpu_torch.experiments.square_root_lasso import T_VALUES
+    from adaprox_tpu_torch.ops import pd_kernels as tp
+    from adaprox_tpu_torch.utils.logging import read_jsonl
+
+    mod = importlib.import_module(f"adaprox_tpu_torch.experiments.{driver}")
+    others, before = _all_launch_counts(), tp.fused_pd_primal_update.launches
+    mod.main(["--fused", "--datasets", "housing_scale", "--maxit", "300", "--device", "cuda",
+              "--outdir", str(tmp_path), "--no-plot"])
+    rows = read_jsonl(tmp_path / "housing_scale.jsonl")
+    cv = [r for r in rows if r.get("method") == "Condat-Vu"]
+    assert tp.fused_pd_primal_update.launches - before == 1 + len(cv)
+    assert _all_launch_counts() == others
+    assert (cv[0]["A_evals"], cv[0]["At_evals"]) == (2, 1)
+    names = list(dict.fromkeys(r["method"] for r in rows if "norm_res" in r))
+    assert names == (["Condat-Vu"] + [f"Malitsky-Pock (t={t})" for t in T_VALUES]
+                     + [f"AdaPDM+ (t={t})" for t in T_VALUES])
+    assert all(list(r) == ["method", "norm_res", "A_evals", "At_evals"] for r in rows
+               if "norm_res" in r)
+    assert rows[-2]["fast_path"] == "fused" and rows[-2]["fast_methods"] == ["Condat-Vu"]

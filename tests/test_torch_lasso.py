@@ -282,6 +282,15 @@ grid = [all(torch.equal(g[k][d], o[k]) for d in range(2) for k in range(4))
 least_absolute_deviation.main(["--device", "cpu", "--datasets", "housing_scale", "--maxit", "30",
                                "--no-plot", "--resident-grid", "--outdir",
                                sys.argv[1] + "-lad--resident-grid"])
+# the fused primal-dual slice: fused_condat_vu on the least absolute deviation (A' 14 x 506
+# auto-pads to 16 x 512; K5's plain version) against the engine's Condat-Vu above, and the
+# driver's --fused
+rfv = apt.fused_condat_vu(z14, z506, f=fz, g=gl, h=hl, A=al.a, at=al.a.t().contiguous(),
+                          Lf=0.0, norm_A=nal, tol=1e-5, maxit=300)
+f0.append([rfv.x.shape[0], rfv.numit, float(gl(rfv.x) + hl(al.matvec(rfv.x))),
+           float((rfv.x - rcv.x).abs().max())])
+least_absolute_deviation.main(["--device", "cpu", "--datasets", "housing_scale", "--maxit", "30",
+                               "--no-plot", "--fused", "--outdir", sys.argv[1] + "-lad--fused"])
 import adaprox_tpu_torch.experiments.resident_timing  # the card's timing script
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("jax", "jaxlib", "adaprox_tpu"))
@@ -362,16 +371,19 @@ def test_port_runs_the_slice_without_jax(tmp_path):
     # the least absolute deviation: the engine's Condat-Vu, Malitsky-Pock and AdaPDM+
     # and the plain versions of K7d and K7a's two cores on A padded to 512 x 128 take the
     # same iterations to the same objective, the padded coordinates 0; the driver wrote
-    # its 31 rows on both paths
+    # its 31 rows on every path, --fused among them
     (n20, i20, f20, _), (n21, i21, f21, p21), (n22, i22, f22, _) = got["f0"][:3]
-    (n23, i23, f23, _), (n24, i24, f24, p24), (n25, i25, f25, p25) = got["f0"][3:]
+    (n23, i23, f23, _), (n24, i24, f24, p24), (n25, i25, f25, p25) = got["f0"][3:6]
+    # fused_condat_vu: the engine's Condat-Vu iterate, x at its own 14 coordinates
+    (n26, i26, f26, d26), = got["f0"][6:]
+    assert n26 == 14 and i26 == i20 and abs(f26 - f20) < 1e-12 * abs(f20) and d26 < 1e-12
     assert (n20, n21, n22, n23, n24, n25) == (14, 128, 14, 14, 128, 128)
     assert i20 == i21 == i22 == i23 == i24 == i25 == 300 and p21 == p24 == p25 == 0.0
     assert abs(f21 - f20) < 1e-9 * abs(f20) and np.isfinite(f22)
     assert abs(f24 - f23) < 1e-9 * abs(f23) and abs(f25 - f22) < 1e-9 * abs(f22)
     # the dataset grids: every cell equals the solve on its slice (K7c, K7b's two cores)
     assert got["grid"] == [True, True, True]
-    for path, names in (("", 31), ("--resident", 31), ("--resident-grid", 31)):
+    for path, names in (("", 31), ("--resident", 31), ("--resident-grid", 31), ("--fused", 31)):
         rows = tlog.read_jsonl(tmp_path.parent / (tmp_path.name + "-lad" + path)
                                / "housing_scale.jsonl")
         counts = {}

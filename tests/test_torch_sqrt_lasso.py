@@ -541,5 +541,6 @@ def test_driver_says_which_flags_are_not_offered(capsys):
     with pytest.raises(SystemExit):
         tsl.main(["--help"])
     out = " ".join(capsys.readouterr().out.split())
-    assert "--vmap-sweep, --fused and --live are not offered yet" in out
+    assert "--vmap-sweep and --live are not offered yet" in out
     assert "--resident-grid" in out and "one K7c launch" in out
+    assert "--fused" in out and "K5" in out
