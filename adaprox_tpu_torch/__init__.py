@@ -23,7 +23,9 @@ Layout:
                (Condat-Vu), K7a (the MP and AdaPDM+ t-sweeps), K7b (their
                dataset x t grids) and K7c (Condat-Vu over the datasets), and K5,
                the fused one-pass primal-dual update; ElasticNet, PadTail and
-               PadDomain for its solver's menu and auto-pad
+               PadDomain for its solver's menu and auto-pad; the sparse operators
+               ELLOperator (K8, the padded-row gather matvec) and BCSROperator
+               (K9a and K9b, the block-sparse matvecs), and opnorm2
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the primal-dual engine (its
                proximal-gradient case and Condat-Vu), fixed-step Nesterov,
@@ -65,7 +67,9 @@ from .ops.prox import (  # noqa: E402
     Zero,
     conjugate,
 )
-from .ops.linops import DenseOperator, frobenius_norm  # noqa: E402
+from .ops.linops import DenseOperator, frobenius_norm, opnorm2  # noqa: E402
+from .ops.sparse import ELLOperator  # noqa: E402
+from .ops.bcsr import BCSROperator  # noqa: E402
 from .ops.oracles import PadDomain, SmoothOracle, ZeroSmooth  # noqa: E402
 from .ops.pd_kernels import fused_pd_primal_update, pd_primal_update_plain  # noqa: E402
 from .ops.kernels import (  # noqa: E402
@@ -138,8 +142,10 @@ from .solvers.malitsky_pock import malitsky_pock  # noqa: E402
 from .solvers.adapdm_plus import adaptive_linesearch_primal_dual  # noqa: E402
 from .solvers.pd_fused import fused_adaptive_primal_dual, fused_condat_vu  # noqa: E402
 from .convert import (  # noqa: E402
+    bcsr_from_numpy,
     cubic_from_numpy,
     dsvm_from_numpy,
+    ell_from_numpy,
     factored_from_numpy,
     lasso_from_numpy,
     logreg_from_numpy,
@@ -154,7 +160,8 @@ __version__ = "0.1.0"
 __all__ = [
     # ops
     "Zero", "L1Norm", "L2Norm", "ElasticNet", "IndZero", "IndBox", "IndBall2", "Translate",
-    "PadTail", "MoreauConjugate", "conjugate", "DenseOperator", "frobenius_norm", "SmoothOracle",
+    "PadTail", "MoreauConjugate", "conjugate", "DenseOperator", "frobenius_norm", "opnorm2",
+    "ELLOperator", "BCSROperator", "SmoothOracle",
     "ZeroSmooth", "PadDomain", "fused_pd_primal_update", "pd_primal_update_plain",
     "fused_ls_value_grad", "ls_value_grad_plain",
     "fused_logistic_value_grad", "logistic_value_grad_plain",
@@ -179,5 +186,5 @@ __all__ = [
     # carried over from the JAX side
     "lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
     "quadratic_from_numpy", "factored_from_numpy", "dsvm_from_numpy", "sqrt_lasso_from_numpy",
-    "rule_from_numpy",
+    "rule_from_numpy", "ell_from_numpy", "bcsr_from_numpy",
 ]

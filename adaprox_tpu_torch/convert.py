@@ -16,18 +16,49 @@ from .solvers import rules
 
 __all__ = ["lasso_from_numpy", "logreg_from_numpy", "cubic_from_numpy", "worst_from_numpy",
            "quadratic_from_numpy", "factored_from_numpy", "dsvm_from_numpy",
-           "sqrt_lasso_from_numpy", "rule_from_numpy"]
+           "sqrt_lasso_from_numpy", "rule_from_numpy", "ell_from_numpy", "bcsr_from_numpy"]
 
 _RULES = {cls.__name__: cls for cls in
           (rules.FixedStepsize, rules.MalitskyMishchenkoRule, rules.AdaPGMRule)}
 
 
+def _matrix(a, device, dtype):
+    """A dense matrix as a tensor on ``device`` in ``dtype``; a port operator (one
+    with ``matvec``, e.g. from ``ell_from_numpy``) as it is."""
+    if hasattr(a, "matvec"):
+        return a
+    return torch.as_tensor(np.asarray(a), device=device).to(dtype)
+
+
+def ell_from_numpy(vals, cols, vals_t, rows_t, shape, *, device, dtype):
+    """The port's ``ELLOperator`` of a JAX ``ELLOperator``'s arrays (``np.asarray`` of
+    its ``vals``, ``cols``, ``vals_t``, ``rows_t``; ``shape``) on ``device``, ``vals``
+    in ``dtype``, the index arrays int32."""
+    from .ops.sparse import ELLOperator
+
+    return ELLOperator.from_arrays(vals, cols, vals_t, rows_t, shape, device=device, dtype=dtype)
+
+
+def bcsr_from_numpy(vals, cols, rowptr, vals_t, cols_t, rowptr_t, shape, *, kernel="xla",
+                    device, dtype):
+    """The port's ``BCSROperator`` of a JAX ``BCSROperator``'s arrays (``np.asarray`` of
+    ``vals``, ``cols``, ``rowptr`` and their ``_t`` twins; ``shape``) with the matvec
+    route ``kernel`` on ``device``, ``vals`` in ``dtype``, the index arrays int32; the
+    block rows, padded shape and largest tile counts are derived as JAX derives them."""
+    from .ops.bcsr import BCSROperator
+
+    return BCSROperator.from_arrays(vals, cols, rowptr, vals_t, cols_t, rowptr_t, shape,
+                                    kernel=kernel, device=device, dtype=dtype)
+
+
 def lasso_from_numpy(a, b, lam, *, device, dtype, fused):
     """``(LeastSquares, L1Norm)`` of 0.5||Ax - b||^2 + lam ||x||_1 on
     ``device``. ``dtype`` is the storage dtype of A (bf16 allowed); b and
-    lam take ``dtype`` too unless it is bf16, where they take float32."""
+    lam take ``dtype`` too unless it is bf16, where they take float32. ``a``
+    may be a port operator (``ell_from_numpy``, ``bcsr_from_numpy``), taken as
+    it is."""
     vec_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
-    a_t = torch.as_tensor(np.asarray(a), device=device).to(dtype)
+    a_t = _matrix(a, device, dtype)
     b_t = torch.as_tensor(np.asarray(b), device=device).to(vec_dtype)
     lam_t = torch.as_tensor(float(np.asarray(lam)), dtype=vec_dtype, device=device)
     return LeastSquares(a_t, b_t, fused=fused), L1Norm(lam_t)
@@ -38,9 +69,9 @@ def logreg_from_numpy(x, y, lam, *, device, dtype, fused):
     (m, n) and labels ``y`` in {0, 1}, plus lam ||w||_1, on ``device``; the
     bias is folded into w[-1] (w has n + 1 entries). ``dtype`` is the storage
     dtype of x (bf16 allowed); y and lam take ``dtype`` too unless it is bf16,
-    where they take float32."""
+    where they take float32. ``x`` may be a port operator, taken as it is."""
     vec_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
-    x_t = torch.as_tensor(np.asarray(x), device=device).to(dtype)
+    x_t = _matrix(x, device, dtype)
     y_t = torch.as_tensor(np.asarray(y), device=device).to(vec_dtype)
     lam_t = torch.as_tensor(float(np.asarray(lam)), dtype=vec_dtype, device=device)
     return LogisticLoss(x_t, y_t, fused=fused), L1Norm(lam_t)

@@ -22,6 +22,35 @@ __all__ = ["LeastSquares", "LogisticLoss", "Quadratic", "FactoredQuadratic", "Cu
            "WorstQuadratic"]
 
 
+def _mv(a, v):
+    """a @ v, accumulated in ``v``'s dtype for bf16 storage. ``a`` may also be any
+    linear operator with ``matvec`` (``ops.sparse.ELLOperator``,
+    ``ops.bcsr.BCSROperator``): the sparse data path plugs into the oracles here."""
+    if isinstance(a, torch.Tensor):
+        return torch.mv(a.to(acc_dtype(a, v)), v)
+    return a.matvec(v)
+
+
+def _vm(v, a):
+    """a' @ v, the transposed matvec (``rmatvec`` of an operator)."""
+    if isinstance(a, torch.Tensor):
+        return torch.mv(a.to(acc_dtype(a, v)).t(), v)
+    return a.rmatvec(v)
+
+
+def _data(module, name, a, fused, kernel):
+    """Keep the data ``a`` on ``module``: a tensor as a buffer, an operator as an
+    attribute. ``fused=True`` takes a tensor only: the fused kernel ``kernel`` reads
+    A itself, and an operator is refused rather than quietly given two matvecs."""
+    if isinstance(a, torch.Tensor):
+        module.register_buffer(name, a)
+        return
+    if fused:
+        raise ValueError(f"fused=True runs {kernel} on a dense tensor {name}; "
+                         f"{type(a).__name__} is an operator: pass fused=False")
+    setattr(module, name, a)
+
+
 class LeastSquares(nn.Module, SmoothOracle):
     """f(w) = 0.5 * ||A w - b||^2, with ``a`` and ``b`` as buffers.
 
@@ -32,11 +61,15 @@ class LeastSquares(nn.Module, SmoothOracle):
     (``ops.kernels.fused_ls_value_grad``); aux = gradient. On CUDA tensors
     that launches the hand-written kernel or raises; on CPU tensors it is the
     plain version. Any (m, n) is taken.
+
+    ``a`` may also be a linear operator (``ELLOperator``, ``BCSROperator``,
+    ``DenseOperator``): its ``matvec`` and ``rmatvec`` take the two matvecs'
+    places. ``fused=True`` with an operator raises a ``ValueError``.
     """
 
     def __init__(self, a, b, fused=False):
         super().__init__()
-        self.register_buffer("a", a)
+        _data(self, "a", a, fused, "K1")
         self.register_buffer("b", b)
         self.fused = fused
 
@@ -46,15 +79,14 @@ class LeastSquares(nn.Module, SmoothOracle):
     def value_and_aux(self, w):
         if self.fused:
             return kernels.fused_ls_value_grad(self.a, self.b, w)
-        a = self.a.to(acc_dtype(self.a, w))
-        res = torch.mv(a, w) - self.b
+        res = _mv(self.a, w) - self.b
         return 0.5 * torch.sum(res * res), res
 
     def grad_from_aux(self, w, aux):
         del w
         if self.fused:
             return aux  # K1 already produced the gradient
-        return torch.mv(self.a.to(acc_dtype(self.a, aux)).t(), aux)
+        return _vm(aux, self.a)
 
     def bregman_from_aux(self, dx, aux, aux_prev):
         # 0.5||A dx||^2. Non-fused aux is the residual: ||res - res_prev||^2 is
@@ -84,11 +116,14 @@ class LogisticLoss(nn.Module, SmoothOracle):
     tensors that launches the hand-written kernel or raises; on CPU tensors
     it is the plain version. Any (m, n) is taken: the JAX package takes its
     fused branch only on TPU-tile-aligned X, a tiling limit K3 does not have.
+
+    ``x`` may also be a linear operator, as ``LeastSquares``'s ``a``; ``fused=True``
+    with an operator raises a ``ValueError``.
     """
 
     def __init__(self, x, y, fused=False):
         super().__init__()
-        self.register_buffer("x", x)
+        _data(self, "x", x, fused, "K3")
         self.register_buffer("y", y)
         self.fused = fused
 
@@ -99,7 +134,7 @@ class LogisticLoss(nn.Module, SmoothOracle):
         if self.fused:
             f_x, gw, gb = kernels.fused_logistic_value_grad(self.x, self.y, w[:-1], w[-1])
             return f_x, torch.cat([gw, gb[None]]).to(w.dtype)
-        logits = torch.mv(self.x.to(acc_dtype(self.x, w)), w[:-1]) + w[-1]
+        logits = _mv(self.x, w[:-1]) + w[-1]
         terms, probs = kernels.logistic_terms(logits, self.y)
         return -torch.mean(terms), probs
 
@@ -107,7 +142,7 @@ class LogisticLoss(nn.Module, SmoothOracle):
         if self.fused:
             return aux  # K3 already produced the gradient
         diff = aux - self.y
-        gw = torch.mv(self.x.to(acc_dtype(self.x, diff)).t(), diff) / self.y.shape[0]
+        gw = _vm(diff, self.x) / self.y.shape[0]
         return torch.cat([gw, torch.mean(diff)[None]]).to(w.dtype)
 
 

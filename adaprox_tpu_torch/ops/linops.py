@@ -1,12 +1,15 @@
 """Linear operators and the accumulation-dtype policy (counterpart of
-``adaprox_tpu/ops/linops.py``): ``DenseOperator``, ``frobenius_norm`` and
-``acc_dtype``, single-sourced here."""
+``adaprox_tpu/ops/linops.py``): ``DenseOperator``, ``frobenius_norm``,
+``acc_dtype`` and ``opnorm2``, single-sourced here. The sparse operators are
+``ops.sparse.ELLOperator`` and ``ops.bcsr.BCSROperator``."""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["DenseOperator", "acc_dtype", "frobenius_norm"]
+from ..utils.jax_random import normal
+
+__all__ = ["DenseOperator", "acc_dtype", "frobenius_norm", "opnorm2", "widened"]
 
 
 def acc_dtype(a, v):
@@ -22,6 +25,44 @@ def frobenius_norm(a):
     8-mantissa-bit sum over millions of squares is meaningless)."""
     a = a.float() if a.dtype == torch.bfloat16 else a
     return torch.sqrt(torch.sum(a * a))
+
+
+def widened(dtype):
+    """The iteration dtype of a power iteration over storage of ``dtype``: bf16
+    widened to float32 (a bf16 power iteration would hand the stepsize bounds a
+    sigma_max 0.5-1% off), any other dtype as it is."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
+def opnorm2(op, iters=100, key=None, n=None, dtype=None, device=None):
+    """The largest singular value of the linear operator ``op`` by power iteration
+    on A'A, one ``matvec`` and one ``rmatvec`` a step (counterpart of JAX's
+    ``opnorm2``, which replaces the reference's exact ``opnorm(A)``,
+    experiments/lasso/runme.jl:81).
+
+    The start vector is ``jax.random.normal(PRNGKey(key), (n,), dtype)``
+    (``utils.jax_random``; ``key`` an integer seed, 0 by default), normalised. ``n``
+    defaults to ``op.shape[1]``; ``dtype`` to the storage dtype of ``op.a`` widened to
+    float32 (float32 without ``op.a``); ``device`` to ``op.a``'s (else the CPU). A zero
+    operator keeps v, and the norm is then 0."""
+    store = getattr(op, "a", None)
+    if n is None:
+        n = op.shape[1] if hasattr(op, "shape") else None
+    if n is None:
+        raise ValueError("pass n= for operators without a .shape")
+    if dtype is None:
+        dtype = widened(store.dtype) if store is not None else torch.float32
+    if device is None:
+        device = store.device if store is not None else "cpu"
+    draw = normal(0 if key is None else key, (int(n),), str(dtype).removeprefix("torch."))
+    v = torch.from_numpy(draw).to(device)
+    v = v / torch.sqrt(torch.sum(v * v))
+    for _ in range(int(iters)):
+        w = op.rmatvec(op.matvec(v))
+        nrm = torch.sqrt(torch.sum(w * w))
+        # a zero (or numerically null) operator keeps v instead of 0/0
+        v = torch.where(nrm > 0, w / torch.where(nrm > 0, nrm, torch.ones_like(nrm)), v)
+    return torch.sqrt(torch.sum(op.matvec(v) ** 2))
 
 
 class DenseOperator:
@@ -47,3 +88,7 @@ class DenseOperator:
         """The Frobenius norm, Julia's ``norm(A)`` on a matrix, which the
         reference takes for norm_A (experiments/dual_svm/runme.jl:59)."""
         return frobenius_norm(self.a)
+
+    def opnorm(self, iters=100, key=None):
+        """The largest singular value by ``opnorm2``'s power iteration."""
+        return opnorm2(self, iters=iters, key=key)

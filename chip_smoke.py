@@ -10,8 +10,9 @@ Phases, one line each, any failure exits non-zero:
                (csrc/resident_pd.cu), K6c (csrc/resident_mp.cu), K7d and K7c
                (csrc/resident_cv.cu, one kernel: K7d is its launch over one dataset),
                K7a and K7b (csrc/resident_f0_grid.cu, one kernel a core: K7a is its
-               launch over one dataset), K5 (csrc/fused_pd.cu), one nvcc each, started
-               together, from this checkout's sources
+               launch over one dataset), K5 (csrc/fused_pd.cu), K8 (csrc/ell_matvec.cu),
+               K9a and K9b (csrc/bcsr_matvec.cu), one nvcc each, started together, from
+               this checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
@@ -163,6 +164,23 @@ Phases, one line each, any failure exits non-zero:
                phase 13's f64 CPU Condat-Vu, timed beside the engine's condat_vu; the PD
                headline (AdaPDM, 200 iterations at 16384^2): fused f32 and bf16 A' beside
                the engine's two torch.mv, iterations/s and GB/s of A; the phase's wall
+ 16. sparse:   the sparse data path ([sparse] lines) on the case of
+               experiments/sparse_calibration.py (8192 x 16384 f32, each (64, 512) tile
+               nonzero with probability 0.1, Gaussian inside, from a seed): ELLOperator,
+               BCSROperator ("pallas", "slab", "xla") and DenseOperator over it; K8
+               (csrc/ell_matvec.cu), K9a and K9b (csrc/bcsr_matvec.cu) against their
+               plain versions both ways (A x over A's structure, A'y over A''s), within
+               SPARSE_RTOL of the largest |a||x| row sum, two launches the same bits, K9b
+               equal to K9a bit for bit, the "xla" route the same bits twice; each timed
+               by CUDA events beside its plain version, its bound, cuSPARSE's CSR product,
+               the BSR product at (64, 512) where PyTorch takes it and dense torch.mv;
+               opnorm2 over ELL, BCSR and dense; then through the engine at SPARSE_MAXIT
+               iterations, each solve counted alone: AdaPGM on the lasso over all five
+               operators, AdaPDM on the square-root lasso over ELL, BCSR "pallas" and
+               dense, AdaPGM on the logistic loss over ELL and dense (each route's kernel
+               launched once a matvec, no other kernel; each sparse route's final
+               objective within SPARSE_OBJ_RTOL of the dense route's, CPU-calibrated);
+               the phase's wall
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -3225,6 +3243,196 @@ def pd_fused_phase(pd_kernels, others, f_refs, big, dev, smi):
     return dict(launches=launches, cv=cv_meas, head=head)
 
 
+# Phase 16, the sparse path: each kernel against its plain version on the slice's case
+# (experiments/sparse_calibration.py: 8192 x 16384 f32, 10% of the (64, 512) tiles
+# nonzero), both directions, within SPARSE_RTOL of the largest row sum of |a_ij x_j|
+# (f32 sums in another order; a lost or doubled tile would be of order 1); the engine's
+# solves over it at SPARSE_MAXIT iterations, each sparse route's final objective within
+# SPARSE_OBJ_RTOL of the dense route's (calibrated on the CPU, beside the constant).
+SPARSE_RTOL = 1e-5
+# opnorm2's 50 power iterations over the three operators on the card: the same iteration
+# from JAX's draw, in three summation orders
+SPARSE_OPNORM_RTOL = 1e-5
+SPARSE_KERNELS = (("K8", "ell_matvec", "adaprox_tpu_torch/csrc/ell_matvec.cu",
+                   "adaprox_tpu/ops/sparse.py:111"),
+                  ("K9a", "bcsr_matvec", "adaprox_tpu_torch/csrc/bcsr_matvec.cu",
+                   "adaprox_tpu/ops/bcsr.py:105"),
+                  ("K9b", "bcsr_matvec_slab", "adaprox_tpu_torch/csrc/bcsr_matvec.cu",
+                   "adaprox_tpu/ops/bcsr.py:182"))
+
+
+def sparse_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def library_ms(fn):
+    """CUDA-event ms of one PyTorch call that computes the same product (a yardstick
+    only: the port never calls it), or None and the reason where PyTorch refuses it."""
+    try:
+        return event_ms(fn), None
+    except (RuntimeError, NotImplementedError) as exc:
+        torch.cuda.synchronize()
+        return None, f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
+
+
+def sparse_checks(sparse, bcsr, ops, d_t, dev, smi):
+    """Phase 16, K8, K9a and K9b against their plain versions on the slice's case, both
+    directions: within SPARSE_RTOL of the largest |a| |x| row sum, two launches the same
+    bits, K9b (slab 8) equal to K9a bit for bit, the "xla" route the same bits twice;
+    each timed (CUDA events, 20 calls) beside its plain version, its bound, cuSPARSE's CSR
+    product, the BSR product at (64, 512) where PyTorch takes it, and dense torch.mv.
+    Returns {kernel: {direction: measurements}}."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    ell, bc = ops["ell"], ops["pallas"]
+    m, n = ell.shape
+    csr = {"A x": d_t.to_sparse_csr(), "A'y": d_t.t().contiguous().to_sparse_csr()}
+    try:
+        bsr = {"A x": d_t.to_sparse_bsr(bc.vals.shape[1:]),
+               "A'y": d_t.t().contiguous().to_sparse_bsr(bc.vals_t.shape[1:])}
+    except (RuntimeError, NotImplementedError) as exc:
+        bsr = {k: str(exc).splitlines()[0][:120] for k in ("A x", "A'y")}
+    meas = {name: {} for name, *_ in SPARSE_KERNELS}
+    for direction, (ev, ec), (bv, bcol, brp, brows, bmax), size, dense_mv in (
+            ("A x", (ell.vals, ell.cols), (bc.vals, bc.cols, bc.rowptr, bc.rows, bc.max_bpr),
+             n, lambda v: torch.mv(d_t, v)),
+            ("A'y", (ell.vals_t, ell.rows_t),
+             (bc.vals_t, bc.cols_t, bc.rowptr_t, bc.rows_t, bc.max_bpr_t), m,
+             lambda v: torch.mv(d_t.t(), v))):
+        x = torch.randn(size, generator=gen, device=dev)
+        nbr = brp.shape[0] - 1
+        lib = library_ms(lambda: torch.mv(csr[direction], x))
+        lib_bsr = (library_ms(lambda: torch.mv(bsr[direction], x))
+                   if isinstance(bsr[direction], torch.Tensor) else (None, bsr[direction]))
+        dense_ms = event_ms(lambda: dense_mv(x))
+        y_dense = dense_mv(x)
+        cases = (
+            ("K8", lambda: sparse.ell_matvec(ev, ec, x),
+             lambda: sparse.ell_matvec_plain(ev, ec, x, ev.shape[0]),
+             lambda: sparse.ell_matvec_plain(ev.abs(), ec, x.abs(), ev.shape[0]),
+             sparse_bytes(ev, ec, x) + 4 * ev.shape[0], 2 * ev.numel()),
+            ("K9a", lambda: bcsr.bcsr_matvec(bv, bcol, brp, bmax, x),
+             lambda: bcsr.bcsr_matvec_plain(bv, bcol, brows, x, nbr, rowptr=brp),
+             lambda: bcsr.bcsr_matvec_plain(bv.abs(), bcol, brows, x.abs(), nbr, rowptr=brp),
+             sparse_bytes(bv, bcol, brp, x) + 4 * nbr * bv.shape[1], 2 * bv.numel()),
+            ("K9b", lambda: bcsr.bcsr_matvec_slab(bv, bcol, brows, nbr, x),
+             lambda: bcsr.bcsr_matvec_plain(bv, bcol, brows, x, nbr, rowptr=brp),
+             lambda: bcsr.bcsr_matvec_plain(bv.abs(), bcol, brows, x.abs(), nbr, rowptr=brp),
+             sparse_bytes(bv, bcol, brows, x) + 4 * nbr * bv.shape[1], 2 * bv.numel()))
+        outs = {}
+        for name, kernel, plain, magnitude, nbytes, flops in cases:
+            got, again, want = kernel(), kernel(), plain()
+            scale = float(magnitude().max())
+            torch.cuda.synchronize()
+            abs_err = float((got - want).abs().max())
+            same = torch.equal(got, again)
+            check(same and math.isfinite(abs_err) and abs_err <= SPARSE_RTOL * scale,
+                  f"{name} {direction}: max |kernel - plain| {abs_err} (scale {scale}), same "
+                  f"bits twice {same}")
+            outs[name] = got
+            check(float((got[:y_dense.shape[0]] - y_dense).abs().max()) <= SPARSE_RTOL * scale,
+                  f"{name} {direction} disagrees with the dense torch.mv")
+            b = bound(nbytes, flops)
+            meas[name][direction] = dict(
+                ms=event_ms(kernel), plain_ms=event_ms(plain), bound=b, max_abs_err=abs_err,
+                library_ms=lib[0], bsr_ms=lib_bsr[0], dense_ms=dense_ms)
+        xla_same = torch.equal(cases[1][2](), cases[1][2]())
+        check(torch.equal(outs["K9b"], outs["K9a"]) and xla_same,
+              f"{direction}: K9b equal to K9a bit for bit {torch.equal(outs['K9b'], outs['K9a'])}"
+              f", the xla route the same bits twice {xla_same}")
+        parts = [f"{name} {v[direction]['ms']:.4f} ms (plain {v[direction]['plain_ms']:.4f}, "
+                 f"bound {v[direction]['bound'][0]:.4f} {v[direction]['bound'][1]}, max abs err "
+                 f"{v[direction]['max_abs_err']:.2e})" for name, v in meas.items()]
+        print(f"[sparse] {direction} at {m}x{n} f32, ELL k {ev.shape[1]}, BCSR {bv.shape[0]} "
+              f"tiles of {tuple(bv.shape[1:])}: {'; '.join(parts)}; two launches the same bits, "
+              f"K9b = K9a bit for bit, the xla route the same bits twice (tol {SPARSE_RTOL:g} "
+              f"of the largest |a||x| row sum) | cuSPARSE CSR "
+              f"{'%.4f ms' % lib[0] if lib[0] is not None else lib[1]}, BSR "
+              f"{'%.4f ms' % lib_bsr[0] if lib_bsr[0] is not None else lib_bsr[1]}, dense "
+              f"torch.mv {dense_ms:.4f} ms ({smi})", flush=True)
+    return meas
+
+
+def sparse_phase(sparse, bcsr, others, dev, smi):
+    """Phase 16: the slice's case on the card, its operators (ELL, BCSR by "pallas",
+    "slab" and "xla", dense), the kernels against their plain versions (sparse_checks),
+    opnorm2 over three of them, then the engine's solves through the user's entry points:
+    AdaPGM on the lasso over all five, AdaPDM on the square-root lasso over ELL, BCSR
+    "pallas" and dense, AdaPGM on the logistic loss over ELL and dense. Each solve is
+    counted alone: its route's kernel launched once a matvec (two an oracle call, A_evals
+    + At_evals for AdaPDM), no other kernel; its final objective within SPARSE_OBJ_RTOL
+    of the dense route's. Returns the kernels line's measurements."""
+    from adaprox_tpu_torch.experiments import sparse_calibration as sc
+
+    t0 = time.perf_counter()
+    d = sc.sparse_case()
+    ops = sc.operators(d, dev)
+    d_t = ops["dense"].a
+    bc = ops["pallas"]
+    print(f"[sparse] the case {d.shape} f32, (64, 512) tiles at {sc.SPARSE_DENSITY:g} (seed "
+          f"{sc.SPARSE_SEED}): ELL k {ops['ell'].vals.shape[1]} (A, "
+          f"{sparse_bytes(ops['ell'].vals, ops['ell'].cols) / 1e6:.1f} MB), kt "
+          f"{ops['ell'].vals_t.shape[1]} (A', {sparse_bytes(ops['ell'].vals_t, ops['ell'].rows_t) / 1e6:.1f} MB); "
+          f"BCSR A {bc.vals.shape[0]} tiles (block density {bc.block_density:.4f}, "
+          f"{sparse_bytes(bc.vals) / 1e6:.1f} MB, max_bpr {bc.max_bpr}), A' {bc.vals_t.shape[0]} "
+          f"tiles ({bc.vals_t.shape[0] / ((bc.rowptr_t.shape[0] - 1) * -(-d.shape[0] // 512)):.4f}, "
+          f"{sparse_bytes(bc.vals_t) / 1e6:.1f} MB, max_bpr_t {bc.max_bpr_t}); dense "
+          f"{sparse_bytes(d_t) / 1e6:.1f} MB; built in {time.perf_counter() - t0:.1f} s ({smi})",
+          flush=True)
+    meas = sparse_checks(sparse, bcsr, ops, d_t, dev, smi)
+
+    norms = {r: float(ops[r].opnorm(iters=50)) for r in ("ell", "pallas", "dense")}
+    err = max(abs(v - norms["dense"]) / norms["dense"] for v in norms.values())
+    check(err <= SPARSE_OPNORM_RTOL, f"opnorm2 over the operators: {norms}")
+    print(f"[sparse] opnorm2 (50 power iterations from JAX's draw): "
+          f"{', '.join(f'{r} {v:.6f}' for r, v in norms.items())} (rel spread {err:.2e}, tol "
+          f"{SPARSE_OPNORM_RTOL:g}) ({smi})", flush=True)
+
+    def counts():
+        return (sparse.ell_matvec.launches, bcsr.bcsr_matvec.launches,
+                bcsr.bcsr_matvec_slab.launches)
+
+    launches = [0, 0, 0]
+    walls = {}
+    for name, routes in (("lasso", ("ell", "pallas", "slab", "xla", "dense")),
+                         ("sqrt_lasso", ("ell", "pallas", "dense")), ("logreg", ("ell", "dense"))):
+        prob = sc.problem(name, ops["dense"])
+        objs = {}
+        for route in routes:
+            before = others()
+            sparse.ell_matvec.launches = bcsr.bcsr_matvec.launches = 0
+            bcsr.bcsr_matvec_slab.launches = 0
+            t1 = time.perf_counter()
+            res = sc.solve(name, ops[route], prob)
+            torch.cuda.synchronize()
+            walls[(name, route)] = time.perf_counter() - t1
+            got = counts()
+            c = res.counters
+            mvs = c.A_evals + c.At_evals if name == "sqrt_lasso" else 2 * c.f_evals
+            want = {"ell": (mvs, 0, 0), "pallas": (0, mvs, 0), "slab": (0, 0, mvs)}.get(
+                route, (0, 0, 0))
+            check(got == want and others() == before and res.numit == sc.SPARSE_MAXIT,
+                  f"{name} over {route}: launches (K8, K9a, K9b) {got}, not {want}, or another "
+                  f"kernel ran, or numit {res.numit}")
+            launches = [a + b for a, b in zip(launches, got)]
+            objs[route] = sc.objective(name, ops["dense"], prob, res.x)
+        gaps = {r: abs(v - objs["dense"]) / abs(objs["dense"]) for r, v in objs.items()}
+        check(all(math.isfinite(v) for v in objs.values())
+              and max(gaps.values()) <= sc.SPARSE_OBJ_RTOL,
+              f"{name}: final objectives {objs} (gaps to dense {gaps})")
+        print(f"[sparse] {name} through the engine, {sc.SPARSE_MAXIT} iterations (tol 0) over "
+              f"{', '.join(routes)}: final objective dense {objs['dense']:.7g}, gaps "
+              f"{', '.join(f'{r} {g:.2e}' for r, g in gaps.items() if r != 'dense')} (bound "
+              f"{sc.SPARSE_OBJ_RTOL:g}, CPU-calibrated); each route's kernel launched once a "
+              f"matvec, no other kernel; ms an iteration "
+              f"{', '.join(f'{r} {1e3 * walls[(name, r)] / sc.SPARSE_MAXIT:.4f}' for r in routes)}"
+              f" ({smi})", flush=True)
+    print(f"[sparse] launches on the path: K8 {launches[0]}, K9a {launches[1]}, K9b "
+          f"{launches[2]} ({smi})", flush=True)
+    del ops, d_t
+    return dict(kernels=meas, launches=dict(zip(("K8", "K9a", "K9b"), launches)), walls=walls)
+
+
 def main():
     # 1. device --------------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: needs a CUDA device")
@@ -3239,14 +3447,14 @@ def main():
     from adaprox_tpu_torch.experiments import lasso
     from adaprox_tpu_torch.experiments.common import pad_tiles
     from adaprox_tpu_torch.models.synthetic import random_lasso
-    from adaprox_tpu_torch.ops import (kernels, pd_kernels, resident, resident_bt, resident_f0,
-                                       resident_mp, resident_pd)
+    from adaprox_tpu_torch.ops import (bcsr, kernels, pd_kernels, resident, resident_bt,
+                                       resident_f0, resident_mp, resident_pd, sparse)
     from adaprox_tpu_torch.utils.logging import read_jsonl
     from adaprox_tpu_torch.utils.profiling import timed
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(10) as pool:
+    with ThreadPoolExecutor(12) as pool:
         builds = [(name, pool.submit(build)) for name, build in
                   (("K1", kernels.build_library),
                    ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
@@ -3257,13 +3465,15 @@ def main():
                    ("K6c", resident_mp.build_library),
                    ("K7d/K7c", resident_f0.build_library),
                    ("K7a/K7b", resident_f0.build_grid_library),
-                   ("K5", pd_kernels.build_library))]
+                   ("K5", pd_kernels.build_library),
+                   ("K8", sparse.build_library),
+                   ("K9a/K9b", bcsr.build_library))]
         for name, fut in builds:
             lib_path = fut.result()
             regs = ptxas_report(lib_path.with_suffix(".log").read_text())
             print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
                   f"bytes: {'; '.join(regs)})", flush=True)
-    print(f"[build] all ten in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all twelve in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -3315,7 +3525,8 @@ def main():
         resident_f0.resident_mpls_sweep.launches = resident_f0.resident_adapdmp_sweep.launches = 0
         resident_f0.resident_cv_grid.launches = resident_f0.resident_mpls_grid.launches = 0
         resident_f0.resident_adapdmp_grid.launches = 0
-        pd_kernels.fused_pd_primal_update.launches = 0
+        pd_kernels.fused_pd_primal_update.launches = sparse.ell_matvec.launches = 0
+        bcsr.bcsr_matvec.launches = bcsr.bcsr_matvec_slab.launches = 0
 
     def read_counts():
         """Launches of (K1, K2, K2c, K3, K4, K4b, K4 (aGRAAL)) since zero_counts()."""
@@ -3539,6 +3750,13 @@ def main():
     pdf_meas = pd_fused_phase(pd_kernels, other_counts, f0_meas["f_refs"], big, dev, smi)
     print(f"[pd_fused] phase 15 wall {time.perf_counter() - t15:.1f} s ({smi})", flush=True)
 
+    # 16. the sparse data path -------------------------------------------------------------
+    t16 = time.perf_counter()
+    sp_meas = sparse_phase(
+        sparse, bcsr, lambda: other_counts() + (pd_kernels.fused_pd_primal_update.launches,),
+        dev, smi)
+    print(f"[sparse] phase 16 wall {time.perf_counter() - t16:.1f} s ({smi})", flush=True)
+
     head = measured["16384x16384 f32"]
     k5_head = k5_meas[f"{HEADLINE}x{HEADLINE} f32"]
     k3_head = k3_meas["16384x16384 f32"]
@@ -3656,7 +3874,19 @@ def main():
         "plain_ms": k5_head["plain_ms"], "bound_ms": k5_head["bound"][0],
         "bound_by": k5_head["bound"][1], "library_ms": None, "two_mv_ms": k5_head["mv_ms"],
         "ms_at": {k: {"ms": v["ms"], "graph_ms": v["graph_ms"], "bound_ms": v["bound"][0]}
-                  for k, v in k5_meas.items()}}]}))
+                  for k, v in k5_meas.items()}}] + [{
+        "name": name, "route": "cuda", "source": source, "replaces": replaces,
+        "launches": sp_meas["launches"][key],
+        "max_abs_err": max(v["max_abs_err"] for v in sp_meas["kernels"][key].values()),
+        "ms": sp_meas["kernels"][key]["A x"]["ms"],
+        "plain_ms": sp_meas["kernels"][key]["A x"]["plain_ms"],
+        "bound_ms": sp_meas["kernels"][key]["A x"]["bound"][0],
+        "bound_by": sp_meas["kernels"][key]["A x"]["bound"][1],
+        "library_ms": sp_meas["kernels"][key]["A x"]["library_ms"],
+        "ms_at": {d: {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
+                      "csr_ms": v["library_ms"], "bsr_ms": v["bsr_ms"], "dense_mv_ms": v["dense_ms"]}
+                  for d, v in sp_meas["kernels"][key].items()}}
+        for key, name, source, replaces in SPARSE_KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """The CUDA kernels K1, K2, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c, K6d, K7a,
-K7b, K7c, K7d and K5 on the card against their plain PyTorch versions (K2, K2c, K4, K4b and
-aGRAAL with the least-squares, logistic and cubic objectives; K6 and K6c with the dual SVM's
-dense Q or factored B; K7a's two cores, their dataset grids K7b, K7c and K7d with the
-square-root lasso's and the least absolute deviation's h).
+K7b, K7c, K7d, K5, K8, K9a and K9b on the card against their plain PyTorch versions (K2,
+K2c, K4, K4b and aGRAAL with the least-squares, logistic and cubic objectives; K6 and K6c
+with the dual SVM's dense Q or factored B; K7a's two cores, their dataset grids K7b, K7c
+and K7d with the square-root lasso's and the least absolute deviation's h; K8 under
+ELLOperator and K9a/K9b under BCSROperator in the engine).
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. This file imports no
 JAX, so it runs on a machine without it:
@@ -1897,3 +1898,198 @@ def test_f0_drivers_fused_is_one_k5_pass_an_iteration(dev, tmp_path, driver):
     assert all(list(r) == ["method", "norm_res", "A_evals", "At_evals"] for r in rows
                if "norm_res" in r)
     assert rows[-2]["fast_path"] == "fused" and rows[-2]["fast_methods"] == ["Condat-Vu"]
+
+
+# -- K8, K9a, K9b: the sparse matvecs -------------------------------------------------------
+
+# f32 sums in another order than the plain version's: at most SPARSE_RTOL of the largest
+# sum of |a_ij x_j| of a row (the products' magnitude), as chip_smoke.py holds them
+SPARSE_RTOL = 1e-5
+
+
+def _sparse_err(got, want, scale):
+    return float((got - want).abs().max()) / max(float(scale), 1e-30)
+
+
+def _ell_inputs(dev, m, k, n, dtype, seed=0):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    vals = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+    cols = torch.randint(0, n, (m, k), generator=gen, device=dev, dtype=torch.int32)
+    x = torch.randn(n, generator=gen, device=dev)
+    return vals, cols, x
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 128, 40), (1024, 256, 3000), (4096, 1280, 8192),
+                                   (16, 130, 50), (64, 4, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_matches_plain_on_card(dev, m, k, n, dtype):
+    """K8 against ell_matvec_plain on the same tensors: vector loads (k % 4 == 0) and
+    scalar ones (k 130), f32 and bf16 vals; one launch counted."""
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    vals, cols, x = _ell_inputs(dev, m, k, n, dtype)
+    before = ts.ell_matvec.launches
+    got = ts.ell_matvec(vals, cols, x)
+    torch.cuda.synchronize()
+    assert ts.ell_matvec.launches == before + 1
+    want = ts.ell_matvec_plain(vals, cols, x, m)
+    scale = ts.ell_matvec_plain(vals.float().abs(), cols, x.abs(), m).max()
+    assert got.shape == (m,) and got.dtype == torch.float32
+    assert _sparse_err(got, want, scale) <= SPARSE_RTOL
+
+
+def test_k8_is_repeatable_and_keeps_nan_semantics(dev):
+    """No atomics: two launches give the same bits. The padding entries (val 0, col 0)
+    are not skipped: a NaN x[0] reaches every row that has one, as jnp's sum does."""
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    d = torch.randn(64, 300, device=dev) * (torch.rand(64, 300, device=dev) < 0.1)
+    op = ts.ELLOperator.from_dense(d)
+    x = torch.randn(300, device=dev)
+    assert torch.equal(ts.ell_matvec(op.vals, op.cols, x), ts.ell_matvec(op.vals, op.cols, x))
+    x[0] = float("nan")
+    got = ts.ell_matvec(op.vals, op.cols, x)
+    want = ts.ell_matvec_plain(op.vals, op.cols, x, op.vals.shape[0])
+    assert torch.equal(torch.isnan(got), torch.isnan(want)) and bool(torch.isnan(got).all())
+
+
+def test_k8_refuses_what_it_does_not_take(dev):
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    vals, cols, x = _ell_inputs(dev, 16, 128, 40, torch.float32)
+    with pytest.raises(ValueError, match="m % 8"):
+        ts.ell_matvec(vals[:12].contiguous(), cols[:12].contiguous(), x)
+    with pytest.raises(TypeError, match="float32 x"):
+        ts.ell_matvec(vals, cols, x.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ts.ell_matvec(vals.double(), cols, x)
+    with pytest.raises(TypeError, match="int32"):
+        ts.ell_matvec(vals, cols.long(), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        ts.ell_matvec(vals.t().contiguous().t(), cols, x)
+
+
+def _bcsr_case(dev, m, n, block, density, seed=0):
+    """A (block)-tiled matrix on the card with an empty and a trailing empty block row."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    bm, bn = block
+    mask = torch.rand(-(-m // bm), -(-n // bn), generator=gen, device=dev) < density
+    mask[1, :] = False
+    mask[-1, :] = False
+    d = torch.randn(mask.shape[0] * bm, mask.shape[1] * bn, generator=gen, device=dev)
+    d = (d * mask.repeat_interleave(bm, 0).repeat_interleave(bn, 1))[:m, :n]
+    return d
+
+
+@pytest.mark.parametrize("m,n,block", [(64, 512, (8, 128)), (1024, 4096, (64, 512)),
+                                       (200, 1000, (16, 100)), (48, 390, (8, 130))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_match_plain_and_each_other_on_card(dev, m, n, block, dtype):
+    """K9a and K9b (slab 4 and 8) against bcsr_matvec_plain, both directions; K9b equals
+    K9a bit for bit on finite input (the same row routine, summed in the same order);
+    each launch counted."""
+    from adaprox_tpu_torch.ops import bcsr as tb
+
+    d = _bcsr_case(dev, m, n, block, 0.3)
+    op = tb.BCSROperator.from_dense(d, block, dtype=dtype)
+    for vals, cols, rowptr, rows, max_bpr, size in (
+            (op.vals, op.cols, op.rowptr, op.rows, op.max_bpr, op.padded_shape[1]),
+            (op.vals_t, op.cols_t, op.rowptr_t, op.rows_t, op.max_bpr_t, op.padded_shape[0])):
+        x = torch.randn(-(-size // block[1]) * block[1], device=dev)
+        nbr = rowptr.shape[0] - 1
+        want = tb.bcsr_matvec_plain(vals, cols, rows, x, nbr, rowptr=rowptr)
+        scale = tb.bcsr_matvec_plain(vals.float().abs(), cols, rows, x.abs(), nbr).max()
+        before = (tb.bcsr_matvec.launches, tb.bcsr_matvec_slab.launches)
+        k9a = tb.bcsr_matvec(vals, cols, rowptr, max_bpr, x)
+        slabs = [tb.bcsr_matvec_slab(vals, cols, rows, nbr, x, slab=s) for s in (4, 8)]
+        torch.cuda.synchronize()
+        assert (tb.bcsr_matvec.launches, tb.bcsr_matvec_slab.launches) == (before[0] + 1,
+                                                                            before[1] + 2)
+        assert k9a.shape == (nbr * vals.shape[1],) and k9a.dtype == torch.float32
+        assert _sparse_err(k9a, want, scale) <= SPARSE_RTOL
+        assert all(torch.equal(s, k9a) for s in slabs)
+
+
+def test_k9_repeatable_and_slab_padding_nan(dev):
+    """Two launches give the same bits; a NaN in column block 0 reaches block row 0
+    through K9b's zero padding tiles (as the JAX slab kernel's), not through K9a."""
+    from adaprox_tpu_torch.ops import bcsr as tb
+
+    d = _bcsr_case(dev, 64, 512, (8, 128), 0.4, seed=3)
+    d[:8, :128] = 0.0
+    d[:8, 128:256] = 1.0  # block row 0 holds a tile, not in column block 0
+    op = tb.BCSROperator.from_dense(d, (8, 128))
+    nnzb = op.vals.shape[0]
+    slab = next(s for s in (3, 5, 7, 9) if nnzb % s)
+    x = torch.randn(512, device=dev)
+    k9a = tb.bcsr_matvec(op.vals, op.cols, op.rowptr, op.max_bpr, x)
+    assert torch.equal(k9a, tb.bcsr_matvec(op.vals, op.cols, op.rowptr, op.max_bpr, x))
+    k9b = tb.bcsr_matvec_slab(op.vals, op.cols, op.rows, 8, x, slab=slab)
+    assert torch.equal(k9b, tb.bcsr_matvec_slab(op.vals, op.cols, op.rows, 8, x, slab=slab))
+    x[0] = float("nan")
+    k9a = tb.bcsr_matvec(op.vals, op.cols, op.rowptr, op.max_bpr, x)
+    k9b = tb.bcsr_matvec_slab(op.vals, op.cols, op.rows, 8, x, slab=slab)
+    want = tb.bcsr_matvec_slab(op.vals.cpu(), op.cols.cpu(), op.rows.cpu(), 8, x.cpu(),
+                               slab=slab)
+    assert torch.equal(torch.isnan(k9b).cpu(), torch.isnan(want))
+    assert bool(torch.isnan(k9b[:8]).all()) and bool(torch.isfinite(k9a[:8]).all())
+
+
+def test_k9_refuses_what_it_does_not_take(dev):
+    from adaprox_tpu_torch.ops import bcsr as tb
+
+    op = tb.BCSROperator.from_dense(_bcsr_case(dev, 64, 512, (8, 128), 0.4), (8, 128))
+    x = torch.randn(512, device=dev)
+    with pytest.raises(TypeError, match="float32 x"):
+        tb.bcsr_matvec(op.vals, op.cols, op.rowptr, op.max_bpr, x.double())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tb.bcsr_matvec_slab(op.vals.double(), op.cols, op.rows, 8, x)
+    with pytest.raises(TypeError, match="int32"):
+        tb.bcsr_matvec(op.vals, op.cols.long(), op.rowptr, op.max_bpr, x)
+    with pytest.raises(ValueError, match="whole blocks"):
+        tb.bcsr_matvec(op.vals, op.cols, op.rowptr, op.max_bpr, x[:500])
+    with pytest.raises(ValueError, match="contiguous"):
+        tb.bcsr_matvec(op.vals.transpose(1, 2).contiguous().transpose(1, 2), op.cols,
+                       op.rowptr, op.max_bpr, x)
+
+
+def _sparse_launches():
+    from adaprox_tpu_torch.ops import bcsr as tb
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    return (ts.ell_matvec.launches, tb.bcsr_matvec.launches, tb.bcsr_matvec_slab.launches)
+
+
+@pytest.mark.parametrize("route", ["ell", "pallas", "slab", "xla", "dense"])
+def test_lasso_engine_over_operators_on_card(dev, route):
+    """AdaPGM through adaptive_proxgrad on a lasso with LeastSquares(a=op) on the card:
+    the route's kernel launched once a matvec, two an oracle call (f_evals), the "xla"
+    and dense routes launching none of the three; the "xla" route's matvec the same bits
+    twice; the objective after 200 iterations within 1e-4 of the dense route's."""
+    import adaprox_tpu_torch as apt
+
+    d = _bcsr_case(dev, 1024, 4096, (64, 512), 0.2, seed=5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    b = torch.randn(1024, generator=gen, device=dev)
+    lam = 0.1 * float((d.t() @ b).abs().max())
+    ops = {"ell": lambda: apt.ELLOperator.from_dense(d),
+           "dense": lambda: apt.DenseOperator(d)}
+    op = ops.get(route, lambda: apt.BCSROperator.from_dense(d, kernel=route))()
+    if route == "xla":
+        assert torch.equal(op.matvec(b.new_ones(4096)), op.matvec(b.new_ones(4096)))
+    gamma = 1.0 / float(torch.linalg.matrix_norm(d, 2)) ** 2
+    kw = dict(g=apt.L1Norm(lam), rule=apt.AdaPGMRule(gamma=gamma), tol=0.0, maxit=200)
+    before = _sparse_launches()
+    res = apt.adaptive_proxgrad(torch.zeros(4096, device=dev), f=apt.LeastSquares(op, b), **kw)
+    torch.cuda.synchronize()
+    got = [a - c for a, c in zip(_sparse_launches(), before)]
+    calls = 2 * res.counters.f_evals
+    want = {"ell": [calls, 0, 0], "pallas": [0, calls, 0], "slab": [0, 0, calls]}
+    assert got == want.get(route, [0, 0, 0]) and res.numit == 200
+    ref = apt.adaptive_proxgrad(torch.zeros(4096, device=dev), f=apt.LeastSquares(d, b), **kw)
+    obj = float(apt.LeastSquares(d, b).value(res.x) + kw["g"](res.x))
+    obj_ref = float(apt.LeastSquares(d, b).value(ref.x) + kw["g"](ref.x))
+    assert abs(obj - obj_ref) <= 1e-4 * abs(obj_ref)
