@@ -25,18 +25,21 @@ Layout:
                the fused one-pass primal-dual update; ElasticNet, PadTail and
                PadDomain for its solver's menu and auto-pad; the sparse operators
                ELLOperator (K8, the padded-row gather matvec) and BCSROperator
-               (K9a and K9b, the block-sparse matvecs), and opnorm2
+               (K9a and K9b, the block-sparse matvecs), and opnorm2; K2b (B
+               independent whole solves in one launch) and the stream probes
+               K10a-c (read, copy, bulk-copy read)
   csrc/        CUDA C++ sources of the kernels
   solvers/     stepsize rules, counters/records, the primal-dual engine (its
                proximal-gradient case and Condat-Vu), fixed-step Nesterov,
-               backtracking PG and Nesterov, aGRAAL, Malitsky-Pock, AdaPDM+, and
-               the primal-dual engine on K5 (AdaPDM and Condat-Vu)
+               backtracking PG and Nesterov, aGRAAL, Malitsky-Pock, AdaPDM+, the
+               primal-dual engine on K5 (AdaPDM and Condat-Vu), and batched solves
+               (batch_solve, regularization_path)
   models/      objectives (least squares, logistic, the quadratic and its
                factored form, the cubic model, the worst-case quadratic) and
                problem generators
-  utils/       JSONL telemetry, timing on the card, the LIBSVM loader, the
-               datasets (with their synthetic fallback) and a numpy copy of
-               JAX's normal draw
+  utils/       JSONL telemetry, timing, tracing and throughput on the card,
+               the LIBSVM loader, the datasets (with their synthetic fallback)
+               and a numpy copy of JAX's normal draw
   experiments/ the lasso, sparse logistic regression, cubic-regularized
                logistic, Nesterov worst-case, dual SVM, square-root lasso and
                least-absolute-deviation drivers
@@ -104,6 +107,7 @@ from .ops.resident_f0 import (  # noqa: E402
 )
 from .ops.resident import (  # noqa: E402
     resident_adapgm,
+    resident_adapgm_batch,
     resident_adapgm_l1,
     resident_logreg_l1,
     resident_records,
@@ -165,7 +169,8 @@ __all__ = [
     "ZeroSmooth", "PadDomain", "fused_pd_primal_update", "pd_primal_update_plain",
     "fused_ls_value_grad", "ls_value_grad_plain",
     "fused_logistic_value_grad", "logistic_value_grad_plain",
-    "resident_adapgm", "resident_adapgm_l1", "resident_logreg_l1", "resident_records",
+    "resident_adapgm", "resident_adapgm_batch", "resident_adapgm_l1", "resident_logreg_l1",
+    "resident_records",
     "resident_rule_sweep", "resident_supported", "rule_rows", "resident_backtracking",
     "resident_bt_sweep", "resident_bt_records", "resident_agraal", "resident_agraal_records",
     "resident_adapdm_dsvm", "resident_adapdm_dsvm_sweep", "resident_cv_dsvm",

@@ -10,7 +10,9 @@
 //   K2   resident_adapgm (bodies _kernel / _kernel_rec, core _solve_core): one solve;
 //   K2c  resident_rule_sweep (body _rule_sweep_kernel_rec): R method rows of one
 //        problem, each with its own gamma0, tol, rule, momentum flag and iteration
-//        cap, always in record mode.
+//        cap, always in record mode;
+//   K2b  resident_adapgm_batch (body _batch_kernel): B independent problems, each
+//        with its own A, b, x0 and [gamma0, tol, p1, p2, cube_c], no record mode.
 // Step-size rules fixed / Malitsky-Mishchenko / AdaPGM, or the Nesterov momentum
 // body (fixed_nesterov with mu = 0); prox l1 / box / elastic / zero; optional
 // per-iteration records. A is stored as f32 or bf16; every iterate, reduction and
@@ -76,10 +78,13 @@
 //     order, so all CTAs reach bit-identical stop decisions: no CTA leaves the
 //     loop while another waits at a barrier. No atomics anywhere: two launches on
 //     the same inputs give the same bits.
-//   * K2 and K2c run the same device routine (solve below). K2c walks its rows
-//     one after another, every CTA in the same order, with a grid sync between
-//     rows. The same shape gives the same grid, so row j of a sweep is
-//     bit-identical to one K2 launch with row j's arguments.
+//   * K2, K2c and K2b run the same device routine (solve below). K2c walks its
+//     rows and K2b its instances one after another, every CTA in the same
+//     order, with a grid sync between two. The same shape gives the same grid,
+//     so row j of a sweep, or instance i of a batch, is bit-identical to one K2
+//     launch with its arguments. K2b's instances share the scratch; their A is
+//     read through a batch stride, which is 0 when every instance solves over
+//     one A (a regularization path): one copy of A and of A^T serves them all.
 //   * IEEE semantics are part of the algorithm: AdaPGM divides by sqrt(0) on
 //     purpose and min() drops the inf; 0/0 is guarded to 0; MM guards
 //     isfinite(g0). So no fast math, no flush to zero, IEEE division and
@@ -106,7 +111,7 @@ static_assert(kPrimal2 == kP1Breg, "K2 passes no res_prev: P1 writes kRes2 and k
 // grad_prev by parity, v (n) v of a rule iteration or z of a momentum iteration,
 // res (m) A x - b, sigmoid(A x) - b ("logreg") or H x ("cubic").
 
-// One solve: K2's arguments, or one row of K2c's table.
+// One solve: K2's arguments, one row of K2c's table, or an instance of K2b.
 struct Solve {
   float gamma0, tol;
   int rule, momentum, cap;
@@ -413,8 +418,55 @@ __global__ void __launch_bounds__(kThreads, 1) resident_pg_sweep_kernel(const Pr
   }
 }
 
+// K2b's instances: per instance a slice of each table, A and A^T through their
+// batch strides (0: one A for every instance).
+struct Batch {
+  const void* a;       // instance i's A at a + i * a_stride elements
+  const void* at;      // instance i's second layout at at + i * at_stride elements
+  long long a_stride, at_stride;
+  const float* b;      // (count, m)
+  const float* x0;     // (count, n)
+  const float* scal;   // (count, 5): gamma0, tol, p1, p2, cube_c
+  int count, rule, momentum;
+  float* x_out;        // (count, n)
+  float* stats;        // (count, 4)
+};
+
+// K2b: the instances one after another, with a grid sync between two, as K2c
+// runs its rows; the instance's problem and arguments sit in shared memory
+// (K2c's reason). K2 keeps its own kernel: launched through this one over one
+// instance, K2's whole solve read 1.9% slower and its cubic iteration at 128^2
+// 2.3% (experiments/resident_timing.py on an H100, six runs of each build in
+// turns in one call), so the fold was not shown to be free.
+template <typename T, int VA, int VT>
+__global__ void __launch_bounds__(kThreads, 1) resident_pg_batch_kernel(const Problem p,
+                                                                       const Batch bt) {
+  __shared__ Problem q;
+  __shared__ Solve s;
+  for (int i = 0; i < bt.count; ++i) {
+    // also a block barrier: every thread is done with the previous instance's q, s
+    if (i > 0) cg::this_grid().sync();
+    if (threadIdx.x == 0) {
+      const float* sc = bt.scal + 5LL * i;
+      q = p;
+      q.a = static_cast<const T*>(bt.a) + i * bt.a_stride;
+      q.at = static_cast<const T*>(bt.at) + i * bt.at_stride;
+      q.b = bt.b + i * p.m;
+      q.x0 = bt.x0 + i * p.n;
+      q.p1 = sc[2];
+      q.p2 = sc[3];
+      q.cube_c = sc[4];
+      s = Solve{sc[0], sc[1], bt.rule, bt.momentum, p.hist_len, bt.x_out + i * p.n,
+                bt.stats + 4LL * i, nullptr};
+    }
+    __syncthreads();
+    solve<T, VA, VT>(q, s);
+  }
+}
+
 ADAPROX_PICK(resident_pg_kernel)
 ADAPROX_PICK(resident_pg_sweep_kernel)
+ADAPROX_PICK(resident_pg_batch_kernel)
 #undef ADAPROX_PICK
 
 }  // namespace
@@ -474,6 +526,34 @@ int adaprox_resident_pg_sweep(int obj_kind, float obj_pad, float obj_div, float 
                p2, obj_pad, obj_div, cube_c, obj_kind, prox_kind, 1};
   Rows r{rows_f, rows_i, rows, x_out, stats, hist};
   return static_cast<int>(launch(kernel, prob, &r, kParts, part_len, stream_ptr));
+}
+
+// K2b, the batch: `count` independent solves in one launch, without records.
+// The leading arguments as for adaprox_resident_pg, whose scratch the
+// instances share; cube_c is not read (each instance's is its scal row's).
+// Instance i reads A at a + i * a_stride and its second layout at at + i *
+// at_stride (elements; 0 for one shared A), b (count, m), x0 (count, n) and
+// scal (count, 5) = gamma0, tol, p1, p2, cube_c, on the device; it writes
+// x_out (count, n) and stats (count, 4). rule_kind, momentum and maxit (every
+// instance's cap) are the launch's.
+int adaprox_resident_pg_batch(int obj_kind, float obj_pad, float obj_div, float cube_c,
+                              const void* a, const void* at, int a_is_bf16, int va, int vt,
+                              const float* b, const float* x0, float* xs, float* gs, float* v,
+                              float* res, float* part, long long part_len, long long a_stride,
+                              long long at_stride, const float* scal, int count, float* x_out,
+                              float* stats, long long m, long long n, int maxit, int prox_kind,
+                              int rule_kind, int momentum, void* stream_ptr) {
+  const void* kernel = pick_resident_pg_batch_kernel(a_is_bf16, va, vt);
+  if (kernel == nullptr || !problem_ok(obj_kind, m, n, maxit, prox_kind) ||
+      rule_kind < kFixed || rule_kind > kAdaPGM || count < 1 || !scal || a_stride < 0 ||
+      at_stride < 0) {
+    return cudaErrorInvalidValue;
+  }
+  Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, 0.f,
+               0.f, obj_pad, obj_div, cube_c, obj_kind, prox_kind, 0};
+  Batch bt{a,     at,        a_stride,      at_stride, b,     x0,
+           scal,  count,     rule_kind,     momentum != 0, x_out, stats};
+  return static_cast<int>(launch(kernel, prob, &bt, kParts, part_len, stream_ptr));
 }
 
 const char* adaprox_resident_pg_error_string(int err) {

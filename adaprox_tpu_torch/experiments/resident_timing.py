@@ -14,6 +14,8 @@ A in f32 unless a case says bf16. Cases:
   *_it_us          K2 or a one-row K2c sweep, fixed rule, zero prox, tol 0,
                    1000 iterations, per iteration:
     ls_it_us         the reference size's A and b (K2's f32 4,4 instantiation)
+    sync_floor_it_us 8x2176 (one CTA per SM, each warp a dot product of 8): the
+                     grid syncs and the latency
     ls_bf16_it_us    the same, bf16 storage (bf16 8,8)
     ls_bf16_8_1_it_us  4092x1024, bf16 storage (bf16 8,1: rows of A^T
                      take scalar loads)
@@ -205,6 +207,9 @@ def k2_k4_timing(dev, reps):
                       reps=reps)
     out["solve_ms"], out["solve_numit"] = 1e3 * secs, int(res[1])
     out["ls_it_us"] = k2_it_us(a, b, gam)
+    a8 = torch.randn(8, 2176, generator=torch.Generator(device=dev).manual_seed(8),
+                     device=dev) / 2176
+    out["sync_floor_it_us"] = k2_it_us(a8, torch.ones(8, device=dev), 1.0 / float((a8 * a8).sum()))
     out["ls_bf16_it_us"] = k2_it_us(a.to(torch.bfloat16), b, gam)
 
     gen = torch.Generator(device=dev)

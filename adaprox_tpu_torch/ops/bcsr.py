@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from . import kernels
-from .linops import frobenius_norm, opnorm2, widened
+from .linops import opnorm2, storage_norm, widened
 from .sparse import _pad_up
 
 __all__ = ["BCSROperator", "bcsr_from_dense", "bcsr_matvec", "bcsr_matvec_slab",
@@ -345,8 +345,9 @@ class BCSROperator:
                         y, self.shape[1])
 
     def norm(self):
-        """The Frobenius norm (Julia's ``norm(A)``; the stored tiles hold every nonzero)."""
-        return frobenius_norm(self.vals)
+        """The Frobenius norm (Julia's ``norm(A)``; the stored tiles hold every nonzero),
+        in the storage dtype as the JAX package computes it (bf16 vals: a bf16 norm)."""
+        return storage_norm(self.vals)
 
     def opnorm(self, iters=100, key=None):
         return opnorm2(self, iters=iters, key=key, n=self.shape[1],

@@ -1,17 +1,21 @@
 """The fused oracles: K1, least squares (f = 0.5 ||A x - b||^2 and
 grad = A'(A x - b)), and K3, the mean logistic loss (f and its gradient in
-the weights and the bias), each in one call.
+the weights and the bias), each in one call; and the stream probes K10a
+(``hbm_read_reduce``), K10b (``hbm_copy``) and K10c (``hbm_dma_read``),
+which measure how fast the card reads and writes device memory.
 
-Counterparts of ``adaprox_tpu/ops/kernels.py::fused_ls_value_grad`` and
-``fused_logistic_value_grad`` (Pallas TPU kernels). Here each kernel is
-hand-written CUDA C++ for Hopper (``csrc/fused_ls.cu``,
-``csrc/fused_logistic.cu``), built with nvcc for ``sm_90a`` at first use into
+Counterparts of ``adaprox_tpu/ops/kernels.py::fused_ls_value_grad``,
+``fused_logistic_value_grad``, ``hbm_read_reduce``, ``hbm_copy`` and
+``hbm_dma_read`` (Pallas TPU kernels). Here each kernel is hand-written CUDA
+C++ for Hopper (``csrc/fused_ls.cu``, ``csrc/fused_logistic.cu``,
+``csrc/hbm_stream.cu``), built with nvcc for ``sm_90a`` at first use into
 ``adaprox_tpu_torch/_build/`` (keyed on the source's content hash), loaded
 with ctypes (one library handle a source) and launched on the current
 stream.
 
-Both wrappers dispatch on where their tensors lie: CPU tensors take the plain
-versions ``ls_value_grad_plain`` / ``logistic_value_grad_plain``; CUDA
+Every wrapper dispatches on where its tensors lie: CPU tensors take the plain
+version (``ls_value_grad_plain``, ``logistic_value_grad_plain``,
+``hbm_read_reduce_plain``, ``hbm_copy_plain``, ``hbm_dma_read_plain``); CUDA
 tensors launch the kernel or raise. There is no fall-back from CUDA to the
 plain version.
 """
@@ -30,11 +34,14 @@ import torch
 from .linops import acc_dtype
 
 __all__ = ["fused_ls_value_grad", "ls_value_grad_plain", "fused_logistic_value_grad",
-           "logistic_value_grad_plain", "logistic_terms", "build_library", "load_library"]
+           "logistic_value_grad_plain", "logistic_terms", "pick_block_rows",
+           "hbm_read_reduce", "hbm_read_reduce_plain", "hbm_copy", "hbm_copy_plain",
+           "hbm_dma_read", "hbm_dma_read_plain", "build_library", "load_library"]
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "fused_ls.cu"
 LOGISTIC_SOURCE = _PKG / "csrc" / "fused_logistic.cu"
+STREAM_SOURCE = _PKG / "csrc" / "hbm_stream.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -265,3 +272,234 @@ def fused_logistic_value_grad(x_mat, y, w, w_bias):
 
 
 fused_logistic_value_grad.launches = 0
+
+
+# -- K10a-c, the stream probes ---------------------------------------------------------
+
+_SUBLANE = 8
+_VMEM_TILE_BUDGET = 4 * 1024 * 1024
+
+
+def pick_block_rows(m: int, n: int, itemsize: int) -> int:
+    """The JAX package's row tile for ``hbm_read_reduce`` (a copy of
+    ``adaprox_tpu/ops/kernels.py::pick_block_rows``): the largest multiple of
+    8 rows (16 for 2-byte types), at most 1024, whose (rows, n) tile fits 4
+    MiB and divides m, else the smallest such quantum. The port validates a
+    ``block_rows`` with it as JAX does; the CUDA grid does not depend on it."""
+    q = _SUBLANE * (2 if itemsize == 2 else 1)
+    tm = max(q, min(1024, _VMEM_TILE_BUDGET // max(1, n * itemsize)))
+    tm = (tm // q) * q
+    while tm > q and m % tm:
+        tm -= q
+    return tm
+
+
+def _stream_library():
+    return load_library(STREAM_SOURCE, NVCC_FLAGS, {
+        "adaprox_hbm_max_grid": ([], _I),
+        "adaprox_hbm_read_reduce": ([_P, _I, _LL, _I, ctypes.c_float, _P, _LL, _P, _P], _I),
+        "adaprox_hbm_copy": ([_P, _P, _I, _LL, _I, ctypes.c_float, _P], _I),
+        "adaprox_hbm_dma_piece": ([_LL, _I, _I], _LL),
+        "adaprox_hbm_dma_read": ([_P, _I, _LL, _LL, _I, _I, ctypes.c_float, _P, _LL, _P, _P],
+                                 _I),
+        "adaprox_hbm_error_string": ([_I], ctypes.c_char_p)})
+
+
+def _stream_check(a, repeats, what):
+    """(m, n) of a probe's array, after the checks both devices share."""
+    if a.ndim != 2:
+        raise ValueError(f"{what} takes an (m, n) array, got shape {tuple(a.shape)}")
+    if not a.dtype.is_floating_point:
+        raise TypeError(f"{what} takes a float array, got {a.dtype}")
+    if int(repeats) != repeats or repeats < 1:
+        raise ValueError(f"{what} needs repeats >= 1, got {repeats}")
+    return a.shape
+
+
+def _stream_cuda(a, what):
+    """The library, after the checks of a CUDA launch; raises on anything else."""
+    if a.device.type != "cuda":
+        raise ValueError(f"{what} runs on CPU (plain version) or CUDA tensors, not {a.device}")
+    if a.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what} reads float32 or bfloat16 on CUDA, got {a.dtype}")
+    if not a.is_contiguous() or a.data_ptr() % 16:
+        raise ValueError(f"{what} needs a contiguous, 16-byte aligned array on CUDA")
+    if a.numel() < 1:
+        raise ValueError(f"{what} needs a non-empty array, got {tuple(a.shape)}")
+    return _stream_library()
+
+
+def _stream_raise(lib, err, what):
+    if err:
+        msg = lib.adaprox_hbm_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def hbm_read_reduce_plain(a, scale=1.0, block_rows=None, repeats=1):
+    """The plain version of K10a: ``repeats`` passes of the column sums of
+    ``a`` in f32, each times ``scale`` into an f32 (n,) accumulator, then
+    its sum (JAX's accumulator; one pass is one column sum of the whole
+    array). ``block_rows`` is validated only."""
+    del block_rows
+    s = torch.tensor(scale, dtype=torch.float32, device=a.device)
+    acc = torch.zeros(a.shape[1], dtype=torch.float32, device=a.device)
+    for _ in range(repeats):
+        acc += s * torch.sum(a, 0, dtype=torch.float32)
+    return torch.sum(acc)
+
+
+def hbm_read_reduce(a, scale=1.0, block_rows=None, repeats=1):
+    """repeats * scale * sum(a) in f32, as ``repeats`` full read passes over
+    ``a`` inside one launch: the read-stream probe (K10a). Time it over an
+    array past the L2 (bench's 16384^2 f32, 1 GiB) to read the card's
+    attainable read rate; divide by ``repeats``.
+
+    ``block_rows`` (default ``pick_block_rows``) must divide m, as in the JAX
+    package, where it is the row tile; it does not shape the CUDA grid.
+    Returns a 0-d f32 tensor. CPU tensors: the plain version, any float
+    dtype. CUDA tensors: K10a on a contiguous, 16-byte aligned f32 or bf16
+    array; each launch adds one to ``hbm_read_reduce.launches``."""
+    m, n = _stream_check(a, repeats, "hbm_read_reduce")
+    tm = block_rows or pick_block_rows(m, n, a.element_size())
+    if m % tm:
+        raise ValueError(f"block_rows={tm} does not divide m={m}: the skipped tail would "
+                         "silently inflate the measured bandwidth")
+    if a.device.type == "cpu":
+        return hbm_read_reduce_plain(a, scale, tm, repeats)
+    lib = _stream_cuda(a, "hbm_read_reduce")
+    f32 = dict(dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        part = torch.empty(lib.adaprox_hbm_max_grid(), dtype=torch.float64, device=a.device)
+        out = torch.empty((), **f32)
+        err = lib.adaprox_hbm_read_reduce(
+            a.data_ptr(), int(a.dtype == torch.bfloat16), a.numel(), int(repeats), float(scale),
+            part.data_ptr(), part.numel(), out.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _stream_raise(lib, err, "K10a")
+    hbm_read_reduce.launches += 1
+    return out
+
+
+hbm_read_reduce.launches = 0
+
+
+def _copy_token(out):
+    """JAX's token of the copy: the first block's first 128 values and the
+    last block's last 128, summed in f32."""
+    return (torch.sum(out[0, :128].to(torch.float32))
+            + torch.sum(out[-1, -128:].to(torch.float32)))
+
+
+def hbm_copy_plain(a, scale=1.0, block_rows=128, repeats=1, out=None):
+    """The plain version of K10b: ``repeats`` times out = a * scale, with
+    scale rounded to f32 and then to a's dtype, as JAX casts it. Returns
+    JAX's token; ``out`` (optional) receives the copy."""
+    del block_rows
+    s = torch.tensor(scale, dtype=torch.float32, device=a.device).to(a.dtype)
+    out = torch.empty_like(a) if out is None else out
+    for _ in range(repeats):
+        torch.mul(a, s, out=out)
+    return _copy_token(out)
+
+
+def hbm_copy(a, scale=1.0, block_rows=128, repeats=1, out=None):
+    """``repeats`` scaled copies out = a * scale (scale cast to a's dtype
+    first) in one launch: the read+write stream probe (K10b), two passes over
+    device memory a repeat. ``block_rows`` must divide m, as in the JAX
+    package. Returns JAX's token, the f32 sum of out[0, :128] and
+    out[-1, -128:], which samples both ends of the copy; ``out`` (optional,
+    a's shape and dtype) receives the copy, which is otherwise allocated.
+
+    CPU tensors: the plain version. CUDA tensors: K10b on a contiguous,
+    16-byte aligned f32 or bf16 array; each launch adds one to
+    ``hbm_copy.launches``."""
+    m, _ = _stream_check(a, repeats, "hbm_copy")
+    if m % block_rows:
+        raise ValueError(f"block_rows={block_rows} does not divide m={m}")
+    if out is not None and (out.shape != a.shape or out.dtype != a.dtype
+                            or out.device != a.device or not out.is_contiguous()):
+        raise ValueError("hbm_copy's out must be a contiguous array of a's shape, dtype and "
+                         "device")
+    if a.device.type == "cpu":
+        return hbm_copy_plain(a, scale, block_rows, repeats, out)
+    lib = _stream_cuda(a, "hbm_copy")
+    out = torch.empty_like(a) if out is None else out
+    if out.data_ptr() % 16:
+        raise ValueError("hbm_copy needs a 16-byte aligned out on CUDA")
+    with torch.cuda.device(a.device):
+        err = lib.adaprox_hbm_copy(a.data_ptr(), out.data_ptr(), int(a.dtype == torch.bfloat16),
+                                   a.numel(), int(repeats), float(scale),
+                                   torch.cuda.current_stream(a.device).cuda_stream)
+    _stream_raise(lib, err, "K10b")
+    hbm_copy.launches += 1
+    return _copy_token(out)
+
+
+hbm_copy.launches = 0
+
+
+def _dma_check(a, chunk_rows, depth, repeats):
+    """(chunks, the clamped depth) of a DMA probe, after JAX's checks."""
+    m, n = _stream_check(a, repeats, "hbm_dma_read")
+    if m % chunk_rows:
+        raise ValueError(f"chunk_rows={chunk_rows} does not divide m={m}")
+    if n < 128:
+        raise ValueError(f"hbm_dma_read's token reads columns 0:128; n={n} is narrower")
+    if depth < 1:
+        raise ValueError(f"hbm_dma_read needs depth >= 1, got {depth}")
+    chunks = m // chunk_rows
+    # a deeper pipeline than there are chunks would start copies the loop never
+    # waits on (copies in flight at exit)
+    return chunks, min(depth, chunks * repeats)
+
+
+def hbm_dma_read_plain(a, scale=1.0, chunk_rows=128, depth=3, repeats=1):
+    """The plain version of K10c's token: a (128,) f32 accumulator that
+    starts at scale and adds row 0, columns 0:128, of every chunk of every
+    pass, in pass order; then its sum. Reads only those rows."""
+    chunks, _ = _dma_check(a, chunk_rows, depth, repeats)
+    rows = a[::chunk_rows, :128].to(torch.float32)
+    acc = torch.full((128,), float(scale), dtype=torch.float32, device=a.device)
+    for _ in range(repeats):
+        for i in range(chunks):
+            acc += rows[i]
+    return torch.sum(acc)
+
+
+def hbm_dma_read(a, scale=1.0, chunk_rows=128, depth=3, repeats=1):
+    """``repeats`` full passes over ``a`` as a ``depth``-deep pipeline of
+    asynchronous bulk copies (TMA) into shared memory, with almost no compute
+    (K10c): the ceiling probe, whether anything reads faster than K10a.
+    ``chunk_rows`` must divide m; depth is clamped to chunks * repeats, as in
+    the JAX package. Returns the token, the f32 sum of a (128,) accumulator
+    that starts at scale and adds row 0, columns 0:128, of every chunk read.
+
+    On the card each chunk is cut into pieces that fit shared memory, dealt
+    to one CTA an SM, each with ``depth`` copies in flight. CPU tensors: the
+    plain version. CUDA tensors: K10c on a contiguous, 16-byte aligned f32 or
+    bf16 array whose chunks are whole 16-byte units; each launch adds one to
+    ``hbm_dma_read.launches``."""
+    chunks, depth = _dma_check(a, chunk_rows, depth, repeats)
+    if a.device.type == "cpu":
+        return hbm_dma_read_plain(a, scale, chunk_rows, depth, repeats)
+    lib = _stream_cuda(a, "hbm_dma_read")
+    chunk_bytes = chunk_rows * a.shape[1] * a.element_size()
+    if chunk_bytes % 16:
+        raise ValueError(f"hbm_dma_read copies whole 16-byte units on CUDA; a chunk of "
+                         f"{chunk_bytes} bytes is not")
+    if lib.adaprox_hbm_dma_piece(chunk_bytes, depth, a.element_size()) == 0:
+        raise ValueError(f"depth={depth} leaves no room for a token row in shared memory")
+    f32 = dict(dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        part = torch.empty(128 * lib.adaprox_hbm_max_grid(), **f32)
+        out = torch.empty((), **f32)
+        err = lib.adaprox_hbm_dma_read(
+            a.data_ptr(), int(a.dtype == torch.bfloat16), chunks, chunk_bytes, depth,
+            int(repeats), float(scale), part.data_ptr(), part.numel(), out.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    _stream_raise(lib, err, "K10c")
+    hbm_dma_read.launches += 1
+    return out
+
+
+hbm_dma_read.launches = 0

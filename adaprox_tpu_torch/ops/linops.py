@@ -9,7 +9,8 @@ import torch
 
 from ..utils.jax_random import normal
 
-__all__ = ["DenseOperator", "acc_dtype", "frobenius_norm", "opnorm2", "widened"]
+__all__ = ["DenseOperator", "acc_dtype", "frobenius_norm", "opnorm2", "storage_norm",
+           "widened"]
 
 
 def acc_dtype(a, v):
@@ -25,6 +26,16 @@ def frobenius_norm(a):
     8-mantissa-bit sum over millions of squares is meaningless)."""
     a = a.float() if a.dtype == torch.bfloat16 else a
     return torch.sqrt(torch.sum(a * a))
+
+
+def storage_norm(a):
+    """sqrt(sum(a^2)) in a's own dtype, as the JAX package's sparse operators
+    (``jnp.sqrt(jnp.sum(vals * vals))``) and ``jnp.linalg.norm`` compute it:
+    the squares rounded to a's dtype, summed in >= f32, the sum rounded to
+    a's dtype, then the root. bf16 storage gives a bf16 norm, where
+    ``frobenius_norm`` upcasts first."""
+    acc = torch.float32 if a.dtype in (torch.bfloat16, torch.float16) else a.dtype
+    return torch.sqrt(torch.sum(a * a, dtype=acc).to(a.dtype))
 
 
 def widened(dtype):

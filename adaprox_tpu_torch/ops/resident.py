@@ -40,7 +40,8 @@ from . import kernels
 
 __all__ = ["resident_supported", "resident_adapgm", "resident_adapgm_plain",
            "resident_adapgm_l1", "resident_logreg_l1", "resident_rule_sweep",
-           "resident_rule_sweep_plain", "rule_rows", "resident_records", "build_library"]
+           "resident_rule_sweep_plain", "rule_rows", "resident_records",
+           "resident_adapgm_batch", "resident_adapgm_batch_plain", "build_library"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_pg.cu"
 # -fmad=false: every elementwise expression rounds after each operation, as the
@@ -110,8 +111,8 @@ _RULE_OF_IDX = {v: k for k, v in _RULE_IDX.items()}
 
 def _m_div(a, m_true):
     """The logistic mean's divisor and the padded rows: ``m_true`` (the
-    unpadded row count) or all rows of ``a``."""
-    m = a.shape[0]
+    unpadded row count) or all rows of ``a`` ((m, n), or (B, m, n))."""
+    m = a.shape[-2]
     m_div = float(m if m_true is None else m_true)
     if not 0 < m_div <= m:
         raise ValueError(f"m_true must be in (0, m={m}], got {m_true}")
@@ -123,12 +124,12 @@ def _transposed(a, obj_kind, m_true):
     mean's divisor for "logreg" (in A's storage dtype, as the JAX package's
     caller builds it), so that the kernel and the plain version read the
     same bits. "cubic" reads no second layout (H x is its only matvec): A
-    itself, no copy."""
+    itself, no copy. A (B, m, n) batch is transposed instance by instance."""
     if obj_kind == "logreg":
-        return a.t() / _m_div(a, m_true)[0]
+        return a.transpose(-2, -1) / _m_div(a, m_true)[0]
     if obj_kind == "cubic":
         return a
-    return a.t()
+    return a.transpose(-2, -1)
 
 
 def _obj_split(a, at, b, obj_kind, m_true, cube_c=0.0):
@@ -261,12 +262,13 @@ def build_library():
 
 def _library():
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    # obj_kind .. part_len, the leading arguments of both entries
+    # obj_kind .. part_len, the leading arguments of the three entries
     problem = [i, f, f, f, p, p, i, i, i, p, p, p, p, p, p, p, ll]
     return kernels.load_library(SOURCE, NVCC_FLAGS, {
         "adaprox_resident_pg_parts": ([], i),
         "adaprox_resident_pg": (problem + [p, p, p, ll, ll, i, f, f, f, f, i, i, i, i, p], i),
         "adaprox_resident_pg_sweep": (problem + [p, p, i, p, p, p, ll, ll, i, f, f, i, p], i),
+        "adaprox_resident_pg_batch": (problem + [ll, ll, p, i, p, p, ll, ll, i, i, i, i, p], i),
         "adaprox_resident_pg_error_string": ([i], ctypes.c_char_p)})
 
 
@@ -285,24 +287,31 @@ def _vec(rows_len, dtype, ptr):
 def _problem(parts, a, b, x0, obj_kind, m_true, cube_c, what, res_bufs=1):
     """Check what the kernels take, and make the second layout of A and the
     scratch of one launch (on the current device), with ``parts`` partial
-    sums a CTA and ``res_bufs`` buffers of length m. Returns the leading
+    sums a CTA and ``res_bufs`` buffers of length m. A batch (K2b) passes a
+    (B, m, n) A, b (B, m) and x0 (B, n), whose instances share the scratch;
+    its A may be one contiguous (m, n) A expanded over B (batch stride 0),
+    which is read from that one copy, with one A^T. Returns the leading
     arguments of the C entries (obj_kind .. part_len) and the tensors behind
     them."""
     if a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} stores A as float32 or bfloat16 on CUDA, got {a.dtype}")
     if b.dtype != torch.float32 or x0.dtype != torch.float32:
         raise TypeError(f"{what} takes float32 b and x0 on CUDA, got {b.dtype}, {x0.dtype}")
-    if not (a.is_contiguous() and b.is_contiguous() and x0.is_contiguous()):
-        raise ValueError(f"{what} needs contiguous a, b and x0")
-    m, n = a.shape
+    # a batch's one shared A: the instances read its one copy
+    a_one = a[0] if a.ndim == 3 and a.stride(0) == 0 else a
+    if not (a_one.is_contiguous() and b.is_contiguous() and x0.is_contiguous()):
+        raise ValueError(f"{what} needs contiguous a, b and x0"
+                         + (", or one contiguous (m, n) A expanded over B" if a.ndim == 3
+                            else ""))
+    m, n = a.shape[-2:]
     if m < 1 or n < 1:
         raise ValueError(f"{what} needs m, n >= 1, got {tuple(a.shape)}")
     dev = a.device
     m_div, pad_rows = _m_div(a, m_true) if obj_kind == "logreg" else (1.0, 0.0)
     # the second layout, made once per launch (it counts in the launch's time);
     # "cubic" passes A itself, which its kernel does not read as A^T
-    at = _transposed(a, obj_kind, m_true).contiguous()
-    va, vt = _vec(n, a.dtype, a.data_ptr()), _vec(m, a.dtype, at.data_ptr())
+    at = _transposed(a_one, obj_kind, m_true).contiguous()
+    va, vt = _vec(n, a.dtype, a_one.data_ptr()), _vec(m, a.dtype, at.data_ptr())
     f32 = dict(dtype=torch.float32, device=dev)
     xs, gs = torch.empty((2, n), **f32), torch.empty((2, n), **f32)
     v, res = torch.empty(n, **f32), torch.empty(res_bufs * m, **f32)
@@ -310,8 +319,8 @@ def _problem(parts, a, b, x0, obj_kind, m_true, cube_c, what, res_bufs=1):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # zeroed: "ls" and "logreg" never write the cubic objective's slot, which P3 sums
     part = torch.zeros(parts * sms, **f32)
-    tensors = (a, at, b, x0, xs, gs, v, res, part)
-    args = [_OBJ_IDX[obj_kind], pad_rows * math.log(2.0), m_div, float(cube_c), a.data_ptr(),
+    tensors = (a_one, at, b, x0, xs, gs, v, res, part)
+    args = [_OBJ_IDX[obj_kind], pad_rows * math.log(2.0), m_div, float(cube_c), a_one.data_ptr(),
             at.data_ptr(),
             int(a.dtype == torch.bfloat16), va, vt, *(t.data_ptr() for t in tensors[2:]),
             part.numel()]
@@ -536,6 +545,109 @@ def resident_rule_sweep(a, b, x0, rows, tol, maxit, prox_kind="l1", p1=0.0, p2=0
 
 
 resident_rule_sweep.launches = 0
+
+
+# -- K2b, the batch of independent problems ---------------------------------------------
+
+
+def _batch_scal(scal, bsz, dtype):
+    """The (B, 5) [gamma0, tol, p1, p2, cube_c] table in the iterate dtype, a
+    (B, 4) table given a zero cube_c column, as the JAX entry pads it."""
+    scal = torch.as_tensor(scal)
+    if scal.ndim != 2 or scal.shape[0] != bsz or scal.shape[1] not in (4, 5):
+        raise ValueError(f"scal must be (B={bsz}, 4) [gamma0, tol, p1, p2] or (B, 5) with a "
+                         f"trailing cube_c, got {tuple(scal.shape)}")
+    if scal.shape[1] == 4:
+        scal = torch.cat([scal, torch.zeros((bsz, 1), dtype=scal.dtype, device=scal.device)], 1)
+    return scal.to(dtype)
+
+
+def _check_batch(a, b, x0, scal, prox_kind, rule_kind, obj_kind):
+    if rule_kind == "dynamic":
+        raise ValueError("resident_adapgm_batch: rule_kind='dynamic' takes each row's rule from "
+                         "a rows table, which only resident_rule_sweep has (as in the JAX "
+                         "package); pass 'fixed', 'mm' or 'adapgm'")
+    if rule_kind not in _RULES:
+        raise ValueError(f"rule_kind must be one of {sorted(_RULES)}, got {rule_kind!r}")
+    if a.ndim != 3 or b.ndim != 2 or x0.ndim != 2:
+        raise ValueError(f"need a (B, m, n), b (B, m), x0 (B, n); got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(x0.shape)}")
+    bsz = a.shape[0]
+    if bsz < 1 or b.shape[0] != bsz or x0.shape[0] != bsz:
+        raise ValueError(f"need B >= 1 instances in a, b and x0 alike; got {tuple(a.shape)}, "
+                         f"{tuple(b.shape)}, {tuple(x0.shape)}")
+    _check_menu("resident_adapgm_batch", a[0], prox_kind, obj_kind)
+    kernels._check_shapes(a[0], b[0], x0[0])
+    return _batch_scal(scal, bsz, x0.dtype)
+
+
+def resident_adapgm_batch_plain(a, b, x0, scal, maxit, prox_kind="l1", rule_kind="adapgm",
+                                momentum=False, obj_kind="ls", m_true=None):
+    """The plain version of the batch: one ``resident_adapgm_plain`` solve an
+    instance with its row of ``scal``, stacked. Returns what
+    ``resident_adapgm_batch`` returns."""
+    scal = _check_batch(a, b, x0, scal, prox_kind, rule_kind, obj_kind)
+    outs = [resident_adapgm_plain(a[i], b[i], x0[i], sc[0], sc[1], maxit, prox_kind=prox_kind,
+                                  p1=sc[2], p2=sc[3], rule_kind=rule_kind, momentum=momentum,
+                                  obj_kind=obj_kind, m_true=m_true, cube_c=sc[4])
+            for i, sc in enumerate(scal.to(x0.device))]
+    return tuple(torch.stack([o[k] for o in outs]) for k in range(4))
+
+
+def _launch_batch(a, b, x0, scal, maxit, prox_kind, rule_kind, momentum, obj_kind, m_true):
+    lib = _library()
+    dev = a.device
+    bsz, m, n = a.shape
+    with torch.cuda.device(dev):
+        # keep: the tensors behind args; each instance's cube_c is its scal row's
+        args, keep = _problem(lib.adaprox_resident_pg_parts(), a, b, x0, obj_kind, m_true,
+                              0.0, "K2b")
+        stride = 0 if a.stride(0) == 0 else m * n  # A's and A^T's, in elements
+        f32 = dict(dtype=torch.float32, device=dev)
+        scal_d = scal.to(**f32).contiguous()
+        x_out, stats = torch.empty((bsz, n), **f32), torch.empty((bsz, 4), **f32)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.adaprox_resident_pg_batch(
+            *args, stride, stride, scal_d.data_ptr(), bsz, x_out.data_ptr(), stats.data_ptr(),
+            m, n, maxit, _PROX_IDX[prox_kind], _RULE_IDX[rule_kind], int(momentum), stream)
+    _raise_on(lib, err, "K2b launch")
+    resident_adapgm_batch.launches += 1
+    return x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 3] > 0
+
+
+def resident_adapgm_batch(a, b, x0, scal, maxit, prox_kind="l1", rule_kind="adapgm",
+                          momentum=False, obj_kind="ls", m_true=None):
+    """B independent whole solves in one launch (K2b): instance i solves
+    ``resident_adapgm``'s problem with ``a[i]``, ``b[i]``, ``x0[i]`` and the
+    scalars of ``scal[i]``, with the launch's ``maxit``, prox, rule (or
+    ``momentum``), objective and ``m_true``; there is no record mode.
+
+    a: (B, m, n); b: (B, m); x0: (B, n); scal: (B, 4) rows of
+    [gamma0, tol, p1, p2], or (B, 5) with a trailing cube_c column (a (B, 4)
+    table gets cube_c = 0); it is cast to x0's dtype. Returns (x (B, n),
+    numit (B,) int32, norm_res (B,), converged (B,) bool).
+
+    One A for every instance, as a regularization path has, is passed as
+    ``a0.expand(B, m, n)``: a batch stride of 0. The kernel then reads that one
+    copy (one A^T is formed, nothing is materialized), and the result equals
+    that of the materialized (B, m, n) A bit for bit.
+
+    CPU tensors take the plain version (one plain solve an instance). CUDA
+    tensors launch K2b, with what K2 takes (b and x0 contiguous, A contiguous
+    or expanded from one contiguous (m, n) A); each launch adds one to
+    ``resident_adapgm_batch.launches``. Instance i equals ``resident_adapgm``
+    with its arguments bit for bit."""
+    scal = _check_batch(a, b, x0, scal, prox_kind, rule_kind, obj_kind)
+    if a.device.type == "cpu":
+        return resident_adapgm_batch_plain(a, b, x0, scal, maxit, prox_kind, rule_kind,
+                                           momentum, obj_kind, m_true)
+    if a.device.type != "cuda":
+        raise ValueError(f"K2b runs on CPU (plain version) or CUDA tensors, not {a.device}")
+    return _launch_batch(a, b, x0, scal, maxit, prox_kind, rule_kind, momentum, obj_kind,
+                         m_true)
+
+
+resident_adapgm_batch.launches = 0
 
 
 def resident_records(numit, gamma_hist, res_hist, obj_hist, *, maxit, momentum=False):

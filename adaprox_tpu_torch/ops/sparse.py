@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from . import kernels
-from .linops import frobenius_norm, opnorm2, widened
+from .linops import opnorm2, storage_norm, widened
 
 __all__ = ["ELLOperator", "ell_from_dense_arrays", "ell_matvec", "ell_matvec_plain",
            "build_library"]
@@ -200,8 +200,9 @@ class ELLOperator:
         return ell_matvec(self.vals_t, self.rows_t, y)[: self.shape[1]]
 
     def norm(self):
-        """The Frobenius norm (Julia's ``norm(A)``; padding vals are 0)."""
-        return frobenius_norm(self.vals)
+        """The Frobenius norm (Julia's ``norm(A)``; padding vals are 0), in the
+        storage dtype as the JAX package computes it (bf16 vals: a bf16 norm)."""
+        return storage_norm(self.vals)
 
     def opnorm(self, iters=100, key=None):
         return opnorm2(self, iters=iters, key=key, n=self.shape[1],

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops import oracles, pd_kernels, prox as prox_ops
-from ..ops.linops import acc_dtype, frobenius_norm
+from ..ops.linops import acc_dtype, storage_norm
 from . import rules as rules_mod
 from .common import Counters, Records, SolveResult, l2sq, run_loop
 from .primal_dual import condat_vu_steps
@@ -228,7 +228,8 @@ def fused_condat_vu(x0, y0, *, f, g, h, A, Lf, norm_A=None, tol=1e-5, maxit=10_0
     ``norm_A`` defaults to the Frobenius norm of ``at`` (or A)."""
     a_mat = getattr(A, "a", A)
     if norm_A is None:
-        norm_A = float(frobenius_norm(torch.as_tensor(at if at is not None else a_mat)))
+        # jnp.linalg.norm's value in the JAX package: in the storage dtype
+        norm_A = float(storage_norm(torch.as_tensor(at if at is not None else a_mat)))
     f64 = torch.float64
     gamma, sigma = condat_vu_steps(torch.tensor(float(Lf), dtype=f64),
                                    torch.tensor(float(norm_A), dtype=f64))

@@ -1,15 +1,50 @@
-"""Timing on the card (counterpart of ``adaprox_tpu/utils/profiling.py``).
+"""Timing and device profiling on the card (counterpart of
+``adaprox_tpu/utils/profiling.py``).
 
-``timed(fn, reps)`` times ``fn()`` with CUDA events around each call and a
-``torch.cuda.synchronize()`` after it, so the time is the device's, not the
-enqueue's. It needs a card: a CPU time is not a device time.
+* ``timed(fn, reps)`` times ``fn()`` with CUDA events around each call and a
+  ``torch.cuda.synchronize()`` after it, so the time is the device's, not the
+  enqueue's. It needs a card: a CPU time is not a device time.
+* ``trace(logdir)`` is a ``torch.profiler`` context that writes a Chrome trace
+  of the enclosed block into ``logdir`` (CPU activity, and the card's where
+  there is one).
+* ``throughput_report(...)`` turns a time, an iteration count and the bytes an
+  iteration moves into iterations/s, GB/s and the fraction of the card's
+  data-sheet memory rate (``chip_bandwidth_gbps``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
+
 import torch
 
-__all__ = ["timed"]
+__all__ = ["timed", "trace", "throughput_report", "HBM_GBPS", "chip_bandwidth_gbps"]
+
+# Device-memory rates of NVIDIA's data sheets (SXM parts), GB/s, keyed by the
+# start of torch.cuda.get_device_name (the longest match wins).
+HBM_GBPS = {
+    "NVIDIA H100 80GB HBM3": 3350.0,
+    "NVIDIA H200": 4800.0,
+}
+
+
+def chip_bandwidth_gbps(device=None) -> float:
+    """The data-sheet memory rate (GB/s) of ``device`` (default: the current
+    CUDA device). NaN for the CPU, for a card not in ``HBM_GBPS``, or when no
+    card is present: a made-up roof would make every fraction of it a
+    made-up number, so throughput_report's fraction is NaN there too."""
+    device = torch.device(device) if device is not None else (
+        torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available()
+        else torch.device("cpu"))
+    if device.type != "cuda":
+        return float("nan")
+    name = torch.cuda.get_device_name(device)
+    for key, gbps in sorted(HBM_GBPS.items(), key=lambda kv: -len(kv[0])):
+        if name.startswith(key):
+            return gbps
+    return float("nan")
 
 
 def timed(fn, reps: int = 3):
@@ -29,3 +64,39 @@ def timed(fn, reps: int = 3):
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / 1e3)
     return best, out
+
+
+@contextlib.contextmanager
+def trace(logdir: str):
+    """A ``torch.profiler`` trace of the enclosed block, written to
+    ``logdir/trace_<pid>_<ns>.json`` (Chrome trace format: Perfetto or
+    chrome://tracing). Records the card's activity too when CUDA is
+    available. Yields the profiler (``key_averages()`` for sums by name)."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(logdir, f"trace_{os.getpid()}_{time.monotonic_ns()}.json"))
+
+
+def throughput_report(seconds: float, iters: int, bytes_per_iter: float, device=None) -> dict:
+    """Iterations/s, achieved GB/s and its fraction of the card's data-sheet
+    rate (``chip_bandwidth_gbps(device)``; NaN where that is unknown)."""
+    roofline = chip_bandwidth_gbps(device)
+    ips = iters / seconds
+    gbps = bytes_per_iter * ips / 1e9
+    return {
+        "iters_per_sec": ips,
+        "achieved_gbps": gbps,
+        "roofline_gbps": roofline,
+        "frac_roofline": gbps / roofline,
+    }

@@ -11,8 +11,9 @@ Phases, one line each, any failure exits non-zero:
                (csrc/resident_cv.cu, one kernel: K7d is its launch over one dataset),
                K7a and K7b (csrc/resident_f0_grid.cu, one kernel a core: K7a is its
                launch over one dataset), K5 (csrc/fused_pd.cu), K8 (csrc/ell_matvec.cu),
-               K9a and K9b (csrc/bcsr_matvec.cu), one nvcc each, started together, from
-               this checkout's sources
+               K9a and K9b (csrc/bcsr_matvec.cu), K10a-c (csrc/hbm_stream.cu; K2b is in
+               csrc/resident_pg.cu), one nvcc each, started together, from this
+               checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
                driver's padded shape (4000x1024) and an unaligned 1000x300;
@@ -95,7 +96,9 @@ Phases, one line each, any failure exits non-zero:
                x C 0.1 and 1 (exactly one K6b, one K6c and one K6d launch each,
                every row's x in [0, C] with |y'x| within its CPU-calibrated
                bound, JAX's fast_methods, the three launches timed on the
-               driver's own inputs); K6a's own path (one solve, counted); the
+               driver's own inputs); the plain versions timed on heart_scale C 0.1
+               (K6b's cut to PD_PLAIN_CUT iterations, beside K6b there); K6a's own
+               path (one solve, counted); the
                engine path at --maxit 300 on heart_scale and svmguide3, the
                Malitsky-Pock rows included (no K6 launch); the PD iteration at
                1280^2, 384^2 and 8192x128 beside K2's
@@ -181,6 +184,27 @@ Phases, one line each, any failure exits non-zero:
                launched once a matvec, no other kernel; each sparse route's final
                objective within SPARSE_OBJ_RTOL of the dense route's, CPU-calibrated);
                the phase's wall
+ 17. batch:    K2b (csrc/resident_pg.cu) on bench's batched regularization path
+               ([batch] lines): random_lasso(4000, 1000, 10) padded to 4096x1024 f32, 16
+               lambdas geomspace(0.05, 5, 16) over one A, gamma0 1/||A||^2, at tol 0 and
+               maxit 300 (bench's run) and at tol 1e-4 (maxit 4000: the instances stop
+               apart), over the shared A (a zero batch stride) and over 16 materialized
+               copies: every instance equal to its own K2 launch bit for bit, the shared
+               run equal to the materialized one; four distinct problems (seeds 0-3, lambda
+               1, 0.5, 2, 1) in f32 and bf16 storage, likewise; the plain version (the
+               fixed rule over 300 iterations at K2's 1e-5, AdaPGM on the four problems
+               over K2's horizon at case (a)'s 1e-3); bench's run timed beside the 16 K2
+               launches, the plain version and regularization_path on the card (the
+               engine), one K2b launch counted; the phase's wall
+ 18. stream:   K10a, K10b and K10c (csrc/hbm_stream.cu) at bench's stream_ceiling array
+               ([stream] lines): |randn| / 128 at 16384^2 f32 (1 GiB, past the L2) and
+               bf16, 200 passes in one launch, one launch each counted; each against its
+               plain version (the sums within a relative 1e-5 of the sum, which with no
+               cancellation a probe that skips 0.1% of A fails; the copy bit for bit),
+               timed (CUDA events) with its GB/s, its fraction of the data sheet's
+               3350 GB/s (utils.profiling.throughput_report) and its bound,
+               beside 200 calls of its yardstick (torch.sum, torch.mul into an output); a
+               probe past the card's rate fails; the phase's wall
 Then one JSON line describing the kernels, and last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
@@ -405,6 +429,8 @@ PD_YX_BOUND = {("heart_scale", 0.1): 0.018, ("heart_scale", 1.0): 0.51,
                ("svmguide3", 0.1): 0.25, ("svmguide3", 1.0): 0.055,
                ("mushrooms", 0.1): 0.19, ("mushrooms", 1.0): 4.8}
 PD_ENGINE_MAXIT = 300
+# the depth at which K6b's plain sweep (a host sync an iteration) is timed beside K6b
+PD_PLAIN_CUT = 1000
 # K6c against its plain version (phase 12), f32 on the card, tol -1. Calibrated on the
 # CPU with the plain version in f32 against f64 on the dual_svm driver's inputs (the
 # three stand-ins x C 0.1 and 1, the exact and the raw form, 300 iterations): the first
@@ -1996,14 +2022,19 @@ def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
         dual_svm.resident_adapdm_dsvm_sweep, dual_svm.resident_cv_dsvm = real_sweep, real_cv
         dual_svm.resident_mp_dsvm_sweep = real_mp
 
-    # the plain versions on heart_scale C 0.1, the kernels line's case (one call each:
-    # the sweep's takes tens of seconds, a host sync an iteration)
+    # the plain versions on heart_scale C 0.1, the kernels line's case (one call each):
+    # the sweep's cut to PD_PLAIN_CUT iterations beside K6b's at the same depth (at the
+    # driver's 10000 it took 52-66 s, a host sync an iteration), Condat-Vu's in full
     s_args, s_kw, c_args, c_kw = meas[("heart_scale", 0.1)]["args"]
-    plain_sweep_ms, _ = once_ms(lambda: resident_pd.resident_adapdm_dsvm_sweep_plain(*s_args,
+    cut_args = s_args[:-1] + (PD_PLAIN_CUT,)
+    plain_sweep_ms, _ = once_ms(lambda: resident_pd.resident_adapdm_dsvm_sweep_plain(*cut_args,
                                                                                      **s_kw))
+    cut_sweep_ms = event_ms(lambda: resident_pd.resident_adapdm_dsvm_sweep(*cut_args, **s_kw),
+                            reps=3)
     plain_cv_ms, _ = once_ms(lambda: resident_pd.resident_cv_dsvm_plain(*c_args, **c_kw))
-    print(f"[pd] plain versions on the card, heart_scale C 0.1 at the driver's defaults: the "
-          f"sweep {plain_sweep_ms:.2f} ms, Condat-Vu {plain_cv_ms:.2f} ms ({smi})", flush=True)
+    print(f"[pd] plain versions on the card, heart_scale C 0.1: the sweep cut to maxit "
+          f"{PD_PLAIN_CUT} {plain_sweep_ms:.2f} ms (K6b there {cut_sweep_ms:.4f} ms), Condat-Vu "
+          f"at the driver's defaults {plain_cv_ms:.2f} ms ({smi})", flush=True)
 
     # K6a's own path: one AdaPDM solve on heart_scale C 0.1 (t = 0.15, which converges),
     # counted, as a user calls it
@@ -2088,7 +2119,7 @@ def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
     return dict(
         k6a=dict(launches=single[0], ms=1e3 * k6a_s, plain_ms=k6a_plain_ms, bound=k6a_bound),
         k6b=dict(launches=case["counts"][1], ms=case["sweep_ms"], plain_ms=plain_sweep_ms,
-                 bound=case["bound_sweep"]),
+                 bound=case["bound_sweep"], cut_ms=cut_sweep_ms),
         k6d=dict(launches=case["counts"][2], ms=case["cv_ms"], plain_ms=plain_cv_ms,
                  bound=case["bound_cv"]),
         k6c=dict(launches=case["counts"][3], driver_ms=case["mp_ms"],
@@ -3433,7 +3464,248 @@ def sparse_phase(sparse, bcsr, others, dev, smi):
     return dict(kernels=meas, launches=dict(zip(("K8", "K9a", "K9b"), launches)), walls=walls)
 
 
+# Phase 17: bench's batched regularization path (bench.py:442-480): random_lasso(4000,
+# 1000, 10) padded to 4096x1024 f32, 16 lambdas over one A, gamma0 = 1/||A||^2; bench's run
+# is tol 0 at maxit 300, and tol 1e-4 (maxit 4000) makes the instances stop apart.
+BATCH_LAMS = np.geomspace(0.05, 5.0, 16)
+BATCH_RUNS = ((0.0, 300), (1e-4, 4000))
+# the four distinct problems of tests/test_kernels.py:282-289 (seeds, lambdas), at
+# full width: random_lasso(4000, 1000, 10, seed) padded to 4096x1024
+BATCH_DISTINCT = ((0, 1.0), (1, 0.5), (2, 2.0), (3, 1.0))
+
+
+def padded_lasso(seed, dev):
+    """random_lasso(4000, 1000, 10, seed) zero-padded to 4096x1024 f32 and its
+    1/||A||^2."""
+    from adaprox_tpu_torch.models.synthetic import random_lasso
+
+    prob = random_lasso(m=4000, n=1000, pfactor=10, seed=seed)
+    a = torch.zeros(4096, 1024, device=dev)
+    a[:4000, :1000] = torch.as_tensor(prob.a, dtype=torch.float32, device=dev)
+    b = torch.zeros(4096, device=dev)
+    b[:4000] = torch.as_tensor(prob.b, dtype=torch.float32, device=dev)
+    return a, b, 1.0 / float(np.linalg.norm(prob.a, 2) ** 2)
+
+
+def k2b_equals_k2(resident, a, b, x0, scal, maxit, **kw):
+    """K2b over the batch, and whether every instance equals its own K2 launch (with
+    its f32 scal row) bit for bit: x, numit, norm_res, converged."""
+    got = resident.resident_adapgm_batch(a, b, x0, scal, maxit, **kw)
+    sc = scal.float().tolist()
+    same = True
+    for i in range(a.shape[0]):
+        one = resident.resident_adapgm(a[i], b[i], x0[i], sc[i][0], sc[i][1], maxit,
+                                       p1=sc[i][2], p2=sc[i][3], **kw)
+        same = same and all(torch.equal(u[i], w) for u, w in zip(got, one))
+    torch.cuda.synchronize()
+    return got, same
+
+
+def batch_phase(resident, apt, ref, counting, dev, smi):
+    """Phase 17, K2b: bench's batched case over a shared and a materialized A, each
+    instance against its K2 launch bit for bit; four distinct problems in f32 and bf16;
+    the plain version; K2b beside the 16 K2 launches and regularization_path.
+    Returns the kernels line's measurements."""
+    from adaprox_tpu_torch.solvers.batch import regularization_path
+
+    zero_counts, _ = counting
+    a, b, gam = ref["a"], ref["b"], ref["gam"]
+    bsz, (m, n) = len(BATCH_LAMS), a.shape
+    shared = a.expand(bsz, m, n)
+    full = shared.contiguous()
+    bb = b.expand(bsz, m).contiguous()
+    x0 = torch.zeros(bsz, n, device=dev)
+    meas = {}
+    for tol, maxit in BATCH_RUNS:
+        scal = torch.tensor([[gam, tol, lam, 0.0] for lam in BATCH_LAMS])
+        got, same = k2b_equals_k2(resident, shared, bb, x0, scal, maxit)
+        got_full, same_full = k2b_equals_k2(resident, full, bb, x0, scal, maxit)
+        shared_is_full = all(torch.equal(u, w) for u, w in zip(got, got_full))
+        numits = got[1].tolist()
+        print(f"[batch] K2b 16 x 4096x1024 f32 (lambda geomspace(0.05, 5, 16)), tol {tol:g}, "
+              f"maxit {maxit}: numit {numits}; every instance = its K2 launch bit for bit: "
+              f"shared A {same}, materialized A {same_full}; shared = materialized: "
+              f"{shared_is_full} ({smi})", flush=True)
+        check(same and same_full and shared_is_full, f"K2b tol {tol:g}: not K2's bits")
+        check(tol > 0 or numits == [maxit] * bsz, "K2b tol 0: not every instance ran maxit")
+        check(tol == 0 or len(set(numits)) > 1, "K2b tol 1e-4: every instance stopped together")
+        meas[tol] = dict(numit=numits, scal=scal)
+
+    # four distinct problems, f32 and bf16 storage of A, tol 1e-4
+    probs = [padded_lasso(seed, dev) for seed, _ in BATCH_DISTINCT]
+    a4 = torch.stack([p[0] for p in probs])
+    b4 = torch.stack([p[1] for p in probs])
+    scal4 = torch.tensor([[p[2], 1e-4, lam, 0.0] for p, (_, lam) in zip(probs, BATCH_DISTINCT)])
+    x04 = torch.zeros(4, n, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        got, same = k2b_equals_k2(resident, a4.to(dtype), b4, x04, scal4, 4000)
+        print(f"[batch] K2b four problems (seeds 0-3) 4096x1024 {dtype_name(dtype)}, tol 1e-4: "
+              f"numit {got[1].tolist()}, converged {got[3].tolist()}; every instance = its K2 "
+              f"launch bit for bit: {same} ({smi})", flush=True)
+        check(same, f"K2b four problems {dtype}: not K2's bits")
+
+    # the plain version: the fixed rule (no amplification) over bench's 300 iterations
+    # at K2's 1e-5; AdaPGM on the four problems over K2's horizon at case (a)'s
+    # tolerance (past it f32 rounding steers the two apart: on an H100 at tol 1e-4 seed
+    # 2's plain solve stalled at 4000 iterations where K2b stopped at 2266, x 2.2e-7 apart)
+    scal_f = meas[0.0]["scal"]
+    got = resident.resident_adapgm_batch(shared, bb, x0, scal_f, 300, rule_kind="fixed")
+    want = resident.resident_adapgm_batch_plain(shared, bb, x0, scal_f, 300, rule_kind="fixed")
+    torch.cuda.synchronize()
+    # relative to the batch's largest |x|: the largest lambdas leave x = 0
+    max_abs = float((got[0] - want[0]).abs().max())
+    err = max_abs / float(want[0].abs().max())
+    print(f"[batch] K2b against its plain version, 16 x 4096x1024 f32, fixed rule, tol 0, "
+          f"maxit 300: x rel err {err:.2e} (max abs {max_abs:.2e}; tol {K2_FIXED_RTOL:g})",
+          flush=True)
+    check(got[1].tolist() == want[1].tolist() == [300] * bsz and err <= K2_FIXED_RTOL,
+          "K2b disagrees with its plain version (fixed rule)")
+    horizon, rtol = K2_HORIZON["adapgm"], K2_CASE_A_RTOL["adapgm"]
+    scal0 = scal4.clone()
+    scal0[:, 1] = 0.0
+    got = resident.resident_adapgm_batch(a4, b4, x04, scal0, horizon)
+    want = resident.resident_adapgm_batch_plain(a4, b4, x04, scal0, horizon)
+    torch.cuda.synchronize()
+    errs = [float((got[0][i] - want[0][i]).abs().max() / want[0][i].abs().max())
+            for i in range(4)]
+    print(f"[batch] K2b against its plain version, four problems f32 AdaPGM tol 0, {horizon} "
+          f"iterations (K2's horizon): x rel err {', '.join(f'{e:.2e}' for e in errs)} "
+          f"(tol {rtol:g})", flush=True)
+    check(got[1].tolist() == want[1].tolist() == [horizon] * 4 and max(errs) <= rtol,
+          "K2b disagrees with its plain version (AdaPGM)")
+
+    # bench's run timed: K2b over the shared A, the 16 K2 launches, its plain version and
+    # regularization_path on the card (the engine, one slice after another), and the
+    # path's launches counted alone
+    scal = meas[0.0]["scal"]
+    sc = scal.tolist()
+    zero_counts()
+    resident.resident_adapgm_batch(shared, bb, x0, scal, 300)
+    torch.cuda.synchronize()
+    launches = resident.resident_adapgm_batch.launches
+    check(launches == 1 and resident.resident_adapgm.launches == 0,
+          f"K2b's path: {launches} K2b launches")
+    k2b_ms = event_ms(lambda: resident.resident_adapgm_batch(shared, bb, x0, scal, 300), reps=5)
+    k2s_ms = event_ms(lambda: [resident.resident_adapgm(a, b, x0[0], s[0], s[1], 300, p1=s[2])
+                               for s in sc], reps=3)
+    plain_ms, _ = once_ms(lambda: resident.resident_adapgm_batch_plain(shared, bb, x0, scal,
+                                                                      300))
+    f = apt.LeastSquares(a, b)
+    path_ms, path = once_ms(lambda: regularization_path(x0[0], f=f, lams=BATCH_LAMS, gamma=gam,
+                                                        tol=0.0, maxit=300))
+    check(path.numit.tolist() == [300] * bsz and bool(torch.isfinite(path.x).all()),
+          "regularization_path on the card: bad result")
+    total = bsz * 301
+    bnd = bound(4 * m * n + 4 * bsz * (m + 2 * n + 5) + 16 * bsz, 4 * m * n * total)
+    print(f"[batch] bench's batched_regpath 16 x 4096x1024 f32, AdaPGM tol 0, 300 iterations: "
+          f"K2b (shared A) {k2b_ms:.4f} ms, {1e3 * k2b_ms / total:.3f} us an instance iteration; "
+          f"16 K2 launches {k2s_ms:.4f} ms; the plain version {plain_ms:.2f} ms; "
+          f"regularization_path (the engine) {path_ms:.2f} ms; bound {bnd[0]:.4f} ms "
+          f"({bnd[1]}) | K2b launches on its path {launches} ({smi})", flush=True)
+    return dict(launches=launches, max_abs_err=max_abs, ms=k2b_ms, plain_ms=plain_ms,
+                bound=bnd, k2_ms=k2s_ms, path_ms=path_ms)
+
+
+def dtype_name(dtype):
+    return {torch.float32: "f32", torch.bfloat16: "bf16"}[dtype]
+
+
+# Phase 18: the stream probes at bench's stream_ceiling array (bench.py:259-276): 16384^2,
+# 1 GiB in f32, past the 50 MB L2, 200 passes in one launch. The array is |randn| / 128:
+# with no cancellation, the sums' 1e-5 of sum |a| is 1e-5 of the value itself, far above
+# f32 summation error (about 1e-7 here) and far below what a probe that skips a part of
+# A would lose (K10a without its remainder loop skips 0.1%: tests/test_torch_cuda.py).
+STREAM_REPEATS = 200
+STREAM_RTOL = 1e-5
+STREAM_KERNELS = (("K10a", "hbm_read_reduce", "adaprox_tpu/ops/kernels.py:172"),
+                  ("K10b", "hbm_copy", "adaprox_tpu/ops/kernels.py:295"),
+                  ("K10c", "hbm_dma_read", "adaprox_tpu/ops/kernels.py:254"))
+
+
+def stream_phase(kernels, big, dev, smi):
+    """Phase 18, K10a-c against their plain versions at |A| (16384^2) f32 and bf16, timed
+    beside their yardstick library calls (torch.sum for K10a and K10c, torch.mul
+    into an output for K10b, each called once a pass). Returns the kernels line's
+    measurements (f32)."""
+    from adaprox_tpu_torch.utils.profiling import throughput_report
+
+    reps, scale = STREAM_REPEATS, 0.5
+    meas = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        a = big[0].abs().to(dtype)
+        size = a.numel() * a.element_size()
+        out, out_p = torch.empty_like(a), torch.empty_like(a)
+        s_lib = torch.tensor(scale, dtype=torch.float32, device=dev).to(dtype)
+        abs_sum = float(a.float().abs().sum())
+        rows_abs = float(a[::128, :128].float().abs().sum())
+        kernels.hbm_read_reduce.launches = kernels.hbm_copy.launches = 0
+        kernels.hbm_dma_read.launches = 0
+        got = {"K10a": kernels.hbm_read_reduce(a, scale, repeats=reps),
+               "K10b": kernels.hbm_copy(a, scale, repeats=reps, out=out),
+               "K10c": kernels.hbm_dma_read(a, scale, repeats=reps)}
+        torch.cuda.synchronize()
+        launches = {"K10a": kernels.hbm_read_reduce.launches, "K10b": kernels.hbm_copy.launches,
+                    "K10c": kernels.hbm_dma_read.launches}
+        check(all(v == 1 for v in launches.values()), f"stream probes' launches {launches}")
+        plain = {}
+        plain_ms = {}
+        plain_ms["K10a"], plain["K10a"] = once_ms(
+            lambda: kernels.hbm_read_reduce_plain(a, scale, repeats=reps))
+        plain_ms["K10b"], plain["K10b"] = once_ms(
+            lambda: kernels.hbm_copy_plain(a, scale, repeats=reps, out=out_p))
+        plain_ms["K10c"], plain["K10c"] = once_ms(
+            lambda: kernels.hbm_dma_read_plain(a, scale, repeats=reps))
+        err = {k: abs(float(got[k]) - float(plain[k])) for k in got}
+        tol = {"K10a": STREAM_RTOL * abs(scale) * reps * abs_sum,
+               "K10b": 0.0,
+               "K10c": STREAM_RTOL * (128 * abs(scale) + reps * rows_abs)}
+        copy_same = torch.equal(out, out_p)
+        ms = {"K10a": event_ms(lambda: kernels.hbm_read_reduce(a, scale, repeats=reps), reps=3),
+              "K10b": event_ms(lambda: kernels.hbm_copy(a, scale, repeats=reps, out=out),
+                               reps=3),
+              "K10c": event_ms(lambda: kernels.hbm_dma_read(a, scale, repeats=reps), reps=3)}
+
+        def lib_sum():
+            for _ in range(reps):
+                torch.sum(a)
+
+        def lib_mul():
+            for _ in range(reps):
+                torch.mul(a, s_lib, out=out_p)
+
+        lib = {"K10a": event_ms(lib_sum, reps=3), "K10b": event_ms(lib_mul, reps=3)}
+        lib["K10c"] = lib["K10a"]
+        moved = {"K10a": reps * size, "K10b": 2 * reps * size, "K10c": reps * size}
+        for key, name, _ in STREAM_KERNELS:
+            gbps = moved[key] / ms[key] / 1e6
+            lib_gbps = moved[key] / lib[key] / 1e6
+            frac = throughput_report(ms[key] / 1e3, reps, moved[key] / reps, dev)["frac_roofline"]
+            bnd = bound(moved[key], 0)
+            roof = 2 * HBM_BYTES_S / 1e9 if key == "K10b" else HBM_BYTES_S / 1e9
+            print(f"[stream] {key} {name} 16384^2 {dtype_name(dtype)}, {reps} passes, scale "
+                  f"{scale:g}: {ms[key]:.4f} ms, {gbps:.1f} GB/s ({frac:.4f} of the data "
+                  f"sheet's 3350 GB/s; bound {bnd[0]:.4f} ms) | abs err {err[key]:.3e} against "
+                  f"the plain version (tol {tol[key]:.3e}"
+                  f"{'; the copy equal bit for bit: ' + str(copy_same) if key == 'K10b' else ''})"
+                  f", plain {plain_ms[key]:.2f} ms | library ({reps} calls of "
+                  f"{'torch.mul' if key == 'K10b' else 'torch.sum'}) {lib[key]:.4f} ms, "
+                  f"{lib_gbps:.1f} GB/s | launches {launches[key]} ({smi})", flush=True)
+            check(err[key] <= tol[key] and (key != "K10b" or copy_same),
+                  f"{key} {dtype}: disagrees with its plain version")
+            check(gbps <= roof, f"{key} {dtype}: {gbps:.1f} GB/s is past the card's "
+                                f"{roof:.0f} GB/s: it cannot have moved every byte")
+            if dtype == torch.float32:
+                meas[key] = dict(launches=launches[key], max_abs_err=err[key], ms=ms[key],
+                                 plain_ms=plain_ms[key], bound=bnd, library_ms=lib[key],
+                                 gbps=gbps, frac=frac, bf16_ms=None)
+            else:
+                meas[key]["bf16_ms"] = ms[key]
+        del out, out_p
+    return meas
+
+
 def main():
+    t_start = time.perf_counter()
     # 1. device --------------------------------------------------------------
     check(torch.cuda.is_available(), "torch.cuda.is_available() is False: needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3454,7 +3726,7 @@ def main():
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(12) as pool:
+    with ThreadPoolExecutor(13) as pool:
         builds = [(name, pool.submit(build)) for name, build in
                   (("K1", kernels.build_library),
                    ("K3", lambda: kernels.build_library(kernels.LOGISTIC_SOURCE)),
@@ -3467,13 +3739,14 @@ def main():
                    ("K7a/K7b", resident_f0.build_grid_library),
                    ("K5", pd_kernels.build_library),
                    ("K8", sparse.build_library),
-                   ("K9a/K9b", bcsr.build_library))]
+                   ("K9a/K9b", bcsr.build_library),
+                   ("K10a-c", lambda: kernels.build_library(kernels.STREAM_SOURCE)))]
         for name, fut in builds:
             lib_path = fut.result()
             regs = ptxas_report(lib_path.with_suffix(".log").read_text())
             print(f"[build] {name} {lib_path.name} (ptxas, registers/stack bytes/spill-store "
                   f"bytes: {'; '.join(regs)})", flush=True)
-    print(f"[build] all twelve in {time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[build] all thirteen in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. kernels vs plain on the card ------------------------------------------
     gen = torch.Generator(device=dev)
@@ -3527,6 +3800,8 @@ def main():
         resident_f0.resident_adapdmp_grid.launches = 0
         pd_kernels.fused_pd_primal_update.launches = sparse.ell_matvec.launches = 0
         bcsr.bcsr_matvec.launches = bcsr.bcsr_matvec_slab.launches = 0
+        resident.resident_adapgm_batch.launches = kernels.hbm_read_reduce.launches = 0
+        kernels.hbm_copy.launches = kernels.hbm_dma_read.launches = 0
 
     def read_counts():
         """Launches of (K1, K2, K2c, K3, K4, K4b, K4 (aGRAAL)) since zero_counts()."""
@@ -3757,6 +4032,18 @@ def main():
         dev, smi)
     print(f"[sparse] phase 16 wall {time.perf_counter() - t16:.1f} s ({smi})", flush=True)
 
+    # 17. K2b, the batch of independent solves ----------------------------------------------
+    t17 = time.perf_counter()
+    k2b_meas = batch_phase(resident, apt, ref, (zero_counts, read_counts), dev, smi)
+    print(f"[batch] phase 17 wall {time.perf_counter() - t17:.1f} s ({smi})", flush=True)
+
+    # 18. the stream probes -------------------------------------------------------------------
+    t18 = time.perf_counter()
+    zero_counts()
+    st_meas = stream_phase(kernels, big, dev, smi)
+    print(f"[stream] phase 18 wall {time.perf_counter() - t18:.1f} s ({smi})", flush=True)
+    print(f"[smoke] all phases {time.perf_counter() - t_start:.1f} s", flush=True)
+
     head = measured["16384x16384 f32"]
     k5_head = k5_meas[f"{HEADLINE}x{HEADLINE} f32"]
     k3_head = k3_meas["16384x16384 f32"]
@@ -3825,7 +4112,9 @@ def main():
         "replaces": replaces, "launches": pd_meas[key]["launches"], "max_abs_err": pd_err[key],
         "ms": pd_meas[key]["ms"], "plain_ms": pd_meas[key]["plain_ms"],
         "bound_ms": pd_meas[key]["bound"][0], "bound_by": pd_meas[key]["bound"][1],
-        "library_ms": None} for name, replaces, key in (
+        "library_ms": None, **({"plain_depth": PD_PLAIN_CUT, "ms_at_plain_depth":
+                                pd_meas[key]["cut_ms"]} if key == "k6b" else {})}
+        for name, replaces, key in (
             ("resident_adapdm_dsvm", "adaprox_tpu/ops/resident.py:1388", "k6a"),
             ("resident_adapdm_dsvm_sweep", "adaprox_tpu/ops/resident.py:1447", "k6b"),
             ("resident_cv_dsvm", "adaprox_tpu/ops/resident.py:1284", "k6d"))] + [{
@@ -3886,7 +4175,22 @@ def main():
         "ms_at": {d: {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
                       "csr_ms": v["library_ms"], "bsr_ms": v["bsr_ms"], "dense_mv_ms": v["dense_ms"]}
                   for d, v in sp_meas["kernels"][key].items()}}
-        for key, name, source, replaces in SPARSE_KERNELS]}))
+        for key, name, source, replaces in SPARSE_KERNELS] + [{
+        "name": "resident_adapgm_batch", "route": "cuda",
+        "source": "adaprox_tpu_torch/csrc/resident_pg.cu",
+        "replaces": "adaprox_tpu/ops/resident.py:531", "launches": k2b_meas["launches"],
+        "max_abs_err": k2b_meas["max_abs_err"], "ms": k2b_meas["ms"],
+        "plain_ms": k2b_meas["plain_ms"], "bound_ms": k2b_meas["bound"][0],
+        "bound_by": k2b_meas["bound"][1], "library_ms": None, "k2_launches_ms": k2b_meas["k2_ms"],
+        "regularization_path_ms": k2b_meas["path_ms"]}] + [{
+        "name": name, "route": "cuda", "source": "adaprox_tpu_torch/csrc/hbm_stream.cu",
+        "replaces": replaces, "launches": st_meas[key]["launches"],
+        "max_abs_err": st_meas[key]["max_abs_err"], "ms": st_meas[key]["ms"],
+        "plain_ms": st_meas[key]["plain_ms"], "bound_ms": st_meas[key]["bound"][0],
+        "bound_by": st_meas[key]["bound"][1], "library_ms": st_meas[key]["library_ms"],
+        "library_calls": STREAM_REPEATS, "gbps": st_meas[key]["gbps"],
+        "frac_roofline": st_meas[key]["frac"], "bf16_ms": st_meas[key]["bf16_ms"]}
+        for key, name, replaces in STREAM_KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

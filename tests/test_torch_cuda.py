@@ -1,15 +1,20 @@
-"""The CUDA kernels K1, K2, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c, K6d, K7a,
-K7b, K7c, K7d, K5, K8, K9a and K9b on the card against their plain PyTorch versions (K2,
-K2c, K4, K4b and aGRAAL with the least-squares, logistic and cubic objectives; K6 and K6c
-with the dual SVM's dense Q or factored B; K7a's two cores, their dataset grids K7b, K7c
-and K7d with the square-root lasso's and the least absolute deviation's h; K8 under
-ELLOperator and K9a/K9b under BCSROperator in the engine).
+"""The CUDA kernels K1, K2, K2b, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c, K6d,
+K7a, K7b, K7c, K7d, K5, K8, K9a, K9b and K10a-c on the card against their plain PyTorch
+versions (K2, K2b, K2c, K4, K4b and aGRAAL with the least-squares, logistic and cubic
+objectives; K6 and K6c with the dual SVM's dense Q or factored B; K7a's two cores, their
+dataset grids K7b, K7c and K7d with the square-root lasso's and the least absolute
+deviation's h; K8 under ELLOperator and K9a/K9b under BCSROperator in the engine; the
+stream probes K10a-c).
 
 Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. This file imports no
 JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import ctypes
+import math
+import subprocess
 
 import pytest
 import torch
@@ -19,6 +24,7 @@ from adaprox_tpu_torch.experiments.k7a_calibration import (K7A_HORIZON, K7A_RTOL
 from adaprox_tpu_torch.ops import kernels as tk
 from adaprox_tpu_torch.ops import resident as tr
 from adaprox_tpu_torch.ops import resident_bt as trb
+from adaprox_tpu_torch.utils.profiling import chip_bandwidth_gbps, timed
 
 pytestmark = pytest.mark.cuda
 
@@ -2093,3 +2099,283 @@ def test_lasso_engine_over_operators_on_card(dev, route):
     obj = float(apt.LeastSquares(d, b).value(res.x) + kw["g"](res.x))
     obj_ref = float(apt.LeastSquares(d, b).value(ref.x) + kw["g"](ref.x))
     assert abs(obj - obj_ref) <= 1e-4 * abs(obj_ref)
+
+
+# -- K2b, the batch of independent solves ----------------------------------------------
+
+
+def k2b_case(dev, obj, dtype, bsz=4, seed=20):
+    """``bsz`` problems of one shape (ls: 500x300 lasso; logreg: 384x128 with a
+    ones column and 8 zero-padded rows; cubic: 256^2 H = G'G/16 + 0.1 I, G = randn/16), each
+    with its own A, b and scalars; A stored in ``dtype``."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    if obj == "cubic":
+        g = torch.randn(bsz, 256, 256, generator=gen, device=dev) / 16
+        a = g.transpose(1, 2) @ g / 16 + 0.1 * torch.eye(256, device=dev)
+        b = torch.randn(bsz, 256, generator=gen, device=dev) / 16
+        # ||x*|| stays near 2, where the cubic term adds at most 4c to the curvature: the
+        # fixed momentum step 1 / (||H|| + 4c) is stable
+        gam = [1.0 / (float(torch.linalg.matrix_norm(a[i].double(), 2)) + 4 * (0.5 + i))
+               for i in range(bsz)]
+        scal = torch.tensor([[gam[i], 1e-5, 0.0, 0.0, 0.5 + i] for i in range(bsz)])
+        kw = dict(prox_kind="zero", obj_kind="cubic")
+    elif obj == "logreg":
+        a = torch.randn(bsz, 384, 128, generator=gen, device=dev) / 8
+        a[:, :, -1] = 1.0
+        a[:, 376:] = 0.0
+        b = (torch.rand(bsz, 384, generator=gen, device=dev) < 0.5).float()
+        b[:, 376:] = 0.0
+        scal = torch.tensor([[4.0, 1e-5, 0.01 * (i + 1), 0.0] for i in range(bsz)])
+        kw = dict(obj_kind="logreg", m_true=376.0)
+    else:
+        a = torch.randn(bsz, 500, 300, generator=gen, device=dev) / 300**0.5
+        b = torch.randn(bsz, 500, generator=gen, device=dev)
+        gam = [1.0 / float(torch.linalg.matrix_norm(a[i].double(), 2) ** 2) for i in range(bsz)]
+        lam = [0.1 * float((a[i].t() @ b[i]).abs().max()) for i in range(bsz)]
+        scal = torch.tensor([[gam[i], 1e-5, lam[i], 0.0] for i in range(bsz)])
+        kw = dict(obj_kind="ls")
+    return a.to(dtype).contiguous(), b, torch.zeros(bsz, a.shape[2], device=dev), scal, kw
+
+
+def _same_bits(u, w):
+    """Bit for bit (a NaN equals the same NaN)."""
+    if u.dtype == torch.float32:
+        u, w = u.view(torch.int32), w.view(torch.int32)
+    return torch.equal(u, w)
+
+
+def _k2b_singles(a, b, x0, scal, maxit, **kw):
+    """Each instance as its own K2 launch, with the f32 values of its scal row."""
+    kw = dict(kw)
+    obj, m_true = kw.pop("obj_kind"), kw.pop("m_true", None)
+    rule, mom = kw.pop("rule_kind", "adapgm"), kw.pop("momentum", False)
+    outs = []
+    for i in range(a.shape[0]):
+        sc = scal[i].float().tolist() + [0.0] * (5 - scal.shape[1])
+        outs.append(tr.resident_adapgm(a[i], b[i], x0[i], sc[0], sc[1], maxit, p1=sc[2],
+                                       p2=sc[3], cube_c=sc[4], obj_kind=obj, m_true=m_true,
+                                       rule_kind=rule, momentum=mom, **kw))
+    return outs
+
+
+@pytest.mark.parametrize("obj", ["ls", "logreg", "cubic"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rule,momentum", [("adapgm", False), ("mm", False), ("fixed", True)])
+def test_k2b_instances_equal_single_k2_launches(dev, obj, dtype, rule, momentum):
+    """Instance i of one K2b launch is its own K2 launch bit for bit: x, numit,
+    norm_res and converged (one launch, counted)."""
+    a, b, x0, scal, kw = k2b_case(dev, obj, dtype)
+    before = tr.resident_adapgm_batch.launches
+    got = tr.resident_adapgm_batch(a, b, x0, scal, 2000, rule_kind=rule, momentum=momentum,
+                                   **kw)
+    torch.cuda.synchronize()
+    assert tr.resident_adapgm_batch.launches == before + 1
+    assert got[0].shape == x0.shape and got[1].dtype == torch.int32
+    for i, one in enumerate(_k2b_singles(a, b, x0, scal, 2000, rule_kind=rule,
+                                         momentum=momentum, **kw)):
+        for u, w in zip(got, one[:4]):
+            assert _same_bits(u[i], w), i
+    assert bool(torch.isfinite(got[0]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("obj", ["ls", "logreg"])
+def test_k2b_shared_a_equals_materialized(dev, obj, dtype):
+    """One A expanded over the batch (stride 0, read from its one copy) gives the
+    materialized batch's bits, and each instance its K2 launch's."""
+    a, b, x0, scal, kw = k2b_case(dev, obj, dtype)
+    shared = a[0].expand(4, *a.shape[1:])
+    bb = b[0].expand(4, -1).contiguous()
+    got = tr.resident_adapgm_batch(shared, bb, x0, scal, 1000, **kw)
+    want = tr.resident_adapgm_batch(shared.contiguous(), bb, x0, scal, 1000, **kw)
+    torch.cuda.synchronize()
+    for u, w in zip(got, want):
+        assert torch.equal(u, w)
+    for i, one in enumerate(_k2b_singles(shared, bb, x0, scal, 1000, **kw)):
+        assert torch.equal(got[0][i], one[0]) and int(got[1][i]) == int(one[1])
+
+
+def test_k2b_matches_plain_on_card(dev):
+    """The fixed rule does not amplify rounding: 30 iterations within K2's 1e-5."""
+    a, b, x0, scal, kw = k2b_case(dev, "ls", torch.float32)
+    scal[:, 1] = 0.0
+    got = tr.resident_adapgm_batch(a, b, x0, scal, 30, rule_kind="fixed", **kw)
+    want = tr.resident_adapgm_batch_plain(a, b, x0, scal, 30, rule_kind="fixed", **kw)
+    assert got[1].tolist() == want[1].tolist() == [30] * 4
+    for i in range(4):
+        assert float((got[0][i] - want[0][i]).abs().max()) <= 1e-5 * float(
+            want[0][i].abs().max())
+
+
+def test_k2b_refuses_what_it_does_not_take(dev):
+    a, b, x0, scal, kw = k2b_case(dev, "ls", torch.float32)
+    with pytest.raises(TypeError, match="float32 b and x0"):
+        tr.resident_adapgm_batch(a, b.double(), x0, scal, 5)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tr.resident_adapgm_batch(a.double(), b, x0, scal, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.resident_adapgm_batch(a.transpose(1, 2).contiguous().transpose(1, 2), b, x0,
+                                 scal, 5)
+    with pytest.raises(ValueError, match="contiguous"):
+        tr.resident_adapgm_batch(a, b, torch.zeros(300, 4, device=dev).t(), scal, 5)
+    with pytest.raises(ValueError, match="dynamic"):
+        tr.resident_adapgm_batch(a, b, x0, scal, 5, rule_kind="dynamic")
+
+
+# -- K10a-c, the stream probes ----------------------------------------------------------
+
+
+def _stream_input(dev, shape, dtype, seed=30):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,repeats", [((64, 256), 3), ((1000, 1000), 2), ((3, 5), 1),
+                                           ((4096, 4096), 4)])
+def test_k10a_matches_plain_on_card(dev, dtype, shape, repeats):
+    # all positive: 1e-5 of the sum is not loosened by cancellation
+    a = _stream_input(dev, shape, dtype).abs()
+    before = tk.hbm_read_reduce.launches
+    got = tk.hbm_read_reduce(a, scale=0.5, block_rows=shape[0], repeats=repeats)
+    torch.cuda.synchronize()
+    assert tk.hbm_read_reduce.launches == before + 1
+    want = tk.hbm_read_reduce_plain(a, 0.5, repeats=repeats)
+    tol = 1e-5 * abs(float(want))
+    assert got.dtype == torch.float32 and abs(float(got) - float(want)) <= tol
+    assert torch.equal(got, tk.hbm_read_reduce(a, scale=0.5, block_rows=shape[0],
+                                               repeats=repeats))
+
+
+def test_k10a_check_fails_a_probe_that_skips_its_tail(dev, tmp_path):
+    """chip_smoke.py's K10a check (|randn| / 128 at 16384^2 f32, 200 passes, within
+    1e-5 of the plain sum) passes K10a and fails a K10a built without its
+    remainder loop: that one skips the vectors past its last whole unrolled step
+    (65536 of 67M on 132 SMs) and would read as a faster stream."""
+    src = tk.STREAM_SOURCE.read_text()
+    tail = "    for (; i < nvec; i += stride) acc += vec_sum(ld_stream(av + i), T{});\n"
+    assert src.count(tail) == 1
+    mutant, so = tmp_path / "hbm_stream.cu", tmp_path / "hbm_stream_no_tail.so"
+    mutant.write_text(src.replace(tail, ""))
+    subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS, "-o", str(so), str(mutant)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.adaprox_hbm_max_grid.restype = ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.adaprox_hbm_read_reduce.argtypes = [p, i, ll, i, ctypes.c_float, p, ll, p, p]
+    lib.adaprox_hbm_read_reduce.restype = i
+
+    a = _stream_input(dev, (16384, 16384), torch.float32).abs_() / 128
+    want = float(tk.hbm_read_reduce_plain(a, 0.5, repeats=200))
+    tol = 1e-5 * want
+    assert abs(float(tk.hbm_read_reduce(a, 0.5, repeats=200)) - want) <= tol
+    part = torch.empty(lib.adaprox_hbm_max_grid(), dtype=torch.float64, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    assert lib.adaprox_hbm_read_reduce(a.data_ptr(), 0, a.numel(), 200, 0.5, part.data_ptr(),
+                                       part.numel(), out.data_ptr(),
+                                       torch.cuda.current_stream(dev).cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert abs(float(out) - want) > tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,repeats", [((64, 256), 3), ((1000, 1000), 2), ((7, 129), 1)])
+def test_k10b_matches_plain_on_card(dev, dtype, shape, repeats):
+    a = _stream_input(dev, shape, dtype)
+    out, out_p = torch.empty_like(a), torch.empty_like(a)
+    before = tk.hbm_copy.launches
+    got = tk.hbm_copy(a, scale=0.3, block_rows=shape[0], repeats=repeats, out=out)
+    torch.cuda.synchronize()
+    assert tk.hbm_copy.launches == before + 1
+    want = tk.hbm_copy_plain(a, 0.3, repeats=repeats, out=out_p)
+    assert torch.equal(out, out_p) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,chunk_rows,depth,repeats", [
+    ((64, 256), 16, 2, 1), ((64, 256), 16, 3, 2), ((64, 256), 32, 4, 3), ((64, 256), 64, 4, 1),
+    ((1024, 4096), 128, 3, 2), ((1024, 16384), 128, 8, 1), ((96, 136), 8, 5, 3)])
+def test_k10c_matches_plain_on_card(dev, dtype, shape, chunk_rows, depth, repeats):
+    a = _stream_input(dev, shape, dtype)
+    before = tk.hbm_dma_read.launches
+    got = tk.hbm_dma_read(a, scale=2.0, chunk_rows=chunk_rows, depth=depth, repeats=repeats)
+    torch.cuda.synchronize()
+    assert tk.hbm_dma_read.launches == before + 1
+    want = tk.hbm_dma_read_plain(a, 2.0, chunk_rows, depth, repeats)
+    tol = 1e-5 * (256 + repeats * float(a[::chunk_rows, :128].float().abs().sum()))
+    assert abs(float(got) - float(want)) <= tol
+    assert torch.equal(got, tk.hbm_dma_read(a, scale=2.0, chunk_rows=chunk_rows, depth=depth,
+                                            repeats=repeats))
+
+
+def test_k10c_reads_every_pass_from_device_memory(dev, tmp_path):
+    """K10c deals a pass's pieces to its CTAs the same way in every pass, so a
+    CTA rereads only its own pieces, a pass later. At 256 MiB (five times the
+    50 MB L2), 800 passes, it then reads no faster than the card's memory can
+    give. A K10c that deals the pieces of all passes round robin reads past
+    that: a CTA's pieces shift from pass to pass, the CTAs drift a pass apart,
+    and one reads from the L2 what another has just fetched."""
+    src = tk.STREAM_SOURCE.read_text()
+    deal = ("  const long long per_pass = (chunks * pieces - blockIdx.x + grid - 1) / grid;\n"
+            "  const long long mine = per_pass * repeats;\n")
+    pick = "  auto piece_of = [&](long long t) { return blockIdx.x + (t % per_pass) * grid; };\n"
+    assert src.count(deal) == 1 and src.count(pick) == 1
+    mutant, so = tmp_path / "hbm_stream.cu", tmp_path / "hbm_stream_shifting_deal.so"
+    mutant.write_text(src.replace(deal, (
+        "  const long long per_pass = chunks * pieces;\n"
+        "  const long long mine = (per_pass * repeats - blockIdx.x + grid - 1) / grid;\n")
+    ).replace(pick, "  auto piece_of = [&](long long t) { return (blockIdx.x + t * grid) % "
+                    "per_pass; };\n"))
+    subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS, "-o", str(so), str(mutant)], check=True,
+                   capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.adaprox_hbm_max_grid.restype = ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.adaprox_hbm_dma_read.argtypes = [p, i, ll, ll, i, i, ctypes.c_float, p, ll, p, p]
+    lib.adaprox_hbm_dma_read.restype = i
+
+    a = _stream_input(dev, (4096, 16384), torch.float32).abs_() / 128
+    reps, chunk_bytes = 800, 128 * a.shape[1] * a.element_size()
+    part = torch.empty(128 * lib.adaprox_hbm_max_grid(), dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+
+    def shifting():
+        assert lib.adaprox_hbm_dma_read(a.data_ptr(), 0, a.shape[0] // 128, chunk_bytes, 3,
+                                        reps, 0.5, part.data_ptr(), part.numel(),
+                                        out.data_ptr(),
+                                        torch.cuda.current_stream(dev).cuda_stream) == 0
+        return out
+
+    roof = chip_bandwidth_gbps(dev)
+    assert math.isfinite(roof), f"no data-sheet rate for {torch.cuda.get_device_name(dev)}"
+    want = float(tk.hbm_dma_read_plain(a, 0.5, repeats=reps))
+    gbps = {}
+    for name, fn in (("K10c", lambda: tk.hbm_dma_read(a, 0.5, repeats=reps)),
+                     ("shifting deal", shifting)):
+        seconds, got = timed(fn)
+        assert abs(float(got) - want) <= 1e-5 * want
+        gbps[name] = reps * a.numel() * a.element_size() / seconds / 1e9
+    print(f"K10c at 4096x16384 f32, {reps} passes, GB/s (best of 3) against the data "
+          f"sheet's {roof:g}: {gbps}")
+    assert gbps["K10c"] <= roof < gbps["shifting deal"], gbps
+
+
+def test_k10_refuse_what_they_do_not_take(dev):
+    a = _stream_input(dev, (64, 256), torch.float32)
+    with pytest.raises(ValueError, match="does not divide"):
+        tk.hbm_read_reduce(a, block_rows=24)
+    with pytest.raises(ValueError, match="does not divide"):
+        tk.hbm_copy(a, block_rows=7)
+    with pytest.raises(ValueError, match="does not divide"):
+        tk.hbm_dma_read(a, chunk_rows=48)
+    for probe, rows in ((tk.hbm_read_reduce, "block_rows"), (tk.hbm_copy, "block_rows"),
+                        (tk.hbm_dma_read, "chunk_rows")):
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            probe(a.double(), **{rows: 64})
+        with pytest.raises(ValueError, match="contiguous"):
+            probe(a[:, ::2], **{rows: 64})
+    # 500 copies in flight leave 256 bytes a piece: no room for a 128-value token row
+    with pytest.raises(ValueError, match="no room"):
+        tk.hbm_dma_read(a, chunk_rows=1, depth=500, repeats=8)

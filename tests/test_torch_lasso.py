@@ -291,11 +291,39 @@ f0.append([rfv.x.shape[0], rfv.numit, float(gl(rfv.x) + hl(al.matvec(rfv.x))),
            float((rfv.x - rcv.x).abs().max())])
 least_absolute_deviation.main(["--device", "cpu", "--datasets", "housing_scale", "--maxit", "30",
                                "--no-plot", "--fused", "--outdir", sys.argv[1] + "-lad--fused"])
+# the batched solves: K2b (plain version) over one A expanded to a lambda path, each
+# instance against its K2 solve; regularization_path against the engine; the stream
+# probes' plain versions against their closed forms; the profiling helpers
+from adaprox_tpu_torch.ops import kernels as tkern
+from adaprox_tpu_torch.solvers.batch import regularization_path
+from adaprox_tpu_torch.utils import profiling
+lams = [prob.lam, 2 * prob.lam, 4 * prob.lam]
+scal = torch.tensor([[gam, 1e-8, lam, 0.0] for lam in lams], dtype=torch.float64)
+kb = apt.resident_adapgm_batch(a.expand(3, *a.shape), b.expand(3, -1).contiguous(),
+                               torch.zeros(3, a.shape[1], dtype=torch.float64), scal, 3000)
+rpath = regularization_path(torch.zeros(a.shape[1], dtype=torch.float64), f=f, lams=lams,
+                            gamma=gam, tol=1e-8, maxit=3000)
+r1 = apt.adaptive_proxgrad(torch.zeros(a.shape[1], dtype=torch.float64), f=f,
+                           g=apt.L1Norm(torch.tensor(lams[1], dtype=torch.float64)),
+                           rule=apt.AdaPGMRule(gamma=gam), tol=1e-8, maxit=3000)
+k1 = apt.resident_adapgm(a, b, torch.zeros(a.shape[1], dtype=torch.float64), gam, 1e-8, 3000,
+                         p1=lams[1])
+sa = torch.arange(64 * 256, dtype=torch.float32).reshape(64, 256) / 4096
+batch = [[int(v) for v in kb[1]], [int(v) for v in rpath.numit], r1.numit,
+         all(torch.equal(u[1], w) for u, w in zip(kb, k1)),
+         bool(torch.equal(rpath.x[1], r1.x)),
+         [float(tkern.hbm_read_reduce(sa, scale=2.0, repeats=3)),
+          float(tkern.hbm_copy(sa, scale=0.5, block_rows=16)),
+          float(tkern.hbm_dma_read(sa, scale=1.0, chunk_rows=16, repeats=2))],
+         profiling.throughput_report(2.0, 10, 1e9, device="cpu")["iters_per_sec"]]
+with profiling.trace(sys.argv[1] + "-trace"):
+    torch.mv(a, torch.ones(a.shape[1], dtype=torch.float64))
 import adaprox_tpu_torch.experiments.resident_timing  # the card's timing script
 leaked = sorted(k for k, v in sys.modules.items()
                 if v is not None and k.split(".")[0] in ("jax", "jaxlib", "adaprox_tpu"))
 print(json.dumps({"leaked": leaked, "runs": out, "logreg": logreg, "source": src,
-                  "cubic": cubic, "bt": bt, "agraal": ag, "pd": pd, "f0": f0, "grid": grid}))
+                  "cubic": cubic, "bt": bt, "agraal": ag, "pd": pd, "f0": f0, "grid": grid,
+                  "batch": batch}))
 """
 
 
@@ -391,6 +419,17 @@ def test_port_runs_the_slice_without_jax(tmp_path):
             if "norm_res" in r:
                 counts[r["method"]] = counts.get(r["method"], 0) + 1
         assert len(counts) == names and set(counts.values()) == {30}
+    # the batched solves: K2b's instances are their K2 solves, the path's middle slice
+    # the engine's solve; every lambda converges; the probes give their closed forms
+    kb_numit, path_numit, engine_numit, k2b_is_k2, path_is_engine, probes, ips = got["batch"]
+    assert k2b_is_k2 and path_is_engine and path_numit[1] == engine_numit
+    assert max(kb_numit) < 3000 and max(path_numit) < 3000
+    sa = np.arange(64 * 256, dtype=np.float64).reshape(64, 256) / 4096
+    want = [3 * 2.0 * sa.sum(), 0.5 * (sa[0, :128].sum() + sa[-1, -128:].sum()),
+            128.0 + 2 * sa[::16, :128].sum()]
+    np.testing.assert_allclose(probes, want, rtol=1e-5)
+    assert ips == 5.0
+    assert len(list(tmp_path.parent.glob(tmp_path.name + "-trace/trace_*.json"))) == 1
 
 
 # -- (h) chip_smoke.py ---------------------------------------------------------

@@ -318,6 +318,39 @@ def test_norms_match_jax(case, kind):
     assert got == want == 0.0 if case == "zero" else got > 0
 
 
+@pytest.mark.parametrize("kind", ["ell", "bcsr"])
+@pytest.mark.parametrize("case", ["dense-0.3", "block-0.25", "uneven"])
+def test_bf16_norm_matches_jax(case, kind):
+    """bf16 vals: the norm is JAX's, a bf16 number (the squares rounded to bf16,
+    summed in f32, the sum rounded to bf16, then the root), to one bf16 ulp."""
+    d = MATRICES[case]().astype(np.float32)
+    if kind == "ell":
+        op = apt.ELLOperator.from_dense(torch.from_numpy(d), device=CPU, dtype=torch.bfloat16)
+        jop = js.ELLOperator.from_dense(d.astype(jnp.bfloat16))
+    else:
+        op = apt.BCSROperator.from_dense(torch.from_numpy(d), (8, 128), device=CPU,
+                                         dtype=torch.bfloat16)
+        jop = jb.BCSROperator.from_dense(d.astype(jnp.bfloat16), (8, 128))
+    got, want = op.norm(), jop.norm()
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    ulp = float(np.spacing(np.float32(want)) * 2 ** 16)  # bf16 keeps 8 of f32's 24 bits
+    assert abs(float(got) - float(want)) <= ulp
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_storage_norm_matches_jnp_linalg_norm(dtype):
+    """fused_condat_vu's default norm_A: JAX takes jnp.linalg.norm of A' in its
+    storage dtype; the port's storage_norm gives the same number."""
+    rng = np.random.default_rng(3)
+    for shape in ((16, 512), (64, 1000), (300, 7)):
+        a = rng.standard_normal(shape).astype(np.float32)
+        want = jnp.linalg.norm(jnp.asarray(a, getattr(jnp, dtype)))
+        got = apt.ops.linops.storage_norm(torch.from_numpy(a).to(getattr(torch, dtype)))
+        assert str(got.dtype) == f"torch.{dtype}"
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6 if dtype != "bfloat16"
+                                   else 0)
+
+
 def test_opnorm2_dtype_and_refusal():
     """bf16 storage iterates in f32; an operator without a shape needs n=."""
     d = _block_sparse(72, 384, 0.25, 7).astype(np.float32)
