@@ -28,7 +28,7 @@
 //     multiplies by scale. No atomics: two launches give the same bits.
 //   * K10c: the TPU kernel's async copies become Hopper's bulk copies (TMA,
 //     cp.async.bulk global -> shared, completion counted in bytes on an
-//     mbarrier). A (chunk_rows, n) chunk (8 MiB at 128 x 16384 f32) is far
+//     mbarrier; the helpers in bulk_copy.cuh, which K9b's ring shares). A (chunk_rows, n) chunk (8 MiB at 128 x 16384 f32) is far
 //     larger than shared memory, so each chunk is cut into pieces of a power
 //     of two bytes, the largest with `depth` of them in shared memory. A
 //     pass's pieces are dealt to the CTAs (one an SM) round robin, the same
@@ -46,6 +46,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bulk_copy.cuh"
 
 namespace {
 
@@ -207,10 +209,6 @@ __global__ void __launch_bounds__(kThreads) copy_kernel(const T* a, T* out, long
   }
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
 // K10c: the pieces of a pass (chunks * pieces), dealt to the CTAs round robin,
 // the same deal in each of `repeats` passes; this CTA's token columns into
 // part (grid, 128).
@@ -236,24 +234,12 @@ __global__ void __launch_bounds__(kDmaThreads, 1) dma_read_kernel(
     const long long off = q * piece;
     const uint32_t bytes =
         static_cast<uint32_t>(chunk_bytes - off < piece ? chunk_bytes - off : piece);
-    const uint32_t bar = smem_addr(bars + slot);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
-                 "r"(bytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-        "[%3];" ::"r"(smem_addr(ring + slot * piece)),
-        "l"(a + chunk * chunk_bytes + off), "r"(bytes), "r"(bar)
-        : "memory");
+    bulk_load(ring + slot * piece, a + chunk * chunk_bytes + off, bytes, bars + slot);
   };
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < d; ++s) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bars + s)),
-                   "r"(1)
-                   : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int s = 0; s < d; ++s) bulk_init(bars + s);
+    bulk_init_fence();
     for (int s = 0; s < d; ++s) start(s, s);
   }
   __syncthreads();
@@ -262,17 +248,7 @@ __global__ void __launch_bounds__(kDmaThreads, 1) dma_read_kernel(
   for (long long t = 0; t < mine; ++t) {
     const int slot = static_cast<int>(t % d);
     const uint32_t parity = static_cast<uint32_t>((t / d) & 1);
-    const uint32_t bar = smem_addr(bars + slot);
-    uint32_t done = 0;
-    while (!done) {
-      asm volatile(
-          "{\n\t.reg .pred p;\n\t"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-          "selp.b32 %0, 1, 0, p;\n\t}"
-          : "=r"(done)
-          : "r"(bar), "r"(parity)
-          : "memory");
-    }
+    bulk_wait(bars + slot, parity);
     // the piece that starts a chunk holds row 0, columns 0:128
     if (piece_of(t) % pieces == 0) {
       const T* row = reinterpret_cast<const T*>(ring + slot * piece);
@@ -285,7 +261,7 @@ __global__ void __launch_bounds__(kDmaThreads, 1) dma_read_kernel(
     __syncthreads();  // every thread is done with the slot
     if (threadIdx.x == 0 && t + d < mine) {
       // order this CTA's reads of the slot before the copy that overwrites it
-      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bulk_reuse_fence();
       start(t + d, slot);
     }
   }

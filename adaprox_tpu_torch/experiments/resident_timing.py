@@ -56,6 +56,15 @@ driver's inputs in the same call:
   mp_l2_512x128_trials, ...  their mean trials an iteration
   cv_build_s       seconds to build (or find built) csrc/resident_cv.cu and
                    csrc/resident_f0_grid.cu
+
+With ``--stream`` it times the stream probes K10a and K10c (csrc/hbm_stream.cu) as
+chip_smoke.py's phase 18 runs them: |randn| / 128 at 16384^2 f32 (1 GiB), 200 passes
+in one launch, best of ``--reps``:
+  k10a_ms, k10c_ms          ms of the launch
+  k10a_gbps, k10c_gbps      GB/s (200 x 1 GiB over that time)
+  stream_build_s            seconds to build (or find built) csrc/hbm_stream.cu
+To A/B a change to that source or its headers against a parent build, copy this script
+into the parent's tree (the parent's may have no --stream) and run both in turns.
 """
 
 from __future__ import annotations
@@ -86,16 +95,38 @@ def main(argv=None):
     mode.add_argument("--cv", action="store_true",
                       help="time K7d's Condat-Vu iteration and K7a's two cores', beside "
                            "K6d's, only")
+    mode.add_argument("--stream", action="store_true",
+                      help="time the stream probes K10a and K10c only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("resident_timing: needs a CUDA device")
     dev = torch.device("cuda", 0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    timing = pd_timing if args.pd else cv_timing if args.cv else k2_k4_timing
+    timing = (pd_timing if args.pd else cv_timing if args.cv else stream_timing if args.stream
+              else k2_k4_timing)
     out = timing(dev, args.reps)
     print(smi)
     print(json.dumps(out))
+
+
+def stream_timing(dev, reps, passes=200):
+    """K10a's and K10c's launch at 16384^2 f32 (see the module docstring)."""
+    from ..ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.build_library(kernels.STREAM_SOURCE)
+    out = {"stream_build_s": time.perf_counter() - t0}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    a = torch.randn(16384, 16384, generator=gen, device=dev).abs_() / 128
+    moved = passes * a.numel() * a.element_size()
+    for key, fn in (("k10a", lambda: kernels.hbm_read_reduce(a, 0.5, repeats=passes)),
+                    ("k10c", lambda: kernels.hbm_dma_read(a, 0.5, repeats=passes))):
+        seconds, _ = timed(fn, reps)
+        out[f"{key}_ms"] = 1e3 * seconds
+        out[f"{key}_gbps"] = moved / seconds / 1e9
+    return out
 
 
 def pd_timing(dev, reps):

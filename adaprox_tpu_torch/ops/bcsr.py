@@ -8,15 +8,23 @@ itemsize. The format, built on the host by ``bcsr_from_dense``:
   * ``vals``   (nnzb, bm, bn): the nonzero tiles, block-row-major;
   * ``cols``   (nnzb,) int32: each tile's block column;
   * ``rowptr`` (nbr + 1,) int32: the block rows' extents, CSR style;
-  * ``rows``   (nnzb,) int32: each tile's block row (``block_rows(rowptr)``).
+  * ``rows``   (nnzb,) int32: each tile's block row (``block_rows(rowptr)``);
+  * ``colptr`` (nbc + 1,) and ``col_tiles`` (nnzb,) int32: the column index of the
+    tile pattern (``block_cols(cols, nbc)``), each block column's tile ids in
+    increasing order.
 
-A'y goes through a second BCSR structure built from A' at the same tile shape, so both
-directions are gather-free streams, as the JAX package designed it.
+The JAX package takes A'y through a second BCSR structure built from A' at the same
+tile shape (``vals_t`` ...), so both directions are gather-free streams on its TPU; the
+"xla" route keeps that formulation. On the card the kernel routes take A'y from A's own
+tiles (``bcsr_rmatvec``, ``bcsr_rmatvec_slab``): at the sparse case A' at A's tile
+shape stores 5.6x A's bytes.
 
-``bcsr_matvec`` (K9a) and ``bcsr_matvec_slab`` (K9b) dispatch on where their tensors
-lie: CPU tensors take the plain version ``bcsr_matvec_plain`` (the counterpart of
-``bcsr_matvec_xla``: gather the x blocks, contract each tile, a segment sum over block
-rows); CUDA tensors launch the hand-written Hopper kernels (``csrc/bcsr_matvec.cu``,
+``bcsr_matvec`` (K9a) and ``bcsr_matvec_slab`` (K9b), A x, and ``bcsr_rmatvec`` and
+``bcsr_rmatvec_slab``, their A'y, dispatch on where their tensors lie: CPU tensors take
+the plain versions ``bcsr_matvec_plain`` (the counterpart of ``bcsr_matvec_xla``: gather
+the x blocks, contract each tile, a segment sum over block rows) and
+``bcsr_rmatvec_plain`` (the same over A's tiles transposed, a segment sum over block
+columns); CUDA tensors launch the hand-written Hopper kernels (``csrc/bcsr_matvec.cu``,
 built with nvcc for ``sm_90a`` at first use and loaded with ctypes) or raise. There is
 no fall-back from CUDA to the plain version.
 """
@@ -35,7 +43,8 @@ from .linops import opnorm2, storage_norm, widened
 from .sparse import _pad_up
 
 __all__ = ["BCSROperator", "bcsr_from_dense", "bcsr_matvec", "bcsr_matvec_slab",
-           "bcsr_matvec_plain", "bcsr_matvec_ref", "block_rows", "KERNELS", "build_library"]
+           "bcsr_matvec_plain", "bcsr_matvec_ref", "bcsr_rmatvec", "bcsr_rmatvec_slab",
+           "bcsr_rmatvec_plain", "block_rows", "block_cols", "KERNELS", "build_library"]
 
 SOURCE = kernels._PKG / "csrc" / "bcsr_matvec.cu"
 # -fmad=false as every other source: the kernels' dot products use explicit fmaf
@@ -77,6 +86,15 @@ def block_rows(rowptr):
     return np.repeat(np.arange(len(rowptr) - 1), np.diff(rowptr)).astype(np.int32)
 
 
+def block_cols(cols, nbc):
+    """(colptr (nbc + 1,), col_tiles (nnzb,)) int32, the column index of the tile pattern
+    from each tile's block column ``cols`` (numpy): the tile ids of block column c are
+    col_tiles[colptr[c] : colptr[c + 1]], in increasing order (a stable sort)."""
+    c = np.asarray(cols, np.int64)
+    colptr = np.concatenate([[0], np.cumsum(np.bincount(c, minlength=int(nbc)))])
+    return colptr.astype(np.int32), np.argsort(c, kind="stable").astype(np.int32)
+
+
 def bcsr_matvec_ref(vals, cols, rowptr, x):
     """The numpy reference, tile by tile (validation only)."""
     v, c, rp, xv = (np.asarray(a) for a in (vals, cols, rowptr, x))
@@ -108,6 +126,20 @@ def bcsr_matvec_plain(vals, cols, rows, x, nbr, rowptr=None):
     return y.reshape(-1)
 
 
+def bcsr_rmatvec_plain(vals, rows, colptr, col_tiles, y, nbc):
+    """x = A'y over A's stored tiles: the y blocks gathered by ``rows``, each tile's
+    transpose contracted with its block (a batched product, (nnzb, bn) partials), then a
+    segment sum over the block columns, each in ``col_tiles`` order (``colptr`` its
+    extents), in ``y``'s dtype (bf16 ``vals`` upcast to it). Deterministic on either
+    device (``torch.segment_reduce``, no atomics). Returns (nbc * bn,)."""
+    bm, bn = vals.shape[1], vals.shape[2]
+    yblk = torch.index_select(y.reshape(-1, bm), 0, rows)  # (nnzb, bm)
+    contrib = torch.bmm(yblk.unsqueeze(1), vals.to(y.dtype)).squeeze(1)  # (nnzb, bn)
+    x = torch.segment_reduce(torch.index_select(contrib, 0, col_tiles), "sum",
+                             offsets=colptr, axis=0, unsafe=True)
+    return x.reshape(int(nbc) * bn)
+
+
 def build_library():
     """Compile ``csrc/bcsr_matvec.cu`` (see ``ops.kernels.build_library``)."""
     return kernels.build_library(SOURCE, NVCC_FLAGS)
@@ -118,6 +150,8 @@ def _library():
     return kernels.load_library(SOURCE, NVCC_FLAGS, {
         "adaprox_bcsr_matvec": ([p, i, i, p, p, p, ll, i, i, p, p], i),
         "adaprox_bcsr_matvec_slab": ([p, i, i, p, p, ll, i, p, ll, i, i, p, p, p], i),
+        "adaprox_bcsr_rmatvec": ([p, i, i, p, p, p, p, ll, i, i, p, p], i),
+        "adaprox_bcsr_rmatvec_slab": ([p, i, i, p, p, p, ll, p, ll, i, i, p, p, p], i),
         "adaprox_bcsr_error_string": ([i], ctypes.c_char_p)})
 
 
@@ -141,17 +175,45 @@ def _check(name, vals, cols, index, x):
     return nnzb, bm, bn
 
 
-def _check_cuda(name, vals, x, *ints):
-    """The CUDA-only checks; returns (vals_is_bf16, vec)."""
+def _check_t(name, vals, rows, colptr, col_tiles, nbc, y):
+    """The checks both A'y entries share; returns (nnzb, bm, bn, nbc)."""
+    if vals.ndim != 3 or rows.ndim != 1 or colptr.ndim != 1 or col_tiles.ndim != 1 or \
+            y.ndim != 1:
+        raise ValueError(f"{name}: need vals (nnzb, bm, bn), rows, colptr, col_tiles and y "
+                         f"1-d; got {tuple(vals.shape)}, {tuple(rows.shape)}, "
+                         f"{tuple(colptr.shape)}, {tuple(col_tiles.shape)}, {tuple(y.shape)}")
+    nnzb, bm, bn = vals.shape
+    nbc = int(nbc)
+    if nnzb < 1 or rows.shape[0] != nnzb or col_tiles.shape[0] != nnzb:
+        raise ValueError(f"{name}: rows {tuple(rows.shape)} and col_tiles "
+                         f"{tuple(col_tiles.shape)} for {nnzb} stored tiles")
+    if nbc < 1 or colptr.shape[0] != nbc + 1:
+        raise ValueError(f"{name}: colptr {tuple(colptr.shape)} for {nbc} block columns")
+    if y.shape[0] % bm or y.shape[0] < bm:
+        raise ValueError(f"{name}: y of length {y.shape[0]} is not whole blocks of {bm}")
+    if not (vals.device == rows.device == colptr.device == col_tiles.device == y.device):
+        raise ValueError(f"{name}: vals, rows, colptr, col_tiles, y on different devices: "
+                         f"{vals.device}, {rows.device}, {colptr.device}, "
+                         f"{col_tiles.device}, {y.device}")
+    if not all(t.dtype == torch.int32 for t in (rows, colptr, col_tiles)):
+        raise TypeError(f"{name}: rows, colptr and col_tiles must be int32, got {rows.dtype}, "
+                        f"{colptr.dtype}, {col_tiles.dtype}")
+    return nnzb, bm, bn, nbc
+
+
+def _check_cuda(name, vals, v, *ints, v_aligned=True):
+    """The CUDA-only checks; returns (vals_is_bf16, vec). ``v_aligned``: the kernel reads
+    ``v`` in vectors too (A x), so it must be 16-byte aligned for vec 4."""
     if vals.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name} stores vals as float32 or bfloat16 on CUDA, got {vals.dtype}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} takes a float32 x on CUDA, got {x.dtype}")
-    if not all(t.is_contiguous() for t in (vals, x, *ints)):
-        raise ValueError(f"{name} needs contiguous vals, cols, rowptr/rows and x")
+    if v.dtype != torch.float32:
+        raise TypeError(f"{name} takes a float32 {'x' if v_aligned else 'y'} on CUDA, got "
+                        f"{v.dtype}")
+    if not all(t.is_contiguous() for t in (vals, v, *ints)):
+        raise ValueError(f"{name} needs contiguous vals, index arrays and vector")
     bn = vals.shape[2]
-    vec = 4 if bn % 4 == 0 and vals.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0 else 1
-    return int(vals.dtype == torch.bfloat16), vec
+    aligned = vals.data_ptr() % 16 == 0 and (not v_aligned or v.data_ptr() % 16 == 0)
+    return int(vals.dtype == torch.bfloat16), 4 if bn % 4 == 0 and aligned else 1
 
 
 def _raise_on(lib, err, name):
@@ -207,9 +269,10 @@ def bcsr_matvec_slab(vals, cols, rows, nbr, x, slab=8):
 
     CPU tensors: the plain version on the padded tiles, any float dtype. CUDA tensors:
     the K9b kernels (the padding is computed, not stored); ``vals`` float32 or
-    bfloat16, ``x`` float32, ``cols`` and ``rows`` int32, all contiguous, ``rows``
-    nondecreasing; returns float32. Anything else raises. Each launch (of its two
-    passes) adds one to ``bcsr_matvec_slab.launches``."""
+    bfloat16, 16-byte aligned and a multiple of 16 bytes in all (its first pass streams
+    it by bulk copies), ``x`` float32, ``cols`` and ``rows`` int32, all contiguous,
+    ``rows`` nondecreasing; returns float32. Anything else raises. Each launch (of its
+    two passes) adds one to ``bcsr_matvec_slab.launches``."""
     nnzb, bm, bn = _check("K9b", vals, cols, rows, x)
     nbr, slab = int(nbr), int(slab)
     if nbr < 1 or slab < 1 or rows.shape[0] != nnzb:
@@ -225,7 +288,11 @@ def bcsr_matvec_slab(vals, cols, rows, nbr, x, slab=8):
     if vals.device.type != "cuda":
         raise ValueError(f"K9b runs on CPU (plain version) or CUDA tensors, not {vals.device}")
     bf16, vec = _check_cuda("K9b", vals, x, cols, rows)
-    part = torch.empty((nnzb + pad) * bm, dtype=torch.float32, device=vals.device)
+    if vals.data_ptr() % 16 or (vals.numel() * vals.element_size()) % 16:
+        raise ValueError("K9b streams vals by bulk copies: it needs vals 16-byte aligned "
+                         f"and a multiple of 16 bytes, got {vals.numel()} values of "
+                         f"{vals.element_size()} bytes at address {vals.data_ptr()}")
+    part = torch.empty(nnzb * bm, dtype=torch.float32, device=vals.device)
     y = torch.empty(nbr * bm, dtype=torch.float32, device=vals.device)
     lib = _library()
     with torch.cuda.device(vals.device):
@@ -241,28 +308,83 @@ def bcsr_matvec_slab(vals, cols, rows, nbr, x, slab=8):
 bcsr_matvec_slab.launches = 0
 
 
+def _rmatvec(name, counted, vals, rows, colptr, col_tiles, nbc, y):
+    """K9a's (``name`` "K9a") or K9b's A'y: the checks, the plain version on CPU tensors,
+    the launch on CUDA ones, counted on ``counted.launches``."""
+    nnzb, bm, bn, nbc = _check_t(name, vals, rows, colptr, col_tiles, nbc, y)
+    if vals.device.type == "cpu":
+        return bcsr_rmatvec_plain(vals, rows, colptr, col_tiles, y, nbc)
+    if vals.device.type != "cuda":
+        raise ValueError(f"{name} runs on CPU (plain version) or CUDA tensors, not {vals.device}")
+    bf16, vec = _check_cuda(name, vals, y, rows, colptr, col_tiles, v_aligned=False)
+    x = torch.empty(nbc * bn, dtype=torch.float32, device=vals.device)
+    lib = _library()
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        ptrs = (vals.data_ptr(), bf16, vec, rows.data_ptr(), colptr.data_ptr(),
+                col_tiles.data_ptr())
+        if name == "K9a":
+            err = lib.adaprox_bcsr_rmatvec(*ptrs, y.data_ptr(), nbc, bm, bn, x.data_ptr(),
+                                           stream)
+        else:
+            part = torch.empty(nnzb * bn, dtype=torch.float32, device=vals.device)
+            err = lib.adaprox_bcsr_rmatvec_slab(*ptrs, nnzb, y.data_ptr(), nbc, bm, bn,
+                                                part.data_ptr(), x.data_ptr(), stream)
+    _raise_on(lib, err, name)
+    counted.launches += 1
+    return x
+
+
+def bcsr_rmatvec(vals, rows, colptr, col_tiles, nbc, y):
+    """x = A'y over A's own stored tiles (K9a's A'y, one pass): ``rows`` (nnzb,) each
+    tile's block row, ``colptr`` (nbc + 1,) and ``col_tiles`` (nnzb,) the column index
+    (``block_cols``), ``y`` (nbr * bm,); returns (nbc * bn,), each output the sum of its
+    block column's tile partials in ``col_tiles`` order. A non-finite y[r] reaches every
+    output of each block column that has a tile in r's block row, and no other.
+
+    CPU tensors: ``bcsr_rmatvec_plain``, any float dtype. CUDA tensors: the kernel;
+    ``vals`` float32 or bfloat16, ``y`` float32, the index arrays int32, all contiguous;
+    returns float32. Anything else raises. Each launch adds one to
+    ``bcsr_matvec.launches``, K9a's count."""
+    return _rmatvec("K9a", bcsr_matvec, vals, rows, colptr, col_tiles, nbc, y)
+
+
+def bcsr_rmatvec_slab(vals, rows, colptr, col_tiles, nbc, y):
+    """x = A'y over A's own stored tiles (K9b's A'y, two passes: each tile's partial,
+    then each block column's sum in ``col_tiles`` order), the arguments and result as
+    ``bcsr_rmatvec``'s and its bits on finite input. Over A's tiles there is no slab
+    padding. Each launch (of its two passes) adds one to ``bcsr_matvec_slab.launches``,
+    K9b's count."""
+    return _rmatvec("K9b", bcsr_matvec_slab, vals, rows, colptr, col_tiles, nbc, y)
+
+
 @dataclass(frozen=True)
 class BCSROperator:
     """A linear operator over (bm, bn) block-sparse storage, both directions: A's
-    structure (``vals``, ``cols``, ``rowptr``, ``rows``) and A''s at the same tile shape
-    (``*_t``), the true ``shape``, the zero-padded ``padded_shape``, each direction's
-    largest tile count of a block row (``max_bpr``, ``max_bpr_t``) and the matvec route
-    ``kernel``:
+    structure (``vals``, ``cols``, ``rowptr``, ``rows``) with its column index
+    (``colptr``, ``col_tiles``), A''s structure at the same tile shape (``*_t``), the
+    true ``shape``, the zero-padded ``padded_shape``, each direction's largest tile count
+    of a block row (``max_bpr``, ``max_bpr_t``) and the matvec route ``kernel``:
 
-      * "xla" (the default): ``bcsr_matvec_plain``, the JAX package's library
-        formulation (gather, batched product, segment sum) on either device, with the
-        block rows' extents, deterministic on the card too;
-      * "pallas": ``bcsr_matvec``, K9a on CUDA tensors (the plain version on CPU ones);
-      * "slab": ``bcsr_matvec_slab`` with slabs of 8 tiles, K9b on CUDA tensors.
+      * "xla" (the default): ``bcsr_matvec_plain`` both ways, A'y over A''s structure:
+        the JAX package's library formulation (gather, batched product, segment sum) on
+        either device, with the block rows' extents, deterministic on the card too;
+      * "pallas": K9a, ``bcsr_matvec`` for A x and ``bcsr_rmatvec`` for A'y over A's own
+        tiles, on CUDA tensors (their plain versions on CPU ones);
+      * "slab": K9b, ``bcsr_matvec_slab`` with slabs of 8 tiles and
+        ``bcsr_rmatvec_slab``.
 
-    A CUDA tensor with "pallas" or "slab" launches its kernel or raises; it never takes
-    "xla" instead. ``block_density`` (stored tiles / all tiles at this granularity) is
-    the ratio of the bytes a matvec reads to dense A's. Construct with ``from_dense``."""
+    The kernel routes never read ``vals_t``. A CUDA tensor with "pallas" or "slab"
+    launches its kernel or raises; it never takes "xla" instead. ``block_density``
+    (stored tiles / all tiles at this granularity) is the ratio of the bytes a matvec
+    reads to dense A's. Construct with ``from_dense``."""
 
     vals: torch.Tensor
     cols: torch.Tensor
     rowptr: torch.Tensor
     rows: torch.Tensor
+    colptr: torch.Tensor
+    col_tiles: torch.Tensor
     vals_t: torch.Tensor
     cols_t: torch.Tensor
     rowptr_t: torch.Tensor
@@ -299,7 +421,8 @@ class BCSROperator:
                     device, dtype=None):
         """The operator of given BCSR arrays (numpy or tensors) of A and A' on ``device``:
         the index arrays as int32, ``vals`` in ``dtype`` (their own by default); the
-        block rows, padded shape and largest tile counts derived from them."""
+        block rows, A's column index, padded shape and largest tile counts derived from
+        them."""
         vals, vals_t = torch.as_tensor(np.array(vals)), torch.as_tensor(np.array(vals_t))
         dt = vals.dtype if dtype is None else dtype
         rowptr, rowptr_t = np.asarray(rowptr), np.asarray(rowptr_t)
@@ -309,11 +432,14 @@ class BCSROperator:
             return torch.as_tensor(np.array(v, dtype=np.int32), device=device)
 
         m, n = (int(s) for s in shape)
+        padded_n = _pad_up(max(n, 1), bn)
+        colptr, col_tiles = block_cols(np.asarray(cols), padded_n // bn)
         return cls(vals=vals.to(device=device, dtype=dt).contiguous(), cols=idx(cols),
-                   rowptr=idx(rowptr), rows=idx(block_rows(rowptr)),
+                   rowptr=idx(rowptr), rows=idx(block_rows(rowptr)), colptr=idx(colptr),
+                   col_tiles=idx(col_tiles),
                    vals_t=vals_t.to(device=device, dtype=dt).contiguous(), cols_t=idx(cols_t),
                    rowptr_t=idx(rowptr_t), rows_t=idx(block_rows(rowptr_t)), shape=(m, n),
-                   padded_shape=(_pad_up(max(m, 1), bm), _pad_up(max(n, 1), bn)),
+                   padded_shape=(_pad_up(max(m, 1), bm), padded_n),
                    max_bpr=int(np.diff(rowptr).max(initial=1)),
                    max_bpr_t=int(np.diff(rowptr_t).max(initial=1)), kernel=kernel)
 
@@ -324,9 +450,13 @@ class BCSROperator:
         nbc = self.padded_shape[1] // bn
         return self.vals.shape[0] / max(1, nbr * nbc)
 
+    @staticmethod
+    def _padded(v, block):
+        pad = _pad_up(v.shape[0], block) - v.shape[0]
+        return F.pad(v, (0, pad)) if pad else v.contiguous()
+
     def _mv(self, vals, cols, rowptr, rows, max_bpr, v, out_dim):
-        pad = _pad_up(v.shape[0], vals.shape[2]) - v.shape[0]
-        vp = F.pad(v, (0, pad)) if pad else v.contiguous()
+        vp = self._padded(v, vals.shape[2])
         nbr = rowptr.shape[0] - 1
         if self.kernel == "pallas":
             y = bcsr_matvec(vals, cols, rowptr, max_bpr, vp)
@@ -341,8 +471,13 @@ class BCSROperator:
                         self.shape[0])
 
     def rmatvec(self, y):
-        return self._mv(self.vals_t, self.cols_t, self.rowptr_t, self.rows_t, self.max_bpr_t,
-                        y, self.shape[1])
+        if self.kernel == "xla":
+            return self._mv(self.vals_t, self.cols_t, self.rowptr_t, self.rows_t,
+                            self.max_bpr_t, y, self.shape[1])
+        fn = bcsr_rmatvec if self.kernel == "pallas" else bcsr_rmatvec_slab
+        x = fn(self.vals, self.rows, self.colptr, self.col_tiles, self.colptr.shape[0] - 1,
+               self._padded(y, self.vals.shape[1]))
+        return x[:self.shape[1]]
 
     def norm(self):
         """The Frobenius norm (Julia's ``norm(A)``; the stored tiles hold every nonzero),

@@ -20,7 +20,13 @@ import time
 
 import torch
 
-__all__ = ["timed", "trace", "throughput_report", "HBM_GBPS", "chip_bandwidth_gbps"]
+__all__ = ["timed", "flushed_ms", "trace", "throughput_report", "HBM_GBPS",
+           "chip_bandwidth_gbps"]
+
+# flushed_ms's default buffer: 256 MiB, five times the H100's 50 MB L2
+FLUSH_BYTES = 256 << 20
+# the card's head start while the host queues flushed_ms's calls: some 10 ms at H100 clocks
+_LEAD_CYCLES = 20_000_000
 
 # Device-memory rates of NVIDIA's data sheets (SXM parts), GB/s, keyed by the
 # start of torch.cuda.get_device_name (the longest match wins).
@@ -64,6 +70,34 @@ def timed(fn, reps: int = 3):
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / 1e3)
     return best, out
+
+
+def flushed_ms(fn, reps: int = 20, flush_bytes: int = FLUSH_BYTES) -> float:
+    """Mean CUDA-event ms of one call of ``fn()`` on the card, without the host's time:
+    the card is held busy (``torch.cuda._sleep``) while the host queues all ``reps``
+    calls, each between its own pair of events, so no call waits for its launch. With
+    ``flush_bytes`` > 0 (cold) a buffer of that many bytes is written and then read
+    before each call, outside the events: ``fn`` finds none of its inputs in the L2, and
+    no dirty line of the buffer is left to be written back during the call (which a
+    write alone would charge to it). ``flush_bytes`` 0: back to back (warm). After one
+    untimed warm-up call."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("flushed_ms() measures on a CUDA device and none is available")
+    buf = torch.empty(max(flush_bytes // 4, 1), dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda._sleep(_LEAD_CYCLES)
+    for i, (start, end) in enumerate(events):
+        if flush_bytes > 0:
+            buf.fill_(float(i))
+            buf.sum()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
 
 
 @contextlib.contextmanager

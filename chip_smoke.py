@@ -172,11 +172,14 @@ Phases, one line each, any failure exits non-zero:
                nonzero with probability 0.1, Gaussian inside, from a seed): ELLOperator,
                BCSROperator ("pallas", "slab", "xla") and DenseOperator over it; K8
                (csrc/ell_matvec.cu), K9a and K9b (csrc/bcsr_matvec.cu) against their
-               plain versions both ways (A x over A's structure, A'y over A''s), within
-               SPARSE_RTOL of the largest |a||x| row sum, two launches the same bits, K9b
-               equal to K9a bit for bit, the "xla" route the same bits twice; each timed
-               by CUDA events beside its plain version, its bound, cuSPARSE's CSR product,
-               the BSR product at (64, 512) where PyTorch takes it and dense torch.mv;
+               plain versions both ways (A x over A's structure; A'y over A's own tiles
+               for K9a and K9b, over ELL's A' structure for K8), and K9a and K9b over A''s
+               structure (the JAX formulation, which the xla route keeps), within SPARSE_RTOL of
+               the largest |a||x| sum, two launches the same bits, K9b equal to K9a bit for
+               bit, the "xla" route the same bits twice; each timed by CUDA events back to
+               back and with the L2 flushed (a cold rate past 3350 GB/s fails) beside its
+               plain version, its bound, cuSPARSE's CSR product, the BSR product at
+               (64, 512) where PyTorch takes it and dense torch.mv;
                opnorm2 over ELL, BCSR and dense; then through the engine at SPARSE_MAXIT
                iterations, each solve counted alone: AdaPGM on the lasso over all five
                operators, AdaPDM on the square-root lasso over ELL, BCSR "pallas" and
@@ -3308,15 +3311,26 @@ def library_ms(fn):
 
 def sparse_checks(sparse, bcsr, ops, d_t, dev, smi):
     """Phase 16, K8, K9a and K9b against their plain versions on the slice's case, both
-    directions: within SPARSE_RTOL of the largest |a| |x| row sum, two launches the same
-    bits, K9b (slab 8) equal to K9a bit for bit, the "xla" route the same bits twice;
-    each timed (CUDA events, 20 calls) beside its plain version, its bound, cuSPARSE's CSR
-    product, the BSR product at (64, 512) where PyTorch takes it, and dense torch.mv.
-    Returns {kernel: {direction: measurements}}."""
+    directions (A'y: K8 over ELL's A' structure, K9a and K9b over A's own tiles): within
+    SPARSE_RTOL of the largest |a| |x| row or column sum, two launches the same bits, K9b
+    equal to K9a bit for bit, the "xla" route the same bits twice; then K9a and K9b over
+    A''s tiles (the JAX formulation, which the "xla" route keeps) likewise. Each
+    timed by CUDA events over 20 calls with the host's time hidden
+    (utils.profiling.flushed_ms) twice: back to back (warm: A at 53 MB is about the 50 MB
+    L2, so some of it can be served from there) and with a 256 MiB buffer written and read
+    between calls (cold, the table's time: a cold rate past the card's 3350 GB/s fails),
+    beside its plain version (CUDA events, eager), its bound, cuSPARSE's CSR product and
+    dense torch.mv likewise, the BSR product at (64, 512) where PyTorch takes it, and K10a's
+    one pass over the same bytes (the stream's floor for one launch of this size).
+    Returns {kernel: {direction: measurements}} and that floor."""
+    from adaprox_tpu_torch.ops.kernels import hbm_read_reduce
+    from adaprox_tpu_torch.utils.profiling import flushed_ms
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(16)
     ell, bc = ops["ell"], ops["pallas"]
     m, n = ell.shape
+    nbr, nbc = bc.rowptr.shape[0] - 1, bc.colptr.shape[0] - 1
     csr = {"A x": d_t.to_sparse_csr(), "A'y": d_t.t().contiguous().to_sparse_csr()}
     try:
         bsr = {"A x": d_t.to_sparse_bsr(bc.vals.shape[1:]),
@@ -3324,64 +3338,128 @@ def sparse_checks(sparse, bcsr, ops, d_t, dev, smi):
     except (RuntimeError, NotImplementedError) as exc:
         bsr = {k: str(exc).splitlines()[0][:120] for k in ("A x", "A'y")}
     meas = {name: {} for name, *_ in SPARSE_KERNELS}
-    for direction, (ev, ec), (bv, bcol, brp, brows, bmax), size, dense_mv in (
-            ("A x", (ell.vals, ell.cols), (bc.vals, bc.cols, bc.rowptr, bc.rows, bc.max_bpr),
-             n, lambda v: torch.mv(d_t, v)),
-            ("A'y", (ell.vals_t, ell.rows_t),
-             (bc.vals_t, bc.cols_t, bc.rowptr_t, bc.rows_t, bc.max_bpr_t), m,
-             lambda v: torch.mv(d_t.t(), v))):
-        x = torch.randn(size, generator=gen, device=dev)
-        nbr = brp.shape[0] - 1
-        lib = library_ms(lambda: torch.mv(csr[direction], x))
-        lib_bsr = (library_ms(lambda: torch.mv(bsr[direction], x))
-                   if isinstance(bsr[direction], torch.Tensor) else (None, bsr[direction]))
-        dense_ms = event_ms(lambda: dense_mv(x))
-        y_dense = dense_mv(x)
-        cases = (
-            ("K8", lambda: sparse.ell_matvec(ev, ec, x),
-             lambda: sparse.ell_matvec_plain(ev, ec, x, ev.shape[0]),
-             lambda: sparse.ell_matvec_plain(ev.abs(), ec, x.abs(), ev.shape[0]),
-             sparse_bytes(ev, ec, x) + 4 * ev.shape[0], 2 * ev.numel()),
-            ("K9a", lambda: bcsr.bcsr_matvec(bv, bcol, brp, bmax, x),
-             lambda: bcsr.bcsr_matvec_plain(bv, bcol, brows, x, nbr, rowptr=brp),
-             lambda: bcsr.bcsr_matvec_plain(bv.abs(), bcol, brows, x.abs(), nbr, rowptr=brp),
-             sparse_bytes(bv, bcol, brp, x) + 4 * nbr * bv.shape[1], 2 * bv.numel()),
-            ("K9b", lambda: bcsr.bcsr_matvec_slab(bv, bcol, brows, nbr, x),
-             lambda: bcsr.bcsr_matvec_plain(bv, bcol, brows, x, nbr, rowptr=brp),
-             lambda: bcsr.bcsr_matvec_plain(bv.abs(), bcol, brows, x.abs(), nbr, rowptr=brp),
-             sparse_bytes(bv, bcol, brows, x) + 4 * nbr * bv.shape[1], 2 * bv.numel()))
-        outs = {}
-        for name, kernel, plain, magnitude, nbytes, flops in cases:
+    vecs = {"A x": torch.randn(n, generator=gen, device=dev),
+            "A'y": torch.randn(m, generator=gen, device=dev)}
+    out_len = {"A x": 4 * nbr * bc.vals.shape[1], "A'y": 4 * nbc * bc.vals.shape[2]}
+
+    def cases(direction, v):
+        """(name, kernel, plain, magnitude, bytes, flops) of each kernel this way."""
+        ev, ec = (ell.vals, ell.cols) if direction == "A x" else (ell.vals_t, ell.rows_t)
+        k8 = ("K8", lambda: sparse.ell_matvec(ev, ec, v),
+              lambda: sparse.ell_matvec_plain(ev, ec, v, ev.shape[0]),
+              lambda: sparse.ell_matvec_plain(ev.abs(), ec, v.abs(), ev.shape[0]),
+              sparse_bytes(ev, ec, v) + 4 * ev.shape[0], 2 * ev.numel())
+        if direction == "A x":
+            vals, cols, rowptr, rows = bc.vals, bc.cols, bc.rowptr, bc.rows
+            nbytes = sparse_bytes(vals, cols, rowptr, v) + out_len["A x"]
+            return (k8, (
+                "K9a", lambda: bcsr.bcsr_matvec(vals, cols, rowptr, bc.max_bpr, v),
+                lambda: bcsr.bcsr_matvec_plain(vals, cols, rows, v, nbr, rowptr=rowptr),
+                lambda: bcsr.bcsr_matvec_plain(vals.abs(), cols, rows, v.abs(), nbr,
+                                               rowptr=rowptr), nbytes, 2 * vals.numel()), (
+                "K9b", lambda: bcsr.bcsr_matvec_slab(vals, cols, rows, nbr, v),
+                lambda: bcsr.bcsr_matvec_plain(vals, cols, rows, v, nbr, rowptr=rowptr),
+                lambda: bcsr.bcsr_matvec_plain(vals.abs(), cols, rows, v.abs(), nbr,
+                                               rowptr=rowptr),
+                sparse_bytes(vals, cols, rows, v) + out_len["A x"], 2 * vals.numel()))
+        col = (bc.vals, bc.rows, bc.colptr, bc.col_tiles)
+        nbytes = sparse_bytes(*col, v) + out_len["A'y"]
+        return (k8, (
+            "K9a", lambda: bcsr.bcsr_rmatvec(*col, nbc, v),
+            lambda: bcsr.bcsr_rmatvec_plain(*col, v, nbc),
+            lambda: bcsr.bcsr_rmatvec_plain(bc.vals.abs(), *col[1:], v.abs(), nbc), nbytes,
+            2 * bc.vals.numel()), (
+            "K9b", lambda: bcsr.bcsr_rmatvec_slab(*col, nbc, v),
+            lambda: bcsr.bcsr_rmatvec_plain(*col, v, nbc),
+            lambda: bcsr.bcsr_rmatvec_plain(bc.vals.abs(), *col[1:], v.abs(), nbc), nbytes,
+            2 * bc.vals.numel()))
+
+    def run(label, direction, kcases, lib, lib_bsr, dense_ms, y_dense):
+        """Check and time each case; returns {name: measurements} and the outputs."""
+        got_meas, outs = {}, {}
+        for name, kernel, plain, magnitude, nbytes, flops in kcases:
             got, again, want = kernel(), kernel(), plain()
             scale = float(magnitude().max())
             torch.cuda.synchronize()
             abs_err = float((got - want).abs().max())
             same = torch.equal(got, again)
             check(same and math.isfinite(abs_err) and abs_err <= SPARSE_RTOL * scale,
-                  f"{name} {direction}: max |kernel - plain| {abs_err} (scale {scale}), same "
+                  f"{name} {label}: max |kernel - plain| {abs_err} (scale {scale}), same "
                   f"bits twice {same}")
             outs[name] = got
             check(float((got[:y_dense.shape[0]] - y_dense).abs().max()) <= SPARSE_RTOL * scale,
-                  f"{name} {direction} disagrees with the dense torch.mv")
-            b = bound(nbytes, flops)
-            meas[name][direction] = dict(
-                ms=event_ms(kernel), plain_ms=event_ms(plain), bound=b, max_abs_err=abs_err,
-                library_ms=lib[0], bsr_ms=lib_bsr[0], dense_ms=dense_ms)
-        xla_same = torch.equal(cases[1][2](), cases[1][2]())
-        check(torch.equal(outs["K9b"], outs["K9a"]) and xla_same,
-              f"{direction}: K9b equal to K9a bit for bit {torch.equal(outs['K9b'], outs['K9a'])}"
-              f", the xla route the same bits twice {xla_same}")
-        parts = [f"{name} {v[direction]['ms']:.4f} ms (plain {v[direction]['plain_ms']:.4f}, "
-                 f"bound {v[direction]['bound'][0]:.4f} {v[direction]['bound'][1]}, max abs err "
-                 f"{v[direction]['max_abs_err']:.2e})" for name, v in meas.items()]
-        print(f"[sparse] {direction} at {m}x{n} f32, ELL k {ev.shape[1]}, BCSR {bv.shape[0]} "
-              f"tiles of {tuple(bv.shape[1:])}: {'; '.join(parts)}; two launches the same bits, "
-              f"K9b = K9a bit for bit, the xla route the same bits twice (tol {SPARSE_RTOL:g} "
-              f"of the largest |a||x| row sum) | cuSPARSE CSR "
-              f"{'%.4f ms' % lib[0] if lib[0] is not None else lib[1]}, BSR "
-              f"{'%.4f ms' % lib_bsr[0] if lib_bsr[0] is not None else lib_bsr[1]}, dense "
-              f"torch.mv {dense_ms:.4f} ms ({smi})", flush=True)
-    return meas
+                  f"{name} {label} disagrees with the dense torch.mv")
+            cold, warm = flushed_ms(kernel), flushed_ms(kernel, flush_bytes=0)
+            gbps = nbytes / cold / 1e6
+            check(gbps <= HBM_BYTES_S / 1e9,
+                  f"{name} {label}: {gbps:.1f} GB/s cold is past the card's "
+                  f"{HBM_BYTES_S / 1e9:.0f} GB/s: it cannot have moved every byte")
+            got_meas[name] = dict(
+                ms=cold, warm_ms=warm, gbps=gbps, plain_ms=event_ms(plain),
+                bound=bound(nbytes, flops), max_abs_err=abs_err, library_ms=lib[0],
+                library_warm_ms=lib[2], bsr_ms=lib_bsr[0], dense_ms=dense_ms)
+        check(torch.equal(outs["K9b"], outs["K9a"]),
+              f"{label}: K9b not equal to K9a bit for bit")
+        parts = [f"{k} {v['ms']:.4f} ms cold, {v['warm_ms']:.4f} warm ({v['gbps']:.1f} GB/s "
+                 f"cold; plain {v['plain_ms']:.4f}, bound {v['bound'][0]:.4f} {v['bound'][1]},"
+                 f" max abs err {v['max_abs_err']:.2e})" for k, v in got_meas.items()]
+        print(f"[sparse] {label} at {m}x{n} f32: {'; '.join(parts)}; two launches the same "
+              f"bits, K9b = K9a bit for bit (tol {SPARSE_RTOL:g} of the largest |a||x| sum)"
+              f" | cuSPARSE CSR "
+              f"{'%.4f ms cold, %.4f warm' % (lib[0], lib[2]) if lib[0] is not None else lib[1]}"
+              f", BSR {'%.4f ms' % lib_bsr[0] if lib_bsr[0] is not None else lib_bsr[1]}, "
+              f"dense torch.mv {dense_ms:.4f} ms ({smi})", flush=True)
+        return got_meas
+
+    def yardsticks(direction, v, dense_mv):
+        def timed_lib(fn):
+            ms, why = library_ms(fn)  # None where PyTorch refuses the product
+            return ((flushed_ms(fn), why, flushed_ms(fn, flush_bytes=0)) if ms is not None
+                    else (None, why, None))
+
+        lib = timed_lib(lambda: torch.mv(csr[direction], v))
+        lib_bsr = (library_ms(lambda: torch.mv(bsr[direction], v))
+                   if isinstance(bsr[direction], torch.Tensor) else (None, bsr[direction]))
+        return lib, lib_bsr, flushed_ms(lambda: dense_mv(v)), dense_mv(v)
+
+    for direction, dense_mv in (("A x", lambda v: torch.mv(d_t, v)),
+                                ("A'y", lambda v: torch.mv(d_t.t(), v))):
+        v = vecs[direction]
+        label = (f"A x over A's {bc.vals.shape[0]} tiles of {tuple(bc.vals.shape[1:])}, ELL k "
+                 f"{ell.vals.shape[1]}" if direction == "A x" else
+                 f"A'y over A's {bc.vals.shape[0]} tiles (K9a, K9b), ELL kt "
+                 f"{ell.vals_t.shape[1]} (K8)")
+        got = run(label, direction, cases(direction, v), *yardsticks(direction, v, dense_mv))
+        for name, g in got.items():
+            meas[name][direction] = g
+    xla_same = torch.equal(ops["xla"].rmatvec(vecs["A'y"]), ops["xla"].rmatvec(vecs["A'y"]))
+    check(xla_same and torch.equal(ops["xla"].matvec(vecs["A x"]),
+                                   ops["xla"].matvec(vecs["A x"])),
+          "the xla route not the same bits twice")
+    # K9a and K9b over A''s structure at A's tile shape: A'y in the JAX formulation
+    v = vecs["A'y"]
+    vt, ct, rpt, rt = bc.vals_t, bc.cols_t, bc.rowptr_t, bc.rows_t
+    nbr_t = rpt.shape[0] - 1
+    nbytes = sparse_bytes(vt, ct, rpt, v) + 4 * nbr_t * vt.shape[1]
+    old = ((
+        "K9a", lambda: bcsr.bcsr_matvec(vt, ct, rpt, bc.max_bpr_t, v),
+        lambda: bcsr.bcsr_matvec_plain(vt, ct, rt, v, nbr_t, rowptr=rpt),
+        lambda: bcsr.bcsr_matvec_plain(vt.abs(), ct, rt, v.abs(), nbr_t, rowptr=rpt), nbytes,
+        2 * vt.numel()), (
+        "K9b", lambda: bcsr.bcsr_matvec_slab(vt, ct, rt, nbr_t, v),
+        lambda: bcsr.bcsr_matvec_plain(vt, ct, rt, v, nbr_t, rowptr=rpt),
+        lambda: bcsr.bcsr_matvec_plain(vt.abs(), ct, rt, v.abs(), nbr_t, rowptr=rpt),
+        sparse_bytes(vt, ct, rt, v) + 4 * nbr_t * vt.shape[1], 2 * vt.numel()))
+    got = run(f"A'y over A''s {vt.shape[0]} tiles (the JAX formulation, the xla route's)",
+              "A'y", old, *yardsticks("A'y", v, lambda u: torch.mv(d_t.t(), u)))
+    for name, g in got.items():
+        meas[name]["A'y over A' tiles"] = g
+    flat = bc.vals.reshape(-1, bc.vals.shape[2])
+    floor = flushed_ms(lambda: hbm_read_reduce(flat, 1.0))
+    print(f"[sparse] the stream's floor for one launch of A's {sparse_bytes(flat) / 1e6:.1f} MB:"
+          f" K10a, one pass, {floor:.4f} ms cold ({sparse_bytes(flat) / floor / 1e6:.1f} GB/s;"
+          f" the bound {bound(sparse_bytes(flat), 0)[0]:.4f} ms) ({smi})", flush=True)
+    return meas, floor
 
 
 def sparse_phase(sparse, bcsr, others, dev, smi):
@@ -3410,7 +3488,7 @@ def sparse_phase(sparse, bcsr, others, dev, smi):
           f"{sparse_bytes(bc.vals_t) / 1e6:.1f} MB, max_bpr_t {bc.max_bpr_t}); dense "
           f"{sparse_bytes(d_t) / 1e6:.1f} MB; built in {time.perf_counter() - t0:.1f} s ({smi})",
           flush=True)
-    meas = sparse_checks(sparse, bcsr, ops, d_t, dev, smi)
+    meas, floor = sparse_checks(sparse, bcsr, ops, d_t, dev, smi)
 
     norms = {r: float(ops[r].opnorm(iters=50)) for r in ("ell", "pallas", "dense")}
     err = max(abs(v - norms["dense"]) / norms["dense"] for v in norms.values())
@@ -3461,7 +3539,8 @@ def sparse_phase(sparse, bcsr, others, dev, smi):
     print(f"[sparse] launches on the path: K8 {launches[0]}, K9a {launches[1]}, K9b "
           f"{launches[2]} ({smi})", flush=True)
     del ops, d_t
-    return dict(kernels=meas, launches=dict(zip(("K8", "K9a", "K9b"), launches)), walls=walls)
+    return dict(kernels=meas, launches=dict(zip(("K8", "K9a", "K9b"), launches)), walls=walls,
+                floor=floor)
 
 
 # Phase 17: bench's batched regularization path (bench.py:442-480): random_lasso(4000,
@@ -4172,8 +4251,12 @@ def main():
         "bound_ms": sp_meas["kernels"][key]["A x"]["bound"][0],
         "bound_by": sp_meas["kernels"][key]["A x"]["bound"][1],
         "library_ms": sp_meas["kernels"][key]["A x"]["library_ms"],
-        "ms_at": {d: {"ms": v["ms"], "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
-                      "csr_ms": v["library_ms"], "bsr_ms": v["bsr_ms"], "dense_mv_ms": v["dense_ms"]}
+        "warm_ms": sp_meas["kernels"][key]["A x"]["warm_ms"],
+        "stream_floor_ms": sp_meas["floor"],
+        "ms_at": {d: {"ms": v["ms"], "warm_ms": v["warm_ms"], "gbps": v["gbps"],
+                      "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
+                      "csr_ms": v["library_ms"], "csr_warm_ms": v["library_warm_ms"],
+                      "bsr_ms": v["bsr_ms"], "dense_mv_ms": v["dense_ms"]}
                   for d, v in sp_meas["kernels"][key].items()}}
         for key, name, source, replaces in SPARSE_KERNELS] + [{
         "name": "resident_adapgm_batch", "route": "cuda",

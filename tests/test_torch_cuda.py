@@ -24,7 +24,7 @@ from adaprox_tpu_torch.experiments.k7a_calibration import (K7A_HORIZON, K7A_RTOL
 from adaprox_tpu_torch.ops import kernels as tk
 from adaprox_tpu_torch.ops import resident as tr
 from adaprox_tpu_torch.ops import resident_bt as trb
-from adaprox_tpu_torch.utils.profiling import chip_bandwidth_gbps, timed
+from adaprox_tpu_torch.utils.profiling import chip_bandwidth_gbps, flushed_ms, timed
 
 pytestmark = pytest.mark.cuda
 
@@ -2061,6 +2061,169 @@ def test_k9_refuses_what_it_does_not_take(dev):
                        op.rowptr, op.max_bpr, x)
 
 
+@pytest.mark.parametrize("m,n,block", [(64, 512, (8, 128)), (1024, 4096, (64, 512)),
+                                       (200, 1000, (16, 100)), (48, 390, (8, 130))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9_rmatvec_match_plain_and_each_other_on_card(dev, m, n, block, dtype):
+    """K9a's and K9b's A'y over A's own tiles against bcsr_rmatvec_plain (SPARSE_RTOL of
+    the largest |a||y| column sum); K9b equals K9a bit for bit, two launches give the same
+    bits, and each launch adds one to its kernel's count (the A x counts); the operator's
+    "pallas" and "slab" rmatvec are these launches."""
+    from adaprox_tpu_torch.ops import bcsr as tb
+
+    d = _bcsr_case(dev, m, n, block, 0.3)
+    op = tb.BCSROperator.from_dense(d, block, dtype=dtype)
+    args = (op.vals, op.rows, op.colptr, op.col_tiles, op.colptr.shape[0] - 1)
+    y = torch.randn(op.padded_shape[0], device=dev)
+    want = tb.bcsr_rmatvec_plain(*args[:4], y, args[4])
+    scale = tb.bcsr_rmatvec_plain(op.vals.float().abs(), *args[1:4], y.abs(), args[4]).max()
+    before = (tb.bcsr_matvec.launches, tb.bcsr_matvec_slab.launches)
+    k9a, k9a_again = tb.bcsr_rmatvec(*args, y), tb.bcsr_rmatvec(*args, y)
+    k9b, k9b_again = tb.bcsr_rmatvec_slab(*args, y), tb.bcsr_rmatvec_slab(*args, y)
+    torch.cuda.synchronize()
+    assert (tb.bcsr_matvec.launches, tb.bcsr_matvec_slab.launches) == (before[0] + 2,
+                                                                        before[1] + 2)
+    assert k9a.shape == (op.padded_shape[1],) and k9a.dtype == torch.float32
+    assert _sparse_err(k9a, want, scale) <= SPARSE_RTOL
+    assert torch.equal(k9a, k9a_again) and torch.equal(k9b, k9b_again) and torch.equal(k9b, k9a)
+    for route, got in (("pallas", k9a), ("slab", k9b)):
+        assert torch.equal(tb.BCSROperator.from_dense(d, block, route, dtype=dtype).rmatvec(
+            y[:m]), got[:n])
+
+
+def test_k9_rmatvec_non_finite_y_on_card(dev):
+    """A NaN in y reaches, on both kernels as in their plain version, every output of each
+    block column that has a tile in its block row, and no other."""
+    from adaprox_tpu_torch.ops import bcsr as tb
+
+    op = tb.BCSROperator.from_dense(_bcsr_case(dev, 64, 512, (8, 128), 0.4, seed=3), (8, 128))
+    args = (op.vals, op.rows, op.colptr, op.col_tiles, op.colptr.shape[0] - 1)
+    y = torch.randn(64, device=dev)
+    y[20] = float("nan")
+    want = torch.isnan(tb.bcsr_rmatvec_plain(*args[:4], y, args[4]))
+    assert bool(want.any()) and not bool(want.all())
+    for fn in (tb.bcsr_rmatvec, tb.bcsr_rmatvec_slab):
+        assert torch.equal(torch.isnan(fn(*args, y)), want)
+
+
+def test_k9_rmatvec_refuses_what_it_does_not_take(dev):
+    from adaprox_tpu_torch.ops import bcsr as tb
+
+    op = tb.BCSROperator.from_dense(_bcsr_case(dev, 64, 512, (8, 128), 0.4), (8, 128))
+    args = [op.vals, op.rows, op.colptr, op.col_tiles, op.colptr.shape[0] - 1]
+    y = torch.randn(64, device=dev)
+    for fn in (tb.bcsr_rmatvec, tb.bcsr_rmatvec_slab):
+        with pytest.raises(TypeError, match="float32 y"):
+            fn(*args, y.double())
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fn(op.vals.double(), *args[1:], y)
+        with pytest.raises(TypeError, match="int32"):
+            fn(op.vals, op.rows.long(), *args[2:], y)
+        with pytest.raises(ValueError, match="whole blocks"):
+            fn(*args, y[:60])
+        with pytest.raises(ValueError, match="different devices"):
+            fn(*args, y.cpu())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(op.vals.transpose(1, 2).contiguous().transpose(1, 2), *args[1:], y)
+    # K9b's first pass over A x streams vals by bulk copies: 16-byte alignment or a refusal
+    shifted = torch.empty(op.vals.numel() + 1, device=dev)[1:].view(op.vals.shape)
+    shifted.copy_(op.vals)
+    x = torch.randn(512, device=dev)
+    with pytest.raises(ValueError, match="bulk copies"):
+        tb.bcsr_matvec_slab(shifted, op.cols, op.rows, 8, x)
+    scale = tb.bcsr_matvec_plain(op.vals.abs(), op.cols, op.rows, x.abs(), 8).max()
+    assert _sparse_err(tb.bcsr_matvec(shifted, op.cols, op.rowptr, op.max_bpr, x),
+                       tb.bcsr_matvec_plain(op.vals, op.cols, op.rows, x, 8),
+                       scale) <= SPARSE_RTOL  # K9a takes scalar loads there
+
+
+@pytest.mark.parametrize("kernel", ["K9a", "K9b"])
+def test_k9_rmatvec_check_fails_a_kernel_that_skips_a_tile(dev, tmp_path, kernel):
+    """The plain comparison is a guard of the byte count, not only the rate cap: a kernel
+    built to skip the last tile of each block column (K9a's column loop, or K9b's second
+    pass) fails it, where the kernel as built passes."""
+    from adaprox_tpu_torch.ops import bcsr as tb
+
+    src = tb.SOURCE.read_text()
+    line = {"K9a": "  const int col_end = colptr[c + 1];\n",
+            "K9b": "  const int k_end = colptr[c + 1];\n"}[kernel]
+    assert src.count(line) == 1
+    mutant, so = tmp_path / "bcsr_matvec.cu", tmp_path / f"bcsr_skip_{kernel}.so"
+    mutant.write_text(src.replace(line, line.replace("];", "] - 1;")))
+    subprocess.run([tk._nvcc(), *tb.NVCC_FLAGS, "-I", str(tb.SOURCE.parent), "-o", str(so),
+                    str(mutant)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.adaprox_bcsr_rmatvec.argtypes = [p, i, i, p, p, p, p, ll, i, i, p, p]
+    lib.adaprox_bcsr_rmatvec_slab.argtypes = [p, i, i, p, p, p, ll, p, ll, i, i, p, p, p]
+
+    op = tb.BCSROperator.from_dense(_bcsr_case(dev, 1024, 4096, (64, 512), 0.3, seed=7))
+    nnzb, bm, bn = op.vals.shape
+    nbc = op.colptr.shape[0] - 1
+    args = (op.vals, op.rows, op.colptr, op.col_tiles, nbc)
+    y = torch.randn(op.padded_shape[0], device=dev)
+    want = tb.bcsr_rmatvec_plain(*args[:4], y, nbc)
+    scale = tb.bcsr_rmatvec_plain(op.vals.abs(), *args[1:4], y.abs(), nbc).max()
+    good = {"K9a": tb.bcsr_rmatvec, "K9b": tb.bcsr_rmatvec_slab}[kernel](*args, y)
+    assert _sparse_err(good, want, scale) <= SPARSE_RTOL
+    out = torch.empty(nbc * bn, device=dev)
+    ptrs = (op.vals.data_ptr(), 0, 4, op.rows.data_ptr(), op.colptr.data_ptr(),
+            op.col_tiles.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel == "K9a":
+        err = lib.adaprox_bcsr_rmatvec(*ptrs, y.data_ptr(), nbc, bm, bn, out.data_ptr(), stream)
+    else:
+        part = torch.empty(nnzb * bn, device=dev)
+        err = lib.adaprox_bcsr_rmatvec_slab(*ptrs, nnzb, y.data_ptr(), nbc, bm, bn,
+                                            part.data_ptr(), out.data_ptr(), stream)
+    torch.cuda.synchronize()
+    assert err == 0 and _sparse_err(out, want, scale) > SPARSE_RTOL
+
+
+def test_k9_cold_rates_at_the_sparse_case_within_the_card(dev):
+    """At the slice's case (8192 x 16384 f32, 10% of the (64, 512) tiles: 407 tiles, 53 MB),
+    the L2-flushed rate of K9a's and K9b's A'y over A's tiles and of K9b's A x (the bytes
+    each must move over its time, a 256 MiB buffer written between calls) is at or under
+    the card's data-sheet rate, and each result agrees with its plain version."""
+    from adaprox_tpu_torch.experiments.sparse_calibration import sparse_case
+    from adaprox_tpu_torch.ops import bcsr as tb
+
+    roof = chip_bandwidth_gbps(dev)
+    assert math.isfinite(roof), f"no data-sheet rate for {torch.cuda.get_device_name(dev)}"
+    d = sparse_case()
+    vals, cols, rowptr, _ = tb.bcsr_from_dense(d)
+    m, n = d.shape
+    del d
+    op = tb.BCSROperator.from_arrays(vals, cols, rowptr, vals[:1], cols[:1], [0, 1], (m, n),
+                                     device=dev)
+    nbr, nbc = op.rowptr.shape[0] - 1, op.colptr.shape[0] - 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    x, y = torch.randn(n, generator=gen, device=dev), torch.randn(m, generator=gen, device=dev)
+    t_args = (op.vals, op.rows, op.colptr, op.col_tiles, nbc, y)
+
+    def nbytes(*ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    t_plain = tb.bcsr_rmatvec_plain(*t_args[:4], y, nbc)
+    t_scale = tb.bcsr_rmatvec_plain(op.vals.abs(), *t_args[1:4], y.abs(), nbc).max()
+    t_bytes = nbytes(op.vals, op.rows, op.colptr, op.col_tiles, y, x)
+    cases = {
+        "K9a A'y": (lambda: tb.bcsr_rmatvec(*t_args), t_plain, t_scale, t_bytes),
+        "K9b A'y": (lambda: tb.bcsr_rmatvec_slab(*t_args), t_plain, t_scale, t_bytes),
+        "K9b A x": (lambda: tb.bcsr_matvec_slab(op.vals, op.cols, op.rows, nbr, x),
+                    tb.bcsr_matvec_plain(op.vals, op.cols, op.rows, x, nbr, rowptr=op.rowptr),
+                    tb.bcsr_matvec_plain(op.vals.abs(), op.cols, op.rows, x.abs(), nbr,
+                                         rowptr=op.rowptr).max(),
+                    nbytes(op.vals, op.cols, op.rows, x, y))}
+    gbps = {}
+    for name, (kernel, want, scale, moved) in cases.items():
+        assert _sparse_err(kernel(), want, scale) <= SPARSE_RTOL, name
+        gbps[name] = moved / flushed_ms(kernel) / 1e6
+    print(f"cold GB/s at the sparse case against the data sheet's {roof:g}: {gbps}")
+    assert all(v <= roof for v in gbps.values()), gbps
+
+
 def _sparse_launches():
     from adaprox_tpu_torch.ops import bcsr as tb
     from adaprox_tpu_torch.ops import sparse as ts
@@ -2259,8 +2422,8 @@ def test_k10a_check_fails_a_probe_that_skips_its_tail(dev, tmp_path):
     assert src.count(tail) == 1
     mutant, so = tmp_path / "hbm_stream.cu", tmp_path / "hbm_stream_no_tail.so"
     mutant.write_text(src.replace(tail, ""))
-    subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS, "-o", str(so), str(mutant)], check=True,
-                   capture_output=True)
+    subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS, "-I", str(tk.STREAM_SOURCE.parent), "-o",
+                    str(so), str(mutant)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     lib.adaprox_hbm_max_grid.restype = ctypes.c_int
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -2328,8 +2491,8 @@ def test_k10c_reads_every_pass_from_device_memory(dev, tmp_path):
         "  const long long mine = (per_pass * repeats - blockIdx.x + grid - 1) / grid;\n")
     ).replace(pick, "  auto piece_of = [&](long long t) { return (blockIdx.x + t * grid) % "
                     "per_pass; };\n"))
-    subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS, "-o", str(so), str(mutant)], check=True,
-                   capture_output=True)
+    subprocess.run([tk._nvcc(), *tk.NVCC_FLAGS, "-I", str(tk.STREAM_SOURCE.parent), "-o",
+                    str(so), str(mutant)], check=True, capture_output=True)
     lib = ctypes.CDLL(str(so))
     lib.adaprox_hbm_max_grid.restype = ctypes.c_int
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

@@ -281,6 +281,151 @@ def test_refusals():
         apt.BCSROperator.from_dense(np.eye(16), kernel="cusparse", device=CPU)
 
 
+# -- A'y over A's own tiles (the kernel routes' formulation) --------------------------------
+
+
+def _tile_mask(d, bm, bn):
+    """The (nbr, nbc) mask of the nonzero (bm, bn) tiles of d, zero-padded to whole tiles
+    (an all-zero matrix stores its one zero tile at (0, 0))."""
+    m, n = d.shape
+    dp = np.zeros((-(-m // bm) * bm, -(-n // bn) * bn))
+    dp[:m, :n] = d
+    mask = (dp.reshape(dp.shape[0] // bm, bm, -1, bn) != 0).any(axis=(1, 3))
+    if not mask.any():
+        mask[0, 0] = True
+    return mask
+
+
+@pytest.mark.parametrize("block", [(8, 128), (64, 512), (16, 256)])
+@pytest.mark.parametrize("case", sorted(MATRICES))
+def test_bcsr_column_index_is_the_csc_of_the_tile_mask(case, block):
+    """colptr / col_tiles against a numpy CSC of the tile mask (each block column's tile
+    ids, numbered block-row-major, in increasing order), on the operator built by
+    from_dense and by bcsr_from_numpy from JAX's arrays."""
+    d = MATRICES[case]()
+    mask = _tile_mask(d, *block)
+    ids = np.full(mask.shape, -1)
+    ids[mask] = np.arange(mask.sum())  # row-major: the tile order of vals
+    want_ptr = np.concatenate([[0], np.cumsum(mask.sum(axis=0))])
+    want_tiles = np.concatenate([ids[mask[:, c], c] for c in range(mask.shape[1])])
+    jop = jb.BCSROperator.from_dense(d, block)
+    carried = apt.bcsr_from_numpy(*(np.asarray(a) for a in (jop.vals, jop.cols, jop.rowptr,
+                                                             jop.vals_t, jop.cols_t,
+                                                             jop.rowptr_t)),
+                                  jop.shape, device=CPU, dtype=torch.float64)
+    for op in (apt.BCSROperator.from_dense(d, block, device=CPU), carried):
+        assert op.colptr.dtype == op.col_tiles.dtype == torch.int32
+        np.testing.assert_array_equal(np_of(op.colptr), want_ptr)
+        np.testing.assert_array_equal(np_of(op.col_tiles), want_tiles)
+        assert op.colptr.shape[0] == op.padded_shape[1] // block[1] + 1
+
+
+@pytest.mark.parametrize("route", ["plain", "pallas", "slab"])
+@pytest.mark.parametrize("block", [(8, 128), (64, 512)])
+@pytest.mark.parametrize("case", ["dense-0.3", "block-0.25", "uneven", "zero"])
+def test_bcsr_rmatvec_over_a_tiles_matches_jax(case, block, route, rng):
+    """A'y over A's own tiles (bcsr_rmatvec_plain, and the "pallas" and "slab" routes'
+    rmatvec, whose CPU path it is) against JAX's BCSROperator.rmatvec and JAX's
+    interpret-mode bcsr_matvec over the A' structure, in f64 at rtol 1e-12 / atol 1e-13:
+    ragged shapes, empty and trailing empty block rows, an all-zero matrix."""
+    d = MATRICES[case]()
+    m, n = d.shape
+    y = rng.standard_normal(m)
+    op = apt.BCSROperator.from_dense(d, block, "xla" if route == "plain" else route,
+                                     device=CPU)
+    jop = jb.BCSROperator.from_dense(d, block)
+    if route == "plain":
+        yp = np.zeros(op.padded_shape[0])
+        yp[:m] = y
+        got = tb.bcsr_rmatvec_plain(op.vals, op.rows, op.colptr, op.col_tiles, t64(yp),
+                                    op.colptr.shape[0] - 1)
+        assert got.shape == (op.padded_shape[1],) and got.dtype == torch.float64
+        got = got[:n]
+    else:
+        got = op.rmatvec(t64(y))
+    assert got.shape == (n,)
+    tol = dict(rtol=1e-12, atol=1e-13)
+    np.testing.assert_allclose(np_of(got), np.asarray(jop.rmatvec(jnp.asarray(y))), **tol)
+    yt = np.zeros(-(-m // block[1]) * block[1])  # y padded to A''s block columns
+    yt[:m] = y
+    want = jb.bcsr_matvec(jop.vals_t, jop.cols_t, jop.rowptr_t, jop.max_bpr_t, jnp.asarray(yt),
+                          interpret=True)
+    np.testing.assert_allclose(np_of(got), np.asarray(want)[:n], **tol)
+    np.testing.assert_allclose(np_of(got), d.T @ y, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("route", ["pallas", "slab"])
+@pytest.mark.parametrize("block", [(8, 128), (64, 512)])
+@pytest.mark.parametrize("case", ["dense-0.3", "block-0.25", "uneven"])
+def test_bcsr_rmatvec_bf16_storage_matches_jax(case, block, route, rng):
+    """bf16 vals with an f32 y: A'y over A's tiles against JAX's rmatvec over the bf16 A'
+    structure (products and sums in f32), rtol 1e-5 of the largest output."""
+    d = MATRICES[case]().astype(np.float32)
+    y = rng.standard_normal(d.shape[0]).astype(np.float32)
+    op = apt.BCSROperator.from_dense(d, block, route, device=CPU, dtype=torch.bfloat16)
+    jop = jb.BCSROperator.from_dense(d.astype(jnp.bfloat16), block)
+    got = op.rmatvec(torch.as_tensor(y))
+    want = np.asarray(jop.rmatvec(jnp.asarray(y)))
+    assert op.vals.dtype == torch.bfloat16 and got.dtype == torch.float32
+    np.testing.assert_allclose(np_of(got), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+@pytest.mark.parametrize("route", list(tb.KERNELS))
+def test_non_finite_y_pattern_of_each_route(route, bad, rng):
+    """The decided reach of a non-finite y[r]: on the kernel routes ("pallas", "slab",
+    A'y over A's tiles) every output of each block column that has a tile in r's block
+    row, and no other; the "xla" route keeps JAX's pattern over A''s tiles (its
+    rmatvec's, NaN for NaN and non-finite for inf)."""
+    d = _block_sparse(64, 512, 0.3, 5)
+    block = (8, 128)
+    mask = _tile_mask(d, *block)
+    op = apt.BCSROperator.from_dense(d, block, route, device=CPU)
+    jop = jb.BCSROperator.from_dense(d, block)
+    for r in (3, 20, 63):
+        y = rng.standard_normal(64)
+        y[r] = bad
+        got = np_of(op.rmatvec(t64(y)))
+        if route == "xla":
+            want = np.asarray(jop.rmatvec(jnp.asarray(y)))
+            np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+            fin = np.isfinite(want)
+            np.testing.assert_allclose(got[fin], want[fin], rtol=1e-10, atol=1e-12)
+        else:
+            reach = np.repeat(mask[r // block[0]], block[1])[:512]
+            assert reach.any() and not reach.all()
+            np.testing.assert_array_equal(~np.isfinite(got), reach)
+            if np.isnan(bad):
+                assert np.isnan(got[reach]).all()
+            np.testing.assert_allclose(got[~reach], (d.T @ np.nan_to_num(y, posinf=0.0))[~reach],
+                                       rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("entry", ["bcsr_rmatvec", "bcsr_rmatvec_slab"])
+def test_rmatvec_refusals(entry):
+    """The A'y entries refuse int64 index arrays, a y that is not whole blocks of bm, a
+    colptr of the wrong length and tensors on different devices."""
+    fn = getattr(tb, entry)
+    op = apt.BCSROperator.from_dense(_block_sparse(16, 256, 0.5, 3), (8, 128), device=CPU)
+    args = [op.vals, op.rows, op.colptr, op.col_tiles, op.colptr.shape[0] - 1]
+    y = t64(np.ones(16))
+    assert fn(*args, y).shape == (256,)
+    for k in (1, 2, 3):
+        bad = list(args)
+        bad[k] = bad[k].long()
+        with pytest.raises(TypeError, match="int32"):
+            fn(*bad, y)
+    with pytest.raises(ValueError, match="whole blocks"):
+        fn(*args, t64(np.ones(12)))
+    with pytest.raises(ValueError, match="block columns"):
+        fn(*args[:4], 3, y)
+    with pytest.raises(ValueError, match="different devices"):
+        fn(*args, torch.ones(16, dtype=torch.float64, device="meta"))
+    with pytest.raises(ValueError, match="need vals"):
+        fn(op.vals[0], *args[1:], y)
+
+
 # -- the norms -----------------------------------------------------------------------------
 
 

@@ -205,3 +205,12 @@ def test_trace_writes_a_trace_file(tmp_path):
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any("mv" in e.get("name", "") for e in events)
     assert any("mv" in e.key for e in prof.key_averages())
+
+
+@pytest.mark.parametrize("flush_bytes", [0, 1 << 20])
+def test_flushed_ms_refuses_the_cpu(flush_bytes, monkeypatch):
+    """flushed_ms times on a card; with none (or none visible) it raises instead of
+    timing the CPU, warm (flush_bytes 0) or cold."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        tprof.flushed_ms(lambda: None, reps=2, flush_bytes=flush_bytes)
