@@ -17,6 +17,12 @@ version ``ell_matvec_plain`` (the counterpart of ``ell_matvec_xla``); CUDA tenso
 launch K8, the hand-written Hopper kernel (``csrc/ell_matvec.cu``, built with nvcc
 for ``sm_90a`` at first use and loaded with ctypes), or raise. There is no
 fall-back from CUDA to the plain version.
+
+K8 reads only the entries a row holds: ``ELLOperator`` keeps each row's extent
+(``held_lengths``: one past its last entry that is not (val 0, col 0)), and the
+kernel stops there and adds the skipped padding's 0 * x[0] once, so that it computes
+the padded sum, NaN from a non-finite x[0] included, from about a third of the bytes
+at the sparse case.
 """
 
 from __future__ import annotations
@@ -31,13 +37,14 @@ from . import kernels
 from .linops import opnorm2, storage_norm, widened
 
 __all__ = ["ELLOperator", "ell_from_dense_arrays", "ell_matvec", "ell_matvec_plain",
-           "build_library"]
+           "held_lengths", "build_library"]
 
 SOURCE = kernels._PKG / "csrc" / "ell_matvec.cu"
 # -fmad=false as every other source: the kernel's dot products use explicit fmaf
 NVCC_FLAGS = kernels.NVCC_FLAGS + ("-fmad=false",)
 _LANE = 128
 _SUBLANE = 8
+_VEC = 4  # K8's vector width: the row extents are rounded up to it
 
 
 def _pad_up(v, mult):
@@ -70,6 +77,19 @@ def ell_from_dense_arrays(dense):
     return vals, cols, vals_t, rows_t
 
 
+def held_lengths(vals, cols):
+    """(m,) int32 CPU tensor: the entries K8 reads of each row of the ELL arrays ``vals``,
+    ``cols`` (CPU tensors): one past the row's last entry that is not (val 0, col 0), 0
+    for a row of padding only, rounded up to K8's vector width (4) and capped at k. An
+    interior (0, 0) entry is read; only the tail after the last held entry is skipped."""
+    held = ((vals != 0) | (cols != 0)).numpy()
+    m, k = held.shape
+    if k == 0:
+        return torch.zeros(m, dtype=torch.int32)
+    last = np.where(held.any(axis=1), k - np.argmax(held[:, ::-1], axis=1), 0)
+    return torch.from_numpy(np.minimum(_pad_up(last, _VEC), k).astype(np.int32))
+
+
 def ell_matvec_plain(vals, cols, x, out_rows):
     """sum(vals * x[cols], axis=1)[:out_rows], accumulated in ``x``'s dtype (bf16
     ``vals`` are upcast to it): the counterpart of ``ell_matvec_xla``."""
@@ -85,19 +105,25 @@ def build_library():
 def _library():
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     return kernels.load_library(SOURCE, NVCC_FLAGS, {
-        "adaprox_ell_matvec": ([p, i, i, p, p, ll, ll, p, p], i),
+        "adaprox_ell_matvec": ([p, i, i, p, p, p, ll, ll, p, p], i),
         "adaprox_ell_error_string": ([i], ctypes.c_char_p)})
 
 
-def ell_matvec(vals, cols, x):
+def ell_matvec(vals, cols, x, lengths=None):
     """y = sum(vals * x[cols], axis=1), all m rows (counterpart of
     ``ell_matvec_pallas``). ``vals`` and ``cols`` (m, k), ``cols`` int32 indices
     into ``x`` (n,); m must be a multiple of 8, as the JAX kernel requires.
+    ``lengths`` (m,) int32, on the same device, contiguous: the entries each row
+    holds (``held_lengths``; every entry past them must be (val 0, col 0)); None
+    means k for every row.
 
-    CPU tensors: the plain version, any float dtype, accumulated in ``x``'s. CUDA
-    tensors: the K8 kernel; ``vals`` float32 or bfloat16, ``x`` float32, ``cols``
-    int32, all contiguous, every index in [0, n); returns an (m,) float32 ``y``.
-    Anything else raises. Each kernel launch adds one to ``ell_matvec.launches``."""
+    CPU tensors: the plain version over the whole padded rows, any float dtype,
+    accumulated in ``x``'s. CUDA tensors: the K8 kernel, which reads row i's first
+    lengths[i] entries only and adds 0 * x[0] once where lengths[i] < k (the padded
+    sum, NaN from a non-finite x[0] included); ``vals`` float32 or bfloat16, ``x``
+    float32, ``cols`` int32, all contiguous, every index in [0, n); returns an (m,)
+    float32 ``y``. Anything else raises. Each kernel launch adds one to
+    ``ell_matvec.launches``."""
     if vals.ndim != 2 or cols.shape != vals.shape or x.ndim != 1:
         raise ValueError(f"need vals (m, k), cols (m, k), x (n,); got {tuple(vals.shape)}, "
                          f"{tuple(cols.shape)}, {tuple(x.shape)}")
@@ -110,6 +136,14 @@ def ell_matvec(vals, cols, x):
                          f"{x.device}")
     if cols.dtype != torch.int32:
         raise TypeError(f"cols must be int32, got {cols.dtype}")
+    if lengths is not None and (lengths.dtype != torch.int32 or lengths.shape != (m,)
+                                or lengths.device != vals.device
+                                or not lengths.is_contiguous()):
+        if lengths.dtype != torch.int32:
+            raise TypeError(f"lengths must be int32, got {lengths.dtype}")
+        raise ValueError(f"lengths must be ({m},), on {vals.device} and contiguous; got "
+                         f"{tuple(lengths.shape)} on {lengths.device}, contiguous "
+                         f"{lengths.is_contiguous()}")
     if vals.device.type == "cpu":
         return ell_matvec_plain(vals, cols, x, m)
     if vals.device.type != "cuda":
@@ -132,7 +166,8 @@ def ell_matvec(vals, cols, x):
     with torch.cuda.device(vals.device):
         stream = torch.cuda.current_stream(vals.device).cuda_stream
         err = lib.adaprox_ell_matvec(vals.data_ptr(), int(bf16), vec, cols.data_ptr(),
-                                     x.data_ptr(), m, k, y.data_ptr(), stream)
+                                     x.data_ptr(), None if lengths is None else lengths.data_ptr(),
+                                     m, k, y.data_ptr(), stream)
     if err:
         msg = lib.adaprox_ell_error_string(err).decode()
         raise RuntimeError(f"K8 launch failed: CUDA error {err} ({msg})")
@@ -147,19 +182,23 @@ ell_matvec.launches = 0
 class ELLOperator:
     """A linear operator over the padded-row sparse format, both layouts:
     ``vals``/``cols`` (m_pad, k) of A and ``vals_t``/``rows_t`` (n_pad, kt) of A',
-    ``shape`` the true (m, n).
+    ``shape`` the true (m, n); ``row_len`` (m_pad,) and ``row_len_t`` (n_pad,) int32,
+    the entries each row of either layout holds (``held_lengths``, derived in
+    ``from_arrays``).
 
-    Both directions go through ``ell_matvec``: the plain gather on CPU tensors, K8
-    on CUDA tensors. The JAX package's operator takes the XLA gather on every
-    backend, because Mosaic's lane gather takes single-vreg sources only
-    (``adaprox_tpu/ops/sparse.py``); the card has no such limit, so here the kernel
-    is the operator's path. Construct with ``from_dense``."""
+    Both directions go through ``ell_matvec`` with their row extents: the plain gather
+    over the padded rows on CPU tensors, K8 on CUDA tensors. The JAX package's operator
+    takes the XLA gather on every backend, because Mosaic's lane gather takes
+    single-vreg sources only (``adaprox_tpu/ops/sparse.py``); the card has no such
+    limit, so here the kernel is the operator's path. Construct with ``from_dense``."""
 
     vals: torch.Tensor
     cols: torch.Tensor
     vals_t: torch.Tensor
     rows_t: torch.Tensor
     shape: tuple
+    row_len: torch.Tensor
+    row_len_t: torch.Tensor
 
     @classmethod
     def from_dense(cls, dense, *, device=None, dtype=None):
@@ -177,16 +216,21 @@ class ELLOperator:
     @classmethod
     def from_arrays(cls, vals, cols, vals_t, rows_t, shape, *, device, dtype=None):
         """The operator of given ELL arrays (numpy or tensors) on ``device``; the index
-        arrays as int32, ``vals`` in ``dtype`` (their own by default)."""
+        arrays as int32, ``vals`` in ``dtype`` (their own by default); the row extents
+        counted on the host from the stored values."""
         vals, cols, vals_t, rows_t = (torch.as_tensor(np.array(v))
                                       for v in (vals, cols, vals_t, rows_t))
         dt = vals.dtype if dtype is None else dtype
+        vals, vals_t = vals.to(dt), vals_t.to(dt)
+        cols, rows_t = cols.to(torch.int32), rows_t.to(torch.int32)
 
-        def put(v, d):
-            return v.to(device=device, dtype=d).contiguous()
+        def put(v):
+            return v.to(device=device).contiguous()
 
-        return cls(vals=put(vals, dt), cols=put(cols, torch.int32), vals_t=put(vals_t, dt),
-                   rows_t=put(rows_t, torch.int32), shape=tuple(int(s) for s in shape))
+        return cls(vals=put(vals), cols=put(cols), vals_t=put(vals_t), rows_t=put(rows_t),
+                   shape=tuple(int(s) for s in shape),
+                   row_len=put(held_lengths(vals, cols)),
+                   row_len_t=put(held_lengths(vals_t, rows_t)))
 
     @property
     def density(self):
@@ -194,10 +238,10 @@ class ELLOperator:
         return self.vals.shape[1] / self.shape[1]
 
     def matvec(self, x):
-        return ell_matvec(self.vals, self.cols, x)[: self.shape[0]]
+        return ell_matvec(self.vals, self.cols, x, self.row_len)[: self.shape[0]]
 
     def rmatvec(self, y):
-        return ell_matvec(self.vals_t, self.rows_t, y)[: self.shape[1]]
+        return ell_matvec(self.vals_t, self.rows_t, y, self.row_len_t)[: self.shape[1]]
 
     def norm(self):
         """The Frobenius norm (Julia's ``norm(A)``; padding vals are 0), in the

@@ -179,7 +179,12 @@ Phases, one line each, any failure exits non-zero:
                bit, the "xla" route the same bits twice; each timed by CUDA events back to
                back and with the L2 flushed (a cold rate past 3350 GB/s fails) beside its
                plain version, its bound, cuSPARSE's CSR product, the BSR product at
-               (64, 512) where PyTorch takes it and dense torch.mv;
+               (64, 512) where PyTorch takes it and dense torch.mv; K8 with the operator's
+               row extents against the plain padded sum, its bytes those its rows hold
+               (the extents times value and column bytes, the extents, x, y), printed
+               beside the padded arrays' bytes, bound and K8's cold time without
+               extents (the padded k); K10a's one pass over A's tiles
+               (K9's floor) and over a buffer of K8's held bytes (K8's);
                opnorm2 over ELL, BCSR and dense; then through the engine at SPARSE_MAXIT
                iterations, each solve counted alone: AdaPGM on the lasso over all five
                operators, AdaPDM on the square-root lasso over ELL, BCSR "pallas" and
@@ -3299,6 +3304,14 @@ def sparse_bytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def k8_work(vals, lengths, v):
+    """(bytes, flops) of one K8 launch: the entries its rows hold (their extents), each
+    a value and an int32 column, read once; the extents, x and y."""
+    held = int(lengths.sum())
+    return (held * (vals.element_size() + 4) + sparse_bytes(lengths, v) + 4 * vals.shape[0],
+            2 * held)
+
+
 def library_ms(fn):
     """CUDA-event ms of one PyTorch call that computes the same product (a yardstick
     only: the port never calls it), or None and the reason where PyTorch refuses it."""
@@ -3321,8 +3334,12 @@ def sparse_checks(sparse, bcsr, ops, d_t, dev, smi):
     between calls (cold, the table's time: a cold rate past the card's 3350 GB/s fails),
     beside its plain version (CUDA events, eager), its bound, cuSPARSE's CSR product and
     dense torch.mv likewise, the BSR product at (64, 512) where PyTorch takes it, and K10a's
-    one pass over the same bytes (the stream's floor for one launch of this size).
-    Returns {kernel: {direction: measurements}} and that floor."""
+    one pass over the same bytes (the stream's floor for one launch of this size). K8
+    reads only the entries its rows hold (the operator's row extents): its bytes and
+    flops are those (``k8_work``), printed beside the padded arrays' bytes and bound and
+    K8's cold time without extents, and its floor is K10a's pass over a buffer of its held
+    bytes. Returns {kernel:
+    {direction: measurements}} and the floors {"K9": ..., "K8": ...}."""
     from adaprox_tpu_torch.ops.kernels import hbm_read_reduce
     from adaprox_tpu_torch.utils.profiling import flushed_ms
 
@@ -3344,11 +3361,12 @@ def sparse_checks(sparse, bcsr, ops, d_t, dev, smi):
 
     def cases(direction, v):
         """(name, kernel, plain, magnitude, bytes, flops) of each kernel this way."""
-        ev, ec = (ell.vals, ell.cols) if direction == "A x" else (ell.vals_t, ell.rows_t)
-        k8 = ("K8", lambda: sparse.ell_matvec(ev, ec, v),
+        ev, ec, el = ((ell.vals, ell.cols, ell.row_len) if direction == "A x" else
+                      (ell.vals_t, ell.rows_t, ell.row_len_t))
+        k8 = ("K8", lambda: sparse.ell_matvec(ev, ec, v, el),
               lambda: sparse.ell_matvec_plain(ev, ec, v, ev.shape[0]),
               lambda: sparse.ell_matvec_plain(ev.abs(), ec, v.abs(), ev.shape[0]),
-              sparse_bytes(ev, ec, v) + 4 * ev.shape[0], 2 * ev.numel())
+              *k8_work(ev, el, v))
         if direction == "A x":
             vals, cols, rowptr, rows = bc.vals, bc.cols, bc.rowptr, bc.rows
             nbytes = sparse_bytes(vals, cols, rowptr, v) + out_len["A x"]
@@ -3398,11 +3416,23 @@ def sparse_checks(sparse, bcsr, ops, d_t, dev, smi):
                 ms=cold, warm_ms=warm, gbps=gbps, plain_ms=event_ms(plain),
                 bound=bound(nbytes, flops), max_abs_err=abs_err, library_ms=lib[0],
                 library_warm_ms=lib[2], bsr_ms=lib_bsr[0], dense_ms=dense_ms)
+            if name == "K8":  # beside the padded arrays, which K8 without extents reads
+                ev, ec = (ell.vals, ell.cols) if direction == "A x" else (ell.vals_t, ell.rows_t)
+                padded = sparse_bytes(ev, ec, vecs[direction]) + 4 * ev.shape[0]
+                got_meas[name].update(
+                    held_bytes=nbytes, padded_bytes=padded,
+                    padded_bound=bound(padded, 2 * ev.numel()),
+                    padded_ms=flushed_ms(lambda: sparse.ell_matvec(ev, ec, vecs[direction])))
         check(torch.equal(outs["K9b"], outs["K9a"]),
               f"{label}: K9b not equal to K9a bit for bit")
         parts = [f"{k} {v['ms']:.4f} ms cold, {v['warm_ms']:.4f} warm ({v['gbps']:.1f} GB/s "
                  f"cold; plain {v['plain_ms']:.4f}, bound {v['bound'][0]:.4f} {v['bound'][1]},"
-                 f" max abs err {v['max_abs_err']:.2e})" for k, v in got_meas.items()]
+                 f" max abs err {v['max_abs_err']:.2e}"
+                 + (f"; reads the held {v['held_bytes'] / 1e6:.1f} MB of the padded "
+                    f"{v['padded_bytes'] / 1e6:.1f} MB, whose bound is "
+                    f"{v['padded_bound'][0]:.4f}; without extents (the padded k) "
+                    f"{v['padded_ms']:.4f} ms cold" if "held_bytes" in v else "") + ")"
+                 for k, v in got_meas.items()]
         print(f"[sparse] {label} at {m}x{n} f32: {'; '.join(parts)}; two launches the same "
               f"bits, K9b = K9a bit for bit (tol {SPARSE_RTOL:g} of the largest |a||x| sum)"
               f" | cuSPARSE CSR "
@@ -3455,11 +3485,19 @@ def sparse_checks(sparse, bcsr, ops, d_t, dev, smi):
     for name, g in got.items():
         meas[name]["A'y over A' tiles"] = g
     flat = bc.vals.reshape(-1, bc.vals.shape[2])
-    floor = flushed_ms(lambda: hbm_read_reduce(flat, 1.0))
-    print(f"[sparse] the stream's floor for one launch of A's {sparse_bytes(flat) / 1e6:.1f} MB:"
-          f" K10a, one pass, {floor:.4f} ms cold ({sparse_bytes(flat) / floor / 1e6:.1f} GB/s;"
-          f" the bound {bound(sparse_bytes(flat), 0)[0]:.4f} ms) ({smi})", flush=True)
-    return meas, floor
+    held = meas["K8"]["A x"]["held_bytes"]
+    buf = torch.ones(held // 512, 128, device=dev)  # the size of K8's held bytes
+    floors = {}
+    for key, what, a, beside in (("K9", "A's tiles", flat, "K9a"),
+                                 ("K8", "K8's held bytes (A x)", buf, "K8")):
+        floors[key] = flushed_ms(lambda: hbm_read_reduce(a, 1.0, block_rows=a.shape[0]))
+        print(f"[sparse] the stream's floor for one launch of {what}, "
+              f"{sparse_bytes(a) / 1e6:.1f} MB: K10a, one pass, {floors[key]:.4f} ms cold "
+              f"({sparse_bytes(a) / floors[key] / 1e6:.1f} GB/s; the bound "
+              f"{bound(sparse_bytes(a), 0)[0]:.4f} ms; {beside} A x "
+              f"{meas[beside]['A x']['ms']:.4f} ms cold) ({smi})", flush=True)
+    del buf
+    return meas, floors
 
 
 def sparse_phase(sparse, bcsr, others, dev, smi):
@@ -3480,15 +3518,19 @@ def sparse_phase(sparse, bcsr, others, dev, smi):
     bc = ops["pallas"]
     print(f"[sparse] the case {d.shape} f32, (64, 512) tiles at {sc.SPARSE_DENSITY:g} (seed "
           f"{sc.SPARSE_SEED}): ELL k {ops['ell'].vals.shape[1]} (A, "
-          f"{sparse_bytes(ops['ell'].vals, ops['ell'].cols) / 1e6:.1f} MB), kt "
-          f"{ops['ell'].vals_t.shape[1]} (A', {sparse_bytes(ops['ell'].vals_t, ops['ell'].rows_t) / 1e6:.1f} MB); "
+          f"{sparse_bytes(ops['ell'].vals, ops['ell'].cols) / 1e6:.1f} MB padded, rows holding "
+          f"{int(ops['ell'].row_len.min())}-{int(ops['ell'].row_len.max())} entries, "
+          f"{8e-6 * int(ops['ell'].row_len.sum()):.1f} MB), kt {ops['ell'].vals_t.shape[1]} (A', "
+          f"{sparse_bytes(ops['ell'].vals_t, ops['ell'].rows_t) / 1e6:.1f} MB padded, "
+          f"{int(ops['ell'].row_len_t.min())}-{int(ops['ell'].row_len_t.max())} entries, "
+          f"{8e-6 * int(ops['ell'].row_len_t.sum()):.1f} MB); "
           f"BCSR A {bc.vals.shape[0]} tiles (block density {bc.block_density:.4f}, "
           f"{sparse_bytes(bc.vals) / 1e6:.1f} MB, max_bpr {bc.max_bpr}), A' {bc.vals_t.shape[0]} "
           f"tiles ({bc.vals_t.shape[0] / ((bc.rowptr_t.shape[0] - 1) * -(-d.shape[0] // 512)):.4f}, "
           f"{sparse_bytes(bc.vals_t) / 1e6:.1f} MB, max_bpr_t {bc.max_bpr_t}); dense "
           f"{sparse_bytes(d_t) / 1e6:.1f} MB; built in {time.perf_counter() - t0:.1f} s ({smi})",
           flush=True)
-    meas, floor = sparse_checks(sparse, bcsr, ops, d_t, dev, smi)
+    meas, floors = sparse_checks(sparse, bcsr, ops, d_t, dev, smi)
 
     norms = {r: float(ops[r].opnorm(iters=50)) for r in ("ell", "pallas", "dense")}
     err = max(abs(v - norms["dense"]) / norms["dense"] for v in norms.values())
@@ -3540,7 +3582,7 @@ def sparse_phase(sparse, bcsr, others, dev, smi):
           f"{launches[2]} ({smi})", flush=True)
     del ops, d_t
     return dict(kernels=meas, launches=dict(zip(("K8", "K9a", "K9b"), launches)), walls=walls,
-                floor=floor)
+                floors=floors)
 
 
 # Phase 17: bench's batched regularization path (bench.py:442-480): random_lasso(4000,
@@ -4252,11 +4294,18 @@ def main():
         "bound_by": sp_meas["kernels"][key]["A x"]["bound"][1],
         "library_ms": sp_meas["kernels"][key]["A x"]["library_ms"],
         "warm_ms": sp_meas["kernels"][key]["A x"]["warm_ms"],
-        "stream_floor_ms": sp_meas["floor"],
+        "stream_floor_ms": sp_meas["floors"]["K8" if key == "K8" else "K9"],
+        **({k: sp_meas["kernels"][key]["A x"][k]
+            for k in ("held_bytes", "padded_bytes", "padded_ms")}
+           | {"padded_bound_ms": sp_meas["kernels"][key]["A x"]["padded_bound"][0]}
+           if key == "K8" else {}),
         "ms_at": {d: {"ms": v["ms"], "warm_ms": v["warm_ms"], "gbps": v["gbps"],
                       "plain_ms": v["plain_ms"], "bound_ms": v["bound"][0],
                       "csr_ms": v["library_ms"], "csr_warm_ms": v["library_warm_ms"],
-                      "bsr_ms": v["bsr_ms"], "dense_mv_ms": v["dense_ms"]}
+                      "bsr_ms": v["bsr_ms"], "dense_mv_ms": v["dense_ms"],
+                      **({"held_bytes": v["held_bytes"], "padded_bytes": v["padded_bytes"],
+                          "padded_bound_ms": v["padded_bound"][0],
+                          "padded_ms": v["padded_ms"]} if key == "K8" else {})}
                   for d, v in sp_meas["kernels"][key].items()}}
         for key, name, source, replaces in SPARSE_KERNELS] + [{
         "name": "resident_adapgm_batch", "route": "cuda",

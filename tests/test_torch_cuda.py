@@ -1976,6 +1976,190 @@ def test_k8_refuses_what_it_does_not_take(dev):
         ts.ell_matvec(vals.t().contiguous().t(), cols, x)
 
 
+# row extents of the ragged case: empty, one entry, not multiples of the vector width, k-1, k
+RAGGED = (0, 1, 3, 5, -1, None)
+
+
+def _ragged_ell(dev, k, dtype, n=300, seed=3, tiles=8):
+    """6 * tiles rows cycling through the RAGGED extents (-1: k - 1, None: k); each row's
+    held entries random at columns 1..n-1, (val 0, col 0) after them. Returns vals, cols,
+    x and the exact extents (int32)."""
+    lens = [k - 1 if e == -1 else k if e is None else e for e in RAGGED] * tiles
+    vals, cols, x = _ell_inputs(dev, len(lens), k, n, dtype, seed)
+    cols = cols % (n - 1) + 1
+    ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+    held = torch.arange(k, device=dev)[None, :] < ln[:, None]
+    vals = torch.where(held, vals, torch.zeros((), dtype=dtype, device=dev)).contiguous()
+    cols = torch.where(held, cols, torch.zeros((), dtype=cols.dtype, device=dev)).contiguous()
+    return vals, cols, x, ln
+
+
+@pytest.mark.parametrize("k", [130, 1280])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8_with_lengths_matches_plain_on_card(dev, dtype, k):
+    """K8 reading each row's first lengths[i] entries (0, 1, 3, 5, k - 1, k) against the
+    plain padded sum: k 130 takes the scalar path, k 1280 the vector one (with a scalar
+    end where a length is not a multiple of 4) and whole unrolled steps; one launch
+    counted; the operator built from the same arrays counts the same extents."""
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    vals, cols, x, ln = _ragged_ell(dev, k, dtype)
+    m = vals.shape[0]
+    before = ts.ell_matvec.launches
+    got = ts.ell_matvec(vals, cols, x, ln)
+    torch.cuda.synchronize()
+    assert ts.ell_matvec.launches == before + 1
+    want = ts.ell_matvec_plain(vals, cols, x, m)
+    scale = ts.ell_matvec_plain(vals.float().abs(), cols, x.abs(), m).max()
+    assert got.shape == (m,) and got.dtype == torch.float32
+    assert _sparse_err(got, want, scale) <= SPARSE_RTOL
+    counted = ts.held_lengths(vals.cpu(), cols.cpu())
+    assert torch.equal(counted, torch.clamp((ln.cpu() + 3) // 4 * 4, max=k).int())
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_k8_with_lengths_keeps_the_nan_pattern_on_card(dev, bad):
+    """A NaN or inf x[0] reaches exactly the rows the plain padded sum sends it to: every
+    row with padding (lengths[i] < k) turns NaN, the full rows (no column 0 among their
+    entries) stay finite; so through the operator too, both ways."""
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    for k in (130, 1280):
+        vals, cols, x, ln = _ragged_ell(dev, k, torch.float32)
+        x[0] = bad
+        got = ts.ell_matvec(vals, cols, x, ln)
+        want = ts.ell_matvec_plain(vals, cols, x, vals.shape[0])
+        padded = (ln < k).cpu()
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert bool(torch.isnan(got).cpu()[padded].all())
+        assert bool(torch.isfinite(got).cpu()[~padded].all())
+    d = torch.randn(64, 300, device=dev) * (torch.rand(64, 300, device=dev) < 0.1)
+    op = ts.ELLOperator.from_dense(d)
+    for fn, v, c, n in (("matvec", op.vals, op.cols, 300), ("rmatvec", op.vals_t, op.rows_t, 64)):
+        u = torch.randn(n, device=dev)
+        u[0] = bad
+        got = getattr(op, fn)(u)
+        want = ts.ell_matvec_plain(v, c, u, v.shape[0])[: got.shape[0]]
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+
+
+def test_k8_lengths_none_is_full_lengths_and_repeatable(dev):
+    """lengths None reads every row's k entries: the same bits as lengths = k every row;
+    two launches with the operator's extents give the same bits, as do two without."""
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    vals, cols, x = _ell_inputs(dev, 1024, 1280, 3000, torch.float32, seed=4)
+    full = torch.full((1024,), 1280, dtype=torch.int32, device=dev)
+    bare = ts.ell_matvec(vals, cols, x)
+    assert torch.equal(bare, ts.ell_matvec(vals, cols, x, full))
+    assert torch.equal(bare, ts.ell_matvec(vals, cols, x))
+    d = torch.randn(512, 2048, device=dev) * (torch.rand(512, 2048, device=dev) < 0.05)
+    op = ts.ELLOperator.from_dense(d)
+    x = torch.randn(2048, device=dev)
+    once = ts.ell_matvec(op.vals, op.cols, x, op.row_len)
+    assert torch.equal(once, ts.ell_matvec(op.vals, op.cols, x, op.row_len))
+
+
+@pytest.mark.parametrize("k", [130, 1280])
+def test_k8_check_fails_a_kernel_that_drops_a_held_entry(dev, k):
+    """The plain comparison catches a K8 that stops one entry short: the same call with
+    one row's extent shortened by one leaves the plain padded sum by more than the
+    tolerance, where the exact extents pass."""
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    vals, cols, x, ln = _ragged_ell(dev, k, torch.float32)
+    m = vals.shape[0]
+    row = 4  # extent k - 1: its last held entry is at k - 2
+    vals[row, k - 2], cols[row, k - 2], x[7] = 1.0, 7, 2.0
+    want = ts.ell_matvec_plain(vals, cols, x, m)
+    scale = ts.ell_matvec_plain(vals.abs(), cols, x.abs(), m).max()
+    assert _sparse_err(ts.ell_matvec(vals, cols, x, ln), want, scale) <= SPARSE_RTOL
+    short = ln.clone()
+    short[row] -= 1
+    assert _sparse_err(ts.ell_matvec(vals, cols, x, short), want, scale) > SPARSE_RTOL
+
+
+@pytest.mark.parametrize("x0", [0.5, float("nan"), float("inf")])
+@pytest.mark.parametrize("k", [130, 1280])
+@pytest.mark.parametrize("rows_per_cta", ["many", "most"])
+def test_k8_takes_many_rows_a_cta_on_card(dev, rows_per_cta, k, x0):
+    """K8's grid holds at most 8 CTAs an SM, so past 8 x SMs rows a CTA takes several
+    (the chunk deal carries on from row to row), and past 64 times that the grid grows
+    so that a CTA takes at most 64. "many": 16 x 8 x SMs + 8 rows (17 a CTA or more);
+    "most": 64 x 8 x SMs + 2048 rows (the grid past its resident size, 64 a CTA). The
+    RAGGED extents tiled over every row (empty rows, scalar ends, k - 1, k), x[0] finite,
+    NaN or inf, against the plain padded sum: NaN in exactly the plain version's rows,
+    which are the padded rows where x[0] is not finite; the rest within SPARSE_RTOL and
+    the same bits twice."""
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    resident = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
+    m = 16 * resident + 8 if rows_per_cta == "many" else 64 * resident + 2048
+    vals, cols, x, ln = _ragged_ell(dev, k, torch.float32, n=5000, seed=5,
+                                    tiles=-(-m // len(RAGGED)))
+    vals, cols, ln = vals[:m].contiguous(), cols[:m].contiguous(), ln[:m].contiguous()
+    x[0] = x0
+    got = ts.ell_matvec(vals, cols, x, ln)
+    want = ts.ell_matvec_plain(vals, cols, x, m)
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(nan, (ln < k) if not math.isfinite(x0) else torch.zeros_like(nan))
+    scale = ts.ell_matvec_plain(vals.abs(), cols, x.abs(), m)[~nan].max()
+    assert _sparse_err(got[~nan], want[~nan], scale) <= SPARSE_RTOL
+    assert torch.equal(got[~nan], ts.ell_matvec(vals, cols, x, ln)[~nan])
+
+
+def test_k8_refuses_lengths_it_does_not_take(dev):
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    vals, cols, x = _ell_inputs(dev, 16, 128, 40, torch.float32)
+    ln = torch.full((16,), 128, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="lengths must be int32"):
+        ts.ell_matvec(vals, cols, x, ln.long())
+    with pytest.raises(ValueError, match="lengths must be"):
+        ts.ell_matvec(vals, cols, x, ln[:8])
+    with pytest.raises(ValueError, match="lengths must be"):
+        ts.ell_matvec(vals, cols, x, ln.cpu())
+    with pytest.raises(ValueError, match="and contiguous; got .* contiguous False"):
+        ts.ell_matvec(vals, cols, x, torch.full((16, 2), 128, dtype=torch.int32,
+                                                device=dev)[:, 0])
+
+
+def test_k8_cold_rates_at_the_sparse_case_within_the_card(dev):
+    """At the slice's case (8192 x 16384 f32, 10% of the (64, 512) tiles), K8 both ways:
+    the L2-flushed rate over the bytes the rows hold (their extents
+    times 8 bytes, the extents, x and y) is at or under the card's data-sheet rate, and
+    each result agrees with the plain padded sum."""
+    from adaprox_tpu_torch.experiments.sparse_calibration import sparse_case
+    from adaprox_tpu_torch.ops import sparse as ts
+
+    roof = chip_bandwidth_gbps(dev)
+    assert math.isfinite(roof), f"no data-sheet rate for {torch.cuda.get_device_name(dev)}"
+    d = sparse_case()
+    op = ts.ELLOperator.from_dense(d, device=dev)
+    m, n = d.shape
+    del d
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    gbps = {}
+    for way, (v, c, ln, u) in {
+            "A x": (op.vals, op.cols, op.row_len, torch.randn(n, generator=gen, device=dev)),
+            "A'y": (op.vals_t, op.rows_t, op.row_len_t,
+                    torch.randn(m, generator=gen, device=dev))}.items():
+        want = ts.ell_matvec_plain(v, c, u, v.shape[0])
+        scale = ts.ell_matvec_plain(v.abs(), c, u.abs(), v.shape[0]).max()
+        moved = (int(ln.sum()) * (v.element_size() + 4) + 4 * ln.numel() + 4 * u.numel()
+                 + 4 * v.shape[0])
+
+        def kernel():
+            return ts.ell_matvec(v, c, u, ln)
+
+        assert _sparse_err(kernel(), want, scale) <= SPARSE_RTOL, way
+        gbps[way] = moved / flushed_ms(kernel) / 1e6
+    print(f"K8 cold GB/s over the held bytes at the sparse case against {roof:g}: {gbps}")
+    assert all(v <= roof for v in gbps.values()), gbps
+
+
 def _bcsr_case(dev, m, n, block, density, seed=0):
     """A (block)-tiled matrix on the card with an empty and a trailing empty block row."""
     gen = torch.Generator(device=dev)

@@ -89,6 +89,133 @@ def test_ell_structure_equals_jax(case):
     assert op.cols.dtype == op.rows_t.dtype == torch.int32
 
 
+def _held_count(vals, cols, vec=4):
+    """K8's row extents counted row by row: one past the last entry that is not (val 0,
+    col 0), rounded up to vec, capped at k."""
+    k = vals.shape[1]
+    out = []
+    for v, c in zip(np.asarray(vals), np.asarray(cols)):
+        held = np.nonzero((v != 0) | (c != 0))[0]
+        n = int(held[-1]) + 1 if held.size else 0
+        out.append(min(-(-n // vec) * vec, k))
+    return np.array(out, np.int32)
+
+
+@pytest.mark.parametrize("case", sorted(MATRICES))
+def test_ell_row_lengths_count_the_held_entries(case):
+    """row_len and row_len_t of from_dense, and of ell_from_numpy over JAX's arrays, equal
+    a row-by-row count: empty rows 0, the uneven case's full row k, int32 on the
+    operator's device."""
+    d = MATRICES[case]()
+    jop = js.ELLOperator.from_dense(d)
+    carried = apt.ell_from_numpy(*(np.asarray(a) for a in (jop.vals, jop.cols, jop.vals_t,
+                                                            jop.rows_t)), jop.shape,
+                                 device=CPU, dtype=torch.float64)
+    for op in (apt.ELLOperator.from_dense(d, device=CPU), carried):
+        for got, v, c in ((op.row_len, jop.vals, jop.cols), (op.row_len_t, jop.vals_t,
+                                                               jop.rows_t)):
+            assert got.dtype == torch.int32 and got.device.type == CPU
+            np.testing.assert_array_equal(np_of(got), _held_count(v, c))
+    nnz = (d != 0).sum(axis=1)
+    want = np.minimum(-(-nnz // 4) * 4, jop.vals.shape[1])
+    np.testing.assert_array_equal(np_of(apt.ELLOperator.from_dense(d, device=CPU).row_len)[
+        :d.shape[0]], want)
+    if case == "uneven":
+        lens = np_of(apt.ELLOperator.from_dense(d, device=CPU).row_len)
+        assert lens[5] == 0 and lens[3] == jop.vals.shape[1] == 640
+
+
+def test_ell_row_lengths_edges():
+    """An interior (0, 0) entry is read (only the tail after the last held entry is
+    skipped); an entry of val 0 at another column, or of col 0 with a value, is held; a
+    NaN value is held; lengths round up to 4 and stop at k (k 130, not a multiple of 4)."""
+    k = 130
+    vals, cols = np.zeros((8, k)), np.zeros((8, k), np.int32)
+    vals[0, :3], cols[0, :3] = [1.0, 0.0, 2.0], [4, 0, 7]      # interior (0, 0): 3 -> 4
+    vals[1, 5] = 0.0
+    cols[1, 5] = 9                                              # val 0, col 9: held -> 8
+    vals[2, 6] = -1.5                                           # col 0 with a value -> 8
+    vals[3, 128] = 1.0                                          # 129 -> 132 -> capped 130
+    vals[4, :] = 1.0                                            # full
+    vals[5, 9] = np.nan                                         # NaN held -> 12
+    # row 6: padding only; row 7: one entry at 0 -> 4
+    vals[7, 0], cols[7, 0] = 3.0, 11
+    want = [4, 8, 8, 130, 130, 12, 0, 4]
+    got = ts.held_lengths(torch.as_tensor(vals), torch.as_tensor(cols))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(np_of(got), want)
+    np.testing.assert_array_equal(want, _held_count(vals, cols))
+    op = apt.ELLOperator.from_arrays(vals, cols, vals.T[:8].copy(), cols.T[:8].copy(),
+                                     (8, 8), device=CPU)
+    np.testing.assert_array_equal(np_of(op.row_len), want)
+    bf = apt.ELLOperator.from_arrays(vals, cols, vals, cols, (8, k), device=CPU,
+                                     dtype=torch.bfloat16)
+    np.testing.assert_array_equal(np_of(bf.row_len), want)
+
+
+def _k8_rule(vals, cols, x, lengths):
+    """The rule of K8 on the card, in numpy: row i sums its first lengths[i] entries and
+    adds 0 * x[0] once where lengths[i] < k."""
+    k = vals.shape[1]
+    out = np.empty(vals.shape[0])
+    with np.errstate(invalid="ignore"):  # 0 * inf
+        for i, n in enumerate(lengths):
+            s = np.sum(vals[i, :n] * x[cols[i, :n]])
+            out[i] = s + 0.0 * x[0] if n < k else s
+    return out
+
+
+def _full_row_case():
+    """Row 0 holds k = 128 entries, none at column 0 (no padding: finite under a
+    non-finite x[0]); the other rows fewer, an empty one among them."""
+    d = _sparse_dense(24, 300, 0.1, 11)
+    d[0, :] = 0.0
+    d[0, 1:129] = 1.0 + np.arange(128) / 128
+    d[7, :] = 0.0
+    return d
+
+
+@pytest.mark.parametrize("x0", [0.75, np.nan, np.inf])
+@pytest.mark.parametrize("case", ["uneven", "dense-0.03", "full-row"])
+def test_k8_rule_matches_plain_and_jax(case, x0, rng):
+    """Reading only each row's held entries plus one 0 * x[0] where the row has padding
+    gives the padded sum: the numpy model of that rule equals ell_matvec_plain and JAX's
+    interpret-mode ell_matvec_pallas both ways, NaN pattern included, for a finite, a
+    NaN and an infinite x[0]."""
+    d = _full_row_case() if case == "full-row" else MATRICES[case]()
+    op = apt.ELLOperator.from_dense(d, device=CPU)
+    for v, c, lens, n in ((op.vals, op.cols, op.row_len, d.shape[1]),
+                          (op.vals_t, op.rows_t, op.row_len_t, d.shape[0])):
+        v, c = np_of(v), np_of(c)
+        x = rng.standard_normal(n)
+        x[0] = x0
+        model = _k8_rule(v, c, x, np_of(lens))
+        plain = ts.ell_matvec(t64(v), torch.as_tensor(c), t64(x), torch.as_tensor(np_of(lens)))
+        want = js.ell_matvec_pallas(jnp.asarray(v), jnp.asarray(c), jnp.asarray(x),
+                                    interpret=True)
+        _nan_pattern(model, want)
+        _nan_pattern(plain, want)
+        np.testing.assert_array_equal(np.isinf(model), np.isinf(np.asarray(want)))
+    if case == "full-row" and not np.isfinite(x0):
+        y = _k8_rule(np_of(op.vals), np_of(op.cols), np.r_[x0, np.ones(299)], np_of(op.row_len))
+        assert np.isfinite(y[0]) and np.isnan(y[1:]).all()
+
+
+def test_lengths_refusals():
+    """ell_matvec checks lengths as it checks the other arguments: int32, (m,), the
+    same device, contiguous."""
+    vals, cols, x = t64(np.ones((8, 128))), torch.zeros((8, 128), dtype=torch.int32), t64(
+        np.ones(40))
+    lens = torch.full((8,), 128, dtype=torch.int32)
+    np.testing.assert_array_equal(np_of(ts.ell_matvec(vals, cols, x, lens)), np.full(8, 128.0))
+    with pytest.raises(TypeError, match="lengths must be int32"):
+        ts.ell_matvec(vals, cols, x, lens.long())
+    with pytest.raises(ValueError, match="lengths must be"):
+        ts.ell_matvec(vals, cols, x, lens[:4])
+    with pytest.raises(ValueError, match="and contiguous; got .* contiguous False"):
+        ts.ell_matvec(vals, cols, x, torch.full((8, 2), 128, dtype=torch.int32)[:, 0])
+
+
 @pytest.mark.parametrize("block", [(8, 128), (64, 512), (16, 256)])
 @pytest.mark.parametrize("case", sorted(MATRICES))
 def test_bcsr_structure_equals_jax(case, block):
