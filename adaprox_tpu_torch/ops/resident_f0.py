@@ -23,8 +23,11 @@ Here the entries reach hand-written CUDA C++ kernels for Hopper: K7d and K7c one
 in ``csrc/resident_cv.cu``, K7a and K7b one kernel a core in ``csrc/resident_f0_grid.cu``
 (both cores' routines in ``csrc/resident_f0_cores.cuh``), all on ``csrc/resident_f0.cuh``.
 A grid launch over one dataset is K7a's sweep (K7d's solve), as JAX's grids are its
-sweeps with a dataset axis. Each entry is one cooperative launch, built with nvcc for
-``sm_90a`` at first use and loaded with ctypes.
+sweeps with a dataset axis. Each entry is one kernel launch, built with nvcc for ``sm_90a``
+at first use and loaded with ctypes: K7d and K7c a cooperative grid that runs the datasets
+one after another; K7a and K7b a persistent grid of thread-block clusters, one (dataset,
+t) cell a cluster at a time, the cells at once, each cell's rows of A in its cluster's
+shared memory where they fit (``f0_grid_plan`` says how a shape is laid out).
 
 The entries dispatch on where their tensors lie: CPU tensors take the plain
 versions (``*_plain``: the JAX cores line by line, one host-checked iteration,
@@ -51,7 +54,8 @@ __all__ = ["resident_condat_vu", "resident_condat_vu_plain", "resident_mpls_swee
            "resident_mpls_sweep_plain", "resident_adapdmp_sweep", "resident_adapdmp_sweep_plain",
            "resident_adapdmp_records", "resident_mpls_grid", "resident_mpls_grid_plain",
            "resident_adapdmp_grid", "resident_adapdmp_grid_plain", "resident_cv_grid",
-           "resident_cv_grid_plain", "build_library", "build_grid_library", "H_KINDS"]
+           "resident_cv_grid_plain", "build_library", "build_grid_library", "f0_grid_plan",
+           "H_KINDS"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_cv.cu"
 # -fmad=false: every elementwise expression rounds after each operation, as the
@@ -454,23 +458,34 @@ def resident_adapdmp_records(numit, hists, *, maxit):
 # -- the CUDA kernels --------------------------------------------------------------------
 
 
-def _layouts(what, a, bv):
-    """The checks every launch makes of A (f32 or bf16) and bv (f32), and A's second
-    layout, A' (the last two dimensions swapped), with the vector width both take:
-    16-byte loads when both layouts' rows are whole 16-byte groups (then so is every
-    dataset's slice of a stack)."""
+def _storage(what, a, bv):
+    """The checks every launch makes of A (f32 or bf16) and bv (f32)."""
     if a.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} stores A as float32 or bfloat16 on CUDA, got {a.dtype}")
     if bv.dtype != torch.float32:
         raise TypeError(f"{what} takes a float32 bv on CUDA, got {bv.dtype}")
     if not (a.is_contiguous() and bv.is_contiguous()):
         raise ValueError(f"{what} needs contiguous a and bv")
+
+
+def _layouts(what, a, bv):
+    """``_storage``'s checks, and A's second layout, A' (the last two dimensions swapped),
+    with the vector width both take: 16-byte loads when both layouts' rows are whole
+    16-byte groups (then so is every dataset's slice of a stack)."""
+    _storage(what, a, bv)
     at = a.transpose(-2, -1).contiguous()
     m, n = a.shape[-2:]
     vec = 8 if a.dtype == torch.bfloat16 else 4
     if m % vec or n % vec or a.data_ptr() % 16 or at.data_ptr() % 16:
         vec = 1
     return at, vec
+
+
+def _row_vec(a):
+    """The vector width of K7a/K7b's reads of A's rows: 16-byte loads when a row is whole
+    16-byte groups (then so is every row of every dataset's slice)."""
+    vec = 8 if a.dtype == torch.bfloat16 else 4
+    return 1 if a.shape[-1] % vec or a.data_ptr() % 16 else vec
 
 
 def _partials(parts, dev):
@@ -485,14 +500,6 @@ def _cv_scratch(m, n, dev):
     f32 = dict(dtype=torch.float32, device=dev)
     return [torch.empty((2, n), **f32), torch.empty(n, **f32), torch.empty(n, **f32),
             torch.empty(m, **f32), torch.empty(m, **f32), torch.empty(m, **f32)]
-
-
-def _sweep_scratch(m, n, dev):
-    """K7a's and K7b's scratch, in the entries' order: xs (2, n), v (n), at_ys (2, n), ys
-    (2, m), axs (2, m), w (m)."""
-    f32 = dict(dtype=torch.float32, device=dev)
-    return [torch.empty((2, n), **f32), torch.empty(n, **f32), torch.empty((2, n), **f32),
-            torch.empty((2, m), **f32), torch.empty((2, m), **f32), torch.empty(m, **f32)]
 
 
 def _ptrs(bufs):
@@ -589,6 +596,9 @@ resident_condat_vu.launches = 0
 # -- K7a and K7b on the card ----------------------------------------------------------------
 
 GRID_SOURCE = kernels._PKG / "csrc" / "resident_f0_grid.cu"
+# what adaprox_resident_f0_grid_plan returns, in its order
+PLAN_KEYS = ("cluster", "clusters", "smem_bytes", "rows_per_cta", "rows_held",
+             "vectors_in_smem", "scratch_floats")
 
 
 def build_grid_library():
@@ -599,19 +609,44 @@ def build_grid_library():
 def _grid_library():
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return kernels.load_library(GRID_SOURCE, NVCC_FLAGS, {
-        "adaprox_resident_f0_grid_parts": ([], i),
-        # a, at, a_is_bf16, vec, m, n, bv, h_kind, lams, p2s, dcount, core, xs, v, at_ys, ys,
-        # axs, w, part, part_len, ts, count, tol, maxit, record, x_out, stats, hist, stream
-        "adaprox_resident_f0_grid": ([p, p, i, i, ll, ll, p, i, p, p, i, i, p, p, p, p, p, p, p,
-                                      ll, p, i, f, i, i, p, p, p, p], i),
+        # m, n, a_is_bf16, vec, core, cells, out (7)
+        "adaprox_resident_f0_grid_plan": ([ll, ll, i, i, i, i, ctypes.POINTER(ll)], i),
+        # a, a_is_bf16, vec, m, n, bv, h_kind, lams, p2s, dcount, core, counter, scratch,
+        # scratch_len, ts, count, tol, maxit, record, x_out, stats, hist, stream
+        "adaprox_resident_f0_grid": ([p, i, i, ll, ll, p, i, p, p, i, i, p, p, ll, p, i, f, i, i,
+                                      p, p, p, p], i),
         "adaprox_resident_f0_grid_error_string": ([i], ctypes.c_char_p)})
+
+
+def _grid_plan(lib, what, core, m, n, bf16, vec, cells):
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    err = lib.adaprox_resident_f0_grid_plan(m, n, int(bf16), vec, CORES.index(core), cells, out)
+    _raise_on(err, what, lib.adaprox_resident_f0_grid_error_string)
+    plan = dict(zip(PLAN_KEYS, (int(v) for v in out)))
+    plan["whole"] = bool(plan["rows_held"] == plan["rows_per_cta"] and plan["vectors_in_smem"])
+    return plan
+
+
+def f0_grid_plan(a, core, cells):
+    """How K7a/K7b lay out a launch of ``core`` ("mp" or "adapdmp") over A (m, n) or a stack
+    (D, m, n) on the card with ``cells`` (dataset, t) cells: the cluster size C (picked
+    from the shape alone), the clusters the launch runs at once, the dynamic shared memory
+    of a CTA in bytes, the rows of A a CTA owns and those it holds in shared memory,
+    whether the vectors are in shared memory (else in a scratch in device memory), the
+    floats of that scratch, and ``whole``: the cell's A and vectors all in shared memory."""
+    lib = _grid_library()
+    with torch.cuda.device(a.device):
+        return _grid_plan(lib, "f0_grid_plan", core, a.shape[-2], a.shape[-1],
+                          a.dtype == torch.bfloat16, _row_vec(a), int(cells))
 
 
 def _grid_launch(what, core, a_stack, bv_stack, lams, ts, p2s, tol, maxit, record, h_kind):
     """One launch of a core's kernel over the D datasets of the stack: K7b, or K7a at D =
     1. The tables and couplings are float64 host tensors. Returns what the grid entries
     return."""
-    at, vec = _layouts(what, a_stack, bv_stack)
+    _storage(what, a_stack, bv_stack)
+    vec = _row_vec(a_stack)
+    bf16 = a_stack.dtype == torch.bfloat16
     lib = _grid_library()
     dev = a_stack.device
     dcount, m, n = a_stack.shape
@@ -620,15 +655,16 @@ def _grid_launch(what, core, a_stack, bv_stack, lams, ts, p2s, tol, maxit, recor
         f32 = dict(dtype=torch.float32, device=dev)
         lams_d, p2s_d, ts_d = (v.to(**f32) for v in (lams, p2s, ts))
         count = ts_d.numel()
-        scratch = _sweep_scratch(m, n, dev)
-        part = _partials(lib.adaprox_resident_f0_grid_parts(), dev)
+        plan = _grid_plan(lib, what, core, m, n, bf16, vec, dcount * count)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)  # the next cell
+        scratch = torch.empty(plan["scratch_floats"], **f32) if plan["scratch_floats"] else None
         x_out = torch.empty((dcount, count, n), **f32)
         stats = torch.empty((dcount, count, 4), **f32)
         hist = torch.empty((dcount, count, 5, hist_len(maxit)), **f32) if record else None
         err = lib.adaprox_resident_f0_grid(
-            a_stack.data_ptr(), at.data_ptr(), int(a_stack.dtype == torch.bfloat16), vec, m, n,
-            bv_stack.data_ptr(), H_KINDS.index(h_kind), lams_d.data_ptr(), p2s_d.data_ptr(),
-            dcount, CORES.index(core), *_ptrs(scratch), part.data_ptr(), part.numel(),
+            a_stack.data_ptr(), int(bf16), vec, m, n, bv_stack.data_ptr(), H_KINDS.index(h_kind),
+            lams_d.data_ptr(), p2s_d.data_ptr(), dcount, CORES.index(core), counter.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None, plan["scratch_floats"],
             ts_d.data_ptr(), count, float(tol), maxit, int(record), x_out.data_ptr(),
             stats.data_ptr(), hist.data_ptr() if record and maxit else None,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -650,9 +686,9 @@ def resident_mpls_sweep(a, bv, lam, ts, sigma0, tol, maxit, record=False, h_kind
     """The Malitsky-Pock coupling sweep (square_root_lasso/runme.jl:80-88) as ONE
     kernel launch: a whole early-exit linesearch solve of min lam ||x||_1 + ||A x -
     bv|| (``h_kind`` "l2") or lam ||x||_1 + ||A x - bv||_1 ("l1") for each value of
-    ``ts``, one after another, from x0 = 0, y0 = 0 and the first dual step
-    ``sigma0``. ``sigma0`` and every t must be positive, ``ts`` 1-D with at least one
-    value (checked before anything runs, on either device).
+    ``ts`` (on the card at once, each on a cluster of its own), from x0 = 0, y0 = 0 and the
+    first dual step ``sigma0``. ``sigma0`` and every t must be positive, ``ts`` 1-D with at
+    least one value (checked before anything runs, on either device).
 
     Returns (x (T, n), numit (T,) int32, norm_res (T,), converged (T,),
     ls_failed (T,)), plus the histories (gamma, sigma, norm_res, trials,

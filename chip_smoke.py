@@ -124,18 +124,21 @@ Phases, one line each, any failure exits non-zero:
                ls_failed equal and the rows and x within bounds over a CPU-calibrated
                horizon, the rows within a bound while the trial counts agree, the
                objective after K7A_CUT iterations, the t = 1 row equal to
-               its one-row launch) and one tol 1e-5 case a core; the padded
-               coordinates exactly 0, two launches the same bits;
+               its one-row launch, the couplings reversed giving the rows reversed bit
+               for bit) and one tol 1e-5 case a core; the padded coordinates exactly 0,
+               two launches the same bits; each case's cluster layout (C, the clusters
+               at once, the shared memory a CTA, whether A is whole on chip);
                square_root_lasso and least_absolute_deviation --resident on the three
                stand-ins (exactly one K7d, one K7a MP and one K7a AdaPDM+ launch a
                dataset and nothing else, JAX's 31 rows and fast_methods, the Condat-Vu
                row's and every converged t-sweep row's final objective within a
-               calibrated bound of an f64 CPU run, the sweeps timed with their bounds,
-               non-finite gamma/sigma/norm_res counted); both drivers' engine paths at
+               calibrated bound of an f64 CPU run, the sweeps timed with their bounds
+               beside the cooperative kernel's PR 13 times, non-finite gamma/sigma/norm_res
+               counted); both drivers' engine paths at
                --maxit 300 on housing_scale (31 finite rows, no K7d or K7a launch); K7d
                and K7a against their plain versions timed on the driver's
                cpusmall_scale call (K7a cut to K7A_CUT iterations), and the K7d and K7a
-               iterations beside K6d's; the phase's wall
+               iterations beside K6d's (K7a's on one cluster); the phase's wall
  14. grid:     K7b (csrc/resident_f0_grid.cu, both cores) and K7c (csrc/resident_cv.cu)
                against their plain versions ([grid] lines) at D = 3 over the stand-ins
                zero-padded to the common 8192x128, l2 and l1, A f32 and bf16: K7b at
@@ -143,14 +146,16 @@ Phases, one line each, any failure exits non-zero:
                equal, each cell's rows and x within K7a's bounds), K7c over K7A_CUT
                iterations (K7d's bounds); two launches the same bits; every K7b cell
                bit for bit equal to its one-row K7a launch on its dataset's slice and
-               every K7c row to its K7d launch; a first dataset that breaks down (an
+               every K7c row to its K7d launch; the couplings reversed giving the cells
+               reversed bit for bit; a first dataset that breaks down (an
                infinite bv entry) leaves the next one's bits as they were; both f = 0
                drivers --resident-grid at their defaults (exactly one K7c, one K7b MP
                and one K7b AdaPDM+ launch each and no other kernel; JAX's 31 rows and
                meta rows a file; the recorded calls again, every cell against its
                single launch; converged rows' final objectives within calibrated bounds
                of phase 13's f64 CPU Condat-Vu; nothing non-finite; the grids by CUDA
-               events beside phase 13's --resident sweeps); K7b and K7c against their
+               events beside phase 13's --resident sweeps and the cooperative kernel's
+               PR 13 times); K7b and K7c against their
                plain versions timed at K7A_CUT; the phase's wall
  15. pd_fused: K5 (csrc/fused_pd.cu) against its plain version ([pd_fused] lines) at the
                f = 0 drivers' padded A' (cpusmall_scale 16x8192, abalone 16x4224,
@@ -488,6 +493,18 @@ JAX_F0_FAST_METHODS = ["Condat-Vu", "Malitsky-Pock t-sweep", "AdaPDM+ t-sweep"]
 F0_DATASETS = ("housing_scale", "abalone", "cpusmall_scale")
 F0_DRIVERS = ("square_root_lasso", "least_absolute_deviation")
 F0_ENGINE_MAXIT = 300
+# the drivers' sweeps and grids by CUDA events on the cooperative kernels K7a/K7b ran before
+# their cells went onto clusters (PR 13's final tree, PERF.md section 6; H100 80GB HBM3,
+# 700.00 W), ms: {(driver, dataset or "grid"): (MP, AdaPDM+)}, printed beside this run's
+F0_COOPERATIVE_MS = {
+    ("square_root_lasso", "housing_scale"): (521.68, 516.54),
+    ("square_root_lasso", "abalone"): (856.95, 621.57),
+    ("square_root_lasso", "cpusmall_scale"): (1032.78, 884.83),
+    ("least_absolute_deviation", "housing_scale"): (787.41, 649.56),
+    ("least_absolute_deviation", "abalone"): (796.56, 626.19),
+    ("least_absolute_deviation", "cpusmall_scale"): (1017.31, 761.24),
+    ("square_root_lasso", "grid"): (2728.53, 2186.87),
+    ("least_absolute_deviation", "grid"): (3076.13, 2288.00)}
 # peak rates of one H100 SXM (data sheet): HBM bytes/s and f32 FLOP/s outside
 # the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -2398,6 +2415,16 @@ def k7a_trials(out):
     return int(out[5][3].sum())
 
 
+def cluster_layout(resident_f0, a, core, cells):
+    """How K7a/K7b lay out ``cells`` cells of ``core`` over A (or a stack): the cluster size,
+    the clusters that run at once, the shared memory a CTA, and whether A is whole on
+    chip (the rows a CTA holds of those it owns)."""
+    p = resident_f0.f0_grid_plan(a, "mp" if core == "MP" else "adapdmp", cells)
+    return (f"C {p['cluster']}, {p['clusters']} clusters at once, {p['smem_bytes']} B shared "
+            f"a CTA, rows held {p['rows_held']}/{p['rows_per_cta']} a CTA, A whole on chip "
+            f"{p['whole']}")
+
+
 def k7a_checks(resident_f0, dev, smi):
     """Phase 13, K7a against its plain version on the card on the square-root lasso
     driver's padded inputs: both cores, the three stand-ins, l2 and l1, A f32 and bf16, the
@@ -2427,6 +2454,7 @@ def k7a_checks(resident_f0, dev, smi):
                     got = kernel(*args, K7A_CUT, **kw)
                     again = kernel(*args, K7A_CUT, **kw)
                     one = kernel(a, bv, inp["lam"], [1.0], args[4], -1.0, K7A_CUT, **kw)
+                    rev = kernel(a, bv, inp["lam"], K7A_TS[::-1], args[4], -1.0, K7A_CUT, **kw)
                     want = plain(*args, K7A_CUT, **kw)
                     short = kernel(*args, hz, **kw)
                     short_want = plain(*args, hz, **kw)
@@ -2434,6 +2462,7 @@ def k7a_checks(resident_f0, dev, smi):
                     same = all(torch.equal(u, w) for u, w in zip(flat(got), flat(again)))
                     j = K7A_TS.index(1.0)
                     row_same = all(torch.equal(u[0], w[j]) for u, w in zip(flat(one), flat(got)))
+                    rev_same = all(torch.equal(u, w.flip(0)) for u, w in zip(flat(rev), flat(got)))
                     trials_ok = (torch.equal(got[5][3][:, :hz], want[5][3][:, :hz])
                                  and torch.equal(short[4], short_want[4]))
                     err = k7a_rows_err(got[5], want[5], hz)
@@ -2451,10 +2480,12 @@ def k7a_checks(resident_f0, dev, smi):
                         f"it rel err {obj:.2e}; {float(got[5][3].mean()):.3f} trials an "
                         f"iteration (plain {float(want[5][3].mean()):.3f}); ls_failed "
                         f"{int(got[4].sum())}; gamma/sigma/norm_res finite {finite}; padded 0 "
-                        f"{pad_zero}; same bits {same}; t 1 row = its one-row launch {row_same}")
+                        f"{pad_zero}; same bits {same}; t 1 row = its one-row launch {row_same}; "
+                        f"ts reversed = the rows reversed, bit for bit {rev_same}; "
+                        f"{cluster_layout(resident_f0, a, core, len(K7A_TS))}")
                     ok &= (trials_ok and err <= K7A_RTOL and xe <= K7A_X_RTOL
                            and obj <= K7A_OBJ_RTOL and pad_zero and same and row_same
-                           and numits_ok and finite)
+                           and rev_same and numits_ok and finite)
                 label = f"{name} {tuple(a.shape)} {h_kind} {str(dtype).removeprefix('torch.')}"
                 print(f"[f0] K7a vs plain, {label}, t {K7A_TS}, tol -1, maxit {K7A_CUT}: "
                       f"{' | '.join(parts)} (bounds rows {K7A_RTOL:g}, x {K7A_X_RTOL:g} over "
@@ -2591,8 +2622,11 @@ def f0_phase(resident_f0, resident_pd, counting, dev, smi):
                     if bool(sw[3][i]):
                         gaps.append(abs(float(sw[5][4][i][k - 1]) - f_ref) / abs(f_ref))
                 gap = max(gaps, default=0.0)
+                old = F0_COOPERATIVE_MS[(driver, name)][0 if core == "MP" else 1]
                 sweep_parts.append(
-                    f"{fam} sweep {ms:.4f} ms (bound {b[0]:.5f} ms, {b[1]}), numit "
+                    f"{fam} sweep {ms:.4f} ms (cooperative kernel, PR 13: {old:.2f} ms; "
+                    f"{cluster_layout(resident_f0, inp['a'], core, len(t_values))}; bound "
+                    f"{b[0]:.5f} ms, {b[1]}), numit "
                     f"{sw[1].tolist()}, {k7a_trials(sw)} trials, converged {int(sw[3].sum())}/15, "
                     f"ls_failed {int(sw[4].sum())}, non-finite gamma/sigma/norm_res {nonfinite}, "
                     f"converged rows' objective rel err <= {gap:.2e}, the recorded call is the "
@@ -2680,10 +2714,14 @@ def f0_phase(resident_f0, resident_pd, counting, dev, smi):
     us = resident_timing.cv_timing(dev, 3)
     # an iteration's bound were A and A' read from HBM every iteration: the larger of
     # 4mn flops and 2mn * 4 bytes
-    it_bounds = {f"{m}x{n}": bound(2 * m * n * 4, 4 * m * n)
-                 for m, n in ((512, 128), (4224, 128), (8192, 128))}
+    it_bounds_shapes = ((512, 128), (4224, 128), (8192, 128))
+    it_bounds = {f"{m}x{n}": bound(2 * m * n * 4, 4 * m * n) for m, n in it_bounds_shapes}
+    shapes = {f"{m}x{n}": torch.empty((m, n), device=dev) for m, n in it_bounds_shapes}
     print(f"[f0] iteration, tol -1, 1000 iterations, f32, best of 3 (K7a: a one-row sweep at t "
-          f"1, with its trials an iteration): "
+          f"1 on one cluster ("
+          + "; ".join(f"{k}: {cluster_layout(resident_f0, a_, 'MP', 1)}" for k, a_ in
+                      shapes.items())
+          + "), with its trials an iteration): "
           f"{', '.join(f'{k} {v:.3f}' for k, v in us.items())}; an iteration's bound (4mn "
           f"flops, 2mn*4 bytes) "
           f"{', '.join(f'{k} {1e3 * v[0]:.4f} us ({v[1]})' for k, v in it_bounds.items())} "
@@ -2787,9 +2825,12 @@ def grid_checks(resident_f0, dev, smi):
                 args = (inp["a"], inp["bv"], inp["lams"], K7A_TS, p2s, -1.0, hz)
                 kw = dict(record=True, h_kind=h_kind)
                 got, again = kernel(*args, **kw), kernel(*args, **kw)
+                rev = kernel(inp["a"], inp["bv"], inp["lams"], K7A_TS[::-1], p2s, -1.0, hz, **kw)
                 want = plain(*args, **kw)
                 torch.cuda.synchronize()
                 same = all(torch.equal(u, w) for u, w in zip(grid_flat(got), grid_flat(again)))
+                rev_same = all(torch.equal(u, w.flip(1))
+                               for u, w in zip(grid_flat(rev), grid_flat(got)))
                 rows_same, _ = cells_are_rows(got, sweep, inp, p2s, K7A_TS, -1.0, hz, h_kind)
                 trials_ok = torch.equal(got[5][3], want[5][3]) and torch.equal(got[4], want[4])
                 numits_ok = got[1].tolist() == want[1].tolist() == [[hz] * len(K7A_TS)] * 3
@@ -2803,9 +2844,11 @@ def grid_checks(resident_f0, dev, smi):
                              f"{trials_ok}, rows rel err {err:.2e}, x rel err {xe:.2e}; "
                              f"{float(got[5][3].mean()):.3f} trials an iteration; gamma/sigma/"
                              f"norm_res finite {finite}; padded 0 {pad_zero}; same bits {same}; "
-                             f"every cell = its one-row K7a launch {rows_same}")
+                             f"every cell = its one-row K7a launch {rows_same}; ts reversed = "
+                             f"the cells reversed, bit for bit {rev_same}; "
+                             f"{cluster_layout(resident_f0, inp['a'], core, got[1].numel())}")
                 ok &= (trials_ok and numits_ok and err <= K7A_RTOL and xe <= K7A_X_RTOL
-                       and pad_zero and finite and same and rows_same)
+                       and pad_zero and finite and same and rows_same and rev_same)
             cargs = (inp["a"], inp["bv"], inp["lams"], inp["gammas"], inp["sigmas"], -1.0, K7A_CUT)
             got = resident_f0.resident_cv_grid(*cargs, h_kind=h_kind)
             again = resident_f0.resident_cv_grid(*cargs, h_kind=h_kind)
@@ -3003,7 +3046,10 @@ def grid_phase(resident_f0, resident_pd, f0_meas, counting, dev, smi):
               f"MP 1, K7b AdaPDM+ 1, every other kernel 0; timed again by CUDA events: K7c "
               f"{ms['K7c']:.4f} ms (bound {bounds['K7c'][0]:.5f} ms, {bounds['K7c'][1]}; the "
               f"three K7d launches on the slices {k7d_ms:.4f} ms), "
-              + ", ".join(f"K7b {core} {ms[core]:.4f} ms (bound {bounds[core][0]:.5f} ms, "
+              + ", ".join(f"K7b {core} {ms[core]:.4f} ms (cooperative kernel, PR 13: "
+                          f"{F0_COOPERATIVE_MS[(driver, 'grid')][0 if core == 'MP' else 1]:.2f} "
+                          f"ms; {cluster_layout(resident_f0, inp['a'], core, 45)}; bound "
+                          f"{bounds[core][0]:.5f} ms, "
                           f"{bounds[core][1]}; phase 13's three --resident sweeps "
                           f"{sweeps[core]:.4f} ms, ratio {ms[core] / sweeps[core]:.3f}; "
                           f"{k7a_trials(outs[core])} trials, numit {outs[core][1].tolist()})"

@@ -1736,6 +1736,230 @@ def test_f0_drivers_resident_grid_is_three_launches(dev, tmp_path, driver):
         assert list(meta["wall_s"]) == list(meta["grid_total_s"]) == fast
 
 
+# -- K7a and K7b on thread-block clusters: the layouts the launcher picks ----------------------
+
+# A cell runs on one cluster of C CTAs, C picked from the shape alone; each CTA holds its block
+# of A's rows in shared memory where it fits and reads the rest from device memory. These
+# cases reach each layout and hold it against the plain version over a short horizon (random
+# problems of the family, so the calibrated horizon of the drivers' inputs is cut to
+# K7_SHORT) or against the one-row launch bit for bit.
+K7_SHORT = 20
+
+
+def f0_random(dev, m, n, dtype, seed=0):
+    """(a, bv, ||A||_F) of a random problem of the f = 0 family: A (m, n) Gaussian / sqrt(n)
+    in ``dtype``, bv = A w + noise with a sparse w (f32)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((m, n)) / n**0.5
+    w = rng.standard_normal(n) * (rng.random(n) < 0.2)
+    bv = a @ w + 0.1 * rng.standard_normal(m)
+    a_t = torch.as_tensor(a, dtype=torch.float32, device=dev).to(dtype)
+    return a_t, torch.as_tensor(bv, dtype=torch.float32, device=dev), float(
+        a_t.float().norm())
+
+
+def _held_to_plain(got, want, horizon):
+    """Trial counts and ls_failed equal, and the gamma, sigma, norm_res and objective rows
+    within K7A_RTOL, over ``horizon`` iterations."""
+    assert torch.equal(got[4], want[4])
+    assert torch.equal(got[5][3][..., :horizon], want[5][3][..., :horizon])
+    for k in (0, 1, 2, 4):
+        u, w = got[5][k][..., :horizon], want[5][k][..., :horizon]
+        err = (u - w).abs().amax(-1) / w.abs().amax(-1)
+        assert float(err.max()) <= K7A_RTOL, k
+
+
+def _held_to_plain_while_trials_agree(got, want, horizon):
+    """For each row, the gamma, sigma, norm_res and objective rows within K7A_RTOL over the
+    iterations before the first (within ``horizon``) where the trial counts differ, which
+    must not be the first iteration."""
+    for r in range(got[5][3].shape[0]):
+        differ = (got[5][3][r, :horizon] != want[5][3][r, :horizon]).nonzero()
+        k0 = int(differ[0]) if differ.numel() else horizon
+        assert k0 >= 1, r
+        for k in (0, 1, 2, 4):
+            u, w = got[5][k][r, :k0], want[5][k][r, :k0]
+            assert float((u - w).abs().max()) <= K7A_RTOL * float(w.abs().max()), (r, k)
+
+
+def _rows_are_one_row_launches(kernel, a, bv, lam, ts, p2, tol, maxit, out, h_kind):
+    for j, t in enumerate(ts):
+        row = kernel(a, bv, lam, [t], p2, tol, maxit, record=True, h_kind=h_kind)
+        assert all(torch.equal(u[0], w[j]) for u, w in zip(_flat(row), _flat(out))), t
+
+
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+def test_k7a_reversed_and_permuted_ts_give_the_rows_permuted(dev, core):
+    """The cells run at once, each on whichever cluster takes it: a sweep over ``ts``
+    reversed or permuted gives the same rows, permuted, bit for bit (housing_scale, the
+    drivers' 15 couplings, tol 1e-5, l2 and l1)."""
+    from adaprox_tpu_torch.experiments.square_root_lasso import T_VALUES
+
+    kernel, _ = _k7a(core)
+    a, bv, norm_a, _ = k7a_inputs(dev, "housing_scale", torch.float32)
+    p2 = 1.0 if core == "mp" else norm_a
+    perm = [7, 3, 14, 0, 11, 5, 1, 9, 13, 2, 6, 12, 4, 10, 8]
+    for h_kind in ("l2", "l1"):
+        base = kernel(a, bv, 10.0, T_VALUES, p2, 1e-5, 2000, record=True, h_kind=h_kind)
+        for order in (list(range(14, -1, -1)), perm):
+            out = kernel(a, bv, 10.0, [T_VALUES[k] for k in order], p2, 1e-5, 2000,
+                         record=True, h_kind=h_kind)
+            assert all(torch.equal(u, w[order]) for u, w in zip(_flat(out), _flat(base)))
+
+
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+def test_k7b_more_cells_than_clusters(dev, core):
+    """housing_scale and abalone stacked at 4224 x 128 and the drivers' 15 couplings: 30
+    cells, more than the clusters that run at once, some stopping early at tol 1e-5 and the
+    others running to maxit. Every cell equals its one-row K7a launch on its slice, bit for
+    bit, and the grid with ``ts`` reversed gives the same cells reversed."""
+    from adaprox_tpu_torch.experiments.square_root_lasso import T_VALUES
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    kernel, _, sweep = _k7b(core)
+    a, bv, norms = grid_stack(dev, torch.float32, names=("housing_scale", "abalone"))
+    p2s = [1.0, 1.0] if core == "mp" else norms
+    cells = 2 * len(T_VALUES)
+    assert tf.f0_grid_plan(a, core, cells)["clusters"] < cells
+    out = kernel(a, bv, [10.0, 10.0], T_VALUES, p2s, 1e-5, 1500, record=True)
+    stopped = out[1] < 1500
+    assert bool(stopped.any()) and not bool(stopped.all())
+    for d in range(2):
+        for j, t in enumerate(T_VALUES):
+            row = sweep(a[d], bv[d], 10.0, [t], p2s[d], 1e-5, 1500, record=True)
+            assert all(torch.equal(u[0], w[d, j]) for u, w in zip(_flat(row), _flat(out)))
+    rev = kernel(a, bv, [10.0, 10.0], T_VALUES[::-1], p2s, 1e-5, 1500, record=True)
+    assert all(torch.equal(u, w.flip(1)) for u, w in zip(_flat(rev), _flat(out)))
+
+
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+@pytest.mark.parametrize("case", ["housing_scale", "cpusmall_scale", "16384x256"])
+def test_k7a_layouts_whole_and_split(dev, core, case):
+    """housing_scale (512 x 128 f32) fits whole in its cluster's shared memory;
+    cpusmall_scale (8192 x 128 f32, 4 MiB) and a 16384 x 256 problem do not, and read the
+    rows a CTA does not hold from device memory. Each is held to its plain version over
+    K7_SHORT iterations and each row equals its one-row launch bit for bit."""
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    kernel, plain = _k7a(core)
+    if case == "16384x256":
+        a, bv, norm_a = f0_random(dev, 16384, 256, torch.float32, seed=3)
+    else:
+        a, bv, norm_a, _ = k7a_inputs(dev, case, torch.float32)
+    plan = tf.f0_grid_plan(a, core, len(K7A_TS))
+    assert plan["whole"] == (case == "housing_scale")
+    assert plan["rows_held"] <= plan["rows_per_cta"] and plan["cluster"] in (1, 2, 4, 8)
+    if not plan["whole"]:
+        assert plan["rows_held"] < plan["rows_per_cta"] and plan["cluster"] == 8
+    p2 = 1.0 if core == "mp" else norm_a
+    for h_kind in ("l2", "l1"):
+        args = (a, bv, 10.0, K7A_TS, p2, -1.0, K7_SHORT)
+        got = kernel(*args, record=True, h_kind=h_kind)
+        want = plain(*args, record=True, h_kind=h_kind)
+        _held_to_plain(got, want, K7_SHORT)
+        _rows_are_one_row_launches(kernel, *args, got, h_kind)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n", [(1001, 136), (100, 1000), (333, 201), (7, 3)])
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+def test_k7a_ragged_shapes(dev, core, m, n, dtype):
+    """m not a multiple of the cluster size (1001 rows over 4 CTAs), n > 128, m < n, n odd
+    (scalar loads), a matrix smaller than a cluster's rows: against the plain version while
+    the trial counts agree within K7_SHORT iterations, and each row equal to its one-row
+    launch bit for bit. These random problems sit near the linesearch's ties: on the CPU
+    the plain version's AdaPDM+ trial counts in f32 parted from f64's at iteration 6-17 (l2,
+    t 1; 100x1000, 333x201, 7x3) and at iteration 1 (7x3, bf16 A, t 100); MP's at 34 or
+    later, so the comparison runs up to the first iteration where the counts differ."""
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    kernel, plain = _k7a(core)
+    a, bv, norm_a = f0_random(dev, m, n, dtype, seed=m + n)
+    plan = tf.f0_grid_plan(a, core, len(K7A_TS))
+    assert plan["whole"] and plan["rows_per_cta"] * plan["cluster"] >= m
+    if (m, n, dtype) == (1001, 136, torch.float32):
+        assert m % plan["cluster"] != 0
+    p2 = 1.0 if core == "mp" else norm_a
+    for h_kind in ("l2", "l1"):
+        args = (a, bv, 1.0, K7A_TS, p2, -1.0, K7_SHORT)
+        got = kernel(*args, record=True, h_kind=h_kind)
+        want = plain(*args, record=True, h_kind=h_kind)
+        _held_to_plain_while_trials_agree(got, want, K7_SHORT)
+        _rows_are_one_row_launches(kernel, *args, got, h_kind)
+
+
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+@pytest.mark.parametrize("m,n", [(64, 9000), (80000, 8)])
+def test_k7a_vectors_in_device_memory(dev, core, m, n):
+    """Where a CTA's shared memory cannot hold the n-vectors (n = 9000: x, v, A'y and the
+    column partials, 252 KB) or its rows' vectors (80000 rows over 8 CTAs: y, A x, w and bv,
+    240 KB), the launch keeps them in its scratch in device memory (the peers' column
+    partials then read from there): against the plain version while the trial counts agree
+    within K7_SHORT iterations, and each row equal to its one-row launch bit for bit."""
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    kernel, plain = _k7a(core)
+    a, bv, norm_a = f0_random(dev, m, n, torch.float32, seed=m + n)
+    plan = tf.f0_grid_plan(a, core, len(K7A_TS))
+    assert plan["scratch_floats"] > 0 and not plan["whole"] and plan["vectors_in_smem"] == 0
+    p2 = 1.0 if core == "mp" else norm_a
+    for h_kind in ("l2", "l1"):
+        args = (a, bv, 1.0, K7A_TS, p2, -1.0, K7_SHORT)
+        got = kernel(*args, record=True, h_kind=h_kind)
+        want = plain(*args, record=True, h_kind=h_kind)
+        _held_to_plain_while_trials_agree(got, want, K7_SHORT)
+        _rows_are_one_row_launches(kernel, *args, got, h_kind)
+
+
+@pytest.mark.parametrize("core", ["mp", "adapdmp"])
+def test_k7b_nan_in_one_dataset_leaves_the_others_alone(dev, core):
+    """A NaN in the middle dataset's bv (abalone's, of cpusmall_scale, abalone and
+    housing_scale at 8192 x 128) breaks that dataset's cells at their first iteration; the
+    other datasets' cells keep the bits of the grid without the NaN."""
+    kernel, _, _ = _k7b(core)
+    a, bv, norms = grid_stack(dev, torch.float32,
+                              names=("cpusmall_scale", "abalone", "housing_scale"))
+    p2s = [1.0] * 3 if core == "mp" else norms
+    bad_bv = bv.clone()
+    bad_bv[1, 5] = float("nan")
+    for h_kind in ("l2", "l1"):
+        good, bad = (kernel(a, b, [10.0] * 3, K7A_TS, p2s, 1e-5, 300, record=True,
+                            h_kind=h_kind) for b in (bv, bad_bv))
+        assert bad[1][1].tolist() == [1] * len(K7A_TS) and bool(torch.isnan(bad[2][1]).all())
+        for d in (0, 2):
+            assert all(torch.equal(u[d], w[d]) for u, w in zip(_flat(bad), _flat(good)))
+
+
+def test_k7a_check_fails_a_kernel_that_skips_a_row_block(dev, tmp_path, monkeypatch):
+    """The plain comparison guards every CTA's share: a kernel built so that rank 1 of each
+    cluster owns no rows (its block of A, y and A x skipped) fails it on housing_scale (a
+    cluster of 2), where the kernel as built passes."""
+    import shutil
+
+    from adaprox_tpu_torch.ops import resident_f0 as tf
+
+    src = tf.GRID_SOURCE.read_text()
+    line = "  const int rows = static_cast<int>(left < g.rows_per ? left : g.rows_per);\n"
+    assert src.count(line) == 1
+    for header in tf.GRID_SOURCE.parent.glob("*.cuh"):
+        shutil.copy(header, tmp_path / header.name)
+    mutant = tmp_path / "resident_f0_grid_skip_rank1.cu"
+    mutant.write_text(src.replace(line, line.replace(
+        "static_cast<int>(left", "rank == 1 ? 0 : static_cast<int>(left")))
+    a, bv, _, _ = k7a_inputs(dev, "housing_scale", torch.float32)
+    assert tf.f0_grid_plan(a, "mp", len(K7A_TS))["cluster"] == 2
+    args = (a, bv, 10.0, K7A_TS, 1.0, -1.0, K7_SHORT)
+    want = tf.resident_mpls_sweep_plain(*args, record=True)
+    _held_to_plain(tf.resident_mpls_sweep(*args, record=True), want, K7_SHORT)
+    monkeypatch.setattr(tf, "GRID_SOURCE", mutant)
+    got = tf.resident_mpls_sweep(*args, record=True)
+    torch.cuda.synchronize()
+    err = (got[5][2] - want[5][2]).abs().amax(-1) / want[5][2].abs().amax(-1)
+    assert float(err.max()) > K7A_RTOL
+
+
 # -- K5, the fused one-pass primal-dual update ---------------------------------------------------
 
 # K5 against its plain version: f32 FMAs in another summation order than cuBLAS's gemv, so
