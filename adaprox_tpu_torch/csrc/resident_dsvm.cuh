@@ -1,9 +1,8 @@
-// What the dual-SVM whole-solve kernels share: K6a/K6b/K6d (resident_pd.cu) and
-// K6c (resident_mp.cu). Q is the N x N Gram (dense) or, factored, Q = B B' with B
-// (N x d) = D_y X; Q x is formed a warp a row, from x (dense) or from B'x
-// (factored), which phase F forms as per-CTA partials and every CTA reduces into
-// its shared memory. The launch sizes the grid from N the same way for every
-// entry, so a sweep row equals its single launch bit for bit.
+// What the dual SVM's cooperative whole-solve kernel, K6d (resident_pd.cu), is built on. Q
+// is the N x N Gram (dense) or, factored, Q = B B' with B (N x d) = D_y X; Q x is formed a
+// warp a row, from x (dense) or from B'x (factored), which phase F forms as per-CTA partials
+// and every CTA reduces into its shared memory. The launch sizes the grid from N. (K6a, K6b
+// and K6c run on thread-block clusters: resident_dsvm_grid.cu.)
 //
 // Every function is deterministic: one fixed order of every sum, no atomics.
 

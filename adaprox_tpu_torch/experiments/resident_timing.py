@@ -32,13 +32,13 @@ A in f32 unless a case says bf16. Cases:
   bt_menu_ms       K4b, the lasso menu's four backtracking rows on the same
                    inputs as menu_ms
 
-With ``--pd`` it times K6's PD iteration instead (csrc/resident_pd.cu): a
-one-row K6b sweep, t 0.5, tol -1, 1000 iterations, per iteration, on the
-dual_svm driver's inputs (``experiments.dual_svm.resident_inputs``, C 0.1):
+With ``--pd`` it times K6's PD iteration instead (csrc/resident_dsvm_grid.cu, the AdaPDM
+core): a one-row K6b launch (one thread-block cluster), t 0.5, tol -1, 1000 iterations, per
+iteration, on the dual_svm driver's inputs (``experiments.dual_svm.resident_inputs``, C 0.1):
   pd_384_it_us     heart_scale's dense Q, 384^2
   pd_1280_it_us    svmguide3's dense Q, 1280^2
   pd_8192x128_it_us  mushrooms' factored B, 8192x128
-  pd_build_s       seconds to build (or find built) csrc/resident_pd.cu
+  pd_build_s       seconds to build (or find built) csrc/resident_dsvm_grid.cu
 
 With ``--cv`` it times K7d's iteration (csrc/resident_cv.cu) and K7a's: one Condat-Vu
 solve, tol -1, 1000 iterations, per iteration, on the square-root lasso driver's
@@ -137,7 +137,7 @@ def pd_timing(dev, reps):
 
     out = {}
     t0 = time.perf_counter()
-    resident_pd.build_library()
+    resident_pd.build_grid_library()
     out["pd_build_s"] = time.perf_counter() - t0
     for name, key in (("heart_scale", "pd_384_it_us"), ("svmguide3", "pd_1280_it_us"),
                       ("mushrooms", "pd_8192x128_it_us")):

@@ -6,10 +6,11 @@ linesearch on the device.
 Counterpart of ``adaprox_tpu/ops/resident.py:956-1250, 2106``:
 ``resident_mp_dsvm_sweep`` (K6c, ``_resident_mp_dsvm_sweep_jit`` over
 ``_dsvm_mp_core``, dense Q or factored B with Q = B B') and its records
-``resident_mp_records``. Here the entry reaches a hand-written CUDA C++ routine
-for Hopper (``csrc/resident_mp.cu``): one cooperative launch for the whole
-sweep, built with nvcc for ``sm_90a`` at first use and loaded with ctypes, on
-the dual-SVM pieces it shares with K6 (``csrc/resident_dsvm.cuh``).
+``resident_mp_records``. Here the entry launches the Malitsky-Pock core of a
+hand-written CUDA C++ kernel for Hopper (``csrc/resident_dsvm_grid.cu``, which
+K6a and K6b share with their AdaPDM core; ``ops/resident_pd.py`` builds and
+launches it): one launch for the whole sweep, each value of t a whole solve on
+its own thread-block cluster, the rows at once.
 
 The entry dispatches on where its tensors lie: CPU tensors take the plain
 version ``resident_mp_dsvm_sweep_plain`` (a Python loop over the same
@@ -22,22 +23,15 @@ coordinates, so the padded ones stay exactly 0.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..solvers.common import Records
 from ..solvers.rules import validate_positive
-from . import kernels
-from .resident_pd import _check, _clamp, _device, _dsvm_obj, _scalars, _stats, _ts, hist_len
+from .resident_pd import (_check, _clamp, _device, _dsvm_obj, _grid_launch, _scalars, _stats,
+                          _ts, hist_len)
 
-__all__ = ["resident_mp_dsvm_sweep", "resident_mp_dsvm_sweep_plain", "resident_mp_records",
-           "build_library"]
+__all__ = ["resident_mp_dsvm_sweep", "resident_mp_dsvm_sweep_plain", "resident_mp_records"]
 
-SOURCE = kernels._PKG / "csrc" / "resident_mp.cu"
-# -fmad=false: every elementwise expression rounds after each operation, as the
-# plain version's tensor ops do (the kernel's dot products use explicit fmaf)
-NVCC_FLAGS = kernels.NVCC_FLAGS + ("-fmad=false",)
 # the initial trial and up to 100 halvings (the engine's _MAX_TRIALS = 100)
 MAX_TRIALS = 101
 
@@ -123,64 +117,6 @@ def resident_mp_dsvm_sweep_plain(q, labels, big_c, ts, sigma0, tol, maxit, n_tru
     return base
 
 
-# -- the CUDA kernel --------------------------------------------------------------------
-
-
-def build_library():
-    """Compile ``csrc/resident_mp.cu`` (see ``ops.kernels.build_library``)."""
-    return kernels.build_library(SOURCE, NVCC_FLAGS)
-
-
-def _library():
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    return kernels.load_library(SOURCE, NVCC_FLAGS, {
-        "adaprox_resident_mp_parts": ([], i),
-        # q, q_is_bf16, vec, factored, n, d, lab, n_true, big_c, xs, qxs, v, part,
-        # part_len, ts, count, sigma0, tol, exact, maxit, record, x_out, stats, hist, stream
-        "adaprox_resident_mp_sweep": ([p, i, i, i, ll, ll, p, i, f, p, p, p, p, ll, p, i, f, f, i,
-                                       i, i, p, p, p, p], i),
-        "adaprox_resident_mp_error_string": ([i], ctypes.c_char_p)})
-
-
-def _launch(q, labels, n_true, big_c, factored, ts, sigma0, tol, maxit, record, exact):
-    """One K6c launch. Returns (x_out (T, n), stats (T, 4), hist (T, 5, hist_len)
-    or None)."""
-    what = "K6c"
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{what} stores Q (or B) as float32 or bfloat16 on CUDA, got {q.dtype}")
-    if labels.dtype != torch.float32:
-        raise TypeError(f"{what} takes float32 labels on CUDA, got {labels.dtype}")
-    if not (q.is_contiguous() and labels.is_contiguous()):
-        raise ValueError(f"{what} needs contiguous q and labels")
-    lib = _library()
-    dev = q.device
-    n = q.shape[0]
-    d = q.shape[1] if factored else 0
-    vec = 8 if q.dtype == torch.bfloat16 else 4
-    if (d if factored else n) % vec or q.data_ptr() % 16:
-        vec = 1
-    count = ts.numel()
-    f32 = dict(dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        xs, qxs, v = torch.empty((2, n), **f32), torch.empty((2, n), **f32), torch.empty(n, **f32)
-        # the launcher sizes the grid, at most one CTA per SM
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        part = torch.empty((lib.adaprox_resident_mp_parts() + d) * sms, **f32)
-        x_out, stats = torch.empty((count, n), **f32), torch.empty((count, 4), **f32)
-        hist = torch.empty((count, 5, hist_len(maxit)), **f32) if record else None
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.adaprox_resident_mp_sweep(
-            q.data_ptr(), int(q.dtype == torch.bfloat16), vec, int(factored), n, d,
-            labels.data_ptr(), n_true, float(big_c), xs.data_ptr(), qxs.data_ptr(), v.data_ptr(),
-            part.data_ptr(), part.numel(), ts.data_ptr(), count, float(sigma0), float(tol),
-            int(exact), maxit, int(record), x_out.data_ptr(), stats.data_ptr(),
-            hist.data_ptr() if record and maxit else None, stream)
-    if err:
-        msg = lib.adaprox_resident_mp_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-    return x_out, stats, hist
-
-
 def resident_mp_dsvm_sweep(q, labels, big_c, ts, sigma0, tol, maxit, n_true=None, record=False,
                            factored=False, exact_bregman=False):
     """The dual-SVM Malitsky-Pock coupling sweep (dual_svm/runme.jl:61) as ONE
@@ -197,19 +133,20 @@ def resident_mp_dsvm_sweep(q, labels, big_c, ts, sigma0, tol, maxit, n_true=None
     (T,)), plus the histories (gamma, sigma, norm_res, trials, f) of shape
     (T, maxit) as a tuple when ``record=True`` (zero past numit);
     ``resident_mp_records`` turns a row into ``Records``. CPU tensors take the
-    plain version. CUDA tensors launch K6c (``csrc/resident_mp.cu``): ``q`` f32
-    or bf16, ``labels`` f32, both contiguous; each launch adds one to
-    ``resident_mp_dsvm_sweep.launches``. Every row equals a one-row sweep
-    with its t bit for bit."""
+    plain version. CUDA tensors launch K6c, the Malitsky-Pock core of
+    ``csrc/resident_dsvm_grid.cu`` (the rows at once, each on a cluster of its
+    own): ``q`` f32 or bf16, ``labels`` f32, both contiguous; each launch adds
+    one to ``resident_mp_dsvm_sweep.launches``. Every row equals a one-row
+    sweep with its t bit for bit."""
     validate_positive(sigma0=sigma0)
     if not _device("K6c", q):
         return resident_mp_dsvm_sweep_plain(q, labels, big_c, ts, sigma0, tol, maxit, n_true,
                                             record, factored, exact_bregman)
     n_true = _check("resident_mp_dsvm_sweep", q, labels, maxit, n_true, factored)
-    ts_d = _ts(ts, torch.float32).to(q.device)
     maxit = int(maxit)
-    x, stats, hist = _launch(q, labels, n_true, big_c, factored, ts_d, sigma0, tol, maxit, record,
-                             bool(exact_bregman))
+    x, stats, hist = _grid_launch("K6c", "mp", q, labels, n_true, big_c, factored,
+                                  _ts(ts, torch.float64), sigma0, 0.0, bool(exact_bregman), tol,
+                                  maxit, record)
     resident_mp_dsvm_sweep.launches += 1
     base = (x, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 2] > 0, stats[:, 3] > 0)
     if record:

@@ -7,10 +7,15 @@ Counterpart of ``adaprox_tpu/ops/resident.py:765-1517, 2134``:
 ``resident_adapdm_dsvm_sweep`` (K6b, the coupling-t sweep, dense Q or factored
 B with Q = B B'), ``resident_cv_dsvm`` (K6d, one Condat-Vu solve with fixed
 steps, core ``_dsvm_cv_core``) and the records ``resident_pd_records`` /
-``resident_cv_records``. Here the three entries reach one hand-written CUDA
-C++ routine for Hopper (``csrc/resident_pd.cu``): one cooperative launch with
-grid-wide barriers between the phases of an iteration, built with nvcc for
-``sm_90a`` at first use and loaded with ctypes, as K2 (``ops/resident.py``).
+``resident_cv_records``. Here each is hand-written CUDA C++ for Hopper, built
+with nvcc for ``sm_90a`` at first use and loaded with ctypes, as K2
+(``ops/resident.py``): K6b and K6a launch the AdaPDM core of
+``csrc/resident_dsvm_grid.cu`` (each value of t a whole solve on its own
+thread-block cluster, the rows at once; K6a is its launch over one row, so a
+dense K6b row equals it bit for bit), which K6c (``ops/resident_mp.py``) shares
+with its Malitsky-Pock core; K6d is one cooperative launch of
+``csrc/resident_pd.cu``, with grid-wide barriers between the phases of an
+iteration. ``dsvm_grid_plan`` gives the cluster layout of a launch.
 
 Each entry dispatches on where its tensors lie: CPU tensors take the plain
 versions ``*_plain`` (Python loops over the same iteration, one host-checked
@@ -33,9 +38,11 @@ from . import kernels
 
 __all__ = ["resident_adapdm_dsvm", "resident_adapdm_dsvm_plain", "resident_adapdm_dsvm_sweep",
            "resident_adapdm_dsvm_sweep_plain", "resident_cv_dsvm", "resident_cv_dsvm_plain",
-           "resident_pd_records", "resident_cv_records", "hist_len", "build_library"]
+           "resident_pd_records", "resident_cv_records", "hist_len", "build_library",
+           "build_grid_library", "dsvm_grid_plan"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_pd.cu"
+GRID_SOURCE = kernels._PKG / "csrc" / "resident_dsvm_grid.cu"
 # -fmad=false: every elementwise expression rounds after each operation, as the
 # plain version's tensor ops do (the kernel's dot products use explicit fmaf)
 NVCC_FLAGS = kernels.NVCC_FLAGS + ("-fmad=false",)
@@ -248,79 +255,154 @@ def resident_cv_dsvm_plain(q, labels, big_c, gamma, sigma, tol, maxit, n_true=No
     return base
 
 
-# -- the CUDA kernel --------------------------------------------------------------------
+# -- the CUDA kernels --------------------------------------------------------------------
 
 
 def build_library():
-    """Compile ``csrc/resident_pd.cu`` (see ``ops.kernels.build_library``)."""
+    """Compile ``csrc/resident_pd.cu``, K6d (see ``ops.kernels.build_library``)."""
     return kernels.build_library(SOURCE, NVCC_FLAGS)
+
+
+def build_grid_library():
+    """Compile ``csrc/resident_dsvm_grid.cu``, K6a, K6b and K6c (see
+    ``ops.kernels.build_library``)."""
+    return kernels.build_library(GRID_SOURCE, NVCC_FLAGS)
 
 
 def _library():
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-    # q .. part_len, the leading arguments of the three entries
-    problem = [p, i, i, i, ll, ll, p, i, f, p, p, p, p, ll]
-    tail = [i, i, p, p, p, p]  # maxit, record, x_out, stats, hist, stream
     return kernels.load_library(SOURCE, NVCC_FLAGS, {
         "adaprox_resident_pd_parts": ([], i),
-        "adaprox_resident_pd": (problem + [f, f, f, f] + tail, i),
-        "adaprox_resident_pd_sweep": (problem + [p, i, f, f, f] + tail, i),
-        "adaprox_resident_cv": (problem + [f, f, f] + tail, i),
+        # q, q_is_bf16, vec, factored, n, d, lab, n_true, big_c, xs, grad, v, part, part_len,
+        # gamma, sigma, tol, maxit, record, x_out, stats, hist, stream
+        "adaprox_resident_cv": ([p, i, i, i, ll, ll, p, i, f, p, p, p, p, ll, f, f, f, i, i, p, p,
+                                 p, p], i),
         "adaprox_resident_pd_error_string": ([i], ctypes.c_char_p)})
 
 
-def _problem(lib, what, q, labels, n_true, big_c, factored):
-    """Check what the kernel takes and make the scratch of one launch. Returns
-    the leading arguments of the C entries and the tensors behind them."""
+def _grid_library():
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    return kernels.load_library(GRID_SOURCE, NVCC_FLAGS, {
+        # n, d, factored, q_is_bf16, vec, core, rows, out (6)
+        "adaprox_resident_dsvm_plan": ([ll, ll, i, i, i, i, i, ctypes.POINTER(ll)], i),
+        # q, q_is_bf16, vec, factored, n, d, lab, n_true, big_c, core, counter, ts, count, p1,
+        # p2, exact, tol, maxit, record, x_out, stats, hist, stream
+        "adaprox_resident_dsvm_rows": ([p, i, i, i, ll, ll, p, i, f, i, p, p, i, f, f, i, f, i, i,
+                                        p, p, p, p], i),
+        "adaprox_resident_dsvm_error_string": ([i], ctypes.c_char_p)})
+
+
+def _row_vec(q):
+    """The vector width of Q's (or B's) rows: 16-byte loads where the row length and the
+    storage's alignment allow them."""
+    vec = 8 if q.dtype == torch.bfloat16 else 4
+    return 1 if q.shape[1] % vec or q.data_ptr() % 16 else vec
+
+
+def _storage(what, q, labels):
+    """Check what the kernels take; returns the vector width of Q's (or B's) rows."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{what} stores Q (or B) as float32 or bfloat16 on CUDA, got {q.dtype}")
     if labels.dtype != torch.float32:
         raise TypeError(f"{what} takes float32 labels on CUDA, got {labels.dtype}")
     if not (q.is_contiguous() and labels.is_contiguous()):
         raise ValueError(f"{what} needs contiguous q and labels")
-    n = q.shape[0]
-    d = q.shape[1] if factored else 0
-    row = d if factored else n
-    vec = 8 if q.dtype == torch.bfloat16 else 4
-    if row % vec or q.data_ptr() % 16:
-        vec = 1
-    dev = q.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    xs, grad, v = torch.empty((2, n), **f32), torch.empty(n, **f32), torch.empty(n, **f32)
-    # the launcher sizes the grid, at most one CTA per SM
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    part = torch.empty((lib.adaprox_resident_pd_parts() + d) * sms, **f32)
-    args = [q.data_ptr(), int(q.dtype == torch.bfloat16), vec, int(factored), n, d,
-            labels.data_ptr(), n_true, float(big_c), xs.data_ptr(), grad.data_ptr(),
-            v.data_ptr(), part.data_ptr(), part.numel()]
-    return args, (xs, grad, v, part)
+    return _row_vec(q)
 
 
-def _raise_on(lib, err, what):
+def _raise_on(err, what, error_string):
     if err:
-        msg = lib.adaprox_resident_pd_error_string(err).decode()
-        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({error_string(err).decode()})")
 
 
-def _launch(what, entry, q, labels, n_true, big_c, factored, rows, stats_w, maxit, record,
-            scalars):
-    """One launch of ``entry`` with its ``scalars`` (the arguments between
-    part_len and maxit). Returns (x_out (rows, n), stats (rows, stats_w),
-    hist (rows, 2, hist_len) or None)."""
+def _launch(what, q, labels, n_true, big_c, factored, maxit, record, gamma, sigma, tol):
+    """One K6d launch with its scratch. Returns (x_out (1, n), stats (1, 3), hist (1, 2,
+    hist_len) or None)."""
+    vec = _storage(what, q, labels)
     lib = _library()
     dev = q.device
     n = q.shape[0]
+    d = q.shape[1] if factored else 0
     with torch.cuda.device(dev):
-        # keep: the tensors behind args
-        args, keep = _problem(lib, what, q, labels, n_true, big_c, factored)
         f32 = dict(dtype=torch.float32, device=dev)
-        x_out, stats = torch.empty((rows, n), **f32), torch.empty((rows, stats_w), **f32)
-        hist = torch.empty((rows, 2, hist_len(maxit)), **f32) if record else None
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(*args, *scalars, maxit, int(record), x_out.data_ptr(),
-                                  stats.data_ptr(), hist.data_ptr() if record and maxit else None,
-                                  stream)
-    _raise_on(lib, err, f"{what} launch")
+        xs, grad, v = torch.empty((2, n), **f32), torch.empty(n, **f32), torch.empty(n, **f32)
+        # the launcher sizes the grid, at most one CTA per SM
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        part = torch.empty((lib.adaprox_resident_pd_parts() + d) * sms, **f32)
+        x_out, stats = torch.empty((1, n), **f32), torch.empty((1, 3), **f32)
+        hist = torch.empty((1, 2, hist_len(maxit)), **f32) if record else None
+        err = lib.adaprox_resident_cv(
+            q.data_ptr(), int(q.dtype == torch.bfloat16), vec, int(factored), n, d,
+            labels.data_ptr(), n_true, float(big_c), xs.data_ptr(), grad.data_ptr(),
+            v.data_ptr(), part.data_ptr(), part.numel(), float(gamma), float(sigma), float(tol),
+            maxit, int(record), x_out.data_ptr(), stats.data_ptr(),
+            hist.data_ptr() if record and maxit else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, f"{what} launch", lib.adaprox_resident_pd_error_string)
+    return x_out, stats, hist
+
+
+# the cores of csrc/resident_dsvm_grid.cu, in the order of its core argument
+GRID_CORES = ("adapdm", "mp")
+# what adaprox_resident_dsvm_plan returns, in its order
+PLAN_KEYS = ("cluster", "clusters", "smem_bytes", "rows_per_cta", "rows_held", "fits")
+
+
+def _grid_plan(lib, core, q, factored, vec, rows):
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    n = q.shape[0]
+    err = lib.adaprox_resident_dsvm_plan(n, q.shape[1], int(factored),
+                                         int(q.dtype == torch.bfloat16), vec,
+                                         GRID_CORES.index(core), int(rows), out)
+    _raise_on(err, "dsvm_grid_plan", lib.adaprox_resident_dsvm_error_string)
+    plan = dict(zip(PLAN_KEYS, (int(v) for v in out)))
+    plan["fits"] = bool(plan["fits"])
+    plan["whole"] = plan["fits"] and plan["rows_held"] == plan["rows_per_cta"]
+    return plan
+
+
+def dsvm_grid_plan(q, core, rows, factored=False):
+    """How K6a/K6b (``core`` "adapdm") and K6c ("mp") lay out a launch of ``rows`` values
+    of t over Q (N, N) or, factored, B (N, d) on the card: the cluster size C (picked from
+    the shape and the storage alone), the clusters the launch runs at once, the dynamic
+    shared memory of a CTA in bytes, the rows of Q (or B) a CTA owns and those it holds in
+    shared memory (the rest it reads from device memory in every pass), ``fits`` (False:
+    the vectors do not fit a CTA's shared memory, and a launch is refused) and ``whole``
+    (every row of Q in shared memory)."""
+    with torch.cuda.device(q.device):
+        return _grid_plan(_grid_library(), core, q, factored, _row_vec(q), rows)
+
+
+def _grid_launch(what, core, q, labels, n_true, big_c, factored, ts, p1, p2, exact, tol, maxit,
+                 record):
+    """One launch of ``core``'s kernel over the couplings ``ts`` (a float64 host tensor): K6b
+    or K6c, and K6a at one row. Returns (x_out (T, n), stats (T, 4), hist (T, 2 or 5,
+    hist_len) or None)."""
+    vec = _storage(what, q, labels)
+    lib = _grid_library()
+    dev = q.device
+    n = q.shape[0]
+    with torch.cuda.device(dev):
+        f32 = dict(dtype=torch.float32, device=dev)
+        ts_d = ts.to(**f32)
+        count = ts_d.numel()
+        plan = _grid_plan(lib, core, q, factored, vec, count)
+        if not plan["fits"]:
+            raise ValueError(f"{what}: the cluster layout is refused at {tuple(q.shape)}"
+                             f"{' (factored)' if factored else ''}: a CTA's vectors do not fit "
+                             "its shared memory")
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)  # the next row
+        x_out, stats = torch.empty((count, n), **f32), torch.empty((count, 4), **f32)
+        hist_rows = 5 if core == "mp" else 2
+        hist = torch.empty((count, hist_rows, hist_len(maxit)), **f32) if record else None
+        err = lib.adaprox_resident_dsvm_rows(
+            q.data_ptr(), int(q.dtype == torch.bfloat16), vec, int(factored), n, q.shape[1],
+            labels.data_ptr(), n_true, float(big_c), GRID_CORES.index(core), counter.data_ptr(),
+            ts_d.data_ptr(), count, float(p1), float(p2), int(exact), float(tol), maxit,
+            int(record), x_out.data_ptr(), stats.data_ptr(),
+            hist.data_ptr() if record and maxit else None,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, f"{what} launch", lib.adaprox_resident_dsvm_error_string)
     return x_out, stats, hist
 
 
@@ -340,14 +422,16 @@ def resident_adapdm_dsvm(q, labels, big_c, t, norm_a, tol, maxit, n_true=None):
 
     Returns (x, numit, norm_res, converged) as tensors on the input's device.
     CPU tensors take the plain version, any float dtype. CUDA tensors launch
-    K6a (``csrc/resident_pd.cu``): ``q`` f32 or bf16, ``labels`` f32, both
-    contiguous; each launch adds one to ``resident_adapdm_dsvm.launches``."""
+    K6a, the AdaPDM core of ``csrc/resident_dsvm_grid.cu`` over one row: ``q``
+    f32 or bf16, ``labels`` f32, both contiguous; each launch adds one to
+    ``resident_adapdm_dsvm.launches``."""
     validate_positive(t=t, norm_a=norm_a)
     if not _device("K6a", q):
         return resident_adapdm_dsvm_plain(q, labels, big_c, t, norm_a, tol, maxit, n_true)
     n_true = _check("resident_adapdm_dsvm", q, labels, maxit, n_true, False)
-    x, stats, _ = _launch("K6a", "adaprox_resident_pd", q, labels, n_true, big_c, False, 1, 4,
-                          int(maxit), False, [float(t), float(norm_a), THETA, float(tol)])
+    x, stats, _ = _grid_launch("K6a", "adapdm", q, labels, n_true, big_c, False,
+                               _ts([t], torch.float64), norm_a, THETA, False, tol, int(maxit),
+                               False)
     resident_adapdm_dsvm.launches += 1
     return x[0], stats[0, 0].to(torch.int32), stats[0, 1], stats[0, 3] > 0
 
@@ -359,27 +443,26 @@ def resident_adapdm_dsvm_sweep(q, labels, big_c, ts, norm_a, tol, maxit, n_true=
                                record=False, factored=False):
     """The coupling sweep (dual_svm/runme.jl:61) as ONE kernel launch: a whole
     early-exit AdaPDM solve (``resident_adapdm_dsvm``) for each value of
-    ``ts``, one after another. With ``factored=True`` ``q`` is B (N, d), B =
-    D_y X, and the gradient runs gram-free as B (B'x) - 1. ``norm_a`` must be
-    positive.
+    ``ts`` (on the card at once, each on a cluster of its own). With
+    ``factored=True`` ``q`` is B (N, d), B = D_y X, and the gradient runs
+    gram-free as B (B'x) - 1. ``norm_a`` must be positive.
 
     Returns (x (T, N), numit (T,), norm_res (T,), converged (T,)), plus the
     (gamma_hist, norm_res_hist) of shape (T, maxit) when ``record=True`` (zero
     past numit); ``resident_pd_records`` turns a row into ``Records``.
-    CPU tensors take the plain version. CUDA tensors launch K6b, with what
-    K6a takes; each launch adds one to
-    ``resident_adapdm_dsvm_sweep.launches``. A dense row equals
-    ``resident_adapdm_dsvm`` with its t bit for bit."""
+    CPU tensors take the plain version. CUDA tensors launch K6b, the AdaPDM
+    core of ``csrc/resident_dsvm_grid.cu``, with what K6a takes; each launch
+    adds one to ``resident_adapdm_dsvm_sweep.launches``. Every row equals a
+    one-row launch with its t bit for bit (a dense row is its K6a launch)."""
     validate_positive(norm_a=norm_a)
     if not _device("K6b", q):
         return resident_adapdm_dsvm_sweep_plain(q, labels, big_c, ts, norm_a, tol, maxit,
                                                 n_true, record, factored)
     n_true = _check("resident_adapdm_dsvm_sweep", q, labels, maxit, n_true, factored)
-    ts_d = _ts(ts, torch.float32).to(q.device)
-    count, maxit = ts_d.numel(), int(maxit)
-    x, stats, hist = _launch("K6b", "adaprox_resident_pd_sweep", q, labels, n_true, big_c,
-                             factored, count, 4, maxit, record,
-                             [ts_d.data_ptr(), count, float(norm_a), THETA, float(tol)])
+    maxit = int(maxit)
+    x, stats, hist = _grid_launch("K6b", "adapdm", q, labels, n_true, big_c, factored,
+                                  _ts(ts, torch.float64), norm_a, THETA, False, tol, maxit,
+                                  record)
     resident_adapdm_dsvm_sweep.launches += 1
     base = (x, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 3] > 0)
     if record:
@@ -400,15 +483,15 @@ def resident_cv_dsvm(q, labels, big_c, gamma, sigma, tol, maxit, n_true=None, re
     Returns (x, numit, norm_res, converged), plus ((norm_res_hist,
     objective_hist),) of shape (maxit,) when ``record=True`` (zero past
     numit); ``resident_cv_records`` turns them into ``Records``. CPU tensors
-    take the plain version. CUDA tensors launch K6d, with what K6a takes; each
-    launch adds one to ``resident_cv_dsvm.launches``."""
+    take the plain version. CUDA tensors launch K6d (``csrc/resident_pd.cu``),
+    with what K6a takes; each launch adds one to ``resident_cv_dsvm.launches``."""
     if not _device("K6d", q):
         return resident_cv_dsvm_plain(q, labels, big_c, gamma, sigma, tol, maxit, n_true,
                                       record, factored)
     n_true = _check("resident_cv_dsvm", q, labels, maxit, n_true, factored)
     maxit = int(maxit)
-    x, stats, hist = _launch("K6d", "adaprox_resident_cv", q, labels, n_true, big_c, factored,
-                             1, 3, maxit, record, [float(gamma), float(sigma), float(tol)])
+    x, stats, hist = _launch("K6d", q, labels, n_true, big_c, factored, maxit, record, gamma,
+                             sigma, tol)
     resident_cv_dsvm.launches += 1
     base = (x[0], stats[0, 0].to(torch.int32), stats[0, 1], stats[0, 2] > 0)
     if record:

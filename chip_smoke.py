@@ -6,8 +6,9 @@ Phases, one line each, any failure exits non-zero:
   1. device:   a CUDA device is required; prints nvidia-smi's name and power limit
   2. build:    K1 (csrc/fused_ls.cu), K3 (csrc/fused_logistic.cu), K2/K2c
                (csrc/resident_pg.cu), K4/K4b (csrc/resident_bt.cu), K4's
-               aGRAAL core (csrc/resident_agraal.cu), K6a/K6b/K6d
-               (csrc/resident_pd.cu), K6c (csrc/resident_mp.cu), K7d and K7c
+               aGRAAL core (csrc/resident_agraal.cu), K6d (csrc/resident_pd.cu),
+               K6a/K6b/K6c (csrc/resident_dsvm_grid.cu, one kernel a core: K6a is
+               the AdaPDM core's launch over one row), K7d and K7c
                (csrc/resident_cv.cu, one kernel: K7d is its launch over one dataset),
                K7a and K7b (csrc/resident_f0_grid.cu, one kernel a core: K7a is its
                launch over one dataset), K5 (csrc/fused_pd.cu), K8 (csrc/ell_matvec.cu),
@@ -85,14 +86,20 @@ Phases, one line each, any failure exits non-zero:
                inputs (one solve, counted and timed, held against its plain
                version, two launches the same bits, F within its bound) and its
                iteration at 4096x1024 and 8x2176 beside K2's
- 11. pd:       K6a, K6b and K6d (csrc/resident_pd.cu) against their plain
-               versions ([pd] lines) on the dual_svm driver's inputs:
-               svmguide3's dense 1280^2, heart_scale's 384^2 (f32 and bf16) and
-               mushrooms' factored 8192x128 (f32 and bf16), C 0.1 and 1, rows
-               over CPU-calibrated horizons, the padded coordinates exactly 0,
-               two launches the same bits; K6b's rows bit for bit against K6a
-               launches (dense) or one-row sweeps (factored) at tol 1e-5, maxit
-               10000; dual_svm --resident at its defaults on the three stand-ins
+ 11. pd:       K6a, K6b (csrc/resident_dsvm_grid.cu, the AdaPDM core) and K6d
+               (csrc/resident_pd.cu) against their plain versions ([pd] lines) on
+               the dual_svm driver's inputs: svmguide3's dense 1280^2,
+               heart_scale's 384^2 (f32 and bf16) and mushrooms' factored
+               8192x128 (f32 and bf16), C 0.1 and 1, rows over CPU-calibrated
+               horizons, the padded coordinates exactly 0, two launches the same
+               bits; every K6b row at the driver's settings (C 0.1, tol 1e-5,
+               maxit 10000) on the three stand-ins, f32 and bf16, bit for bit
+               against its one-row launch (a dense row also against its K6a
+               launch), the 12 couplings reversed giving the rows reversed and
+               the 12 twice over in one launch (24 rows, two waves at C 8) each
+               row's bits twice, with each case's cluster layout (C, the
+               clusters at once, the rows a CTA holds of those it owns);
+               dual_svm --resident at its defaults on the three stand-ins
                x C 0.1 and 1 (exactly one K6b, one K6c and one K6d launch each,
                every row's x in [0, C] with |y'x| within its CPU-calibrated
                bound, JAX's fast_methods, the three launches timed on the
@@ -101,8 +108,10 @@ Phases, one line each, any failure exits non-zero:
                path (one solve, counted); the
                engine path at --maxit 300 on heart_scale and svmguide3, the
                Malitsky-Pock rows included (no K6 launch); the PD iteration at
-               1280^2, 384^2 and 8192x128 beside K2's
- 12. mp:       K6c (csrc/resident_mp.cu) against its plain version ([mp]
+               1280^2, 384^2 and 8192x128, f32 and bf16, with its layout, beside
+               the cooperative kernel's (PERF.md) and K2's; the phase's wall
+ 12. mp:       K6c (csrc/resident_dsvm_grid.cu, the Malitsky-Pock core) against
+               its plain version ([mp]
                lines) on the dual_svm driver's inputs (svmguide3's dense 1280^2,
                heart_scale's 384^2 f32 and bf16, mushrooms' factored 8192x128
                f32 and bf16; C 0.1 and 1; the exact Bregman form and the raw
@@ -110,10 +119,13 @@ Phases, one line each, any failure exits non-zero:
                over a CPU-calibrated horizon, the objective after 300
                iterations, the padded coordinates exactly 0, two launches the
                same bits; every row of the driver's sweeps bit for bit against
-               its one-row launch; the large-|f| f32 instance (the exact form
+               its one-row launch, and at C 0.1 on the three stand-ins in f32
+               and bf16 likewise with the couplings reversed and twice over (as
+               K6b's in phase 11); the large-|f| f32 instance (the exact form
                beats the raw one); the MP iteration at 1280^2, 384^2 and
-               8192x128 with its mean trials, beside K6's PD iteration; the
-               K6c sweep and its plain version timed at a cut depth
+               8192x128, f32 and bf16, with its mean trials and layout, beside
+               the cooperative kernel's (PERF.md) and K6's PD iteration; the K6c
+               sweep and its plain version timed at a cut depth; the phase's wall
  13. f0:       K7d (csrc/resident_cv.cu) and K7a (csrc/resident_f0_grid.cu, its
                Malitsky-Pock and AdaPDM+ cores) against their plain versions ([f0]
                lines) on the square-root lasso driver's padded inputs (housing_scale
@@ -218,7 +230,9 @@ Phases, one line each, any failure exits non-zero:
                3350 GB/s (utils.profiling.throughput_report) and its bound,
                beside 200 calls of its yardstick (torch.sum, torch.mul into an output); a
                probe past the card's rate fails; the phase's wall
-Then one JSON line describing the kernels, and last the JSON result line.
+Then the whole run's wall beside the run before K6 went onto clusters (861.8 s), one JSON line
+describing the kernels, and
+last the JSON result line.
 Imports no JAX: the GPU machine has none.
 """
 
@@ -444,6 +458,17 @@ PD_YX_BOUND = {("heart_scale", 0.1): 0.018, ("heart_scale", 1.0): 0.51,
 PD_ENGINE_MAXIT = 300
 # the depth at which K6b's plain sweep (a host sync an iteration) is timed beside K6b
 PD_PLAIN_CUT = 1000
+# the cooperative kernels K6b and K6c ran before their rows went onto clusters (PERF.md
+# section 6; H100 80GB HBM3, 700.00 W), printed beside this run's: the one-row iteration, us, f32,
+# {shape: (PD, MP)}; the driver's sweeps, ms, {(dataset, C): (K6b, K6c)}
+K6_COOPERATIVE_US = {"Q 384x384": (5.471, 6.577), "Q 1280x1280": (6.824, 8.141),
+                     "B 8192x128": (18.722, 21.717)}
+K6_COOPERATIVE_MS = {("heart_scale", 0.1): (395.48, 312.47), ("heart_scale", 1.0): (608.60, 301.65),
+                     ("svmguide3", 0.1): (780.15, 318.59), ("svmguide3", 1.0): (788.82, 913.24),
+                     ("mushrooms", 0.1): (2144.05, 2576.79), ("mushrooms", 1.0): (2182.16, 2560.90)}
+# the whole run's wall before K6 went onto clusters (PERF.md section 6; H100 80GB HBM3, 700.00 W),
+# printed beside this run's
+PREVIOUS_WALL_S = 861.8
 # K6c against its plain version (phase 12), f32 on the card, tol -1. Calibrated on the
 # CPU with the plain version in f32 against f64 on the dual_svm driver's inputs (the
 # three stand-ins x C 0.1 and 1, the exact and the raw form, 300 iterations): the first
@@ -1819,6 +1844,92 @@ def pd_work(inp, numits, hist_len, rows):
     return moved, per_it * sum(numits)
 
 
+def flat_out(out):
+    """A sweep's outputs, its tuple of histories unpacked."""
+    return [u for v in out for u in (v if isinstance(v, tuple) else (v,))]
+
+
+def k6_layout(resident_pd, q, core, rows, factored):
+    """The cluster layout of a K6a/K6b ("adapdm") or K6c ("mp") launch of ``rows`` rows."""
+    plan = resident_pd.dsvm_grid_plan(q, core, rows, factored=factored)
+    return (f"C {plan['cluster']}, {plan['clusters']} clusters at once for {rows} rows, "
+            f"{plan['rows_held']} of {plan['rows_per_cta']} rows a CTA in shared memory, "
+            f"{plan['smem_bytes']} B")
+
+
+def k6_rows_checks(tag, core, sweep, p2_of, resident_pd, dev, smi, single=None, **extra):
+    """Every row of a K6b or K6c sweep at the driver's settings (the 12 couplings, C 0.1, tol
+    1e-5, maxit 10000, record) on the three stand-ins, Q (or B) f32 and bf16, bit for bit
+    against its one-row launch, and a dense row against ``single`` (K6a) when given; the
+    couplings reversed give the rows reversed; the 12 twice over in one launch (24 rows, more
+    than the clusters that run at once at C 8) give each row's bits twice."""
+    from adaprox_tpu_torch.experiments.dual_svm import T_VALUES
+
+    for name in PD_DATASETS:
+        inp = pd_inputs(name, 0.1, dev)
+        lab, n, fac = inp["lab"], inp["n"], inp["factored"]
+        for dtype in (torch.float32, torch.bfloat16):
+            q = inp["q"].to(dtype)
+            kw = dict(n_true=n, factored=fac, record=True, **extra)
+            p2 = p2_of(inp["norm_a"])
+            out = sweep(q, lab, 0.1, T_VALUES, p2, 1e-5, 10000, **kw)
+            rows = all(torch.equal(u[0], w[j]) for j, t in enumerate(T_VALUES)
+                       for u, w in zip(flat_out(sweep(q, lab, 0.1, [t], p2, 1e-5, 10000, **kw)),
+                                       flat_out(out)))
+            k6a = ""
+            if single is not None and not fac:
+                same_a = True
+                for j, t in enumerate(T_VALUES):
+                    one = single(q, lab, 0.1, t, p2, 1e-5, 10000, n_true=n)
+                    same_a &= all(torch.equal(u, w[j]) for u, w in zip(one, out[:4]))
+                rows &= same_a
+                k6a = f" (and its K6a launch: {same_a})"
+            rev = sweep(q, lab, 0.1, T_VALUES[::-1], p2, 1e-5, 10000, **kw)
+            same_rev = all(torch.equal(u, w.flip(0)) for u, w in zip(flat_out(rev), flat_out(out)))
+            twice = sweep(q, lab, 0.1, T_VALUES * 2, p2, 1e-5, 10000, **kw)
+            same_twice = all(torch.equal(u[:12], w) and torch.equal(u[12:], w)
+                             for u, w in zip(flat_out(twice), flat_out(out)))
+            label = f"{name} {'B' if fac else 'Q'} {q.shape[0]}x{q.shape[1]} {dtype_name(dtype)}"
+            print(f"[{tag}] {'K6b' if core == 'adapdm' else 'K6c'} rows, {label}, C 0.1 tol 1e-5 "
+                  f"maxit 10000 (numit {out[1].tolist()}): each row bit for bit its one-row "
+                  f"launch{k6a} {rows}; the couplings reversed give the rows reversed {same_rev}; "
+                  f"24 rows (the 12 twice) give each row's bits twice {same_twice} | layout: "
+                  f"{k6_layout(resident_pd, q, core, 12, fac)}; 24 rows: "
+                  f"{resident_pd.dsvm_grid_plan(q, core, 24, factored=fac)['clusters']} clusters "
+                  f"at once ({smi})", flush=True)
+            check(rows and same_rev and same_twice,
+                  f"{core} rows on {label} differ from their one-row launches")
+
+
+def k6_iterations(tag, core, sweep, p2_of, resident_pd, dev, smi, **extra):
+    """The one-row iteration (t 0.5, tol -1, 1000 iterations, record) of K6b or K6c at the
+    driver's three shapes, f32 and bf16, with its layout, beside the cooperative kernel's.
+    Returns {shape dtype: us an iteration}."""
+    from adaprox_tpu_torch.utils.profiling import timed
+
+    us, parts = {}, []
+    for name in ("heart_scale", "svmguide3", "mushrooms"):
+        inp = pd_inputs(name, 0.1, dev)
+        lab, n, fac = inp["lab"], inp["n"], inp["factored"]
+        shape = f"{'B' if fac else 'Q'} {inp['q'].shape[0]}x{inp['q'].shape[1]}"
+        for dtype in (torch.float32, torch.bfloat16):
+            q = inp["q"].to(dtype)
+            secs, res = timed(lambda: sweep(q, lab, 0.1, [0.5], p2_of(inp["norm_a"]), -1.0, 1000,
+                                            n_true=n, factored=fac, record=True, **extra), reps=3)
+            check(int(res[1][0]) == 1000, f"{core} {shape}: not 1000 iterations")
+            key = f"{shape} {dtype_name(dtype)}"
+            us[key] = 1e3 * secs
+            trials = f", {float(res[5][3].mean()):.3f} trials an iteration" if core == "mp" else ""
+            old = K6_COOPERATIVE_US[shape][0 if core == "adapdm" else 1]
+            parts.append(f"{key}: {us[key]:.3f} us{trials}"
+                         + (f" (cooperative kernel {old:.3f} us)" if dtype == torch.float32 else "")
+                         + f" [{k6_layout(resident_pd, q, core, 1, fac)}]")
+    print(f"[{tag}] the {'PD (K6b' if core == 'adapdm' else 'MP (K6c'} one-row launch) "
+          f"iteration, t 0.5, 1000 iterations, tol -1, record: {'; '.join(parts)} ({smi})",
+          flush=True)
+    return us
+
+
 def pd_checks(resident_pd, dev, smi):
     """Phase 11, K6a, K6b and K6d against their plain versions on the card, on the
     dual_svm driver's inputs: svmguide3's dense 1280^2, heart_scale's 384^2 (f32 and
@@ -1903,7 +2014,8 @@ def mp_trials(out):
 
 
 def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
-    """Phase 11: K6b's rows bit for bit against single launches; dual_svm --resident
+    """Phase 11: K6b's rows bit for bit against their one-row and K6a launches, with the
+    couplings reversed and twice over; dual_svm --resident
     at its defaults on the three stand-ins x C 0.1 and 1 (one K6b, one K6c and one K6d
     launch each, every row's x in the box and |y'x| within its bound), the K6b, K6c and
     K6d times on each; K6a's own path (one solve, counted); the engine path at
@@ -1922,27 +2034,9 @@ def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
         return tuple(f.launches for f in k6)
 
     t_values = dual_svm.T_VALUES
-    # K6b's rows against single launches at the driver's settings (tol 1e-5, maxit
-    # 10000): a dense row is its K6a launch, a factored row its one-row sweep
-    for name in PD_DATASETS:
-        inp = pd_inputs(name, 0.1, dev)
-        q, lab, n, fac = inp["q"], inp["lab"], inp["n"], inp["factored"]
-        kw = dict(n_true=n, factored=fac)
-        sweep = resident_pd.resident_adapdm_dsvm_sweep(q, lab, 0.1, t_values, inp["norm_a"], 1e-5,
-                                                       10000, **kw)
-        same = True
-        for j, t in enumerate(t_values):
-            if fac:
-                one = [v[0] for v in resident_pd.resident_adapdm_dsvm_sweep(
-                    q, lab, 0.1, [t], inp["norm_a"], 1e-5, 10000, **kw)]
-            else:
-                one = resident_pd.resident_adapdm_dsvm(q, lab, 0.1, t, inp["norm_a"], 1e-5, 10000,
-                                                       n_true=n)
-            same &= all(torch.equal(u, w[j]) for u, w in zip(one, sweep))
-        print(f"[pd] K6b rows bit for bit against {'one-row sweeps' if fac else 'K6a launches'}"
-              f", {name} C 0.1 tol 1e-5 maxit 10000 (numit {sweep[1].tolist()}): {same} "
-              f"({smi})", flush=True)
-        check(same, f"K6b rows on {name} differ from their single launches")
+    # K6b's rows against their one-row (and K6a) launches, reversed and twice over
+    k6_rows_checks("pd", "adapdm", resident_pd.resident_adapdm_dsvm_sweep, lambda na: na,
+                   resident_pd, dev, smi, single=resident_pd.resident_adapdm_dsvm)
 
     # dual_svm --resident at its defaults: each (dataset, C) one K6b and one K6d launch
     # and nothing else; the kernels' x captured from the driver's own calls
@@ -2033,9 +2127,12 @@ def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
                       f"{int(m_out[4].sum())}, max |y'x| {float(yx_mp.max()):.2e} (bound "
                       f"{mp_bound:g}, converged rows {PD_CONVERGED_YX:g}), x in [0, C], padded 0: "
                       f"{box_mp} | K6a/K6b/K6d/K6c launches {counts}, others {others} | K6b "
-                      f"sweep {sweep_ms:.4f} ms (bound {b_sweep[0]:.4f} ms, {b_sweep[1]}), K6c "
+                      f"sweep {sweep_ms:.4f} ms (bound {b_sweep[0]:.4f} ms, {b_sweep[1]}; the "
+                      f"cooperative kernel's {K6_COOPERATIVE_MS[(name, big_c)][0]:.2f}), K6c "
                       f"sweep {mp_ms:.4f} ms ({mp_trials(m_out)} trials; bound {b_mp[0]:.4f} ms, "
-                      f"{b_mp[1]}), K6d {cv_ms:.4f} ms (bound {b_cv[0]:.4f} ms) | fast_methods "
+                      f"{b_mp[1]}; the cooperative kernel's "
+                      f"{K6_COOPERATIVE_MS[(name, big_c)][1]:.2f}), K6d {cv_ms:.4f} ms (bound "
+                      f"{b_cv[0]:.4f} ms) | fast_methods "
                       f"{meta['fast_methods']} | wall_s {meta['wall_s']} ({smi})", flush=True)
                 check(counts == (0, 1, 1, 1) and others == (0,) * 7 and order == names and keys_ok
                       and meta["fast_path"] == "resident"
@@ -2103,26 +2200,20 @@ def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
                   and counts == (0, 0, 0, 0) and others == (0,) * 7,
                   f"dual_svm engine path {name} C {big_c}: bad run")
 
-    # the PD iteration: tol -1, 1000 iterations, one-row sweeps and Condat-Vu, dense
-    # 1280^2 (svmguide3's Q) and factored 8192x128 (mushrooms' B), beside K2's
-    # fixed-rule iteration at 4096x1024 and 8x2176 in the same call
+    # the PD iteration: tol -1, 1000 iterations, one-row K6b launches (f32 and bf16, with
+    # their layouts) at the driver's three shapes, and K6d's, beside K2's fixed-rule
+    # iteration at 4096x1024 and 8x2176 in the same call
+    pd_us = k6_iterations("pd", "adapdm", resident_pd.resident_adapdm_dsvm_sweep, lambda na: na,
+                          resident_pd, dev, smi)
     us = {}
     for name in ("svmguide3", "heart_scale", "mushrooms"):
         inp = pd_inputs(name, 0.1, dev)
         q, lab, n, fac = inp["q"], inp["lab"], inp["n"], inp["factored"]
         shape = f"{'B' if fac else 'Q'} {q.shape[0]}x{q.shape[1]}"
-        for label, fn in (
-                ("K6b one-row sweep", lambda: resident_pd.resident_adapdm_dsvm_sweep(
-                    q, lab, 0.1, [0.5], inp["norm_a"], -1.0, 1000, n_true=n, factored=fac)),
-                ("K6b one-row sweep, record", lambda: resident_pd.resident_adapdm_dsvm_sweep(
-                    q, lab, 0.1, [0.5], inp["norm_a"], -1.0, 1000, n_true=n, factored=fac,
-                    record=True)),
-                ("K6d", lambda: resident_pd.resident_cv_dsvm(
-                    q, lab, 0.1, inp["gamma"], inp["sigma"], -1.0, 1000, n_true=n,
-                    factored=fac))):
-            secs, res = timed(fn, reps=3)
-            check(int(res[1].reshape(-1)[0]) == 1000, f"{label} {shape}: not 1000 iterations")
-            us[f"{label} {shape}"] = 1e3 * secs
+        secs, res = timed(lambda: resident_pd.resident_cv_dsvm(
+            q, lab, 0.1, inp["gamma"], inp["sigma"], -1.0, 1000, n_true=n, factored=fac), reps=3)
+        check(int(res[1]) == 1000, f"K6d {shape}: not 1000 iterations")
+        us[f"K6d {shape}"] = 1e3 * secs
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     for m_, n_ in ((4096, 1024), (8, 2176)):
@@ -2147,8 +2238,9 @@ def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
                  bound=case["bound_sweep"], cut_ms=cut_sweep_ms),
         k6d=dict(launches=case["counts"][2], ms=case["cv_ms"], plain_ms=plain_cv_ms,
                  bound=case["bound_cv"]),
-        k6c=dict(launches=case["counts"][3], driver_ms=case["mp_ms"],
-                 driver_bound=case["bound_mp"])), {k: v["mp"] for k, v in meas.items()}
+        k6c=dict(launches=case["counts"][3], driver_bound=case["bound_mp"]),
+        pd_us=pd_us, driver={k: (v["sweep_ms"], v["mp_ms"]) for k, v in meas.items()}), {
+            k: v["mp"] for k, v in meas.items()}
 
 
 def mp_rows_err(got, want, horizon):
@@ -2191,8 +2283,7 @@ def mp_checks(resident_mp, dev, smi):
             short = resident_mp.resident_mp_dsvm_sweep(*args, MP_HORIZON, **kw)
             short_want = resident_mp.resident_mp_dsvm_sweep_plain(*args, MP_HORIZON, **kw)
             torch.cuda.synchronize()
-            flat = lambda out: list(out[:5]) + list(out[5])  # noqa: E731
-            same = all(torch.equal(u, w) for u, w in zip(flat(got), flat(again)))
+            same = all(torch.equal(u, w) for u, w in zip(flat_out(got), flat_out(again)))
             trials_ok, err = mp_rows_err(got[5], want[5], MP_HORIZON)
             xe = float((short[0] - short_want[0]).abs().max())
             x_ok = xe <= MP_RTOL * float(short_want[0].abs().max())
@@ -2217,13 +2308,12 @@ def mp_checks(resident_mp, dev, smi):
     return x_err
 
 
-def mp_phase(resident_pd, resident_mp, driver_mp, counting, dev, smi):
+def mp_phase(resident_pd, resident_mp, driver_mp, pd_us, counting, dev, smi):
     """Phase 12: every row of the driver's K6c sweeps (phase 11) bit for bit against
-    its one-row launch; the large-|f| f32 instance; the MP iteration beside K6's PD
-    iteration; the K6c sweep and its plain version timed at a cut depth on one driver
-    input. Returns the kernels line's measurements."""
-    from adaprox_tpu_torch.utils.profiling import timed
-
+    its one-row launch, and at C 0.1 in f32 and bf16 with the couplings reversed and
+    twice over; the large-|f| f32 instance; the MP iteration beside K6's PD iteration
+    (``pd_us``, phase 11's); the K6c sweep and its plain version timed at a cut depth on
+    one driver input. Returns the kernels line's measurements."""
     zero_counts, read_counts = counting
     # each row of the driver's sweep at its defaults is its one-row launch, bit for bit
     for (name, big_c), (args, kw, out) in sorted(driver_mp.items()):
@@ -2237,6 +2327,8 @@ def mp_phase(resident_pd, resident_mp, driver_mp, counting, dev, smi):
               f"{name} C {big_c:g} (tol {tol:g}, maxit {maxit}, numit {out[1].tolist()}): "
               f"{same} ({smi})", flush=True)
         check(same, f"K6c rows on {name} C {big_c} differ from their one-row launches")
+    k6_rows_checks("mp", "mp", resident_mp.resident_mp_dsvm_sweep, lambda na: 1 / na, resident_pd,
+                   dev, smi, exact_bregman=True)
 
     # the large-|f| f32 instance (the JAX suite's tests/test_solvers.py: 256 points, B
     # 256x16 times 2, t 0.15, tol 1e-5, maxit 1500): the exact form beats the raw one
@@ -2257,26 +2349,13 @@ def mp_phase(resident_pd, resident_mp, driver_mp, counting, dev, smi):
     check(res[True] < res[False] / 10 or res[True] <= 1e-5,
           "large-|f|: the exact form does not beat the raw one")
 
-    # the MP iteration: tol -1, 1000 iterations, one-row sweeps (t 0.5, exact form), with
-    # its mean trials an iteration, beside K6's PD iteration (one-row K6b) in the same call
-    us = {}
-    for name in ("svmguide3", "heart_scale", "mushrooms"):
-        inp = pd_inputs(name, 0.1, dev)
-        q, lab, n, fac = inp["q"], inp["lab"], inp["n"], inp["factored"]
-        shape = f"{'B' if fac else 'Q'} {q.shape[0]}x{q.shape[1]}"
-        secs, res_mp = timed(lambda: resident_mp.resident_mp_dsvm_sweep(
-            q, lab, 0.1, [0.5], 1 / inp["norm_a"], -1.0, 1000, n_true=n, factored=fac,
-            record=True, exact_bregman=True), reps=3)
-        check(int(res_mp[1][0]) == 1000, f"K6c {shape}: not 1000 iterations")
-        trials = float(res_mp[5][3].mean())
-        pd_secs, res_pd = timed(lambda: resident_pd.resident_adapdm_dsvm_sweep(
-            q, lab, 0.1, [0.5], inp["norm_a"], -1.0, 1000, n_true=n, factored=fac), reps=3)
-        check(int(res_pd[1][0]) == 1000, f"K6b {shape}: not 1000 iterations")
-        us[shape] = (1e3 * secs, trials, 1e3 * pd_secs)
-    print(f"[mp] iteration, 1000 iterations, tol -1, f32, t 0.5, record: "
-          f"{'; '.join(f'{k}: MP {v[0]:.3f} us ({v[1]:.3f} trials an iteration, '
-                        f'{v[0] / v[1]:.3f} us a trial), PD (K6b one-row sweep) {v[2]:.3f} us'
-                        for k, v in us.items())} ({smi})", flush=True)
+    # the MP iteration: tol -1, 1000 iterations, one-row K6c launches (t 0.5, exact form), with
+    # its mean trials an iteration and its layout, beside K6's PD iteration (phase 11)
+    mp_us = k6_iterations("mp", "mp", resident_mp.resident_mp_dsvm_sweep, lambda na: 1 / na,
+                          resident_pd, dev, smi, exact_bregman=True)
+    print(f"[mp] iteration beside the PD's (phase 11), us, MP / PD: "
+          f"{'; '.join(f'{k} {v:.3f} / {pd_us[k]:.3f}' for k, v in mp_us.items())} ({smi})",
+          flush=True)
 
     # the K6c sweep and its plain version at a cut depth (the plain version syncs the
     # host every trial) on heart_scale C 0.1, the driver's inputs, tol 1e-5: the
@@ -2300,7 +2379,7 @@ def mp_phase(resident_pd, resident_mp, driver_mp, counting, dev, smi):
           f"{b_cut[0]:.5f} ms ({b_cut[1]}); trial counts equal over {MP_HORIZON} it "
           f"{trials_ok}, rows rel err {err:.2e} ({smi})", flush=True)
     check(trials_ok and err <= MP_RTOL, "K6c cut-depth sweep disagrees with its plain version")
-    return dict(ms=ms, plain_ms=plain_ms, bound=b_cut)
+    return dict(ms=ms, plain_ms=plain_ms, bound=b_cut, it_us=mp_us)
 
 
 def f0_inputs(name, dev, dtype=torch.float32):
@@ -3900,8 +3979,8 @@ def main():
                    ("K2/K2c", resident.build_library),
                    ("K4/K4b", resident_bt.build_library),
                    ("K4 (aGRAAL)", resident_bt.build_agraal_library),
-                   ("K6a/K6b/K6d", resident_pd.build_library),
-                   ("K6c", resident_mp.build_library),
+                   ("K6d", resident_pd.build_library),
+                   ("K6a/K6b/K6c", resident_pd.build_grid_library),
                    ("K7d/K7c", resident_f0.build_library),
                    ("K7a/K7b", resident_f0.build_grid_library),
                    ("K5", pd_kernels.build_library),
@@ -4154,13 +4233,18 @@ def main():
     ag_meas = agraal_phase(resident, resident_bt, (zero_counts, read_counts), dev, smi)
 
     # 11. the dual-SVM primal-dual kernels ---------------------------------------------
+    t11 = time.perf_counter()
     pd_err = pd_checks(resident_pd, dev, smi)
     pd_meas, driver_mp = pd_phase(resident, resident_pd, resident_mp, ref,
                                   (zero_counts, read_counts), dev, smi)
+    print(f"[pd] phase 11 wall {time.perf_counter() - t11:.1f} s ({smi})", flush=True)
 
     # 12. the Malitsky-Pock kernel ------------------------------------------------------
+    t12 = time.perf_counter()
     mp_err = mp_checks(resident_mp, dev, smi)
-    mp_meas = mp_phase(resident_pd, resident_mp, driver_mp, (zero_counts, read_counts), dev, smi)
+    mp_meas = mp_phase(resident_pd, resident_mp, driver_mp, pd_meas["pd_us"],
+                       (zero_counts, read_counts), dev, smi)
+    print(f"[mp] phase 12 wall {time.perf_counter() - t12:.1f} s ({smi})", flush=True)
 
     # 13. the f = 0 family's Condat-Vu and t-sweep kernels -------------------------------
     t13 = time.perf_counter()
@@ -4209,7 +4293,8 @@ def main():
     zero_counts()
     st_meas = stream_phase(kernels, big, dev, smi)
     print(f"[stream] phase 18 wall {time.perf_counter() - t18:.1f} s ({smi})", flush=True)
-    print(f"[smoke] all phases {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(f"[smoke] all phases {time.perf_counter() - t_start:.1f} s (before K6 went onto "
+          f"clusters: {PREVIOUS_WALL_S} s)", flush=True)
 
     head = measured["16384x16384 f32"]
     k5_head = k5_meas[f"{HEADLINE}x{HEADLINE} f32"]
@@ -4275,23 +4360,30 @@ def main():
         "ms": ag_meas["ms"], "plain_ms": ag_meas["plain_ms"], "bound_ms": ag_meas["bound"][0],
         "bound_by": ag_meas["bound"][1], "library_ms": None,
         "objectives": ["ls", "logreg", "cubic"]}] + [{
-        "name": name, "route": "cuda", "source": "adaprox_tpu_torch/csrc/resident_pd.cu",
+        "name": name, "route": "cuda", "source": f"adaprox_tpu_torch/csrc/{source}",
         "replaces": replaces, "launches": pd_meas[key]["launches"], "max_abs_err": pd_err[key],
         "ms": pd_meas[key]["ms"], "plain_ms": pd_meas[key]["plain_ms"],
         "bound_ms": pd_meas[key]["bound"][0], "bound_by": pd_meas[key]["bound"][1],
         "library_ms": None, **({"plain_depth": PD_PLAIN_CUT, "ms_at_plain_depth":
-                                pd_meas[key]["cut_ms"]} if key == "k6b" else {})}
-        for name, replaces, key in (
-            ("resident_adapdm_dsvm", "adaprox_tpu/ops/resident.py:1388", "k6a"),
-            ("resident_adapdm_dsvm_sweep", "adaprox_tpu/ops/resident.py:1447", "k6b"),
-            ("resident_cv_dsvm", "adaprox_tpu/ops/resident.py:1284", "k6d"))] + [{
+                                pd_meas[key]["cut_ms"], "it_us": pd_meas["pd_us"],
+                                "driver_ms": {f"{d} C {c:g}": v[0]
+                                              for (d, c), v in pd_meas["driver"].items()}}
+                               if key == "k6b" else {})}
+        for name, source, replaces, key in (
+            ("resident_adapdm_dsvm", "resident_dsvm_grid.cu", "adaprox_tpu/ops/resident.py:1388",
+             "k6a"),
+            ("resident_adapdm_dsvm_sweep", "resident_dsvm_grid.cu",
+             "adaprox_tpu/ops/resident.py:1447", "k6b"),
+            ("resident_cv_dsvm", "resident_pd.cu", "adaprox_tpu/ops/resident.py:1284",
+             "k6d"))] + [{
         "name": "resident_mp_dsvm_sweep", "route": "cuda",
-        "source": "adaprox_tpu_torch/csrc/resident_mp.cu",
+        "source": "adaprox_tpu_torch/csrc/resident_dsvm_grid.cu",
         "replaces": "adaprox_tpu/ops/resident.py:1196", "launches": pd_meas["k6c"]["launches"],
         "max_abs_err": mp_err, "ms": mp_meas["ms"], "plain_ms": mp_meas["plain_ms"],
         "bound_ms": mp_meas["bound"][0], "bound_by": mp_meas["bound"][1], "library_ms": None,
-        "depth": MP_CUT, "driver_ms": pd_meas["k6c"]["driver_ms"],
-        "driver_bound_ms": pd_meas["k6c"]["driver_bound"][0]}, {
+        "depth": MP_CUT, "driver_ms": {f"{d} C {c:g}": v[1]
+                                       for (d, c), v in pd_meas["driver"].items()},
+        "driver_bound_ms": pd_meas["k6c"]["driver_bound"][0], "it_us": mp_meas["it_us"]}, {
         "name": "resident_condat_vu", "route": "cuda",
         "source": "adaprox_tpu_torch/csrc/resident_cv.cu",
         "replaces": "adaprox_tpu/ops/resident.py:2056", "launches": f0_meas["launches"],

@@ -1,7 +1,8 @@
 """The CUDA kernels K1, K2, K2b, K2c, K3, K4, K4b, K4's aGRAAL core, K6a, K6b, K6c, K6d,
 K7a, K7b, K7c, K7d, K5, K8, K9a, K9b and K10a-c on the card against their plain PyTorch
 versions (K2, K2b, K2c, K4, K4b and aGRAAL with the least-squares, logistic and cubic
-objectives; K6 and K6c with the dual SVM's dense Q or factored B; K7a's two cores, their
+objectives; K6a-K6d with the dual SVM's dense Q or factored B, K6a-K6c on thread-block
+clusters with their layouts, the rows reversed and two waves of rows; K7a's two cores, their
 dataset grids K7b, K7c and K7d with the square-root lasso's and the least absolute
 deviation's h; K8 under ELLOperator and K9a/K9b under BCSROperator in the engine; the
 stream probes K10a-c).
@@ -1004,9 +1005,9 @@ PD_RTOL = 1e-3
 PD_TS = [0.05, 0.5, 2.0]
 
 
-def pd_case(dev, dtype, factored, n=300, d=20, seed=3):
-    """(q, labels, n_true, norm_a) of a dual SVM of n points, zero-padded to 384: the Gram
-    D_y X X' D_y (384, 384), or B = D_y X padded to (384, 128) when factored; q in
+def pd_case(dev, dtype, factored, n=300, d=20, seed=3, n_pad=384):
+    """(q, labels, n_true, norm_a) of a dual SVM of n points, zero-padded to n_pad: the Gram
+    D_y X X' D_y (n_pad, n_pad), or B = D_y X padded to (n_pad, 128) when factored; q in
     ``dtype`` storage, the labels f32 (zero on the padded coordinates)."""
     import numpy as np
 
@@ -1014,7 +1015,6 @@ def pd_case(dev, dtype, factored, n=300, d=20, seed=3):
     x = rng.standard_normal((n, d)) / d**0.5
     y = np.where(rng.standard_normal(n) >= 0, 1.0, -1.0)
     dyx = y[:, None] * x
-    n_pad = 384
     if factored:
         q = np.zeros((n_pad, 128))
         q[:n, :d] = dyx
@@ -1263,6 +1263,146 @@ def test_k6c_exact_bregman_large_f_on_card(dev):
                                                factored=True, exact_bregman=eb)[2][0])
            for eb in (True, False)}
     assert res[True] < res[False] / 10 or res[True] <= 1e-5
+
+
+# -- K6a, K6b and K6c on thread-block clusters ----------------------------------------------------
+
+# the dual_svm driver's shapes: heart_scale's dense Q (270 points -> 384), svmguide3's (1243 ->
+# 1280), mushrooms' factored B (8124 x 112 -> 8192 x 128); random data of those shapes
+K6_SHAPES = {"384 dense": dict(n=270, d=13, n_pad=384, factored=False),
+             "1280 dense": dict(n=1243, d=21, n_pad=1280, factored=False),
+             "8192x128 factored": dict(n=8124, d=112, n_pad=8192, factored=True)}
+
+
+def _k6(core):
+    """(sweep, plain, the core's first-step argument from norm_a, extra keywords)."""
+    from adaprox_tpu_torch.ops import resident_mp as tm
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    if core == "adapdm":
+        return (tp.resident_adapdm_dsvm_sweep, tp.resident_adapdm_dsvm_sweep_plain,
+                lambda na: na, {})
+    return (tm.resident_mp_dsvm_sweep, tm.resident_mp_dsvm_sweep_plain, lambda na: 1 / na,
+            {"exact_bregman": True})
+
+
+def _k6_case(dev, shape, dtype=torch.float32):
+    kw = dict(K6_SHAPES[shape])
+    factored = kw.pop("factored")
+    q, lab, n, na = pd_case(dev, dtype, factored, seed=11, **kw)
+    return q, lab, n, na, factored
+
+
+def _k6_flat(out):
+    return [u for v in out for u in (v if isinstance(v, tuple) else (v,))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(K6_SHAPES))
+@pytest.mark.parametrize("core", ["adapdm", "mp"])
+def test_k6_cluster_layouts_match_plain(dev, core, shape, dtype):
+    """At the driver's three shapes: heart_scale's 384^2 fits whole in the shared memory of its
+    cluster (f32 at C 4); svmguide3's 1280^2 and mushrooms' 8192 x 128 do not, and the CTAs of
+    8 read the rows they do not hold from device memory. Each is held to its plain version
+    over the horizons above, its padded coordinates exactly 0, and each row equals its
+    one-row launch bit for bit."""
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    sweep, plain, p2_of, extra = _k6(core)
+    q, lab, n, na, factored = _k6_case(dev, shape, dtype)
+    plan = tp.dsvm_grid_plan(q, core, len(PD_TS), factored=factored)
+    assert plan["fits"] and plan["clusters"] == len(PD_TS)
+    assert plan["rows_held"] <= plan["rows_per_cta"] and plan["cluster"] in (1, 2, 4, 8)
+    if shape == "384 dense" and dtype == torch.float32:
+        assert plan["whole"] and plan["cluster"] == 4
+    if shape != "384 dense":
+        assert not plan["whole"] and plan["cluster"] == 8
+    horizon = PD_HORIZON if core == "adapdm" else MP_HORIZON
+    kw = dict(n_true=n, record=True, factored=factored, **extra)
+    args = (q, lab, 0.5, PD_TS, p2_of(na), -1.0, horizon)
+    got = sweep(*args, **kw)
+    want = plain(*args, **kw)
+    if core == "adapdm":
+        _pd_rows_close(got[4:], want[4:], horizon)
+    else:
+        _mp_rows_close(got[5], want[5], horizon)
+    assert float((got[0] - want[0]).abs().max()) <= PD_RTOL * float(want[0].abs().max())
+    assert not bool(got[0][:, n:].any())
+    for j, t in enumerate(PD_TS):
+        one = sweep(q, lab, 0.5, [t], p2_of(na), -1.0, horizon, **kw)
+        assert all(torch.equal(u[0], w[j]) for u, w in zip(_k6_flat(one), _k6_flat(got)))
+
+
+@pytest.mark.parametrize("shape", list(K6_SHAPES))
+@pytest.mark.parametrize("core", ["adapdm", "mp"])
+def test_k6_reversed_and_doubled_ts(dev, core, shape):
+    """The rows run at once, each on whichever cluster takes it: the driver's 12 couplings
+    reversed give the rows reversed, and the 12 twice over (24 rows, more than the clusters
+    that run at once at C 8) give each row's bits twice, solved to tol 1e-4."""
+    from adaprox_tpu_torch.experiments.dual_svm import T_VALUES
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    sweep, _, p2_of, extra = _k6(core)
+    q, lab, n, na, factored = _k6_case(dev, shape)
+    kw = dict(n_true=n, record=True, factored=factored, **extra)
+    base = sweep(q, lab, 0.5, T_VALUES, p2_of(na), 1e-4, 2000, **kw)
+    rev = sweep(q, lab, 0.5, T_VALUES[::-1], p2_of(na), 1e-4, 2000, **kw)
+    assert all(torch.equal(u, w.flip(0)) for u, w in zip(_k6_flat(rev), _k6_flat(base)))
+    twice = sweep(q, lab, 0.5, T_VALUES * 2, p2_of(na), 1e-4, 2000, **kw)
+    if shape != "384 dense":
+        assert tp.dsvm_grid_plan(q, core, 24, factored=factored)["clusters"] < 24
+    for u, w in zip(_k6_flat(twice), _k6_flat(base)):
+        assert torch.equal(u[:12], w) and torch.equal(u[12:], w)
+
+
+def test_k6_refuses_a_layout_it_cannot_hold(dev):
+    """Vectors that do not fit a CTA's shared memory at C = 8 are refused, not run: a dense
+    N of 10240 (six N-vectors, 240 KB) and a factored d of 20000 (B'x and its partials,
+    240 KB)."""
+    from adaprox_tpu_torch.ops import resident_mp as tm
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    lab = torch.ones(10240, device=dev)
+    q = torch.zeros(10240, 10240, device=dev)
+    assert not tp.dsvm_grid_plan(q, "adapdm", 1)["fits"]
+    with pytest.raises(ValueError, match="refused"):
+        tp.resident_adapdm_dsvm(q, lab, 0.5, 1.0, 1.0, 0.0, 3)
+    b = torch.zeros(64, 20000, device=dev)
+    assert not tp.dsvm_grid_plan(b, "mp", 1, factored=True)["fits"]
+    with pytest.raises(ValueError, match="refused"):
+        tm.resident_mp_dsvm_sweep(b, lab[:64], 0.5, [1.0], 1.0, 0.0, 3, factored=True)
+    with pytest.raises(ValueError, match="refused"):
+        tp.resident_adapdm_dsvm_sweep(b, lab[:64], 0.5, [1.0], 1.0, 0.0, 3, factored=True)
+
+
+@pytest.mark.parametrize("shape", ["384 dense", "8192x128 factored"])
+def test_k6_check_fails_a_kernel_that_skips_a_row_block(dev, tmp_path, monkeypatch, shape):
+    """The plain comparison guards every CTA's share: a kernel built so that rank 1 of each
+    cluster owns no rows (its block of Q or B, its slice of Q x, its rows' vectors skipped)
+    fails it, where the kernel as built passes."""
+    import shutil
+
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    src = tp.GRID_SOURCE.read_text()
+    line = "  c.rows = static_cast<int>(left < rows_per ? left : rows_per);\n"
+    assert src.count(line) == 1
+    for header in tp.GRID_SOURCE.parent.glob("*.cuh"):
+        shutil.copy(header, tmp_path / header.name)
+    mutant = tmp_path / "resident_dsvm_grid_skip_rank1.cu"
+    mutant.write_text(src.replace(line, line.replace(
+        "static_cast<int>(left", "rank == 1 ? 0 : static_cast<int>(left")))
+    q, lab, n, na, factored = _k6_case(dev, shape)
+    assert tp.dsvm_grid_plan(q, "adapdm", len(PD_TS), factored=factored)["cluster"] >= 2
+    kw = dict(n_true=n, record=True, factored=factored)
+    args = (q, lab, 0.5, PD_TS, na, -1.0, PD_HORIZON)
+    want = tp.resident_adapdm_dsvm_sweep_plain(*args, **kw)
+    _pd_rows_close(tp.resident_adapdm_dsvm_sweep(*args, **kw)[4:], want[4:], PD_HORIZON)
+    monkeypatch.setattr(tp, "GRID_SOURCE", mutant)
+    got = tp.resident_adapdm_dsvm_sweep(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got[5] - want[5]).abs().amax(-1) / want[5].abs().amax(-1)
+    assert not bool((err <= PD_RTOL).all())
 
 
 # -- K7d, the f = 0 family's Condat-Vu ----------------------------------------------------------
