@@ -23,6 +23,7 @@ plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -34,7 +35,7 @@ import torch
 from .linops import acc_dtype
 
 __all__ = ["fused_ls_value_grad", "ls_value_grad_plain", "fused_logistic_value_grad",
-           "logistic_value_grad_plain", "logistic_terms", "pick_block_rows",
+           "logistic_value_grad_plain", "logistic_terms", "pick_block_rows", "k1_plan",
            "hbm_read_reduce", "hbm_read_reduce_plain", "hbm_copy", "hbm_copy_plain",
            "hbm_dma_read", "hbm_dma_read_plain", "build_library", "load_library"]
 
@@ -112,10 +113,9 @@ def load_library(source, flags, signatures):
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _library():
-    return load_library(SOURCE, NVCC_FLAGS, {
-        "adaprox_fused_ls": ([_P, _I, _I, _P, _P, _LL, _LL, _I, _P, _P, _P, _P, _P], _I),
-        "adaprox_fused_ls_rows_per_step": ([_I], _I),
+def _library(source=None):
+    return load_library(source or SOURCE, NVCC_FLAGS, {
+        "adaprox_fused_ls": ([_P, _I, _I, _P, _P, _LL, _LL, _P, _P, _P, _P, _P, _P], _I),
         "adaprox_cuda_error_string": ([_I], ctypes.c_char_p)})
 
 
@@ -131,19 +131,136 @@ def _check_shapes(a, b, x):
         raise ValueError(f"a, b, x on different devices: {a.device}, {b.device}, {x.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index):
+    """The SMs of CUDA device ``device_index`` (asked once a device)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
 def _grid(m, rows_per_step, device):
     """One CTA per SM (the persistent grid), at most one per block of rows."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return min(-(-m // rows_per_step), sms)
 
 
+# K1's plan (csrc/fused_ls.cu). The partial slots, from the shape alone (so the bits depend on
+# neither the card nor the grid): about as many as a 132-SM H100 runs CTAs at once, two an SM
+# for the rows kernel, one an SM times the CTAs of the shape's width an SM for the ring kernel.
+K1_ROW_SLOTS = 264
+K1_RING_SLOTS = 132
+K1_ROW_WARPS = 8          # warps of a rows-kernel CTA, each a row at a time
+K1_ROW_MIN_SLOT = 16      # rows a slot at least: two rows a warp (rows kernel)
+K1_RING_MIN_SLOT = 8      # rows a slot at least (ring kernel): a slot's partial is n floats
+K1_NARROW_N = 1024        # widest rows the rows kernel takes: 32 values a lane
+K1_RING_COLS = 16         # columns of x and of the gradient a ring-kernel thread holds
+K1_MAX_THREADS = 1024
+K1_MAX_CLUSTER = 8
+K1_MAX_STAGES = 8
+K1_SM_SMEM = 233472       # shared memory an SM (228 KB)
+K1_CTA_SMEM = 232448      # the most a CTA may take (227 KB, opt-in)
+K1_CTA_RESERVED = 1024    # what the card keeps of an SM's shared memory for each CTA
+K1_RING_STATIC = 512      # the ring kernel's own static shared memory, rounded up
+K1_PLAN_KEYS = ("regime", "k", "threads", "grid", "cluster", "slice_vec", "stages", "stride",
+                "smem", "rows_per_slot", "slots")
+
+
+def k1_plan(m, n, itemsize, sms):
+    """K1's launch at (m, n) with A's ``itemsize`` (4: f32, 2: bf16) on a card of ``sms``
+    SMs: a dict of ``K1_PLAN_KEYS``. The slots (``rows_per_slot``, ``slots``) and the
+    arithmetic (``regime``, ``k``, ``threads``, ``cluster``, ``slice_vec``) follow from
+    (m, n, itemsize) alone; ``sms`` sets only the grid (and, through the CTAs an SM, the
+    ring's depth), so the bits do not depend on it.
+
+    * ``"rows"`` (n <= K1_NARROW_N): a warp a row, ``k`` values of it a lane (8, 16 or
+      32), 8 warps a CTA; ``smem`` is the CTA's static shared memory.
+    * ``"ring"``: a CTA of ``threads`` takes its ``slice_vec`` 16-byte vectors of a row at a
+      time from a ring of ``stages`` slots of ``stride`` bytes (``smem`` in all) fed by bulk
+      copies; a row wider than one CTA's 16384 columns is cut over a cluster of ``cluster``
+      CTAs. Raises ValueError past K1_MAX_CLUSTER x 16384 columns. ``stages`` does not
+      change the arithmetic either: each row's dot and update are the same, in the same
+      order."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"K1 stores A as float32 or bfloat16, got itemsize {itemsize}")
+    if m < 1 or n < 1 or sms < 1:
+        raise ValueError(f"K1 needs m, n, sms >= 1, got {m}, {n}, {sms}")
+    lanes = 16 // itemsize
+    nvec = -(-n // lanes)
+    if n <= K1_NARROW_N:
+        k = next(k for k in (8, 16, 32) if k >= lanes and 32 * k >= nvec * lanes)
+        rows_per_slot = max(K1_ROW_MIN_SLOT, -(-m // K1_ROW_SLOTS))
+        slots = -(-m // rows_per_slot)
+        return dict(regime="rows", k=k, threads=32 * K1_ROW_WARPS, grid=min(slots, 2 * sms),
+                    cluster=1, slice_vec=nvec, stages=0, stride=0,
+                    smem=4 * (32 * k * (1 + K1_ROW_WARPS) + K1_ROW_WARPS),
+                    rows_per_slot=rows_per_slot, slots=slots)
+    per_thread = K1_RING_COLS // lanes  # vectors a thread holds
+    cluster = next((c for c in (1, 2, 4, 8) if -(-nvec // c) <= K1_MAX_THREADS * per_thread),
+                   None)
+    if cluster is None:
+        raise ValueError(f"K1 holds a row's gradient slice on chip: at most "
+                         f"{K1_MAX_CLUSTER * K1_MAX_THREADS * K1_RING_COLS} columns on CUDA, "
+                         f"got n={n}")
+    slice_vec = -(-nvec // cluster)
+    threads = 32 * -(-slice_vec // (32 * per_thread))
+    per_sm = max(1, min(8, K1_MAX_THREADS // threads))  # 64 registers a thread at most
+    stride = 16 * slice_vec + 16  # a slice, and the offset of a row that is not 16-byte aligned
+    budget = min(K1_CTA_SMEM, K1_SM_SMEM // per_sm - K1_CTA_RESERVED) - K1_RING_STATIC
+    stages = min(K1_MAX_STAGES, budget // stride)
+    rows_per_slot = max(K1_RING_MIN_SLOT, -(-m // (K1_RING_SLOTS * per_sm)))
+    slots = -(-m // rows_per_slot)
+    clusters = min(slots, max(1, sms * per_sm // cluster))
+    return dict(regime="ring", k=K1_RING_COLS, threads=threads, grid=clusters * cluster,
+                cluster=cluster, slice_vec=slice_vec, stages=stages, stride=stride,
+                smem=stages * stride, rows_per_slot=rows_per_slot, slots=slots)
+
+
+def _k1_numbers(plan):
+    """``plan`` as the C entry takes it: its K1_PLAN_KEYS in order (regime 0 rows, 1 ring)."""
+    numbers = [int(plan[key]) if key != "regime" else int(plan[key] == "ring")
+               for key in K1_PLAN_KEYS]
+    return (ctypes.c_longlong * len(numbers))(*numbers)
+
+
+@functools.lru_cache(maxsize=256)
+def _k1_cached_plan(m, n, itemsize, device_index):
+    """(plan, its numbers) of a shape on a device, made once: the wrapper's host time is on the
+    engine's critical path at the lasso driver's sizes."""
+    plan = k1_plan(m, n, itemsize, _sm_count(device_index))
+    return plan, _k1_numbers(plan)
+
+
+def _k1_launch(a, b, x, plan, numbers=None, lib=None):
+    """One K1 launch on checked CUDA tensors with ``plan`` (``k1_plan``'s dict), from ``lib``
+    (default: the build of SOURCE); adds one to ``fused_ls_value_grad.launches``."""
+    lib = lib or _library()
+    m, n = a.shape
+    bf16 = a.dtype == torch.bfloat16
+    vec = int(n % (16 // a.element_size()) == 0 and a.data_ptr() % 16 == 0)
+    f32 = dict(dtype=torch.float32, device=a.device)
+    f_part = torch.empty(plan["slots"], **f32)
+    g_part = torch.empty((plan["slots"], n), **f32)
+    f, grad = torch.empty((), **f32), torch.empty(n, **f32)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.adaprox_fused_ls(
+            a.data_ptr(), int(bf16), vec, b.data_ptr(), x.data_ptr(), m, n,
+            numbers if numbers is not None else _k1_numbers(plan), f_part.data_ptr(),
+            g_part.data_ptr(), f.data_ptr(), grad.data_ptr(), stream)
+    if err:
+        msg = lib.adaprox_cuda_error_string(err).decode()
+        raise RuntimeError(f"K1 launch failed: CUDA error {err} ({msg})")
+    fused_ls_value_grad.launches += 1
+    return f, grad
+
+
 def fused_ls_value_grad(a, b, x):
     """(f, grad) of 0.5 ||A x - b||^2. ``a`` (m, n), ``b`` (m,), ``x`` (n,).
 
     CPU tensors: the plain version, any float dtype. CUDA tensors: the K1
-    kernel; ``a`` f32 or bf16, ``b`` and ``x`` f32, all contiguous, any
-    m, n >= 1; returns a 0-d f32 ``f`` and an (n,) f32 ``grad``. Anything else
-    raises. Each kernel launch adds one to ``fused_ls_value_grad.launches``."""
+    kernel (``k1_plan``'s launch); ``a`` f32 or bf16, ``b`` and ``x`` f32, all
+    contiguous, any m >= 1 and 1 <= n <= 131072; returns a 0-d f32 ``f`` and an
+    (n,) f32 ``grad``. Anything else raises. Each kernel launch adds one to
+    ``fused_ls_value_grad.launches``."""
     _check_shapes(a, b, x)
     if a.device.type == "cpu":
         return ls_value_grad_plain(a, b, x)
@@ -158,26 +275,8 @@ def fused_ls_value_grad(a, b, x):
     m, n = a.shape
     if m < 1 or n < 1:
         raise ValueError(f"K1 needs m, n >= 1, got {tuple(a.shape)}")
-    lib = _library()
-    bf16 = a.dtype == torch.bfloat16
-    vec = 8 if bf16 else 4
-    if n % vec or a.data_ptr() % 16 or x.data_ptr() % 16:
-        vec = 1
-    grid = _grid(m, lib.adaprox_fused_ls_rows_per_step(int(bf16)), a.device)
-    f_part = torch.empty(grid, dtype=torch.float32, device=a.device)
-    g_part = torch.empty((grid, n), dtype=torch.float32, device=a.device)
-    f = torch.empty((), dtype=torch.float32, device=a.device)
-    grad = torch.empty(n, dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.adaprox_fused_ls(
-            a.data_ptr(), int(bf16), vec, b.data_ptr(), x.data_ptr(), m, n, grid,
-            f_part.data_ptr(), g_part.data_ptr(), f.data_ptr(), grad.data_ptr(), stream)
-    if err:
-        msg = lib.adaprox_cuda_error_string(err).decode()
-        raise RuntimeError(f"K1 launch failed: CUDA error {err} ({msg})")
-    fused_ls_value_grad.launches += 1
-    return f, grad
+    index = a.device.index if a.device.index is not None else torch.cuda.current_device()
+    return _k1_launch(a, b, x, *_k1_cached_plan(m, n, a.element_size(), index))
 
 
 fused_ls_value_grad.launches = 0

@@ -17,7 +17,11 @@ Phases, one line each, any failure exits non-zero:
                checkout's sources
   3. kernels:  K1 against its plain PyTorch version on the card, at the
                headline shape (16384^2, f32 and bf16 storage), the lasso
-               driver's padded shape (4000x1024) and an unaligned 1000x300;
+               driver's padded shape (4000x1024) and an unaligned 1000x300,
+               each with its plan (ops/kernels.py::k1_plan: the rows or ring
+               kernel, the grid, the slots), timed eager and with the host's
+               time hidden (utils.profiling.flushed_ms, warm and cold) beside
+               its bound and GB/s against the card's data sheet;
                K2 against its plain version at the padded reference size
                4096x1024 (cases a-d, f), at 1000x300 and at 64x128 (case e);
                K2c at 4096x1024 against its plain version (cases g, h) and,
@@ -3968,7 +3972,7 @@ def main():
     from adaprox_tpu_torch.ops import (bcsr, kernels, pd_kernels, resident, resident_bt,
                                        resident_f0, resident_mp, resident_pd, sparse)
     from adaprox_tpu_torch.utils.logging import read_jsonl
-    from adaprox_tpu_torch.utils.profiling import timed
+    from adaprox_tpu_torch.utils.profiling import chip_bandwidth_gbps, flushed_ms, timed
 
     # 2. build ---------------------------------------------------------------
     t0 = time.perf_counter()
@@ -4008,6 +4012,8 @@ def main():
              ("4000x1024 f32 (driver, padded)", *problem(4000, 1024)),
              ("1000x300 f32 (unaligned)", *problem(1000, 300))]
     measured = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    roof = chip_bandwidth_gbps(dev)
     for name, a, b, x in cases:
         f_k, g_k = kernels.fused_ls_value_grad(a, b, x)
         f_p, g_p = kernels.ls_value_grad_plain(a, b, x)  # bf16: the same values upcast
@@ -4016,14 +4022,32 @@ def main():
         abs_g = float((g_k - g_p).abs().max())
         err_g = abs_g / float(g_p.abs().max())
         check(math.isfinite(err_f) and math.isfinite(err_g), f"K1 {name}: non-finite result")
-        a_plain = a.float()  # time the plain version on f32 storage, as LeastSquares runs it
-        ms_k = event_ms(lambda: kernels.fused_ls_value_grad(a, b, x))
-        ms_p = event_ms(lambda: kernels.ls_value_grad_plain(a_plain, b, x))
-        measured[name] = dict(max_abs_err=abs_g, ms=ms_k, plain_ms=ms_p)
-        print(f"[kernels] K1 {name}: rel err f {err_f:.2e}, grad {err_g:.2e} "
-              f"(max abs {abs_g:.2e}; tol {KERNEL_RTOL:g}) | K1 {ms_k:.4f} ms, "
-              f"plain {ms_p:.4f} ms ({smi})", flush=True)
         check(err_f <= KERNEL_RTOL and err_g <= KERNEL_RTOL, f"K1 {name} disagrees with plain")
+        a_plain = a.float()  # time the plain version on f32 storage, as LeastSquares runs it
+
+        def k1():
+            return kernels.fused_ls_value_grad(a, b, x)
+
+        ms_k = event_ms(k1)
+        warm, cold = flushed_ms(k1, flush_bytes=0), flushed_ms(k1)
+        ms_p = event_ms(lambda: kernels.ls_value_grad_plain(a_plain, b, x))
+        km, kn = a.shape
+        # A read once, b and x in, f and grad out; 4 m n flops
+        k1_bytes = a.element_size() * km * kn + 4 * (km + kn) + 4 * (kn + 1)
+        k1_bound = bound(k1_bytes, 4 * km * kn)
+        gbps = k1_bytes / cold / 1e6
+        check(gbps <= HBM_BYTES_S / 1e9, f"K1 {name}: {gbps:.1f} GB/s cold, past the card's "
+              f"{HBM_BYTES_S / 1e9:.0f} GB/s: it cannot have read all of A")
+        plan = kernels.k1_plan(km, kn, a.element_size(), sms)
+        measured[name] = dict(max_abs_err=abs_g, ms=ms_k, plain_ms=ms_p, warm_ms=warm,
+                              cold_ms=cold, plan=plan)
+        print(f"[kernels] K1 {name}: rel err f {err_f:.2e}, grad {err_g:.2e} "
+              f"(max abs {abs_g:.2e}; tol {KERNEL_RTOL:g}) | K1 {ms_k:.4f} ms eager, host hidden "
+              f"warm {warm:.4f} / cold {cold:.4f} ms, bound {k1_bound[0]:.4f} ms ({k1_bound[1]}), "
+              f"cold {gbps:.1f} GB/s ({gbps / roof:.3f} of {roof:.0f}) | plan {plan['regime']}: "
+              f"grid {plan['grid']} x {plan['threads']} threads, cluster {plan['cluster']}, "
+              f"{plan['slots']} slots of {plan['rows_per_slot']} rows, stages {plan['stages']}, "
+              f"shared memory {plan['smem']} B | plain {ms_p:.4f} ms ({smi})", flush=True)
         del a_plain
     ref, k2_meas = k2_checks(resident, dev, smi)
     k2c_checks(resident, ref, smi)
@@ -4320,7 +4344,8 @@ def main():
         "replaces": "adaprox_tpu/ops/kernels.py:99",
         "launches": counts["fused"][0], "max_abs_err": head["max_abs_err"],
         "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": k1_bound[0],
-        "bound_by": k1_bound[1], "library_ms": None}, {
+        "bound_by": k1_bound[1], "library_ms": None, "warm_ms": head["warm_ms"],
+        "cold_ms": head["cold_ms"], "regime": head["plan"]["regime"]}, {
         "name": "resident_adapgm", "route": "cuda",
         "source": "adaprox_tpu_torch/csrc/resident_pg.cu",
         "replaces": "adaprox_tpu/ops/resident.py:442",

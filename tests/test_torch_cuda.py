@@ -47,8 +47,16 @@ def _inputs(dev, m, n, dtype, seed=0):
     return a, b, x
 
 
-@pytest.mark.parametrize("m,n", [(1, 1), (7, 5), (1000, 300), (999, 301), (4000, 1024),
-                                 (517, 2048)])
+# K1's plan (ops/kernels.py::k1_plan) across its thresholds: the rows kernel up to n = 1024 and
+# one 16-byte vector past it (1028 f32, 1032 bf16), the ring kernel to 16384 columns a CTA and
+# one vector past it (a cluster of 2), up to 131072 (a cluster of 8); m = 1, m below the SM
+# count, ragged m and n (element loads).
+K1_SHAPES = [(1, 1), (7, 5), (1000, 300), (999, 301), (4000, 1024), (517, 2048), (64, 1028),
+             (64, 1032), (1, 1030), (100, 4096), (1001, 1027), (31, 16384), (3, 16388),
+             (1, 16392), (37, 20001), (9, 131072)]
+
+
+@pytest.mark.parametrize("m,n", K1_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k1_matches_plain_on_card(dev, m, n, dtype):
     a, b, x = _inputs(dev, m, n, dtype)
@@ -61,6 +69,84 @@ def test_k1_matches_plain_on_card(dev, m, n, dtype):
     # f32 FMAs in another summation order than cuBLAS: ~sqrt(n) * 6e-8
     assert abs(float(f - f_p)) <= 1e-5 * abs(float(f_p))
     assert float((g - g_p).abs().max()) <= 1e-5 * float(g_p.abs().max())
+
+
+def _k1_plan(a):
+    return tk.k1_plan(*a.shape, a.element_size(),
+                      torch.cuda.get_device_properties(a.device).multi_processor_count)
+
+
+@pytest.mark.parametrize("m,n,dtype", [(4000, 1024, torch.float32), (999, 301, torch.bfloat16),
+                                       (517, 2048, torch.float32),
+                                       (200, 16384, torch.bfloat16),
+                                       (37, 20001, torch.float32)])
+def test_k1_smaller_grid_gives_the_same_bits(dev, m, n, dtype):
+    """The slots and their rows follow from the shape alone: one CTA (or cluster), or three,
+    taking every slot in turn gives the plan's grid's bits."""
+    a, b, x = _inputs(dev, m, n, dtype, seed=4)
+    plan = _k1_plan(a)
+    assert plan["grid"] > 3 * plan["cluster"] or plan["slots"] <= 3
+    want = tk._k1_launch(a, b, x, plan)
+    for clusters in (1, 3):
+        got = tk._k1_launch(a, b, x, dict(plan, grid=clusters * plan["cluster"]))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,n,dtype", [(4000, 1028, torch.float32), (200, 16384, torch.bfloat16),
+                                       (37, 20001, torch.bfloat16)])
+def test_k1_ring_depth_leaves_the_bits(dev, m, n, dtype):
+    """A deep ring or one of two slots: each row's dot and update are the same arithmetic in
+    the same order, so the same bits."""
+    a, b, x = _inputs(dev, m, n, dtype, seed=7)
+    plan = _k1_plan(a)
+    assert plan["regime"] == "ring" and plan["stages"] > 3
+    want = tk._k1_launch(a, b, x, plan)
+    for stages in (2, 3):
+        got = tk._k1_launch(a, b, x, dict(plan, stages=stages, smem=stages * plan["stride"]))
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,n", [(1000, 300), (517, 2048), (37, 20000)])
+def test_k1_bits_do_not_depend_on_alignment(dev, m, n):
+    """A view of A one element into a buffer takes element loads (and, in the ring kernel, a
+    copy from the 16-byte unit below each row) where the aligned copy takes 16-byte ones: the
+    same values in the same order, so the same bits."""
+    a, b, x = _inputs(dev, m, n, torch.float32, seed=5)
+    buf = torch.empty(m * n + 1, device=dev)
+    buf[1:] = a.reshape(-1)
+    view = buf[1:].view(m, n)
+    assert view.data_ptr() % 16 and a.data_ptr() % 16 == 0
+    f1, g1 = tk.fused_ls_value_grad(a, b, x)
+    f2, g2 = tk.fused_ls_value_grad(view, b, x)
+    assert torch.equal(f1, f2) and torch.equal(g1, g2)
+
+
+@pytest.mark.parametrize("m,n", [(999, 301), (517, 2048)])
+def test_k1_check_fails_a_kernel_that_drops_a_row(dev, tmp_path, monkeypatch, m, n):
+    """The plain comparison catches a K1 that drops the last row of the last (ragged) slot:
+    built from a copy of csrc/ with one line changed, it fails where K1 as built passes."""
+    import shutil
+
+    src = tk.SOURCE.read_text()
+    line = "  *r1 = end < p.m ? end : p.m;\n"
+    assert src.count(line) == 1
+    for header in tk.SOURCE.parent.glob("*.cuh"):
+        shutil.copy(header, tmp_path / header.name)
+    mutant = tmp_path / "fused_ls_drop_last_row.cu"
+    mutant.write_text(src.replace(line, line.replace(": p.m;", ": p.m - 1;")))
+    a, b, x = _inputs(dev, m, n, torch.float32, seed=6)
+    assert (_k1_plan(a)["regime"] == "rows") == (n <= tk.K1_NARROW_N)
+    f_p, g_p = tk.ls_value_grad_plain(a, b, x)
+
+    def err(f, g):
+        return max(abs(float(f - f_p)) / abs(float(f_p)),
+                   float((g - g_p).abs().max()) / float(g_p.abs().max()))
+
+    assert err(*tk.fused_ls_value_grad(a, b, x)) <= 1e-5
+    monkeypatch.setattr(tk, "SOURCE", mutant)
+    got = tk.fused_ls_value_grad(a, b, x)
+    torch.cuda.synchronize()
+    assert err(*got) > 1e-5
 
 
 def test_k1_is_repeatable_bit_for_bit(dev):
@@ -93,6 +179,9 @@ def test_k1_rejects_what_it_does_not_take(dev):
         tk.fused_ls_value_grad(a.t().contiguous().t(), b, x)
     with pytest.raises(ValueError, match="different devices"):
         tk.fused_ls_value_grad(a, b.cpu(), x)
+    wide = torch.zeros(1, 131076, device=dev)
+    with pytest.raises(ValueError, match="on chip"):
+        tk.fused_ls_value_grad(wide, b[:1], torch.zeros(131076, device=dev))
 
 
 # -- K2, the whole-solve kernel ------------------------------------------------------

@@ -84,3 +84,107 @@ def test_k1_source_and_build_key():
     body = src.split("#include <stdint.h>", 1)[1]
     for banned in ("cublas", "wmma", "mma.sync", "torch"):
         assert banned not in body
+
+
+# -- K1's plan (ops/kernels.py::k1_plan): what the CUDA kernel is launched with --------------
+
+K1_MS = [1, 2, 7, 15, 16, 17, 263, 265, 517, 999, 4000, 16384, 100003]
+K1_NS = [1, 5, 300, 301, 1023, 1024, 1025, 1028, 1032, 2048, 4096, 16383, 16384, 16385, 16388,
+         16392, 20001, 65536, 131072]
+K1_SMS = [1, 8, 66, 132, 144]
+
+
+def _k1_rows_of_each_cta(plan, m):
+    """The rows each CTA (each cluster: its CTAs share their rows) takes, in order, as
+    csrc/fused_ls.cu deals them: slots c, c + clusters, ..., each slot's rows in order."""
+    clusters = plan["grid"] // plan["cluster"]
+    rps = plan["rows_per_slot"]
+    return [[r for s in range(c, plan["slots"], clusters)
+             for r in range(s * rps, min(m, (s + 1) * rps))] for c in range(clusters)]
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("n", K1_NS)
+def test_k1_plan_covers_every_row_and_column_once(n, itemsize):
+    lanes = 16 // itemsize
+    nvec = -(-n // lanes)
+    for m in K1_MS:
+        for sms in K1_SMS:
+            plan = tk.k1_plan(m, n, itemsize, sms)
+            assert set(plan) == set(tk.K1_PLAN_KEYS)
+            assert plan["slots"] == -(-m // plan["rows_per_slot"])
+            assert plan["rows_per_slot"] * (plan["slots"] - 1) < m
+            c = plan["cluster"]
+            assert c in (1, 2, 4, 8) and plan["grid"] % c == 0
+            assert c <= plan["grid"] <= c * plan["slots"]
+            if m <= 4000:
+                rows = sorted(r for cta in _k1_rows_of_each_cta(plan, m) for r in cta)
+                assert rows == list(range(m))
+            if plan["regime"] == "rows":
+                assert n <= tk.K1_NARROW_N and c == 1 and plan["threads"] == 256
+                # a warp's 32 lanes hold k values each: the whole (zero-padded) row
+                assert plan["k"] in (8, 16, 32) and plan["k"] % lanes == 0
+                assert 32 * plan["k"] >= nvec * lanes
+                assert plan["rows_per_slot"] >= tk.K1_ROW_MIN_SLOT
+            else:
+                assert n > tk.K1_NARROW_N and plan["k"] == tk.K1_RING_COLS
+                # the ranks' column slices: whole vectors, none empty, every vector once
+                sv = plan["slice_vec"]
+                slices = [range(r * sv, min(nvec, (r + 1) * sv)) for r in range(c)]
+                assert all(len(sl) > 0 for sl in slices)
+                assert [v for sl in slices for v in sl] == list(range(nvec))
+                t = plan["threads"]
+                assert t % 32 == 0 and 32 <= t <= 1024 and t * (16 // lanes) >= sv > t * (
+                    16 // lanes) - 32 * (16 // lanes)
+                assert plan["stride"] % 16 == 0 and plan["stride"] >= 16 * sv + 16
+                assert plan["rows_per_slot"] >= tk.K1_RING_MIN_SLOT
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("n", K1_NS)
+def test_k1_plan_fits_shared_memory(n, itemsize):
+    """Every plan fits a CTA's 227 KB (the opt-in) and, at the CTAs an SM it counts on, the
+    SM's 228 KB; the ring holds at least two rows (one in flight while one is read)."""
+    for m in (1, 999, 16384):
+        plan = tk.k1_plan(m, n, itemsize, 132)
+        if plan["regime"] == "rows":
+            assert plan["smem"] <= 48 * 1024  # static shared memory
+            assert 2 * (plan["smem"] + tk.K1_CTA_RESERVED) <= tk.K1_SM_SMEM
+            continue
+        per_sm = max(1, min(8, 1024 // plan["threads"]))
+        assert 2 <= plan["stages"] <= tk.K1_MAX_STAGES
+        assert plan["smem"] == plan["stages"] * plan["stride"]
+        assert plan["smem"] + tk.K1_RING_STATIC <= tk.K1_CTA_SMEM
+        assert per_sm * (plan["smem"] + tk.K1_RING_STATIC + tk.K1_CTA_RESERVED) <= tk.K1_SM_SMEM
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("m,n", [(1, 1), (4000, 1024), (999, 301), (16384, 16384), (517, 2048),
+                                 (37, 20001), (9, 131072)])
+def test_k1_plan_slots_depend_on_the_shape_alone(m, n, itemsize):
+    """Only the grid follows the card: every number that sets the arithmetic, and so the
+    bits, is the same on any number of SMs."""
+    plans = [tk.k1_plan(m, n, itemsize, sms) for sms in K1_SMS]
+    shape_only = [{k: v for k, v in p.items() if k != "grid"} for p in plans]
+    assert all(p == shape_only[0] for p in shape_only)
+
+
+def test_k1_plan_thresholds_and_refusals():
+    assert tk.k1_plan(4000, 1024, 4, 132)["regime"] == "rows"
+    assert tk.k1_plan(4000, 1028, 4, 132)["regime"] == "ring"
+    assert tk.k1_plan(4000, 1032, 2, 132)["regime"] == "ring"
+    for itemsize in (4, 2):
+        assert tk.k1_plan(8, 16384, itemsize, 132)["cluster"] == 1
+        assert tk.k1_plan(8, 16384 + 16 // itemsize, itemsize, 132)["cluster"] == 2
+        assert tk.k1_plan(8, 131072, itemsize, 132)["cluster"] == 8
+        with pytest.raises(ValueError, match="on chip"):
+            tk.k1_plan(8, 131073, itemsize, 132)
+    # the headline: one CTA an SM, a three-deep ring of 64 KB rows (f32), seven of 32 KB (bf16)
+    head = tk.k1_plan(16384, 16384, 4, 132)
+    assert (head["threads"], head["stages"], head["grid"]) == (1024, 3, 132)
+    bf16 = tk.k1_plan(16384, 16384, 2, 132)
+    assert bf16["stages"] == 7
+    assert head["slots"] == bf16["slots"] == 132  # one slot of 125 rows an SM
+    for bad in ((0, 4, 4, 132), (4, 0, 4, 132), (4, 4, 8, 132), (4, 4, 4, 0)):
+        with pytest.raises(ValueError):
+            tk.k1_plan(*bad)
