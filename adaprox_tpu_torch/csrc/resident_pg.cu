@@ -78,13 +78,17 @@
 //     order, so all CTAs reach bit-identical stop decisions: no CTA leaves the
 //     loop while another waits at a barrier. No atomics anywhere: two launches on
 //     the same inputs give the same bits.
-//   * K2, K2c and K2b run the same device routine (solve below). K2c walks its
-//     rows and K2b its instances one after another, every CTA in the same
-//     order, with a grid sync between two. The same shape gives the same grid,
-//     so row j of a sweep, or instance i of a batch, is bit-identical to one K2
-//     launch with its arguments. K2b's instances share the scratch; their A is
-//     read through a batch stride, which is 0 when every instance solves over
-//     one A (a regularization path): one copy of A and of A^T serves them all.
+//   * K2 and K2b run the same device routine (solve below). K2b walks its
+//     instances one after another, every CTA in the same order, with a grid sync
+//     between two. The same shape gives the same grid, so instance i of a batch
+//     is bit-identical to one K2 launch with its arguments. K2b's instances share
+//     the scratch; their A is read through a batch stride, which is 0 when every
+//     instance solves over one A (a regularization path): one copy of A and of
+//     A^T serves them all.
+//   * K2c runs the rows of a sweep in lockstep groups on K2's grid (below): one
+//     pass over A serves every row of a group, and the rows share the grid
+//     syncs. Each row keeps K2's scratch and K2's order of every sum, so row j of
+//     a sweep is bit-identical to one K2 launch with its arguments.
 //   * IEEE semantics are part of the algorithm: AdaPGM divides by sqrt(0) on
 //     purpose and min() drops the inf; 0/0 is guarded to 0; MM guards
 //     isfinite(g0). So no fast math, no flush to zero, IEEE division and
@@ -111,23 +115,13 @@ static_assert(kPrimal2 == kP1Breg, "K2 passes no res_prev: P1 writes kRes2 and k
 // grad_prev by parity, v (n) v of a rule iteration or z of a momentum iteration,
 // res (m) A x - b, sigmoid(A x) - b ("logreg") or H x ("cubic").
 
-// One solve: K2's arguments, one row of K2c's table, or an instance of K2b.
+// One solve: K2's arguments, or an instance of K2b.
 struct Solve {
   float gamma0, tol;
   int rule, momentum, cap;
   float* x_out;  // (n,)
   float* stats;  // (4,): numit, norm_res, gamma, converged
   float* hist;   // (3, hist_len): gamma, norm_res, objective rows; null unless record
-};
-
-// K2c's rows table, on the device: (gamma0, tol) and (rule, momentum, cap) per row.
-struct Rows {
-  const float* f;  // (count, 2)
-  const int* i;    // (count, 3)
-  int count;
-  float* x_out;    // (count, n)
-  float* stats;    // (count, 4)
-  float* hist;     // (count, 3, hist_len)
 };
 
 // One step-size update, resident.py::_rule_adapgm / _rule_mm / _rule_fixed, on
@@ -391,30 +385,531 @@ __global__ void __launch_bounds__(kThreads, 1) resident_pg_kernel(const Problem 
   solve<T, VA, VT>(p, s);
 }
 
-// K2c: the rows one after another, with a grid sync between two rows (the next
-// solve reuses the scratch that other CTAs may still read). The row's arguments
-// sit in shared memory, as K2's sit in the parameter space: held in registers
-// for the whole solve, they pushed every instantiation past the 128 registers a
-// thread has here, into local memory (ptxas -v).
+// -- K2c: the rows of a group in lockstep -------------------------------------------
+//
+// The rows of a sweep solve one problem (the same A, b and x0); only gamma0, tol,
+// rule, momentum and cap differ. So K2c runs up to kGroup rows at once on K2's
+// grid: each pass over A (or A^T) takes a row of A and dots it with the vector of
+// every row still running, and every row waits at the same grid syncs. Row g of a
+// group keeps K2's scratch of its own: xs + 2gn, gs + 2gn, v + gn, res + gm and
+// the partials part[(g kParts + k) grid + cta]. Each of its sums runs in K2's
+// order (group_dot, group_partials, sum_part), so row g is K2's launch with its
+// arguments bit for bit, whatever group it lands in, wherever it sits there and
+// whatever else runs beside it.
+//
+// A lockstep iteration of a group, with a grid sync after each phase:
+//   A  each row that ran B-D takes its P3 from its own partials (lane 0 of warp
+//      g: the rule's step, the record row, the stop test); then, elementwise over
+//      (row, coordinate) pairs, a rule row writes v and x_new = prox(v), a
+//      momentum row that goes on its next P0, z = x + beta (x - x_prev), and a row
+//      that stops its x_out; CTA 0 writes a stopped row's stats and zeroes its
+//      history past numit. The group ends here when no row goes on (no sync).
+//   B  P1 for every running row: at x (rule) or at z (momentum);
+//   C  P2 for every running row; a momentum row also its prox and partials;
+//   D  P1' at x_new for the running momentum rows (K2c always records).
+// So 4 syncs an iteration while a momentum row runs, 3 otherwise, for the whole
+// group: K2 pays 3 or 4 a row. In B-D lane g of a warp takes row g's terms after
+// the dots. The rule rows' warm-up (one P1 and one gradient at x0, the same bits
+// for every rule row) runs once before the loop, with the momentum rows' copy of
+// x0. Every branch is taken on state in shared memory that every CTA computes
+// from the same sums: no CTA leaves while another waits at a barrier. A table of
+// more than kGroup rows runs its groups in turn, with a grid sync between two
+// (the next group reuses the scratch).
+//
+// The rows' vectors stay in device memory and are read through the L1, as K2
+// reads its own. Copied into shared memory for a pass ("staged"), they made a
+// pass of eight rows at 4096x1024 about a quarter faster, but every driver's
+// sweep slower or no faster (the copy's round trip and barrier), and the staged
+// form of the dot spilled or lost its loads in flight (PERF.md, PR 23).
+
+constexpr int kGroup = 8;
+
+// K2c's table and its outputs.
+struct Rows {
+  const float* f;  // (count, 2): gamma0, tol
+  const int* i;    // (count, 3): rule, momentum, cap
+  int count;
+  float* x_out;    // (count, n)
+  float* stats;    // (count, 4)
+  float* hist;     // (count, 3, hist_len)
+};
+
+// A row's arguments and carry, in shared memory. Lane 0 of warp g writes row
+// g's in phase A; every thread reads them after the barrier that follows.
+struct RowState {
+  float gamma0, tol;
+  int rule, momentum, cap;
+  float gamma, g1, g0, theta, beta, norm_res;
+  int it, par;  // x = xs[par] while B-D run; A flips par at P3
+  int run;      // runs B-D of this iteration
+  int p3;       // took its P3 in this phase A
+  int fin;      // stopped in this phase A (or before its first iteration)
+  int conv;
+};
+
+// VEC values of a row of A or A^T as one load gives them: a 16-byte vector (4
+// f32 or 8 bf16) kept packed, or one value; value q as load_a gives it, bit for
+// bit (a bf16's bits are the top half of its f32's).
+template <typename T, int VEC>
+struct Packed {
+  uint4 v;
+  __device__ __forceinline__ void load(const T* __restrict__ p) {
+    v = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ float at(int q) const {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+    if constexpr (VEC == 4) return __uint_as_float(w[q]);
+    return __uint_as_float(q & 1 ? w[q >> 1] & 0xffff0000u : w[q >> 1] << 16);
+  }
+};
+template <typename T>
+struct Packed<T, 1> {
+  T v;
+  __device__ __forceinline__ void load(const T* __restrict__ p) { v = __ldg(p); }
+  __device__ __forceinline__ float at(int) const {
+    if constexpr (sizeof(T) == 2) return __bfloat162float(v);
+    return v;
+  }
+};
+
+// Vectors of A in flight a lane (the loads that warp_dot's unrolling gives K2):
+// 4, or 2 of bf16, whose 8 floats a vector take twice the registers.
+template <int VEC>
+constexpr int kGroupAhead = VEC == 8 ? 2 : 4;
+
+// warp_dot for every row of `mask`: acc[g] = sum_k row[k] vec[g][k] in lane 0, in
+// warp_dot's order (the same lanes, the same fmaf chain, the same shuffle tree),
+// so row g's dot has warp_dot's bits. The rows go two at a time, each pair one
+// pass over `row` (after the first, from the L1) with kGroupAhead packed vectors
+// of it in flight. Eight rows a pass needed eight pointers and their loads in
+// flight at once, and ptxas spilled.
+template <typename T, int VEC>
+__device__ __forceinline__ void group_dot(const T* __restrict__ row, const float* const* vec,
+                                          unsigned mask, long long len, int lane,
+                                          float (&acc)[kGroup]) {
+  static_assert(VEC == 1 || VEC * sizeof(T) == 16, "a lane loads 16 bytes or one value");
+  constexpr int kAhead = kGroupAhead<VEC>;
+  const long long steps = len / VEC;
+  for (unsigned left = mask; left;) {
+    const int g0 = __ffs(left) - 1;
+    left &= left - 1;
+    const int g1 = left ? __ffs(left) - 1 : -1;
+    if (left) left &= left - 1;
+    const float* x0 = vec[g0];
+    const float* x1 = vec[g1 < 0 ? g0 : g1];
+    float s0 = 0.f, s1 = 0.f;
+    long long k = lane;
+#pragma unroll 1
+    for (; k + 32 * (kAhead - 1) < steps; k += 32 * kAhead) {
+      Packed<T, VEC> a[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) a[u].load(row + (k + 32 * u) * VEC);
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        float xv[VEC];
+        load_f32<VEC>(x0 + (k + 32 * u) * VEC, xv);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) s0 = fmaf(a[u].at(q), xv[q], s0);
+      }
+      if (g1 >= 0) {
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          float xv[VEC];
+          load_f32<VEC>(x1 + (k + 32 * u) * VEC, xv);
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) s1 = fmaf(a[u].at(q), xv[q], s1);
+        }
+      }
+    }
+#pragma unroll 1
+    for (; k < steps; k += 32) {
+      Packed<T, VEC> a;
+      a.load(row + k * VEC);
+      float xv[VEC];
+      load_f32<VEC>(x0 + k * VEC, xv);
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) s0 = fmaf(a.at(q), xv[q], s0);
+      if (g1 >= 0) {
+        load_f32<VEC>(x1 + k * VEC, xv);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) s1 = fmaf(a.at(q), xv[q], s1);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      if (g == g0) acc[g] = s0;
+      if (g == g1) acc[g] = s1;
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    if (mask & (1u << g)) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc[g] += __shfl_down_sync(kFull, acc[g], off);
+    }
+  }
+}
+
+// Lane g's row of a warp's dots: acc[g] from lane 0, so that lane g goes on
+// with row g while the other lanes take the other rows.
+__device__ __forceinline__ float lane_row(const float (&acc)[kGroup], int lane) {
+  float mine = 0.f;
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    const float v = __shfl_sync(kFull, acc[g], 0);
+    if (lane == g) mine = v;
+  }
+  return mine;
+}
+
+// write_partials for the rows of `mask`: part[(g kParts + k) grid + cta] = the
+// sum over this CTA's warps, in warp order, of wp[g][k], k in [k0, k1).
+__device__ __forceinline__ void group_partials(float* part, float (*wp)[kParts][kWarps],
+                                               unsigned mask, int k0, int k1) {
+  __syncthreads();
+  const int span = k1 - k0;
+  const int t = threadIdx.x;
+  static_assert(kGroup * kParts <= kThreads, "a thread a (row, slot)");
+  if (t < kGroup * span && (mask & (1u << (t / span)))) {
+    const int g = t / span, k = k0 + t % span;
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += wp[g][k][w];
+    part[(g * kParts + k) * gridDim.x + blockIdx.x] = s;
+  }
+}
+
+// Point a pass at its rows' vectors: vec[g] = src(g) for the rows of `mask`.
+// Ends with a block barrier.
+template <typename Src>
+__device__ __forceinline__ void group_vectors(const float** vec, unsigned mask, Src src) {
+  if (threadIdx.x < kGroup) {
+    const int g = threadIdx.x;
+    vec[g] = (mask & (1u << g)) ? src(g) : nullptr;
+  }
+  __syncthreads();
+}
+
+// P1 (phase_res) for the rows of `mask`, row g at vec[g]: res_g = A x_g - b (or
+// the logistic or cubic terms) and row g's P1 partials, each in K2's order; lane
+// g of the warp that owns row r of A takes row g's terms.
+template <typename T, int VA>
+__device__ __forceinline__ void group_p1(const Problem& p, unsigned mask, const float** vec,
+                                         float (*wp)[kParts][kWarps]) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long gwarp = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  const long long nwarps = static_cast<long long>(gridDim.x) * kWarps;
+  const long long m = p.m, n = p.n;
+  const T* __restrict__ a = static_cast<const T*>(p.a);
+  const int g = lane;
+  const bool mine = g < kGroup && (mask & (1u << g));
+  if (mine) wp[g][kP1F][warp] = wp[g][kP1Obj][warp] = 0.f;
+  for (long long r = gwarp; r < m; r += nwarps) {
+    float d[kGroup];
+    group_dot<T, VA>(a + r * n, vec, mask, n, lane, d);
+    const float dg = lane_row(d, lane);
+    if (!mine) continue;
+    const float br = p.b[r];
+    float* res = p.res + g * m;
+    if (p.obj == kCubic) {
+      const float xr = vec[g][r];
+      res[r] = dg;
+      wp[g][kP1F][warp] += xr * xr;
+      wp[g][kP1Obj][warp] += xr * dg + 2.f * (br * xr);
+    } else if (p.obj == kLogreg) {
+      res[r] = 1.f / (1.f + expf(-dg)) - br;
+      // softplus(-z) = logaddexp(0, -z), written stably
+      const float softplus_neg = nan_max(-dg, 0.f) + log1pf(expf(-fabsf(dg)));
+      wp[g][kP1F][warp] += (br - 1.f) * dg - softplus_neg;
+    } else {
+      const float rr = dg - br;
+      res[r] = rr;
+      wp[g][kP1F][warp] += rr * rr;
+    }
+  }
+  group_partials(p.part, wp, mask, kP1F, p.obj == kCubic ? kP1Obj + 1 : kP1F + 1);
+}
+
+// The gradient loop (for_each_grad) for the rows of `mask`: body(g, j, grad_j)
+// in lane g, row g's gradient at pt(g) from res_g, which vec[g] points at (A^T's
+// rows dotted with the rows' res_g); "cubic" elementwise, each row's ||x|| from
+// its own P1 partials.
+template <typename T, int VT, typename Pt, typename Body>
+__device__ __forceinline__ void group_grad(const Problem& p, unsigned mask, const float** vec,
+                                           Pt pt, Body&& body) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long gwarp = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  const long long nwarps = static_cast<long long>(gridDim.x) * kWarps;
+  const long long m = p.m, n = p.n;
+  const int g = lane;
+  const bool mine = g < kGroup && (mask & (1u << g));
+  if (p.obj == kCubic) {
+    float coef = 0.f;
+    for (int h = 0; h < kGroup; ++h) {
+      if (!(mask & (1u << h))) continue;
+      const float c =
+          sqrtf(sum_part(p.part + h * kParts * gridDim.x, kP1F, lane)) * p.cube_c / 2.f;
+      const float c0 = __shfl_sync(kFull, c, 0);
+      if (lane == h) coef = c0;
+    }
+    if (!mine) return;
+    const float* res = vec[g];
+    const float* x = pt(g);
+    for (long long j = gwarp; j < n; j += nwarps) body(g, j, (res[j] + p.b[j]) + coef * x[j]);
+    return;
+  }
+  const T* __restrict__ at = static_cast<const T*>(p.at);
+  for (long long j = gwarp; j < n; j += nwarps) {
+    float d[kGroup];
+    group_dot<T, VT>(at + j * m, vec, mask, m, lane, d);
+    const float dg = lane_row(d, lane);
+    if (mine) body(g, j, dg);
+  }
+}
+
+// K2c: the table's groups in turn, each group's rows in lockstep (above).
 template <typename T, int VA, int VT>
 __global__ void __launch_bounds__(kThreads, 1) resident_pg_sweep_kernel(const Problem p,
                                                                        const Rows r) {
-  __shared__ Solve s;
-  for (int row = 0; row < r.count; ++row) {
-    // also a block barrier: every thread is done with the previous row's s
-    if (row > 0) cg::this_grid().sync();
-    if (threadIdx.x == 0) {
-      s = Solve{r.f[2 * row],
-                r.f[2 * row + 1],
-                r.i[3 * row],
-                r.i[3 * row + 1],
-                r.i[3 * row + 2],
-                r.x_out + row * p.n,
-                r.stats + 4LL * row,
-                r.hist + 3LL * row * p.hist_len};
+  cg::grid_group grid = cg::this_grid();
+  __shared__ RowState st[kGroup];
+  __shared__ float wp[kGroup][kParts][kWarps];
+  __shared__ const float* vec[kGroup];
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long gtid = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long nthreads = static_cast<long long>(gridDim.x) * kThreads;
+  const long long m = p.m, n = p.n;
+  const long long hl = p.hist_len;
+  const int grid_n = gridDim.x;
+
+  for (int first = 0; first < r.count; first += kGroup) {
+    // also a block barrier: every thread is done with the previous group's st
+    if (first > 0) grid.sync();
+    const int G = min(kGroup, r.count - first);
+    if (threadIdx.x < G) {
+      const int row = first + threadIdx.x;
+      RowState& s = st[threadIdx.x];
+      s.gamma0 = r.f[2 * row];
+      s.tol = r.f[2 * row + 1];
+      s.rule = r.i[3 * row];
+      s.momentum = r.i[3 * row + 1];
+      s.cap = r.i[3 * row + 2];
+      s.gamma = s.g1 = s.gamma0;
+      s.g0 = s.rule == kMM ? f32_inf() : s.gamma0;
+      s.theta = s.beta = 0.f;
+      s.norm_res = f32_inf();
+      s.it = s.par = s.run = s.p3 = s.fin = s.conv = 0;
     }
     __syncthreads();
-    solve<T, VA, VT>(p, s);
+    // the group's elementwise work is spread over (row, coordinate) pairs, each
+    // pair always to the same thread
+    const long long pairs = G * n;
+    unsigned rule_rows = 0;
+    for (int g = 0; g < G; ++g) {
+      if (!st[g].momentum) rule_rows |= 1u << g;
+    }
+    for (long long t = gtid; t < pairs; t += nthreads) {
+      // x = x_prev = x0 for a momentum row (_solve_core :341-345); P0 reads them in
+      // the same thread
+      const int g = static_cast<int>(t / n);
+      const long long j = t - g * n;
+      if (st[g].momentum) p.xs[2 * n * g + j] = p.xs[2 * n * g + n + j] = p.x0[j];
+    }
+    if (rule_rows) {
+      // the rule rows' warm-up (_solve_core :224-226): P1 and the gradient at
+      // x0, the same bits for every rule row, computed once into the first's
+      // res and partials; then each row's v = x0 - gamma0 grad0, x = prox(v),
+      // x_prev = x0 and grad_prev = grad0
+      const unsigned one = rule_rows & (0u - rule_rows);
+      group_vectors(vec, one, [&](int) { return p.x0; });
+      group_p1<T, VA>(p, one, vec, wp);
+      grid.sync();
+      group_vectors(vec, one, [&](int g) { return p.res + g * m; });
+      group_grad<T, VT>(p, one, vec, [&](int) { return p.x0; },
+                        [&](int, long long j, float gj) {
+                          const float x0j = p.x0[j];
+                          for (int h = 0; h < G; ++h) {
+                            if (!(rule_rows & (1u << h))) continue;
+                            float* xs = p.xs + 2 * n * h;
+                            const float vj = x0j - st[h].gamma0 * gj;
+                            p.gs[2 * n * h + n + j] = gj;
+                            xs[n + j] = x0j;
+                            p.v[n * h + j] = vj;
+                            xs[j] = prox(p.prox, vj, st[h].gamma0, p.p1, p.p2);
+                          }
+                        });
+      grid.sync();
+    }
+
+    for (int iter = 0;; ++iter) {
+      // (A) each row's P3 (or, before the first iteration, its first stop test)
+      if (warp < G) {
+        RowState& s = st[warp];
+        const int ran = s.run;
+        __syncwarp();
+        if (iter == 0) {
+          if (lane == 0) {
+            const bool go = 0 < s.cap && f32_inf() > s.tol;
+            s.conv = f32_inf() <= s.tol;
+            s.run = go;
+            s.fin = !go;
+          }
+        } else if (ran) {
+          float sum[kParts];
+#pragma unroll
+          for (int k = 0; k < kParts; ++k)
+            sum[k] = sum_part(p.part + warp * kParts * grid_n, k, lane);
+          if (lane == 0) {
+            float norm_res;
+            if (s.momentum) {
+              norm_res = sqrtf(sum[kPrimal2]) / s.gamma;
+            } else {
+              norm_res = sqrtf(sum[kPrimal2]);
+              rule_update(s.rule, sum[kDg2], sum[kDgDx], sum[kDx2], s.gamma, s.g1, s.g0);
+            }
+            if (blockIdx.x == 0) {
+              // the record row: gamma, norm_res and f + g at the iterate the
+              // partials cover (the rule row's current x, the momentum row's x_new)
+              float* h = r.hist + 3LL * (first + warp) * hl;
+              h[s.it] = s.gamma;
+              h[hl + s.it] = norm_res;
+              h[2 * hl + s.it] =
+                  objective_of(p, sum[kRes2], sum[kObj]) + gval_of(p, sum[kAbsX], sum[kX2]);
+            }
+            ++s.it;
+            s.norm_res = norm_res;
+            const bool go = s.it < s.cap && norm_res > s.tol;  // a NaN residual stops
+            s.conv = norm_res <= s.tol;
+            s.run = go;
+            s.fin = !go;
+            s.p3 = 1;
+            s.par ^= 1;
+          }
+        } else if (lane == 0) {
+          s.fin = s.p3 = 0;
+        }
+        if (lane == 0 && s.run && s.momentum) {
+          // P0's scalars (_solve_core :270-272)
+          const float theta_next = (1.f + sqrtf(1.f + 4.f * s.theta * s.theta)) / 2.f;
+          s.beta = (s.theta - 1.f) / theta_next;
+          s.theta = theta_next;
+        }
+      }
+      __syncthreads();
+      for (long long t = gtid; t < pairs; t += nthreads) {
+        const int g = static_cast<int>(t / n);
+        const long long j = t - g * n;
+        const RowState& s = st[g];
+        float* xs = p.xs + 2 * n * g;
+        float* v = p.v + n * g;
+        const int par = s.par;
+        if (s.p3 && !s.momentum) {
+          // the rule row's prox step from x = xs[1 - par]; converged: the
+          // iterate at the check, not the extra prox step (:360-363)
+          const float xj = xs[(1 - par) * n + j];
+          const float vj = xj - s.gamma * p.gs[2 * n * g + (1 - par) * n + j];
+          v[j] = vj;
+          const float xn = prox(p.prox, vj, s.gamma, p.p1, p.p2);
+          xs[par * n + j] = xn;
+          if (s.fin) r.x_out[(first + g) * n + j] = s.conv ? xj : xn;
+        } else if (s.fin) {
+          // a momentum row at its check (x_new, returned either way), or a row
+          // that stops before its first iteration
+          r.x_out[(first + g) * n + j] = xs[par * n + j];
+        }
+        if (s.run && s.momentum) {
+          // P0: z = x + beta (x - x_prev)
+          const float xj = xs[par * n + j];
+          v[j] = xj + s.beta * (xj - xs[(1 - par) * n + j]);
+        }
+      }
+      unsigned running = 0, momentum_running = 0;
+      for (int g = 0; g < G; ++g) {
+        const RowState& s = st[g];
+        if (s.fin && blockIdx.x == 0) {
+          if (threadIdx.x == 0) {
+            float* stats = r.stats + 4LL * (first + g);
+            stats[0] = static_cast<float>(s.it);
+            stats[1] = s.norm_res;
+            stats[2] = s.gamma;
+            stats[3] = s.conv ? 1.f : 0.f;
+          }
+          // records are zero past numit
+          float* h = r.hist + 3LL * (first + g) * hl;
+          for (long long i = s.it + threadIdx.x; i < hl; i += kThreads) {
+            h[i] = 0.f;
+            h[hl + i] = 0.f;
+            h[2 * hl + i] = 0.f;
+          }
+        }
+        if (s.run) {
+          running |= 1u << g;
+          if (s.momentum) momentum_running |= 1u << g;
+        }
+      }
+      if (!running) break;
+      grid.sync();
+
+      // (B) P1 at x (rule rows) or z (momentum rows)
+      auto point = [&](int g) {
+        return st[g].momentum ? p.v + n * g : p.xs + 2 * n * g + st[g].par * n;
+      };
+      group_vectors(vec, running, point);
+      group_p1<T, VA>(p, running, vec, wp);
+      grid.sync();
+
+      // (C) P2: the gradient at the point of B and the partials
+      if (lane == 0) {
+        for (int g = 0; g < kGroup; ++g) {
+#pragma unroll
+          for (int k = kPrimal2; k < kParts; ++k) wp[g][k][warp] = 0.f;
+        }
+      }
+      group_vectors(vec, running, [&](int g) { return p.res + g * m; });
+      group_grad<T, VT>(p, running, vec, point, [&](int g, long long j, float gj) {
+        const RowState& s = st[g];
+        float* xs = p.xs + 2 * n * g;
+        const int par = s.par;
+        if (s.momentum) {
+          // x_new = prox(z - gamma grad) and the partials of ||x_new - z||^2,
+          // sum |x_new| and sum x_new^2
+          const float zj = p.v[n * g + j];
+          const float xn = prox(p.prox, zj - s.gamma * gj, s.gamma, p.p1, p.p2);
+          xs[(1 - par) * n + j] = xn;
+          const float d = xn - zj;
+          wp[g][kPrimal2][warp] += d * d;
+          wp[g][kAbsX][warp] += fabsf(xn);
+          wp[g][kX2][warp] += xn * xn;
+        } else {
+          float* gs = p.gs + 2 * n * g;
+          gs[par * n + j] = gj;
+          const float xj = xs[par * n + j];
+          const float primal = (p.v[n * g + j] - xj) / s.gamma + gj;
+          const float dg = gj - gs[(1 - par) * n + j];
+          const float dx = xj - xs[(1 - par) * n + j];
+          wp[g][kPrimal2][warp] += primal * primal;
+          wp[g][kDg2][warp] += dg * dg;
+          wp[g][kDgDx][warp] += dg * dx;
+          wp[g][kDx2][warp] += dx * dx;
+          wp[g][kAbsX][warp] += fabsf(xj);
+          wp[g][kX2][warp] += xj * xj;
+        }
+      });
+      group_partials(p.part, wp, running, kPrimal2, kParts);
+      grid.sync();
+
+      // (D) P1' at x_new: the momentum rows' objective (:276-280)
+      if (momentum_running) {
+        group_vectors(vec, momentum_running,
+                      [&](int g) { return p.xs + 2 * n * g + (1 - st[g].par) * n; });
+        group_p1<T, VA>(p, momentum_running, vec, wp);
+        grid.sync();
+      }
+    }
   }
 }
 
@@ -432,12 +927,14 @@ struct Batch {
   float* stats;        // (count, 4)
 };
 
-// K2b: the instances one after another, with a grid sync between two, as K2c
-// runs its rows; the instance's problem and arguments sit in shared memory
-// (K2c's reason). K2 keeps its own kernel: launched through this one over one
-// instance, K2's whole solve read 1.9% slower and its cubic iteration at 128^2
-// 2.3% (experiments/resident_timing.py on an H100, six runs of each build in
-// turns in one call), so the fold was not shown to be free.
+// K2b: the instances one after another, with a grid sync between two; the
+// instance's problem and arguments sit in shared memory (held in registers for
+// the whole solve, they pushed every instantiation past the 128 registers a
+// thread has here, into local memory; ptxas -v). K2 keeps its own kernel:
+// launched through this one over one instance, K2's whole solve read 1.9% slower
+// and its cubic iteration at 128^2 2.3% (experiments/resident_timing.py on an
+// H100, six runs of each build in turns in one call), so the fold was not shown
+// to be free.
 template <typename T, int VA, int VT>
 __global__ void __launch_bounds__(kThreads, 1) resident_pg_batch_kernel(const Problem p,
                                                                        const Batch bt) {
@@ -476,6 +973,9 @@ extern "C" {
 // Partials per CTA: part needs kParts floats for each CTA of the grid.
 int adaprox_resident_pg_parts() { return kParts; }
 
+// K2c's rows a lockstep group.
+int adaprox_resident_pg_group() { return kGroup; }
+
 // K2, one whole solve. obj_kind: 0 "ls", 1 "logreg" (at holds A^T / m_true;
 // obj_pad = (m - m_true) log 2, obj_div = m_true; both ignored otherwise), 2
 // "cubic" (m == n, b = q, cube_c = c; at is not read: pass a). a (m, n) and
@@ -505,10 +1005,13 @@ int adaprox_resident_pg(int obj_kind, float obj_pad, float obj_div, float cube_c
 }
 
 // K2c, the rule sweep: `rows` solves of one problem in one launch, in record
-// mode. rows_f (rows, 2): gamma0, tol; rows_i (rows, 3): rule, momentum, cap, on
-// the device; the caller has checked every rule in [0, 2] and every cap in
-// [0, maxit]. x_out (rows, n), stats (rows, 4), hist (rows, 3, maxit; null when
-// maxit is 0); the other arguments as for adaprox_resident_pg.
+// mode, in lockstep groups of at most kGroup rows. rows_f (rows, 2): gamma0, tol;
+// rows_i (rows, 3): rule, momentum, cap, on the device; the caller has checked
+// every rule in [0, 2] and every cap in [0, maxit]. x_out (rows, n), stats
+// (rows, 4), hist (rows, 3, maxit; null when maxit is 0). The scratch holds one
+// copy of K2's for each row of the largest group (G = min(rows, kGroup)): xs (G,
+// 2, n), gs (G, 2, n), v (G, n), res (G, m) and part (part_len >= G kParts SMs,
+// zeroed). The other arguments as for adaprox_resident_pg.
 int adaprox_resident_pg_sweep(int obj_kind, float obj_pad, float obj_div, float cube_c,
                               const void* a,
                               const void* at, int a_is_bf16, int va, int vt, const float* b,
@@ -525,7 +1028,8 @@ int adaprox_resident_pg_sweep(int obj_kind, float obj_pad, float obj_div, float 
   Problem prob{a, at, b, x0, xs, gs, v, res, part, m, n, maxit, p1,
                p2, obj_pad, obj_div, cube_c, obj_kind, prox_kind, 1};
   Rows r{rows_f, rows_i, rows, x_out, stats, hist};
-  return static_cast<int>(launch(kernel, prob, &r, kParts, part_len, stream_ptr));
+  return static_cast<int>(
+      launch(kernel, prob, &r, kParts * (rows < kGroup ? rows : kGroup), part_len, stream_ptr));
 }
 
 // K2b, the batch: `count` independent solves in one launch, without records.

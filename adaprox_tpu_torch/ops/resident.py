@@ -17,9 +17,11 @@ elastic / zero, and the record mode that returns per-iteration histories.
 Here both kernels are hand-written CUDA C++ for Hopper
 (``csrc/resident_pg.cu``): one cooperative launch with grid-wide barriers
 between the phases of an iteration, built with nvcc for ``sm_90a`` at first
-use and loaded with ctypes, like K1 (``ops/kernels.py``). K2 and K2c run the
-same device routine, so a sweep row equals the single solve with its
-arguments bit for bit.
+use and loaded with ctypes, like K1 (``ops/kernels.py``). K2c runs the rows of
+a sweep in lockstep groups (``k2c_plan``) on K2's grid, each pass over A and
+each grid sync shared by the rows of a group; each row keeps K2's order of
+every sum, so a sweep row equals the single solve with its arguments bit for
+bit.
 
 Both entries dispatch on where their tensors lie: CPU tensors take the plain
 versions ``resident_adapgm_plain`` / ``resident_rule_sweep_plain`` (Python
@@ -41,7 +43,7 @@ from . import kernels
 __all__ = ["resident_supported", "resident_adapgm", "resident_adapgm_plain",
            "resident_adapgm_l1", "resident_logreg_l1", "resident_rule_sweep",
            "resident_rule_sweep_plain", "rule_rows", "resident_records",
-           "resident_adapgm_batch", "resident_adapgm_batch_plain", "build_library"]
+           "resident_adapgm_batch", "resident_adapgm_batch_plain", "build_library", "k2c_plan"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_pg.cu"
 # -fmad=false: every elementwise expression rounds after each operation, as the
@@ -260,13 +262,14 @@ def build_library():
     return kernels.build_library(SOURCE, NVCC_FLAGS)
 
 
-def _library():
+def _library(source=SOURCE):
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     # obj_kind .. part_len, the leading arguments of the three entries
     problem = [i, f, f, f, p, p, i, i, i, p, p, p, p, p, p, p, ll]
-    return kernels.load_library(SOURCE, NVCC_FLAGS, {
+    return kernels.load_library(source, NVCC_FLAGS, {
         "adaprox_resident_pg_parts": ([], i),
         "adaprox_resident_pg": (problem + [p, p, p, ll, ll, i, f, f, f, f, i, i, i, i, p], i),
+        "adaprox_resident_pg_group": ([], i),
         "adaprox_resident_pg_sweep": (problem + [p, p, i, p, p, p, ll, ll, i, f, f, i, p], i),
         "adaprox_resident_pg_batch": (problem + [ll, ll, p, i, p, p, ll, ll, i, i, i, i, p], i),
         "adaprox_resident_pg_error_string": ([i], ctypes.c_char_p)})
@@ -284,10 +287,11 @@ def _vec(rows_len, dtype, ptr):
     return vec if rows_len % vec == 0 and ptr % 16 == 0 else 1
 
 
-def _problem(parts, a, b, x0, obj_kind, m_true, cube_c, what, res_bufs=1):
+def _problem(parts, a, b, x0, obj_kind, m_true, cube_c, what, res_bufs=1, copies=1):
     """Check what the kernels take, and make the second layout of A and the
     scratch of one launch (on the current device), with ``parts`` partial
-    sums a CTA and ``res_bufs`` buffers of length m. A batch (K2b) passes a
+    sums a CTA and ``res_bufs`` buffers of length m, ``copies`` times over (K2c:
+    one copy for each row of a lockstep group). A batch (K2b) passes a
     (B, m, n) A, b (B, m) and x0 (B, n), whose instances share the scratch;
     its A may be one contiguous (m, n) A expanded over B (batch stride 0),
     which is read from that one copy, with one A^T. Returns the leading
@@ -313,12 +317,12 @@ def _problem(parts, a, b, x0, obj_kind, m_true, cube_c, what, res_bufs=1):
     at = _transposed(a_one, obj_kind, m_true).contiguous()
     va, vt = _vec(n, a.dtype, a_one.data_ptr()), _vec(m, a.dtype, at.data_ptr())
     f32 = dict(dtype=torch.float32, device=dev)
-    xs, gs = torch.empty((2, n), **f32), torch.empty((2, n), **f32)
-    v, res = torch.empty(n, **f32), torch.empty(res_bufs * m, **f32)
+    xs, gs = torch.empty((copies, 2, n), **f32), torch.empty((copies, 2, n), **f32)
+    v, res = torch.empty((copies, n), **f32), torch.empty(copies * res_bufs * m, **f32)
     # the launcher sizes the grid, at most one CTA per SM
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # zeroed: "ls" and "logreg" never write the cubic objective's slot, which P3 sums
-    part = torch.zeros(parts * sms, **f32)
+    part = torch.zeros(copies * parts * sms, **f32)
     tensors = (a_one, at, b, x0, xs, gs, v, res, part)
     args = [_OBJ_IDX[obj_kind], pad_rows * math.log(2.0), m_div, float(cube_c), a_one.data_ptr(),
             at.data_ptr(),
@@ -328,8 +332,9 @@ def _problem(parts, a, b, x0, obj_kind, m_true, cube_c, what, res_bufs=1):
 
 
 def _launch(a, b, x0, gamma0, tol, maxit, prox_kind, p1, p2, rule_kind, momentum, record,
-            obj_kind, m_true, cube_c):
-    lib = _library()
+            obj_kind, m_true, cube_c, lib=None):
+    """One K2 launch on checked inputs, from ``lib`` (default: the build of SOURCE)."""
+    lib = lib or _library()
     dev = a.device
     n = a.shape[1]
     with torch.cuda.device(dev):
@@ -487,28 +492,91 @@ def resident_rule_sweep_plain(a, b, x0, rows, maxit, prox_kind="l1", p1=0.0, p2=
     return tuple(torch.stack([o[k] for o in outs]) for k in range(4)) + (hists,)
 
 
-def _launch_sweep(a, b, x0, rows, maxit, prox_kind, p1, p2, obj_kind, m_true, cube_c):
-    lib = _library()
+# K2c's plan (csrc/resident_pg.cu): the rows go in lockstep groups of K2C_GROUP in table
+# order; a phase's dots take the running rows two at a time over each row of A or A^T.
+K2C_GROUP = 8             # kGroup
+K2C_PARTS = 8             # kParts: partial sums a row a CTA
+K2C_WARPS = 16            # kWarps: warps a CTA (512 threads)
+K2C_PLAN_KEYS = ("groups", "syncs", "row_passes", "grid", "scratch", "a_bytes")
+
+
+def k2c_plan(rows, m, n, itemsize, sms):
+    """K2c's launch for the (R, 5) ``rows`` table ([gamma0, rule_idx, momentum, tol, cap])
+    at (m, n) with A's ``itemsize`` (4: f32, 2: bf16) on a card of ``sms`` SMs: a dict of
+    ``K2C_PLAN_KEYS``.
+
+    * ``groups``: the rows' indices in lockstep groups of at most K2C_GROUP, in table order;
+    * ``syncs``: per group, the grid syncs of a lockstep iteration: 4 while a momentum row
+      runs (its P1' at x_new), else 3, for the whole group;
+    * ``row_passes``: per group, the passes a phase takes over each row of A (or A^T) while
+      every row of the group runs: one a pair of rows (the first from the L2, the rest from
+      the L1);
+    * ``grid``: K2's grid for the shape, min(ceil(max(m, n) / 16), sms);
+    * ``scratch``: the shapes the wrapper allocates: K2's scratch once for each row of the
+      first (largest) group, ``part`` K2C_PARTS x that x ``sms`` floats;
+    * ``a_bytes``: the bytes of A, which a phase reads from the L2 once for the group.
+
+    Only ``grid`` and the ``part`` scratch follow ``sms``. The arithmetic of each row does
+    not follow the plan at all: K2c's row g runs K2's sums in K2's order on K2's grid, so its
+    bits depend on (m, n, dtype) and its own arguments, not on its group, its place there or
+    the rows beside it."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"K2c stores A as float32 or bfloat16, got itemsize {itemsize}")
+    if m < 1 or n < 1 or sms < 1:
+        raise ValueError(f"K2c needs m, n, sms >= 1, got {m}, {n}, {sms}")
+    table = np.asarray(rows.cpu() if isinstance(rows, torch.Tensor) else rows, dtype=np.float64)
+    if table.ndim != 2 or table.shape[0] < 1 or table.shape[1] != 5:
+        raise ValueError(f"rows must be (R >= 1, 5), got {table.shape}")
+    count = table.shape[0]
+    groups = [list(range(s, min(count, s + K2C_GROUP))) for s in range(0, count, K2C_GROUP)]
+    g0 = len(groups[0])
+    return dict(groups=groups,
+                syncs=[4 if any(table[j, 2] > 0 for j in grp) else 3 for grp in groups],
+                row_passes=[-(-len(grp) // 2) for grp in groups],
+                grid=min(-(-max(m, n) // K2C_WARPS), sms),
+                scratch=dict(xs=(g0, 2, n), gs=(g0, 2, n), v=(g0, n), res=(g0, m),
+                             part=g0 * K2C_PARTS * sms),
+                a_bytes=m * n * itemsize)
+
+
+def _launch_sweep(a, b, x0, rows, maxit, prox_kind, p1, p2, obj_kind, m_true, cube_c,
+                  lib=None):
+    """One K2c launch on checked inputs, from ``lib`` (default: the build of SOURCE), with
+    K2's scratch once for each row of the largest group (``k2c_plan``'s ``scratch``)."""
+    lib = lib or _library()
     dev = a.device
-    n = a.shape[1]
+    m, n = a.shape
     count = rows.shape[0]
     with torch.cuda.device(dev):
+        if lib.adaprox_resident_pg_group() != K2C_GROUP:
+            raise RuntimeError("csrc/resident_pg.cu's kGroup differs from K2C_GROUP")
         # keep: the tensors behind args
         args, keep = _problem(lib.adaprox_resident_pg_parts(), a, b, x0, obj_kind, m_true,
-                              cube_c, "K2c")
-        rows_f = rows[:, [0, 3]].to(device=dev, dtype=torch.float32).contiguous()
-        rows_i = torch.stack([rows[:, 1], (rows[:, 2] > 0).to(rows.dtype), rows[:, 4]], 1)
-        rows_i = rows_i.to(device=dev, dtype=torch.int32).contiguous()
-        f32 = dict(dtype=torch.float32, device=dev)
-        x_out, stats = torch.empty((count, n), **f32), torch.empty((count, 4), **f32)
-        hist = torch.empty((count, 3, maxit), **f32)
+                              cube_c, "K2c", copies=min(count, K2C_GROUP))
+        rows_f, rows_i, x_out, stats, hist = _sweep_buffers(rows, maxit, n, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.adaprox_resident_pg_sweep(
             *args, rows_f.data_ptr(), rows_i.data_ptr(), count, x_out.data_ptr(),
-            stats.data_ptr(), hist.data_ptr() if maxit else None, *a.shape, maxit, float(p1),
+            stats.data_ptr(), hist.data_ptr() if maxit else None, m, n, maxit, float(p1),
             float(p2), _PROX_IDX[prox_kind], stream)
     _raise_on(lib, err, "K2c launch")
     resident_rule_sweep.launches += 1
+    return _sweep_result(x_out, stats, hist)
+
+
+def _sweep_buffers(rows, maxit, n, dev):
+    """K2c's checked rows table on the device, (gamma0, tol) as f32 and (rule, momentum,
+    cap) as int32, and its outputs x_out (R, n), stats (R, 4), hist (R, 3, maxit)."""
+    rows_f = rows[:, [0, 3]].to(device=dev, dtype=torch.float32).contiguous()
+    rows_i = torch.stack([rows[:, 1], (rows[:, 2] > 0).to(rows.dtype), rows[:, 4]], 1)
+    rows_i = rows_i.to(device=dev, dtype=torch.int32).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    count = rows.shape[0]
+    return (rows_f, rows_i, torch.empty((count, n), **f32), torch.empty((count, 4), **f32),
+            torch.empty((count, 3, maxit), **f32))
+
+
+def _sweep_result(x_out, stats, hist):
     return (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 3] > 0,
             (hist[:, 0], hist[:, 1], hist[:, 2]))
 
@@ -594,8 +662,10 @@ def resident_adapgm_batch_plain(a, b, x0, scal, maxit, prox_kind="l1", rule_kind
     return tuple(torch.stack([o[k] for o in outs]) for k in range(4))
 
 
-def _launch_batch(a, b, x0, scal, maxit, prox_kind, rule_kind, momentum, obj_kind, m_true):
-    lib = _library()
+def _launch_batch(a, b, x0, scal, maxit, prox_kind, rule_kind, momentum, obj_kind, m_true,
+                  lib=None):
+    """One K2b launch on checked inputs, from ``lib`` (default: the build of SOURCE)."""
+    lib = lib or _library()
     dev = a.device
     bsz, m, n = a.shape
     with torch.cuda.device(dev):

@@ -31,7 +31,11 @@ Phases, one line each, any failure exits non-zero:
                the same bits; K2 with the logistic objective against its plain
                version on mushrooms' padded [X 1] (cases k-m: the rule and
                momentum bodies, f32 and bf16, padded rows) and K2c's logistic
-               rows bit for bit against single K2 launches (case n)
+               rows bit for bit against single K2 launches (case n); K2c's
+               lockstep groups (ops/resident.py::k2c_plan) bit for bit against
+               single K2 launches: ten rows at 4096x1024 in two groups, f32 and
+               bf16 (case y), one mixed group with the cubic objective at 128^2
+               and with the logistic one at 8128x128 (case z)
   4. driver:   the lasso driver at the reference size 4000x1000x10, with
                --fused (the main path through K1, the backtracking trials and
                aGRAAL included) and with --resident (the four rule rows in one
@@ -110,7 +114,7 @@ Phases, one line each, any failure exits non-zero:
                driver's own inputs); the plain versions timed on heart_scale C 0.1
                (K6b's cut to PD_PLAIN_CUT iterations, beside K6b there); K6a's own
                path (one solve, counted); the
-               engine path at --maxit 300 on heart_scale and svmguide3, the
+               engine path at --maxit 150 on heart_scale and svmguide3, the
                Malitsky-Pock rows included (no K6 launch); the PD iteration at
                1280^2, 384^2 and 8192x128, f32 and bf16, with its layout, beside
                the cooperative kernel's (PERF.md) and K2's; the phase's wall
@@ -151,7 +155,7 @@ Phases, one line each, any failure exits non-zero:
                calibrated bound of an f64 CPU run, the sweeps timed with their bounds
                beside the cooperative kernel's PR 13 times, non-finite gamma/sigma/norm_res
                counted); both drivers' engine paths at
-               --maxit 300 on housing_scale (31 finite rows, no K7d or K7a launch); K7d
+               --maxit 150 on housing_scale (31 finite rows, no K7d or K7a launch); K7d
                and K7a against their plain versions timed on the driver's
                cpusmall_scale call (K7a cut to K7A_CUT iterations), and the K7d and K7a
                iterations beside K6d's (K7a's on one cluster); the phase's wall
@@ -179,7 +183,7 @@ Phases, one line each, any failure exits non-zero:
                every prox kind (l1, box, elastic, zero), two launches the same bits; each
                shape timed eager and in a CUDA graph (the device time) beside the plain
                version, the two torch.mv it replaces and its bound; both f = 0 drivers
-               --fused on the three stand-ins at --maxit 300 (cut from 5000: the 30
+               --fused on the three stand-ins at --maxit 150 (cut from 5000: the 30
                t-sweep rows run on the engine): the Condat-Vu row on K5, exactly 1 + numit
                launches a solve and no other kernel, JAX's 31 rows and meta rows
                (fast_path "fused", fast_methods ["Condat-Vu"]), all finite;
@@ -459,7 +463,7 @@ PD_CONVERGED_YX = 2e-5
 PD_YX_BOUND = {("heart_scale", 0.1): 0.018, ("heart_scale", 1.0): 0.51,
                ("svmguide3", 0.1): 0.25, ("svmguide3", 1.0): 0.055,
                ("mushrooms", 0.1): 0.19, ("mushrooms", 1.0): 4.8}
-PD_ENGINE_MAXIT = 300
+PD_ENGINE_MAXIT = 150
 # the depth at which K6b's plain sweep (a host sync an iteration) is timed beside K6b
 PD_PLAIN_CUT = 1000
 # the cooperative kernels K6b and K6c ran before their rows went onto clusters (PERF.md
@@ -521,7 +525,7 @@ K7D_OBJ_RTOL = 1e-5
 JAX_F0_FAST_METHODS = ["Condat-Vu", "Malitsky-Pock t-sweep", "AdaPDM+ t-sweep"]
 F0_DATASETS = ("housing_scale", "abalone", "cpusmall_scale")
 F0_DRIVERS = ("square_root_lasso", "least_absolute_deviation")
-F0_ENGINE_MAXIT = 300
+F0_ENGINE_MAXIT = 150
 # the drivers' sweeps and grids by CUDA events on the cooperative kernels K7a/K7b ran before
 # their cells went onto clusters (PR 13's final tree, PERF.md section 6; H100 80GB HBM3,
 # 700.00 W), ms: {(driver, dataset or "grid"): (MP, AdaPDM+)}, printed beside this run's
@@ -709,6 +713,28 @@ def menu_horizon(rule):
     return (30, K2_FIXED_RTOL) if rule == "fixed" else (K2_HORIZON[rule], K2_CASE_A_RTOL[rule])
 
 
+def same_bits(u, w):
+    """torch.equal on the bits of float32 tensors (NaN == NaN, -0 != 0)."""
+    return torch.equal(u.view(torch.int32) if u.dtype == torch.float32 else u,
+                       w.view(torch.int32) if w.dtype == torch.float32 else w)
+
+
+def k2c_rows_are_k2(resident, a, b, x0, specs, maxit, **kw):
+    """One K2c sweep of ``specs`` and whether each row is its single K2 launch bit for bit
+    (x, numit, norm_res, converged, the histories, zero past the cap)."""
+    out = resident.resident_rule_sweep(a, b, x0, resident.rule_rows(specs), 0.0, maxit, **kw)
+    same = True
+    for j, (g0, rule, mom, tol, cap) in enumerate(specs):
+        one = resident.resident_adapgm(a, b, x0, g0, tol, cap, rule_kind=rule, momentum=mom,
+                                       record=True, **kw)
+        row = sweep_row(out, j)
+        same &= all(same_bits(u, w) for u, w in zip(row[:4], one[:4]))
+        same &= all(same_bits(u[:cap], w) for u, w in zip(row[4:], one[4:]))
+        same &= not any(bool(u[cap:].any()) for u in row[4:])
+    torch.cuda.synchronize()
+    return out, same
+
+
 def k2c_checks(resident, ref, smi):
     """Phase 3, K2c at the padded reference size: cases (g)-(j)."""
     a, b, x0, gam = ref["a"], ref["b"], ref["x0"], ref["gam"]
@@ -750,17 +776,7 @@ def k2c_checks(resident, ref, smi):
     specs = [(gam, rule, mom, 1e-4, 4000) for _, rule, mom in MENU]
     specs.append((gam, "adapgm", False, 0.0, 100))
     for a_ in (a, a.to(torch.bfloat16)):
-        out = resident.resident_rule_sweep(a_, b, x0, resident.rule_rows(specs), 0.0, 4000,
-                                           p1=1.0)
-        same = True
-        for j, (g0, rule, mom, tol, cap) in enumerate(specs):
-            one = resident.resident_adapgm(a_, b, x0, g0, tol, cap, p1=1.0, rule_kind=rule,
-                                           momentum=mom, record=True)
-            row = sweep_row(out, j)
-            same &= all(torch.equal(u, w) for u, w in zip(row[:4], one[:4]))
-            same &= all(torch.equal(u[:cap], w) for u, w in zip(row[4:], one[4:]))
-            same &= not any(bool(u[cap:].any()) for u in row[4:])
-        torch.cuda.synchronize()
+        out, same = k2c_rows_are_k2(resident, a_, b, x0, specs, 4000, p1=1.0)
         print(f"[kernels] K2c (i) 4096x1024 {str(a_.dtype)[6:]}: numit {out[1].tolist()}, "
               f"every row the same bits as its single K2 launch: {same}", flush=True)
         check(same, "K2c (i): a sweep row differs from its single K2 launch")
@@ -942,19 +958,53 @@ def k2_logreg_checks(resident, d, smi):
     # K2 launch, f32 and bf16 storage
     specs = rule_specs(gam, 1e-7, 200)
     for a_ in (a, a.to(torch.bfloat16)):
-        out = resident.resident_rule_sweep(a_, b, x0, resident.rule_rows(specs), 1e-7, 2000, **kw)
-        same = True
-        for j, (g0, rule, mom, tol, cap) in enumerate(specs):
-            one = resident.resident_adapgm(a_, b, x0, g0, tol, cap, rule_kind=rule, momentum=mom,
-                                           record=True, **kw)
-            row = sweep_row(out, j)
-            same &= all(torch.equal(u, w) for u, w in zip(row[:4], one[:4]))
-            same &= all(torch.equal(u[:cap], w) for u, w in zip(row[4:], one[4:]))
-        torch.cuda.synchronize()
+        out, same = k2c_rows_are_k2(resident, a_, b, x0, specs, 2000, **kw)
         print(f"[kernels] K2c logreg (n) mushrooms 8128x128 {str(a_.dtype)[6:]}: numit "
               f"{out[1].tolist()}, every row the same bits as its single K2 launch: {same}",
               flush=True)
         check(same, "K2c logreg (n): a sweep row differs from its single K2 launch")
+
+
+def k2c_lockstep_checks(resident, ref, logreg, dev, smi):
+    """Phase 3, K2c's lockstep groups (cases y, z): every row of a table that spans two
+    groups, and of mixed groups with the cubic and the logistic objective, is its single
+    K2 launch bit for bit."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def mixed(gam, tol):
+        # rule and momentum rows, a cap of 0, tol inf (no iteration), a row run to its cap
+        return [(gam, "fixed", False, tol, 300), (gam, "fixed", True, tol, 400),
+                (gam, "mm", False, tol, 400), (gam, "adapgm", False, tol, 400),
+                (gam, "adapgm", False, tol, 0), (gam, "mm", False, math.inf, 400),
+                (2 * gam, "adapgm", False, 0.0, 57), (0.5 * gam, "fixed", True, 10 * tol, 400)]
+
+    # (y) ten rows at the padded reference size: two groups (8 + 2), f32 and bf16
+    a, b, x0, gam = ref["a"], ref["b"], ref["x0"], ref["gam"]
+    specs = mixed(gam, 1e-4) + [(1.5 * gam, "adapgm", False, 1e-5, 400),
+                                (gam, "fixed", True, 1e-5, 250)]
+    plan = resident.k2c_plan(resident.rule_rows(specs), *a.shape, 4, sms)
+    for a_ in (a, a.to(torch.bfloat16)):
+        out, same = k2c_rows_are_k2(resident, a_, b, x0, specs, 400, p1=1.0)
+        print(f"[kernels] K2c (y) 4096x1024 {str(a_.dtype)[6:]}, 10 rows: groups "
+              f"{plan['groups']}, grid syncs an iteration {plan['syncs']}, passes a row of A "
+              f"{plan['row_passes']}; numit {out[1].tolist()}; every row the same bits as its "
+              f"single K2 launch: {same} ({smi})", flush=True)
+        check(same, "K2c (y): a row of a two-group table differs from its single K2 launch")
+
+    # (z) one mixed group with the cubic objective (the worst case, c = 0, at 128^2) and
+    # with the logistic one (mushrooms' [X 1] at 8128x128)
+    h, q, c, gam_h, _ = cubic_inputs("worst", dev)
+    lkw = dict(prox_kind="l1", p1=0.01, obj_kind="logreg", m_true=logreg["m_true"])
+    cases = {"cubic 128x128": (h, q, mixed(gam_h, 1e-6),
+                               dict(prox_kind="zero", obj_kind="cubic", cube_c=c)),
+             "logreg 8128x128": (logreg["a"], logreg["b"], mixed(logreg["gam"], 1e-7), lkw)}
+    for name, (a_, b_, specs, kw) in cases.items():
+        x0_ = torch.zeros(a_.shape[1], device=dev)
+        out, same = k2c_rows_are_k2(resident, a_, b_, x0_, specs, 400, **kw)
+        print(f"[kernels] K2c (z) {name} f32, one group of {len(specs)} mixed rows: numit "
+              f"{out[1].tolist()}; every row the same bits as its single K2 launch: {same} "
+              f"({smi})", flush=True)
+        check(same, f"K2c (z) {name}: a row of a mixed group differs from its single K2 launch")
 
 
 def logreg_menu_checks(name, got, want, smi):
@@ -1223,18 +1273,12 @@ def cubic_checks(resident, dev, smi):
         else:
             specs = cubic_sparse_logreg.rule_specs(gam, 1e-7, maxit // 10)
         kw = dict(prox_kind="zero", obj_kind="cubic", cube_c=c)
-        runs = [resident.resident_rule_sweep(h, q, x0, resident.rule_rows(specs), 0.0, maxit,
-                                             **kw) for _ in range(2)]
-        same = all(torch.equal(u, w) for u, w in zip(sweep_row(runs[0], slice(None)),
-                                                      sweep_row(runs[1], slice(None))))
-        for j, (g0, rule, mom, tol, cap) in enumerate(specs):
-            one = resident.resident_adapgm(h, q, x0, g0, tol, cap, rule_kind=rule, momentum=mom,
-                                           record=True, **kw)
-            row = sweep_row(runs[0], j)
-            same &= all(torch.equal(u, w) for u, w in zip(row[:4], one[:4]))
-            same &= all(torch.equal(u[:cap], w) for u, w in zip(row[4:], one[4:]))
-        torch.cuda.synchronize()
-        print(f"[cubic] K2c (r) {name} f32: numit {runs[0][1].tolist()}, every row the same bits "
+        out, same = k2c_rows_are_k2(resident, h, q, x0, specs, maxit, **kw)
+        again = resident.resident_rule_sweep(h, q, x0, resident.rule_rows(specs), 0.0, maxit,
+                                             **kw)
+        same &= all(same_bits(u, w) for u, w in zip(sweep_row(out, slice(None)),
+                                                    sweep_row(again, slice(None))))
+        print(f"[cubic] K2c (r) {name} f32: numit {out[1].tolist()}, every row the same bits "
               f"as its single K2 launch, and two launches the same bits: {same}", flush=True)
         check(same, f"K2c cubic (r) {name}: a sweep row differs from its single K2 launch")
     return models
@@ -2023,7 +2067,7 @@ def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
     at its defaults on the three stand-ins x C 0.1 and 1 (one K6b, one K6c and one K6d
     launch each, every row's x in the box and |y'x| within its bound), the K6b, K6c and
     K6d times on each; K6a's own path (one solve, counted); the engine path at
-    --maxit 300; the PD iteration beside K2's. Returns the kernels line's
+    --maxit PD_ENGINE_MAXIT; the PD iteration beside K2's. Returns the kernels line's
     measurements and the driver's K6c calls."""
     from adaprox_tpu_torch.experiments import dual_svm
     from adaprox_tpu_torch.utils.logging import read_jsonl
@@ -2183,7 +2227,8 @@ def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
           f"launches {single} ({smi})", flush=True)
     check(bool(one[3]) and not bool(one[0][n:].any()), "K6a single solve: not converged")
 
-    # the engine path, depth cut to --maxit 300 (it syncs every iteration): no K6 launch
+    # the engine path, depth cut to --maxit PD_ENGINE_MAXIT (it syncs every iteration): no
+    # K6 launch
     outdir = os.path.join("results", "chip_smoke", "dual_svm_engine")
     zero_counts()
     dual_svm.main(["--datasets", "heart_scale,svmguide3", "--maxit", str(PD_ENGINE_MAXIT),
@@ -2426,12 +2471,17 @@ def f0_checks(resident_f0, dev, smi):
                 a, bv, n = inp["a"].to(dtype), inp["bv"], inp["n"]
                 parts = []
                 ok = True
+                want = None
                 for tol in (-1.0, 1e-5):
                     args = (a, bv, inp["lam"], inp["gamma"], inp["sigma"], tol, 5000)
                     got = resident_f0.resident_condat_vu(*args, record=True, h_kind=h_kind)
                     again = resident_f0.resident_condat_vu(*args, record=True, h_kind=h_kind)
-                    want = resident_f0.resident_condat_vu_plain(*args, record=True,
-                                                                h_kind=h_kind)
+                    # the plain run at tol 1e-5 is the tol -1 run itself where that run's
+                    # residual never fell to the tol (the plain loop stops only there)
+                    if want is None or not bool(
+                            (want[4][0] > torch.tensor(tol, dtype=want[4][0].dtype)).all()):
+                        want = resident_f0.resident_condat_vu_plain(*args, record=True,
+                                                                    h_kind=h_kind)
                     torch.cuda.synchronize()
                     same = (all(torch.equal(u, w) for u, w in zip(got[:4], again[:4]))
                             and all(torch.equal(u, w) for u, w in zip(got[4], again[4])))
@@ -2726,8 +2776,8 @@ def f0_phase(resident_f0, resident_pd, counting, dev, smi):
               f"converged rows {K7A_DRIVER_OBJ_RTOL[h_kind]:g}; CPU-calibrated) ({smi})",
               flush=True)
 
-    # the engine path, depth cut from 5000 to 300 (a host sync an iteration, the
-    # linesearch rows one a trial): no K7d or K7a launch, 31 finite rows
+    # the engine path, depth cut from 5000 to F0_ENGINE_MAXIT (a host sync an iteration,
+    # the linesearch rows one a trial): no K7d or K7a launch, 31 finite rows
     for driver, mod in drivers.items():
         outdir = os.path.join("results", "chip_smoke", f"{driver}_engine")
         zero_counts()
@@ -3179,7 +3229,7 @@ def grid_phase(resident_f0, resident_pd, f0_meas, counting, dev, smi):
 
 # the f = 0 drivers' --fused depth: cut from 5000 so that phase 15 stays short (the 30
 # t-sweep rows run on the engine, a host sync an iteration and one a trial)
-FUSED_DRIVER_MAXIT = 300
+FUSED_DRIVER_MAXIT = 150
 # fused_condat_vu's final objective at the drivers' defaults (tol 1e-5, maxit 5000) against
 # phase 13's f64 CPU Condat-Vu. Calibrated on the CPU with the fused solver's plain path in
 # f32 against that f64 run on the three stand-ins, l2 and l1: at most 3.71e-7 of the
@@ -4054,6 +4104,7 @@ def main():
     k3_meas = k3_checks(kernels, big, dev, smi)
     logreg = logreg_inputs("mushrooms", dev)
     k2_logreg_checks(resident, logreg, smi)
+    k2c_lockstep_checks(resident, ref, logreg, dev, smi)
 
     # 4. the driver (main path) ----------------------------------------------
     def zero_counts():

@@ -374,28 +374,106 @@ def sweep_case(dev, m, n, dtype, seed=0):
     return a.to(dtype), b, torch.zeros(n, device=dev), specs, lam
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,n", [(4096, 1024), (1000, 300), (64, 128)])
-def test_k2c_rows_equal_single_k2_launches(dev, m, n, dtype):
-    """K2 and K2c run one device routine on the same grid: row j of a sweep
-    is the single K2 launch with row j's arguments, bit for bit."""
-    a, b, x0, specs, lam = sweep_case(dev, m, n, dtype)
-    before = tr.resident_rule_sweep.launches
-    xs, its, res, conv, hists = tr.resident_rule_sweep(a, b, x0, tr.rule_rows(specs), 0.0, 400,
-                                                       p1=lam)
-    torch.cuda.synchronize()
-    assert tr.resident_rule_sweep.launches == before + 1
-    assert xs.shape == (len(specs), n) and all(h.shape == (len(specs), 400) for h in hists)
+def _bits(t):
+    """A tensor's bits: float32 as int32 (torch.equal takes NaN != NaN and -0 == 0)."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _k2c_problem(dev, problem, dtype):
+    """(A in ``dtype``, b, x0, gamma0, the sweep's keywords) of a K2c card case: least
+    squares (l1, lam a tenth of |A'b|_inf, gamma0 1/||A||^2) at "ls MxN", mushrooms' [X 1]
+    shape with the logistic objective ("logreg 8128x128"), or the cubic model of a logistic
+    Hessian, c = 1 ("cubic 128": 113 coordinates padded to 128; "cubic 301")."""
+    kind, shape = problem.split()
+    if kind == "logreg":
+        a, b, gam = logreg_problem(dev, 8124, 112, 8128, 128, seed=4)
+        kw = dict(prox_kind="l1", p1=0.01, obj_kind="logreg", m_true=8124.0)
+    elif kind == "cubic":
+        n = int(shape)
+        a, b, gam = cubic_problem(dev, 113 if n == 128 else n, n, 1.0, seed=4)
+        kw = dict(prox_kind="zero", obj_kind="cubic", cube_c=1.0)
+    else:
+        m, n = map(int, shape.split("x"))
+        a, b, _ = _inputs(dev, m, n, torch.float32)
+        gam = 1.0 / float(torch.linalg.matrix_norm(a.double(), 2) ** 2)
+        kw = dict(p1=0.1 * float((a.t() @ b).abs().max()))
+    return a.to(dtype), b, torch.zeros(a.shape[1], device=dev), gam, kw
+
+
+# K2c's card table: rule and momentum rows, a cap under maxit, tol 0 (runs to its cap), a cap
+# of 0, tol inf (stops before its first iteration), gamma0 NaN (a NaN residual at its first
+# check stops it) and a momentum row at a smaller step; longer tables cycle through them with
+# larger steps. maxit K2C_MAXIT.
+K2C_MAXIT = 400
+K2C_BASE = [(1.0, "fixed", False, 1e-5, 150), (1.0, "fixed", True, 1e-5, 400),
+            (1.0, "mm", False, 1e-5, 400), (1.0, "adapgm", False, 1e-5, 400),
+            (2.0, "adapgm", False, 0.0, 37), (1.0, "fixed", True, 1e-3, 400),
+            (1.0, "adapgm", False, 1e-5, 0), (1.0, "mm", False, math.inf, 400),
+            (math.nan, "adapgm", False, 1e-5, 400), (0.5, "fixed", True, 1e-4, 300)]
+K2C_PROBLEMS = ["ls 4096x1024", "ls 1000x300", "ls 64x128", "logreg 8128x128", "cubic 128",
+                "cubic 301"]
+
+
+def k2c_specs(gam, count):
+    """``count`` rows of K2C_BASE in turn, the steps in units of ``gam``, each lap 25% larger."""
+    specs = []
+    for j in range(count):
+        scale, rule, mom, tol, cap = K2C_BASE[j % len(K2C_BASE)]
+        specs.append((scale * gam * (1 + 0.25 * (j // len(K2C_BASE))), rule, mom, tol, cap))
+    return specs
+
+
+def _assert_rows_are_k2_launches(a, b, x0, specs, out, **kw):
+    """Every row of the sweep ``out`` is the single K2 launch with its arguments, bit for
+    bit: x, numit, norm_res, converged and the three histories, which are zero past the cap."""
+    xs, its, res, conv, hists = out
     for j, (g0, rule, mom, tol, cap) in enumerate(specs):
-        one = tr.resident_adapgm(a, b, x0, g0, tol, cap, p1=lam, rule_kind=rule, momentum=mom,
-                                 record=True)
+        one = tr.resident_adapgm(a, b, x0, g0, tol, cap, rule_kind=rule, momentum=mom,
+                                 record=True, **kw)
         torch.cuda.synchronize()
         for k, got in enumerate((xs[j], its[j], res[j], conv[j])):
-            assert torch.equal(got, one[k]), (j, k)
+            assert torch.equal(_bits(got), _bits(one[k])), (j, k)
         for k in range(3):
-            assert torch.equal(hists[k][j][:cap], one[4 + k]), (j, k)
+            assert torch.equal(_bits(hists[k][j][:cap]), _bits(one[4 + k])), (j, k)
             assert not bool(hists[k][j][cap:].any()), (j, k)  # zero past the cap
         assert int(its[j]) <= cap
+
+
+@pytest.mark.parametrize("count", [1, 4, 6, 8, 9, 17])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("problem", K2C_PROBLEMS)
+def test_k2c_rows_equal_single_k2_launches(dev, problem, dtype, count):
+    """K2c runs each row on K2's grid in K2's order of every sum: row j of a sweep is the
+    single K2 launch with row j's arguments, bit for bit, in one lockstep group (up to 8
+    rows) or several (9 and 17), beside rows that stop early, late or never start."""
+    a, b, x0, gam, kw = _k2c_problem(dev, problem, dtype)
+    specs = k2c_specs(gam, count)
+    before = tr.resident_rule_sweep.launches
+    out = tr.resident_rule_sweep(a, b, x0, tr.rule_rows(specs), 0.0, K2C_MAXIT, **kw)
+    torch.cuda.synchronize()
+    assert tr.resident_rule_sweep.launches == before + 1
+    n = a.shape[1]
+    assert out[0].shape == (count, n) and all(h.shape == (count, K2C_MAXIT) for h in out[4])
+    _assert_rows_are_k2_launches(a, b, x0, specs, out, **kw)
+
+
+def _k2c_flat(out):
+    return [*out[:4], *out[4]]
+
+
+@pytest.mark.parametrize("problem", ["ls 1000x300", "logreg 8128x128", "cubic 128"])
+def test_k2c_row_order_within_a_group_leaves_each_row(dev, problem):
+    """The eight rows of one group reversed, and rotated by three, give the same rows
+    permuted, bit for bit: a row's bits do not depend on its place in its group."""
+    a, b, x0, gam, kw = _k2c_problem(dev, problem, torch.float32)
+    specs = k2c_specs(gam, 8)
+    base = _k2c_flat(tr.resident_rule_sweep(a, b, x0, tr.rule_rows(specs), 0.0, K2C_MAXIT, **kw))
+    for order in (list(range(7, -1, -1)), [(j + 3) % 8 for j in range(8)]):
+        got = _k2c_flat(tr.resident_rule_sweep(a, b, x0, tr.rule_rows([specs[j] for j in order]),
+                                               0.0, K2C_MAXIT, **kw))
+        torch.cuda.synchronize()
+        for u, w in zip(got, base):
+            assert torch.equal(_bits(u), _bits(w[order])), order
 
 
 def test_k2c_matches_plain_on_card(dev):

@@ -1,7 +1,8 @@
 """K1's plain version in the PyTorch port against the JAX package's Pallas
 kernel ``fused_ls_value_grad`` run in interpret mode on the CPU, on the same
-numpy inputs. The CUDA kernel itself is tested on the card
-(tests/test_torch_cuda.py) and by chip_smoke.py."""
+numpy inputs; K1's and K2c's launch plans (``k1_plan``, ``k2c_plan``). The CUDA
+kernels themselves are tested on the card (tests/test_torch_cuda.py) and by
+chip_smoke.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +13,7 @@ from _torch_parity import gaussian, np_of
 
 from adaprox_tpu.ops import kernels as jk
 from adaprox_tpu_torch.ops import kernels as tk
+from adaprox_tpu_torch.ops import resident as tr
 
 SHAPES = [(64, 128), (96, 256), (256, 384)]  # tile-aligned: the Pallas kernel needs it
 
@@ -188,3 +190,69 @@ def test_k1_plan_thresholds_and_refusals():
     for bad in ((0, 4, 4, 132), (4, 0, 4, 132), (4, 4, 8, 132), (4, 4, 4, 0)):
         with pytest.raises(ValueError):
             tk.k1_plan(*bad)
+
+
+# -- K2c's plan (ops/resident.py::k2c_plan): its lockstep groups ----------------------------
+
+K2C_COUNTS = [1, 2, 3, 7, 8, 9, 15, 16, 17, 33]
+K2C_SHAPES = [(4000, 1024), (8128, 128), (128, 128), (8, 2176), (1, 1)]
+
+
+def _k2c_rows(count, seed=0):
+    """A (count, 5) table: the menu's rules, momentum on about a third of the rows."""
+    rng = np.random.default_rng(seed)
+    return np.stack([rng.uniform(0.1, 1.0, count), rng.integers(0, 3, count),
+                     (rng.random(count) < 0.35).astype(float), np.full(count, 1e-6),
+                     rng.integers(0, 400, count)], 1)
+
+
+@pytest.mark.parametrize("count", K2C_COUNTS)
+def test_k2c_plan_puts_every_row_in_one_group_in_table_order(count):
+    plan = tr.k2c_plan(_k2c_rows(count), 4000, 1024, 4, 132)
+    assert set(plan) == set(tr.K2C_PLAN_KEYS)
+    groups = plan["groups"]
+    assert [j for grp in groups for j in grp] == list(range(count))
+    assert all(1 <= len(grp) <= tr.K2C_GROUP for grp in groups)
+    # full groups first: only the last may hold fewer rows
+    assert all(len(grp) == tr.K2C_GROUP for grp in groups[:-1])
+    assert len(groups) == -(-count // tr.K2C_GROUP)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("count", K2C_COUNTS)
+def test_k2c_plan_syncs_four_exactly_with_a_momentum_row(count, seed):
+    rows = _k2c_rows(count, seed)
+    plan = tr.k2c_plan(rows, 4000, 1024, 4, 132)
+    for grp, syncs, passes in zip(plan["groups"], plan["syncs"], plan["row_passes"]):
+        assert syncs == (4 if any(rows[j, 2] > 0 for j in grp) else 3)
+        assert passes == -(-len(grp) // 2)  # the rows two at a time over each row of A
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("m,n", K2C_SHAPES)
+def test_k2c_plan_follows_sms_only_through_the_grid(m, n, itemsize):
+    """The grid and the partials' scratch follow the card; nothing else does, so a row's
+    bits (K2's order on K2's grid) follow from the shape, the dtype and its own arguments."""
+    rows = _k2c_rows(9)
+    plans = [tr.k2c_plan(rows, m, n, itemsize, sms) for sms in K1_SMS]
+    shape_only = [{k: v for k, v in p.items() if k not in ("grid", "scratch")} for p in plans]
+    assert all(p == shape_only[0] for p in shape_only)
+    for sms, plan in zip(K1_SMS, plans):
+        assert plan["grid"] == min(-(-max(m, n) // tr.K2C_WARPS), sms)
+        g0 = len(plan["groups"][0])
+        assert plan["scratch"] == dict(xs=(g0, 2, n), gs=(g0, 2, n), v=(g0, n), res=(g0, m),
+                                       part=g0 * tr.K2C_PARTS * sms)
+        # the C entry's check: kParts partials of each row of a group for each CTA
+        assert plan["scratch"]["part"] >= tr.K2C_PARTS * g0 * plan["grid"]
+        assert plan["a_bytes"] == m * n * itemsize
+
+
+def test_k2c_plan_takes_what_the_sweep_takes_and_refuses_the_rest():
+    rows = tr.rule_rows([(0.1, "fixed", False), (0.1, "fixed", True)], tol=1e-6, maxit=10)
+    checked = tr._sweep_rows(rows, 10, torch.float64)
+    assert tr.k2c_plan(rows, 64, 128, 4, 132) == tr.k2c_plan(checked, 64, 128, 4, 132)
+    for bad in ((0, 4, 4, 132), (4, 0, 4, 132), (4, 4, 8, 132), (4, 4, 4, 0)):
+        with pytest.raises(ValueError):
+            tr.k2c_plan(rows, *bad)
+    with pytest.raises(ValueError, match=r"\(R >= 1, 5\)"):
+        tr.k2c_plan(np.zeros((3, 4)), 64, 128, 4, 132)
