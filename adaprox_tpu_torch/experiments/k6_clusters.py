@@ -22,8 +22,13 @@ from the 8 build's.
 With ``--k6d-against DIR`` (the root of another checkout of this repository, e.g. the parent
 commit unpacked with ``git archive``) it also runs K6d from DIR's ``csrc/resident_pd.cu`` and
 from this tree's, in turns (other, this, this, other at 2), on the driver's six (dataset, C)
-inputs (tol 1e-5, maxit 10000, record): ``k6d_same_bits`` says whether every output of the two
-builds is equal bit for bit, ``k6d_ms`` gives each build's best time a case.
+inputs (tol 1e-5, maxit 10000, record): ``k6d_same_bits`` says, dense and factored apart,
+whether every output of the two builds is equal bit for bit (``k6d_factored_vs_other``: the
+factored calls' numits and largest relative differences of the histories and of x),
+``k6d_ms`` gives each build's best time a case, ``k6d_it_us`` its iteration at the three
+shapes (C 0.1, tol -1, 1000 iterations, no record). ``--k6d-only`` stops there:
+
+    python -m adaprox_tpu_torch.experiments.k6_clusters --k6d-against DIR --k6d-only
 """
 
 from __future__ import annotations
@@ -125,40 +130,66 @@ def best(a, b):
                 if k != "layout" else a[k]) for k in a}
 
 
+def k6d_cv(lib, q, lab, big_c, gamma, sigma, tol, maxit, n, factored, record):
+    """One K6d launch from ``lib`` (``resident_pd._launch``): x, stats and, with ``record``,
+    the histories cut to maxit, as one list of tensors."""
+    x, stats, hist = resident_pd._launch("K6d", q, lab, n, big_c, factored, maxit, record, gamma,
+                                         sigma, tol, lib=lib)
+    return [x[0], stats[0]] + ([hist[0, :, :maxit]] if record else [])
+
+
 def k6d_ab(other_root, dev, reps):
-    """K6d from other_root's csrc/resident_pd.cu and from this tree's, in turns."""
-    sources = {"other": Path(other_root).resolve() / "adaprox_tpu_torch" / "csrc" / "resident_pd.cu",
-               "this": resident_pd.SOURCE}
-    cases = []
+    """K6d from other_root's csrc/resident_pd.cu and from this tree's, in turns: the driver's six
+    calls (ms, and whether each build's outputs equal the other's bit for bit, dense and
+    factored apart; factored, the largest relative difference of the histories and of x), and
+    the tol -1, 1000-iteration solve at the three shapes (us an iteration)."""
+    other = Path(other_root).resolve() / "adaprox_tpu_torch" / "csrc" / "resident_pd.cu"
+    libs = {"other": kernels.load_library(other, resident_pd.NVCC_FLAGS,
+                                          resident_pd.CV_SIGNATURES),
+            "this": resident_pd._library()}
+    cases, iters = [], []
     for name in DATASETS:
         q, lab, factored, n, na = inputs(name, dev)
         x, y, _ = dual_svm.load(name)
         gamma, sigma = dual_svm.cv_steps(float(np.linalg.norm((y[:, None] * x).T
                                                               @ (y[:, None] * x))), na)
         for big_c in (0.1, 1.0):
-            cases.append((f"{name} C {big_c:g}", (q, lab, big_c, gamma, sigma, 1e-5, 10000),
-                          dict(n_true=n, record=True, factored=factored)))
+            cases.append((f"{name} C {big_c:g}", factored,
+                          (q, lab, big_c, gamma, sigma, 1e-5, 10000, n, factored, True)))
+        shape = f"{'B' if factored else 'Q'} {q.shape[0]}x{q.shape[1]}"
+        iters.append((shape, (q, lab, 0.1, gamma, sigma, -1.0, 1000, n, factored, False)))
     ms = {"other": {}, "this": {}}
+    it_us = {"other": {}, "this": {}}
     outs = {"other": {}, "this": {}}
     order = ["other", "this", "this", "other"] * ((reps + 1) // 2)
-    try:
-        for build in order[:2 * reps]:
-            resident_pd.SOURCE = sources[build]
-            resident_pd._library()  # built (or found built) before anything is timed
-            for key, args, kw in cases:
-                t, out = ms_of(lambda: resident_pd.resident_cv_dsvm(*args, **kw))
-                ms[build][key] = min(t, ms[build].get(key, t))
-                flat = list(out[:4]) + list(out[4])
-                if key in outs[build]:
-                    if not all(torch.equal(u, w) for u, w in zip(flat, outs[build][key])):
-                        raise RuntimeError(f"k6_clusters: K6d {key} differs between two calls")
-                outs[build][key] = flat
-    finally:
-        resident_pd.SOURCE = sources["this"]
-    same = all(torch.equal(u, w) for key in outs["this"]
-               for u, w in zip(outs["this"][key], outs["other"][key]))
-    return {"k6d_same_bits": same, "k6d_ms": ms,
-            "k6d_ms_total": {b: sum(v.values()) for b, v in ms.items()}}
+    for build in order[:2 * reps]:
+        lib = libs[build]
+        for key, _, args in cases:
+            t, flat = ms_of(lambda: k6d_cv(lib, *args))
+            ms[build][key] = min(t, ms[build].get(key, t))
+            if key in outs[build] and not all(torch.equal(u, w)
+                                              for u, w in zip(flat, outs[build][key])):
+                raise RuntimeError(f"k6_clusters: K6d {key} differs between two calls")
+            outs[build][key] = flat
+        for shape, args in iters:
+            t, flat = ms_of(lambda: k6d_cv(lib, *args))
+            if int(flat[1][0]) != 1000:
+                raise RuntimeError(f"k6_clusters: K6d {shape} ran {int(flat[1][0])} of 1000")
+            it_us[build][shape] = min(t, it_us[build].get(shape, t))
+    same = {"dense": True, "factored": True}
+    factored_rel = {}
+    for key, factored, _ in cases:
+        a, b = outs["this"][key], outs["other"][key]
+        kind = "factored" if factored else "dense"
+        same[kind] = same[kind] and all(torch.equal(u, w) for u, w in zip(a, b))
+        if factored:
+            hist_rel = float(((a[2] - b[2]).abs().amax(-1) / b[2].abs().amax(-1)).max())
+            x_rel = float((a[0] - b[0]).abs().max() / b[0].abs().max())
+            factored_rel[key] = {"numit": [int(a[1][0]), int(b[1][0])], "hist_rel": hist_rel,
+                                 "x_rel": x_rel}
+    return {"k6d_same_bits": same, "k6d_factored_vs_other": factored_rel, "k6d_ms": ms,
+            "k6d_ms_total": {b: sum(v.values()) for b, v in ms.items()},
+            "k6d_it_us": it_us}  # ms for 1000 iterations: us an iteration
 
 
 def main(argv=None):
@@ -166,6 +197,8 @@ def main(argv=None):
     parser.add_argument("--reps", type=int, default=2)
     parser.add_argument("--k6d-against", default=None,
                         help="the root of another checkout whose K6d is run beside this tree's")
+    parser.add_argument("--k6d-only", action="store_true",
+                        help="with --k6d-against: run only the K6d comparison")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("k6_clusters measures on a CUDA device and none is available")
@@ -175,6 +208,9 @@ def main(argv=None):
     result = {"device": torch.cuda.get_device_name(0)}
     if args.k6d_against:
         result.update(k6d_ab(args.k6d_against, dev, args.reps))
+        if args.k6d_only:
+            print(json.dumps(result), flush=True)
+            return
     sources = {"8": resident_pd.GRID_SOURCE, "16": cmax16_source()}
     order = ["8", "16", "16", "8"] * ((args.reps + 1) // 2)
     runs = {"8": None, "16": None}

@@ -14,8 +14,9 @@ with nvcc for ``sm_90a`` at first use and loaded with ctypes, as K2
 thread-block cluster, the rows at once; K6a is its launch over one row, so a
 dense K6b row equals it bit for bit), which K6c (``ops/resident_mp.py``) shares
 with its Malitsky-Pock core; K6d is one cooperative launch of
-``csrc/resident_pd.cu``, with grid-wide barriers between the phases of an
-iteration. ``dsvm_grid_plan`` gives the cluster layout of a launch.
+``csrc/resident_pd.cu``, one grid-wide barrier an iteration, each CTA's rows of
+Q or B in shared memory where they fit. ``dsvm_grid_plan`` gives the cluster
+layout of a K6a-K6c launch, ``k6d_plan`` K6d's.
 
 Each entry dispatches on where its tensors lie: CPU tensors take the plain
 versions ``*_plain`` (Python loops over the same iteration, one host-checked
@@ -39,7 +40,7 @@ from . import kernels
 __all__ = ["resident_adapdm_dsvm", "resident_adapdm_dsvm_plain", "resident_adapdm_dsvm_sweep",
            "resident_adapdm_dsvm_sweep_plain", "resident_cv_dsvm", "resident_cv_dsvm_plain",
            "resident_pd_records", "resident_cv_records", "hist_len", "build_library",
-           "build_grid_library", "dsvm_grid_plan"]
+           "build_grid_library", "dsvm_grid_plan", "k6d_plan"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_pd.cu"
 GRID_SOURCE = kernels._PKG / "csrc" / "resident_dsvm_grid.cu"
@@ -269,15 +270,23 @@ def build_grid_library():
     return kernels.build_library(GRID_SOURCE, NVCC_FLAGS)
 
 
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# the entries every build of csrc/resident_pd.cu has (experiments/k6_clusters.py loads another
+# checkout's with these)
+CV_SIGNATURES = {
+    "adaprox_resident_pd_parts": ([], _I),
+    # q, q_is_bf16, vec, factored, n, d, lab, n_true, big_c, xs, grad (not read), v, part,
+    # part_len, gamma, sigma, tol, maxit, record, x_out, stats, hist, stream
+    "adaprox_resident_cv": ([_P, _I, _I, _I, _LL, _LL, _P, _I, _F, _P, _P, _P, _P, _LL, _F, _F,
+                             _F, _I, _I, _P, _P, _P, _P], _I),
+    "adaprox_resident_pd_error_string": ([_I], ctypes.c_char_p)}
+
+
 def _library():
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     return kernels.load_library(SOURCE, NVCC_FLAGS, {
-        "adaprox_resident_pd_parts": ([], i),
-        # q, q_is_bf16, vec, factored, n, d, lab, n_true, big_c, xs, grad, v, part, part_len,
-        # gamma, sigma, tol, maxit, record, x_out, stats, hist, stream
-        "adaprox_resident_cv": ([p, i, i, i, ll, ll, p, i, f, p, p, p, p, ll, f, f, f, i, i, p, p,
-                                 p, p], i),
-        "adaprox_resident_pd_error_string": ([i], ctypes.c_char_p)})
+        **CV_SIGNATURES,
+        # n, d, factored, itemsize, sms, out (K6D_PLAN_KEYS)
+        "adaprox_resident_pd_plan": ([_LL, _LL, _I, _I, _I, ctypes.POINTER(_LL)], _I)})
 
 
 def _grid_library():
@@ -315,20 +324,26 @@ def _raise_on(err, what, error_string):
         raise RuntimeError(f"{what} failed: CUDA error {err} ({error_string(err).decode()})")
 
 
-def _launch(what, q, labels, n_true, big_c, factored, maxit, record, gamma, sigma, tol):
-    """One K6d launch with its scratch. Returns (x_out (1, n), stats (1, 3), hist (1, 2,
-    hist_len) or None)."""
+def _launch(what, q, labels, n_true, big_c, factored, maxit, record, gamma, sigma, tol,
+            lib=None):
+    """One K6d launch with its scratch, from ``lib`` (default: the build of SOURCE). Returns
+    (x_out (1, n), stats (1, 3), hist (1, 2, hist_len) or None)."""
     vec = _storage(what, q, labels)
-    lib = _library()
+    lib = lib or _library()
     dev = q.device
     n = q.shape[0]
     d = q.shape[1] if factored else 0
     with torch.cuda.device(dev):
         f32 = dict(dtype=torch.float32, device=dev)
+        plan = k6d_plan(n, d, factored, q.element_size(), kernels._sm_count(dev.index))
+        if plan is None:
+            raise ValueError(f"{what}: B'x of d = {d} columns does not fit a CTA's shared "
+                             f"memory (at most {K6D_MAX_D})")
+        # grad is not read; it keeps the C entry's arguments
         xs, grad, v = torch.empty((2, n), **f32), torch.empty(n, **f32), torch.empty(n, **f32)
-        # the launcher sizes the grid, at most one CTA per SM
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        part = torch.empty((lib.adaprox_resident_pd_parts() + d) * sms, **f32)
+        if lib.adaprox_resident_pd_parts() != K6D_PARTS:
+            raise RuntimeError("csrc/resident_pd.cu's kPdParts differs from K6D_PARTS")
+        part = torch.empty(plan["part_len"], **f32)
         x_out, stats = torch.empty((1, n), **f32), torch.empty((1, 3), **f32)
         hist = torch.empty((1, 2, hist_len(maxit)), **f32) if record else None
         err = lib.adaprox_resident_cv(
@@ -340,6 +355,87 @@ def _launch(what, q, labels, n_true, big_c, factored, maxit, record, gamma, sigm
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, f"{what} launch", lib.adaprox_resident_pd_error_string)
     return x_out, stats, hist
+
+
+# K6d's plan (csrc/resident_dsvm.cuh, pd_plan): 16 warps a CTA, at most one CTA an SM
+K6D_WARPS = 16
+K6D_PARTS = 4                # kPdParts: the scalar partials a CTA writes each pass
+K6D_CTA_SMEM = 232448        # the most shared memory a CTA may take (227 KB)
+K6D_STATIC_SMEM = 1024       # the kernel's static shared memory, rounded up
+K6D_RED_THREADS = 512 - 32 * K6D_PARTS  # the threads that reduce B'x or stage x
+K6D_SLOT_FLOATS = 3          # a held row's v, label and (factored) x
+K6D_MAX_D = (K6D_CTA_SMEM - K6D_STATIC_SMEM - 16 * K6D_RED_THREADS) // 4
+K6D_PLAN_KEYS = ("route", "grid", "rows_per_warp", "rows_per_cta", "smem_bytes", "x_shared",
+                 "acc_shared", "part_len")
+K6D_ROUTES = ("shared", "l2")
+
+
+def _round16(nbytes):
+    return -(-nbytes // 16) * 16
+
+
+def k6d_plan(n, d, factored, itemsize, sms):
+    """K6d's layout for Q (N, N) or, factored, B (N, d) with ``itemsize`` (4: f32, 2: bf16)
+    storage on a card of ``sms`` SMs, as the C launcher computes it: a dict of K6D_PLAN_KEYS,
+    or None where the shape is refused (factored d past K6D_MAX_D: B'x does not fit a CTA's
+    shared memory).
+
+    * ``grid``: min(ceil(N / 16), sms) CTAs of 16 warps; warp w of CTA c owns rows c * 16 + w,
+      + 16 * grid, ...: ``rows_per_warp`` at most, ``rows_per_cta`` = 16 times that;
+    * ``route``: "shared" where the CTA's rows of Q or B (``rows_per_cta`` x the row's bytes),
+      each held row's v, label and x (12 bytes), the vector (x dense, B'x factored) and,
+      factored, the B'x reduce's 6 KB and the 16 warps' partials of B'x fit 227 KB less 1 KB
+      of static shared memory: the rows are loaded once a launch. Else "l2": the rows are
+      read from device memory (through the L2) every pass;
+    * ``x_shared``: x staged in shared memory each iteration (dense; True on "shared", and on
+      "l2" up to N = 57856); ``acc_shared``: the warps' partials of B'x in shared memory
+      (factored; else in ``part``); ``smem_bytes``: the CTA's dynamic shared memory;
+    * ``part_len``: the floats of the partials' scratch: two halves of (4 + d) per CTA (d
+      dense 0), plus the warps' partials of B'x where they are not in shared memory.
+
+    The layout depends on the shape, the storage and the SM count alone; the dense bits do
+    not depend on it at all (each row's dot and the partials' order are the same whichever
+    memory holds the row)."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"K6d stores Q (or B) as float32 or bfloat16, got itemsize {itemsize}")
+    if n < 1 or sms < 1 or (factored and d < 1):
+        raise ValueError(f"K6d needs n, sms >= 1 (and d >= 1 factored), got {n}, {d}, {sms}")
+    length = d if factored else n
+    grid = min(-(-n // K6D_WARPS), sms)
+    rows_per_warp = -(-n // (grid * K6D_WARPS))
+    rows_per_cta = K6D_WARPS * rows_per_warp
+    budget = K6D_CTA_SMEM - K6D_STATIC_SMEM
+    rows = (_round16(rows_per_cta * length * itemsize)
+            + _round16(rows_per_cta * K6D_SLOT_FLOATS * 4))
+    vec = _round16(4 * length)
+    red = 16 * K6D_RED_THREADS if factored else 0
+    acc = 4 * K6D_WARPS * d if factored else 0
+    if rows + vec + red + acc <= budget:
+        route, x_shared, acc_shared, smem = "shared", True, bool(factored), rows + vec + red + acc
+    else:
+        if factored and vec + red > budget:
+            return None
+        route = "l2"
+        x_shared = vec <= budget
+        acc_shared = bool(factored) and vec + red + acc <= budget
+        smem = (vec if x_shared else 0) + red + (acc if acc_shared else 0)
+    part_len = (2 * (K6D_PARTS + (d if factored else 0)) * grid
+                + (grid * K6D_WARPS * d if factored and not acc_shared else 0))
+    return dict(route=route, grid=grid, rows_per_warp=rows_per_warp, rows_per_cta=rows_per_cta,
+                smem_bytes=smem, x_shared=x_shared, acc_shared=acc_shared, part_len=part_len)
+
+
+def k6d_card_plan(n, d, factored, itemsize, sms):
+    """The C launcher's plan (``adaprox_resident_pd_plan``) for the same arguments as
+    ``k6d_plan``, in its form (None where it refuses the shape); the card's tests hold the
+    two equal."""
+    out = (ctypes.c_longlong * len(K6D_PLAN_KEYS))()
+    if _library().adaprox_resident_pd_plan(n, d, int(factored), itemsize, sms, out):
+        return None
+    plan = dict(zip(K6D_PLAN_KEYS, (int(v) for v in out)))
+    plan["route"] = K6D_ROUTES[plan["route"]]
+    plan["x_shared"], plan["acc_shared"] = bool(plan["x_shared"]), bool(plan["acc_shared"])
+    return plan
 
 
 # the cores of csrc/resident_dsvm_grid.cu, in the order of its core argument
@@ -483,8 +579,9 @@ def resident_cv_dsvm(q, labels, big_c, gamma, sigma, tol, maxit, n_true=None, re
     Returns (x, numit, norm_res, converged), plus ((norm_res_hist,
     objective_hist),) of shape (maxit,) when ``record=True`` (zero past
     numit); ``resident_cv_records`` turns them into ``Records``. CPU tensors
-    take the plain version. CUDA tensors launch K6d (``csrc/resident_pd.cu``),
-    with what K6a takes; each launch adds one to ``resident_cv_dsvm.launches``."""
+    take the plain version. CUDA tensors launch K6d (``csrc/resident_pd.cu``, its
+    layout ``k6d_plan``'s), with what K6a takes (factored, d at most K6D_MAX_D);
+    each launch adds one to ``resident_cv_dsvm.launches``."""
     if not _device("K6d", q):
         return resident_cv_dsvm_plain(q, labels, big_c, gamma, sigma, tol, maxit, n_true,
                                       record, factored)

@@ -100,8 +100,10 @@ Phases, one line each, any failure exits non-zero:
                heart_scale's 384^2 (f32 and bf16) and mushrooms' factored
                8192x128 (f32 and bf16), C 0.1 and 1, rows over CPU-calibrated
                horizons, the padded coordinates exactly 0, two launches the same
-               bits; every K6b row at the driver's settings (C 0.1, tol 1e-5,
-               maxit 10000) on the three stand-ins, f32 and bf16, bit for bit
+               bits, K6d's plan (route, rows a CTA, shared memory;
+               ops/resident_pd.py::k6d_plan) equal to its launcher's; every K6b
+               row at the driver's settings (C 0.1, tol 1e-5, maxit 10000) on
+               the three stand-ins, f32 and bf16, bit for bit
                against its one-row launch (a dense row also against its K6a
                launch), the 12 couplings reversed giving the rows reversed and
                the 12 twice over in one launch (24 rows, two waves at C 8) each
@@ -111,13 +113,16 @@ Phases, one line each, any failure exits non-zero:
                x C 0.1 and 1 (exactly one K6b, one K6c and one K6d launch each,
                every row's x in [0, C] with |y'x| within its CPU-calibrated
                bound, JAX's fast_methods, the three launches timed on the
-               driver's own inputs); the plain versions timed on heart_scale C 0.1
+               driver's own inputs, K6d beside its times with two or three grid
+               syncs an iteration); the plain versions timed on heart_scale
+               C 0.1
                (K6b's cut to PD_PLAIN_CUT iterations, beside K6b there); K6a's own
                path (one solve, counted); the
                engine path at --maxit 150 on heart_scale and svmguide3, the
                Malitsky-Pock rows included (no K6 launch); the PD iteration at
                1280^2, 384^2 and 8192x128, f32 and bf16, with its layout, beside
-               the cooperative kernel's (PERF.md) and K2's; the phase's wall
+               the cooperative kernel's (PERF.md) and K2's, and K6d's beside its
+               iteration with two or three grid syncs; the phase's wall
  12. mp:       K6c (csrc/resident_dsvm_grid.cu, the Malitsky-Pock core) against
                its plain version ([mp]
                lines) on the dual_svm driver's inputs (svmguide3's dense 1280^2,
@@ -474,6 +479,13 @@ K6_COOPERATIVE_US = {"Q 384x384": (5.471, 6.577), "Q 1280x1280": (6.824, 8.141),
 K6_COOPERATIVE_MS = {("heart_scale", 0.1): (395.48, 312.47), ("heart_scale", 1.0): (608.60, 301.65),
                      ("svmguide3", 0.1): (780.15, 318.59), ("svmguide3", 1.0): (788.82, 913.24),
                      ("mushrooms", 0.1): (2144.05, 2576.79), ("mushrooms", 1.0): (2182.16, 2560.90)}
+# K6d's cooperative kernel before it took one grid sync an iteration (PERF.md section 6;
+# H100 80GB HBM3, 700.00 W), printed beside this run's: the driver's calls, ms, {(dataset, C): ms};
+# the iteration (C 0.1, tol -1, 1000 iterations), us, {shape: us}
+K6D_TWO_SYNC_MS = {("heart_scale", 0.1): 40.29, ("heart_scale", 1.0): 41.50,
+                   ("svmguide3", 0.1): 51.64, ("svmguide3", 1.0): 52.74,
+                   ("mushrooms", 0.1): 151.02, ("mushrooms", 1.0): 146.96}
+K6D_TWO_SYNC_US = {"Q 1280x1280": 5.312, "Q 384x384": 4.239, "B 8192x128": 14.823}
 # the whole run's wall before K6 went onto clusters (PERF.md section 6; H100 80GB HBM3, 700.00 W),
 # printed beside this run's
 PREVIOUS_WALL_S = 861.8
@@ -1997,9 +2009,16 @@ def pd_checks(resident_pd, dev, smi):
         cases.append((f"{name} C 0.1 bf16", inp))
     errs = {"k6a": 0.0, "k6b": 0.0, "k6d": 0.0}
     h_pd, h_cv = PD_HORIZON["adapdm"], PD_HORIZON["cv"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for label, inp in cases:
         q, lab, n, fac, big_c = inp["q"], inp["lab"], inp["n"], inp["factored"], inp["big_c"]
         shape = f"{'B' if fac else 'Q'} {q.shape[0]}x{q.shape[1]}"
+        # K6d's layout: the Python plan the wrapper sizes its scratch from, the launcher's
+        plan = resident_pd.k6d_plan(q.shape[0], q.shape[1] if fac else 0, fac, q.element_size(),
+                                    sms)
+        check(plan == resident_pd.k6d_card_plan(q.shape[0], q.shape[1] if fac else 0, fac,
+                                                q.element_size(), sms),
+              f"K6d {label}: k6d_plan differs from the launcher's plan")
         kw = dict(n_true=n, record=True, factored=fac)
         args = (q, lab, big_c, T_VALUES, inp["norm_a"], -1.0, h_pd)
         got = resident_pd.resident_adapdm_dsvm_sweep(*args, **kw)
@@ -2021,7 +2040,9 @@ def pd_checks(resident_pd, dev, smi):
         pad_zero = not bool(got[0][:, n:].any()) and not bool(got_cv[0][n:].any())
         numits_ok = (got[1].tolist() == [h_pd] * len(T_VALUES) and int(got_cv[1]) == h_cv)
         line = (f"[pd] {label} {shape}: K6b rows over {h_pd} it rel err {err_b:.2e}, x abs err "
-                f"{xb:.2e}; K6d rows over {h_cv} it rel err {err_d:.2e}, x abs err {xd:.2e}")
+                f"{xb:.2e}; K6d rows over {h_cv} it rel err {err_d:.2e}, x abs err {xd:.2e} "
+                f"(K6d's plan, the launcher's too: route {plan['route']}, grid {plan['grid']}, "
+                f"{plan['rows_per_cta']} rows a CTA, {plan['smem_bytes']} B of shared memory)")
         ok_a = True
         if not fac:
             t = T_VALUES[1]
@@ -2180,7 +2201,8 @@ def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
                       f"sweep {mp_ms:.4f} ms ({mp_trials(m_out)} trials; bound {b_mp[0]:.4f} ms, "
                       f"{b_mp[1]}; the cooperative kernel's "
                       f"{K6_COOPERATIVE_MS[(name, big_c)][1]:.2f}), K6d {cv_ms:.4f} ms (bound "
-                      f"{b_cv[0]:.4f} ms) | fast_methods "
+                      f"{b_cv[0]:.4f} ms; two or three grid syncs an iteration: "
+                      f"{K6D_TWO_SYNC_MS[(name, big_c)]:.2f}) | fast_methods "
                       f"{meta['fast_methods']} | wall_s {meta['wall_s']} ({smi})", flush=True)
                 check(counts == (0, 1, 1, 1) and others == (0,) * 7 and order == names and keys_ok
                       and meta["fast_path"] == "resident"
@@ -2278,7 +2300,10 @@ def pd_phase(resident, resident_pd, resident_mp, ref, counting, dev, smi):
         check(int(res[1]) == 1000, f"K2 {m_}x{n_}: not 1000 iterations")
         us[f"K2 fixed {m_}x{n_}"] = 1e3 * secs
     print(f"[pd] iteration, 1000 iterations, tol -1, f32: "
-          f"{'; '.join(f'{k} {v:.3f} us' for k, v in us.items())} ({smi})", flush=True)
+          f"{'; '.join(f'{k} {v:.3f} us' for k, v in us.items())} (K6d with two or three grid "
+          f"syncs an iteration: "
+          f"{'; '.join(f'{k} {v:.3f} us' for k, v in K6D_TWO_SYNC_US.items())}) ({smi})",
+          flush=True)
 
     case = meas[("heart_scale", 0.1)]
     return dict(

@@ -1304,6 +1304,168 @@ def test_k6_zero_iterations_and_refusals(dev):
         tp.resident_adapdm_dsvm(q[:, :128], lab, 0.5, 1.0, na, 0.0, 3)
 
 
+# -- K6d's layout (ops/resident_pd.py::k6d_plan) and its one grid sync an iteration ---------
+
+# The driver's shapes unpadded and the layouts past them, with each route's paths: (points,
+# features, factored), three zero points after them (k6d_random). Ragged widths take scalar
+# loads.
+K6D_ROUTE_CASES = {
+    "shared dense 270 (ragged)": (270, 13, False),
+    "shared dense 1243 (ragged)": (1243, 21, False),
+    "shared factored 8124 x 112 (ragged)": (8124, 112, True),
+    "l2 dense 2203 (ragged, x staged)": (2203, 17, False),
+    "l2 factored 30000 x 250 (ragged)": (30000, 250, True),
+    "l2 factored 600 x 3500 (partials of B'x in device memory)": (600, 3500, True),
+}
+K6D_ROUTE_WANT = {"shared dense 270 (ragged)": ("shared", True, False),
+                  "shared dense 1243 (ragged)": ("shared", True, False),
+                  "shared factored 8124 x 112 (ragged)": ("shared", True, True),
+                  "l2 dense 2203 (ragged, x staged)": ("l2", True, False),
+                  "l2 factored 30000 x 250 (ragged)": ("l2", True, True),
+                  "l2 factored 600 x 3500 (partials of B'x in device memory)": ("l2", True, False)}
+
+
+def k6d_random(dev, n, d, factored, pad=3, seed=21):
+    """(q, labels, n_true, gamma, sigma) of a random dual SVM of n points and d features with
+    ``pad`` zero points after them: B = D_y X (factored) or the Gram B B', formed on the card
+    (full f32); Condat-Vu's steps from its norms."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, d)) / d**0.5
+    y = np.where(rng.standard_normal(n) >= 0, 1.0, -1.0)
+    b = torch.zeros(n + pad, d, device=dev)
+    b[:n] = torch.as_tensor(y[:, None] * x, dtype=torch.float32, device=dev)
+    lab = torch.zeros(n + pad, device=dev)
+    lab[:n] = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    lf = float(torch.linalg.matrix_norm(b.double(), ord=2)) ** 2
+    na = float(np.linalg.norm(y))
+    gamma = 1.0 / (lf + na)
+    return (b if factored else b @ b.t()).contiguous(), lab, n, gamma, 0.9 / (gamma * na * na)
+
+
+def _k6d_flat(out):
+    return [out[0], out[1], out[2], out[3]] + (list(out[4]) if len(out) > 4 else [])
+
+
+@pytest.mark.parametrize("sms", [132, 114, 64, 7])
+def test_k6d_plan_is_the_launchers(dev, sms):
+    """The Python plan and the C launcher's agree on every key, at the driver's shapes, the
+    route cases, the thresholds and past them (the refusal too)."""
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    shapes = [(384, 0, False), (1280, 0, False), (8192, 128, True), (270, 0, False),
+              (2112, 0, False), (2113, 0, False), (3397, 0, False), (3398, 0, False),
+              (57856, 0, False), (57857, 0, False), (30000, 250, True), (600, 3500, True),
+              (65536, 128, True), (100, tp.K6D_MAX_D, True), (100, tp.K6D_MAX_D + 1, True),
+              (1, 1, True), (1, 0, False)]
+    for n, d, factored in shapes:
+        for itemsize in (4, 2):
+            want = tp.k6d_plan(n, d, factored, itemsize, sms)
+            assert tp.k6d_card_plan(n, d, factored, itemsize, sms) == want, (n, d, itemsize)
+
+
+@pytest.mark.parametrize("case", list(K6D_ROUTE_CASES))
+def test_k6d_routes_match_plain(dev, case):
+    """Each route (rows held in shared memory or read from the L2; x staged; the warps'
+    partials of B'x in shared or device memory) at ragged widths against the plain version
+    over 200 iterations, the padded coordinates exactly 0, two launches the same bits."""
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    n, d, factored = K6D_ROUTE_CASES[case]
+    q, lab, n_true, gamma, sigma = k6d_random(dev, n, d, factored)
+    plan = tp.k6d_plan(q.shape[0], d if factored else 0, factored, 4,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert (plan["route"], plan["x_shared"], plan["acc_shared"]) == K6D_ROUTE_WANT[case]
+    kw = dict(n_true=n_true, record=True, factored=factored)
+    args = (q, lab, 0.5, gamma, sigma, -1.0, 200)
+    got = tp.resident_cv_dsvm(*args, **kw)
+    again = tp.resident_cv_dsvm(*args, **kw)
+    want = tp.resident_cv_dsvm_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, w) for u, w in zip(_k6d_flat(got), _k6d_flat(again)))
+    assert int(got[1]) == int(want[1]) == 200
+    _pd_rows_close(got[4], want[4], 200)
+    assert float((got[0] - want[0]).abs().max()) <= PD_RTOL * float(want[0].abs().max())
+    assert not bool(got[0][n_true:].any())
+
+
+def test_k6d_reads_x_from_device_memory_past_shared_memory(dev):
+    """Dense past 57856 points x no longer fits a CTA's shared memory and the row pass reads
+    it from device memory: a 57863^2 Gram (13.4 GB) against the plain version over 30
+    iterations."""
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    q, lab, n_true, gamma, sigma = k6d_random(dev, 57860, 8, False)
+    plan = tp.k6d_plan(q.shape[0], 0, False, 4,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert plan["route"] == "l2" and not plan["x_shared"] and plan["smem_bytes"] == 0
+    kw = dict(n_true=n_true, record=True)
+    got = tp.resident_cv_dsvm(q, lab, 0.5, gamma, sigma, -1.0, 30, **kw)
+    want = tp.resident_cv_dsvm_plain(q, lab, 0.5, gamma, sigma, -1.0, 30, **kw)
+    assert int(got[1]) == int(want[1]) == 30
+    _pd_rows_close(got[4], want[4], 30)
+    assert float((got[0] - want[0]).abs().max()) <= PD_RTOL * float(want[0].abs().max())
+
+
+@pytest.mark.parametrize("factored", [False, True])
+@pytest.mark.parametrize("maxit", [0, 1, 2])
+def test_k6d_counts_the_first_iterations_as_plain(dev, maxit, factored):
+    """The stop decision waits for the next pass's sync: at maxit 0, 1 and 2 the solve counts,
+    records and returns what the plain version does (maxit 0: x_0 itself, bit for bit)."""
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    q, lab, n, na = pd_case(dev, torch.float32, factored)
+    kw = dict(n_true=n, record=True, factored=factored)
+    args = (q, lab, 0.5, 0.05, 0.99 / na, -1.0, maxit)
+    got = tp.resident_cv_dsvm(*args, **kw)
+    want = tp.resident_cv_dsvm_plain(*args, **kw)
+    assert int(got[1]) == int(want[1]) == maxit and not bool(got[3])
+    assert got[4][0].shape == got[4][1].shape == (maxit,)
+    if maxit == 0:
+        assert float(got[2]) == float("inf") and torch.equal(got[0], want[0])
+    else:
+        _pd_rows_close(got[4], want[4], maxit)
+        assert float(got[2]) == float(got[4][0][-1])
+    assert float((got[0] - want[0]).abs().max()) <= PD_RTOL * float(want[0].abs().max())
+
+
+@pytest.mark.parametrize("factored", [False, True])
+def test_k6d_converges_on_the_first_checks(dev, factored):
+    """tol inf converges before any iteration (numit 0, x_0); a tol above the first residual
+    converges at the first check (numit 1) and returns the iterate of that check, x_0 again."""
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    q, lab, n, na = pd_case(dev, torch.float32, factored)
+    kw = dict(n_true=n, factored=factored)
+    x0 = tp.resident_cv_dsvm(q, lab, 0.5, 0.05, 0.99 / na, -1.0, 0, **kw)[0]
+    for tol, numit in ((float("inf"), 0), (1e30, 1)):
+        got = tp.resident_cv_dsvm(q, lab, 0.5, 0.05, 0.99 / na, tol, 50, **kw)
+        want = tp.resident_cv_dsvm_plain(q, lab, 0.5, 0.05, 0.99 / na, tol, 50, **kw)
+        assert int(got[1]) == int(want[1]) == numit and bool(got[3]) and bool(want[3])
+        assert torch.equal(got[0], x0) and torch.equal(got[0], want[0])
+
+
+@pytest.mark.parametrize("factored", [False, True])
+def test_k6d_nan_in_q_stops_unconverged_with_the_boxed_step(dev, factored):
+    """A NaN in Q (or B) makes the first residual NaN: the solve stops after one iteration,
+    not converged, and returns the boxed step x_1, as the plain version does. The warm-up's
+    Q x0 carries the NaN (NaN * 0), so x_0, labels'x_0, y and with them every coordinate of
+    x_1 are NaN, on both."""
+    from adaprox_tpu_torch.ops import resident_pd as tp
+
+    q, lab, n, na = pd_case(dev, torch.float32, factored)
+    q[0, 0] = float("nan")
+    kw = dict(n_true=n, record=True, factored=factored)
+    got = tp.resident_cv_dsvm(q, lab, 0.5, 0.05, 0.99 / na, 1e-6, 100, **kw)
+    want = tp.resident_cv_dsvm_plain(q, lab, 0.5, 0.05, 0.99 / na, 1e-6, 100, **kw)
+    assert int(got[1]) == int(want[1]) == 1 and not bool(got[3]) and not bool(want[3])
+    assert math.isnan(float(got[2])) and math.isnan(float(got[4][0][0]))
+    nan = torch.isnan(got[0])
+    assert bool(nan.any()) and torch.equal(nan, torch.isnan(want[0]))
+    assert bool(nan.all())
+
+
 def test_dual_svm_resident_is_one_k6b_and_one_k6d_launch(dev, tmp_path):
     """dual_svm --resident on heart_scale's stand-in (dense Q) at C 0.1 and 1: one K6b, one
     K6c and one K6d launch each, no K6a launch; the engine path launches none."""
