@@ -1,8 +1,9 @@
 // What the whole-solve kernels share: K2/K2c (resident_pg.cu) and K4/K4b
 // (resident_bt.cu). The problem and its scratch, the prox menu, IEEE min/max,
-// the vector loads of A, the warp dot product, the per-CTA partial sums, the
-// forward phase P1 of the three objectives, the gradient loop and the
-// cooperative launch over the grid both pairs size the same way.
+// the vector loads of A, the warp dot product and the lockstep groups' dot
+// (K2c, K4b), the per-CTA partial sums, the forward phase P1 of the three
+// objectives, the gradient loop and the cooperative launch over the grid both
+// pairs size the same way.
 //
 // Every function is deterministic: one fixed order of every sum, no atomics, so
 // two launches on the same inputs give the same bits, and every CTA that sums
@@ -166,6 +167,141 @@ __device__ __forceinline__ float warp_dot(const T* __restrict__ row, const float
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(kFull, acc, off);
   return acc;
+}
+
+// The rows a lockstep group runs at once (K2c, K4b): each pass over a row of A (or A^T)
+// dots it with the vector of every row of the group still running.
+constexpr int kGroup = 8;
+
+// VEC values of a row of A or A^T as one load gives them: a 16-byte vector (4
+// f32 or 8 bf16) kept packed, or one value; value q as load_a gives it, bit for
+// bit (a bf16's bits are the top half of its f32's).
+template <typename T, int VEC>
+struct Packed {
+  uint4 v;
+  __device__ __forceinline__ void load(const T* __restrict__ p) {
+    v = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  // a plain load: the row may sit in shared memory (K4b's held rows)
+  __device__ __forceinline__ void load_plain(const T* p) {
+    v = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ float at(int q) const {
+    const unsigned w[4] = {v.x, v.y, v.z, v.w};
+    if constexpr (VEC == 4) return __uint_as_float(w[q]);
+    return __uint_as_float(q & 1 ? w[q >> 1] & 0xffff0000u : w[q >> 1] << 16);
+  }
+};
+template <typename T>
+struct Packed<T, 1> {
+  T v;
+  __device__ __forceinline__ void load(const T* __restrict__ p) { v = __ldg(p); }
+  __device__ __forceinline__ void load_plain(const T* p) { v = *p; }
+  __device__ __forceinline__ float at(int) const {
+    if constexpr (sizeof(T) == 2) return __bfloat162float(v);
+    return v;
+  }
+};
+
+// Vectors of A in flight a lane (the loads that warp_dot's unrolling gives K2):
+// 4, or 2 of bf16, whose 8 floats a vector take twice the registers.
+template <int VEC>
+constexpr int kGroupAhead = VEC == 8 ? 2 : 4;
+
+// warp_dot for every row of `mask`: acc[g] = sum_k row[k] vec[g][k] in lane 0, in
+// warp_dot's order (the same lanes, the same fmaf chain, the same shuffle tree),
+// so row g's dot has warp_dot's bits. The rows go two at a time, each pair one
+// pass over `row` (after the first, from the L1) with kGroupAhead packed vectors
+// of it in flight. Eight rows a pass needed eight pointers and their loads in
+// flight at once, and ptxas spilled. kPlain: `row` read with plain loads (K4b: from
+// shared memory or device memory), not through the read-only path.
+template <typename T, int VEC, bool kPlain = false>
+__device__ __forceinline__ void group_dot(const T* __restrict__ row, const float* const* vec,
+                                          unsigned mask, long long len, int lane,
+                                          float (&acc)[kGroup]) {
+  static_assert(VEC == 1 || VEC * sizeof(T) == 16, "a lane loads 16 bytes or one value");
+  constexpr int kAhead = kGroupAhead<VEC>;
+  const long long steps = len / VEC;
+  for (unsigned left = mask; left;) {
+    const int g0 = __ffs(left) - 1;
+    left &= left - 1;
+    const int g1 = left ? __ffs(left) - 1 : -1;
+    if (left) left &= left - 1;
+    const float* x0 = vec[g0];
+    const float* x1 = vec[g1 < 0 ? g0 : g1];
+    float s0 = 0.f, s1 = 0.f;
+    long long k = lane;
+#pragma unroll 1
+    for (; k + 32 * (kAhead - 1) < steps; k += 32 * kAhead) {
+      Packed<T, VEC> a[kAhead];
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        if constexpr (kPlain) {
+          a[u].load_plain(row + (k + 32 * u) * VEC);
+        } else {
+          a[u].load(row + (k + 32 * u) * VEC);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kAhead; ++u) {
+        float xv[VEC];
+        load_f32<VEC>(x0 + (k + 32 * u) * VEC, xv);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) s0 = fmaf(a[u].at(q), xv[q], s0);
+      }
+      if (g1 >= 0) {
+#pragma unroll
+        for (int u = 0; u < kAhead; ++u) {
+          float xv[VEC];
+          load_f32<VEC>(x1 + (k + 32 * u) * VEC, xv);
+#pragma unroll
+          for (int q = 0; q < VEC; ++q) s1 = fmaf(a[u].at(q), xv[q], s1);
+        }
+      }
+    }
+#pragma unroll 1
+    for (; k < steps; k += 32) {
+      Packed<T, VEC> a;
+      if constexpr (kPlain) {
+        a.load_plain(row + k * VEC);
+      } else {
+        a.load(row + k * VEC);
+      }
+      float xv[VEC];
+      load_f32<VEC>(x0 + k * VEC, xv);
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) s0 = fmaf(a.at(q), xv[q], s0);
+      if (g1 >= 0) {
+        load_f32<VEC>(x1 + k * VEC, xv);
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) s1 = fmaf(a.at(q), xv[q], s1);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      if (g == g0) acc[g] = s0;
+      if (g == g1) acc[g] = s1;
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    if (mask & (1u << g)) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc[g] += __shfl_down_sync(kFull, acc[g], off);
+    }
+  }
+}
+
+// Lane g's row of a warp's dots: acc[g] from lane 0, so that lane g goes on
+// with row g while the other lanes take the other rows.
+__device__ __forceinline__ float lane_row(const float (&acc)[kGroup], int lane) {
+  float mine = 0.f;
+#pragma unroll
+  for (int g = 0; g < kGroup; ++g) {
+    const float v = __shfl_sync(kFull, acc[g], 0);
+    if (lane == g) mine = v;
+  }
+  return mine;
 }
 
 // part[k * grid + cta] = the sum over this CTA's warps, in warp order, of

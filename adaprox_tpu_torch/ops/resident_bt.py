@@ -21,8 +21,12 @@ gradient loop and objective switch that K2 shares through
 ``csrc/resident_common.cuh``: K4 and K4b in ``csrc/resident_bt.cu``, aGRAAL
 in ``csrc/resident_agraal.cu``. Each is one cooperative launch with grid-wide
 barriers between its phases, built with nvcc for ``sm_90a`` at first use and
-loaded with ctypes. K4 and K4b run the same device routine on the same grid,
-so a sweep row equals the single solve with its arguments bit for bit.
+loaded with ctypes. K4 and K4b run one device routine on K2's grid: a trial is
+one phase with one grid sync (its point formed inside the pass over A), and
+K4b runs its rows in lockstep groups (``k4b_plan``), each pass over A and
+each grid sync shared by the rows of a group; each row keeps K4's order of
+every sum, so a sweep row equals the single solve with its arguments bit for
+bit. ``k4b_syncs`` counts the grid syncs a launch takes from its records.
 
 Every entry dispatches on where its tensors lie: CPU tensors take the plain
 versions ``resident_backtracking_plain`` / ``resident_bt_sweep_plain`` /
@@ -45,7 +49,7 @@ from .resident import _GVAL, _PROX, _PROX_IDX, _check_menu, _obj_split, _problem
 __all__ = ["resident_backtracking", "resident_backtracking_plain", "resident_bt_sweep",
            "resident_bt_sweep_plain", "resident_bt_records", "resident_agraal",
            "resident_agraal_plain", "resident_agraal_records", "build_library",
-           "build_agraal_library"]
+           "build_agraal_library", "k4b_plan", "k4b_syncs"]
 
 SOURCE = kernels._PKG / "csrc" / "resident_bt.cu"
 AGRAAL_SOURCE = kernels._PKG / "csrc" / "resident_agraal.cu"
@@ -278,17 +282,114 @@ def build_agraal_library():
     return kernels.build_library(AGRAAL_SOURCE, NVCC_FLAGS)
 
 
-def _library():
+def _library(source=SOURCE):
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     # obj_kind .. part_len, the leading arguments of both entries (as K2's)
     problem = [i, f, f, f, p, p, i, i, i, p, p, p, p, p, p, p, ll]
-    return kernels.load_library(SOURCE, NVCC_FLAGS, {
+    return kernels.load_library(source, NVCC_FLAGS, {
         "adaprox_resident_bt_parts": ([], i),
-        "adaprox_resident_bt": (problem + [p, p, p, ll, ll, i, f, f, f, f, f, f, i, i, i, i, p],
-                                i),
-        "adaprox_resident_bt_sweep": (problem + [p, i, p, p, p, ll, ll, i, f, f, f, f, i, i, p],
-                                      i),
+        "adaprox_resident_bt_group": ([], i),
+        "adaprox_resident_bt_plan": ([i, ll, ll, i, i, p], i),
+        "adaprox_resident_bt": (problem + [p, p, p, ll, ll, i, f, f, f, f, f, f, i, i, i, i, p,
+                                           p], i),
+        "adaprox_resident_bt_sweep": (problem + [p, i, p, p, p, ll, ll, i, f, f, f, f, i, i, p,
+                                                 p], i),
         "adaprox_resident_bt_error_string": ([i], ctypes.c_char_p)})
+
+
+# K4/K4b's plan (csrc/resident_bt.cu, bt_plan): 16 warps a CTA, at most one CTA an SM
+K4B_GROUP = 8                 # kGroup: the rows a lockstep group runs at once
+K4B_WARPS = 16                # kWarps
+K4B_PARTS = 14                # kBtParts: two halves of (P1's 3 + the trial's 4) a row a CTA
+K4B_CTA_SMEM = 232448         # the most shared memory a CTA may take (227 KB)
+K4B_STATIC_SMEM = 8192        # what the launcher keeps of it for the static shared memory
+K4B_ROUTES = ("staged", "fly")
+# the launcher's plan, in its order
+K4B_PLAN_KEYS = ("grid", "group", "route", "a_held", "rows_per_warp", "smem_bytes")
+
+
+def k4b_plan(count, m, n, itemsize, sms):
+    """K4b's launch for ``count`` rows at (m, n) with A's ``itemsize`` (4: f32, 2: bf16)
+    on a card of ``sms`` SMs (K4: ``count`` 1), as the C launcher computes it: a dict of
+    ``K4B_PLAN_KEYS`` and
+
+    * ``groups``: the rows' indices in lockstep groups of at most K4B_GROUP, in table
+      order; ``group`` the rows of the first (largest);
+    * ``grid``: K2's grid for the shape, min(ceil(max(m, n) / 16), sms); warp w of CTA c
+      owns A's rows c 16 + w + k 16 grid, ``rows_per_warp`` of them at most;
+    * ``route``: "staged" where the group's points (``group`` x n f32) fit a CTA's shared
+      memory beside the kernel's static (227 KB less K4B_STATIC_SMEM): each CTA forms a
+      trial's z (or the momentum point) for all n coordinates in shared memory before
+      its pass over A; else "fly": each dot forms z_j as it goes;
+    * ``a_held``: on route "staged", where the CTA's rows of A (16 ``rows_per_warp`` rows
+      of n ``itemsize`` bytes, rounded up to 16 bytes) fit beside the points: each CTA
+      copies its rows of A into shared memory once a launch, and every pass over A reads
+      them there; else from device memory (the L2) every pass;
+    * ``smem_bytes``: the CTA's dynamic shared memory (the held rows, then the points);
+    * ``scratch``: the shapes the wrapper allocates: K4's scratch once for each row of
+      the largest group, ``part`` K4B_PARTS x that x ``sms`` floats.
+
+    The layout depends on the shape, the storage, the row count and the SM count alone. No
+    row's arithmetic follows it: both routes form z_j with its owner's expression, a held
+    row is the same values read from another memory, and row g runs K4's sums in K4's
+    order on K4's grid, so its bits depend on (m, n, dtype) and its own arguments, not on
+    its group, its place there or the rows beside it."""
+    if itemsize not in (2, 4):
+        raise ValueError(f"K4b stores A as float32 or bfloat16, got itemsize {itemsize}")
+    if count < 1 or m < 1 or n < 1 or sms < 1:
+        raise ValueError(f"K4b needs count, m, n, sms >= 1, got {count}, {m}, {n}, {sms}")
+    groups = [list(range(s, min(count, s + K4B_GROUP))) for s in range(0, count, K4B_GROUP)]
+    g0 = len(groups[0])
+    grid = min(-(-max(m, n) // K4B_WARPS), sms)
+    rows_per_warp = -(-m // (grid * K4B_WARPS))
+    points = 4 * g0 * n
+    held = -(-(K4B_WARPS * rows_per_warp * n * itemsize) // 16) * 16
+    budget = K4B_CTA_SMEM - K4B_STATIC_SMEM
+    staged = points <= budget
+    a_held = staged and held + points <= budget
+    return dict(groups=groups, group=g0, grid=grid, route=K4B_ROUTES[0 if staged else 1],
+                a_held=a_held, rows_per_warp=rows_per_warp,
+                smem_bytes=(held if a_held else 0) + (points if staged else 0),
+                scratch=dict(xs=(g0, 2, n), gs=(g0, 2, n), v=(g0, n), res=(g0, 2, m),
+                             part=g0 * K4B_PARTS * sms))
+
+
+def k4b_card_plan(count, m, n, itemsize, sms):
+    """The C launcher's plan (``adaprox_resident_bt_plan``) for the same arguments as
+    ``k4b_plan``, as a dict of K4B_PLAN_KEYS; the card's tests and chip_smoke.py hold
+    the two equal."""
+    out = (ctypes.c_longlong * len(K4B_PLAN_KEYS))()
+    lib = _library()
+    _raise_on(lib.adaprox_resident_bt_error_string,
+              lib.adaprox_resident_bt_plan(count, m, n, itemsize, sms, out),
+              "adaprox_resident_bt_plan")
+    plan = dict(zip(K4B_PLAN_KEYS, (int(v) for v in out)))
+    plan["route"] = K4B_ROUTES[plan["route"]]
+    plan["a_held"] = bool(plan["a_held"])
+    return plan
+
+
+def k4b_syncs(groups, numits, trials, nesterovs, cubic=False):
+    """The grid syncs of a K4 or K4b launch from its records: ``groups`` (``k4b_plan``'s),
+    each row's ``numits``, ``trials`` (its trial count for each of its iterations, the
+    record's fourth history up to numit) and ``nesterovs`` (its momentum flag); ``cubic``
+    for ``obj_kind="cubic"``.
+
+    A row's chain of phases: one a trial; after each iteration it goes on from, one
+    (PG: the gradient at z) or two (Nesterov: the momentum point's forward pass and its
+    gradient). "cubic" forms its elementwise gradient inside the next trial, so there
+    PG takes none and Nesterov one (the momentum point). A group pays two syncs of
+    warm-up (f and the gradient at x0) when its rows run (every row runs at least one
+    iteration then), and then the phases of its longest row; a sync between two
+    groups."""
+    total = len(groups) - 1
+    for grp in groups:
+        chains = [sum(int(t) for t in trials[j][:int(numits[j])])
+                  + max(int(numits[j]) - 1, 0) * (int(bool(nesterovs[j])) + (not cubic))
+                  for j in grp]
+        if any(int(numits[j]) > 0 for j in grp):
+            total += 2 + max(chains)
+    return total
 
 
 def _raise_on(error_string, err, what):
@@ -303,15 +404,28 @@ def _check(what, a, b, x0, prox_kind, obj_kind, maxit):
         raise ValueError(f"{what}: maxit must be >= 0, got {maxit}")
 
 
+def _scratch(lib, a, b, x0, obj_kind, m_true, cube_c, what, count):
+    """The problem's leading arguments with K4's scratch once for each row of the largest
+    group of ``count`` rows (the build's kBtParts and kGroup checked), and an int on the
+    device for the launch's grid syncs."""
+    if lib.adaprox_resident_bt_parts() != K4B_PARTS or lib.adaprox_resident_bt_group() != K4B_GROUP:
+        raise RuntimeError("csrc/resident_bt.cu's kBtParts or kGroup differs from K4B_PARTS or "
+                           "K4B_GROUP")
+    # k4b_plan's scratch (its group: the rows of the first group)
+    args, keep = _problem(K4B_PARTS, a, b, x0, obj_kind, m_true, cube_c, what, res_bufs=2,
+                          copies=min(count, K4B_GROUP))
+    return args, keep, torch.zeros(1, dtype=torch.int32, device=a.device)
+
+
 def _launch(a, b, x0, gamma0, tol, maxit, xi, shrink, prox_kind, p1, p2, cube_c, nesterov,
-            obj_kind, m_true, record, exact_bregman):
-    lib = _library()
+            obj_kind, m_true, record, exact_bregman, lib=None):
+    """One K4 launch on checked inputs, from ``lib`` (default: the build of SOURCE)."""
+    lib = lib or _library()
     dev = a.device
     n = a.shape[1]
     with torch.cuda.device(dev):
         # keep: the tensors behind args; res holds the residuals at x and at z
-        args, keep = _problem(lib.adaprox_resident_bt_parts(), a, b, x0, obj_kind, m_true,
-                              cube_c, "K4", res_bufs=2)
+        args, keep, syncs = _scratch(lib, a, b, x0, obj_kind, m_true, cube_c, "K4", 1)
         f32 = dict(dtype=torch.float32, device=dev)
         x_out, stats = torch.empty(n, **f32), torch.empty(5, **f32)
         hist = torch.empty((4, maxit), **f32) if record else None
@@ -321,9 +435,10 @@ def _launch(a, b, x0, gamma0, tol, maxit, xi, shrink, prox_kind, p1, p2, cube_c,
             hist.data_ptr() if record and maxit else None, *a.shape, maxit, float(gamma0),
             1.0 if nesterov else float(xi), float(shrink), float(tol), float(p1), float(p2),
             _PROX_IDX[prox_kind], int(bool(nesterov)), int(bool(exact_bregman)), int(record),
-            stream)
+            syncs.data_ptr(), stream)
     _raise_on(lib.adaprox_resident_bt_error_string, err, "K4 launch")
     resident_backtracking.launches += 1
+    resident_backtracking.last_syncs = syncs
     base = (x_out, stats[0].to(torch.int32), stats[1], stats[3] > 0, stats[4] > 0)
     return base + tuple(hist) if record else base
 
@@ -349,7 +464,9 @@ def resident_backtracking(a, b, x0, gamma0, tol, maxit, *, xi=1.0, shrink=0.5, p
 
     CPU tensors take the plain version, any float dtype. CUDA tensors launch
     K4: ``a`` f32 or bf16, ``b`` and ``x0`` f32, all contiguous; each launch
-    adds one to ``resident_backtracking.launches``."""
+    adds one to ``resident_backtracking.launches`` and leaves the grid syncs it
+    took in ``resident_backtracking.last_syncs`` (an int32 tensor on the device;
+    ``k4b_syncs`` counts them from the records)."""
     _check("resident_backtracking", a, b, x0, prox_kind, obj_kind, maxit)
     if a.device.type == "cpu":
         return resident_backtracking_plain(
@@ -363,17 +480,18 @@ def resident_backtracking(a, b, x0, gamma0, tol, maxit, *, xi=1.0, shrink=0.5, p
 
 
 resident_backtracking.launches = 0
+resident_backtracking.last_syncs = None
 
 
 def _launch_sweep(a, b, x0, rows, tol, maxit, shrink, prox_kind, p1, p2, cube_c, obj_kind,
-                  m_true, exact_bregman):
-    lib = _library()
+                  m_true, exact_bregman, lib=None):
+    """One K4b launch on checked inputs, from ``lib`` (default: the build of SOURCE)."""
+    lib = lib or _library()
     dev = a.device
     n = a.shape[1]
     count = rows.shape[0]
     with torch.cuda.device(dev):
-        args, keep = _problem(lib.adaprox_resident_bt_parts(), a, b, x0, obj_kind, m_true,
-                              cube_c, "K4b", res_bufs=2)
+        args, keep, syncs = _scratch(lib, a, b, x0, obj_kind, m_true, cube_c, "K4b", count)
         f32 = dict(dtype=torch.float32, device=dev)
         rows_d = rows.to(**f32).contiguous()
         x_out, stats = torch.empty((count, n), **f32), torch.empty((count, 5), **f32)
@@ -382,9 +500,11 @@ def _launch_sweep(a, b, x0, rows, tol, maxit, shrink, prox_kind, p1, p2, cube_c,
         err = lib.adaprox_resident_bt_sweep(
             *args, rows_d.data_ptr(), count, x_out.data_ptr(), stats.data_ptr(),
             hist.data_ptr() if maxit else None, *a.shape, maxit, float(shrink), float(tol),
-            float(p1), float(p2), _PROX_IDX[prox_kind], int(bool(exact_bregman)), stream)
+            float(p1), float(p2), _PROX_IDX[prox_kind], int(bool(exact_bregman)),
+            syncs.data_ptr(), stream)
     _raise_on(lib.adaprox_resident_bt_error_string, err, "K4b launch")
     resident_bt_sweep.launches += 1
+    resident_bt_sweep.last_syncs = syncs
     return (x_out, stats[:, 0].to(torch.int32), stats[:, 1], stats[:, 3] > 0, stats[:, 4] > 0,
             tuple(hist[:, k] for k in range(4)))
 
@@ -400,9 +520,11 @@ def resident_bt_sweep(a, b, x0, rows, tol, maxit, *, shrink=0.5, prox_kind="l1",
     ``resident_bt_records`` with its own flag.
 
     CPU tensors take the plain version. CUDA tensors launch K4b, with what K4
-    takes; each launch adds one to ``resident_bt_sweep.launches``. Row j
-    equals ``resident_backtracking`` with row j's arguments. A rows table
-    that is not (R >= 1, 3), or a flag outside {0, 1}, is refused."""
+    takes, its rows in lockstep groups (``k4b_plan``); each launch adds one to
+    ``resident_bt_sweep.launches`` and leaves its grid syncs in
+    ``resident_bt_sweep.last_syncs``. Row j equals ``resident_backtracking``
+    with row j's arguments. A rows table that is not (R >= 1, 3), or a flag
+    outside {0, 1}, is refused."""
     _check("resident_bt_sweep", a, b, x0, prox_kind, obj_kind, maxit)
     rows = _bt_rows(rows, x0.dtype)
     if a.device.type == "cpu":
@@ -417,6 +539,7 @@ def resident_bt_sweep(a, b, x0, rows, tol, maxit, *, shrink=0.5, prox_kind="l1",
 
 
 resident_bt_sweep.launches = 0
+resident_bt_sweep.last_syncs = None
 
 
 def _agraal_library():

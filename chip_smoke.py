@@ -85,7 +85,12 @@ Phases, one line each, any failure exits non-zero:
                10x fewer iterations (x), K4's own path (one solve at the
                reference size, counted), the lasso driver's backtracking sweep
                held against its plain version and timed, and a one-trial PG and
-               a Nesterov iteration at 4096x1024 and 8x2176 beside K2's
+               a Nesterov iteration at 4096x1024 and 8x2176 beside K2's; every
+               K4b call timed here and in phases 7-8 also prints its plan
+               (ops/resident_bt.py::k4b_plan: lockstep groups, grid, route,
+               shared memory; held equal to the launcher's), its grid syncs
+               (k4b_syncs of the records, held equal to the kernel's own
+               count) and the microseconds a sync
  10. agraal:   K4's aGRAAL core against its plain version ([agraal] lines: the
                padded lasso 4096x1024 f32 and bf16, mushrooms' [X 1], the cubic
                models of phase 8; from the drivers' gamma0 and the secant
@@ -1041,6 +1046,28 @@ def logreg_menu_checks(name, got, want, smi):
     return max_abs_err
 
 
+def k4b_sync_report(a, rows, out, ms, label, cubic=False):
+    """K4b's plan for a call over ``rows`` (k4b_plan, held equal to the launcher's), its grid
+    syncs (k4b_syncs of the records ``out``, held equal to the count the kernel kept) and
+    the microseconds a sync of its ``ms``, as a line's tail."""
+    from adaprox_tpu_torch.ops import kernels, resident_bt
+
+    m, n = a.shape
+    sms = kernels._sm_count(a.device.index)
+    plan = resident_bt.k4b_plan(len(rows), m, n, a.element_size(), sms)
+    card = resident_bt.k4b_card_plan(len(rows), m, n, a.element_size(), sms)
+    check(card == {k: plan[k] for k in resident_bt.K4B_PLAN_KEYS},
+          f"K4b {label}: k4b_plan {plan} differs from the launcher's plan {card}")
+    syncs = resident_bt.k4b_syncs(plan["groups"], out[1].tolist(), out[5][3].tolist(),
+                                  [float(r[2]) > 0 for r in rows], cubic)
+    counted = int(resident_bt.resident_bt_sweep.last_syncs)
+    check(counted == syncs, f"K4b {label}: the kernel took {counted} grid syncs, k4b_syncs "
+                            f"counts {syncs}")
+    return (f"plan: route {plan['route']}, A held {plan['a_held']}, grid {plan['grid']}, "
+            f"groups {plan['groups']}, {plan['smem_bytes']} B shared (= the launcher's); {syncs} "
+            f"grid syncs (= the kernel's count), {1e3 * ms / syncs:.3f} us a sync")
+
+
 def k4b_sweep_timing(a, b, rows, tol, maxit, kw, tag, label, smi):
     """K4b on a driver's own inputs (its backtracking rows, tol and maxit):
     CUDA events (best of 3) beside its plain version (one run) and its bound
@@ -1057,9 +1084,10 @@ def k4b_sweep_timing(a, b, rows, tol, maxit, kw, tag, label, smi):
     m, n = a.shape
     bnd = bound(*bt_work(m, n, a.element_size(), kw.get("obj_kind", "ls"), numits, trials,
                          [flag > 0 for _, _, flag in rows], maxit))
+    syncs = k4b_sync_report(a, rows, got, 1e3 * secs, label, kw.get("obj_kind") == "cubic")
     print(f"[{tag}] K4b sweep {label} {m}x{n} f32 (numit {numits}, trials {trials}, 1 launch): "
-          f"{1e3 * secs:.4f} ms, plain {plain_ms:.2f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}) "
-          f"({smi})", flush=True)
+          f"{1e3 * secs:.4f} ms, plain {plain_ms:.2f} ms, bound {bnd[0]:.6f} ms ({bnd[1]}); "
+          f"{syncs} ({smi})", flush=True)
 
 
 def logreg_phase(apt, resident, logreg, counting, dev, smi):
@@ -1648,12 +1676,17 @@ def bt_phase(resident, resident_bt, ref, counting, dev, smi):
                                             record=True)
     numit = int(out[1])
     check(numit == int(rec[1]) and torch.equal(out[0], rec[0]), "K4: record mode changed the solve")
+    k4_syncs = resident_bt.k4b_syncs([[0]], [numit], [rec[8].tolist()], [False])
+    check(int(resident_bt.resident_backtracking.last_syncs) == k4_syncs,
+          f"K4: the kernel took {int(resident_bt.resident_backtracking.last_syncs)} grid syncs, "
+          f"k4b_syncs counts {k4_syncs}")
     mm, nn = a.shape
     k4_bound = bound(*bt_work(mm, nn, 4, "ls", [numit], [int(rec[8].sum())], [False], 0))
     print(f"[backtracking] K4 4096x1024 f32 PG xi 1.5 lam 1 tol 1e-4: solve {1e3 * k4_s:.4f} ms "
           f"(CUDA events, best of 5), numit {numit}, trials {int(rec[8].sum())}, converged "
           f"{bool(out[3])}, ls_failed {bool(out[4])} | plain {1e3 * plain_s:.2f} ms | bound "
-          f"{k4_bound[0]:.4f} ms ({k4_bound[1]}) | launches {single} ({smi})", flush=True)
+          f"{k4_bound[0]:.4f} ms ({k4_bound[1]}) | launches {single} | {k4_syncs} grid syncs (= "
+          f"the kernel's count), {1e6 * k4_s / k4_syncs:.3f} us a sync ({smi})", flush=True)
 
     # the lasso driver's backtracking sweep (4000x1000x10 padded to 4000x1024 f32,
     # maxit 2000, tol 1e-7), timed and held against its plain version: each row's
@@ -1692,9 +1725,10 @@ def bt_phase(resident, resident_bt, ref, counting, dev, smi):
     mm, nn = a_d.shape
     k4b_bound = bound(*bt_work(mm, nn, 4, "ls", numits, trials, [nest for _, _, nest in BT_ROWS],
                                2000))
+    syncs = k4b_sync_report(a_d, rows, got, 1e3 * sweep_s, "lasso driver")
     print(f"[backtracking] K4b lasso driver sweep 4000x1024 f32 (numit {numits}, trials "
           f"{trials}, 1 launch): {1e3 * sweep_s:.4f} ms, plain {1e3 * sweep_plain_s:.2f} ms, "
-          f"bound {k4b_bound[0]:.4f} ms ({k4b_bound[1]}) ({smi})", flush=True)
+          f"bound {k4b_bound[0]:.4f} ms ({k4b_bound[1]}); {syncs} ({smi})", flush=True)
 
     # the iteration: one trial a PG iteration and a Nesterov iteration, zero prox,
     # tol -1, 1000 iterations, beside K2's fixed-rule iteration, at the reference

@@ -1072,6 +1072,155 @@ def test_k4_rejects_what_it_does_not_take(dev):
             trb.resident_bt_sweep(a, b, x, rows, 0.0, 3)
 
 
+def _k4b_rows_are_k4(a, b, x0, rows, tol, maxit, **kw):
+    """One K4b launch over ``rows``: each row equals its own K4 launch bit for bit (x, the
+    stats and the histories), and the grid syncs the kernel counted are ``k4b_syncs`` of its
+    records over ``k4b_plan``'s groups. Returns the sweep's output."""
+    out = trb.resident_bt_sweep(a, b, x0, rows, tol, maxit, **kw)
+    syncs = int(trb.resident_bt_sweep.last_syncs)
+    plan = trb.k4b_plan(len(rows), *a.shape, a.element_size(), tk._sm_count(a.device.index))
+    nests = [float(r[2]) > 0 for r in rows]
+    cubic = kw.get("obj_kind") == "cubic"
+    assert syncs == trb.k4b_syncs(plan["groups"], out[1].tolist(), out[5][3].tolist(), nests,
+                                  cubic)
+    for j, (g0, xi, flag) in enumerate(rows):
+        one = trb.resident_backtracking(a, b, x0, g0, tol, maxit, xi=xi, nesterov=flag > 0,
+                                        record=True, **kw)
+        for k in range(5):
+            assert torch.equal(_bits(out[k][j]), _bits(one[k])), (j, k)
+        for k in range(4):
+            assert torch.equal(_bits(out[5][k][j]), _bits(one[5 + k])), (j, k)
+        # K4's own count: its syncs from its records
+        assert int(trb.resident_backtracking.last_syncs) == trb.k4b_syncs(
+            [[0]], [int(one[1])], [one[8].tolist()], [flag > 0], cubic)
+    return out
+
+
+def _k4b_table(gam, count, seed=0):
+    """``count`` rows mixing PG xi 1 / 1.5 / 2 and Nesterov from gamma0 1x to 12x the stable
+    step (the larger ones shrink), permuted with ``seed``: each row at some place of some
+    group, beside other rows."""
+    kinds = [(1.0, 0.0), (1.5, 0.0), (2.0, 0.0), (1.0, 1.0)]
+    rows = [[gam * (1 + (j % 12)), *kinds[(j + j // 4) % 4]] for j in range(count)]
+    order = torch.randperm(count, generator=torch.Generator().manual_seed(seed)).tolist()
+    return [rows[i] for i in order]
+
+
+@pytest.mark.parametrize("count", [1, 4, 8, 9, 17])
+def test_k4b_rows_are_k4_at_every_place_in_a_group(dev, count):
+    """Tables of 1, 4, 8, 9 and 17 rows (groups of 8 in turn), permuted: every row is its own
+    K4 launch bit for bit, whatever its group, its place there or its neighbours; the table
+    reversed gives the rows reversed."""
+    a, b, gam, kw = bt_case(dev, "ls", torch.float32)
+    x0 = torch.zeros(a.shape[1], device=dev)
+    rows = _k4b_table(gam, count, seed=count)
+    out = _k4b_rows_are_k4(a, b, x0, rows, 1e-6, 300, **kw)
+    back = trb.resident_bt_sweep(a, b, x0, rows[::-1], 1e-6, 300, **kw)
+    for k in range(5):
+        assert torch.equal(_bits(back[k].flip(0)), _bits(out[k]))
+    assert len(set(out[1].tolist())) > 1 or count == 1
+
+
+@pytest.mark.parametrize("obj,dtype,exact", [
+    ("ls", torch.float32, True), ("ls", torch.bfloat16, False), ("ls", torch.bfloat16, True),
+    ("logreg", torch.float32, False), ("logreg", torch.bfloat16, False),
+    ("cubic", torch.float32, False), ("cubic", torch.bfloat16, False)])
+def test_k4b_rows_are_k4_across_storage_objectives_and_tests(dev, obj, dtype, exact):
+    a, b, gam, kw = bt_case(dev, obj, dtype)
+    x0 = torch.zeros(a.shape[1], device=dev)
+    if exact:
+        kw["exact_bregman"] = True
+    _k4b_rows_are_k4(a, b, x0, _k4b_table(gam, 6, seed=1), 1e-6, 200, **kw)
+
+
+def test_k4b_fly_route_rows_are_k4(dev):
+    """Eight rows at 64x7040: the group's points (8 x 7040 f32) do not fit a CTA's shared
+    memory, so each dot forms them as it goes; K4 alone stages its one row. Every row is its
+    K4 launch bit for bit: the two routes give the same bits."""
+    a, b, _ = _inputs(dev, 64, 7040, torch.float32, seed=5)
+    sms = tk._sm_count(dev.index)
+    assert trb.k4b_plan(8, 64, 7040, 4, sms)["route"] == "fly"
+    assert trb.k4b_plan(1, 64, 7040, 4, sms)["route"] == "staged"
+    gam = 1.0 / float(torch.linalg.matrix_norm(a.double(), 2) ** 2)
+    x0 = torch.zeros(7040, device=dev)
+    _k4b_rows_are_k4(a, b, x0, _k4b_table(gam, 8, seed=2), 1e-6, 60, prox_kind="l1", p1=0.05)
+    h, q, gam_c = cubic_problem(dev, 7000, 7040, 1.0, seed=2)
+    _k4b_rows_are_k4(h, q, torch.zeros(7040, device=dev), _k4b_table(gam_c, 8, seed=3), 1e-6,
+                     8, prox_kind="zero", obj_kind="cubic", cube_c=1.0)
+
+
+def test_k4b_rows_are_k4_with_and_without_a_held(dev):
+    """264x3072 f32: K4 holds each CTA's 16 rows of A (192 KB) in shared memory beside its
+    one point, eight rows' points leave no room for them, so the sweep reads A from device
+    memory every pass: every row is its K4 launch bit for bit, A held or not."""
+    a, b, _ = _inputs(dev, 264, 3072, torch.float32, seed=8)
+    sms = tk._sm_count(dev.index)
+    assert trb.k4b_plan(1, 264, 3072, 4, sms)["a_held"]
+    assert not trb.k4b_plan(8, 264, 3072, 4, sms)["a_held"]
+    gam = 1.0 / float(torch.linalg.matrix_norm(a.double(), 2) ** 2)
+    x0 = torch.zeros(3072, device=dev)
+    _k4b_rows_are_k4(a, b, x0, _k4b_table(gam, 8, seed=4), 1e-6, 80, prox_kind="l1", p1=0.05)
+
+
+def test_k4_fly_route_matches_plain(dev):
+    """One row past a CTA's shared memory (16 x 57344 f32): K4 forms z in its dots; trial
+    counts and step sizes equal to the plain version's over the horizon."""
+    a, b, _ = _inputs(dev, 16, 57344, torch.float32, seed=6)
+    assert trb.k4b_plan(1, 16, 57344, 4, tk._sm_count(dev.index))["route"] == "fly"
+    gam = 10.0 / float(torch.linalg.matrix_norm(a.double(), 2) ** 2)
+    x0 = torch.zeros(57344, device=dev)
+    for xi, nest in ((1.5, False), (1.0, True)):
+        horizon = BT_HORIZON["nesterov" if nest else xi]
+        got = trb.resident_backtracking(a, b, x0, gam, -1.0, horizon, xi=xi, nesterov=nest,
+                                        record=True, prox_kind="l1", p1=0.1)
+        want = trb.resident_backtracking_plain(a, b, x0, gam, -1.0, horizon, xi=xi,
+                                               nesterov=nest, record=True, prox_kind="l1",
+                                               p1=0.1)
+        _bt_close(got, want, horizon)
+
+
+def test_k4b_edge_cases_rows_are_k4(dev):
+    """The trial cap latched (shrink 1, 101 trials an iteration), maxit 0 and 1, tol inf (no
+    row runs: x0 back, numit 0) and a NaN f(z) (a NaN in b: accepted, and the NaN residual
+    stops), each a sweep whose rows are their K4 launches and agree with the plain version's
+    decisions."""
+    a, b, gam, kw = bt_case(dev, "ls", torch.float32)
+    x0 = torch.randn(a.shape[1], device=dev)
+    rows = _k4b_table(gam, 4)
+    capped = _k4b_rows_are_k4(a, b, x0, [[1e3 * r[0], *r[1:]] for r in rows], 0.0, 3,
+                              shrink=1.0, **kw)
+    assert bool(capped[4].all()) and capped[5][3].eq(101).all()
+    for tol, maxit in ((1e-6, 0), (1e-6, 1), (float("inf"), 20)):
+        out = _k4b_rows_are_k4(a, b, x0, rows, tol, maxit, **kw)
+        want = trb.resident_bt_sweep_plain(a, b, x0, rows, tol, maxit, **kw)
+        assert out[1].tolist() == want[1].tolist() == [min(maxit, 0 if tol == float("inf")
+                                                               else 1)] * 4
+        if maxit == 0 or tol == float("inf"):
+            assert all(torch.equal(out[0][j], x0) for j in range(4))
+            assert int(trb.resident_bt_sweep.last_syncs) == 0
+    b_nan = b.clone()
+    b_nan[3] = float("nan")
+    out = _k4b_rows_are_k4(a, b_nan, x0, rows, 1e-6, 50, **kw)
+    want = trb.resident_bt_sweep_plain(a, b_nan, x0, rows, 1e-6, 50, **kw)
+    assert out[1].tolist() == want[1].tolist() and out[5][3].tolist() == want[5][3].tolist()
+    assert bool(out[2].isnan().all()) and bool(want[2].isnan().all())
+
+
+# (count, m, n): the drivers' calls, the thresholds of the staged route, the sync floor
+K4B_PLAN_CASES = [(4, 4000, 1024), (4, 6416, 128), (4, 8128, 128), (4, 11056, 128),
+                  (4, 128, 128), (2, 128, 128), (1, 4096, 1024), (1, 8, 2176), (17, 300, 1000),
+                  (8, 64, 7008), (8, 64, 7009), (1, 16, 56064), (1, 16, 56065), (9, 1, 1)]
+
+
+@pytest.mark.parametrize("count,m,n", K4B_PLAN_CASES)
+def test_k4b_plan_is_the_launchers(dev, count, m, n):
+    for sms in (tk._sm_count(dev.index), 7):
+        for itemsize in (4, 2):
+            want = trb.k4b_plan(count, m, n, itemsize, sms)
+            assert trb.k4b_card_plan(count, m, n, itemsize, sms) == {
+                k: want[k] for k in trb.K4B_PLAN_KEYS}
+
+
 # -- K4's aGRAAL core -------------------------------------------------------------------------
 
 # The rows are held within 1e-3 of their largest value over 15 iterations: on the
